@@ -1,0 +1,309 @@
+"""Branch forward pass and log densities for all prior families.
+
+Counterpart of rs_bann_tpu/models/density.py. Every function works on one
+branch slice (per-layer tensors without the leading G axis); ``forward`` and
+``predict`` also take a leading branch axis, on packed and dense input
+alike, because PyTorch's matmul broadcasts over it.
+
+Prior families ("model types"):
+  ridge_base   one Gamma-precision per layer, Normal weights
+  ridge_ard    one precision per input row in all but the output layer
+  lasso_base   one precision per layer, Laplace weights
+  lasso_ard    per-row Laplace rates
+  std_normal   fixed unit precisions (no Gibbs)
+
+The output layer is always base-style, with one precision shared across all
+branches. Lasso L1 terms are written ``w * sign(w)`` (``_abs0``) so their
+gradient is sign(w) with sign(0) = 0: a padded or exactly-zero weight feels
+no prior force. ``prior_grad`` is that gradient written out.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import activations as _A
+from ..ops.packed_matmul import FUSED_ACTIVATIONS, packed_linear
+from . import NetArch
+from . import params as P
+
+MODEL_TYPES = ("ridge_base", "ridge_ard", "lasso_base", "lasso_ard", "std_normal")
+
+
+def is_ard(model_type: str) -> bool:
+    return model_type.endswith("_ard")
+
+
+def is_lasso(model_type: str) -> bool:
+    return model_type.startswith("lasso")
+
+
+def _abs0(w: torch.Tensor) -> torch.Tensor:
+    """|w| whose autograd gradient is sign(w), 0 at 0."""
+    return w * torch.sign(w)
+
+
+def summary_stat(model_type: str, w: torch.Tensor) -> torch.Tensor:
+    """Sum of squares (ridge, std_normal) or of abs (lasso) of output weights."""
+    if is_lasso(model_type):
+        return torch.sum(torch.abs(w))
+    return torch.sum(w * w)
+
+
+class Hyperparameters(NamedTuple):
+    """Gamma (shape, scale) precision prior hyperparameters per layer group:
+    dense layers, the summary layer (index L-2), the output layer (L-1)."""
+
+    dense_shape: float = 0.001
+    dense_scale: float = 1000.0
+    summary_shape: float = 0.001
+    summary_scale: float = 1000.0
+    output_shape: float = 0.001
+    output_scale: float = 1000.0
+
+    def layer(self, l: int, num_layers: int) -> Tuple[float, float]:
+        if l == num_layers - 1:
+            return self.output_shape, self.output_scale
+        if l == num_layers - 2:
+            return self.summary_shape, self.summary_scale
+        return self.dense_shape, self.dense_scale
+
+
+class BranchStatics(NamedTuple):
+    """Per-branch true counts and masks, stacked [G, ...] on the device."""
+
+    w_counts: Tuple[torch.Tensor, ...]  # [G] true weights per layer
+    b_counts: Tuple[torch.Tensor, ...]  # [G] true biases per layer
+    row_masks: Tuple[torch.Tensor, ...]  # [G, in_pad, 1] true input-row masks
+    out_counts: Tuple[torch.Tensor, ...]  # [G] true output width per layer
+    n_params: torch.Tensor  # [G] true params per branch
+
+
+def branch_statics(arch: NetArch, device) -> BranchStatics:
+    ins = arch.layer_in_counts()
+    row_masks = []
+    for l in range(arch.num_layers):
+        rm = np.arange(arch.layer_in_pad(l))[None, :] < np.asarray(ins[l])[:, None]
+        row_masks.append(rm.astype(np.float32)[:, :, None])
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return BranchStatics(
+        w_counts=tuple(t(c) for c in P.weight_counts(arch)),
+        b_counts=tuple(t(c) for c in P.bias_counts(arch)),
+        row_masks=tuple(t(r) for r in row_masks),
+        out_counts=tuple(t(c) for c in arch.layer_out_counts()),
+        n_params=t(P.param_counts(arch)),
+    )
+
+
+def slice_branch(tree, g):
+    """Branch g of a NamedTuple of tuples of stacked tensors."""
+    return type(tree)(
+        *(tuple(a[g] for a in f) if isinstance(f, tuple) else f[g] for f in tree)
+    )
+
+
+# ------------------------------------------------------------------ forward
+
+
+class PackedX:
+    """2-bit packed branch genotypes held on the device.
+
+    ``bytes``   uint8 [..., m_pad, B] in the group-strided layout
+    ``w_scale`` [..., m_pad] = 1/sigma per marker (0 for padded or
+                zero-variance markers)
+    ``shift``   [..., m_pad] = mu per marker (raw column means)
+    ``n``       number of individuals
+
+    Standardization folds into layer 0:
+      X_std @ W = decode(bytes) @ (w_scale * W) - mu @ (w_scale * W)
+    """
+
+    def __init__(self, bytes_, w_scale, shift, n: int):
+        self.bytes = bytes_
+        self.w_scale = w_scale
+        self.shift = shift
+        self.n = int(n)
+
+    def __getitem__(self, g):
+        return PackedX(self.bytes[g], self.w_scale[g], self.shift[g], self.n)
+
+
+def forward(act_name: str, weights, biases, x):
+    """Forward pass of one branch, or of all branches when every tensor has
+    a leading G axis.
+
+    ``x`` is dense standardized sample-major [..., n, m_pad] or a PackedX.
+    Returns (pre_activations, activations) like the JAX package: one
+    activation per layer, the last the output column [..., n, 1]. On packed
+    input layer 0 is the fused K2 kernel and its pre-activation is None.
+    """
+    canon = _A.canonical(act_name)
+    pre, acts = [], []
+    if isinstance(x, PackedX):
+        if canon not in FUSED_ACTIVATIONS:
+            raise NotImplementedError(
+                f"{canon} on packed genotypes needs the unfused packed matmul "
+                "(K9), which is not ported yet"
+            )
+        w0p = x.w_scale.unsqueeze(-1) * weights[0]
+        off = biases[0] - (x.shift.unsqueeze(-2) @ w0p).squeeze(-2)
+        a = packed_linear(x.bytes, w0p, off, x.n, canon)
+        pre.append(None)
+    else:
+        z = x @ weights[0] + biases[0].unsqueeze(-2)
+        pre.append(z)
+        a = _A.apply(canon, z)
+    acts.append(a)
+    for l in range(1, len(weights) - 1):
+        z = a @ weights[l] + biases[l].unsqueeze(-2)
+        pre.append(z)
+        a = _A.apply(canon, z)
+        acts.append(a)
+    acts.append(a @ weights[-1])
+    return pre, acts
+
+
+def predict(act_name: str, weights, biases, x) -> torch.Tensor:
+    """Branch prediction [..., n] (output column squeezed)."""
+    return forward(act_name, weights, biases, x)[1][-1][..., 0]
+
+
+def branch_rss(act_name: str, weights, biases, x, y) -> torch.Tensor:
+    r = predict(act_name, weights, biases, x) - y
+    return torch.sum(r * r)
+
+
+# --------------------------------------------------- marginal log densities
+
+
+def log_density_wrt_weights(model_type: str, weights, w_precisions) -> torch.Tensor:
+    """Prior term of the marginal (precision-conditional) log density."""
+    ld = 0.0
+    for w, lam in zip(weights, w_precisions):
+        if model_type == "std_normal":
+            ld = ld - 0.5 * torch.sum(w * w)
+        elif is_lasso(model_type):
+            ld = ld - torch.sum(lam * _abs0(w))
+        else:
+            ld = ld - 0.5 * torch.sum(lam * w * w)
+    return ld
+
+
+def log_density_wrt_biases(model_type: str, biases) -> torch.Tensor:
+    """Biases are unregularized in the marginal density, except under
+    std_normal, which gives them unit-precision terms."""
+    ld = torch.zeros((), dtype=biases[0].dtype, device=biases[0].device)
+    if model_type == "std_normal":
+        for b in biases:
+            ld = ld - 0.5 * torch.sum(b * b)
+    return ld
+
+
+def prior_grad(model_type: str, weights, biases, w_precisions):
+    """Gradient of log_density_wrt_weights + log_density_wrt_biases with
+    respect to (weights, biases)."""
+    if model_type == "std_normal":
+        return tuple(-w for w in weights), tuple(-b for b in biases)
+    if is_lasso(model_type):
+        gw = tuple(-lam * torch.sign(w) for w, lam in zip(weights, w_precisions))
+    else:
+        gw = tuple(-lam * w for w, lam in zip(weights, w_precisions))
+    return gw, tuple(torch.zeros_like(b) for b in biases)
+
+
+def log_density(model_type, weights, biases, w_precisions, error_precision, rss):
+    """-U(q) of the marginal HMC target."""
+    return (
+        log_density_wrt_weights(model_type, weights, w_precisions)
+        + log_density_wrt_biases(model_type, biases)
+        - error_precision * rss / 2.0
+    )
+
+
+# ------------------------------------------------------ joint log densities
+
+
+def _joint_local_weights(model_type, weights, w_precisions, hyper, statics_g):
+    """Local (non-output) weight + precision terms of the joint density."""
+    L = len(weights)
+    ld = 0.0
+    for l in range(L - 1):
+        shape, scale = hyper.layer(l, L)
+        w, lam = weights[l], w_precisions[l]
+        if is_ard(model_type):
+            rm = statics_g.row_masks[l]  # [in_pad, 1]
+            ncols = statics_g.out_counts[l]
+            if is_lasso(model_type):
+                row_l1 = torch.sum(_abs0(w), dim=1, keepdim=True)
+                ld = ld - torch.sum(rm * (row_l1 + 1.0 / scale) * lam)
+                ld = ld + (shape + ncols - 1.0) * torch.sum(rm * torch.log(lam))
+            else:
+                row_ssq = torch.sum(w * w, dim=1, keepdim=True)
+                ld = ld - torch.sum(rm * (row_ssq / 2.0 + 1.0 / scale) * lam)
+                ld = ld + (shape + (ncols - 2.0) / 2.0) * torch.sum(rm * torch.log(lam))
+        else:
+            nvar = statics_g.w_counts[l]
+            lam0 = lam.reshape(())
+            if is_lasso(model_type):
+                ld = ld - (torch.sum(_abs0(w)) + 1.0 / scale) * lam0
+                ld = ld + (shape + nvar - 1.0) * torch.log(lam0)
+            else:
+                ld = ld - (torch.sum(w * w) / 2.0 + 1.0 / scale) * lam0
+                ld = ld + (shape + (nvar - 2.0) / 2.0) * torch.log(lam0)
+    return ld
+
+
+def _joint_output_weights(
+    model_type, weights, w_precisions, hyper, reg_sum_others, n_out_global
+):
+    """Output weights + shared precision term; ``reg_sum_others`` is the
+    summary stat of all other branches' output weights."""
+    L = len(weights)
+    shape, scale = hyper.layer(L - 1, L)
+    lam = w_precisions[-1].reshape(())
+    tot = summary_stat(model_type, weights[-1]) + reg_sum_others
+    if is_lasso(model_type):
+        return -(tot + 1.0 / scale) * lam + (shape + n_out_global - 1.0) * torch.log(lam)
+    return -(tot / 2.0 + 1.0 / scale) * lam + (
+        shape + (n_out_global - 2.0) / 2.0
+    ) * torch.log(lam)
+
+
+def _joint_biases(biases, b_precisions, hyper, statics_g):
+    """l2-regularized bias + precision terms."""
+    L = len(biases) + 1
+    ld = 0.0
+    for l in range(L - 1):
+        shape, scale = hyper.layer(l, L)
+        lam = b_precisions[l].reshape(())
+        nvar = statics_g.b_counts[l]
+        ld = ld - lam * (torch.sum(biases[l] ** 2) / 2.0 + 1.0 / scale)
+        ld = ld + (shape + (nvar - 2.0) / 2.0) * torch.log(lam)
+    return ld
+
+
+def joint_rss_term(error_precision, rss, hyper: Hyperparameters, num_individuals):
+    """RSS + error precision term, with the output layer's hyperparameters
+    as the error precision prior."""
+    return (hyper.output_shape + (num_individuals - 2.0) / 2.0) * torch.log(
+        error_precision
+    ) - error_precision * (rss / 2.0 + 1.0 / hyper.output_scale)
+
+
+def joint_local_term(model_type, weights, biases, w_precisions, b_precisions, hyper, statics_g):
+    """Per-branch local LPD contribution."""
+    return _joint_local_weights(
+        model_type, weights, w_precisions, hyper, statics_g
+    ) + _joint_biases(biases, b_precisions, hyper, statics_g)
+
+
+def joint_output_term(model_type, weights, w_precisions, hyper, reg_sum_others, n_out_global):
+    return _joint_output_weights(
+        model_type, weights, w_precisions, hyper, reg_sum_others, n_out_global
+    )
