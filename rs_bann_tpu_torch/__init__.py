@@ -10,8 +10,8 @@ each function can be held against its JAX counterpart. It imports torch and
 never jax. The kernels the JAX package wrote in Pallas are hand-written CUDA
 for sm_90a under csrc/, built with nvcc on first use (ops/_build.py).
 
-This slice covers the packed-genotype ``train-new`` -> ``predict`` path with
-the sequential schedule.
+Ported: the packed-genotype ``train-new`` -> ``predict`` path with the
+sequential and the hybrid schedules, for C chains.
 """
 
 __version__ = "0.1.0"

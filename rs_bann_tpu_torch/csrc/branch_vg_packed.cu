@@ -53,52 +53,10 @@ constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
 
 __host__ __device__ constexpr int row_stride(int km) { return km + 4; }
 
-int pick_km(int k0, int s) {
-    const int w = k0 > s ? k0 : s;
-    if (w <= 8) return 8;
-    if (w <= 16) return 16;
-    if (w <= 32) return 32;
-    return -1;
-}
-
 size_t smem_bytes(int m, int km, bool deep) {
     const size_t floats = static_cast<size_t>(m) * km + km + (deep ? km * km + km : 0) + km +
                           4 * km + static_cast<size_t>(kGroup) * row_stride(km) * (deep ? 3 : 1);
     return floats * sizeof(float) + static_cast<size_t>(m) * kRow;
-}
-
-int partial_size(int m, int k0, int s, bool deep) {
-    return m * k0 + k0 + (deep ? k0 * s + s : 0) + s;
-}
-
-// Sum of a per-thread register vector over the block, written to dst[0..count).
-// Warp butterfly, then the four warps in order: a fixed order, so deterministic.
-template <int KM>
-__device__ __forceinline__ void block_sum(float (&v)[KM], float* red_s, float* dst, int count) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int k = 0; k < KM; ++k) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
-    }
-    if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < KM; ++k) red_s[warp * KM + k] = v[k];
-    }
-    __syncthreads();
-    if (threadIdx.x < count) {
-        const int t = threadIdx.x;
-        dst[t] = ((red_s[t] + red_s[KM + t]) + red_s[2 * KM + t]) + red_s[3 * KM + t];
-    }
-    __syncthreads();
-}
-
-template <int KM>
-__device__ __forceinline__ void store_row(float* dst, const float (&v)[KM]) {
-    float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-    for (int u = 0; u < KM / 4; ++u) d4[u] = make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
 }
 
 template <int KM, bool DEEP>

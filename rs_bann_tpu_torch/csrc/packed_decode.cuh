@@ -11,6 +11,9 @@
 // Value map {00->2, 01->0 (missing), 10->1, 11->0} through the constant
 // 18 = 0b01_00_00_10: genotype = (18 >> 2c) & 3. Individuals past n carry
 // code 01 and decode to 0.
+//
+// Also the activations, the fixed-order block sum and the flat parameter
+// layout that the value-and-gradient kernels K4 and K5 share.
 #pragma once
 
 #include <cstdint>
@@ -59,6 +62,53 @@ __device__ __forceinline__ float act_prime(int act, float z, float a) {
         default:
             return 1.f;
     }
+}
+
+// Sum of a per-thread register vector over a 128-thread block, written to
+// dst[0..count). Warp butterfly, then the four warps in order: a fixed order,
+// so deterministic. red_s holds 4 * KM floats of shared memory.
+template <int KM>
+__device__ __forceinline__ void block_sum(float (&v)[KM], float* red_s, float* dst, int count) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int k = 0; k < KM; ++k) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+        for (int k = 0; k < KM; ++k) red_s[warp * KM + k] = v[k];
+    }
+    __syncthreads();
+    if (threadIdx.x < count) {
+        const int t = threadIdx.x;
+        dst[t] = ((red_s[t] + red_s[KM + t]) + red_s[2 * KM + t]) + red_s[3 * KM + t];
+    }
+    __syncthreads();
+}
+
+// One row of KM floats to 16-byte-aligned shared memory.
+template <int KM>
+__device__ __forceinline__ void store_row(float* dst, const float (&v)[KM]) {
+    float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+    for (int u = 0; u < KM / 4; ++u) d4[u] = make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
+}
+
+// Padded register width of layers of widths k0 and s, or -1 above 32.
+inline int pick_km(int k0, int s) {
+    const int w = k0 > s ? k0 : s;
+    if (w <= 8) return 8;
+    if (w <= 16) return 16;
+    if (w <= 32) return 32;
+    return -1;
+}
+
+// Length of one branch's flat parameter vector: W0 [m, k0], b0 [k0],
+// (W1 [k0, s], b1 [s] at depth 1), w_out [s].
+inline int partial_size(int m, int k0, int s, bool deep) {
+    return m * k0 + k0 + (deep ? k0 * s + s : 0) + s;
 }
 
 }  // namespace rsbann

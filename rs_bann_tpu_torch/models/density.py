@@ -1,9 +1,12 @@
 """Branch forward pass and log densities for all prior families.
 
 Counterpart of rs_bann_tpu/models/density.py. Every function works on one
-branch slice (per-layer tensors without the leading G axis); ``forward`` and
-``predict`` also take a leading branch axis, on packed and dense input
-alike, because PyTorch's matmul broadcasts over it.
+branch slice (per-layer tensors without the leading G axis) or on a batch
+of them: the densities reduce over each layer's own axes only, so leading
+(chain, branch) axes give one value per branch. ``forward`` and ``predict``
+take a leading branch axis on packed and dense input alike, because
+PyTorch's matmul broadcasts over it; ``predict_chains`` evaluates C chains'
+weights on one block of branches in one K2 launch.
 
 Prior families ("model types"):
   ridge_base   one Gamma-precision per layer, Normal weights
@@ -47,10 +50,11 @@ def _abs0(w: torch.Tensor) -> torch.Tensor:
 
 
 def summary_stat(model_type: str, w: torch.Tensor) -> torch.Tensor:
-    """Sum of squares (ridge, std_normal) or of abs (lasso) of output weights."""
+    """Sum of squares (ridge, std_normal) or of abs (lasso) of the output
+    weights w [..., s, 1] of each branch, one value per leading index."""
     if is_lasso(model_type):
-        return torch.sum(torch.abs(w))
-    return torch.sum(w * w)
+        return torch.sum(torch.abs(w), dim=(-2, -1))
+    return torch.sum(w * w, dim=(-2, -1))
 
 
 class Hyperparameters(NamedTuple):
@@ -174,6 +178,34 @@ def predict(act_name: str, weights, biases, x) -> torch.Tensor:
     return forward(act_name, weights, biases, x)[1][-1][..., 0]
 
 
+def chain_layer0(w0, b0, x: PackedX):
+    """K2's operands for C chains' layer 0 (w0 [C, B, m_pad, k0], b0
+    [C, B, k0]) on one block: A [B, m_pad, C * k0] and off [B, C * k0],
+    standardization folded in, chain c in columns c * k0 .. (c + 1) * k0."""
+    C, B, m, k = w0.shape
+    w0p = x.w_scale[None, :, :, None] * w0
+    off = b0 - (x.shift[None, :, None, :] @ w0p)[..., 0, :]
+    return w0p.permute(1, 2, 0, 3).reshape(B, m, C * k), off.permute(1, 0, 2).reshape(B, C * k)
+
+
+def predict_chains(act_name: str, weights, biases, x: PackedX) -> torch.Tensor:
+    """Predictions [C, B, n] of C chains' weights (per layer [C, B, ...]) on
+    one block's packed genotypes ``x`` (bytes [B, m_pad, Bytes]).
+
+    The chains' folded layer-0 weights sit side by side in K2's output
+    width (``chain_layer0``), so one K2 launch serves every chain and the
+    block's bytes are read once."""
+    canon = _A.canonical(act_name)
+    if canon not in FUSED_ACTIVATIONS:
+        raise NotImplementedError(f"{canon} on packed genotypes needs K9, not ported yet")
+    C, B, _, k = weights[0].shape
+    a = packed_linear(x.bytes, *chain_layer0(weights[0], biases[0], x), x.n, canon)
+    a = a.reshape(B, x.n, C, k).permute(2, 0, 1, 3)
+    for l in range(1, len(weights) - 1):
+        a = _A.apply(canon, a @ weights[l] + biases[l].unsqueeze(-2))
+    return (a @ weights[-1])[..., 0]
+
+
 def branch_rss(act_name: str, weights, biases, x, y) -> torch.Tensor:
     r = predict(act_name, weights, biases, x) - y
     return torch.sum(r * r)
@@ -185,23 +217,24 @@ def branch_rss(act_name: str, weights, biases, x, y) -> torch.Tensor:
 def log_density_wrt_weights(model_type: str, weights, w_precisions) -> torch.Tensor:
     """Prior term of the marginal (precision-conditional) log density."""
     ld = 0.0
+    dims = (-2, -1)
     for w, lam in zip(weights, w_precisions):
         if model_type == "std_normal":
-            ld = ld - 0.5 * torch.sum(w * w)
+            ld = ld - 0.5 * torch.sum(w * w, dim=dims)
         elif is_lasso(model_type):
-            ld = ld - torch.sum(lam * _abs0(w))
+            ld = ld - torch.sum(lam * _abs0(w), dim=dims)
         else:
-            ld = ld - 0.5 * torch.sum(lam * w * w)
+            ld = ld - 0.5 * torch.sum(lam * w * w, dim=dims)
     return ld
 
 
 def log_density_wrt_biases(model_type: str, biases) -> torch.Tensor:
     """Biases are unregularized in the marginal density, except under
     std_normal, which gives them unit-precision terms."""
-    ld = torch.zeros((), dtype=biases[0].dtype, device=biases[0].device)
+    ld = torch.zeros(biases[0].shape[:-1], dtype=biases[0].dtype, device=biases[0].device)
     if model_type == "std_normal":
         for b in biases:
-            ld = ld - 0.5 * torch.sum(b * b)
+            ld = ld - 0.5 * torch.sum(b * b, dim=-1)
     return ld
 
 
@@ -233,28 +266,29 @@ def _joint_local_weights(model_type, weights, w_precisions, hyper, statics_g):
     """Local (non-output) weight + precision terms of the joint density."""
     L = len(weights)
     ld = 0.0
+    dims = (-2, -1)
     for l in range(L - 1):
         shape, scale = hyper.layer(l, L)
         w, lam = weights[l], w_precisions[l]
         if is_ard(model_type):
-            rm = statics_g.row_masks[l]  # [in_pad, 1]
+            rm = statics_g.row_masks[l]  # [..., in_pad, 1]
             ncols = statics_g.out_counts[l]
             if is_lasso(model_type):
-                row_l1 = torch.sum(_abs0(w), dim=1, keepdim=True)
-                ld = ld - torch.sum(rm * (row_l1 + 1.0 / scale) * lam)
-                ld = ld + (shape + ncols - 1.0) * torch.sum(rm * torch.log(lam))
+                row_l1 = torch.sum(_abs0(w), dim=-1, keepdim=True)
+                ld = ld - torch.sum(rm * (row_l1 + 1.0 / scale) * lam, dim=dims)
+                ld = ld + (shape + ncols - 1.0) * torch.sum(rm * torch.log(lam), dim=dims)
             else:
-                row_ssq = torch.sum(w * w, dim=1, keepdim=True)
-                ld = ld - torch.sum(rm * (row_ssq / 2.0 + 1.0 / scale) * lam)
-                ld = ld + (shape + (ncols - 2.0) / 2.0) * torch.sum(rm * torch.log(lam))
+                row_ssq = torch.sum(w * w, dim=-1, keepdim=True)
+                ld = ld - torch.sum(rm * (row_ssq / 2.0 + 1.0 / scale) * lam, dim=dims)
+                ld = ld + (shape + (ncols - 2.0) / 2.0) * torch.sum(rm * torch.log(lam), dim=dims)
         else:
             nvar = statics_g.w_counts[l]
-            lam0 = lam.reshape(())
+            lam0 = lam[..., 0, 0]
             if is_lasso(model_type):
-                ld = ld - (torch.sum(_abs0(w)) + 1.0 / scale) * lam0
+                ld = ld - (torch.sum(_abs0(w), dim=dims) + 1.0 / scale) * lam0
                 ld = ld + (shape + nvar - 1.0) * torch.log(lam0)
             else:
-                ld = ld - (torch.sum(w * w) / 2.0 + 1.0 / scale) * lam0
+                ld = ld - (torch.sum(w * w, dim=dims) / 2.0 + 1.0 / scale) * lam0
                 ld = ld + (shape + (nvar - 2.0) / 2.0) * torch.log(lam0)
     return ld
 
@@ -266,7 +300,7 @@ def _joint_output_weights(
     summary stat of all other branches' output weights."""
     L = len(weights)
     shape, scale = hyper.layer(L - 1, L)
-    lam = w_precisions[-1].reshape(())
+    lam = w_precisions[-1][..., 0, 0]
     tot = summary_stat(model_type, weights[-1]) + reg_sum_others
     if is_lasso(model_type):
         return -(tot + 1.0 / scale) * lam + (shape + n_out_global - 1.0) * torch.log(lam)
@@ -281,9 +315,9 @@ def _joint_biases(biases, b_precisions, hyper, statics_g):
     ld = 0.0
     for l in range(L - 1):
         shape, scale = hyper.layer(l, L)
-        lam = b_precisions[l].reshape(())
+        lam = b_precisions[l][..., 0]
         nvar = statics_g.b_counts[l]
-        ld = ld - lam * (torch.sum(biases[l] ** 2) / 2.0 + 1.0 / scale)
+        ld = ld - lam * (torch.sum(biases[l] ** 2, dim=-1) / 2.0 + 1.0 / scale)
         ld = ld + (shape + (nvar - 2.0) / 2.0) * torch.log(lam)
     return ld
 

@@ -1,15 +1,28 @@
-"""The block net and its sequential Gibbs sweep.
+"""The block net and its Gibbs sweeps.
 
-Counterpart of rs_bann_tpu/models/net.py for the sequential schedule: every
-sweep visits the branches in a fresh random order (the reference's
-random-scan Gibbs) and, per branch, draws the error precision, the branch's
-local precisions and the shared output-layer precision from their conjugate
-conditionals, runs one HMC transition against the live residual, updates
-the log-posterior bookkeeping and redraws the output bias.
+Counterpart of rs_bann_tpu/models/net.py for two schedules:
 
-The sweep updates the carry's stacked tensors in place, one branch slice at
-a time, so the device holds one copy of the state; ``Net.init_carry`` clones
-the state it starts from.
+* sequential: every sweep visits the branches in a fresh random order (the
+  reference's random-scan Gibbs) and, per branch, draws the error
+  precision, the branch's local precisions and the shared output-layer
+  precision from their conjugate conditionals, runs one HMC transition
+  against the live residual, updates the log-posterior bookkeeping and
+  redraws the output bias.
+* hybrid: the sweep walks random blocks of branches. Per block the Gibbs
+  draws are batched over the block (and the chains), every branch of the
+  block proposes a lean HMC move against the block's frozen residual, and
+  the proposals are accepted one by one, in a random order, against the
+  live residual (``_live_accept_select``): an exact Metropolis-within-Gibbs
+  kernel. With a shared block permutation, one K5 call integrates the
+  whole block for all chains, one chain included (``chain_fold_eligible``);
+  otherwise each (chain, branch) runs its own lean transition on K4.
+
+A carry for C chains (``Net.init_carry(..., chains=C)``) stacks every
+tensor of the one-chain carry on a leading [C] axis; ``make_chain_sweep``
+sweeps such a carry under either schedule (the sequential one chain after
+chain). The sweeps update the carry's stacked tensors in place, so the
+device holds one copy of the state; ``Net.init_carry`` clones the state it
+starts from.
 """
 
 from __future__ import annotations
@@ -22,8 +35,9 @@ import torch
 
 from rs_bann_tpu.samplers.mcmc_cfg import MCMCCfg
 
+from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS
 from ..samplers import gibbs
-from ..samplers.hmc import make_hmc_step
+from ..samplers.hmc import HMCProposal, HMCResult, make_hmc_step, make_transition_batch
 from . import NetArch
 from . import density as D
 from . import params as P
@@ -31,12 +45,16 @@ from .params import NetState, StackedParams, StackedPrecisions
 
 
 class TrainCarry(NamedTuple):
+    """One chain's carry; a carry for C chains has a leading [C] axis on
+    every tensor, the state's included."""
+
     state: NetState
     residual: torch.Tensor  # [n]
     lpd_local: torch.Tensor  # [G]
     lpd_out: torch.Tensor
     lpd_rss: torch.Tensor
     counts: torch.Tensor  # [3] int64: accepted / rejected / rejected-early
+    sweeps: int = 0  # completed sweeps (keys the hybrid's shared permutation)
 
 
 class SweepStats(NamedTuple):
@@ -48,8 +66,6 @@ class SweepStats(NamedTuple):
 # MCMCCfg settings whose code paths wait for later slices of the port,
 # each with the value that keeps it off
 _UNPORTED = {
-    "update_mode": "sequential",
-    "num_chains": 1,
     "joint_hmc": False,
     "gradient_descent": False,
     "gradient_descent_joint": False,
@@ -70,6 +86,10 @@ _UNPORTED = {
 def unported_options(cfg: MCMCCfg) -> list:
     """Names of the cfg settings this port cannot honour yet."""
     bad = [k for k, v in _UNPORTED.items() if getattr(cfg, k) != v]
+    if cfg.update_mode not in ("sequential", "hybrid"):
+        bad.append(f"update_mode={cfg.update_mode}")
+    if cfg.update_mode == "hybrid" and not cfg.live_accept:
+        bad.append("live_accept=False")
     if cfg.hmc_step_size_mode == "dual_averaging":
         bad.append("hmc_step_size_mode=dual_averaging")
     return bad
@@ -80,43 +100,36 @@ def unported_options(cfg: MCMCCfg) -> list:
 # --------------------------------------------------------------------------
 
 
-def _gibbs_local_precisions(gen, model_type, w_g, b_g, statics_g, hyper, num_layers,
-                            lam_floor=0.0):
-    """Per-branch Gibbs draw of the local weight and bias precisions; bias
-    precisions are always ridge-updated. ``lam_floor`` floors the WEIGHT
-    precisions only (biases are unregularized in the marginal potential)."""
+def _gibbs_local_precisions(gen, model_type, w_b, b_b, st_b, hyper, num_layers, lam_floor=0.0):
+    """Gibbs draw of the local weight and bias precisions of one branch or
+    of a batch of them (leading axes, e.g. [C, B] of a hybrid block):
+    weights [..., in, out], biases [..., out], statics [...]. Bias
+    precisions are always ridge-updated; ``lam_floor`` floors the WEIGHT
+    precisions only (biases are unregularized in the marginal potential).
+    All the Gamma draws come from one ``_gamma`` call: one host
+    synchronization per call, not one per branch or layer."""
     L = num_layers
-    new_wp, new_bp = [], []
+    dims = (-2, -1)
+    params = []
     for l in range(L - 1):
         shape, scale = hyper.layer(l, L)
-        w = w_g[l]
+        w = w_b[l]
         if D.is_ard(model_type):
-            ncols = statics_g.out_counts[l]
-            if D.is_lasso(model_type):
-                l1_rows = torch.sum(torch.abs(w), dim=1, keepdim=True)
-                lam = gibbs.lasso_precision_posterior(gen, shape, scale, l1_rows, ncols)
-            else:
-                ssq_rows = torch.sum(w * w, dim=1, keepdim=True)
-                lam = gibbs.ridge_precision_posterior(gen, shape, scale, ssq_rows, ncols)
+            n = st_b.out_counts[l][..., None, None]
+            stat = (torch.sum(torch.abs(w), dim=-1, keepdim=True) if D.is_lasso(model_type)
+                    else torch.sum(w * w, dim=-1, keepdim=True))
         else:
-            nvar = statics_g.w_counts[l]
-            if D.is_lasso(model_type):
-                lam = gibbs.lasso_precision_posterior(
-                    gen, shape, scale, torch.sum(torch.abs(w)), nvar
-                ).reshape(1, 1)
-            else:
-                lam = gibbs.ridge_precision_posterior(
-                    gen, shape, scale, torch.sum(w * w), nvar
-                ).reshape(1, 1)
-        if lam_floor > 0:
-            lam = torch.clamp(lam, min=lam_floor)
-        new_wp.append(lam)
-        new_bp.append(
-            gibbs.ridge_precision_posterior(
-                gen, shape, scale, torch.sum(b_g[l] ** 2), statics_g.b_counts[l]
-            ).reshape(1)
-        )
-    return tuple(new_wp), tuple(new_bp)
+            n = st_b.w_counts[l][..., None, None]
+            stat = (torch.sum(torch.abs(w), dim=dims, keepdim=True) if D.is_lasso(model_type)
+                    else torch.sum(w * w, dim=dims, keepdim=True))
+        post = gibbs.lasso_posterior_params if D.is_lasso(model_type) else gibbs.ridge_posterior_params
+        params.append(post(shape, scale, stat, n))
+        params.append(gibbs.ridge_posterior_params(
+            shape, scale, torch.sum(b_b[l] ** 2, dim=-1, keepdim=True), st_b.b_counts[l][..., None]
+        ))
+    draws = gibbs.gamma_many(gen, params)
+    new_wp = tuple(torch.clamp(d, min=lam_floor) if lam_floor > 0 else d for d in draws[0::2])
+    return new_wp, tuple(draws[1::2])
 
 
 def _gibbs_output_precision(gen, model_type, reg_all, n_out, hyper):
@@ -135,26 +148,336 @@ def _gibbs_output_precision(gen, model_type, reg_all, n_out, hyper):
 
 
 def _reg_all(model_type, params: StackedParams):
-    return D.summary_stat(model_type, params.weights[-1])
+    """Summary stat of all branches' output weights (per chain when stacked)."""
+    return torch.sum(D.summary_stat(model_type, params.weights[-1]), dim=-1)
 
 
 def _update_output_bias(cfg, hyper, gen, residual, bias, bias_prec, err_prec):
-    """Add the bias back to the residual, redraw it (or take the mean),
-    subtract it again."""
-    residual = residual + bias
+    """Add the bias back to the residual [..., n], redraw it (or take the
+    mean), subtract it again."""
+    residual = residual + bias[..., None]
     if cfg.sampled_output_bias:
         bias_prec = gibbs.ridge_single_precision_posterior(
             gen, hyper.output_shape, hyper.output_scale, bias
         )
         bias = gibbs.sample_output_bias(gen, residual, err_prec, bias_prec)
     else:
-        bias = torch.mean(residual)
-    return residual - bias, bias, bias_prec
+        bias = torch.mean(residual, dim=-1)
+    return residual - bias[..., None], bias, bias_prec
 
 
 # --------------------------------------------------------------------------
-# Sweep
+# Sweeps
 # --------------------------------------------------------------------------
+
+
+def default_block_size(G: int) -> int:
+    """Largest divisor of G not above G // 8 (at least 1): about 8 sequential
+    block rounds per sweep."""
+    target = max(G // 8, 1)
+    for b in range(target, 0, -1):
+        if G % b == 0:
+            return b
+    return 1
+
+
+def chain_fold_eligible(model_type: str, act: str, cfg: MCMCCfg) -> bool:
+    """True when the hybrid sweep integrates each block for all chains in
+    one K5 call (samplers/hmc.make_transition_batch): the hybrid schedule
+    with its shared per-sweep block permutation (each chain's own
+    permutation would give each chain another block of genotypes) and the
+    live accept, fixed-length marginal HMC with izmailov or std_scaled step
+    sizes, and an activation the kernels take. The trainer folds whenever
+    this holds, for any number of chains."""
+    return (
+        cfg.update_mode == "hybrid"
+        and cfg.hybrid_shared_perm
+        and cfg.live_accept
+        and not (cfg.joint_hmc or cfg.gradient_descent or cfg.gradient_descent_joint)
+        and not (cfg.spike_slab or cfg.ss_markers or cfg.ss_rows)
+        and not cfg.trajectories
+        and not (cfg.num_grad or cfg.num_grad_traj)
+        and cfg.hmc_traj_length_mode == "fixed"
+        and cfg.hmc_step_size_mode in ("izmailov", "std_scaled")
+        and act in SUPPORTED_ACTIVATIONS
+    )
+
+
+def _shared_perm(seed: int, sweep: int, G: int) -> torch.Tensor:
+    """The hybrid's block permutation of one sweep, shared by all chains:
+    drawn on the CPU from a generator seeded from (seed ^ 0x5EED5EED, sweep),
+    so the card and the CPU walk the same blocks."""
+    gen = torch.Generator().manual_seed(
+        ((seed ^ 0x5EED5EED) & 0xFFFFFFFF) << 32 | (sweep & 0xFFFFFFFF)
+    )
+    return torch.randperm(G, generator=gen)
+
+
+def _live_accept_select(residual0, preds_blk, prop: HMCProposal, err, old_w, old_b, order, us):
+    """Sequential live-residual Metropolis accepts for a block of proposals.
+
+    residual0 [C, n] is y - bias - sum_g pred_g over all branches; preds_blk
+    [C, B, n] the block's snapshot predictions; ``prop`` the block's
+    proposals ([C, B] leaves); err [C]; ``order`` [C, B] the visiting order
+    of each chain (a permutation of the block) and ``us`` [C, B] its accept
+    uniforms, used in visiting order. An accepted branch moves the live
+    residual the next branch of its chain tests against. Both ends of each
+    ratio go through the proposal's own operator (y_pred0, y_pred_prop).
+    Returns an HMCResult of [C, B] accept-selected params, codes and
+    acceptance probabilities.
+    """
+    C, B = order.shape
+    cix = torch.arange(C, device=order.device)
+    r = residual0
+    accept = torch.zeros((C, B), dtype=torch.bool, device=r.device)
+    code = torch.zeros((C, B), dtype=torch.int64, device=r.device)
+    alpha = torch.zeros((C, B), dtype=r.dtype, device=r.device)
+    for i in range(B):
+        g = order[:, i]
+        tgt = r + preds_blk[cix, g]
+        d0 = tgt - prop.y_pred0[cix, g]
+        d = tgt - prop.y_pred_prop[cix, g]
+        log_acc = (prop.prior_prop[cix, g] - err * torch.sum(d * d, dim=-1) / 2.0
+                   - prop.kin_prop[cix, g]) - (
+            prop.prior0[cix, g] - err * torch.sum(d0 * d0, dim=-1) / 2.0 - prop.kin0[cix, g])
+        dead = prop.dead[cix, g]
+        # NaN log_acc rejects: a NaN comparison is False
+        mh_ok = torch.log(us[:, i]) < log_acc
+        acc = ~dead & mh_ok
+        accept[cix, g] = acc
+        code[cix, g] = torch.where(dead, 2, torch.where(mh_ok, 0, 1))
+        alpha[cix, g] = torch.where(dead | torch.isnan(log_acc), 0.0,
+                                    torch.clamp(torch.exp(log_acc), max=1.0))
+        r = torch.where(acc[:, None], d, r)
+
+    def sel(new, old):
+        return torch.where(accept.reshape((C, B) + (1,) * (new.dim() - 2)), new, old)
+
+    return HMCResult(
+        weights=tuple(sel(n, o) for n, o in zip(prop.weights, old_w)),
+        biases=tuple(sel(n, o) for n, o in zip(prop.biases, old_b)),
+        code=code,
+        y_pred=torch.where(accept[..., None], prop.y_pred_prop, preds_blk),
+        log_density=torch.zeros((C, B), dtype=r.dtype, device=r.device),
+        accept_prob=alpha,
+    )
+
+
+def _stack_proposals(props, C, B) -> HMCProposal:
+    """[C * B] per-branch HMCProposals (chain-major) -> one with [C, B] leaves."""
+    def st(ts):
+        t = torch.stack(list(ts))
+        return t.reshape((C, B) + t.shape[1:])
+
+    return HMCProposal(
+        weights=tuple(st(ws) for ws in zip(*(p.weights for p in props))),
+        biases=tuple(st(bs) for bs in zip(*(p.biases for p in props))),
+        **{f: st(getattr(p, f) for p in props) for f in HMCProposal._fields[2:]},
+    )
+
+
+def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device,
+                      fold: Optional[bool] = None):
+    """Build the hybrid sweep over a carry of C = cfg.num_chains chains:
+    sweep(carry, X, y, gen) -> (TrainCarry, SweepStats), every tensor with a
+    leading [C] axis.
+
+    ``fold`` picks the block transition: one K5 call for the whole block
+    and all chains (True), or each (chain, branch) on its own lean K4
+    transition (False). The default folds when ``chain_fold_eligible``
+    holds. Both consume the same random draws, so for one generator state
+    they give the same chain up to f32 rounding.
+    """
+    bad = unported_options(cfg)
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    statics = D.branch_statics(arch, device)
+    masks_w = P.weight_masks(arch, device)
+    masks_b = P.bias_masks(arch, device)
+    G, L = arch.num_branches, arch.num_layers
+    C = max(int(cfg.num_chains), 1)
+    Bk = cfg.block_size if cfg.block_size > 0 else default_block_size(G)
+    if G % Bk:
+        raise ValueError(f"block_size {Bk} must divide the number of branches {G}")
+    if fold is None:
+        fold = chain_fold_eligible(model_type, act, cfg)
+    elif fold and not chain_fold_eligible(model_type, act, cfg):
+        raise ValueError("this configuration cannot fold the chains")
+    n_out_tot = float(arch.total_output_weights)
+    sample_local = not cfg.fixed_param_precisions and model_type != "std_normal"
+    lam_e_floor = float(cfg.lam_e_floor)
+    lam_row_floor = float(cfg.lam_row_floor)
+    transition = make_hmc_step(model_type, act, cfg, defer_accept=True)
+    fold_transition = make_transition_batch(model_type, act, cfg) if fold else None
+    cix = torch.arange(C, device=device)[:, None]
+
+    def block_update(carry: TrainCarry, ixs, X, var_y, gen, shared: bool) -> TrainCarry:
+        """One block: ixs [C, Bk], the same row for every chain when the
+        permutation is ``shared``."""
+        state, residual = carry.state, carry.residual
+        params, precisions = state.params, state.precisions
+        wp, bp = precisions.weights, precisions.biases
+
+        def take(a):  # [C, G, ...] -> [C, Bk, ...]
+            return a[cix, ixs]
+
+        st_b = type(statics)(*(tuple(a[ixs] for a in f) if isinstance(f, tuple) else f[ixs]
+                               for f in statics))
+        mw_b = tuple(m[ixs] for m in masks_w)
+        mb_b = tuple(m[ixs] for m in masks_b)
+        w_b = tuple(take(w) for w in params.weights)
+        b_b = tuple(take(b) for b in params.biases)
+
+        err_prec = gibbs.error_precision_posterior(gen, hyper, residual)  # [C]
+        if lam_e_floor > 0:
+            err_prec = torch.clamp(err_prec, min=lam_e_floor / (var_y + 1e-30))
+        if sample_local:
+            new_wp, new_bp = _gibbs_local_precisions(
+                gen, model_type, w_b, b_b, st_b, hyper, L, lam_floor=lam_row_floor
+            )
+            for l in range(L - 1):
+                wp[l][cix, ixs] = new_wp[l]
+                bp[l][cix, ixs] = new_bp[l]
+            lam_out = _gibbs_output_precision(
+                gen, model_type, _reg_all(model_type, params), n_out_tot, hyper
+            )
+            wp[L - 1].copy_(lam_out.reshape(-1, 1, 1, 1).expand_as(wp[L - 1]))
+        wp_b = tuple(take(a) for a in wp)
+        bp_b = tuple(take(a) for a in bp)
+
+        if shared:
+            x_b = X[ixs[0]]
+            preds = D.predict_chains(act, w_b, b_b, x_b)  # [C, Bk, n]
+        else:
+            x_c = [X[ixs[c]] for c in range(C)]
+            preds = torch.stack([
+                D.predict(act, tuple(w[c] for w in w_b), tuple(b[c] for b in b_b), x_c[c])
+                for c in range(C)
+            ])
+        targets = residual[:, None, :] + preds
+        momenta = (
+            tuple(torch.randn(w.shape, generator=gen, device=gen.device) for w in w_b),
+            tuple(torch.randn(b.shape, generator=gen, device=gen.device) for b in b_b),
+        )
+        if fold:
+            prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x_b, targets, mw_b, mb_b,
+                                   momenta, y_pred0=preds)
+        else:
+            props = []
+            for c in range(C):
+                for j in range(Bk):
+                    def one(ts):
+                        return tuple(t[c, j] for t in ts)
+
+                    props.append(transition(
+                        gen, one(w_b), one(b_b), one(wp_b), one(bp_b), err_prec[c],
+                        x_b[j] if shared else x_c[c][j], targets[c, j], one(mw_b), one(mb_b),
+                        st_b.n_params[c, j], momenta=(one(momenta[0]), one(momenta[1])),
+                    ))
+            prop = _stack_proposals(props, C, Bk)
+        order = torch.argsort(torch.rand((C, Bk), generator=gen, device=gen.device), dim=-1)
+        us = torch.rand((C, Bk), generator=gen, device=gen.device)
+        res = _live_accept_select(residual, preds, prop, err_prec, w_b, b_b, order, us)
+
+        for l in range(L):
+            params.weights[l][cix, ixs] = res.weights[l]
+        for l in range(L - 1):
+            params.biases[l][cix, ixs] = res.biases[l]
+        residual = residual + torch.sum(preds - res.y_pred, dim=1)
+
+        # log posterior density bookkeeping
+        carry.lpd_local[cix, ixs] = D.joint_local_term(
+            model_type, res.weights, res.biases, wp_b, bp_b, hyper, st_b
+        )
+        w0 = tuple(w[:, 0] for w in params.weights)
+        lpd_out = D.joint_output_term(
+            model_type, w0, tuple(a[:, 0] for a in wp), hyper,
+            _reg_all(model_type, params) - D.summary_stat(model_type, w0[-1]), n_out_tot,
+        )
+        lpd_rss = D.joint_rss_term(
+            err_prec, torch.sum(residual**2, dim=-1), hyper, float(residual.shape[-1])
+        )
+        residual, bias, bias_prec = _update_output_bias(
+            cfg, hyper, gen, residual, state.output_bias, state.output_bias_precision, err_prec
+        )
+        carry.counts.add_(torch.nn.functional.one_hot(res.code, 3).sum(dim=1))
+        return TrainCarry(
+            state=NetState(params, StackedPrecisions(wp, bp, err_prec), bias, bias_prec),
+            residual=residual,
+            lpd_local=carry.lpd_local,
+            lpd_out=lpd_out,
+            lpd_rss=lpd_rss,
+            counts=carry.counts,
+            sweeps=carry.sweeps,
+        )
+
+    def sweep(carry: TrainCarry, X, y, gen):
+        var_y = torch.var(y, unbiased=False)
+        if cfg.hybrid_shared_perm:
+            perm = _shared_perm(cfg.seed, carry.sweeps, G).to(device).expand(C, G)
+        else:
+            perm = torch.stack([torch.randperm(G, generator=gen, device=gen.device)
+                                for _ in range(C)]).to(device)
+        for r in range(G // Bk):
+            carry = block_update(carry, perm[:, r * Bk : (r + 1) * Bk], X, var_y, gen,
+                                 cfg.hybrid_shared_perm)
+        carry = carry._replace(sweeps=carry.sweeps + 1)
+        n = float(carry.residual.shape[-1])
+        return carry, SweepStats(
+            counts=carry.counts.clone(),
+            mse_train=torch.sum(carry.residual**2, dim=-1) / n,
+            lpd=carry.lpd_rss + carry.lpd_out + torch.sum(carry.lpd_local, dim=-1),
+        )
+
+    return sweep
+
+
+def _carry_tensors(carry: TrainCarry) -> list:
+    return P.state_leaves(carry.state) + [carry.residual, carry.lpd_local, carry.lpd_out,
+                                          carry.lpd_rss, carry.counts]
+
+
+def chain_carry(carry: TrainCarry, c: int) -> TrainCarry:
+    """Chain c of a stacked carry, as views into it."""
+    return TrainCarry(
+        state=P.map_state(lambda a: a[c], carry.state),
+        residual=carry.residual[c], lpd_local=carry.lpd_local[c], lpd_out=carry.lpd_out[c],
+        lpd_rss=carry.lpd_rss[c], counts=carry.counts[c], sweeps=carry.sweeps,
+    )
+
+
+def stack_carries(carries) -> TrainCarry:
+    """One-chain carries -> a carry with a leading [C] axis (copies)."""
+    return TrainCarry(
+        state=P.map_state(lambda *a: torch.stack(a), *(c.state for c in carries)),
+        **{f: torch.stack([getattr(c, f) for c in carries]) for f in TrainCarry._fields[1:-1]},
+        sweeps=carries[0].sweeps,
+    )
+
+
+def make_chain_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device):
+    """The sweep of cfg's schedule over a carry of cfg.num_chains chains
+    (leading [C] axis): the hybrid sweep, or the sequential one run on each
+    chain in turn."""
+    if cfg.update_mode == "hybrid":
+        return make_hybrid_sweep(model_type, act, arch, cfg, hyper, device)
+    sweep1 = make_sweep(model_type, act, arch, cfg, hyper, device)
+
+    def sweep(carry: TrainCarry, X, y, gen):
+        stats = []
+        for c in range(carry.residual.shape[0]):
+            one, st = sweep1(chain_carry(carry, c), X, y, gen)
+            stats.append(st)
+            # write back what the one-chain sweep replaced rather than
+            # updated in place
+            for dst, src in zip(_carry_tensors(chain_carry(carry, c)), _carry_tensors(one)):
+                if dst.data_ptr() != src.data_ptr():
+                    dst.copy_(src)
+        return carry._replace(sweeps=carry.sweeps + 1), SweepStats(
+            *(torch.stack(f) for f in zip(*stats))
+        )
+
+    return sweep
 
 
 def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device):
@@ -248,16 +571,7 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
 
 
 def clone_state(s: NetState) -> NetState:
-    p, q = s.params, s.precisions
-    return NetState(
-        StackedParams(tuple(w.clone() for w in p.weights), tuple(b.clone() for b in p.biases)),
-        StackedPrecisions(
-            tuple(w.clone() for w in q.weights), tuple(b.clone() for b in q.biases),
-            q.error.clone(),
-        ),
-        s.output_bias.clone(),
-        s.output_bias_precision.clone(),
-    )
+    return P.map_state(torch.clone, s)
 
 
 class Net:
@@ -365,9 +679,20 @@ class Net:
         return Net(meta["model_type"], arch, D.Hyperparameters(*meta["hyper"]), state)
 
     # ------------------------------------------------------------- training
-    def init_carry(self, X, y, state: Optional[NetState] = None) -> TrainCarry:
+    def init_carry(self, X, y, state: Optional[NetState] = None,
+                   chains: Optional[int] = None) -> TrainCarry:
         """residual = y - bias - sum_g pred_g and the initial LPD terms, on a
-        copy of the state."""
+        copy of the state.
+
+        With ``chains``, a carry for that many chains (leading [C] axis):
+        every chain starts from ``state``, or each from its own slice of a
+        chain-stacked state."""
+        if chains is not None:
+            s = self.state if state is None else state
+            if s.params.weights[0].dim() == 4:  # [C, G, in, out]
+                return stack_carries([self.init_carry(X, y, P.map_state(lambda a: a[c], s))
+                                      for c in range(chains)])
+            return stack_carries([self.init_carry(X, y, s)] * chains)
         s = clone_state(self.state if state is None else state)
         residual = y - self.predict(X, s)
         statics = D.branch_statics(self.arch, self.device)
@@ -407,5 +732,10 @@ class Net:
 
     def make_sweep(self, cfg: MCMCCfg):
         return make_sweep(
+            self.model_type, self.arch.activation, self.arch, cfg, self.hyper, self.device
+        )
+
+    def make_chain_sweep(self, cfg: MCMCCfg):
+        return make_chain_sweep(
             self.model_type, self.arch.activation, self.arch, cfg, self.hyper, self.device
         )

@@ -13,8 +13,13 @@ Padded weight and bias entries are exactly 0 and carry zero momentum in HMC,
 so unmasked reductions are exact; only counts use the true widths of the
 ``NetArch`` (rs_bann_tpu/models/arch.py, shared with the JAX package).
 
-``state_from_numpy`` / ``state_to_numpy`` carry a state between the two
-packages as numpy arrays, which is how the tests hold the port against JAX.
+A state of C chains has a leading [C] axis on every tensor (weights
+[C, G, in_pad, out_pad], error [C], ...). ``map_state`` applies a function
+leaf by leaf, e.g. to take chain c (``lambda a: a[c]``) or to stack chains.
+
+``state_from_numpy`` / ``state_to_numpy`` carry a state, one chain's or
+chain-stacked, between the two packages as numpy arrays, which is how the
+tests hold the port against JAX.
 """
 
 from __future__ import annotations
@@ -95,39 +100,44 @@ def param_counts(arch: NetArch) -> np.ndarray:
     )
 
 
+# ------------------------------------------------------- tree helpers
+
+
+def map_state(fn, *states) -> NetState:
+    """NetState whose every leaf is fn(leaf of each of ``states``)."""
+    ps = [s.params for s in states]
+    qs = [s.precisions for s in states]
+    return NetState(
+        StackedParams(
+            tuple(fn(*w) for w in zip(*(p.weights for p in ps))),
+            tuple(fn(*b) for b in zip(*(p.biases for p in ps))),
+        ),
+        StackedPrecisions(
+            tuple(fn(*w) for w in zip(*(q.weights for q in qs))),
+            tuple(fn(*b) for b in zip(*(q.biases for q in qs))),
+            fn(*(q.error for q in qs)),
+        ),
+        fn(*(s.output_bias for s in states)),
+        fn(*(s.output_bias_precision for s in states)),
+    )
+
+
+def state_leaves(state: NetState) -> list:
+    p, q = state.params, state.precisions
+    return [*p.weights, *p.biases, *q.weights, *q.biases, q.error, state.output_bias,
+            state.output_bias_precision]
+
+
 # --------------------------------------------------- numpy interchange
 
 
 def state_from_numpy(state, device) -> NetState:
     """A NetState of f32 tensors on ``device`` from any NetState-shaped tree
-    of arrays (e.g. ``jax.tree.map(np.asarray, jax_state)``)."""
-
-    def t(a):
-        return torch.as_tensor(np.array(a, np.float32), device=device)
-
-    p, q = state.params, state.precisions
-    return NetState(
-        StackedParams(tuple(t(w) for w in p.weights), tuple(t(b) for b in p.biases)),
-        StackedPrecisions(
-            tuple(t(w) for w in q.weights), tuple(t(b) for b in q.biases), t(q.error)
-        ),
-        t(state.output_bias),
-        t(state.output_bias_precision),
-    )
+    of arrays (e.g. ``jax.tree.map(np.asarray, jax_state)``), one chain's or
+    chain-stacked."""
+    return map_state(lambda a: torch.as_tensor(np.array(a, np.float32), device=device), state)
 
 
 def state_to_numpy(state: NetState) -> NetState:
     """The same tree with every tensor as a numpy array on the host."""
-
-    def a(x):
-        return x.detach().cpu().numpy()
-
-    p, q = state.params, state.precisions
-    return NetState(
-        StackedParams(tuple(a(w) for w in p.weights), tuple(a(b) for b in p.biases)),
-        StackedPrecisions(
-            tuple(a(w) for w in q.weights), tuple(a(b) for b in q.biases), a(q.error)
-        ),
-        a(state.output_bias),
-        a(state.output_bias_precision),
-    )
+    return map_state(lambda x: x.detach().cpu().numpy(), state)

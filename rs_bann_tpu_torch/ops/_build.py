@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers: a build takes seconds, not minutes). The library lands in
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all in
+parallel) and linked into one shared library with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers). The library lands in
 ``build/rs_bann_tpu_torch/`` at the root of the checkout, named by a hash
 of the sources, so an unchanged tree reuses it and a changed one rebuilds.
 
@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rs_bann_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LIB = None
@@ -56,26 +56,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     compiler = nvcc()
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: concurrent processes never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [compiler, *NVCC_FLAGS, "-o", tmp, *map(str, cu)],
-        capture_output=True, text=True,
-    )
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{p.stem}.o" for p in cu]
+        logs = [Path(tmpdir) / f"{p.stem}.log" for p in cu]
+        procs = []
+        for src, obj, log in zip(cu, objs, logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=f, stderr=subprocess.STDOUT,
+                ))
+        codes = [p.wait() for p in procs]
+        text = "".join(log.read_text() for log in logs)
+        (BUILD_DIR / "build.log").write_text(text)
+        if any(codes):
+            raise RuntimeError(f"nvcc failed ({codes}):\n{text}")
+        # link under a temporary name, then rename: concurrent processes
+        # never load a half-written library
+        tmp = Path(tmpdir) / out.name
+        proc = subprocess.run(
+            [compiler, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 
@@ -96,6 +109,10 @@ def lib() -> ctypes.CDLL:
     so.branch_vg_packed_f32.restype = i
     so.branch_vg_packed_smem.argtypes = [i, i, i, i]
     so.branch_vg_packed_smem.restype = ctypes.c_longlong
+    so.traj_packed_f32.argtypes = [vp] * 10 + [i] * 12 + [vp]
+    so.traj_packed_f32.restype = i
+    so.traj_packed_smem.argtypes = [i, i, i, i]
+    so.traj_packed_smem.restype = ctypes.c_longlong
     _LIB = so
     return so
 

@@ -48,18 +48,38 @@ def _gamma(gen: torch.Generator, shape, scale) -> torch.Tensor:
     return (out * theta).to(torch.float32)
 
 
+def ridge_posterior_params(prior_shape, prior_scale, sum_of_squares, n):
+    """(shape, scale) of lambda | w ~ Gamma(k + n/2, 2s / (2 + s * sum w^2))."""
+    return prior_shape + n / 2.0, 2.0 * prior_scale / (2.0 + prior_scale * sum_of_squares)
+
+
+def lasso_posterior_params(prior_shape, prior_scale, sum_of_abs, n):
+    """(shape, scale) of lambda | w ~ Gamma(k + n, s / (1 + s * sum |w|))."""
+    return prior_shape + n, prior_scale / (1.0 + prior_scale * sum_of_abs)
+
+
 def ridge_precision_posterior(gen, prior_shape, prior_scale, sum_of_squares, n):
-    """lambda | w ~ Gamma(k + n/2, 2s / (2 + s * sum w^2))."""
-    shape = prior_shape + n / 2.0
-    scale = 2.0 * prior_scale / (2.0 + prior_scale * sum_of_squares)
-    return _gamma(gen, shape, scale)
+    return _gamma(gen, *ridge_posterior_params(prior_shape, prior_scale, sum_of_squares, n))
 
 
 def lasso_precision_posterior(gen, prior_shape, prior_scale, sum_of_abs, n):
-    """lambda | w ~ Gamma(k + n, s / (1 + s * sum |w|))."""
-    shape = prior_shape + n
-    scale = prior_scale / (1.0 + prior_scale * sum_of_abs)
-    return _gamma(gen, shape, scale)
+    return _gamma(gen, *lasso_posterior_params(prior_shape, prior_scale, sum_of_abs, n))
+
+
+def gamma_many(gen, params) -> list:
+    """One Gamma draw per element of each (shape, scale) pair of ``params``,
+    all from a single ``_gamma`` call (one host synchronization); returns
+    the draws in the broadcast shape of each pair."""
+    pairs = [torch.broadcast_tensors(torch.as_tensor(k, device=gen.device),
+                                     torch.as_tensor(th, device=gen.device))
+             for k, th in params]
+    draws = _gamma(gen, torch.cat([k.reshape(-1) for k, _ in pairs]),
+                   torch.cat([th.reshape(-1) for _, th in pairs]))
+    out, ix = [], 0
+    for k, _ in pairs:
+        out.append(draws[ix : ix + k.numel()].reshape(k.shape))
+        ix += k.numel()
+    return out
 
 
 def ridge_single_precision_posterior(gen, prior_shape, prior_scale, value):
@@ -68,19 +88,20 @@ def ridge_single_precision_posterior(gen, prior_shape, prior_scale, value):
 
 
 def error_precision_posterior(gen, hyper, residual):
-    """lambda_e | r: the ridge posterior on the residual vector, with the
-    output layer's hyperparameters as its prior."""
-    rss = torch.sum(residual * residual)
+    """lambda_e | r: the ridge posterior on the residual vector [..., n]
+    (one draw per leading index, e.g. per chain), with the output layer's
+    hyperparameters as its prior."""
+    rss = torch.sum(residual * residual, dim=-1)
     n = float(residual.shape[-1])
     return ridge_precision_posterior(gen, hyper.output_shape, hyper.output_scale, rss, n)
 
 
 def sample_output_bias(gen, residual_plus_bias, error_precision, bias_precision):
     """Normal posterior draw of the global intercept; ``residual_plus_bias``
-    is the residual with the current bias added back."""
+    [..., n] is the residual with the current bias added back."""
     n = float(residual_plus_bias.shape[-1])
     denom = n * error_precision + bias_precision
-    mean = error_precision / denom * torch.sum(residual_plus_bias)
+    mean = error_precision / denom * torch.sum(residual_plus_bias, dim=-1)
     std = torch.sqrt(1.0 / denom)
-    z = torch.randn((), generator=gen, device=gen.device)
+    z = torch.randn(mean.shape, generator=gen, device=gen.device)
     return mean + std * z

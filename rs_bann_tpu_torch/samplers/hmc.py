@@ -1,10 +1,16 @@
-"""Hamiltonian Monte Carlo for one branch on packed genotypes.
+"""Hamiltonian Monte Carlo on packed genotypes.
 
-Counterpart of rs_bann_tpu/samplers/hmc.py ``step_sizes`` and the default
-body of ``make_hmc_step``. Each leapfrog step's potential and gradient come
-from the fused packed value-and-gradient (ops/branch_mlp.py, kernel K4) plus
-the closed-form prior gradient, so a transition of L steps runs K4 exactly
-L + 1 times.
+Counterpart of rs_bann_tpu/samplers/hmc.py ``step_sizes``, ``HMCProposal``,
+``make_hmc_step`` (the default body and the deferred-accept lean body) and
+the chain-folded block transition of ``make_transition_batch``.
+
+Per branch, each leapfrog step's potential and gradient come from the fused
+packed value-and-gradient (ops/branch_mlp.py, kernel K4) plus the
+closed-form prior gradient: a default transition of L steps runs K4 exactly
+L + 1 times, a lean (deferred-accept) one L + 2 times. The folded block
+transition integrates all branches of a block for all C chains in one call
+of the whole-trajectory kernel K5 (ops/leapfrog.py), between two
+forward-only value passes through ``D.predict_chains`` (K2).
 
 Early termination follows the JAX package: once |Delta H| exceeds the
 threshold (or H turns NaN) the carried state freezes through ``where`` and
@@ -34,6 +40,32 @@ from ..models import density as D
 from ..ops import branch_mlp
 
 ACCEPTED, REJECTED, REJECTED_EARLY = 0, 1, 2
+
+
+class HMCProposal(NamedTuple):
+    """A raw HMC proposal with what an external Metropolis test needs.
+
+    The leapfrog map is reversible and volume-preserving for any potential,
+    so the trajectory may integrate a stale potential (the block's frozen
+    residual) while the accept runs later against the live conditional
+    (models/net.py ``_live_accept_select``):
+
+        log a = [prior(q') - err * rss_live(q') / 2 - K(p')]
+              - [prior(q)  - err * rss_live(q)  / 2 - K(p)]
+
+    ``y_pred0`` is the prediction at q through the same operator as
+    ``y_pred_prop``, so both ends of the ratio share one operator.
+    """
+
+    weights: tuple  # proposal q'
+    biases: tuple
+    y_pred_prop: torch.Tensor  # [..., n] prediction at q'
+    y_pred0: torch.Tensor  # [..., n] prediction at q
+    prior_prop: torch.Tensor  # marginal log-prior terms at q'
+    prior0: torch.Tensor  # ... at q
+    kin_prop: torch.Tensor  # K(p_final)
+    kin0: torch.Tensor  # K(p_initial)
+    dead: torch.Tensor  # bool: |Delta H| above the threshold or NaN (always reject)
 
 
 class HMCResult(NamedTuple):
@@ -107,7 +139,7 @@ def step_sizes(
     return eps_w, eps_b
 
 
-def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg):
+def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bool = False):
     """Build the marginal HMC transition for one branch.
 
     Returned signature:
@@ -115,6 +147,12 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg):
           x, y, masks_w, masks_b, n_params, momenta=None, u=None) -> HMCResult
     ``x`` is a single-branch PackedX. ``momenta`` = (p_w, p_b) and the accept
     uniform ``u`` may be passed in; otherwise they are drawn from ``gen``.
+
+    With ``defer_accept`` (the hybrid schedule's live accept) it returns an
+    HMCProposal from the lean body instead: L plain leapfrog steps, then
+    the final value through the same K4 operator as the initial one, and
+    divergence tested once at the end (dead iff the final |Delta H| exceeds
+    the threshold or is NaN; the test is symmetric under reversal).
     """
     L = cfg.hmc_integration_length
     max_err = cfg.hmc_max_hamiltonian_error
@@ -128,7 +166,22 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg):
         ld = prior - error_precision * rss / 2.0
         gw = tuple(p - error_precision * d for p, d in zip(pgw, dws))
         gb = tuple(p - error_precision * d for p, d in zip(pgb, dbs))
-        return ld, y_pred, gw, gb
+        return ld, y_pred, gw, gb, prior
+
+    def lean(weights, biases, w_precisions, error_precision, x, y, eps_w, eps_b, p_w, p_b):
+        ld0, y_pred0, gw, gb, prior0 = vg(weights, biases, w_precisions, error_precision, x, y)
+        kin0 = _kinetic(p_w, p_b)
+        w, b, pw, pb = weights, biases, p_w, p_b
+        for _ in range(L):
+            pw, pb = _mul_add(pw, eps_w, gw, 0.5), _mul_add(pb, eps_b, gb, 0.5)
+            w, b = _mul_add(w, eps_w, pw), _mul_add(b, eps_b, pb)
+            _, _, gw, gb, _ = vg(w, b, w_precisions, error_precision, x, y)
+            pw, pb = _mul_add(pw, eps_w, gw, 0.5), _mul_add(pb, eps_b, gb, 0.5)
+        ld_f, y_pred_f, _, _, prior_f = vg(w, b, w_precisions, error_precision, x, y)
+        kin_f = _kinetic(pw, pb)
+        # NaN-safe: a NaN comparison is False, so ~(|dH| <= max) catches NaN
+        dead = ~(torch.abs((ld_f - kin_f) - (ld0 - kin0)) <= max_err)
+        return HMCProposal(w, b, y_pred_f, y_pred0, prior_f, prior0, kin_f, kin0, dead)
 
     def hmc(
         gen, weights, biases, w_precisions, b_precisions, error_precision, x, y,
@@ -147,8 +200,11 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg):
         # padded coordinates get zero momentum, so they never move
         p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
         p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
+        if defer_accept:
+            return lean(weights, biases, w_precisions, error_precision, x, y, eps_w, eps_b,
+                        p_w, p_b)
 
-        ld0, y_pred0, g_w, g_b = vg(weights, biases, w_precisions, error_precision, x, y)
+        ld0, y_pred0, g_w, g_b, _ = vg(weights, biases, w_precisions, error_precision, x, y)
         neg_h0 = ld0 - _kinetic(p_w, p_b)
 
         # With a fixed trajectory length the JAX body's `done` flag equals
@@ -160,7 +216,7 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg):
             pb1 = _mul_add(pb, eps_b, gb, 0.5)
             w1 = _mul_add(w, eps_w, pw1)
             b1 = _mul_add(b, eps_b, pb1)
-            ld1, yp1, gw1, gb1 = vg(w1, b1, w_precisions, error_precision, x, y)
+            ld1, yp1, gw1, gb1, _ = vg(w1, b1, w_precisions, error_precision, x, y)
             pw1 = _mul_add(pw1, eps_w, gw1, 0.5)
             pb1 = _mul_add(pb1, eps_b, gb1, 0.5)
             neg_h = ld1 - _kinetic(pw1, pb1)
@@ -203,3 +259,85 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg):
         )
 
     return hmc
+
+
+def _kinetic_batch(p_w, p_b):
+    """K(p) per leading (chain, branch) index of [C, B, ...] momenta."""
+    return 0.5 * sum(torch.sum(p * p, dim=tuple(range(2, p.dim()))) for p in p_w + p_b)
+
+
+def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
+    """The chain-folded block transition: deferred-accept HMC proposals for
+    every branch of a block and every chain, integrated by one K5 call.
+
+    Counterpart of the chain rule of rs_bann_tpu ``make_transition_batch``,
+    written as a plain function over [C, B] instead of a vmap rule:
+
+      fold(weights, biases, w_prec, b_prec, err_prec, x, targets, masks_w,
+           masks_b, momenta, y_pred0=None) -> HMCProposal with [C, B] leaves
+
+    weights/biases/precisions/momenta per layer [C, B, ...]; err_prec [C];
+    ``x`` the block's PackedX (bytes [B, m_pad, Bytes]), shared by the
+    chains; targets [C, B, n]; masks [B, ...] or [C, B, ...]; ``momenta`` =
+    (p_w, p_b) unmasked standard normals. ``y_pred0`` may pass the block's
+    snapshot predictions at the current state when they come from
+    ``D.predict_chains`` on the same inputs (then they are the H0 value
+    pass); otherwise that pass runs here. Step sizes follow the per-branch
+    rule per (chain, branch) (izmailov or std_scaled).
+    """
+    from ..ops.leapfrog import integrate_chains_packed
+
+    if cfg.hmc_step_size_mode not in ("izmailov", "std_scaled"):
+        raise NotImplementedError(
+            f"the folded transition takes izmailov or std_scaled step sizes, "
+            f"not {cfg.hmc_step_size_mode}"
+        )
+    L = cfg.hmc_integration_length
+    max_err = cfg.hmc_max_hamiltonian_error
+    l1 = D.is_lasso(model_type)
+    std_normal = model_type == "std_normal"
+
+    def prior(ws, bs, wps):
+        return D.log_density_wrt_weights(model_type, ws, wps) + D.log_density_wrt_biases(
+            model_type, bs
+        )
+
+    def fold(weights, biases, w_prec, b_prec, err_prec, x, targets, masks_w, masks_b, momenta,
+             y_pred0=None):
+        eps_w, eps_b = step_sizes(None, model_type, cfg, weights, biases, w_prec, b_prec, None)
+        p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
+        p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
+        # prior precision factors in the weight layout: grad = -lam * w
+        # (-lam * sign(w) for lasso); biases are unregularized in the
+        # marginal density except under std_normal's unit precisions
+        if std_normal:
+            lam_w = tuple(torch.ones_like(w) for w in weights)
+            lam_b = tuple(torch.ones_like(b) for b in biases)
+        else:
+            lam_w = tuple(lam.expand_as(w) for lam, w in zip(w_prec, weights))
+            lam_b = tuple(torch.zeros_like(b) for b in biases)
+        if y_pred0 is None:
+            y_pred0 = D.predict_chains(act_name, weights, biases, x)
+        err = err_prec[:, None]
+
+        def neg_h(y_pred, ws, bs, pws, pbs):
+            rss = torch.sum((y_pred - targets) ** 2, dim=-1)
+            pri, kin = prior(ws, bs, w_prec), _kinetic_batch(pws, pbs)
+            return pri - err * rss / 2.0 - kin, pri, kin
+
+        neg_h0, prior0, kin0 = neg_h(y_pred0, weights, biases, p_w, p_b)
+
+        def bc(ts):  # [C, B, ...] <-> [B, C, ...]
+            return tuple(t.transpose(0, 1) for t in ts)
+
+        w_f, b_f, pw_f, pb_f = (bc(t) for t in integrate_chains_packed(
+            act_name, x.bytes, x.w_scale, x.shift, targets.transpose(0, 1),
+            err_prec[None, :].expand(x.bytes.shape[0], -1), bc(weights), bc(biases),
+            bc(p_w), bc(p_b), bc(eps_w), bc(eps_b), bc(lam_w), bc(lam_b), L, x.n, l1=l1,
+        ))
+        y_pred_f = D.predict_chains(act_name, w_f, b_f, x)
+        neg_h_f, prior_f, kin_f = neg_h(y_pred_f, w_f, b_f, pw_f, pb_f)
+        dead = ~(torch.abs(neg_h_f - neg_h0) <= max_err)
+        return HMCProposal(w_f, b_f, y_pred_f, y_pred0, prior_f, prior0, kin_f, kin0, dead)
+
+    return fold

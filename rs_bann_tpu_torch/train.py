@@ -1,12 +1,15 @@
 """Training loop: runs the Gibbs sweep for chain_length iterations, records
 statistics and writes posterior model samples and artifact streams.
 
-Counterpart of rs_bann_tpu/train.py for one chain, with the same artifacts:
+Counterpart of rs_bann_tpu/train.py, with the same artifacts:
   * ``models/<ix>.npz``   posterior samples, in the JAX package's format
+                          (``models/chain<c>/<ix>.npz`` with C > 1 chains)
   * ``hyperparams``       JSON model hyperparameters
   * ``trace``             JSONL, one line per iteration with all branch
-                          params and precisions (with cfg.trace)
-  * ``training_stats``    JSON acceptance counts and mse / lpd series
+                          params and precisions of chain 0 (with cfg.trace)
+  * ``training_stats``    JSON acceptance counts (summed over chains) and
+                          mse / lpd series (means over chains; test mse the
+                          mean of the per-chain test mse)
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from rs_bann_tpu.samplers.mcmc_cfg import MCMCCfg
 from .models.data import StackedData
 from .models.init import DEFAULT_INIT_OUTPUT_LAYER_PRECISION
 from .models.net import Net
-from .models.params import StackedPrecisions, state_to_numpy
+from .models.params import StackedPrecisions, map_state, state_to_numpy
 
 log = logging.getLogger("rs_bann_tpu_torch")
 
@@ -146,8 +149,10 @@ def train(
     report_interval: int = 1,
     fixed_param_precision: Optional[float] = None,
 ):
-    """Run one MCMC chain, drawing from ``gen``. Returns (net, TrainingStats);
-    ``net.state`` is left at the final iteration."""
+    """Run cfg.num_chains MCMC chains, all drawing from ``gen`` (the
+    sequential schedule runs them one after another in every sweep; the
+    hybrid one block by block). Returns (net, TrainingStats); ``net.state``
+    is left at chain 0's final iteration."""
     os.makedirs(cfg.outpath, exist_ok=True)
     save_models = cfg.chain_length > cfg.burn_in
     if save_models:
@@ -155,30 +160,42 @@ def train(
     _write_hyperparams(net, cfg)
     prepare_state_for_training(net, fixed_param_precision)
 
-    sweep = net.make_sweep(cfg)
+    C = max(int(cfg.num_chains), 1)
+    sweep = net.make_chain_sweep(cfg)
     X, y = train_data.X, train_data.y
-    carry = net.init_carry(X, y)
+    carry = net.init_carry(X, y, chains=C)
     stats = TrainingStats()
     trace_f = open(cfg.trace_path(), "w") if cfg.trace else None
 
+    def chain(state, c):
+        return map_state(lambda a: a[c], state)
+
     def save_sample(state, ix):
-        net.save(os.path.join(cfg.models_path(), f"{ix}.npz"), state)
+        if C == 1:
+            net.save(os.path.join(cfg.models_path(), f"{ix}.npz"), chain(state, 0))
+            return
+        for c in range(C):
+            d = os.path.join(cfg.models_path(), f"chain{c}")
+            os.makedirs(d, exist_ok=True)
+            net.save(os.path.join(d, f"{ix}.npz"), chain(state, c))
 
     def record(carry, mse_train, lpd):
-        stats.mse_train.append(float(mse_train))
-        stats.lpd.append(float(lpd))
+        stats.mse_train.append(float(torch.mean(mse_train)))
+        stats.lpd.append(float(torch.mean(lpd)))
         if test_data is not None:
             if stats.mse_test is None:
                 stats.mse_test = []
-            stats.mse_test.append(float(net.mse(test_data.X, test_data.y, carry.state)))
+            stats.mse_test.append(float(np.mean([
+                float(net.mse(test_data.X, test_data.y, chain(carry.state, c))) for c in range(C)
+            ])))
         if trace_f is not None:
-            trace_f.write(json.dumps(_trace_line(net, carry.state)) + "\n")
+            trace_f.write(json.dumps(_trace_line(net, chain(carry.state, 0))) + "\n")
 
     try:
         record(
             carry,
-            torch.sum(carry.residual**2) / y.shape[0],
-            carry.lpd_rss + carry.lpd_out + torch.sum(carry.lpd_local),
+            torch.sum(carry.residual**2, dim=-1) / y.shape[0],
+            carry.lpd_rss + carry.lpd_out + torch.sum(carry.lpd_local, dim=-1),
         )
         if cfg.burn_in == 0 and save_models:
             save_sample(carry.state, 0)
@@ -187,7 +204,7 @@ def train(
         for chain_ix in range(1, cfg.chain_length + 1):
             carry, st = sweep(carry, X, y, gen)
             record(carry, st.mse_train, st.lpd)
-            stats.update_counts(st.counts.cpu().numpy())
+            stats.update_counts(st.counts.sum(dim=0).cpu().numpy())
             if chain_ix >= cfg.burn_in and save_models:
                 save_sample(carry.state, chain_ix)
             if chain_ix % report_interval == 0:
@@ -205,8 +222,8 @@ def train(
     finally:
         if trace_f is not None:
             trace_f.close()
-    lf = cfg.chain_length * cfg.hmc_integration_length * net.arch.num_branches
+    lf = cfg.chain_length * cfg.hmc_integration_length * net.arch.num_branches * C
     log.info("Completed training: %.2fs, %.0f leapfrog steps/s", elapsed, lf / max(elapsed, 1e-9))
     stats.to_file(cfg.outpath)
-    net.state = carry.state
+    net.state = chain(carry.state, 0)
     return net, stats

@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Time and profile the PyTorch port's hybrid sweep on one NVIDIA GPU.
+
+    python3 scripts/profile_hybrid_torch.py [--sweeps 3] [--out FILE]
+
+The shape is chip_smoke.py's: G = 100 groups of 100 markers, n = 100,000,
+ridge_ard, identity, depth 0, width 10, L = 30, blocks of 10, random
+genotypes and a sparse linear phenotype made from seed 1. Three cases:
+
+  C=4 folded    four chains, every block transition one K5 call
+  C=1 folded    one chain, every block transition one K5 call
+  C=1 unfolded  one chain, each branch its own lean transition on K4
+
+For each it prints the milliseconds of ``--sweeps`` sweeps (the first pays
+the kernel build and warm-up), the acceptance rate and the kernel
+launches per sweep of K2, K4 and K5. Each folded case then runs one sweep
+under torch.profiler and prints its wall time, the device's kernel time
+and busy share (kernel time / wall) and the launches of all kinds; the
+profiler tables go to ``--out``. ``--groups``, ``--n`` and ``--device cpu``
+shrink the run for a check without a card (no profile then).
+"""
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+M, L, WIDTH, N_CAUSAL = 100, 30, 10, 500
+LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def make_data(G, n, device):
+    """Packed genotypes of G groups of M markers and a sparse linear
+    phenotype at h2 = 0.5 (centred), as chip_smoke.py makes them."""
+    from rs_bann_tpu_torch.io import BedVM, UniformGrouping
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models.data import pack_stacked
+
+    rng = np.random.default_rng(1)
+    bed = BedVM.random(n, G * M, mafs=rng.uniform(0.05, 0.5, G * M), seed=1)
+    causal = np.sort(rng.choice(G * M, size=min(N_CAUSAL, G * M), replace=False))
+    g = ((bed.get_cols(causal).T - bed.col_means[causal]) / bed.col_stds[causal]) \
+        @ rng.standard_normal(causal.size)
+    y = g + g.std() * rng.standard_normal(n)
+    arch = NetArch.from_width_rules([M] * G, 0, ("fixed", WIDTH), ("fraction_of_hidden", 1.0),
+                                    activation="identity")
+    return arch, pack_stacked(arch, bed, UniformGrouping(G, M), (y - y.mean()).astype(np.float32),
+                              device)
+
+
+def profiled_sweep(torch, sweep, carry, data, gen, out):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, _ = sweep(carry, data.X, data.y, gen)
+        torch.cuda.synchronize()
+        wall_ms = 1000.0 * (time.perf_counter() - t0)
+    avgs = prof.key_averages()
+
+    def self_device_us(a):
+        v = getattr(a, "self_device_time_total", None)
+        return getattr(a, "self_cuda_time_total", 0.0) if v is None else v
+
+    # the device's own events (kernels, copies, fills): an aten op's row
+    # repeats the time of the kernels it launched, so host rows are left out
+    on_device = [a for a in avgs if a.device_type == DeviceType.CUDA]
+    device_ms = sum(self_device_us(a) for a in on_device) / 1000.0
+    launches = sum(a.count for a in avgs if a.key in LAUNCH_NAMES)
+    sync_ms = sum(a.self_cpu_time_total for a in avgs if a.key == "cudaStreamSynchronize") / 1000.0
+    print(f"  profiled sweep: wall {wall_ms:.1f} ms, device time {device_ms:.1f} ms "
+          f"({100.0 * device_ms / wall_ms:.1f}% busy), launches {launches}, "
+          f"host in cudaStreamSynchronize {sync_ms:.1f} ms")
+    by_device = sorted(on_device, key=self_device_us, reverse=True)
+    for a in by_device[:3]:
+        print(f"  device share: {a.key[:60]} {self_device_us(a) / 1000.0:.1f} ms "
+              f"({100.0 * self_device_us(a) / 1000.0 / device_ms:.1f}%), {a.count} calls")
+    if out is not None:
+        key = ("self_device_time_total" if hasattr(by_device[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        out.write(avgs.table(sort_by=key, row_limit=25) + "\n")
+        out.write(avgs.table(sort_by="self_cpu_time_total", row_limit=15) + "\n")
+    return carry
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sweeps", type=int, default=3)
+    ap.add_argument("--groups", type=int, default=100)
+    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default=None, help="file for the profiler tables")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+    from rs_bann_tpu_torch.models.net import Net, make_hybrid_sweep
+    from rs_bann_tpu_torch.ops import branch_mlp as BM
+    from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+    from rs_bann_tpu_torch.samplers import MCMCCfg
+    from rs_bann_tpu_torch.train import prepare_state_for_training
+
+    dev = torch.device(args.device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        if not torch.cuda.is_available():
+            raise SystemExit("profile_hybrid_torch: no CUDA device")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        import subprocess
+
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip())
+    t0 = time.perf_counter()
+    arch, data = make_data(args.groups, args.n, dev)
+    print(f"data {time.perf_counter() - t0:.1f} s: G {args.groups}, m {M}, n {args.n}")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = open(args.out, "w") if args.out and on_card else None
+    kernels = (PM.packed_linear, BM.data_vg_packed, LF.integrate_chains_packed)
+    try:
+        for name, C, fold in (("C=4 folded", 4, True), ("C=1 folded", 1, True),
+                              ("C=1 unfolded", 1, False)):
+            cfg = MCMCCfg(hmc_integration_length=L, update_mode="hybrid", num_chains=C, seed=0)
+            state, _ = init_net(arch, "ridge_ard", InitCfg(seed=0), device=dev)
+            net = prepare_state_for_training(Net("ridge_ard", arch, D.Hyperparameters(), state),
+                                             None)
+            sweep = make_hybrid_sweep("ridge_ard", "identity", arch, cfg, net.hyper, dev,
+                                      fold=fold)
+            carry = net.init_carry(data.X, data.y, chains=C)
+            gen = torch.Generator(dev).manual_seed(0)
+            times, launches = [], []
+            for _ in range(args.sweeps):
+                for k in kernels:
+                    k.launches = 0
+                sync()
+                t0 = time.perf_counter()
+                carry, st = sweep(carry, data.X, data.y, gen)
+                sync()
+                times.append(1000.0 * (time.perf_counter() - t0))
+                launches.append(tuple(k.launches for k in kernels))
+            counts = st.counts.sum(dim=0)
+            print(f"{name}: ms per sweep {[round(t, 3) for t in times]}, acceptance "
+                  f"{int(counts[0]) / int(counts.sum()):.3f}, launches per sweep "
+                  f"(K2, K4, K5) {launches[-1]}")
+            if on_card and fold:
+                if out is not None:
+                    out.write(f"==== {name}\n")
+                profiled_sweep(torch, sweep, carry, data, gen, out)
+            del carry, sweep, net
+    finally:
+        if out is not None:
+            out.close()
+
+
+if __name__ == "__main__":
+    main()

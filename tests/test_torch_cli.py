@@ -1,7 +1,9 @@
 """The port's CLI end to end on the CPU: ``train-new --packed-genotypes`` then
 ``predict``, and the JAX package's ``Net.load`` + ``predict`` on the port's
-saved samples must reproduce the port's CSV (rtol 1e-5). Every option
-outside the ported slice exits non-zero with "not ported yet".
+saved samples must reproduce the port's CSV (rtol 1e-5), for one chain and
+for C chains (``models/chain<c>``) under the sequential and the hybrid
+schedule. Every option outside the ported slice exits non-zero with "not
+ported yet".
 """
 
 import csv
@@ -82,10 +84,48 @@ def test_train_new_then_predict_and_jax_reads_the_samples(data, tmp_path):
         np.testing.assert_allclose(np.asarray(net.predict(X)), port[i], rtol=1e-5, atol=1e-5)
 
 
+def _predict_matches_jax(data, models, expect):
+    """predict on a models directory, and JAX's Net.load + predict on the
+    same samples (rtol 1e-5)."""
+    names = sorted(p.name for p in models.iterdir())
+    assert names == expect
+    rows = list(csv.reader(io.StringIO(run_cli(
+        "predict", data / "test", data / "train.groups", "-m", models, "--packed-genotypes", "--cpu",
+    ))))
+    port = np.asarray(rows, np.float64)
+    assert port.shape == (len(names), N_TEST) and np.all(np.isfinite(port))
+    bed = BedVM.from_file(data / "test")
+    grouping = ExternalGrouping.from_file(data / "train.groups")
+    for i, name in enumerate(names):
+        net = JN.Net.load(str(models / name))
+        X = j_pack_stacked(net.arch, bed, grouping, np.zeros(N_TEST)).X
+        np.testing.assert_allclose(np.asarray(net.predict(X)), port[i], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("extra,chains", [
+    (["--update-mode", "hybrid"], 1),
+    (["--num-chains", "2"], 2),
+    (["--update-mode", "hybrid", "--num-chains", "2", "--block-size", "3"], 2),  # folded
+    (["--update-mode", "hybrid", "--num-chains", "2", "--per-chain-block-perm"], 2),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
+def test_hybrid_and_chains_train_then_jax_reads_the_samples(data, tmp_path, extra, chains):
+    out = run_cli(*_train_args(data, tmp_path, "--packed-genotypes", *extra))
+    run = tmp_path / out.strip().splitlines()[-1].split("/")[-1]
+    stats = json.loads((run / "training_stats").read_text())
+    assert stats["num_samples"] == 4 * G * chains
+    assert len(stats["mse_train"]) == len(stats["mse_test"]) == len(stats["lpd"]) == 5
+    assert all(np.isfinite(stats["mse_train"] + stats["mse_test"] + stats["lpd"]))
+    samples = ["1.npz", "2.npz", "3.npz", "4.npz"]
+    if chains == 1:
+        _predict_matches_jax(data, run / "models", samples)
+    else:
+        assert sorted(p.name for p in (run / "models").iterdir()) == ["chain0", "chain1"]
+        for c in range(chains):
+            _predict_matches_jax(data, run / "models" / f"chain{c}", samples)
+
+
 UNPORTED = [
     ["--update-mode", "parallel"],
-    ["--update-mode", "hybrid"],
-    ["--num-chains", "2"],
     ["--joint-hmc"],
     ["--gradient-descent"],
     ["--gradient-descent-joint"],

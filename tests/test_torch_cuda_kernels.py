@@ -5,10 +5,11 @@ repository's conftest imports jax, which the GPU machine need not have, so
 run these with ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py``.
 
 Shapes are small but cover what the full-shape checks in chip_smoke.py do
-not: every activation, depth 0 and 1, a ragged n, a batched G, and the
-wrappers' refusals. Tolerances: K2 atol 1e-4 (f32 sums over <= 104 markers
-in another order); K4 y_pred atol 1e-4 and gradients rtol 1e-4 against the
-largest entry (sums over n in another order).
+not: every activation, depth 0 and 1, a ragged n, a batched G, lasso
+(K5), and the wrappers' refusals. Tolerances: K2 atol 1e-4 (f32 sums over
+<= 104 markers in another order); K4 y_pred atol 1e-4 and gradients rtol
+1e-4 against the largest entry (sums over n in another order); K5 rtol
+1e-4 of the largest entry after 3 steps (the same sums, compounded).
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from rs_bann_tpu_torch.models.density import PackedX
 from rs_bann_tpu_torch.ops import branch_mlp as BM
+from rs_bann_tpu_torch.ops import leapfrog as TL
 from rs_bann_tpu_torch.ops import packed_matmul as PM
 
 pytestmark = pytest.mark.cuda
@@ -84,6 +86,50 @@ def test_data_vg_packed_kernel_matches_plain(dev, depth, act):
     assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
 
 
+def _traj_inputs(rng, dev, nb, C, m, n, depth):
+    widths = [(m, 16), (16, 8), (8, 1)] if depth else [(m, 16), (16, 1)]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def mk(sc):
+        return tuple(t(rng.standard_normal((nb, C, i, o)) * sc) for i, o in widths)
+
+    def mkb(sc):
+        return tuple(t(rng.standard_normal((nb, C, o)) * sc) for _, o in widths[:-1])
+
+    by = _bytes(rng, nb, m, n, dev)
+    scale, shift = t(rng.random((nb, m)) + 0.5), t(rng.random((nb, m)) * 2)
+    targets, err = t(rng.standard_normal((nb, C, n))), t(rng.random((nb, C)) * 0.5 + 0.5)
+    weights, p_w, biases, p_b = mk(0.2), mk(1.0), mkb(0.1), mkb(1.0)
+    eps_w = tuple(e.abs() * 1e-3 for e in mk(1.0))
+    eps_b = tuple(e.abs() * 1e-3 for e in mkb(1.0))
+    lam_w = tuple(e.abs() + 0.5 for e in mk(1.0))
+    lam_b = tuple(torch.zeros_like(b) for b in biases)
+    return (by, scale, shift, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w, lam_b)
+
+
+@pytest.mark.parametrize("depth,act,l1", [(0, "identity", False), (0, "relu", True), (1, "tanh", False)])
+def test_integrate_chains_packed_kernel_matches_plain(dev, depth, act, l1):
+    """K5 against its plain version: 3 steps, rtol 1e-4 of the largest entry
+    (f32 sums over n in another order, compounded over the steps)."""
+    rng = np.random.default_rng(3)
+    nb, C, m, n, steps = 3, 2, 104, 1300, 3
+    args = _traj_inputs(rng, dev, nb, C, m, n, depth)
+    before = TL.integrate_chains_packed.launches
+    out = TL.integrate_chains_packed(act, *args, steps, n, l1=l1)
+    assert TL.integrate_chains_packed.launches == before + 1
+    ref = TL.integrate_chains_packed_ref(act, *args, steps, n, l1=l1)
+    torch.cuda.synchronize()
+    for got_part, ref_part in zip(out, ref):
+        for got, want in zip(got_part, ref_part):
+            assert got.shape == want.shape
+            assert (got - want).abs().max().item() <= 1e-4 * max(want.abs().max().item(), 1.0)
+    # the same inputs give the same bits: fixed-order sums, no float atomics
+    again = TL.integrate_chains_packed(act, *args, steps, n, l1=l1)
+    assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     rng = np.random.default_rng(2)
     m, n = 104, 700
@@ -100,3 +146,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     wide = (torch.zeros(m, 64, device=dev), torch.zeros(64, 1, device=dev))
     with pytest.raises(NotImplementedError):  # width above 32
         BM.data_vg_packed("tanh", x, wide, (torch.zeros(64, device=dev),), torch.zeros(n, device=dev))
+    wide_c = (torch.zeros(1, 2, m, 64, device=dev), torch.zeros(1, 2, 64, 1, device=dev))
+    bias_c = (torch.zeros(1, 2, 64, device=dev),)
+    with pytest.raises(NotImplementedError):  # K5 width above 32
+        TL.integrate_chains_packed(
+            "tanh", by[None], torch.ones(1, m, device=dev), torch.zeros(1, m, device=dev),
+            torch.zeros(1, 2, n, device=dev), torch.ones(1, 2, device=dev), wide_c, bias_c,
+            wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, 2, n)

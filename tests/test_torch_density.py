@@ -103,6 +103,30 @@ def test_packed_forward_and_predict_match_jax(act):
         )
 
 
+@pytest.mark.parametrize("act", ["identity", "tanh"])
+def test_chain_folded_predict_matches_jax(act):
+    """predict_chains (C chains' layer 0 side by side in one K2 call) against
+    JAX's predict of each chain and branch."""
+    rng = np.random.default_rng(2)
+    C, B, m, n = 3, 2, 24, 700
+    by = np.stack([pack_strided(rng.integers(0, 3, (m, n)).astype(np.float32)) for _ in range(B)])
+    scale = rng.uniform(0.5, 2.0, (B, m)).astype(np.float32)
+    shift = rng.uniform(0.0, 2.0, (B, m)).astype(np.float32)
+    nets = [[_branch(rng, True) for _ in range(B)] for _ in range(C)]
+    ws = [np.stack([np.stack([b[0][l] for b in row]) for row in nets]) for l in range(3)]
+    bs = [np.stack([np.stack([b[1][l] for b in row]) for row in nets]) for l in range(2)]
+
+    out = TD.predict_chains(act, tuple(map(T, ws)), tuple(map(T, bs)),
+                            TD.PackedX(T(by), T(scale), T(shift), n))
+    assert out.shape == (C, B, n)
+    for c in range(C):
+        for j in range(B):
+            jx = JD.PackedX(jnp.asarray(by[j]), jnp.asarray(scale[j]), jnp.asarray(shift[j]), n)
+            want = JD.predict(act, tuple(jnp.asarray(w[c, j]) for w in ws),
+                              tuple(jnp.asarray(b[c, j]) for b in bs), jx)
+            np.testing.assert_allclose(out[c, j].numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_joint_terms_match_jax():
     rng = np.random.default_rng(2)
     arch = NetArch(m=(20,), h=(8,), s=(16,), depth=1, pad_multiple=8)

@@ -71,7 +71,11 @@ def test_conditional_parameters_match_jax(model_type, monkeypatch):
     TG.error_precision_posterior(gen, th, torch.from_numpy(residual))
     TG.ridge_single_precision_posterior(gen, 0.3, 7.0, torch.tensor(1.25))
 
-    assert len(jlog) == len(tlog) == 2 * (L - 1) + 3
+    # the port draws every local precision of the branch in one batched
+    # Gamma call, JAX in one call per layer and kind (in the same order)
+    n_loc = 2 * (L - 1)
+    assert len(jlog) == n_loc + 3 and len(tlog) == 4
+    jlog = [[np.concatenate([a.ravel() for a in part]) for part in zip(*jlog[:n_loc])]] + jlog[n_loc:]
     for (js, jsc), (ts, tsc) in zip(jlog, tlog):
         np.testing.assert_allclose(ts, js, rtol=1e-6)
         np.testing.assert_allclose(tsc, jsc, rtol=1e-6)

@@ -1,0 +1,99 @@
+"""The port's whole-trajectory packed leapfrog (rs_bann_tpu_torch/ops/leapfrog.py,
+plain version of K5) against the JAX package's ``integrate_chains_packed``.
+
+The same numpy inputs go through both; JAX runs its Pallas kernel in
+interpret mode (f32), once bytes-resident and once grid-streamed
+(``RS_BANN_TRAJ_STREAM=1``). Tolerance atol 3e-5, rtol 2e-4, the JAX
+package's own bound for its kernel against autodiff: each step's gradient
+is a sum over n in another order, and L steps compound it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rs_bann_tpu.ops import branch_mlp as JBM
+from rs_bann_tpu.ops import leapfrog as JL
+from rs_bann_tpu.ops.packed_matmul import pack_strided
+from rs_bann_tpu_torch.ops import leapfrog as TL
+
+# the cases of tests/test_leapfrog_packed.py
+CASES = [
+    ("tanh", False, 1024, 1),
+    # n not a multiple of the 512-individual pack group: the padding mask
+    ("identity", False, 700, 0),
+    ("identity", True, 1536, 0),
+]
+
+
+def _inputs(act, n, depth):
+    rng = np.random.default_rng(1)
+    G, C, m, m_pad, h, s = 2, 3, 12, 16, 8, 8
+    widths = [(m_pad, h), (h, s), (s, 1)] if depth == 1 else [(m_pad, s), (s, 1)]
+
+    def mk(sc):
+        return tuple((rng.standard_normal((G, C, i, o)) * sc).astype(np.float32) for i, o in widths)
+
+    def mkb(sc):
+        return tuple((rng.standard_normal((G, C, o)) * sc).astype(np.float32) for _, o in widths[:-1])
+
+    weights, p_w = mk(0.3), mk(0.5)
+    eps_w = tuple(np.abs(e) * 0.01 for e in mk(1.0))
+    lam_w = tuple(np.abs(e) + 0.5 for e in mk(1.0))
+    biases, p_b = mkb(0.1), mkb(0.5)
+    eps_b = tuple(np.abs(e) * 0.01 for e in mkb(1.0))
+    lam_b = tuple(np.zeros_like(e) for e in mkb(1.0))
+    geno = rng.integers(0, 3, size=(G, m, n)).astype(np.float32)
+    bytes_g = np.stack([pack_strided(np.pad(geno[g], ((0, m_pad - m), (0, 0)))) for g in range(G)])
+    shift = np.zeros((G, m_pad), np.float32)
+    scale = np.zeros((G, m_pad), np.float32)
+    shift[:, :m] = geno.mean(axis=2)
+    sd = geno.std(axis=2)
+    scale[:, :m] = np.where(sd > 0, 1.0 / np.maximum(sd, 1e-12), 0.0)
+    targets = rng.standard_normal((G, C, n)).astype(np.float32)
+    err = (np.abs(rng.standard_normal((G, C))) + 0.5).astype(np.float32)
+    return (bytes_g, scale, shift, targets, err, weights, biases, p_w, p_b,
+            eps_w, eps_b, lam_w, lam_b)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["resident", "streamed"])
+@pytest.mark.parametrize("act,l1,n,depth", CASES)
+def test_integrate_chains_packed_ref_matches_jax(act, l1, n, depth, stream, monkeypatch):
+    if stream:
+        monkeypatch.setenv("RS_BANN_TRAJ_STREAM", "1")
+    L_steps = 4
+    args = _inputs(act, n, depth)
+
+    def J(a):
+        return tuple(map(jnp.asarray, a)) if isinstance(a, tuple) else jnp.asarray(a)
+
+    def T(a):
+        return tuple(map(torch.from_numpy, a)) if isinstance(a, tuple) else torch.from_numpy(a)
+
+    JBM.FORCE = "interpret"
+    try:
+        jout = JL.integrate_chains_packed(act, *map(J, args), L_steps, n, l1=l1, interpret=True)
+    finally:
+        JBM.FORCE = None
+    tout = TL.integrate_chains_packed(act, *map(T, args), L_steps, n, l1=l1)
+    for tpart, jpart in zip(tout, jout):
+        assert len(tpart) == len(jpart)
+        for t, j in zip(tpart, jpart):
+            assert t.shape == j.shape
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=3e-5, rtol=2e-4)
+
+
+def test_cpu_tensors_run_the_plain_version():
+    args = tuple(
+        tuple(map(torch.from_numpy, a)) if isinstance(a, tuple) else torch.from_numpy(a)
+        for a in _inputs("identity", 700, 0)
+    )
+    before = TL.integrate_chains_packed.launches
+    out = TL.integrate_chains_packed("identity", *args, 2, 700)
+    ref = TL.integrate_chains_packed_ref("identity", *args, 2, 700)
+    assert TL.integrate_chains_packed.launches == before  # no kernel on the CPU
+    for a, b in zip(out, ref):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError):
+        TL.integrate_chains_packed("softplus", *args, 2, 700)

@@ -1,14 +1,18 @@
-"""The port never imports jax, directly or through any module it uses.
+"""The port never imports jax, directly or through any module it uses, and
+neither do the scripts that drive it on the card.
 
 Runs in a subprocess because tests/conftest.py imports jax in this one: a
 ``sys.meta_path`` finder raises on any jax import, then every module of
 rs_bann_tpu_torch is imported and its CLI's ``--help`` runs.
 """
 
+import ast
 import os
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -29,6 +33,9 @@ for name in names:
     if not name.endswith("__main__"):
         importlib.import_module(name)
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax was imported"
+for new in ("rs_bann_tpu_torch.ops.leapfrog", "rs_bann_tpu_torch.samplers.hmc",
+            "rs_bann_tpu_torch.models.net"):
+    assert new in names, new
 print(len(names))
 from rs_bann_tpu_torch.cli.main import main
 for argv in (["--help"], ["train-new", "--help"], ["predict", "--help"]):
@@ -39,6 +46,36 @@ for argv in (["--help"], ["train-new", "--help"], ["predict", "--help"]):
 """
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/profile_hybrid_torch.py"])
+def test_card_scripts_import_only_the_port(script):
+    """The card's scripts import neither jax nor the JAX package: what they
+    need of it comes through rs_bann_tpu_torch."""
+    tree = ast.parse((ROOT / script).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(n.startswith("rs_bann_tpu_torch") for n in names)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "rs_bann_tpu")]
+    assert not bad, bad
+
+
+def test_profile_script_runs_on_the_cpu_without_jax():
+    """scripts/profile_hybrid_torch.py at a toy size on the CPU (its three
+    hybrid cases, no profile), with any jax import raising."""
+    run = SCRIPT.split("import rs_bann_tpu_torch")[0] + (
+        "import runpy\n"
+        "sys.argv = ['profile_hybrid_torch.py', '--device', 'cpu', '--groups', '2',"
+        " '--n', '600', '--sweeps', '1']\n"
+        "runpy.run_path('scripts/profile_hybrid_torch.py', run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", run], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)),
+    )
+    assert proc.returncode == 0, proc.stderr
+    for case in ("C=4 folded", "C=1 folded", "C=1 unfolded"):
+        assert case + ": ms per sweep" in proc.stdout, proc.stdout
+
+
 def test_port_imports_and_runs_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120,
@@ -46,5 +83,5 @@ def test_port_imports_and_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split("\n")[0])
-    assert n_modules >= 15
+    assert n_modules >= 16
     assert "train-new" in proc.stdout and "--packed-genotypes" in proc.stdout
