@@ -24,10 +24,28 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      hybrid --num-chains 4 (blocks of 10, every block transition one K5
      call, 4 sweeps of L = 30), predict on each chain's samples, the card's
      predictions against the CPU's
-The line before the last is a JSON object with each kernel's launches,
-error against its plain version and times; the last line is
-{"ok": true, "device": {...}}. The data lives in a temporary directory,
-removed at the end.
+  7. the dense flagship (bench.py workload 1: G = 64 groups of 64 markers,
+     n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
+     K7 (data_vg_chains, feature-major X [64, 64, 4096]) and its
+     forward-only instantiation (forward_chains) against their plain
+     versions, weights from the flagship's initial state, each chain's
+     perturbed; identical bits on a repeat
+  8. K6 (integrate_chains) against its plain version at the same shape,
+     izmailov step sizes from the initial state, at L = 1 and L = 64;
+     identical bits on a repeat
+  9. the flagship end to end through the CLI: train-new --feat-major
+     --update-mode parallel --num-chains 4 (4 sweeps of L = 64: exactly one
+     K6 launch and two K7 launches, snapshot/H0 and Hf, per sweep; no K4 or
+     K5), dense predict on each chain's samples, the card's predictions
+     against the CPU's
+The line before the last is a JSON object with each kernel's launches on
+its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7), error against
+its plain version (max_abs_err, and max_rel_err: the largest difference
+over max(1, largest plain entry), the ratio held to REL_TOL), times, and
+the bound (the larger of its FLOPs over the
+67 TFLOP/s f32 peak and its bytes, each input read once and each output
+written once, over 3.35 TB/s); the last line is {"ok": true, "device":
+{...}}. The data lives in a temporary directory, removed at the end.
 """
 
 import contextlib
@@ -47,7 +65,12 @@ G, M, N_TRAIN, N_TEST = 100, 100, 100_000, 10_000
 CHAIN, L = 4, 30
 CHAINS, BLOCK = 4, 10  # the hybrid path: chains, branches per block
 N_CAUSAL = 500  # markers with an effect in the simulated phenotype
+# the dense flagship (bench.py workload 1)
+FG, FM, FN_TRAIN, FN_TEST, FH = 64, 64, 4096, 1024, 32
+FL, FCHAINS, FCAUSAL = 64, 4, 256
 TIMED_RUNS = 7
+# H100 SXM: f32 FMA peak outside the tensor cores and HBM bandwidth
+PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # max |kernel - plain| / max(1, max |plain|): both sum in f32 in different
 # orders, over <= 104 markers (K2, K4's forward) or n = 100,000 (K4's and
 # K5's sums); a 30-step trajectory compounds the differences (K5 at L = 30)
@@ -79,12 +102,36 @@ def cuda_ms(fn, runs=TIMED_RUNS):
     return statistics.median(times)
 
 
-def check_close(name, got, ref, tol=REL_TOL):
+def bound(flop, nbytes):
+    """(least ms, what bounds it) for ``flop`` f32 FLOPs and ``nbytes`` moved."""
+    ops_ms, bytes_ms = 1e3 * flop / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def mlp_fmas(m, k0, s, depth, grad=True):
+    """FMAs of one branch MLP (W0 [m, k0], (W1 [k0, s]), w_out [s]) for one
+    individual and one chain: the forward, plus the backward with ``grad``."""
+    fwd = m * k0 + (k0 * s if depth else 0) + s
+    return fwd + (m * k0 + (2 * k0 * s if depth else 0) + s if grad else 0)
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+REL_ERR = {}  # kernel -> worst err / max(1, max |plain|), the ratio check_close gates on
+
+
+def check_close(kernel, name, got, ref, tol=REL_TOL):
+    """Hold one output of ``kernel`` against its plain version: the largest
+    difference must be within ``tol`` of max(1, largest plain entry).
+    Returns the difference; keeps the worst ratio in REL_ERR."""
     err = (got - ref).abs().max().item()
     scale = max(1.0, ref.abs().max().item())
-    print(f"  {name}: max_abs_err {err:.3e} (max |plain| {scale:.3e})")
+    print(f"  {name}: max_abs_err {err:.3e} (max |plain| {scale:.3e}, rel {err / scale:.3e})")
     if not err <= tol * scale:
         raise AssertionError(f"{name}: kernel and plain version differ by {err} > {tol} * {scale}")
+    REL_ERR[kernel] = max(REL_ERR.get(kernel, 0.0), err / scale)
     return err
 
 
@@ -96,31 +143,32 @@ def run_cli(cli, argv):
     return out.getvalue()
 
 
-def write_data(d):
-    """Train (n = 100,000) and test (n = 10,000) genotypes of one population
-    (per-marker allele frequencies shared), 100 groups of 100 markers, and a
-    sparse linear phenotype at h2 = 0.5."""
+def write_data(d, groups=G, markers=M, n_train=N_TRAIN, n_test=N_TEST, n_causal=N_CAUSAL):
+    """Train and test genotypes of one population (per-marker allele
+    frequencies shared), ``groups`` groups of ``markers`` markers, and a
+    sparse linear phenotype at h2 = 0.5, written under ``d``."""
     import numpy as np
 
     from rs_bann_tpu_torch.io import BedVM, Phenotypes, UniformGrouping
 
+    os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(1)
-    mafs = rng.uniform(0.05, 0.5, G * M)
-    causal = np.sort(rng.choice(G * M, size=N_CAUSAL, replace=False))
-    beta = rng.standard_normal(N_CAUSAL)
-    train = BedVM.random(N_TRAIN, G * M, mafs=mafs, seed=1)
-    test = BedVM.random(N_TEST, G * M, mafs=mafs, seed=2)
+    mafs = rng.uniform(0.05, 0.5, groups * markers)
+    causal = np.sort(rng.choice(groups * markers, size=n_causal, replace=False))
+    beta = rng.standard_normal(n_causal)
+    train = BedVM.random(n_train, groups * markers, mafs=mafs, seed=1)
+    test = BedVM.random(n_test, groups * markers, mafs=mafs, seed=2)
     mu, sd = train.col_means[causal], train.col_stds[causal]
     g_train = ((train.get_cols(causal).T - mu) / sd) @ beta
     g_test = ((test.get_cols(causal).T - mu) / sd) @ beta
     noise_sd = g_train.std()  # h2 = var(g) / (var(g) + noise_sd^2) = 0.5
-    y_train = g_train + noise_sd * rng.standard_normal(N_TRAIN)
-    y_test = g_test + noise_sd * rng.standard_normal(N_TEST)
+    y_train = g_train + noise_sd * rng.standard_normal(n_train)
+    y_test = g_test + noise_sd * rng.standard_normal(n_test)
     train.to_file(os.path.join(d, "train"))
     test.to_file(os.path.join(d, "test"))
     Phenotypes(y_train).to_file(os.path.join(d, "train.phen"))
     Phenotypes(y_test).to_file(os.path.join(d, "test.phen"))
-    UniformGrouping(G, M).to_file(os.path.join(d, "train"))
+    UniformGrouping(groups, markers).to_file(os.path.join(d, "train"))
     return train, y_train, y_test
 
 
@@ -158,6 +206,9 @@ def main():
     _build.lib()
     print(f"phase 1: built {_build.library_path().name} with {_build.nvcc()} in "
           f"{time.perf_counter() - t0:.1f} s")
+    build_log = _build.BUILD_DIR / "build.log"
+    if build_log.exists():  # each source's compile time (nvcc in parallel)
+        print("  " + ", ".join(l for l in build_log.read_text().splitlines() if ".cu: " in l))
 
     work = tempfile.mkdtemp(prefix="rs_bann_smoke_")
     try:
@@ -182,13 +233,15 @@ def main():
         for act in ("identity", "tanh"):
             out = PM.packed_linear(X.bytes, A, off, N_TRAIN, act)
             ref = PM.packed_linear_ref(X.bytes, A, off, N_TRAIN, act)
-            k2_err = max(k2_err, check_close(act, out, ref))
+            k2_err = max(k2_err, check_close("packed_linear", act, out, ref))
             del out, ref
             ms = cuda_ms(lambda: PM.packed_linear(X.bytes, A, off, N_TRAIN, act))
             plain_ms = cuda_ms(lambda: PM.packed_linear_ref(X.bytes, A, off, N_TRAIN, act))
             print(f"  {act}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             if act == "identity":  # the slice's activation
                 k2_ms, k2_plain_ms = ms, plain_ms
+        k2_bound = bound(2 * G * X.bytes.shape[1] * N_TRAIN * A.shape[-1],
+                         nbytes(X.bytes, A, off) + 4 * G * N_TRAIN * A.shape[-1])
 
         # ---- phase 3: K4 for one branch at the slice's full shape
         print("phase 3: K4 data_vg_packed vs plain, one branch, n", N_TRAIN)
@@ -202,15 +255,19 @@ def main():
         y_ref, dws_ref, dbs_ref = BM.data_vg_packed_ref("identity", xg.bytes, target, wf, bf, N_TRAIN)
         dW0_ref = xg.w_scale[:, None] * dws_ref[0] - (xg.shift * xg.w_scale)[:, None] * dbs_ref[0]
         k4_err = max(
-            check_close("y_pred", y, y_ref),
-            check_close("dW0", dws[0], dW0_ref),
-            check_close("db0", dbs[0], dbs_ref[0]),
-            check_close("dW1", dws[1], dws_ref[1]),
+            check_close("data_vg_packed", "y_pred", y, y_ref),
+            check_close("data_vg_packed", "dW0", dws[0], dW0_ref),
+            check_close("data_vg_packed", "db0", dbs[0], dbs_ref[0]),
+            check_close("data_vg_packed", "dW1", dws[1], dws_ref[1]),
         )
         k4_ms = cuda_ms(lambda: BM.data_vg_packed("identity", xg, w_g, b_g, target))
         k4_plain_ms = cuda_ms(
             lambda: BM.data_vg_packed_ref("identity", xg.bytes, target, wf, bf, N_TRAIN))
         print(f"  kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms")
+        k4_bound = bound(
+            2 * N_TRAIN * mlp_fmas(xg.bytes.shape[0], w_g[0].shape[1], w_g[1].shape[0], 0),
+            nbytes(xg.bytes, xg.w_scale, xg.shift, target, *w_g, *b_g) + 4 * N_TRAIN
+            + nbytes(*w_g, *b_g))
 
         del A, off
 
@@ -322,14 +379,14 @@ def main():
         print("  K2 packed_linear vs plain, chain-folded: bytes", tuple(x_b.bytes.shape),
               "k", A_c.shape[-1])
         k2_err = max(k2_err, check_close(
-            "identity", PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity"),
+            "packed_linear", "identity", PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity"),
             PM.packed_linear_ref(x_b.bytes, A_c, off_c, N_TRAIN, "identity")))
         ms = cuda_ms(lambda: PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity"))
         plain_ms = cuda_ms(lambda: PM.packed_linear_ref(x_b.bytes, A_c, off_c, N_TRAIN, "identity"))
         print(f"  identity: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
         cpu = lambda ts: tuple(t.cpu() for t in ts)  # noqa: E731
         k2_err = max(k2_err, check_close(
-            "predict_chains, card vs CPU plain version",
+            "packed_linear", "predict_chains, card vs CPU plain version",
             D.predict_chains("identity", w_cb, b_cb, x_b).cpu(),
             D.predict_chains("identity", cpu(w_cb), cpu(b_cb),
                              D.PackedX(*cpu((x_b.bytes, x_b.w_scale, x_b.shift)), N_TRAIN))))
@@ -344,7 +401,8 @@ def main():
             names = ("W0", "w_out", "b0", "pW0", "pw_out", "pb0")
             for name, got, want in zip(names, [t for o in out for t in o],
                                        [t for r in ref for t in r]):
-                k5_err = max(k5_err, check_close(f"L={steps} {name}", got, want, tol))
+                k5_err = max(k5_err, check_close("traj_packed", f"L={steps} {name}", got, want,
+                                                 tol))
             again = LF.integrate_chains_packed("identity", *args)
             if not all(torch.equal(a, b) for o, o2 in zip(out, again) for a, b in zip(o, o2)):
                 raise AssertionError("K5: two calls with the same inputs differ")
@@ -354,6 +412,11 @@ def main():
             print(f"  L={steps}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, identical repeat, "
                   f"max |W0_L - W0_0| {moved:.3e}")
             k5_ms, k5_plain_ms = ms, plain_ms  # the main path's L
+            state_bytes = nbytes(*ws, *bs)
+            k5_bound = bound(
+                2 * BLOCK * CHAINS * N_TRAIN * (steps + 1)
+                * mlp_fmas(x_b.bytes.shape[1], ws[0].shape[-1], ws[-1].shape[-2], 0),
+                nbytes(x_b.bytes, x_b.w_scale, x_b.shift, targets, err) + 8 * state_bytes)
             del out, ref, again
         del X, state, x_b, targets
 
@@ -411,23 +474,238 @@ def main():
         print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
         if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
             raise AssertionError("the card's hybrid predictions disagree with the CPU's")
+
+        # ---- phase 7: K7 at the dense flagship's shape
+        fdir = os.path.join(work, "flagship")
+        t0 = time.perf_counter()
+        f_bed, fy_train, fy_test = write_data(fdir, FG, FM, FN_TRAIN, FN_TEST, FCAUSAL)
+        farch = NetArch.from_width_rules([FM] * FG, 1, ("fixed", FH), ("fixed", FH),
+                                         activation="tanh")
+        fgroups = ExternalGrouping.from_file(os.path.join(fdir, "train.groups"))
+        fdata = CompressedGenotypes(f_bed, fgroups).to_feature_major(farch, dev)
+        xT = fdata.X.xT
+        fy = torch.as_tensor(fy_train, dtype=torch.float32, device=dev)
+        fgen = torch.Generator(dev).manual_seed(7)
+        print(f"phase 7: K7 data_vg_chains vs plain at the dense flagship's shape: xT "
+              f"{tuple(xT.shape)}, C {FCHAINS}, tanh depth 1, h = s = {FH} (data "
+              f"{time.perf_counter() - t0:.1f} s)")
+        # the flagship's initial state, one copy per chain with its weights
+        # perturbed (so a mixed-up chain shows), carried to the card as a
+        # chain-stacked numpy state
+        s0 = P.state_to_numpy(init_net(farch, "ridge_base", InitCfg(seed=0), device="cpu")[0])
+        prng = np.random.default_rng(7)
+
+        def stacked(a, sd=0.0):
+            return np.stack([a * (1.0 + sd * prng.standard_normal(a.shape))
+                             for _ in range(FCHAINS)]).astype(np.float32)
+
+        fchains = P.state_from_numpy(P.NetState(
+            P.StackedParams(tuple(stacked(w, 0.1) for w in s0.params.weights),
+                            tuple(stacked(b, 0.1) for b in s0.params.biases)),
+            P.StackedPrecisions(tuple(map(stacked, s0.precisions.weights)),
+                                tuple(map(stacked, s0.precisions.biases)),
+                                stacked(s0.precisions.error)),
+            stacked(s0.output_bias), stacked(s0.output_bias_precision)), dev)
+
+        def flag_chains(ts):  # [C, G, ...] -> [G, C, ...]
+            return tuple(t.transpose(0, 1).contiguous() for t in ts)
+
+        fws = flag_chains(fchains.params.weights)
+        fbs = flag_chains(fchains.params.biases)
+        ftargets = fy + 0.1 * torch.randn((FG, FCHAINS, FN_TRAIN), device=dev, generator=fgen)
+        out = BM.data_vg_chains("tanh", xT, fws, fbs, ftargets)
+        ref = BM.data_vg_chains_ref("tanh", xT, fws, fbs, ftargets)
+        names = ("y_pred", "rss", "dW0", "dW1", "dw_out", "db0", "db1")
+        k7_err = 0.0
+        for name, got, want in zip(names, [out[0], out[1], *out[2], *out[3]],
+                                   [ref[0], ref[1], *ref[2], *ref[3]]):
+            k7_err = max(k7_err, check_close("data_vg_chains", name, got, want))
+        y_fwd = BM.forward_chains("tanh", xT, fws, fbs)
+        k7_err = max(k7_err, check_close("data_vg_chains", "forward-only y_pred", y_fwd,
+                                           ref[0]))
+        again = BM.data_vg_chains("tanh", xT, fws, fbs, ftargets)
+        if not all(torch.equal(a, b) for a, b in zip([out[0], *out[2], *out[3]],
+                                                     [again[0], *again[2], *again[3]])):
+            raise AssertionError("K7: two calls with the same inputs differ")
+        if not torch.equal(y_fwd, BM.forward_chains("tanh", xT, fws, fbs)):
+            raise AssertionError("K7 forward-only: two calls with the same inputs differ")
+        del out, ref, again, y_fwd
+        k7_grad_ms = cuda_ms(lambda: BM.data_vg_chains("tanh", xT, fws, fbs, ftargets))
+        k7_grad_plain_ms = cuda_ms(lambda: BM.data_vg_chains_ref("tanh", xT, fws, fbs, ftargets))
+        k7_ms = cuda_ms(lambda: BM.forward_chains("tanh", xT, fws, fbs))
+        k7_plain_ms = cuda_ms(lambda: BM.forward_chains_ref("tanh", xT, fws, fbs))
+        fm, fk0, fs = xT.shape[1], fws[0].shape[-1], fws[-1].shape[-2]
+        per = FG * FCHAINS * FN_TRAIN
+        param_bytes = nbytes(*fws, *fbs)
+        k7_bound = bound(2 * per * mlp_fmas(fm, fk0, fs, 1, grad=False),
+                         nbytes(xT) + param_bytes + 4 * per)
+        k7_grad_bound = bound(2 * per * mlp_fmas(fm, fk0, fs, 1),
+                              nbytes(xT, ftargets) + 2 * param_bytes + 4 * per)
+        print(f"  value and gradient: kernel {k7_grad_ms:.3f} ms, plain {k7_grad_plain_ms:.3f} ms, "
+              f"bound {k7_grad_bound[0]:.3f} ms ({k7_grad_bound[1]}); identical repeat")
+        print(f"  forward only: kernel {k7_ms:.3f} ms, plain {k7_plain_ms:.3f} ms, "
+              f"bound {k7_bound[0]:.3f} ms ({k7_bound[1]}); identical repeat")
+
+        # ---- phase 8: K6 at the same shape
+        print(f"phase 8: K6 integrate_chains vs plain at the same shape, L = 1, 8, {FL}")
+        fwp = flag_chains(fchains.precisions.weights)
+        fbp = flag_chains(fchains.precisions.biases)
+        f_eps_w, f_eps_b = H.step_sizes(None, "ridge_base", MCMCCfg(hmc_integration_length=FL),
+                                        fws, fbs, fwp, fbp, None)
+        f_pw = tuple(torch.randn(w.shape, device=dev, generator=fgen) * m[:, None]
+                     for w, m in zip(fws, P.weight_masks(farch, dev)))
+        f_pb = tuple(torch.randn(b.shape, device=dev, generator=fgen) * m[:, None]
+                     for b, m in zip(fbs, P.bias_masks(farch, dev)))
+        f_lam_w = tuple(lam.expand_as(w) for lam, w in zip(fwp, fws))
+        f_lam_b = tuple(torch.zeros_like(b) for b in fbs)
+        ferr = torch.full((FG, FCHAINS), 1.0 / fy.var().item(), device=dev)
+        k6_err, k6_errs = 0.0, {}
+        for steps, tol in ((1, REL_TOL), (8, REL_TOL_TRAJ), (FL, REL_TOL_TRAJ)):
+            args = (xT, ftargets, ferr, fws, fbs, f_pw, f_pb, f_eps_w, f_eps_b, f_lam_w, f_lam_b,
+                    steps)
+            out = LF.integrate_chains("tanh", *args)
+            ref = LF.integrate_chains_ref("tanh", *args)
+            names = ("W0", "W1", "w_out", "b0", "b1", "pW0", "pW1", "pw_out", "pb0", "pb1")
+            errs = [check_close("traj_dense", f"L={steps} {name}", got, want, tol)
+                    for name, got, want in
+                    zip(names, [t for o in out for t in o], [t for r in ref for t in r])]
+            k6_errs[steps] = max(errs)
+            k6_err = max(k6_err, k6_errs[steps])
+            again = LF.integrate_chains("tanh", *args)
+            if not all(torch.equal(a, b) for o, o2 in zip(out, again) for a, b in zip(o, o2)):
+                raise AssertionError("K6: two calls with the same inputs differ")
+            moved = (out[0][0] - fws[0]).abs().max().item()
+            del out, ref, again
+            if steps == 8:
+                continue
+            ms = cuda_ms(lambda: LF.integrate_chains("tanh", *args))
+            plain_ms = cuda_ms(lambda: LF.integrate_chains_ref("tanh", *args))
+            k6_bound = bound(2 * per * (steps + 1) * mlp_fmas(fm, fk0, fs, 1),
+                             nbytes(xT, ftargets, ferr) + 8 * param_bytes)
+            print(f"  L={steps}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{k6_bound[0]:.3f} ms ({k6_bound[1]}), identical repeat, "
+                  f"max |W0_L - W0_0| {moved:.3e}")
+            k6_ms, k6_plain_ms = ms, plain_ms  # the main path's L
+        print("  max abs err against L: " + ", ".join(f"L={k} {v:.3e}" for k, v in k6_errs.items()))
+        del fws, fbs, ftargets, f_pw, f_pb, f_eps_w, f_eps_b, f_lam_w, f_lam_b, fdata, xT, fchains
+
+        # ---- phase 9: the dense flagship through the CLI
+        print(f"phase 9: train-new --feat-major --update-mode parallel --num-chains {FCHAINS} "
+              f"-> predict (G {FG}, m {FM}, n {FN_TRAIN}, tanh depth 1, h = s = {FH}, L {FL})")
+        for counted in (PM.packed_linear, BM.data_vg_packed, LF.integrate_chains_packed,
+                        BM.data_vg_chains, LF.integrate_chains):
+            counted.launches = 0
+        mse_k7 = [0]  # K7 launches inside the per-sweep test mse
+        net_mse = Net.mse
+
+        def counted_mse(self, *a, **kw):
+            before = BM.data_vg_chains.launches
+            try:
+                return net_mse(self, *a, **kw)
+            finally:
+                mse_k7[0] += BM.data_vg_chains.launches - before
+
+        Net.mse = counted_mse
+        t0 = time.perf_counter()
+        try:
+            run = run_cli(cli, [
+                "train-new", os.path.join(fdir, "train"), os.path.join(fdir, "train.phen"),
+                os.path.join(fdir, "train.groups"), "ridge_base", "tanh", "1", CHAIN, FL,
+                "--fixed-hidden-layer-width", FH, "--fixed-summary-layer-width", FH,
+                "--feat-major", "--update-mode", "parallel", "--num-chains", FCHAINS,
+                "--burn-in", "1", "--bfile-test", os.path.join(fdir, "test"),
+                "--p-test", os.path.join(fdir, "test.phen"), "-o", runs,
+            ]).strip().splitlines()[-1]
+        finally:
+            Net.mse = net_mse
+        flag_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        k6_launches, k7_train = LF.integrate_chains.launches, BM.data_vg_chains.launches
+        k4_flag, k5_flag = BM.data_vg_packed.launches, LF.integrate_chains_packed.launches
+        chain_preds = []
+        for c in range(FCHAINS):
+            rows = run_cli(cli, ["predict", os.path.join(fdir, "test"),
+                                 os.path.join(fdir, "train.groups"), "-m",
+                                 os.path.join(run, "models", f"chain{c}")])
+            chain_preds.append(np.asarray(list(csv.reader(io.StringIO(rows))), np.float64))
+        torch.cuda.synchronize()
+        k7_launches = k7_train - mse_k7[0]
+        print(f"  kernel launches in train-new: traj_dense {k6_launches}, data_vg_chains "
+              f"{k7_launches} in the sweeps and {mse_k7[0]} in the per-sweep test mse, "
+              f"data_vg_packed {k4_flag}, traj_packed {k5_flag}; data_vg_chains in predict "
+              f"{BM.data_vg_chains.launches - k7_train}")
+        if k6_launches != CHAIN:
+            raise AssertionError(f"integrate_chains launched {k6_launches} times, expected {CHAIN}")
+        if k7_launches != 2 * CHAIN:
+            raise AssertionError(f"data_vg_chains launched {k7_launches} times in the sweeps, "
+                                 f"expected {2 * CHAIN}")
+        if k4_flag or k5_flag:
+            raise AssertionError("the dense flagship launched a packed kernel")
+        stats = json.load(open(os.path.join(run, "training_stats")))
+        series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+        if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+            raise AssertionError(f"non-finite or missing training statistics: {stats}")
+        if stats["num_samples"] != CHAIN * FG * FCHAINS:
+            raise AssertionError(f"{stats['num_samples']} branch updates counted, "
+                                 f"expected {CHAIN * FG * FCHAINS}")
+        preds = np.concatenate(chain_preds)
+        if preds.shape != (FCHAINS * CHAIN, FN_TEST) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"flagship predictions of shape {preds.shape}, finite: "
+                                 f"{np.all(np.isfinite(preds))}")
+        done = [r for r in log_records if str(r.msg).startswith("Completed training")]
+        flag_sweep_ms = 1000.0 * done[-1].args[0] / CHAIN
+        r2_f = 1.0 - np.mean((fy_test - preds.mean(axis=0)) ** 2) / np.var(fy_test)
+        print(f"  {flag_sweep_ms:.1f} ms per sweep of {FCHAINS} chains, "
+              f"{flag_sweep_ms / FCHAINS:.1f} ms per chain-sweep; train-new {flag_s:.1f} s in all")
+        print(f"  acceptance {stats['num_accepted'] / stats['num_samples']:.3f}, "
+              f"early rejection {stats['num_early_rejected'] / stats['num_samples']:.3f}")
+        print(f"  mse train {stats['mse_train'][-1]:.4f}, mse test {stats['mse_test'][-1]:.4f}, "
+              f"test r2 of the {FCHAINS}-chain posterior mean {r2_f:.4f}")
+        net = Net.load(os.path.join(run, "models", "chain0", f"{CHAIN}.npz"), "cpu")
+        f_test = CompressedGenotypes(BedVM.from_file(os.path.join(fdir, "test")), fgroups)
+        cpu_pred = net.predict(f_test.to_stacked(net.arch, "cpu").X).numpy()
+        err = np.abs(cpu_pred - chain_preds[0][-1]).max()
+        print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
+        if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
+            raise AssertionError("the card's flagship predictions disagree with the CPU's")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    # no single PyTorch call computes any of these (each fuses decode, a
+    # whole MLP and its backward, or a whole trajectory): library_ms is null
     kernels = [
         {"name": "packed_linear", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/packed_linear.cu",
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:202",
-         "launches": k2_hybrid, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": k2_hybrid, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
         {"name": "data_vg_packed", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/branch_vg_packed.cu",
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:365",
-         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
+         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
         {"name": "traj_packed", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/traj_packed.cu",
          "replaces": "rs_bann_tpu/ops/leapfrog.py:470",
-         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms},
+         "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None},
+        # the flagship launches K7's forward-only instantiation (the value
+        # passes); the value-and-gradient one runs inside K6 and is timed too
+        {"name": "data_vg_chains", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/branch_vg_chains.cu",
+         "replaces": "rs_bann_tpu/ops/branch_mlp.py:649",
+         "launches": k7_launches, "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms,
+         "bound_ms": k7_bound[0], "bound_by": k7_bound[1], "library_ms": None,
+         "grad_ms": k7_grad_ms, "grad_plain_ms": k7_grad_plain_ms,
+         "grad_bound_ms": k7_grad_bound[0]},
+        {"name": "traj_dense", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/traj_dense.cu",
+         "replaces": "rs_bann_tpu/ops/leapfrog.py:63",
+         "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
+         "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None},
     ]
+    for k in kernels:  # the scale-free error that the checks gate on
+        k["max_rel_err"] = REL_ERR[k["name"]]
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

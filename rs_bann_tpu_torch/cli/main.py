@@ -1,9 +1,12 @@
 """Command-line interface of the PyTorch port: ``train-new`` and ``predict``.
 
-Counterpart of rs_bann_tpu/cli/main.py with the same arguments (the argparse
-helpers are the JAX package's, shared by import) and the same run-directory
-naming, args.json, model samples and predict CSV. Options whose code paths
-wait for later slices of the port exit non-zero with "not ported yet".
+Counterpart of rs_bann_tpu/cli/main.py with the same arguments (the port's
+own copies of the JAX package's argparse helpers, cli/args.py) and the same
+run-directory naming, args.json, model samples and predict CSV. Training
+takes 2-bit packed genotypes (``--packed-genotypes``) or, under the
+parallel and hybrid schedules, dense feature-major ones (``--feat-major``);
+``predict`` takes packed or dense genotypes. Options whose code paths wait
+for later slices of the port exit non-zero with "not ported yet".
 
 The device is CUDA unless ``--cpu`` is given; without a CUDA device and
 without ``--cpu`` the commands exit non-zero. Every random draw comes from
@@ -20,14 +23,14 @@ import os
 import sys
 from pathlib import Path
 
-from rs_bann_tpu.cli.main import (
+from .args import (
     ACTIVATIONS,
-    _add_mcmc_args,
-    _add_train_io_args,
-    _mcmc_cfg_from_args,
-    _model_type,
-    _run_outdir_name,
-    _scan_models,
+    add_mcmc_args,
+    add_train_io_args,
+    mcmc_cfg_from_args,
+    model_type,
+    run_outdir_name,
+    scan_models,
 )
 
 log = logging.getLogger("rs_bann_tpu_torch")
@@ -58,18 +61,38 @@ def _unported(args, cfg) -> list:
     from ..models.net import unported_options
 
     bad = unported_options(cfg)
-    for flag in ("feat_major", "bf16", "x_bf16"):
+    for flag in ("bf16", "x_bf16"):
         if getattr(args, flag):
             bad.append("--" + flag.replace("_", "-"))
     if args.checkpoint_interval > 0:
         bad.append("--checkpoint-interval")
     if args.resume is not None:
         bad.append("--resume")
-    if not args.packed_genotypes:
-        bad.append("dense genotypes (pass --packed-genotypes)")
-    elif args.activation_function == "silu":
+    if args.feat_major and cfg.update_mode == "sequential":
+        bad.append("--feat-major under the sequential schedule")
+    if not (args.packed_genotypes or args.feat_major):
+        bad.append("dense sample-major genotypes (pass --packed-genotypes or --feat-major)")
+    elif args.packed_genotypes and args.activation_function == "silu":
         bad.append("silu on --packed-genotypes (needs the unfused packed kernel K9)")
     return bad
+
+
+def _beyond_kernels(args, cfg, arch, device) -> list:
+    """On a CUDA device, the folded feature-major sweep runs every branch
+    on K6/K7; a branch beyond their limits (depth above 1, a width above 32,
+    too many markers for shared memory) is refused rather than run on the
+    plain version. The CPU runs the plain versions at any shape."""
+    from ..models.net import chain_fold_eligible
+    from ..ops.branch_mlp import dense_chains_smem
+
+    if (device.type != "cuda" or not args.feat_major
+            or not chain_fold_eligible(args.model_type, args.activation_function, cfg)):
+        return []
+    if dense_chains_smem(arch.m_pad, arch.layer_out_pad(0), arch.s_pad, arch.depth) >= 0:
+        return []
+    return [f"--feat-major branches beyond the K6/K7 CUDA kernels' limits (depth "
+            f"{arch.depth}, {arch.m_pad} markers, widths {arch.layer_out_pad(0)}/{arch.s_pad}; "
+            f"they take depth 0 or 1 and widths up to 32)"]
 
 
 def _load_train_data(args):
@@ -101,8 +124,10 @@ def cmd_train_new(args):
     from ..models.net import Net
     from ..train import train
 
-    outdir = set_replicate_ix(args.outpath, _run_outdir_name(args))
-    cfg = _mcmc_cfg_from_args(args, str(outdir))
+    outdir = set_replicate_ix(args.outpath, run_outdir_name(args))
+    cfg = mcmc_cfg_from_args(args, str(outdir))
+    if args.packed_genotypes and args.feat_major:
+        sys.exit("error: --feat-major and --packed-genotypes are mutually exclusive")
     bad = _unported(args, cfg)
     if bad:
         sys.exit("error: not ported yet: " + ", ".join(bad))
@@ -110,10 +135,6 @@ def cmd_train_new(args):
 
     log.info("Loading data.")
     train_data, test_data = _load_train_data(args)
-    os.makedirs(outdir, exist_ok=True)
-    with open(cfg.args_path(), "w") as f:
-        json.dump({k: v for k, v in vars(args).items() if k != "func"}, f, indent=2)
-
     hlwr = (
         ("fixed", args.fixed_hidden_layer_width)
         if args.fixed_hidden_layer_width is not None
@@ -129,6 +150,12 @@ def cmd_train_new(args):
         train_data.num_markers_per_branch(), args.branch_depth, hlwr, slwr,
         activation=args.activation_function,
     )
+    bad = _beyond_kernels(args, cfg, arch, device)
+    if bad:
+        sys.exit("error: not ported yet: " + ", ".join(bad))
+    os.makedirs(outdir, exist_ok=True)
+    with open(cfg.args_path(), "w") as f:
+        json.dump({k: v for k, v in vars(args).items() if k != "func"}, f, indent=2)
     state, _ = init_net(
         arch, args.model_type,
         InitCfg(fixed_param_precision=args.fixed_param_precision, seed=args.seed),
@@ -142,8 +169,9 @@ def cmd_train_new(args):
                 "Num params > num individuals in branch %d (with %d params, %d individuals)",
                 g, arch.num_params_branch(g), train_data.num_individuals,
             )
-    dtr = train_data.to_packed(arch, device)
-    dte = test_data.to_packed(arch, device) if test_data is not None else None
+    load = "to_feature_major" if args.feat_major else "to_packed"
+    dtr = getattr(train_data, load)(arch, device)
+    dte = getattr(test_data, load)(arch, device) if test_data is not None else None
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     log.info("Training net")
@@ -159,18 +187,17 @@ def cmd_predict(args):
     from ..io.genotypes import CompressedGenotypes
     from ..models.net import Net
 
-    if not args.packed_genotypes:
-        sys.exit("error: not ported yet: dense genotypes (pass --packed-genotypes)")
     device = _device(args)
     gen = CompressedGenotypes(
         BedVM.from_file(args.bfile), ExternalGrouping.from_file(args.groups)
     )
     w = csv.writer(sys.stdout)
     X = None
-    for path in _scan_models(args.model_path):
+    for path in scan_models(args.model_path):
         net = Net.load(str(path), device)
         if X is None:
-            X = gen.to_packed(net.arch, device).X
+            load = gen.to_packed if args.packed_genotypes else gen.to_stacked
+            X = load(net.arch, device).X
         w.writerow(net.predict(X).cpu().numpy().tolist())
 
 
@@ -182,8 +209,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     g = sub.add_parser("train-new", help="Train new model on .bed data.")
-    _add_train_io_args(g)
-    g.add_argument("model_type", type=_model_type)
+    add_train_io_args(g)
+    g.add_argument("model_type", type=model_type)
     g.add_argument("activation_function", choices=ACTIVATIONS)
     g.add_argument("branch_depth", type=int)
     g.add_argument("--relative-hidden-layer-width", type=float, default=0.5)
@@ -196,7 +223,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--sps", type=float, default=1000.0)
     g.add_argument("--opk", type=float, default=0.001)
     g.add_argument("--ops", type=float, default=1000.0)
-    _add_mcmc_args(g)
+    add_mcmc_args(g)
     g.set_defaults(func=cmd_train_new)
 
     g = sub.add_parser("predict", help="Predict phenotypes with saved models.")
@@ -206,7 +233,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--cpu", action="store_true", help="run on the CPU")
     g.add_argument(
         "--packed-genotypes", action="store_true",
-        help="keep genotypes 2-bit packed on the device (the port's only form)",
+        help="keep genotypes 2-bit packed on the device (else dense sample-major f32)",
     )
     g.set_defaults(func=cmd_predict)
     return p

@@ -1,12 +1,13 @@
 """Genotype, phenotype and grouping I/O.
 
-The readers and writers are the JAX package's numpy-only modules, shared by
-import so both packages read and write the same files; ``genotypes`` builds
-the port's device tensors from them.
+The readers and writers are the port's own copies of the JAX package's
+(``bed``, ``dims``, ``phen`` and ``group/grouping.py``), so both packages
+read and write the same files; ``genotypes`` builds the port's device
+tensors from them.
 """
 
-from rs_bann_tpu.group.grouping import ExternalGrouping, MarkerGrouping, UniformGrouping
-from rs_bann_tpu.io.bed import BedVM
-from rs_bann_tpu.io.phen import Phenotypes
+from ..group.grouping import ExternalGrouping, MarkerGrouping, UniformGrouping
+from .bed import BedVM
+from .phen import Phenotypes
 
 __all__ = ["BedVM", "ExternalGrouping", "MarkerGrouping", "Phenotypes", "UniformGrouping"]

@@ -1,9 +1,5 @@
-"""Branch networks: state, densities, initialization, data and the sweep.
+"""Branch networks: state, densities, initialization, data and the sweep."""
 
-The static architecture (``NetArch``) is the JAX package's numpy-only
-description, shared by import.
-"""
-
-from rs_bann_tpu.models.arch import NetArch
+from .arch import NetArch
 
 __all__ = ["NetArch"]

@@ -18,7 +18,7 @@ from .density import PackedX
 
 
 class StackedData(NamedTuple):
-    X: object  # a stacked PackedX, or dense standardized [G, n, m_pad]
+    X: object  # a stacked PackedX or FeatX, or dense standardized [G, n, m_pad]
     y: torch.Tensor  # [n]
 
 

@@ -4,9 +4,10 @@ Counterpart of rs_bann_tpu/models/density.py. Every function works on one
 branch slice (per-layer tensors without the leading G axis) or on a batch
 of them: the densities reduce over each layer's own axes only, so leading
 (chain, branch) axes give one value per branch. ``forward`` and ``predict``
-take a leading branch axis on packed and dense input alike, because
-PyTorch's matmul broadcasts over it; ``predict_chains`` evaluates C chains'
-weights on one block of branches in one K2 launch.
+take a leading branch axis on packed, dense and feature-major input alike,
+because PyTorch's matmul broadcasts over it; ``predict_chains`` evaluates C
+chains' weights on one block of branches in one kernel launch (K2 on packed
+genotypes, K7's forward on feature-major ones).
 
 Prior families ("model types"):
   ridge_base   one Gamma-precision per layer, Normal weights
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import activations as _A
+from ..ops.branch_mlp import forward_chains
 from ..ops.packed_matmul import FUSED_ACTIVATIONS, packed_linear
 from . import NetArch
 from . import params as P
@@ -138,17 +140,50 @@ class PackedX:
         return PackedX(self.bytes[g], self.w_scale[g], self.shift[g], self.n)
 
 
+class FeatX:
+    """Feature-major dense standardized branch genotypes ``xT`` [..., m_pad, n]
+    (f32): the layout of the dense flagship, whose kernels (K6, K7) read a
+    tile of individuals for all markers at once."""
+
+    def __init__(self, xT):
+        self.xT = xT
+
+    def __getitem__(self, g):
+        return FeatX(self.xT[g])
+
+    @property
+    def n(self) -> int:
+        return self.xT.shape[-1]
+
+
+def matmul_fm(w, a):
+    """Feature-major layer: [..., out, n] = w[..., in, out]^T @ a[..., in, n]."""
+    return w.transpose(-1, -2) @ a
+
+
 def forward(act_name: str, weights, biases, x):
     """Forward pass of one branch, or of all branches when every tensor has
     a leading G axis.
 
-    ``x`` is dense standardized sample-major [..., n, m_pad] or a PackedX.
-    Returns (pre_activations, activations) like the JAX package: one
+    ``x`` is dense standardized sample-major [..., n, m_pad], a PackedX or a
+    FeatX. Returns (pre_activations, activations) like the JAX package: one
     activation per layer, the last the output column [..., n, 1]. On packed
-    input layer 0 is the fused K2 kernel and its pre-activation is None.
+    input layer 0 is the fused K2 kernel and its pre-activation is None. On
+    a FeatX the hidden pre-activations and activations are feature-major
+    [..., width, n] (plain torch matmuls, as the JAX package leaves them to
+    XLA) and the width-1 output is a sum over the summary rows.
     """
     canon = _A.canonical(act_name)
     pre, acts = [], []
+    if isinstance(x, FeatX):
+        a = x.xT
+        for l in range(len(weights) - 1):
+            z = matmul_fm(weights[l], a) + biases[l].unsqueeze(-1)
+            pre.append(z)
+            a = _A.apply(canon, z)
+            acts.append(a)
+        acts.append(torch.sum(weights[-1] * a, dim=-2).unsqueeze(-1))
+        return pre, acts
     if isinstance(x, PackedX):
         if canon not in FUSED_ACTIVATIONS:
             raise NotImplementedError(
@@ -188,14 +223,22 @@ def chain_layer0(w0, b0, x: PackedX):
     return w0p.permute(1, 2, 0, 3).reshape(B, m, C * k), off.permute(1, 0, 2).reshape(B, C * k)
 
 
-def predict_chains(act_name: str, weights, biases, x: PackedX) -> torch.Tensor:
+def predict_chains(act_name: str, weights, biases, x) -> torch.Tensor:
     """Predictions [C, B, n] of C chains' weights (per layer [C, B, ...]) on
-    one block's packed genotypes ``x`` (bytes [B, m_pad, Bytes]).
+    one block's genotypes: a PackedX (bytes [B, m_pad, Bytes]) or a FeatX
+    (xT [B, m_pad, n]).
 
-    The chains' folded layer-0 weights sit side by side in K2's output
-    width (``chain_layer0``), so one K2 launch serves every chain and the
-    block's bytes are read once."""
+    Packed: the chains' folded layer-0 weights sit side by side in K2's
+    output width (``chain_layer0``), so one K2 launch serves every chain and
+    the block's bytes are read once. Feature-major: one launch of K7's
+    forward-only pass (``forward_chains``), which reads each X tile once for
+    all chains."""
     canon = _A.canonical(act_name)
+    if isinstance(x, FeatX):
+        def bc(ts):  # [C, B, ...] -> [B, C, ...]
+            return tuple(t.transpose(0, 1) for t in ts)
+
+        return forward_chains(canon, x.xT, bc(weights), bc(biases)).transpose(0, 1)
     if canon not in FUSED_ACTIVATIONS:
         raise NotImplementedError(f"{canon} on packed genotypes needs K9, not ported yet")
     C, B, _, k = weights[0].shape

@@ -1,6 +1,6 @@
 """The block net and its Gibbs sweeps.
 
-Counterpart of rs_bann_tpu/models/net.py for two schedules:
+Counterpart of rs_bann_tpu/models/net.py for three schedules:
 
 * sequential: every sweep visits the branches in a fresh random order (the
   reference's random-scan Gibbs) and, per branch, draws the error
@@ -13,9 +13,13 @@ Counterpart of rs_bann_tpu/models/net.py for two schedules:
   block proposes a lean HMC move against the block's frozen residual, and
   the proposals are accepted one by one, in a random order, against the
   live residual (``_live_accept_select``): an exact Metropolis-within-Gibbs
-  kernel. With a shared block permutation, one K5 call integrates the
-  whole block for all chains, one chain included (``chain_fold_eligible``);
-  otherwise each (chain, branch) runs its own lean transition on K4.
+  kernel. With a shared block permutation, one whole-trajectory call (K5
+  on packed genotypes, K6 on a FeatX) integrates the whole block for all
+  chains, one chain included (``chain_fold_eligible``); otherwise each
+  (chain, branch) runs its own lean transition (K4 on packed genotypes,
+  autograd on a FeatX).
+* parallel: the hybrid sweep with one block of all G branches in their own
+  order, every sweep (``make_hybrid_sweep``).
 
 A carry for C chains (``Net.init_carry(..., chains=C)``) stacks every
 tensor of the one-chain carry on a leading [C] axis; ``make_chain_sweep``
@@ -33,11 +37,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from rs_bann_tpu.samplers.mcmc_cfg import MCMCCfg
-
 from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS
 from ..samplers import gibbs
 from ..samplers.hmc import HMCProposal, HMCResult, make_hmc_step, make_transition_batch
+from ..samplers.mcmc_cfg import MCMCCfg
 from . import NetArch
 from . import density as D
 from . import params as P
@@ -86,9 +89,7 @@ _UNPORTED = {
 def unported_options(cfg: MCMCCfg) -> list:
     """Names of the cfg settings this port cannot honour yet."""
     bad = [k for k, v in _UNPORTED.items() if getattr(cfg, k) != v]
-    if cfg.update_mode not in ("sequential", "hybrid"):
-        bad.append(f"update_mode={cfg.update_mode}")
-    if cfg.update_mode == "hybrid" and not cfg.live_accept:
+    if cfg.update_mode != "sequential" and not cfg.live_accept:
         bad.append("live_accept=False")
     if cfg.hmc_step_size_mode == "dual_averaging":
         bad.append("hmc_step_size_mode=dual_averaging")
@@ -182,16 +183,18 @@ def default_block_size(G: int) -> int:
 
 
 def chain_fold_eligible(model_type: str, act: str, cfg: MCMCCfg) -> bool:
-    """True when the hybrid sweep integrates each block for all chains in
-    one K5 call (samplers/hmc.make_transition_batch): the hybrid schedule
-    with its shared per-sweep block permutation (each chain's own
-    permutation would give each chain another block of genotypes) and the
-    live accept, fixed-length marginal HMC with izmailov or std_scaled step
-    sizes, and an activation the kernels take. The trainer folds whenever
-    this holds, for any number of chains."""
+    """True when the hybrid or parallel sweep integrates each block for all
+    chains in one whole-trajectory call (samplers/hmc.make_transition_batch):
+    the parallel schedule, or the hybrid one with its shared per-sweep block
+    permutation (each chain's own permutation would give each chain another
+    block of genotypes), the live accept, fixed-length marginal HMC with
+    izmailov or std_scaled step sizes, and an activation the kernels take.
+    The trainer folds whenever this holds, for any number of chains. On a
+    CUDA tensor a branch beyond the kernels' limits makes the kernels'
+    wrappers raise (the CLI refuses it before training); it never runs on
+    the plain version."""
     return (
-        cfg.update_mode == "hybrid"
-        and cfg.hybrid_shared_perm
+        (cfg.update_mode == "parallel" or (cfg.update_mode == "hybrid" and cfg.hybrid_shared_perm))
         and cfg.live_accept
         and not (cfg.joint_hmc or cfg.gradient_descent or cfg.gradient_descent_joint)
         and not (cfg.spike_slab or cfg.ss_markers or cfg.ss_rows)
@@ -278,15 +281,26 @@ def _stack_proposals(props, C, B) -> HMCProposal:
 
 def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device,
                       fold: Optional[bool] = None):
-    """Build the hybrid sweep over a carry of C = cfg.num_chains chains:
-    sweep(carry, X, y, gen) -> (TrainCarry, SweepStats), every tensor with a
-    leading [C] axis.
+    """Build the hybrid or parallel sweep over a carry of C = cfg.num_chains
+    chains: sweep(carry, X, y, gen) -> (TrainCarry, SweepStats), every
+    tensor with a leading [C] axis.
 
-    ``fold`` picks the block transition: one K5 call for the whole block
-    and all chains (True), or each (chain, branch) on its own lean K4
-    transition (False). The default folds when ``chain_fold_eligible``
-    holds. Both consume the same random draws, so for one generator state
-    they give the same chain up to f32 rounding.
+    ``fold`` picks the block transition: one whole-trajectory call for the
+    whole block and all chains (True: K5 on packed genotypes, K6 on a
+    FeatX), or each (chain, branch) on its own lean transition (False). The
+    default folds when ``chain_fold_eligible`` holds. Both
+    consume the same random draws, so for one generator state they give the
+    same chain up to f32 rounding.
+
+    The parallel schedule (rs_bann_tpu ``sweep_parallel``, net.py:1376) is
+    ``block_update`` over the single block arange(G): one error-precision
+    draw with its floor, the local precisions of all G branches in one
+    batched Gamma call, then the output precision, the snapshot predictions
+    and targets, one folded transition over all G, the live accept over all
+    G in a random order, the LPD bookkeeping, the output bias and the
+    counts. On the default configuration the two agree step for step; the
+    port draws in another order (one Gamma call for all local precisions,
+    not one key per branch).
     """
     bad = unported_options(cfg)
     if bad:
@@ -296,24 +310,29 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     masks_b = P.bias_masks(arch, device)
     G, L = arch.num_branches, arch.num_layers
     C = max(int(cfg.num_chains), 1)
-    Bk = cfg.block_size if cfg.block_size > 0 else default_block_size(G)
+    parallel = cfg.update_mode == "parallel"
+    shared = parallel or cfg.hybrid_shared_perm
+    if parallel:
+        Bk = G
+    else:
+        Bk = cfg.block_size if cfg.block_size > 0 else default_block_size(G)
     if G % Bk:
         raise ValueError(f"block_size {Bk} must divide the number of branches {G}")
-    if fold is None:
-        fold = chain_fold_eligible(model_type, act, cfg)
-    elif fold and not chain_fold_eligible(model_type, act, cfg):
+    eligible = chain_fold_eligible(model_type, act, cfg)
+    if fold and not eligible:
         raise ValueError("this configuration cannot fold the chains")
+    folded = eligible if fold is None else fold
     n_out_tot = float(arch.total_output_weights)
     sample_local = not cfg.fixed_param_precisions and model_type != "std_normal"
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
     transition = make_hmc_step(model_type, act, cfg, defer_accept=True)
-    fold_transition = make_transition_batch(model_type, act, cfg) if fold else None
+    fold_transition = make_transition_batch(model_type, act, cfg) if folded else None
     cix = torch.arange(C, device=device)[:, None]
 
-    def block_update(carry: TrainCarry, ixs, X, var_y, gen, shared: bool) -> TrainCarry:
+    def block_update(carry: TrainCarry, ixs, X, var_y, gen) -> TrainCarry:
         """One block: ixs [C, Bk], the same row for every chain when the
-        permutation is ``shared``."""
+        permutation is ``shared``; ``folded`` runs one whole-trajectory call."""
         state, residual = carry.state, carry.residual
         params, precisions = state.params, state.precisions
         wp, bp = precisions.weights, precisions.biases
@@ -346,7 +365,7 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         bp_b = tuple(take(a) for a in bp)
 
         if shared:
-            x_b = X[ixs[0]]
+            x_b = X if parallel else X[ixs[0]]
             preds = D.predict_chains(act, w_b, b_b, x_b)  # [C, Bk, n]
         else:
             x_c = [X[ixs[c]] for c in range(C)]
@@ -359,7 +378,7 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             tuple(torch.randn(w.shape, generator=gen, device=gen.device) for w in w_b),
             tuple(torch.randn(b.shape, generator=gen, device=gen.device) for b in b_b),
         )
-        if fold:
+        if folded:
             prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x_b, targets, mw_b, mb_b,
                                    momenta, y_pred0=preds)
         else:
@@ -413,14 +432,15 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
 
     def sweep(carry: TrainCarry, X, y, gen):
         var_y = torch.var(y, unbiased=False)
-        if cfg.hybrid_shared_perm:
+        if parallel:
+            perm = torch.arange(G, device=device).expand(C, G)
+        elif cfg.hybrid_shared_perm:
             perm = _shared_perm(cfg.seed, carry.sweeps, G).to(device).expand(C, G)
         else:
             perm = torch.stack([torch.randperm(G, generator=gen, device=gen.device)
                                 for _ in range(C)]).to(device)
         for r in range(G // Bk):
-            carry = block_update(carry, perm[:, r * Bk : (r + 1) * Bk], X, var_y, gen,
-                                 cfg.hybrid_shared_perm)
+            carry = block_update(carry, perm[:, r * Bk : (r + 1) * Bk], X, var_y, gen)
         carry = carry._replace(sweeps=carry.sweeps + 1)
         n = float(carry.residual.shape[-1])
         return carry, SweepStats(
@@ -457,9 +477,9 @@ def stack_carries(carries) -> TrainCarry:
 
 def make_chain_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device):
     """The sweep of cfg's schedule over a carry of cfg.num_chains chains
-    (leading [C] axis): the hybrid sweep, or the sequential one run on each
-    chain in turn."""
-    if cfg.update_mode == "hybrid":
+    (leading [C] axis): the hybrid or parallel sweep, or the sequential one
+    run on each chain in turn."""
+    if cfg.update_mode in ("hybrid", "parallel"):
         return make_hybrid_sweep(model_type, act, arch, cfg, hyper, device)
     sweep1 = make_sweep(model_type, act, arch, cfg, hyper, device)
 
@@ -598,7 +618,7 @@ class Net:
     def predict(self, X, state: Optional[NetState] = None) -> torch.Tensor:
         """y_hat [n] = bias + sum of branch predictions."""
         state = state if state is not None else self.state
-        n = X.n if isinstance(X, D.PackedX) else X.shape[1]
+        n = X.n if isinstance(X, (D.PackedX, D.FeatX)) else X.shape[1]
         width = max(self.arch.layer_out_pad(l) for l in range(self.arch.num_layers))
         G = self.arch.num_branches
         chunk = max(1, int(self.PREDICT_CHUNK_BYTES // (4 * n * width)))

@@ -5,6 +5,8 @@ parallel) and linked into one shared library with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers). The library lands in
 ``build/rs_bann_tpu_torch/`` at the root of the checkout, named by a hash
 of the sources, so an unchanged tree reuses it and a changed one rebuilds.
+``build.log`` there gives each source's compile time and ``ptxas -v``
+(registers, spills).
 
 Nothing here runs at import. ``lib()`` builds on first use and raises if
 there is no ``nvcc`` or no CUDA device: the kernels have no quiet fallback.
@@ -18,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -25,6 +28,9 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "rs_bann_t
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # split each source's optimisation over the machine's threads: the
+    # whole build ~80 s instead of ~100 s on 8 cores (PERF.md, build time)
+    "-split-compile=0",
 ]
 
 _LIB = None
@@ -55,6 +61,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"librsbann_kernels_{h.hexdigest()[:16]}.so"
 
 
+def compile_all(compiler: str, flags, cu, tmpdir):
+    """``nvcc -c`` every source in ``cu`` into ``tmpdir``, all started
+    together. Returns (objects, return codes, seconds from the start until
+    each process ended, the log text: each source's seconds, then nvcc's
+    output)."""
+    objs = [Path(tmpdir) / f"{p.stem}.o" for p in cu]
+    logs = [Path(tmpdir) / f"{p.stem}.log" for p in cu]
+    procs = []
+    for src, obj, log in zip(cu, objs, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [compiler, *flags, "-c", "-o", str(obj), str(src)],
+                stdout=f, stderr=subprocess.STDOUT,
+            ))
+    start = time.perf_counter()
+    seconds = [None] * len(procs)
+    while None in seconds:
+        for k, p in enumerate(procs):
+            if seconds[k] is None and p.poll() is not None:
+                seconds[k] = time.perf_counter() - start
+        time.sleep(0.1)
+    codes = [p.returncode for p in procs]
+    text = "".join(f"{src.name}: {sec:.1f} s\n" for src, sec in zip(cu, seconds))
+    text += "".join(log.read_text() for log in logs)
+    return objs, codes, seconds, text
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists: one
     ``nvcc -c`` per source, all started together, then one link."""
@@ -65,17 +98,7 @@ def build() -> Path:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs = [Path(tmpdir) / f"{p.stem}.o" for p in cu]
-        logs = [Path(tmpdir) / f"{p.stem}.log" for p in cu]
-        procs = []
-        for src, obj, log in zip(cu, objs, logs):
-            with open(log, "w") as f:
-                procs.append(subprocess.Popen(
-                    [compiler, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                    stdout=f, stderr=subprocess.STDOUT,
-                ))
-        codes = [p.wait() for p in procs]
-        text = "".join(log.read_text() for log in logs)
+        objs, codes, _, text = compile_all(compiler, NVCC_FLAGS, cu, tmpdir)
         (BUILD_DIR / "build.log").write_text(text)
         if any(codes):
             raise RuntimeError(f"nvcc failed ({codes}):\n{text}")
@@ -113,6 +136,12 @@ def lib() -> ctypes.CDLL:
     so.traj_packed_f32.restype = i
     so.traj_packed_smem.argtypes = [i, i, i, i]
     so.traj_packed_smem.restype = ctypes.c_longlong
+    so.vg_chains_f32.argtypes = [vp] * 6 + [i] * 10 + [vp]
+    so.vg_chains_f32.restype = i
+    so.dense_chains_smem.argtypes = [i, i, i, i]
+    so.dense_chains_smem.restype = ctypes.c_longlong
+    so.traj_dense_f32.argtypes = [vp] * 8 + [i] * 11 + [vp]
+    so.traj_dense_f32.restype = i
     _LIB = so
     return so
 

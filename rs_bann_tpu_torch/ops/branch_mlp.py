@@ -1,7 +1,9 @@
-"""Fused packed value-and-gradient of one leapfrog step's data term (K4).
+"""Fused value-and-gradient of the branch MLP's data term: packed, one
+branch (K4), and dense feature-major, C chains folded (K7).
 
-Counterpart of rs_bann_tpu/ops/branch_mlp.py ``data_vg_packed``. For one
-branch network f(x; W, b) on 2-bit packed genotypes it returns
+Counterpart of rs_bann_tpu/ops/branch_mlp.py ``data_vg_packed`` and
+``data_vg_chains``. For one branch network f(x; W, b) on 2-bit packed
+genotypes ``data_vg_packed`` returns
 
     y_pred[i]      = f(x_i)                      (i < n)
     rss            = sum_i (y_pred[i] - target[i])^2
@@ -16,6 +18,16 @@ On a CUDA tensor the pass is the hand-written kernel in
 csrc/branch_vg_packed.cu (depth 0 and 1, every activation); on a CPU tensor
 it is ``data_vg_packed_ref``: decode with ``unpack_strided``, dense forward,
 autograd for the gradients.
+
+``data_vg_chains`` computes the same for every (branch g, chain c) of
+feature-major X xT [G, m_pad, n] (models/density.py ``FeatX``), weights[l]
+[G, C, in, out], biases[l] [G, C, out] and targets [G, C, n]: one X read
+serves all C chains. On a CUDA tensor it is csrc/branch_vg_chains.cu (depth
+0 and 1, widths up to 32, every activation); ``forward_chains`` is the
+kernel's forward-only instantiation (y_pred alone), which the folded
+transition's value passes use. On a CPU tensor both run their plain
+versions (``data_vg_chains_ref``, ``forward_chains_ref``). Both count their
+launches in ``data_vg_chains.launches``.
 """
 
 from __future__ import annotations
@@ -132,3 +144,146 @@ def data_vg_packed(act_name, x, weights, biases, target):
 
 
 data_vg_packed.launches = 0  # kernel launches since the last reset
+
+
+# ------------------------------------------------------ dense chains (K7)
+
+DENSE_TILE = 128  # individuals per K6/K7 work item (csrc/dense_chain_mlp.cuh kTile)
+_DENSE_ROW = DENSE_TILE + 4  # shared-memory row stride (kRowT)
+_MAX_SMEM = 232448  # dynamic shared memory a block may use
+
+
+def dense_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
+    """Shared memory (bytes) that K6 and K7 need for one branch of m_pad
+    markers and layer widths k0, s, or -1 if they cannot run it (depth above
+    1, a width above 32, or more than 227 KB). The same rule as the CUDA
+    entry point ``dense_chains_smem``; the CLI asks it before training on
+    the card."""
+    w = max(k0, s)
+    km = next((k for k in (8, 16, 32) if w <= k), -1)
+    if km < 0 or depth not in (0, 1) or m <= 0:
+        return -1
+    floats = m * _DENSE_ROW + 3 * km * _DENSE_ROW + m * km + 2 * km * km + 4 * km + DENSE_TILE
+    return 4 * floats if 4 * floats <= _MAX_SMEM else -1
+
+
+def flat_params(weights, biases) -> torch.Tensor:
+    """Per-layer [G, C, ...] tensors -> [G, C, P] in the kernels' layout:
+    W0, b0, (W1, b1), w_out."""
+    nb, C = weights[0].shape[:2]
+    parts = []
+    for w, b in zip(weights[:-1], biases):
+        parts += [w.reshape(nb, C, -1), b.reshape(nb, C, -1)]
+    parts.append(weights[-1].reshape(nb, C, -1))
+    return torch.cat(parts, dim=-1).to(torch.float32).contiguous()
+
+
+def unflat_params(flat, like_w, like_b):
+    """Inverse of ``flat_params``: views of ``flat`` shaped as like_w / like_b."""
+    ws, bs, ix = [], [], 0
+    for w, b in zip(like_w[:-1], like_b):
+        size = w[0, 0].numel()
+        ws.append(flat[..., ix : ix + size].reshape(w.shape))
+        ix += size
+        bs.append(flat[..., ix : ix + b.shape[-1]].reshape(b.shape))
+        ix += b.shape[-1]
+    ws.append(flat[..., ix:].reshape(like_w[-1].shape))
+    return tuple(ws), tuple(bs)
+
+
+def forward_chains_ref(act, xT, weights, biases) -> torch.Tensor:
+    """Feature-major forward of C chains: z [G, C, out, n] = W^T a + b per
+    layer, then the width-1 output as a sum over the summary rows. xT
+    [G, m_pad, n] -> y_pred [G, C, n]."""
+    a = xT[:, None]
+    for l in range(len(weights) - 1):
+        a = _act_apply(act, weights[l].transpose(-1, -2) @ a + biases[l][..., None])
+    return torch.sum(weights[-1] * a, dim=-2)
+
+
+def data_vg_chains_ref(act, xT, weights, biases, target):
+    """Plain PyTorch version of K7: the feature-major forward, autograd for
+    the gradients of rss / 2. Returns (y_pred [G, C, n], rss [G, C], dws,
+    dbs)."""
+    ws = [w.detach().requires_grad_(True) for w in weights]
+    bs = [b.detach().requires_grad_(True) for b in biases]
+    with torch.enable_grad():
+        pred = forward_chains_ref(act, xT, ws, bs)
+        half_rss = 0.5 * torch.sum((pred - target) ** 2)
+        grads = torch.autograd.grad(half_rss, ws + bs)
+    pred = pred.detach()
+    rss = torch.sum((pred - target) ** 2, dim=-1)
+    return pred, rss, tuple(grads[: len(ws)]), tuple(grads[len(ws):])
+
+
+def _dense_shape(xT, weights):
+    G, m, n = xT.shape
+    depth = len(weights) - 2
+    k0, s = weights[0].shape[-1], weights[-1].shape[-2]
+    if dense_chains_smem(m, k0, s, depth) < 0:
+        raise NotImplementedError(
+            f"the K6/K7 CUDA kernels take depth 0 or 1 and layer widths up to 32 "
+            f"within 227 KB of shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
+        )
+    return G, weights[0].shape[1], m, n, k0, s, depth
+
+
+def _vg_chains_cuda(act, xT, weights, biases, target, grad: bool):
+    """Launch csrc/branch_vg_chains.cu once (plus its fixed-order tile sum
+    when ``grad``). Returns y_pred [G, C, n] and, with ``grad``, the flat
+    gradients [G, C, P]."""
+    G, C, m, n, k0, s, depth = _dense_shape(xT, weights)
+    dev = xT.device
+    lib = _build.lib()
+    q = flat_params(weights, biases)
+    P = q.shape[-1]
+    _check(xT, "xT", torch.float32, (G, m, n), dev)
+    _check(q, "weights", torch.float32, (G, C, P), dev)
+    y_pred = torch.empty((G, C, n), dtype=torch.float32, device=dev)
+    partial = grads = None
+    if grad:
+        _check(target, "target", torch.float32, (G, C, n), dev)
+        partial = torch.empty((G, C, -(-n // DENSE_TILE), P), dtype=torch.float32, device=dev)
+        grads = torch.empty((G, C, P), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+    status = lib.vg_chains_f32(
+        ptr(xT), ptr(target if grad else None), ptr(q), ptr(y_pred), ptr(partial), ptr(grads),
+        G, C, m, n, k0, s, P, depth, ACT_CODES[act], int(grad),
+        ctypes.c_void_p(_build.stream_ptr(xT)),
+    )
+    _build.check(status, "vg_chains_f32")
+    data_vg_chains.launches += 1
+    return y_pred, grads
+
+
+def data_vg_chains(act_name, xT, weights, biases, target):
+    """Chain-folded dense value-and-gradient, same contract as the JAX
+    package's ``data_vg_chains(..., f32=True)``: xT [G, m_pad, n];
+    weights[l] [G, C, in, out]; biases[l] [G, C, out]; target [G, C, n].
+    Returns (y_pred [G, C, n], rss [G, C], dws, dbs) with dW/db =
+    d(rss/2)/d(.) in the input layouts. A CPU tensor runs the plain version;
+    a CUDA tensor launches K7 (and raises if it cannot)."""
+    if act_name not in SUPPORTED_ACTIVATIONS:
+        raise ValueError(f"unsupported activation: {act_name}")
+    if xT.device.type == "cpu":
+        return data_vg_chains_ref(act_name, xT, weights, biases, target)
+    target = target.contiguous()
+    y_pred, grads = _vg_chains_cuda(act_name, xT.contiguous(), weights, biases, target, True)
+    dws, dbs = unflat_params(grads, weights, biases)
+    return y_pred, torch.sum((y_pred - target) ** 2, dim=-1), dws, dbs
+
+
+def forward_chains(act_name, xT, weights, biases) -> torch.Tensor:
+    """y_pred [G, C, n] of ``data_vg_chains`` alone: on a CUDA tensor K7's
+    forward-only instantiation, on a CPU tensor ``forward_chains_ref``."""
+    if act_name not in SUPPORTED_ACTIVATIONS:
+        raise ValueError(f"unsupported activation: {act_name}")
+    if xT.device.type == "cpu":
+        return forward_chains_ref(act_name, xT, weights, biases)
+    return _vg_chains_cuda(act_name, xT.contiguous(), weights, biases, None, False)[0]
+
+
+data_vg_chains.launches = 0  # K7 launches (both instantiations) since the last reset

@@ -1,16 +1,19 @@
-"""Hamiltonian Monte Carlo on packed genotypes.
+"""Hamiltonian Monte Carlo on packed and feature-major genotypes.
 
 Counterpart of rs_bann_tpu/samplers/hmc.py ``step_sizes``, ``HMCProposal``,
 ``make_hmc_step`` (the default body and the deferred-accept lean body) and
 the chain-folded block transition of ``make_transition_batch``.
 
 Per branch, each leapfrog step's potential and gradient come from the fused
-packed value-and-gradient (ops/branch_mlp.py, kernel K4) plus the
-closed-form prior gradient: a default transition of L steps runs K4 exactly
-L + 1 times, a lean (deferred-accept) one L + 2 times. The folded block
-transition integrates all branches of a block for all C chains in one call
-of the whole-trajectory kernel K5 (ops/leapfrog.py), between two
-forward-only value passes through ``D.predict_chains`` (K2).
+packed value-and-gradient (ops/branch_mlp.py, kernel K4) on packed
+genotypes, or from autograd of the plain forward on a FeatX (as the JAX
+package's dense path outside ``branch_mlp.FORCE``), plus the closed-form
+prior gradient: a default transition of L steps takes L + 1 gradients, a
+lean (deferred-accept) one L + 2. The folded block transition integrates
+all branches of a block for all C chains in one call of a whole-trajectory
+kernel (ops/leapfrog.py: K5 on packed genotypes, K6 on a FeatX), between
+two forward-only value passes through ``D.predict_chains`` (K2, or K7's
+forward).
 
 Early termination follows the JAX package: once |Delta H| exceeds the
 threshold (or H turns NaN) the carried state freezes through ``where`` and
@@ -34,10 +37,9 @@ from typing import NamedTuple
 
 import torch
 
-from rs_bann_tpu.samplers.mcmc_cfg import MCMCCfg
-
 from ..models import density as D
 from ..ops import branch_mlp
+from .mcmc_cfg import MCMCCfg
 
 ACCEPTED, REJECTED, REJECTED_EARLY = 0, 1, 2
 
@@ -139,13 +141,25 @@ def step_sizes(
     return eps_w, eps_b
 
 
+def _data_vg_autograd(act_name, x, weights, biases, y):
+    """(y_pred, rss, d(rss/2)/dW, d(rss/2)/db) of one branch by autograd of
+    the plain forward."""
+    ws = [w.detach().requires_grad_(True) for w in weights]
+    bs = [b.detach().requires_grad_(True) for b in biases]
+    with torch.enable_grad():
+        pred = D.predict(act_name, ws, bs, x)
+        rss = torch.sum((pred - y) ** 2)
+        grads = torch.autograd.grad(0.5 * rss, ws + bs)
+    return pred.detach(), rss.detach(), tuple(grads[: len(ws)]), tuple(grads[len(ws):])
+
+
 def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bool = False):
     """Build the marginal HMC transition for one branch.
 
     Returned signature:
       hmc(gen, weights, biases, w_precisions, b_precisions, error_precision,
           x, y, masks_w, masks_b, n_params, momenta=None, u=None) -> HMCResult
-    ``x`` is a single-branch PackedX. ``momenta`` = (p_w, p_b) and the accept
+    ``x`` is a single-branch PackedX or FeatX. ``momenta`` = (p_w, p_b) and the accept
     uniform ``u`` may be passed in; otherwise they are drawn from ``gen``.
 
     With ``defer_accept`` (the hybrid schedule's live accept) it returns an
@@ -158,7 +172,10 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
     max_err = cfg.hmc_max_hamiltonian_error
 
     def vg(weights, biases, w_precisions, error_precision, x, y):
-        y_pred, rss, dws, dbs = branch_mlp.data_vg_packed(act_name, x, weights, biases, y)
+        if isinstance(x, D.PackedX):
+            y_pred, rss, dws, dbs = branch_mlp.data_vg_packed(act_name, x, weights, biases, y)
+        else:
+            y_pred, rss, dws, dbs = _data_vg_autograd(act_name, x, weights, biases, y)
         prior = D.log_density_wrt_weights(
             model_type, weights, w_precisions
         ) + D.log_density_wrt_biases(model_type, biases)
@@ -187,8 +204,8 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
         gen, weights, biases, w_precisions, b_precisions, error_precision, x, y,
         masks_w, masks_b, n_params, momenta=None, u=None,
     ):
-        if not isinstance(x, D.PackedX):
-            raise NotImplementedError("the port's HMC runs on packed genotypes only")
+        if not isinstance(x, (D.PackedX, D.FeatX)):
+            raise NotImplementedError("the port's HMC runs on packed or feature-major genotypes")
         eps_w, eps_b = step_sizes(
             gen, model_type, cfg, weights, biases, w_precisions, b_precisions, n_params
         )
@@ -268,7 +285,8 @@ def _kinetic_batch(p_w, p_b):
 
 def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     """The chain-folded block transition: deferred-accept HMC proposals for
-    every branch of a block and every chain, integrated by one K5 call.
+    every branch of a block and every chain, integrated by one K5 call
+    (packed genotypes) or one K6 call (a FeatX), picked by the type of x.
 
     Counterpart of the chain rule of rs_bann_tpu ``make_transition_batch``,
     written as a plain function over [C, B] instead of a vmap rule:
@@ -277,15 +295,16 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
            masks_b, momenta, y_pred0=None) -> HMCProposal with [C, B] leaves
 
     weights/biases/precisions/momenta per layer [C, B, ...]; err_prec [C];
-    ``x`` the block's PackedX (bytes [B, m_pad, Bytes]), shared by the
-    chains; targets [C, B, n]; masks [B, ...] or [C, B, ...]; ``momenta`` =
-    (p_w, p_b) unmasked standard normals. ``y_pred0`` may pass the block's
-    snapshot predictions at the current state when they come from
-    ``D.predict_chains`` on the same inputs (then they are the H0 value
-    pass); otherwise that pass runs here. Step sizes follow the per-branch
-    rule per (chain, branch) (izmailov or std_scaled).
+    ``x`` the block's PackedX (bytes [B, m_pad, Bytes]) or FeatX (xT
+    [B, m_pad, n]), shared by the chains; targets [C, B, n]; masks [B, ...]
+    or [C, B, ...]; ``momenta`` = (p_w, p_b) unmasked standard normals.
+    ``y_pred0`` may pass the block's snapshot predictions at the current
+    state when they come from ``D.predict_chains`` on the same inputs (then
+    they are the H0 value pass); otherwise that pass runs here. Step sizes
+    follow the per-branch rule per (chain, branch) (izmailov or
+    std_scaled).
     """
-    from ..ops.leapfrog import integrate_chains_packed
+    from ..ops.leapfrog import integrate_chains, integrate_chains_packed
 
     if cfg.hmc_step_size_mode not in ("izmailov", "std_scaled"):
         raise NotImplementedError(
@@ -330,11 +349,17 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
         def bc(ts):  # [C, B, ...] <-> [B, C, ...]
             return tuple(t.transpose(0, 1) for t in ts)
 
-        w_f, b_f, pw_f, pb_f = (bc(t) for t in integrate_chains_packed(
-            act_name, x.bytes, x.w_scale, x.shift, targets.transpose(0, 1),
-            err_prec[None, :].expand(x.bytes.shape[0], -1), bc(weights), bc(biases),
-            bc(p_w), bc(p_b), bc(eps_w), bc(eps_b), bc(lam_w), bc(lam_b), L, x.n, l1=l1,
-        ))
+        B = targets.shape[1]
+        state = (bc(weights), bc(biases), bc(p_w), bc(p_b), bc(eps_w), bc(eps_b), bc(lam_w),
+                 bc(lam_b))
+        err_bc = err_prec[None, :].expand(B, -1)
+        if isinstance(x, D.FeatX):
+            out = integrate_chains(act_name, x.xT, targets.transpose(0, 1), err_bc, *state, L,
+                                   l1=l1)
+        else:
+            out = integrate_chains_packed(act_name, x.bytes, x.w_scale, x.shift,
+                                          targets.transpose(0, 1), err_bc, *state, L, x.n, l1=l1)
+        w_f, b_f, pw_f, pb_f = (bc(t) for t in out)
         y_pred_f = D.predict_chains(act_name, w_f, b_f, x)
         neg_h_f, prior_f, kin_f = neg_h(y_pred_f, w_f, b_f, pw_f, pb_f)
         dead = ~(torch.abs(neg_h_f - neg_h0) <= max_err)

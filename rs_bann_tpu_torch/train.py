@@ -23,12 +23,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rs_bann_tpu.samplers.mcmc_cfg import MCMCCfg
-
 from .models.data import StackedData
 from .models.init import DEFAULT_INIT_OUTPUT_LAYER_PRECISION
 from .models.net import Net
 from .models.params import StackedPrecisions, map_state, state_to_numpy
+from .samplers.mcmc_cfg import MCMCCfg
 
 log = logging.getLogger("rs_bann_tpu_torch")
 

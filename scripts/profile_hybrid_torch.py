@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Time and profile the PyTorch port's hybrid sweep on one NVIDIA GPU.
+"""Time and profile the PyTorch port's hybrid and parallel sweeps on one
+NVIDIA GPU.
 
-    python3 scripts/profile_hybrid_torch.py [--sweeps 3] [--out FILE]
+    python3 scripts/profile_hybrid_torch.py [--flagship] [--sweeps 3] [--out FILE]
 
-The shape is chip_smoke.py's: G = 100 groups of 100 markers, n = 100,000,
-ridge_ard, identity, depth 0, width 10, L = 30, blocks of 10, random
-genotypes and a sparse linear phenotype made from seed 1. Three cases:
+Without ``--flagship`` the shape is chip_smoke.py's packed one: G = 100
+groups of 100 markers, n = 100,000, ridge_ard, identity, depth 0, width 10,
+L = 30, the hybrid schedule in blocks of 10. With ``--flagship`` it is the
+dense flagship of chip_smoke.py phase 9 (bench.py workload 1): G = 64
+groups of 64 markers, n = 4,096, feature-major X, ridge_base, tanh, depth
+1, h = s = 32, L = 64, the parallel schedule. Random genotypes and a sparse
+linear phenotype made from seed 1. Three cases:
 
-  C=4 folded    four chains, every block transition one K5 call
-  C=1 folded    one chain, every block transition one K5 call
-  C=1 unfolded  one chain, each branch its own lean transition on K4
+  C=4 folded    four chains, every block transition one whole-trajectory
+                call (K5 packed, K6 dense)
+  C=1 folded    one chain, the same
+  C=1 unfolded  one chain, each branch its own lean transition (K4 per
+                leapfrog step on packed genotypes, autograd on dense ones)
 
 For each it prints the milliseconds of ``--sweeps`` sweeps (the first pays
 the kernel build and warm-up), the acceptance rate and the kernel
-launches per sweep of K2, K4 and K5. Each folded case then runs one sweep
-under torch.profiler and prints its wall time, the device's kernel time
-and busy share (kernel time / wall) and the launches of all kinds; the
-profiler tables go to ``--out``. ``--groups``, ``--n`` and ``--device cpu``
-shrink the run for a check without a card (no profile then).
+launches per sweep (K2, K4, K5, or K7, K6). Each folded case then runs one
+sweep under torch.profiler and prints its wall time, the device's kernel
+time and busy share (kernel time / wall) and the launches of all kinds;
+the profiler tables go to ``--out``. ``--groups``, ``--n`` and ``--device
+cpu`` shrink the run for a check without a card (no profile then).
 """
 
 import argparse
@@ -30,27 +37,36 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 M, L, WIDTH, N_CAUSAL = 100, 30, 10, 500
+FLAG_M, FLAG_L, FLAG_WIDTH = 64, 64, 32  # the dense flagship
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernel", "cuLaunchKernelEx")
 
 
-def make_data(G, n, device):
-    """Packed genotypes of G groups of M markers and a sparse linear
-    phenotype at h2 = 0.5 (centred), as chip_smoke.py makes them."""
+def make_data(G, n, device, flagship=False):
+    """Genotypes of G groups of M markers and a sparse linear phenotype at
+    h2 = 0.5 (centred), as chip_smoke.py makes them: packed, or with
+    ``flagship`` feature-major dense."""
     from rs_bann_tpu_torch.io import BedVM, UniformGrouping
+    from rs_bann_tpu_torch.io.genotypes import CompressedGenotypes
     from rs_bann_tpu_torch.models import NetArch
     from rs_bann_tpu_torch.models.data import pack_stacked
 
+    m = FLAG_M if flagship else M
     rng = np.random.default_rng(1)
-    bed = BedVM.random(n, G * M, mafs=rng.uniform(0.05, 0.5, G * M), seed=1)
-    causal = np.sort(rng.choice(G * M, size=min(N_CAUSAL, G * M), replace=False))
+    bed = BedVM.random(n, G * m, mafs=rng.uniform(0.05, 0.5, G * m), seed=1)
+    causal = np.sort(rng.choice(G * m, size=min(N_CAUSAL, G * m), replace=False))
     g = ((bed.get_cols(causal).T - bed.col_means[causal]) / bed.col_stds[causal]) \
         @ rng.standard_normal(causal.size)
-    y = g + g.std() * rng.standard_normal(n)
-    arch = NetArch.from_width_rules([M] * G, 0, ("fixed", WIDTH), ("fraction_of_hidden", 1.0),
+    y = (g + g.std() * rng.standard_normal(n))
+    y = (y - y.mean()).astype(np.float32)
+    if flagship:
+        arch = NetArch.from_width_rules([m] * G, 1, ("fixed", FLAG_WIDTH), ("fixed", FLAG_WIDTH),
+                                        activation="tanh")
+        return arch, CompressedGenotypes(bed, UniformGrouping(G, m)).to_feature_major(
+            arch, device, y)
+    arch = NetArch.from_width_rules([m] * G, 0, ("fixed", WIDTH), ("fraction_of_hidden", 1.0),
                                     activation="identity")
-    return arch, pack_stacked(arch, bed, UniformGrouping(G, M), (y - y.mean()).astype(np.float32),
-                              device)
+    return arch, pack_stacked(arch, bed, UniformGrouping(G, m), y, device)
 
 
 def profiled_sweep(torch, sweep, carry, data, gen, out):
@@ -92,9 +108,11 @@ def profiled_sweep(torch, sweep, carry, data, gen, out):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--flagship", action="store_true",
+                    help="the dense flagship (parallel, feature-major) instead of packed hybrid")
     ap.add_argument("--sweeps", type=int, default=3)
-    ap.add_argument("--groups", type=int, default=100)
-    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--groups", type=int, default=None, help="100 packed, 64 flagship")
+    ap.add_argument("--n", type=int, default=None, help="100,000 packed, 4,096 flagship")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="file for the profiler tables")
     args = ap.parse_args(argv)
@@ -121,21 +139,28 @@ def main(argv=None):
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              timeout=60).stdout.strip())
+    flag = args.flagship
+    G = args.groups or (64 if flag else 100)
+    n = args.n or (4096 if flag else 100_000)
     t0 = time.perf_counter()
-    arch, data = make_data(args.groups, args.n, dev)
-    print(f"data {time.perf_counter() - t0:.1f} s: G {args.groups}, m {M}, n {args.n}")
+    arch, data = make_data(G, n, dev, flag)
+    print(f"data {time.perf_counter() - t0:.1f} s: G {G}, m {FLAG_M if flag else M}, n {n}")
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     out = open(args.out, "w") if args.out and on_card else None
-    kernels = (PM.packed_linear, BM.data_vg_packed, LF.integrate_chains_packed)
+    if flag:
+        model, act, mode, steps = "ridge_base", "tanh", "parallel", FLAG_L
+        kernels, names = (BM.data_vg_chains, LF.integrate_chains), "(K7, K6)"
+    else:
+        model, act, mode, steps = "ridge_ard", "identity", "hybrid", L
+        kernels = (PM.packed_linear, BM.data_vg_packed, LF.integrate_chains_packed)
+        names = "(K2, K4, K5)"
     try:
         for name, C, fold in (("C=4 folded", 4, True), ("C=1 folded", 1, True),
                               ("C=1 unfolded", 1, False)):
-            cfg = MCMCCfg(hmc_integration_length=L, update_mode="hybrid", num_chains=C, seed=0)
-            state, _ = init_net(arch, "ridge_ard", InitCfg(seed=0), device=dev)
-            net = prepare_state_for_training(Net("ridge_ard", arch, D.Hyperparameters(), state),
-                                             None)
-            sweep = make_hybrid_sweep("ridge_ard", "identity", arch, cfg, net.hyper, dev,
-                                      fold=fold)
+            cfg = MCMCCfg(hmc_integration_length=steps, update_mode=mode, num_chains=C, seed=0)
+            state, _ = init_net(arch, model, InitCfg(seed=0), device=dev)
+            net = prepare_state_for_training(Net(model, arch, D.Hyperparameters(), state), None)
+            sweep = make_hybrid_sweep(model, act, arch, cfg, net.hyper, dev, fold=fold)
             carry = net.init_carry(data.X, data.y, chains=C)
             gen = torch.Generator(dev).manual_seed(0)
             times, launches = [], []
@@ -151,7 +176,7 @@ def main(argv=None):
             counts = st.counts.sum(dim=0)
             print(f"{name}: ms per sweep {[round(t, 3) for t in times]}, acceptance "
                   f"{int(counts[0]) / int(counts.sum()):.3f}, launches per sweep "
-                  f"(K2, K4, K5) {launches[-1]}")
+                  f"{names} {launches[-1]}")
             if on_card and fold:
                 if out is not None:
                     out.write(f"==== {name}\n")

@@ -2,8 +2,9 @@
 ``predict``, and the JAX package's ``Net.load`` + ``predict`` on the port's
 saved samples must reproduce the port's CSV (rtol 1e-5), for one chain and
 for C chains (``models/chain<c>``) under the sequential and the hybrid
-schedule. Every option outside the ported slice exits non-zero with "not
-ported yet".
+schedule; the same for ``train-new --feat-major`` under the parallel and
+hybrid schedules with dense ``predict``. Every option outside the ported
+slice exits non-zero with "not ported yet".
 """
 
 import csv
@@ -16,6 +17,7 @@ import pytest
 
 from rs_bann_tpu.group.grouping import ExternalGrouping, UniformGrouping
 from rs_bann_tpu.io.bed import BedVM
+from rs_bann_tpu.io.genotypes import CompressedGenotypes as JCompressedGenotypes
 from rs_bann_tpu.io.phen import Phenotypes
 from rs_bann_tpu.models import net as JN
 from rs_bann_tpu.models.data import pack_stacked as j_pack_stacked
@@ -84,13 +86,14 @@ def test_train_new_then_predict_and_jax_reads_the_samples(data, tmp_path):
         np.testing.assert_allclose(np.asarray(net.predict(X)), port[i], rtol=1e-5, atol=1e-5)
 
 
-def _predict_matches_jax(data, models, expect):
-    """predict on a models directory, and JAX's Net.load + predict on the
-    same samples (rtol 1e-5)."""
+def _predict_matches_jax(data, models, expect, packed=True):
+    """predict on a models directory (packed or dense genotypes), and JAX's
+    Net.load + predict on the same samples (rtol 1e-5)."""
     names = sorted(p.name for p in models.iterdir())
     assert names == expect
     rows = list(csv.reader(io.StringIO(run_cli(
-        "predict", data / "test", data / "train.groups", "-m", models, "--packed-genotypes", "--cpu",
+        "predict", data / "test", data / "train.groups", "-m", models, "--cpu",
+        *(["--packed-genotypes"] if packed else []),
     ))))
     port = np.asarray(rows, np.float64)
     assert port.shape == (len(names), N_TEST) and np.all(np.isfinite(port))
@@ -98,7 +101,10 @@ def _predict_matches_jax(data, models, expect):
     grouping = ExternalGrouping.from_file(data / "train.groups")
     for i, name in enumerate(names):
         net = JN.Net.load(str(models / name))
-        X = j_pack_stacked(net.arch, bed, grouping, np.zeros(N_TEST)).X
+        if packed:
+            X = j_pack_stacked(net.arch, bed, grouping, np.zeros(N_TEST)).X
+        else:
+            X = JCompressedGenotypes(bed, grouping).to_stacked(net.arch).X
         np.testing.assert_allclose(np.asarray(net.predict(X)), port[i], rtol=1e-5, atol=1e-5)
 
 
@@ -124,8 +130,26 @@ def test_hybrid_and_chains_train_then_jax_reads_the_samples(data, tmp_path, extr
             _predict_matches_jax(data, run / "models" / f"chain{c}", samples)
 
 
+@pytest.mark.parametrize("extra,chains", [
+    (["--update-mode", "parallel", "--num-chains", "2"], 2),
+    (["--update-mode", "hybrid", "--block-size", "1"], 1),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
+def test_feat_major_train_then_dense_predict_and_jax_reads_the_samples(data, tmp_path, extra,
+                                                                        chains):
+    argv = _train_args(data, tmp_path, "--feat-major", *extra)
+    argv[4:7] = ["ridge_base", "tanh", "1"]
+    out = run_cli(*argv, "--fixed-summary-layer-width", "4")
+    run = tmp_path / out.strip().splitlines()[-1].split("/")[-1]
+    stats = json.loads((run / "training_stats").read_text())
+    assert stats["num_samples"] == 4 * G * chains
+    assert all(np.isfinite(stats["mse_train"] + stats["mse_test"] + stats["lpd"]))
+    samples = ["1.npz", "2.npz", "3.npz", "4.npz"]
+    dirs = [run / "models"] if chains == 1 else [run / "models" / f"chain{c}" for c in range(chains)]
+    for d in dirs:
+        _predict_matches_jax(data, d, samples, packed=False)
+
+
 UNPORTED = [
-    ["--update-mode", "parallel"],
     ["--joint-hmc"],
     ["--gradient-descent"],
     ["--gradient-descent-joint"],
@@ -141,7 +165,10 @@ UNPORTED = [
     ["--num-grad"],
     ["--num-grad-traj"],
     ["--effect-sizes"],
-    ["--feat-major"],
+    ["--feat-major"],  # under the sequential schedule
+    ["--x-bf16", "--feat-major"],
+    ["--x-bf16", "--feat-major", "--update-mode", "parallel"],
+    ["--feat-major", "--update-mode", "parallel", "--bf16"],
     ["--bf16"],
     ["--checkpoint-interval", "2"],
     ["--resume", "checkpoint.npz"],
@@ -150,20 +177,48 @@ UNPORTED = [
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=lambda a: " ".join(a))
 def test_unported_options_exit_nonzero(data, tmp_path, extra, capsys):
+    layout = [] if "--feat-major" in extra else ["--packed-genotypes"]
     with pytest.raises(SystemExit) as e:
-        run_cli(*_train_args(data, tmp_path, "--packed-genotypes", *extra))
+        run_cli(*_train_args(data, tmp_path, *layout, *extra))
     assert e.value.code not in (0, None)
     assert "not ported yet" in str(e.value.code)
     assert not any(tmp_path.iterdir())  # refused before writing anything
 
 
+@pytest.mark.parametrize("depth,width", [("1", "64"), ("2", "6")])
+def test_feat_major_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkeypatch, depth,
+                                                           width):
+    """On a CUDA device a folded --feat-major branch beyond K6/K7's limits
+    (width above 32, depth above 1) exits "not ported yet" before anything
+    is written or put on the device, instead of running the plain version.
+    The device is faked: the check comes before the first CUDA tensor."""
+    import torch
+
+    from rs_bann_tpu_torch.cli import main as cli_main
+
+    monkeypatch.setattr(cli_main, "_device", lambda args: torch.device("cuda"))
+    argv = _train_args(data, tmp_path, "--feat-major", "--update-mode", "parallel")
+    argv[4:7] = ["ridge_base", "tanh", depth]
+    argv[argv.index("--fixed-hidden-layer-width") + 1] = width
+    with pytest.raises(SystemExit) as e:
+        run_cli(*argv)
+    assert "not ported yet" in str(e.value.code) and "K6/K7" in str(e.value.code)
+    assert not any(tmp_path.iterdir())
+
+
 def test_dense_and_silu_exit_nonzero(data, tmp_path):
+    """Dense sample-major training and silu on packed genotypes wait for
+    later slices; --feat-major with --packed-genotypes is refused as in JAX."""
     for argv in (
-        _train_args(data, tmp_path),  # dense genotypes
+        _train_args(data, tmp_path),  # dense sample-major genotypes
         _train_args(data, tmp_path, "--packed-genotypes")[:4] + ["ridge_ard", "silu"]
         + _train_args(data, tmp_path, "--packed-genotypes")[6:],
-        ["predict", data / "test", data / "train.groups", "-m", tmp_path, "--cpu"],
     ):
         with pytest.raises(SystemExit) as e:
             run_cli(*argv)
         assert "not ported yet" in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        run_cli(*_train_args(data, tmp_path, "--packed-genotypes", "--feat-major",
+                             "--update-mode", "parallel"))
+    assert "mutually exclusive" in str(e.value.code)
+    assert not any(tmp_path.iterdir())

@@ -6,10 +6,11 @@ run these with ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 
 Shapes are small but cover what the full-shape checks in chip_smoke.py do
 not: every activation, depth 0 and 1, a ragged n, a batched G, lasso
-(K5), and the wrappers' refusals. Tolerances: K2 atol 1e-4 (f32 sums over
-<= 104 markers in another order); K4 y_pred atol 1e-4 and gradients rtol
-1e-4 against the largest entry (sums over n in another order); K5 rtol
-1e-4 of the largest entry after 3 steps (the same sums, compounded).
+(K5, K6), and the wrappers' refusals. Tolerances: K2 atol 1e-4 (f32 sums
+over <= 104 markers in another order); K4 and K7 y_pred atol 1e-4 and
+gradients rtol 1e-4 against the largest entry (sums over n in another
+order); K5 and K6 rtol 1e-4 of the largest entry after 3 steps (the same
+sums, compounded).
 """
 
 import numpy as np
@@ -130,6 +131,83 @@ def test_integrate_chains_packed_kernel_matches_plain(dev, depth, act, l1):
     assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
 
 
+def _dense_inputs(rng, dev, G, C, m, n, k, depth):
+    widths = [(m, k), (k, k), (k, 1)] if depth else [(m, k), (k, 1)]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def mk(sc):
+        return tuple(t(rng.standard_normal((G, C, i, o)) * sc) for i, o in widths)
+
+    def mkb(sc):
+        return tuple(t(rng.standard_normal((G, C, o)) * sc) for _, o in widths[:-1])
+
+    xT = t(rng.standard_normal((G, m, n)))
+    return xT, t(rng.standard_normal((G, C, n))), mk(0.2), mkb(0.1), mk, mkb
+
+
+# depth, activation, n (ragged and not a multiple of 4 included), width
+DENSE_CASES = [(0, "identity", 333, 8), (0, "relu", 512, 16), (1, "tanh", 1300, 32),
+               (1, "silu", 701, 16), (1, "leaky_relu", 257, 8)]
+
+
+@pytest.mark.parametrize("depth,act,n,k", DENSE_CASES)
+def test_data_vg_chains_kernel_matches_plain(dev, depth, act, n, k):
+    rng = np.random.default_rng(4)
+    xT, target, ws, bs, _, _ = _dense_inputs(rng, dev, 3, 2, 40, n, k, depth)
+    before = BM.data_vg_chains.launches
+    y, rss, dws, dbs = BM.data_vg_chains(act, xT, ws, bs, target)
+    y_fwd = BM.forward_chains(act, xT, ws, bs)
+    assert BM.data_vg_chains.launches == before + 2
+    y_ref, rss_ref, dws_ref, dbs_ref = BM.data_vg_chains_ref(act, xT, ws, bs, target)
+    torch.cuda.synchronize()
+    assert (y - y_ref).abs().max().item() <= 1e-4
+    assert (y_fwd - y_ref).abs().max().item() <= 1e-4
+    assert (rss - rss_ref).abs().max().item() <= 1e-4 * rss_ref.abs().max().item()
+    for got, ref in zip(dws + dbs, dws_ref + dbs_ref):
+        assert got.shape == ref.shape
+        assert (got - ref).abs().max().item() <= 1e-4 * max(ref.abs().max().item(), 1.0)
+    # the same inputs give the same bits: no float atomics
+    y2, _, dws2, dbs2 = BM.data_vg_chains(act, xT, ws, bs, target)
+    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
+
+
+@pytest.mark.parametrize("depth,act,l1", [(0, "identity", False), (1, "relu", True), (1, "tanh", False)])
+def test_integrate_chains_kernel_matches_plain(dev, depth, act, l1):
+    """K6 against its plain version: 3 steps, rtol 1e-4 of the largest entry."""
+    rng = np.random.default_rng(5)
+    G, C, n, steps = 3, 2, 1300, 3
+    xT, targets, weights, biases, mk, mkb = _dense_inputs(rng, dev, G, C, 40, n, 16, depth)
+    p_w, p_b = mk(1.0), mkb(1.0)
+    eps_w = tuple(e.abs() * 1e-3 for e in mk(1.0))
+    eps_b = tuple(e.abs() * 1e-3 for e in mkb(1.0))
+    lam_w = tuple(e.abs() + 0.5 for e in mk(1.0))
+    lam_b = tuple(torch.zeros_like(b) for b in biases)
+    err = torch.rand(G, C, device=dev) * 0.5 + 0.5
+    args = (xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w, lam_b, steps)
+    before = TL.integrate_chains.launches
+    out = TL.integrate_chains(act, *args, l1=l1)
+    assert TL.integrate_chains.launches == before + 1
+    ref = TL.integrate_chains_ref(act, *args, l1=l1)
+    torch.cuda.synchronize()
+    for got_part, ref_part in zip(out, ref):
+        for got, want in zip(got_part, ref_part):
+            assert got.shape == want.shape
+            assert (got - want).abs().max().item() <= 1e-4 * max(want.abs().max().item(), 1.0)
+    again = TL.integrate_chains(act, *args, l1=l1)
+    assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
+
+
+def test_dense_limits_agree_with_the_kernels(dev):
+    from rs_bann_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    for shape in [(64, 32, 32, 1), (40, 16, 16, 0), (254, 32, 32, 1), (300, 32, 32, 1),
+                  (64, 64, 32, 1), (64, 8, 8, 2)]:
+        assert lib.dense_chains_smem(*shape) == BM.dense_chains_smem(*shape), shape
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     rng = np.random.default_rng(2)
     m, n = 104, 700
@@ -153,3 +231,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             "tanh", by[None], torch.ones(1, m, device=dev), torch.zeros(1, m, device=dev),
             torch.zeros(1, 2, n, device=dev), torch.ones(1, 2, device=dev), wide_c, bias_c,
             wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, 2, n)
+    xT = torch.zeros(1, m, n, device=dev)
+    with pytest.raises(NotImplementedError):  # K7 width above 32
+        BM.data_vg_chains("tanh", xT, wide_c, bias_c, torch.zeros(1, 2, n, device=dev))
+    with pytest.raises(NotImplementedError):  # K6 width above 32
+        TL.integrate_chains("tanh", xT, torch.zeros(1, 2, n, device=dev), torch.ones(1, 2, device=dev),
+                            wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, 2)

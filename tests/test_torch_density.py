@@ -19,6 +19,7 @@ from rs_bann_tpu.ops import activations as JA
 from rs_bann_tpu.ops.packed_matmul import pack_strided
 from rs_bann_tpu_torch.models import density as TD
 from rs_bann_tpu_torch.ops import activations as TA
+from test_torch_copies import port
 
 T = torch.from_numpy
 
@@ -135,7 +136,7 @@ def test_joint_terms_match_jax():
         ws, bs, wp = _branch(rng, JD.is_ard(model_type))
         bp = [np.full((1,), 1.7, np.float32), np.full((1,), 0.6, np.float32)]
         jst = JD.slice_branch(JD.branch_statics(arch), 0)
-        tst = TD.slice_branch(TD.branch_statics(arch, "cpu"), 0)
+        tst = TD.slice_branch(TD.branch_statics(port(arch), "cpu"), 0)
         j = JD.joint_local_term(model_type, *(tuple(map(jnp.asarray, a)) for a in (ws, bs, wp, bp)),
                                 JD.Hyperparameters(*hyper), jst)
         t = TD.joint_local_term(model_type, *(tuple(map(T, a)) for a in (ws, bs, wp, bp)),
@@ -182,7 +183,7 @@ def test_golden_joint_density():
     ws, bs = _gold_branch()
     lam = tuple(torch.full((1, 1), 2.0) for _ in range(3))
     blam = tuple(torch.full((1,), 2.0) for _ in range(2))
-    st = TD.slice_branch(TD.branch_statics(GOLD_ARCH, "cpu"), 0)
+    st = TD.slice_branch(TD.branch_statics(port(GOLD_ARCH), "cpu"), 0)
     rss = TD.branch_rss("tanh", ws, bs, GOLD_X, GOLD_Y)
     assert float(TD.joint_rss_term(torch.tensor(2.0), rss, GOLD_HYPER, 4.0)) == pytest.approx(
         -2.182509, rel=1e-4)

@@ -21,6 +21,7 @@ from rs_bann_tpu.samplers import gibbs as JG
 from rs_bann_tpu_torch.models import density as TD
 from rs_bann_tpu_torch.models import net as TN
 from rs_bann_tpu_torch.samplers import gibbs as TG
+from test_torch_copies import port
 
 ARCH = NetArch(m=(20,), h=(8,), s=(5,), depth=1)
 HYPER = (1.5, 2.0, 0.5, 3.0, 2.5, 4.0)
@@ -65,7 +66,7 @@ def test_conditional_parameters_match_jax(model_type, monkeypatch):
     gen = torch.Generator()
     TN._gibbs_local_precisions(
         gen, model_type, tuple(map(torch.from_numpy, ws)), tuple(map(torch.from_numpy, bs)),
-        TD.slice_branch(TD.branch_statics(ARCH, "cpu"), 0), th, L, lam_floor=0.01,
+        TD.slice_branch(TD.branch_statics(port(ARCH), "cpu"), 0), th, L, lam_floor=0.01,
     )
     TN._gibbs_output_precision(gen, model_type, torch.tensor(3.5), 5.0, th)
     TG.error_precision_posterior(gen, th, torch.from_numpy(residual))
@@ -89,7 +90,7 @@ def test_lam_floor_applies_to_weight_precisions_only():
     bs = tuple(torch.full((ARCH.layer_out_pad(l),), 50.0) for l in range(L - 1))
     gen = torch.Generator().manual_seed(0)
     wp, bp = TN._gibbs_local_precisions(
-        gen, "ridge_ard", ws, bs, TD.slice_branch(TD.branch_statics(ARCH, "cpu"), 0),
+        gen, "ridge_ard", ws, bs, TD.slice_branch(TD.branch_statics(port(ARCH), "cpu"), 0),
         TD.Hyperparameters(), L, lam_floor=0.01,
     )
     assert all(float(w.min()) >= np.float32(0.01) for w in wp)

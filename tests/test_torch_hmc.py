@@ -27,6 +27,7 @@ from rs_bann_tpu.samplers import hmc as JH
 from rs_bann_tpu.samplers.mcmc_cfg import MCMCCfg
 from rs_bann_tpu_torch.models import density as TD
 from rs_bann_tpu_torch.samplers import hmc as TH
+from test_torch_copies import port
 
 N = 700
 
@@ -47,7 +48,7 @@ def test_step_sizes_match_jax(mode, model_type):
     n_params = float(arch.num_params_branch(0))
     jw, jb = JH.step_sizes(jax.random.key(0), model_type, cfg, *(tuple(map(jnp.asarray, t))
                            for t in (ws, bs, wp, bp)), n_params)
-    tw, tb = TH.step_sizes(torch.Generator(), model_type, cfg, *(tuple(map(torch.from_numpy, t))
+    tw, tb = TH.step_sizes(torch.Generator(), model_type, port(cfg), *(tuple(map(torch.from_numpy, t))
                            for t in (ws, bs, wp, bp)), torch.tensor(n_params))
     for t, j in zip(tw + tb, tuple(jw) + tuple(jb)):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6)
@@ -58,7 +59,7 @@ def test_random_step_sizes_are_scaled_uniforms():
     cfg = MCMCCfg(hmc_step_size_mode="random", hmc_step_size_factor=0.7)
     n_params = torch.tensor(float(arch.num_params_branch(0)))
     prop = float(n_params ** -0.25 * 0.7)
-    tw, tb = TH.step_sizes(torch.Generator().manual_seed(0), "ridge_base", cfg,
+    tw, tb = TH.step_sizes(torch.Generator().manual_seed(0), "ridge_base", port(cfg),
                            *(tuple(map(torch.from_numpy, t)) for t in (ws, bs, wp, bp)), n_params)
     u = torch.cat([t.reshape(-1) for t in tw + tb]).numpy() / prop
     assert [t.shape for t in tw] == [w.shape for w in ws]
@@ -119,7 +120,7 @@ def test_one_transition_draw_for_draw(model_type, act, depth, factor, max_err):
     def T(a):
         return torch.from_numpy(np.array(a))
 
-    tres = TH.make_hmc_step(model_type, act, cfg)(
+    tres = TH.make_hmc_step(model_type, act, port(cfg))(
         torch.Generator(), *(tuple(map(T, t)) for t in (ws, bs, wp, bp)), torch.tensor(err),
         TD.PackedX(T(by), T(scale), T(shift), N), T(y), tuple(map(T, mw)), tuple(map(T, mb)),
         torch.tensor(n_params), momenta=(tuple(map(T, p_w)), tuple(map(T, p_b))), u=u,

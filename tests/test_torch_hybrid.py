@@ -41,6 +41,7 @@ from rs_bann_tpu_torch.models import params as TP
 from rs_bann_tpu_torch.models.data import pack_stacked as t_pack_stacked
 from rs_bann_tpu_torch.samplers import hmc as TH
 from rs_bann_tpu_torch.train import prepare_state_for_training
+from test_torch_copies import port
 
 from test_torch_slice import HYPER, _toy
 
@@ -112,7 +113,7 @@ def test_lean_proposal_draw_for_draw(model_type, act, depth, factor, max_err):
                     J(wp), J(bp), jnp.asarray(err),
                     JD.PackedX(jnp.asarray(by), jnp.asarray(scale), jnp.asarray(shift), N),
                     jnp.asarray(y), J(mw), J(mb), jnp.asarray(n_params))
-    tp = TH.make_hmc_step(model_type, act, cfg, defer_accept=True)(
+    tp = TH.make_hmc_step(model_type, act, port(cfg), defer_accept=True)(
         torch.Generator(), *(tuple(map(T, t)) for t in (ws, bs, wp, bp)), torch.tensor(err),
         TD.PackedX(T(by), T(scale), T(shift), N), T(y), tuple(map(T, mw)), tuple(map(T, mb)),
         torch.tensor(n_params), momenta=(tuple(map(T, p_w)), tuple(map(T, p_b))),
@@ -186,7 +187,7 @@ def test_folded_block_transition_matches_jax_chain_rule(model_type, act, depth, 
           J(mw), J(mb), n_params, jnp.ones(G), None, None, None)
 
     jp = _interpret(run)
-    fold = TH.make_transition_batch(model_type, act, cfg)
+    fold = TH.make_transition_batch(model_type, act, port(cfg))
     tp = fold(*(tuple(map(T, t)) for t in (ws, bs, wp, bp)), T(err),
               TD.PackedX(T(by), T(scale), T(shift), N), T(targets), tuple(map(T, mw)),
               tuple(map(T, mb)), (tuple(map(T, p_w)), tuple(map(T, p_b))))
@@ -264,16 +265,16 @@ def test_folded_hybrid_sweep_matches_unfolded(model_type, act, depth):
     arch = NetArch.uniform(G, m, 4, depth, 4, activation=act)
     jstate, _ = JI.init_net(arch, model_type, JI.InitCfg(seed=0))
     bed, grouping, y = _toy(G, m, N, seed=4)
-    td = t_pack_stacked(arch, bed, grouping, y, "cpu")
+    td = t_pack_stacked(port(arch), bed, grouping, y, "cpu")
     cfg = MCMCCfg(hmc_integration_length=4, update_mode="hybrid", block_size=2, num_chains=C,
                   seed=0)
-    assert TN.chain_fold_eligible(model_type, act, cfg)
+    assert TN.chain_fold_eligible(model_type, act, port(cfg))
     runs = []
     for fold in (True, False):
         net = prepare_state_for_training(TN.Net(
-            model_type, arch, TD.Hyperparameters(*HYPER),
+            model_type, port(arch), TD.Hyperparameters(*HYPER),
             TP.state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")), None)
-        sweep = TN.make_hybrid_sweep(model_type, act, arch, cfg, net.hyper, "cpu", fold=fold)
+        sweep = TN.make_hybrid_sweep(model_type, act, port(arch), port(cfg), net.hyper, "cpu", fold=fold)
         carry, gen = net.init_carry(td.X, td.y, chains=C), torch.Generator().manual_seed(1)
         for _ in range(3):
             carry, st = sweep(carry, td.X, td.y, gen)
@@ -319,11 +320,11 @@ def test_hybrid_chains_posterior_matches_jax():
         j_err.append(np.asarray(carry.state.precisions.error))
         j_mse.append(np.asarray(st.mse_train))
 
-    td = t_pack_stacked(arch, bed, grouping, y, "cpu")
+    td = t_pack_stacked(port(arch), bed, grouping, y, "cpu")
     tnet = prepare_state_for_training(TN.Net(
-        "ridge_ard", arch, TD.Hyperparameters(*HYPER),
+        "ridge_ard", port(arch), TD.Hyperparameters(*HYPER),
         TP.state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")), None)
-    tsweep = TN.make_hybrid_sweep("ridge_ard", "identity", arch, cfg, tnet.hyper, "cpu")
+    tsweep = TN.make_hybrid_sweep("ridge_ard", "identity", port(arch), port(cfg), tnet.hyper, "cpu")
     tcarry, gen = tnet.init_carry(td.X, td.y, chains=R), torch.Generator().manual_seed(0)
     t_err, t_mse = [], []
     for _ in range(T_):

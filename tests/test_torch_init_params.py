@@ -15,6 +15,7 @@ from rs_bann_tpu.models.arch import NetArch
 from rs_bann_tpu.models.density import MODEL_TYPES
 from rs_bann_tpu_torch.models import init as TI
 from rs_bann_tpu_torch.models import params as TP
+from test_torch_copies import port
 
 RAGGED = NetArch(m=(20, 13, 7), h=(8, 6, 8), s=(5, 4, 3), depth=1)
 
@@ -36,7 +37,7 @@ CFGS = {
 def test_init_net_bit_identical_to_jax(model_type, cfg_name):
     kw = dict(CFGS[cfg_name], seed=7)
     j_state, j_mask = JI.init_net(RAGGED, model_type, JI.InitCfg(**kw))
-    t_state, t_mask = TI.init_net(RAGGED, model_type, TI.InitCfg(**kw), device="cpu")
+    t_state, t_mask = TI.init_net(port(RAGGED), model_type, TI.InitCfg(**kw), device="cpu")
     jl = [np.asarray(a) for a in _leaves(j_state)]
     tl = _leaves(TP.state_to_numpy(t_state))
     assert len(jl) == len(tl)
@@ -51,7 +52,7 @@ def test_fixed_precision_ard_refused_like_jax():
     with pytest.raises(NotImplementedError):
         JI.init_net(RAGGED, "ridge_ard", JI.InitCfg(**cfg))
     with pytest.raises(NotImplementedError):
-        TI.init_net(RAGGED, "ridge_ard", TI.InitCfg(**cfg))
+        TI.init_net(port(RAGGED), "ridge_ard", TI.InitCfg(**cfg))
 
 
 def test_state_numpy_round_trip():

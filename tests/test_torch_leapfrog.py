@@ -1,11 +1,12 @@
-"""The port's whole-trajectory packed leapfrog (rs_bann_tpu_torch/ops/leapfrog.py,
-plain version of K5) against the JAX package's ``integrate_chains_packed``.
+"""The port's whole-trajectory leapfrog (rs_bann_tpu_torch/ops/leapfrog.py,
+plain versions of K5 and K6) against the JAX package's
+``integrate_chains_packed`` and ``integrate_chains``.
 
-The same numpy inputs go through both; JAX runs its Pallas kernel in
-interpret mode (f32), once bytes-resident and once grid-streamed
-(``RS_BANN_TRAJ_STREAM=1``). Tolerance atol 3e-5, rtol 2e-4, the JAX
-package's own bound for its kernel against autodiff: each step's gradient
-is a sum over n in another order, and L steps compound it.
+The same numpy inputs go through both; JAX runs its Pallas kernels in
+interpret mode (f32), the packed one once bytes-resident and once
+grid-streamed (``RS_BANN_TRAJ_STREAM=1``). Tolerance atol 3e-5, rtol 2e-4,
+the JAX package's own bound for its kernel against autodiff: each step's
+gradient is a sum over n in another order, and L steps compound it.
 """
 
 import jax.numpy as jnp
@@ -97,3 +98,50 @@ def test_cpu_tensors_run_the_plain_version():
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError):
         TL.integrate_chains_packed("softplus", *args, 2, 700)
+
+
+def _dense_inputs(n):
+    """The inputs of tests/test_leapfrog.py: G 2, C 3, m 16, h 8, s 8."""
+    rng = np.random.default_rng(0)
+    G, C, m, h, s = 2, 3, 16, 8, 8
+    widths = [(m, h), (h, s), (s, 1)]
+
+    def mk(sc):
+        return tuple((rng.standard_normal((G, C, i, o)) * sc).astype(np.float32) for i, o in widths)
+
+    def mkb(sc):
+        return tuple((rng.standard_normal((G, C, o)) * sc).astype(np.float32) for _, o in widths[:-1])
+
+    weights, p_w = mk(0.3), mk(0.5)
+    eps_w = tuple(np.abs(e) * 0.01 for e in mk(1.0))
+    lam_w = tuple(np.abs(e) + 0.5 for e in mk(1.0))
+    biases, p_b = mkb(0.1), mkb(0.5)
+    eps_b = tuple(np.abs(e) * 0.01 for e in mkb(1.0))
+    lam_b = tuple(np.zeros_like(e) for e in mkb(1.0))
+    xT = rng.standard_normal((G, m, n)).astype(np.float32)
+    targets = rng.standard_normal((G, C, n)).astype(np.float32)
+    err = (np.abs(rng.standard_normal((G, C))) + 0.5).astype(np.float32)
+    return xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w, lam_b
+
+
+# the cases of tests/test_leapfrog.py: n 128-aligned, and n neither 128- nor
+# tile-aligned with the lasso prior
+@pytest.mark.parametrize("act,l1,n", [("tanh", False, 384), ("identity", True, 333)])
+def test_integrate_chains_ref_matches_jax(act, l1, n):
+    L_steps = 5
+    args = _dense_inputs(n)
+    JBM.FORCE = "interpret"
+    try:
+        jout = JL.integrate_chains(
+            act, *(tuple(map(jnp.asarray, a)) if isinstance(a, tuple) else jnp.asarray(a)
+                   for a in args), L_steps, l1=l1, interpret=True)
+    finally:
+        JBM.FORCE = None
+    tout = TL.integrate_chains(
+        act, *(tuple(map(torch.from_numpy, a)) if isinstance(a, tuple) else torch.from_numpy(a)
+               for a in args), L_steps, l1=l1)
+    for tpart, jpart in zip(tout, jout):
+        assert len(tpart) == len(jpart)
+        for t, j in zip(tpart, jpart):
+            assert t.shape == j.shape
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=3e-5, rtol=2e-4)

@@ -1,9 +1,10 @@
-"""The port never imports jax, directly or through any module it uses, and
-neither do the scripts that drive it on the card.
+"""The port never imports jax or the JAX package (rs_bann_tpu), directly or
+through any module it uses, and neither do the scripts that drive it on the
+card: it keeps its own copies of what it needs.
 
 Runs in a subprocess because tests/conftest.py imports jax in this one: a
-``sys.meta_path`` finder raises on any jax import, then every module of
-rs_bann_tpu_torch is imported and its CLI's ``--help`` runs.
+``sys.meta_path`` finder raises on any import of jax or of rs_bann_tpu, then
+every module of rs_bann_tpu_torch is imported and its CLI's ``--help`` runs.
 """
 
 import ast
@@ -21,7 +22,8 @@ import importlib, pkgutil, sys
 
 class BlockJax:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "rs_bann_tpu"):
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -32,9 +34,12 @@ names = [m.name for m in pkgutil.walk_packages(rs_bann_tpu_torch.__path__, "rs_b
 for name in names:
     if not name.endswith("__main__"):
         importlib.import_module(name)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "jax was imported"
+assert not any(m.split(".")[0] in ("jax", "rs_bann_tpu") for m in sys.modules), "jax was imported"
 for new in ("rs_bann_tpu_torch.ops.leapfrog", "rs_bann_tpu_torch.samplers.hmc",
-            "rs_bann_tpu_torch.models.net"):
+            "rs_bann_tpu_torch.models.net", "rs_bann_tpu_torch.samplers.mcmc_cfg",
+            "rs_bann_tpu_torch.models.arch", "rs_bann_tpu_torch.group.grouping",
+            "rs_bann_tpu_torch.io.bed", "rs_bann_tpu_torch.io.phen", "rs_bann_tpu_torch.io.dims",
+            "rs_bann_tpu_torch.cli.args"):
     assert new in names, new
 print(len(names))
 from rs_bann_tpu_torch.cli.main import main
@@ -46,7 +51,8 @@ for argv in (["--help"], ["train-new", "--help"], ["predict", "--help"]):
 """
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/profile_hybrid_torch.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/profile_hybrid_torch.py",
+                                    "scripts/build_time_torch.py"])
 def test_card_scripts_import_only_the_port(script):
     """The card's scripts import neither jax nor the JAX package: what they
     need of it comes through rs_bann_tpu_torch."""
@@ -76,6 +82,44 @@ def test_profile_script_runs_on_the_cpu_without_jax():
         assert case + ": ms per sweep" in proc.stdout, proc.stdout
 
 
+def test_profile_script_flagship_runs_on_the_cpu_without_jax():
+    """The same with ``--flagship`` (the dense parallel sweep on feature-major
+    X) at a toy size."""
+    run = SCRIPT.split("import rs_bann_tpu_torch")[0] + (
+        "import runpy\n"
+        "sys.argv = ['profile_hybrid_torch.py', '--device', 'cpu', '--flagship', '--groups', '2',"
+        " '--n', '300', '--sweeps', '1']\n"
+        "runpy.run_path('scripts/profile_hybrid_torch.py', run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", run], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        # one thread: the tests' workers share the cores
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    for case in ("C=4 folded", "C=1 folded", "C=1 unfolded"):
+        assert case + ": ms per sweep" in proc.stdout, proc.stdout
+    assert "(K7, K6)" in proc.stdout
+
+
+def test_chip_smoke_without_a_card_exits_nonzero_before_any_result():
+    """chip_smoke.py with jax and the JAX package blocked and no CUDA device:
+    its imports load, and it stops at phase 0 with a non-zero code and no
+    result line."""
+    run = SCRIPT.split("import rs_bann_tpu_torch")[0] + (
+        "import runpy, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", run], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)),
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr, proc.stderr
+    assert '"ok"' not in proc.stdout
+
+
 def test_port_imports_and_runs_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=120,
@@ -83,5 +127,5 @@ def test_port_imports_and_runs_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split("\n")[0])
-    assert n_modules >= 16
+    assert n_modules >= 24
     assert "train-new" in proc.stdout and "--packed-genotypes" in proc.stdout

@@ -30,6 +30,7 @@ from rs_bann_tpu_torch.models import net as TN
 from rs_bann_tpu_torch.models import params as TP
 from rs_bann_tpu_torch.models.data import pack_stacked as t_pack_stacked
 from rs_bann_tpu_torch.train import prepare_state_for_training
+from test_torch_copies import port
 
 HYPER = (0.001, 1000.0, 0.001, 1000.0, 0.001, 1000.0)
 
@@ -50,7 +51,7 @@ def _nets(model_type, act, depth, arch_seed=3):
     jstate, _ = JI.init_net(arch, model_type, JI.InitCfg(seed=arch_seed))
     tstate = TP.state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
     jnet = JN.Net(model_type, arch, JD.Hyperparameters(*HYPER), jstate)
-    tnet = TN.Net(model_type, arch, TD.Hyperparameters(*HYPER), tstate)
+    tnet = TN.Net(model_type, port(arch), TD.Hyperparameters(*HYPER), tstate)
     return arch, jnet, tnet
 
 
@@ -59,7 +60,7 @@ def test_predict_mse_and_init_carry_match_jax(model_type, act, depth):
     arch, jnet, tnet = _nets(model_type, act, depth)
     bed, grouping, y = _toy(3, 10, 700, seed=5)
     jd = j_pack_stacked(arch, bed, grouping, y)
-    td = t_pack_stacked(arch, bed, grouping, y, "cpu")
+    td = t_pack_stacked(port(arch), bed, grouping, y, "cpu")
 
     np.testing.assert_allclose(tnet.predict(td.X).numpy(), np.asarray(jnet.predict(jd.X)),
                                rtol=1e-5, atol=1e-5)
@@ -85,7 +86,7 @@ def test_port_saved_model_loads_in_jax(tmp_path):
     loaded = JN.Net.load(str(tmp_path / "0.npz"))
     assert loaded.model_type == "ridge_ard" and loaded.arch == arch
     jx = j_pack_stacked(arch, bed, grouping, y).X
-    tx = t_pack_stacked(arch, bed, grouping, y, "cpu").X
+    tx = t_pack_stacked(port(arch), bed, grouping, y, "cpu").X
     np.testing.assert_allclose(np.asarray(loaded.predict(jx)), tnet.predict(tx).numpy(),
                                rtol=1e-5, atol=1e-5)
     back = TN.Net.load(str(tmp_path / "0.npz"), "cpu")
@@ -127,13 +128,13 @@ def test_sequential_chains_posterior_matches_jax():
         j_err.append(np.asarray(carry.state.precisions.error))
         j_mse.append(np.asarray(st.mse_train))
 
-    td = t_pack_stacked(arch, bed, grouping, y, "cpu")
+    td = t_pack_stacked(port(arch), bed, grouping, y, "cpu")
     t_err, t_mse, t_acc = [], [], []
     for r in range(R):
         tnet = prepare_state_for_training(TN.Net(
-            "ridge_ard", arch, TD.Hyperparameters(*HYPER),
+            "ridge_ard", port(arch), TD.Hyperparameters(*HYPER),
             TP.state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")), None)
-        tsweep = tnet.make_sweep(cfg)
+        tsweep = tnet.make_sweep(port(cfg))
         tcarry = tnet.init_carry(td.X, td.y)
         gen = torch.Generator().manual_seed(r)
         errs, mses = [], []
