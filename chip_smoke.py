@@ -11,7 +11,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   3. K4 (data_vg_packed) against its plain version, one branch, same shape
   4. the sequential path end to end through the CLI: train-new
      --packed-genotypes (G = 100 groups of 100 markers, n = 100,000,
-     ridge_ard identity depth 0, 4 sequential sweeps of L = 30, one chain)
+     ridge_ard identity depth 0, 2 sequential sweeps of L = 30, one chain)
      then predict on n = 10,000, counting the kernel launches; then the
      card's predictions against the plain version's on the CPU
   5. on one hybrid block at the full shape (B = 10 branches, C = 4 chains,
@@ -22,7 +22,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      sizes from the initial state, at L = 1 and L = 30
   6. the hybrid path end to end through the CLI: train-new --update-mode
      hybrid --num-chains 4 (blocks of 10, every block transition one K5
-     call, 4 sweeps of L = 30), predict on each chain's samples, the card's
+     call, 2 sweeps of L = 30), predict on each chain's samples, the card's
      predictions against the CPU's
   7. the dense flagship (bench.py workload 1: G = 64 groups of 64 markers,
      n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
@@ -34,12 +34,29 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      izmailov step sizes from the initial state, at L = 1 and L = 64;
      identical bits on a repeat
   9. the flagship end to end through the CLI: train-new --feat-major
-     --update-mode parallel --num-chains 4 (4 sweeps of L = 64: exactly one
+     --update-mode parallel --num-chains 4 (2 sweeps of L = 64: exactly one
      K6 launch and two K7 launches, snapshot/H0 and Hf, per sweep; no K4 or
      K5), dense predict on each chain's samples, the card's predictions
      against the CPU's
+ 10. K9a (packed_matmul), K3 (packed_linear_vjp, all four fused
+     activations) and K9b (packed_matmul_vjp) against their plain versions
+     at the slice's full shape (bytes [100, 104, 25088], k = 16, n =
+     100,000; K9a also at the hybrid value pass, bytes [10, 104, 25088],
+     k = 64), the cotangent from a seed, K3's saved output the plain
+     forward at the perturbed initial state; identical bits on a repeat
+ 11. identity through the CLI: train-new --update-mode hybrid --num-chains
+     4 --gd-warmup 1 (one GD sweep, then 2 sweeps of L = 30): exactly
+     chains x blocks x min(L, 20) = 800 K3 launches in the warm start (each
+     block's branches batched), K2 for the probes and the value passes (2
+     per block), 10 K5 per sweep, no K4, K9a or K9b; then gradients
+     --packed-genotypes on chain 0's samples and the test set (one K2 and
+     one K3 launch per sample), its JSON against the CPU's (--cpu)
+ 12. the same with silu: K9a in place of K2 and K9b in place of K3, no K2,
+     K3 or K4; predict --packed-genotypes (K9a) and gradients (K9a + K9b),
+     each against the CPU's
 The line before the last is a JSON object with each kernel's launches on
-its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7), error against
+its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
+for K9a and K9b), error against
 its plain version (max_abs_err, and max_rel_err: the largest difference
 over max(1, largest plain entry), the ratio held to REL_TOL), times, and
 the bound (the larger of its FLOPs over the
@@ -62,7 +79,9 @@ import tempfile
 import time
 
 G, M, N_TRAIN, N_TEST = 100, 100, 100_000, 10_000
-CHAIN, L = 4, 30
+# sweeps of each CLI run (2: the phases added with the GD paths fit the
+# run's time that way), leapfrog steps per trajectory
+CHAIN, L = 2, 30
 CHAINS, BLOCK = 4, 10  # the hybrid path: chains, branches per block
 N_CAUSAL = 500  # markers with an effect in the simulated phenotype
 # the dense flagship (bench.py workload 1)
@@ -418,7 +437,7 @@ def main():
                 * mlp_fmas(x_b.bytes.shape[1], ws[0].shape[-1], ws[-1].shape[-2], 0),
                 nbytes(x_b.bytes, x_b.w_scale, x_b.shift, targets, err) + 8 * state_bytes)
             del out, ref, again
-        del X, state, x_b, targets
+        del targets
 
         # ---- phase 6: the hybrid path, C chains, through the CLI
         print(f"phase 6: train-new --update-mode hybrid --num-chains {CHAINS} -> predict")
@@ -668,6 +687,231 @@ def main():
         print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
         if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
             raise AssertionError("the card's flagship predictions disagree with the CPU's")
+
+        # ---- phase 10: K9a, K3 and K9b at the slice's full shape
+        print(f"phase 10: K9a packed_matmul, K3 packed_linear_vjp and K9b packed_matmul_vjp vs "
+              f"plain, bytes {tuple(X.bytes.shape)}, k {W0.shape[-1]}, n {N_TRAIN}")
+        ggen = torch.Generator(dev).manual_seed(10)
+        # the forward's operands at the initial state, perturbed
+        W0p = W0 * (1.0 + 0.1 * torch.randn(W0.shape, device=dev, generator=ggen))
+        A = X.w_scale.unsqueeze(-1) * W0p
+        off = b0 - (X.shift.unsqueeze(-2) @ A).squeeze(-2)
+        k = A.shape[-1]
+        cot = torch.randn((G, N_TRAIN, k), device=dev, generator=ggen)  # the cotangent g
+        flop = 2 * G * X.bytes.shape[1] * N_TRAIN * k
+        out_bytes = 4 * G * N_TRAIN * k
+
+        def identical(fn, first, what):
+            again = fn()
+            pairs = zip(first, again) if isinstance(first, tuple) else [(first, again)]
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError(f"{what}: two calls with the same inputs differ")
+
+        k9a_err = check_close("packed_matmul", "Z", PM.packed_matmul(X.bytes, A, N_TRAIN),
+                              PM.packed_matmul_ref(X.bytes, A, N_TRAIN))
+        identical(lambda: PM.packed_matmul(X.bytes, A, N_TRAIN),
+                  PM.packed_matmul(X.bytes, A, N_TRAIN), "K9a")
+        k9a_ms = cuda_ms(lambda: PM.packed_matmul(X.bytes, A, N_TRAIN))
+        k9a_plain_ms = cuda_ms(lambda: PM.packed_matmul_ref(X.bytes, A, N_TRAIN))
+        k9a_bound = bound(flop, nbytes(X.bytes, A) + out_bytes)
+        print(f"  K9a G={G}, k={k}: kernel {k9a_ms:.3f} ms, plain {k9a_plain_ms:.3f} ms, bound "
+              f"{k9a_bound[0]:.3f} ms ({k9a_bound[1]}); identical repeat")
+        # K9a at the silu hybrid value pass: one block's bytes, C chains side by side
+        w_cb = tuple(t.transpose(0, 1).contiguous() for t in chains_of((W0p, Wout)))
+        b_cb = tuple(t.transpose(0, 1).contiguous() for t in chains_of((b0,)))
+        A_c, _ = D.chain_layer0(w_cb[0], b_cb[0], x_b)
+        k9a_err = max(k9a_err, check_close(
+            "packed_matmul", f"Z, value pass B={BLOCK}, k={A_c.shape[-1]}",
+            PM.packed_matmul(x_b.bytes, A_c, N_TRAIN),
+            PM.packed_matmul_ref(x_b.bytes, A_c, N_TRAIN)))
+        identical(lambda: PM.packed_matmul(x_b.bytes, A_c, N_TRAIN),
+                  PM.packed_matmul(x_b.bytes, A_c, N_TRAIN), "K9a value pass")
+        vp_ms = cuda_ms(lambda: PM.packed_matmul(x_b.bytes, A_c, N_TRAIN))
+        vp_plain_ms = cuda_ms(lambda: PM.packed_matmul_ref(x_b.bytes, A_c, N_TRAIN))
+        vp_bound = bound(2 * BLOCK * x_b.bytes.shape[1] * N_TRAIN * A_c.shape[-1],
+                         nbytes(x_b.bytes, A_c) + 4 * BLOCK * N_TRAIN * A_c.shape[-1])
+        print(f"  K9a value pass B={BLOCK}, k={A_c.shape[-1]}: kernel {vp_ms:.3f} ms, plain "
+              f"{vp_plain_ms:.3f} ms, bound {vp_bound[0]:.3f} ms ({vp_bound[1]}); identical repeat")
+        del w_cb, b_cb, A_c
+
+        k3_err, k3_ms, k3_plain_ms = 0.0, None, None
+        for act in PM.FUSED_ACTIVATIONS:
+            res = PM.packed_linear_ref(X.bytes, A, off, N_TRAIN, act)  # the saved output
+            got = PM.packed_linear_vjp(X.bytes, cot, res, N_TRAIN, act)
+            ref = PM.packed_linear_vjp_ref(X.bytes, cot, res, N_TRAIN, act)
+            k3_err = max(k3_err, check_close("packed_linear_vjp", f"{act} dA", got[0], ref[0]),
+                         check_close("packed_linear_vjp", f"{act} d_off", got[1], ref[1]))
+            identical(lambda: PM.packed_linear_vjp(X.bytes, cot, res, N_TRAIN, act), got,
+                      f"K3 {act}")
+            del got, ref
+            if act in ("identity", "tanh"):
+                ms = cuda_ms(lambda: PM.packed_linear_vjp(X.bytes, cot, res, N_TRAIN, act))
+                plain_ms = cuda_ms(lambda: PM.packed_linear_vjp_ref(X.bytes, cot, res, N_TRAIN,
+                                                                    act))
+                print(f"  K3 {act}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; identical repeat")
+                if act == "identity":  # the slice's activation
+                    k3_ms, k3_plain_ms = ms, plain_ms
+            del res
+        # g and the saved output read, dA and d_off written
+        k3_bound = bound(flop, nbytes(X.bytes, cot) + out_bytes
+                         + 4 * G * k * (X.bytes.shape[1] + 1))
+        print(f"  K3 bound {k3_bound[0]:.3f} ms ({k3_bound[1]})")
+
+        got = PM.packed_matmul_vjp(X.bytes, cot, N_TRAIN)
+        k9b_err = check_close("packed_matmul_vjp", "silu dA", got,
+                              PM.packed_matmul_vjp_ref(X.bytes, cot, N_TRAIN))
+        identical(lambda: PM.packed_matmul_vjp(X.bytes, cot, N_TRAIN), got, "K9b")
+        del got
+        k9b_ms = cuda_ms(lambda: PM.packed_matmul_vjp(X.bytes, cot, N_TRAIN))
+        k9b_plain_ms = cuda_ms(lambda: PM.packed_matmul_vjp_ref(X.bytes, cot, N_TRAIN))
+        k9b_bound = bound(flop, nbytes(X.bytes, cot) + 4 * G * k * X.bytes.shape[1])
+        print(f"  K9b: kernel {k9b_ms:.3f} ms, plain {k9b_plain_ms:.3f} ms, bound "
+              f"{k9b_bound[0]:.3f} ms ({k9b_bound[1]}); identical repeat")
+        del X, state, x_b, A, off, cot, W0p
+
+        # ---- phases 11 and 12: the GD warm start, hybrid sampling, predict and
+        # gradients through the CLI, identity (K2 + K3) and silu (K9a + K9b)
+        counted = {"packed_linear": PM.packed_linear, "packed_matmul": PM.packed_matmul,
+                   "packed_linear_vjp": PM.packed_linear_vjp,
+                   "packed_matmul_vjp": PM.packed_matmul_vjp,
+                   "data_vg_packed": BM.data_vg_packed,
+                   "traj_packed": LF.integrate_chains_packed}
+        warm_counts = {}
+
+        def snapshot(record):  # the counts when the trainer logs its warm start
+            if str(record.msg).startswith("gd warm start"):
+                warm_counts.update({n: f.launches for n, f in counted.items()})
+
+        warm_handler = logging.Handler()
+        warm_handler.emit = snapshot
+        logging.getLogger("rs_bann_tpu_torch").addHandler(warm_handler)
+        blocks, gd_steps = G // BLOCK, min(L, 20)
+        gd_runs = {}
+        for phase, act in ((11, "identity"), (12, "silu")):
+            fwd = "packed_linear" if act == "identity" else "packed_matmul"
+            bwd = "packed_linear_vjp" if act == "identity" else "packed_matmul_vjp"
+            print(f"phase {phase}: {act}: train-new --update-mode hybrid --num-chains {CHAINS} "
+                  f"--gd-warmup 1 ({CHAIN} sweeps of L {L}) -> predict, gradients")
+            for f in counted.values():
+                f.launches = 0
+            warm_counts.clear()
+            mse_fwd = [0]  # forward launches inside the per-sweep test mse
+
+            def counted_mse(self, *a, **kw):
+                before = counted[fwd].launches
+                try:
+                    return net_mse(self, *a, **kw)
+                finally:
+                    mse_fwd[0] += counted[fwd].launches - before
+
+            Net.mse = counted_mse
+            argv = list(train_args)
+            i = argv.index("identity")
+            argv[i] = act
+            t0 = time.perf_counter()
+            try:
+                run = run_cli(cli, argv + ["--update-mode", "hybrid", "--num-chains", CHAINS,
+                                           "--gd-warmup", "1"]).strip().splitlines()[-1]
+            finally:
+                Net.mse = net_mse
+            gd_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            total = {n: f.launches for n, f in counted.items()}
+            warm = dict(warm_counts)
+            sweeps = {n: total[n] - warm[n] for n in total}
+            sweeps[fwd] -= mse_fwd[0]
+            print(f"  kernel launches in the warm start: {warm}")
+            print(f"  in the {CHAIN} sweeps: {sweeps}; in the per-sweep test mse: "
+                  f"{fwd} {mse_fwd[0]}")
+            want = {bwd: CHAINS * blocks * gd_steps, "traj_packed": 0, "data_vg_packed": 0}
+            for n, v in want.items():
+                if warm[n] != v:
+                    raise AssertionError(f"warm start: {n} launched {warm[n]} times, expected {v} "
+                                         f"(each block's branches batched: chains x blocks x "
+                                         f"iterations)")
+            if warm[fwd] < 4 * want[bwd]:  # per iteration one gradient and >= 3 probes
+                raise AssertionError(f"warm start: {fwd} launched {warm[fwd]} times")
+            want = {fwd: 2 * blocks * CHAIN, "traj_packed": blocks * CHAIN, bwd: 0,
+                    "data_vg_packed": 0}
+            for n, v in want.items():
+                if sweeps[n] != v:
+                    raise AssertionError(f"sweeps: {n} launched {sweeps[n]} times, expected {v}")
+            other = [n for n in ("packed_linear", "packed_matmul", "packed_linear_vjp",
+                                 "packed_matmul_vjp") if n not in (fwd, bwd)]
+            if any(total[n] for n in other):
+                raise AssertionError(f"{act} launched {[(n, total[n]) for n in other]}")
+            print(f"  batched over each block: {want[fwd] // 2} value-pass pairs, "
+                  f"{CHAINS * blocks * gd_steps} {bwd} launches = chains x blocks x "
+                  f"min(L, 20)")
+            stats = json.load(open(os.path.join(run, "training_stats")))
+            series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+            if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+                raise AssertionError(f"non-finite or missing training statistics: {stats}")
+            if stats["num_samples"] != CHAIN * G * CHAINS:
+                raise AssertionError(f"{stats['num_samples']} branch updates counted, "
+                                     f"expected {CHAIN * G * CHAINS}")
+            warm_rec = [r for r in log_records if str(r.msg).startswith("gd warm start")][-1]
+            done = [r for r in log_records if str(r.msg).startswith("Completed training")][-1]
+            warm_ms, sweep_ms = 1000.0 * warm_rec.args[1], 1000.0 * done.args[0] / CHAIN
+            print(f"  warm start {warm_ms:.1f} ms (one GD sweep of {CHAINS} chains); "
+                  f"{sweep_ms:.1f} ms per sweep, {sweep_ms / CHAINS:.1f} ms per chain-sweep; "
+                  f"train-new {gd_s:.1f} s in all")
+            print(f"  acceptance {stats['num_accepted'] / stats['num_samples']:.3f}, "
+                  f"early rejection {stats['num_early_rejected'] / stats['num_samples']:.3f}; "
+                  f"mse train {stats['mse_train'][-1]:.4f}, mse test {stats['mse_test'][-1]:.4f}")
+            models = os.path.join(run, "models", "chain0")
+            if act == "silu":  # predict on the card (K9a) against the CPU
+                before = PM.packed_matmul.launches
+                rows = run_cli(cli, ["predict", os.path.join(work, "test"),
+                                     os.path.join(work, "train.groups"), "-m", models,
+                                     "--packed-genotypes"])
+                card = np.asarray(list(csv.reader(io.StringIO(rows))), np.float64)
+                if PM.packed_matmul.launches - before != CHAIN:
+                    raise AssertionError("predict did not launch packed_matmul once per sample")
+                net = Net.load(os.path.join(models, f"{CHAIN}.npz"), "cpu")
+                cpu_pred = net.predict(test_gen.to_packed(net.arch, "cpu").X).numpy()
+                err = np.abs(cpu_pred - card[-1]).max()
+                print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
+                scale = max(1.0, np.abs(cpu_pred).max())
+                if not (np.all(np.isfinite(card)) and err <= REL_TOL * scale):
+                    raise AssertionError("the card's silu predictions disagree with the CPU's")
+            # gradients on the test set, on the card and on the CPU
+            grads = {}
+            for where in ("card", "cpu"):
+                before = {n: counted[n].launches for n in (fwd, bwd)}
+                t0 = time.perf_counter()
+                gdir = run_cli(cli, ["gradients", os.path.join(work, "test"),
+                                     os.path.join(work, "test.phen"),
+                                     os.path.join(work, "train.groups"), "-m", models,
+                                     "--packed-genotypes"] + (["--cpu"] if where == "cpu" else [])
+                               ).strip().splitlines()[-1]
+                secs = time.perf_counter() - t0
+                grads[where] = {f: json.load(open(os.path.join(gdir, f)))
+                                for f in sorted(os.listdir(gdir))}
+                used = {n: counted[n].launches - before[n] for n in (fwd, bwd)}
+                print(f"  gradients on the {where} ({N_TEST} test individuals): {secs:.1f} s, "
+                      f"launches {used}")
+                want_n = len(grads[where]) if where == "card" else 0
+                if used != {fwd: want_n, bwd: want_n}:
+                    raise AssertionError(f"gradients launched {used}, expected {want_n} each")
+            if sorted(grads["card"]) != sorted(grads["cpu"]) or not grads["card"]:
+                raise AssertionError("gradients wrote other files on the card and the CPU")
+            worst = 0.0
+            for f in grads["card"]:
+                for bc, bp in zip(grads["card"][f], grads["cpu"][f]):
+                    for key in ("wrt_weights", "wrt_biases"):
+                        for a, b in zip(bc[key], bp[key]):
+                            a, b = np.asarray(a), np.asarray(b)
+                            if a.shape != b.shape or not np.all(np.isfinite(a)):
+                                raise AssertionError(f"gradient {key} of shape {a.shape}")
+                            rel = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+                            worst = max(worst, rel)
+            print(f"  gradients, card vs CPU plain version: worst max_abs_err / max |CPU| "
+                  f"{worst:.3e} over {len(grads['card'])} samples x {G} branches")
+            if not worst <= REL_TOL:
+                raise AssertionError("the card's gradients disagree with the CPU's")
+            gd_runs[act] = {"launches": total, "warm_ms": warm_ms, "sweep_ms": sweep_ms}
+        logging.getLogger("rs_bann_tpu_torch").removeHandler(warm_handler)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -703,6 +947,27 @@ def main():
          "replaces": "rs_bann_tpu/ops/leapfrog.py:63",
          "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
          "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None},
+        # launches: the GD warm start and hybrid sampling of phase 11
+        # (identity, K3) and of phase 12 (silu: K9a, K9b)
+        {"name": "packed_matmul", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/packed_linear.cu",
+         "replaces": "rs_bann_tpu/ops/packed_matmul.py:178",
+         "launches": gd_runs["silu"]["launches"]["packed_matmul"], "max_abs_err": k9a_err,
+         "ms": k9a_ms, "plain_ms": k9a_plain_ms, "bound_ms": k9a_bound[0],
+         "bound_by": k9a_bound[1], "library_ms": None, "value_pass_ms": vp_ms,
+         "value_pass_plain_ms": vp_plain_ms, "value_pass_bound_ms": vp_bound[0]},
+        {"name": "packed_linear_vjp", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/packed_bwd.cu",
+         "replaces": "rs_bann_tpu/ops/packed_matmul.py:256",
+         "launches": gd_runs["identity"]["launches"]["packed_linear_vjp"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None},
+        {"name": "packed_matmul_vjp", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/packed_bwd.cu",
+         "replaces": "rs_bann_tpu/ops/packed_matmul.py:233",
+         "launches": gd_runs["silu"]["launches"]["packed_matmul_vjp"], "max_abs_err": k9b_err,
+         "ms": k9b_ms, "plain_ms": k9b_plain_ms, "bound_ms": k9b_bound[0],
+         "bound_by": k9b_bound[1], "library_ms": None},
     ]
     for k in kernels:  # the scale-free error that the checks gate on
         k["max_rel_err"] = REL_ERR[k["name"]]

@@ -1,12 +1,14 @@
-"""Command-line interface of the PyTorch port: ``train-new`` and ``predict``.
+"""Command-line interface of the PyTorch port: ``train-new``, ``predict`` and
+``gradients``.
 
 Counterpart of rs_bann_tpu/cli/main.py with the same arguments (the port's
 own copies of the JAX package's argparse helpers, cli/args.py) and the same
 run-directory naming, args.json, model samples and predict CSV. Training
 takes 2-bit packed genotypes (``--packed-genotypes``) or, under the
 parallel and hybrid schedules, dense feature-major ones (``--feat-major``);
-``predict`` takes packed or dense genotypes. Options whose code paths wait
-for later slices of the port exit non-zero with "not ported yet".
+``predict`` and ``gradients`` take packed or dense genotypes. Options whose
+code paths wait for later slices of the port exit non-zero with "not ported
+yet".
 
 The device is CUDA unless ``--cpu`` is given; without a CUDA device and
 without ``--cpu`` the commands exit non-zero. Every random draw comes from
@@ -72,8 +74,6 @@ def _unported(args, cfg) -> list:
         bad.append("--feat-major under the sequential schedule")
     if not (args.packed_genotypes or args.feat_major):
         bad.append("dense sample-major genotypes (pass --packed-genotypes or --feat-major)")
-    elif args.packed_genotypes and args.activation_function == "silu":
-        bad.append("silu on --packed-genotypes (needs the unfused packed kernel K9)")
     return bad
 
 
@@ -182,23 +182,59 @@ def cmd_train_new(args):
     print(outdir)
 
 
-def cmd_predict(args):
+def _genotypes(args):
     from ..io import BedVM, ExternalGrouping
     from ..io.genotypes import CompressedGenotypes
+
+    return CompressedGenotypes(BedVM.from_file(args.bfile), ExternalGrouping.from_file(args.groups))
+
+
+def _load_x(args, gen, arch, device):
+    """The genotypes as the saved models' architecture stacks them: 2-bit
+    packed with ``--packed-genotypes``, else dense sample-major."""
+    load = gen.to_packed if args.packed_genotypes else gen.to_stacked
+    return load(arch, device).X
+
+
+def cmd_predict(args):
     from ..models.net import Net
 
     device = _device(args)
-    gen = CompressedGenotypes(
-        BedVM.from_file(args.bfile), ExternalGrouping.from_file(args.groups)
-    )
+    gen = _genotypes(args)
     w = csv.writer(sys.stdout)
     X = None
     for path in scan_models(args.model_path):
         net = Net.load(str(path), device)
         if X is None:
-            load = gen.to_packed if args.packed_genotypes else gen.to_stacked
-            X = load(net.arch, device).X
+            X = _load_x(args, gen, net.arch, device)
         w.writerow(net.predict(X).cpu().numpy().tolist())
+
+
+def cmd_gradients(args):
+    """Per-branch log-density gradients of each saved model, written to
+    ``<model_path>/../gradients/<ix>.json`` in the JAX package's payload."""
+    import torch
+
+    from ..io import Phenotypes
+    from ..models.net import Net
+
+    device = _device(args)
+    gen = _genotypes(args)
+    y = torch.tensor(Phenotypes.from_file(args.phen).y, dtype=torch.float32, device=device)
+    outdir = Path(args.model_path).parent / "gradients"
+    outdir.mkdir(parents=True, exist_ok=True)
+    X = None
+    for path in scan_models(args.model_path):
+        net = Net.load(str(path), device)
+        if X is None:
+            X = _load_x(args, gen, net.arch, device)
+        payload = [
+            {"wrt_weights": [g.tolist() for g in gw], "wrt_biases": [g.tolist() for g in gb]}
+            for gw, gb in net.gradients(X, y)
+        ]
+        with open(outdir / f"{path.stem}.json", "w") as f:
+            json.dump(payload, f)
+    print(outdir)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -236,6 +272,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="keep genotypes 2-bit packed on the device (else dense sample-major f32)",
     )
     g.set_defaults(func=cmd_predict)
+
+    g = sub.add_parser("gradients", help="Log-density gradients of saved models.")
+    g.add_argument("bfile")
+    g.add_argument("phen")
+    g.add_argument("groups")
+    g.add_argument("-m", "--model-path", default="./models")
+    g.add_argument("--cpu", action="store_true", help="run on the CPU")
+    g.add_argument(
+        "--packed-genotypes", action="store_true",
+        help="keep genotypes 2-bit packed on the device (else dense sample-major f32)",
+    )
+    g.set_defaults(func=cmd_gradients)
     return p
 
 

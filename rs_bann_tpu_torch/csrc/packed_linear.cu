@@ -1,10 +1,15 @@
-// K2: fused packed layer 0, out[g, i, :] = act(decode(bytes[g])[:, i]^T A[g] + off[g]).
+// K2: fused packed layer 0, out[g, i, :] = act(decode(bytes[g])[:, i]^T A[g] + off[g]),
+// and K9a: the unfused product Z[g, i, :] = decode(bytes[g])[:, i]^T A[g].
 //
-// Replaces rs_bann_tpu/ops/packed_matmul.py::_fwd_fused_kernel (called
+// K2 replaces rs_bann_tpu/ops/packed_matmul.py::_fwd_fused_kernel (called
 // through _pallas_fwd_fused and packed_linear). A = w_scale * W0 and
 // off = b0 - shift @ A fold the standardization in, so the dense
 // standardized genotype matrix and the layer-0 pre-activation never reach
-// device memory.
+// device memory. K9a replaces ::_fwd_kernel (_pallas_fwd, packed_matmul):
+// the same kernel without the epilogue (EPI = false), for layer 0 under
+// silu, whose derivative cannot be rebuilt from the output, so the caller
+// keeps the pre-activation. Bounds at the silu hybrid value-pass shape
+// (bytes [10, 104, 25088], k = C * 16 = 64): 1.3e10 FLOP, 0.20 ms (ops).
 //
 // What bounds it on the H100: per marker a thread reads one byte and does
 // 4 * KC FMAs. A call at the slice's shape (G = 100, m = 104, k = 16,
@@ -33,6 +38,7 @@ using namespace rsbann;
 
 constexpr int KC = 16;  // output features per block (grid z covers wider k)
 
+template <bool EPI>
 __global__ void __launch_bounds__(kGBytes)
 packed_linear_kernel(const uint8_t* __restrict__ bytes, const float* __restrict__ a,
                      const float* __restrict__ off, float* __restrict__ out, int m,
@@ -79,7 +85,7 @@ packed_linear_kernel(const uint8_t* __restrict__ bytes, const float* __restrict_
         }
     }
 
-    const float* off_g = off + static_cast<size_t>(g) * k;
+    const float* off_g = EPI ? off + static_cast<size_t>(g) * k : nullptr;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
         const int i = grp * kGroup + q * kGBytes + j;
@@ -87,9 +93,28 @@ packed_linear_kernel(const uint8_t* __restrict__ bytes, const float* __restrict_
         float* o = out + (static_cast<size_t>(g) * n + i) * k;
 #pragma unroll
         for (int kk = 0; kk < KC; ++kk) {
-            if (k0 + kk < k) o[k0 + kk] = act_apply(act, acc[q][kk] + off_g[k0 + kk]);
+            if (k0 + kk < k) {
+                o[k0 + kk] = EPI ? act_apply(act, acc[q][kk] + off_g[k0 + kk]) : acc[q][kk];
+            }
         }
     }
+}
+
+template <bool EPI>
+int launch(const void* bytes, const void* a, const void* off, void* out, int G, int m, int B,
+           int k, int n, int act, void* stream) {
+    const dim3 grid(B / kGBytes, G, (k + KC - 1) / KC);
+    const size_t smem = static_cast<size_t>(m) * KC * sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            packed_linear_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    packed_linear_kernel<EPI><<<grid, kGBytes, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(bytes), static_cast<const float*>(a),
+        static_cast<const float*>(off), static_cast<float*>(out), m, B, k, n, act);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -99,16 +124,11 @@ packed_linear_kernel(const uint8_t* __restrict__ bytes, const float* __restrict_
 extern "C" int packed_linear_f32(const void* bytes, const void* a, const void* off,
                                  void* out, int G, int m, int B, int k, int n, int act,
                                  void* stream) {
-    const dim3 grid(B / kGBytes, G, (k + KC - 1) / KC);
-    const size_t smem = static_cast<size_t>(m) * KC * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            packed_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    packed_linear_kernel<<<grid, kGBytes, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(bytes), static_cast<const float*>(a),
-        static_cast<const float*>(off), static_cast<float*>(out), m, B, k, n, act);
-    return static_cast<int>(cudaGetLastError());
+    return launch<true>(bytes, a, off, out, G, m, B, k, n, act, stream);
+}
+
+// K9a: as packed_linear_f32 with no offset and no activation.
+extern "C" int packed_matmul_f32(const void* bytes, const void* a, void* out, int G, int m,
+                                 int B, int k, int n, void* stream) {
+    return launch<false>(bytes, a, nullptr, out, G, m, B, k, n, 0, stream);
 }

@@ -6,8 +6,11 @@ of them: the densities reduce over each layer's own axes only, so leading
 (chain, branch) axes give one value per branch. ``forward`` and ``predict``
 take a leading branch axis on packed, dense and feature-major input alike,
 because PyTorch's matmul broadcasts over it; ``predict_chains`` evaluates C
-chains' weights on one block of branches in one kernel launch (K2 on packed
-genotypes, K7's forward on feature-major ones).
+chains' weights on one block of branches in one kernel launch (K2, or K9a
+under silu, on packed genotypes; K7's forward on feature-major ones).
+Autograd goes through the packed layer 0 (K3 behind K2, K9b behind K9a):
+``potential_fn`` is the marginal potential whose gradient the
+``gradients`` subcommand and gradient descent take.
 
 Prior families ("model types"):
   ridge_base   one Gamma-precision per layer, Normal weights
@@ -31,7 +34,7 @@ import torch
 
 from ..ops import activations as _A
 from ..ops.branch_mlp import forward_chains
-from ..ops.packed_matmul import FUSED_ACTIVATIONS, packed_linear
+from ..ops.packed_matmul import FUSED_ACTIVATIONS, packed_linear, packed_matmul
 from . import NetArch
 from . import params as P
 
@@ -161,6 +164,14 @@ def matmul_fm(w, a):
     return w.transpose(-1, -2) @ a
 
 
+def _layer0(weights0, bias0, x: PackedX):
+    """Packed layer 0 unfused (K9a): decode(bytes)^T (w_scale * W0), then the
+    standardization's shift and the bias, in the JAX package's order."""
+    w0p = x.w_scale.unsqueeze(-1) * weights0
+    z = packed_matmul(x.bytes, w0p, x.n) - (x.shift.unsqueeze(-2) @ w0p)
+    return z + bias0.unsqueeze(-2)
+
+
 def forward(act_name: str, weights, biases, x):
     """Forward pass of one branch, or of all branches when every tensor has
     a leading G axis.
@@ -168,7 +179,8 @@ def forward(act_name: str, weights, biases, x):
     ``x`` is dense standardized sample-major [..., n, m_pad], a PackedX or a
     FeatX. Returns (pre_activations, activations) like the JAX package: one
     activation per layer, the last the output column [..., n, 1]. On packed
-    input layer 0 is the fused K2 kernel and its pre-activation is None. On
+    input layer 0 is the fused K2 kernel and its pre-activation is None,
+    except under silu, whose layer 0 is the unfused K9a product. On
     a FeatX the hidden pre-activations and activations are feature-major
     [..., width, n] (plain torch matmuls, as the JAX package leaves them to
     XLA) and the width-1 output is a sum over the summary rows.
@@ -184,18 +196,16 @@ def forward(act_name: str, weights, biases, x):
             acts.append(a)
         acts.append(torch.sum(weights[-1] * a, dim=-2).unsqueeze(-1))
         return pre, acts
-    if isinstance(x, PackedX):
-        if canon not in FUSED_ACTIVATIONS:
-            raise NotImplementedError(
-                f"{canon} on packed genotypes needs the unfused packed matmul "
-                "(K9), which is not ported yet"
-            )
+    if isinstance(x, PackedX) and canon in FUSED_ACTIVATIONS:
         w0p = x.w_scale.unsqueeze(-1) * weights[0]
         off = biases[0] - (x.shift.unsqueeze(-2) @ w0p).squeeze(-2)
         a = packed_linear(x.bytes, w0p, off, x.n, canon)
         pre.append(None)
     else:
-        z = x @ weights[0] + biases[0].unsqueeze(-2)
+        if isinstance(x, PackedX):
+            z = _layer0(weights[0], biases[0], x)
+        else:
+            z = x @ weights[0] + biases[0].unsqueeze(-2)
         pre.append(z)
         a = _A.apply(canon, z)
     acts.append(a)
@@ -214,7 +224,7 @@ def predict(act_name: str, weights, biases, x) -> torch.Tensor:
 
 
 def chain_layer0(w0, b0, x: PackedX):
-    """K2's operands for C chains' layer 0 (w0 [C, B, m_pad, k0], b0
+    """K2's (or K9a's) operands for C chains' layer 0 (w0 [C, B, m_pad, k0], b0
     [C, B, k0]) on one block: A [B, m_pad, C * k0] and off [B, C * k0],
     standardization folded in, chain c in columns c * k0 .. (c + 1) * k0."""
     C, B, m, k = w0.shape
@@ -230,7 +240,8 @@ def predict_chains(act_name: str, weights, biases, x) -> torch.Tensor:
 
     Packed: the chains' folded layer-0 weights sit side by side in K2's
     output width (``chain_layer0``), so one K2 launch serves every chain and
-    the block's bytes are read once. Feature-major: one launch of K7's
+    the block's bytes are read once; under silu one K9a launch, then the
+    offset and the activation. Feature-major: one launch of K7's
     forward-only pass (``forward_chains``), which reads each X tile once for
     all chains."""
     canon = _A.canonical(act_name)
@@ -239,10 +250,12 @@ def predict_chains(act_name: str, weights, biases, x) -> torch.Tensor:
             return tuple(t.transpose(0, 1) for t in ts)
 
         return forward_chains(canon, x.xT, bc(weights), bc(biases)).transpose(0, 1)
-    if canon not in FUSED_ACTIVATIONS:
-        raise NotImplementedError(f"{canon} on packed genotypes needs K9, not ported yet")
     C, B, _, k = weights[0].shape
-    a = packed_linear(x.bytes, *chain_layer0(weights[0], biases[0], x), x.n, canon)
+    A, off = chain_layer0(weights[0], biases[0], x)
+    if canon in FUSED_ACTIVATIONS:
+        a = packed_linear(x.bytes, A, off, x.n, canon)
+    else:
+        a = _A.apply(canon, packed_matmul(x.bytes, A, x.n) + off.unsqueeze(-2))
     a = a.reshape(B, x.n, C, k).permute(2, 0, 1, 3)
     for l in range(1, len(weights) - 1):
         a = _A.apply(canon, a @ weights[l] + biases[l].unsqueeze(-2))
@@ -250,8 +263,9 @@ def predict_chains(act_name: str, weights, biases, x) -> torch.Tensor:
 
 
 def branch_rss(act_name: str, weights, biases, x, y) -> torch.Tensor:
+    """Residual sum of squares of each branch (one value per leading index)."""
     r = predict(act_name, weights, biases, x) - y
-    return torch.sum(r * r)
+    return torch.sum(r * r, dim=-1)
 
 
 # --------------------------------------------------- marginal log densities
@@ -300,6 +314,20 @@ def log_density(model_type, weights, biases, w_precisions, error_precision, rss)
         + log_density_wrt_biases(model_type, biases)
         - error_precision * rss / 2.0
     )
+
+
+def potential_fn(model_type: str, act_name: str):
+    """f(weights, biases, w_precisions, error_precision, x, y) -> -U, one
+    value per branch (leading axes). Its autograd gradient in (weights,
+    biases) is the reference's analytic gradient (backprop + prior terms);
+    the branches' potentials are separable, so the gradient of their sum is
+    every branch's own."""
+
+    def f(weights, biases, w_precisions, error_precision, x, y):
+        rss = branch_rss(act_name, weights, biases, x, y)
+        return log_density(model_type, weights, biases, w_precisions, error_precision, rss)
+
+    return f
 
 
 # ------------------------------------------------------ joint log densities

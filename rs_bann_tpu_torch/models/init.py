@@ -148,8 +148,10 @@ def _init_arrays(arch: NetArch, model_type: str, cfg: InitCfg):
     return ws, bs, wp, bp, eff_mask
 
 
-def init_net(arch: NetArch, model_type: str, cfg: InitCfg = InitCfg(), device="cpu"):
-    """Initial NetState on ``device`` and the effective-marker mask [G, m_pad]."""
+def init_net(arch: NetArch, model_type: str, cfg: InitCfg = InitCfg(), *, device):
+    """Initial NetState on ``device`` and the effective-marker mask [G, m_pad].
+    ``device`` has no default: the port runs on the card unless the caller
+    asks for the CPU (``device="cpu"``)."""
     ws, bs, wp, bp, eff_mask = _init_arrays(arch, model_type, cfg)
 
     def t(a):

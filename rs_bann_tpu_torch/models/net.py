@@ -21,6 +21,12 @@ Counterpart of rs_bann_tpu/models/net.py for three schedules:
 * parallel: the hybrid sweep with one block of all G branches in their own
   order, every sweep (``make_hybrid_sweep``).
 
+With ``cfg.gradient_descent`` every schedule takes the gradient-descent
+transition (samplers/hmc.make_gradient_descent) in place of HMC, with no
+live accept and no fold: the hybrid block runs it for all its branches at
+once, against the block's frozen targets, and takes the results as they
+are. The trainer's GD warm start (``cfg.gd_warmup``) is such a sweep.
+
 A carry for C chains (``Net.init_carry(..., chains=C)``) stacks every
 tensor of the one-chain carry on a leading [C] axis; ``make_chain_sweep``
 sweeps such a carry under either schedule (the sequential one chain after
@@ -31,6 +37,7 @@ starts from.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from typing import NamedTuple, Optional
 
@@ -39,7 +46,13 @@ import torch
 
 from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS
 from ..samplers import gibbs
-from ..samplers.hmc import HMCProposal, HMCResult, make_hmc_step, make_transition_batch
+from ..samplers.hmc import (
+    HMCProposal,
+    HMCResult,
+    make_gradient_descent,
+    make_hmc_step,
+    make_transition_batch,
+)
 from ..samplers.mcmc_cfg import MCMCCfg
 from . import NetArch
 from . import density as D
@@ -70,9 +83,7 @@ class SweepStats(NamedTuple):
 # each with the value that keeps it off
 _UNPORTED = {
     "joint_hmc": False,
-    "gradient_descent": False,
     "gradient_descent_joint": False,
-    "gd_warmup": 0,
     "spike_slab": False,
     "ss_markers": False,
     "ss_rows": False,
@@ -89,7 +100,7 @@ _UNPORTED = {
 def unported_options(cfg: MCMCCfg) -> list:
     """Names of the cfg settings this port cannot honour yet."""
     bad = [k for k, v in _UNPORTED.items() if getattr(cfg, k) != v]
-    if cfg.update_mode != "sequential" and not cfg.live_accept:
+    if cfg.update_mode != "sequential" and not cfg.live_accept and not cfg.gradient_descent:
         bad.append("live_accept=False")
     if cfg.hmc_step_size_mode == "dual_averaging":
         bad.append("hmc_step_size_mode=dual_averaging")
@@ -279,6 +290,24 @@ def _stack_proposals(props, C, B) -> HMCProposal:
     )
 
 
+def _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec, x_c, targets) -> HMCResult:
+    """Gradient descent for a block of every chain ([C, B] leaves), chain by
+    chain, each chain's B branches in one batched transition against their
+    frozen targets; ``x_c[c]`` is chain c's block of genotypes."""
+    outs = []
+    for c in range(len(x_c)):
+        def one(ts):
+            return tuple(t[c] for t in ts)
+
+        outs.append(transition(None, one(w_b), one(b_b), one(wp_b), one(bp_b), err_prec[c],
+                               x_c[c], targets[c], None, None, None))
+    return HMCResult(
+        weights=tuple(torch.stack(ws) for ws in zip(*(o.weights for o in outs))),
+        biases=tuple(torch.stack(bs) for bs in zip(*(o.biases for o in outs))),
+        **{f: torch.stack([getattr(o, f) for o in outs]) for f in HMCResult._fields[2:]},
+    )
+
+
 def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device,
                       fold: Optional[bool] = None):
     """Build the hybrid or parallel sweep over a carry of C = cfg.num_chains
@@ -291,6 +320,12 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     default folds when ``chain_fold_eligible`` holds. Both
     consume the same random draws, so for one generator state they give the
     same chain up to f32 rounding.
+
+    Under ``cfg.gradient_descent`` (the JAX block body with ``live_accept``
+    off) each chain's block runs one batched gradient-descent transition
+    over its branches against the block's frozen targets, the results are
+    taken as they are, and the residual moves by the sum of the block's
+    prediction changes. It draws no momenta and no accept uniforms.
 
     The parallel schedule (rs_bann_tpu ``sweep_parallel``, net.py:1376) is
     ``block_update`` over the single block arange(G): one error-precision
@@ -326,9 +361,40 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     sample_local = not cfg.fixed_param_precisions and model_type != "std_normal"
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
-    transition = make_hmc_step(model_type, act, cfg, defer_accept=True)
+    gd = cfg.gradient_descent
+    transition = (make_gradient_descent(model_type, act, cfg) if gd
+                  else make_hmc_step(model_type, act, cfg, defer_accept=True))
     fold_transition = make_transition_batch(model_type, act, cfg) if folded else None
     cix = torch.arange(C, device=device)[:, None]
+
+    def hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x, targets, preds, mw_b, mb_b, st_b,
+                  residual):
+        """The block's HMC proposals (folded, or per (chain, branch) against
+        each chain's ``x[c]`` when the permutation is not shared), accepted
+        one by one against the live residual."""
+        momenta = (
+            tuple(torch.randn(w.shape, generator=gen, device=gen.device) for w in w_b),
+            tuple(torch.randn(b.shape, generator=gen, device=gen.device) for b in b_b),
+        )
+        if folded:
+            prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x, targets, mw_b, mb_b,
+                                   momenta, y_pred0=preds)
+        else:
+            props = []
+            for c in range(C):
+                for j in range(Bk):
+                    def one(ts):
+                        return tuple(t[c, j] for t in ts)
+
+                    props.append(transition(
+                        gen, one(w_b), one(b_b), one(wp_b), one(bp_b), err_prec[c],
+                        x[j] if shared else x[c][j], targets[c, j], one(mw_b), one(mb_b),
+                        st_b.n_params[c, j], momenta=(one(momenta[0]), one(momenta[1])),
+                    ))
+            prop = _stack_proposals(props, C, Bk)
+        order = torch.argsort(torch.rand((C, Bk), generator=gen, device=gen.device), dim=-1)
+        us = torch.rand((C, Bk), generator=gen, device=gen.device)
+        return _live_accept_select(residual, preds, prop, err_prec, w_b, b_b, order, us)
 
     def block_update(carry: TrainCarry, ixs, X, var_y, gen) -> TrainCarry:
         """One block: ixs [C, Bk], the same row for every chain when the
@@ -364,40 +430,22 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         wp_b = tuple(take(a) for a in wp)
         bp_b = tuple(take(a) for a in bp)
 
-        if shared:
-            x_b = X if parallel else X[ixs[0]]
-            preds = D.predict_chains(act, w_b, b_b, x_b)  # [C, Bk, n]
-        else:
-            x_c = [X[ixs[c]] for c in range(C)]
+        if shared:  # the block's genotypes, shared by the chains
+            x_blk = X if parallel else X[ixs[0]]
+            preds = D.predict_chains(act, w_b, b_b, x_blk)  # [C, Bk, n]
+        else:  # each chain's own block
+            x_blk = [X[ixs[c]] for c in range(C)]
             preds = torch.stack([
-                D.predict(act, tuple(w[c] for w in w_b), tuple(b[c] for b in b_b), x_c[c])
+                D.predict(act, tuple(w[c] for w in w_b), tuple(b[c] for b in b_b), x_blk[c])
                 for c in range(C)
             ])
         targets = residual[:, None, :] + preds
-        momenta = (
-            tuple(torch.randn(w.shape, generator=gen, device=gen.device) for w in w_b),
-            tuple(torch.randn(b.shape, generator=gen, device=gen.device) for b in b_b),
-        )
-        if folded:
-            prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x_b, targets, mw_b, mb_b,
-                                   momenta, y_pred0=preds)
+        if gd:
+            res = _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec,
+                            [x_blk] * C if shared else x_blk, targets)
         else:
-            props = []
-            for c in range(C):
-                for j in range(Bk):
-                    def one(ts):
-                        return tuple(t[c, j] for t in ts)
-
-                    props.append(transition(
-                        gen, one(w_b), one(b_b), one(wp_b), one(bp_b), err_prec[c],
-                        x_b[j] if shared else x_c[c][j], targets[c, j], one(mw_b), one(mb_b),
-                        st_b.n_params[c, j], momenta=(one(momenta[0]), one(momenta[1])),
-                    ))
-            prop = _stack_proposals(props, C, Bk)
-        order = torch.argsort(torch.rand((C, Bk), generator=gen, device=gen.device), dim=-1)
-        us = torch.rand((C, Bk), generator=gen, device=gen.device)
-        res = _live_accept_select(residual, preds, prop, err_prec, w_b, b_b, order, us)
-
+            res = hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, targets, preds, mw_b,
+                            mb_b, st_b, residual)
         for l in range(L):
             params.weights[l][cix, ixs] = res.weights[l]
         for l in range(L - 1):
@@ -475,22 +523,42 @@ def stack_carries(carries) -> TrainCarry:
     )
 
 
-def make_chain_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device):
+def _chain_slice(carry: TrainCarry, c: int) -> TrainCarry:
+    """Chain c of a stacked carry as a one-chain stacked carry ([1] axis),
+    as views into it."""
+    return TrainCarry(
+        state=P.map_state(lambda a: a[c:c + 1], carry.state),
+        **{f: getattr(carry, f)[c:c + 1] for f in TrainCarry._fields[1:-1]},
+        sweeps=carry.sweeps,
+    )
+
+
+def make_chain_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device,
+                     chain_by_chain: bool = False):
     """The sweep of cfg's schedule over a carry of cfg.num_chains chains
     (leading [C] axis): the hybrid or parallel sweep, or the sequential one
-    run on each chain in turn."""
-    if cfg.update_mode in ("hybrid", "parallel"):
+    run on each chain in turn. ``chain_by_chain`` runs the hybrid or
+    parallel sweep on each chain in turn too (the JAX trainer's ``lax.map``
+    over chains, which its GD warm start takes)."""
+    hybrid = cfg.update_mode in ("hybrid", "parallel")
+    if hybrid and not chain_by_chain:
         return make_hybrid_sweep(model_type, act, arch, cfg, hyper, device)
-    sweep1 = make_sweep(model_type, act, arch, cfg, hyper, device)
+    if hybrid:
+        sweep1 = make_hybrid_sweep(model_type, act, arch,
+                                   dataclasses.replace(cfg, num_chains=1), hyper, device)
+        view = _chain_slice
+    else:
+        sweep1 = make_sweep(model_type, act, arch, cfg, hyper, device)
+        view = chain_carry
 
     def sweep(carry: TrainCarry, X, y, gen):
         stats = []
         for c in range(carry.residual.shape[0]):
-            one, st = sweep1(chain_carry(carry, c), X, y, gen)
-            stats.append(st)
+            one, st = sweep1(view(carry, c), X, y, gen)
+            stats.append(SweepStats(*(t[0] for t in st)) if hybrid else st)
             # write back what the one-chain sweep replaced rather than
             # updated in place
-            for dst, src in zip(_carry_tensors(chain_carry(carry, c)), _carry_tensors(one)):
+            for dst, src in zip(_carry_tensors(view(carry, c)), _carry_tensors(one)):
                 if dst.data_ptr() != src.data_ptr():
                     dst.copy_(src)
         return carry._replace(sweeps=carry.sweeps + 1), SweepStats(
@@ -512,7 +580,8 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
     G, L = arch.num_branches, arch.num_layers
     n_out_tot = float(arch.total_output_weights)
     sample_local = not cfg.fixed_param_precisions and model_type != "std_normal"
-    transition = make_hmc_step(model_type, act, cfg)
+    transition = (make_gradient_descent(model_type, act, cfg) if cfg.gradient_descent
+                  else make_hmc_step(model_type, act, cfg))
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
 
@@ -619,9 +688,8 @@ class Net:
         """y_hat [n] = bias + sum of branch predictions."""
         state = state if state is not None else self.state
         n = X.n if isinstance(X, (D.PackedX, D.FeatX)) else X.shape[1]
-        width = max(self.arch.layer_out_pad(l) for l in range(self.arch.num_layers))
         G = self.arch.num_branches
-        chunk = max(1, int(self.PREDICT_CHUNK_BYTES // (4 * n * width)))
+        chunk = self._chunk(n)
         out = state.output_bias + torch.zeros(n, device=state.output_bias.device)
         for s in range(0, G, chunk):
             e = min(G, s + chunk)
@@ -634,9 +702,41 @@ class Net:
             out = out + torch.sum(preds, dim=0)
         return out
 
+    def _chunk(self, n: int) -> int:
+        """Branches per chunk of a stacked pass over ``n`` individuals."""
+        width = max(self.arch.layer_out_pad(l) for l in range(self.arch.num_layers))
+        return max(1, int(self.PREDICT_CHUNK_BYTES // (4 * n * width)))
+
     def mse(self, X, y, state: Optional[NetState] = None) -> torch.Tensor:
         r = self.predict(X, state) - y
         return torch.sum(r * r) / y.shape[0]
+
+    def gradients(self, X, y, state: Optional[NetState] = None):
+        """Per-branch gradients of the marginal log density in (weights,
+        biases) (the reference's net.rs gradients): a list over branches of
+        (weight grads, bias grads), each the padded per-branch numpy array.
+
+        The branches' potentials are separable, so each chunk of branches
+        (all G at genome scale) takes one forward and one backward pass: on
+        packed genotypes one K2 and one K3 launch (K9a and K9b under silu)
+        where the JAX package loops over the branches."""
+        state = state if state is not None else self.state
+        pot = D.potential_fn(self.model_type, self.arch.activation)
+        n = X.n if isinstance(X, (D.PackedX, D.FeatX)) else X.shape[1]
+        G, L = self.arch.num_branches, self.arch.num_layers
+        chunk = self._chunk(n)
+        out = []
+        for s in range(0, G, chunk):
+            e = min(G, s + chunk)
+            ws = [w[s:e].detach().requires_grad_(True) for w in state.params.weights]
+            bs = [b[s:e].detach().requires_grad_(True) for b in state.params.biases]
+            with torch.enable_grad():
+                ld = pot(ws, bs, tuple(a[s:e] for a in state.precisions.weights),
+                         state.precisions.error, X[s:e], y)
+                grads = [g.cpu().numpy() for g in torch.autograd.grad(torch.sum(ld), ws + bs)]
+            out.extend((tuple(g[j] for g in grads[:L]), tuple(g[j] for g in grads[L:]))
+                       for j in range(e - s))
+        return out
 
     # --------------------------------------------------------------- io
     def save(self, path: str, state: Optional[NetState] = None):
@@ -755,7 +855,8 @@ class Net:
             self.model_type, self.arch.activation, self.arch, cfg, self.hyper, self.device
         )
 
-    def make_chain_sweep(self, cfg: MCMCCfg):
+    def make_chain_sweep(self, cfg: MCMCCfg, chain_by_chain: bool = False):
         return make_chain_sweep(
-            self.model_type, self.arch.activation, self.arch, cfg, self.hyper, self.device
+            self.model_type, self.arch.activation, self.arch, cfg, self.hyper, self.device,
+            chain_by_chain,
         )

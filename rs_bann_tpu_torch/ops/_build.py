@@ -128,6 +128,12 @@ def lib() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     so.packed_linear_f32.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
     so.packed_linear_f32.restype = i
+    so.packed_matmul_f32.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    so.packed_matmul_f32.restype = i
+    so.packed_bwd_f32.argtypes = [vp] * 7 + [i] * 9 + [vp]
+    so.packed_bwd_f32.restype = i
+    so.packed_bwd_tile_m.argtypes = []
+    so.packed_bwd_tile_m.restype = i
     so.branch_vg_packed_f32.argtypes = [vp] * 10 + [i] * 9 + [vp]
     so.branch_vg_packed_f32.restype = i
     so.branch_vg_packed_smem.argtypes = [i, i, i, i]

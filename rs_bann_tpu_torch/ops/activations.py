@@ -3,7 +3,8 @@
 Counterpart of rs_bann_tpu/ops/activations.py, with the same names and the
 same semantics (LeakyReLU slope 0.01 on the negative side; relu written
 as z * (z > 0) so NaN propagates). ``ACT_CODES`` numbers the activations
-for the CUDA kernels (csrc/packed_decode.cuh act_apply / act_prime).
+for the CUDA kernels (csrc/packed_decode.cuh act_apply / act_prime,
+csrc/packed_bwd.cu act_prime_from_out).
 """
 
 from __future__ import annotations
@@ -60,3 +61,20 @@ def prime(name: str, z: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         return 1.0 - a * a
     s = torch.sigmoid(z)
     return s * (1.0 + z * (1.0 - s))
+
+
+def prime_from_out(name: str, a: torch.Tensor) -> torch.Tensor:
+    """h'(z) rebuilt from a = h(z), for the activations whose derivative the
+    output determines (identity, relu, leaky_relu, tanh), with the
+    subgradient 0 at a = 0 as the JAX package's ``_act_prime_from_out``
+    (csrc/packed_bwd.cu act_prime_from_out)."""
+    name = canonical(name)
+    if name == "identity":
+        return torch.ones_like(a)
+    if name == "relu":
+        return (a > 0).to(a.dtype)
+    if name == "leaky_relu":
+        return torch.where(a > 0, 1.0, torch.where(a < 0, 0.01, 0.0)).to(a.dtype)
+    if name == "tanh":
+        return 1.0 - a * a
+    raise ValueError(f"the derivative of {name} is not a function of its output")

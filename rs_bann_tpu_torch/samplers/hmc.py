@@ -1,8 +1,10 @@
-"""Hamiltonian Monte Carlo on packed and feature-major genotypes.
+"""Hamiltonian Monte Carlo on packed and feature-major genotypes, and
+gradient descent.
 
 Counterpart of rs_bann_tpu/samplers/hmc.py ``step_sizes``, ``HMCProposal``,
-``make_hmc_step`` (the default body and the deferred-accept lean body) and
-the chain-folded block transition of ``make_transition_batch``.
+``make_hmc_step`` (the default body and the deferred-accept lean body), the
+chain-folded block transition of ``make_transition_batch`` and the MAP
+transition ``make_gradient_descent``.
 
 Per branch, each leapfrog step's potential and gradient come from the fused
 packed value-and-gradient (ops/branch_mlp.py, kernel K4) on packed
@@ -366,3 +368,91 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
         return HMCProposal(w_f, b_f, y_pred_f, y_pred0, prior_f, prior0, kin_f, kin0, dead)
 
     return fold
+
+
+def make_gradient_descent(model_type: str, act_name: str, cfg: MCMCCfg):
+    """MAP optimization in place of HMC (the reference's branch_sampler.rs
+    gradient descent): per outer iteration, the gradient of the marginal
+    log density, then a doubling/halving line search on the rss along it.
+
+    The JAX package's ``lax.while_loop`` is a host loop here: probe the
+    step factor ss0 and 2 ss0, take x2 or x1/2, step while the rss falls,
+    then back off one step. The gradient comes from autograd of
+    ``D.potential_fn`` (on packed genotypes: K2 or K9a forward, K3 or K9b
+    backward); the probes and the final value pass need no gradient and run
+    under ``torch.no_grad``.
+
+    Returned signature, as ``make_hmc_step``'s:
+      gd(gen, weights, biases, w_precisions, b_precisions, error_precision,
+         x, y, masks_w, masks_b, n_params, momenta=None, u=None) -> HMCResult
+    It draws nothing and ignores gen, b_precisions, the masks, n_params,
+    momenta and u. Every tensor may carry leading batch axes, e.g. [B] over
+    a hybrid block of branches with ``x`` the block's PackedX: the branches'
+    potentials are separable, so one forward and one backward launch serve
+    the whole block per gradient, one forward launch per probe, and a
+    branch whose line search has ended keeps its step while the others go on
+    (as a vmapped ``while_loop`` freezes it). The result is each branch's
+    own gradient descent. ``code`` is ACCEPTED and ``accept_prob`` 1.
+    """
+    L = cfg.hmc_integration_length
+    factor = cfg.hmc_step_size_factor
+    pot = D.potential_fn(model_type, act_name)
+
+    def rss_at(weights, biases, x, y):
+        r = D.predict(act_name, weights, biases, x) - y
+        return torch.sum(r * r, dim=-1)
+
+    def grad(weights, biases, w_precisions, error_precision, x, y):
+        ws = [w.detach().requires_grad_(True) for w in weights]
+        bs = [b.detach().requires_grad_(True) for b in biases]
+        with torch.enable_grad():
+            ld = pot(ws, bs, w_precisions, error_precision, x, y)
+            grads = torch.autograd.grad(torch.sum(ld), ws + bs)
+        return tuple(grads[: len(ws)]), tuple(grads[len(ws):])
+
+    def gd(gen, weights, biases, w_precisions, b_precisions, error_precision, x, y,
+           masks_w, masks_b, n_params, momenta=None, u=None):
+        del gen, b_precisions, masks_w, masks_b, n_params, momenta, u
+        batch = weights[-1].shape[:-2]
+        dev = weights[-1].device
+
+        def moved(ts, gs, ss):  # ts + ss * gs, ss [batch] broadcast per leaf
+            return tuple(t + ss.reshape(batch + (1,) * (t.dim() - len(batch))) * g
+                         for t, g in zip(ts, gs))
+
+        w, b = tuple(weights), tuple(biases)
+        with torch.no_grad():
+            for _ in range(L):
+                gw, gb = grad(w, b, w_precisions, error_precision, x, y)
+
+                def probe(ss):
+                    return rss_at(moved(w, gw, ss), moved(b, gb, ss), x, y)
+
+                ss0 = torch.full(batch, factor, dtype=torch.float32, device=dev)
+                prev = probe(ss0)
+                fac = torch.where(probe(2.0 * ss0) < prev, 2.0, 0.5)
+                ss = ss0 * fac
+                curr = probe(ss)
+                active = curr < prev
+                while bool(torch.any(active)):
+                    ss = torch.where(active, ss * fac, ss)
+                    new = probe(ss)
+                    prev = torch.where(active, curr, prev)
+                    curr = torch.where(active, new, curr)
+                    active = curr < prev
+                ss_f = ss / fac
+                w, b = moved(w, gw, ss_f), moved(b, gb, ss_f)
+            y_pred = D.predict(act_name, w, b, x)
+            r = y_pred - y
+            ld = D.log_density(model_type, w, b, w_precisions, error_precision,
+                               torch.sum(r * r, dim=-1))
+        return HMCResult(
+            weights=w,
+            biases=b,
+            code=torch.full(batch, ACCEPTED, dtype=torch.int64, device=dev),
+            y_pred=y_pred,
+            log_density=ld,
+            accept_prob=torch.ones(batch, dtype=torch.float32, device=dev),
+        )
+
+    return gd

@@ -14,6 +14,7 @@ Counterpart of rs_bann_tpu/train.py, with the same artifacts:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -139,6 +140,22 @@ def prepare_state_for_training(net: Net, fixed_precision: Optional[float]):
     return net
 
 
+def gd_warmup_cfg(cfg: MCMCCfg) -> MCMCCfg:
+    """The configuration of the GD warm start's sweeps, with the JAX
+    trainer's overrides: gradient descent, a static step-size mode (GD sets
+    its own rate by line search; the mode only builds the transition), the
+    factor at most 1e-3, at most 20 iterations, and none of joint HMC,
+    trajectory recording, mass adaptation, tempering or spike-and-slab."""
+    return dataclasses.replace(
+        cfg, gradient_descent=True, joint_hmc=False, trajectories=False,
+        mass_adaptation=False, tempering=False, spike_slab=False,
+        hmc_traj_length_mode="fixed",
+        hmc_step_size_mode="izmailov",
+        hmc_step_size_factor=min(cfg.hmc_step_size_factor, 1e-3),
+        hmc_integration_length=min(cfg.hmc_integration_length, 20),
+    )
+
+
 def train(
     net: Net,
     train_data: StackedData,
@@ -150,8 +167,12 @@ def train(
 ):
     """Run cfg.num_chains MCMC chains, all drawing from ``gen`` (the
     sequential schedule runs them one after another in every sweep; the
-    hybrid one block by block). Returns (net, TrainingStats); ``net.state``
-    is left at chain 0's final iteration."""
+    hybrid one block by block). With ``cfg.gd_warmup`` > 0 (and not already
+    a gradient-descent run), that many gradient-descent sweeps of the
+    schedule (``gd_warmup_cfg``) start every chain, one chain after another,
+    before the first record; the acceptance counts and the sweep counter
+    then start again from 0. Returns (net, TrainingStats); ``net.state`` is
+    left at chain 0's final iteration."""
     os.makedirs(cfg.outpath, exist_ok=True)
     save_models = cfg.chain_length > cfg.burn_in
     if save_models:
@@ -163,6 +184,14 @@ def train(
     sweep = net.make_chain_sweep(cfg)
     X, y = train_data.X, train_data.y
     carry = net.init_carry(X, y, chains=C)
+    if cfg.gd_warmup > 0 and not (cfg.gradient_descent or cfg.gradient_descent_joint):
+        gd_sweep = net.make_chain_sweep(gd_warmup_cfg(cfg), chain_by_chain=True)
+        t0 = time.time()
+        for _ in range(cfg.gd_warmup):
+            carry, _ = gd_sweep(carry, X, y, gen)
+        carry.counts.zero_()
+        carry = carry._replace(sweeps=0)
+        log.info("gd warm start: %d sweeps, %.3fs", cfg.gd_warmup, time.time() - t0)
     stats = TrainingStats()
     trace_f = open(cfg.trace_path(), "w") if cfg.trace else None
 

@@ -2,7 +2,7 @@
 """Time and profile the PyTorch port's hybrid and parallel sweeps on one
 NVIDIA GPU.
 
-    python3 scripts/profile_hybrid_torch.py [--flagship] [--sweeps 3] [--out FILE]
+    python3 scripts/profile_hybrid_torch.py [--flagship | --gd] [--sweeps 3] [--out FILE]
 
 Without ``--flagship`` the shape is chip_smoke.py's packed one: G = 100
 groups of 100 markers, n = 100,000, ridge_ard, identity, depth 0, width 10,
@@ -25,9 +25,17 @@ sweep under torch.profiler and prints its wall time, the device's kernel
 time and busy share (kernel time / wall) and the launches of all kinds;
 the profiler tables go to ``--out``. ``--groups``, ``--n`` and ``--device
 cpu`` shrink the run for a check without a card (no profile then).
+
+With ``--gd`` the cases are the trainer's GD warm-start sweep
+(``train.gd_warmup_cfg``: gradient descent, at most 20 iterations, each
+hybrid block's branches batched, the C = 4 chains one after another) at
+the packed shape, identity (K2 forward, K3 backward) and silu (K9a, K9b),
+with each case's launches per sweep and, in the profiled sweep, the
+backward kernel's share of the device time.
 """
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -69,7 +77,7 @@ def make_data(G, n, device, flagship=False):
     return arch, pack_stacked(arch, bed, UniformGrouping(G, m), y, device)
 
 
-def profiled_sweep(torch, sweep, carry, data, gen, out):
+def profiled_sweep(torch, sweep, carry, data, gen, out, watch=()):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,6 +106,11 @@ def profiled_sweep(torch, sweep, carry, data, gen, out):
     for a in by_device[:3]:
         print(f"  device share: {a.key[:60]} {self_device_us(a) / 1000.0:.1f} ms "
               f"({100.0 * self_device_us(a) / 1000.0 / device_ms:.1f}%), {a.count} calls")
+    for name in watch:  # kernels whose (mangled) name holds ``name``
+        rows = [a for a in on_device if name in a.key]
+        ms = sum(self_device_us(a) for a in rows) / 1000.0
+        print(f"  device share of {name}: {ms:.1f} ms ({100.0 * ms / device_ms:.1f}%), "
+              f"{sum(a.count for a in rows)} calls")
     if out is not None:
         key = ("self_device_time_total" if hasattr(by_device[0], "self_device_time_total")
                else "self_cuda_time_total")
@@ -110,6 +123,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--flagship", action="store_true",
                     help="the dense flagship (parallel, feature-major) instead of packed hybrid")
+    ap.add_argument("--gd", action="store_true",
+                    help="the GD warm-start sweep at the packed shape, identity and silu")
     ap.add_argument("--sweeps", type=int, default=3)
     ap.add_argument("--groups", type=int, default=None, help="100 packed, 64 flagship")
     ap.add_argument("--n", type=int, default=None, help="100,000 packed, 4,096 flagship")
@@ -121,12 +136,12 @@ def main(argv=None):
 
     from rs_bann_tpu_torch.models import density as D
     from rs_bann_tpu_torch.models.init import InitCfg, init_net
-    from rs_bann_tpu_torch.models.net import Net, make_hybrid_sweep
+    from rs_bann_tpu_torch.models.net import Net, make_chain_sweep, make_hybrid_sweep
     from rs_bann_tpu_torch.ops import branch_mlp as BM
     from rs_bann_tpu_torch.ops import leapfrog as LF
     from rs_bann_tpu_torch.ops import packed_matmul as PM
     from rs_bann_tpu_torch.samplers import MCMCCfg
-    from rs_bann_tpu_torch.train import prepare_state_for_training
+    from rs_bann_tpu_torch.train import gd_warmup_cfg, prepare_state_for_training
 
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
@@ -147,20 +162,36 @@ def main(argv=None):
     print(f"data {time.perf_counter() - t0:.1f} s: G {G}, m {FLAG_M if flag else M}, n {n}")
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     out = open(args.out, "w") if args.out and on_card else None
+    watch = ()
     if flag:
-        model, act, mode, steps = "ridge_base", "tanh", "parallel", FLAG_L
+        model, mode, steps = "ridge_base", "parallel", FLAG_L
         kernels, names = (BM.data_vg_chains, LF.integrate_chains), "(K7, K6)"
+        cases = [("C=4 folded", "tanh", 4, True), ("C=1 folded", "tanh", 1, True),
+                 ("C=1 unfolded", "tanh", 1, False)]
+    elif args.gd:
+        model, mode, steps = "ridge_ard", "hybrid", L
+        kernels = (PM.packed_linear, PM.packed_linear_vjp, PM.packed_matmul,
+                   PM.packed_matmul_vjp)
+        names, watch = "(K2, K3, K9a, K9b)", ("packed_bwd", "packed_linear_kernel")
+        cases = [("GD warm start identity C=4", "identity", 4, None),
+                 ("GD warm start silu C=4", "silu", 4, None)]
     else:
-        model, act, mode, steps = "ridge_ard", "identity", "hybrid", L
+        model, mode, steps = "ridge_ard", "hybrid", L
         kernels = (PM.packed_linear, BM.data_vg_packed, LF.integrate_chains_packed)
         names = "(K2, K4, K5)"
+        cases = [("C=4 folded", "identity", 4, True), ("C=1 folded", "identity", 1, True),
+                 ("C=1 unfolded", "identity", 1, False)]
     try:
-        for name, C, fold in (("C=4 folded", 4, True), ("C=1 folded", 1, True),
-                              ("C=1 unfolded", 1, False)):
+        for name, act, C, fold in cases:
             cfg = MCMCCfg(hmc_integration_length=steps, update_mode=mode, num_chains=C, seed=0)
+            arch = dataclasses.replace(arch, activation=act)
             state, _ = init_net(arch, model, InitCfg(seed=0), device=dev)
             net = prepare_state_for_training(Net(model, arch, D.Hyperparameters(), state), None)
-            sweep = make_hybrid_sweep(model, act, arch, cfg, net.hyper, dev, fold=fold)
+            if args.gd:
+                sweep = make_chain_sweep(model, act, arch, gd_warmup_cfg(cfg), net.hyper, dev,
+                                         chain_by_chain=True)
+            else:
+                sweep = make_hybrid_sweep(model, act, arch, cfg, net.hyper, dev, fold=fold)
             carry = net.init_carry(data.X, data.y, chains=C)
             gen = torch.Generator(dev).manual_seed(0)
             times, launches = [], []
@@ -177,10 +208,10 @@ def main(argv=None):
             print(f"{name}: ms per sweep {[round(t, 3) for t in times]}, acceptance "
                   f"{int(counts[0]) / int(counts.sum()):.3f}, launches per sweep "
                   f"{names} {launches[-1]}")
-            if on_card and fold:
+            if on_card and fold is not False:
                 if out is not None:
                     out.write(f"==== {name}\n")
-                profiled_sweep(torch, sweep, carry, data, gen, out)
+                profiled_sweep(torch, sweep, carry, data, gen, out, watch)
             del carry, sweep, net
     finally:
         if out is not None:

@@ -2,14 +2,17 @@
 ``predict``, and the JAX package's ``Net.load`` + ``predict`` on the port's
 saved samples must reproduce the port's CSV (rtol 1e-5), for one chain and
 for C chains (``models/chain<c>``) under the sequential and the hybrid
-schedule; the same for ``train-new --feat-major`` under the parallel and
-hybrid schedules with dense ``predict``. Every option outside the ported
+schedule, with the GD warm start, gradient descent and silu too; the same
+for ``train-new --feat-major`` under the parallel and hybrid schedules with
+dense ``predict``. ``gradients --cpu`` writes the JAX package's JSON
+(rtol 1e-4 of each array's largest entry). Every option outside the ported
 slice exits non-zero with "not ported yet".
 """
 
 import csv
 import io
 import json
+import shutil
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -20,16 +23,17 @@ from rs_bann_tpu.io.bed import BedVM
 from rs_bann_tpu.io.genotypes import CompressedGenotypes as JCompressedGenotypes
 from rs_bann_tpu.io.phen import Phenotypes
 from rs_bann_tpu.models import net as JN
+from rs_bann_tpu.cli.main import main as jax_main
 from rs_bann_tpu.models.data import pack_stacked as j_pack_stacked
 from rs_bann_tpu_torch.cli.main import main
 
 G, M, N_TRAIN, N_TEST = 3, 10, 700, 300
 
 
-def run_cli(*argv):
+def run_cli(*argv, cli=main):
     buf = io.StringIO()
     with redirect_stdout(buf):
-        main([str(a) for a in argv])
+        cli([str(a) for a in argv])
     return buf.getvalue()
 
 
@@ -151,9 +155,7 @@ def test_feat_major_train_then_dense_predict_and_jax_reads_the_samples(data, tmp
 
 UNPORTED = [
     ["--joint-hmc"],
-    ["--gradient-descent"],
     ["--gradient-descent-joint"],
-    ["--gd-warmup", "2"],
     ["--spike-slab"],
     ["--ss-markers"],
     ["--ss-rows"],
@@ -207,18 +209,99 @@ def test_feat_major_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkey
 
 
 def test_dense_and_silu_exit_nonzero(data, tmp_path):
-    """Dense sample-major training and silu on packed genotypes wait for
-    later slices; --feat-major with --packed-genotypes is refused as in JAX."""
-    for argv in (
-        _train_args(data, tmp_path),  # dense sample-major genotypes
-        _train_args(data, tmp_path, "--packed-genotypes")[:4] + ["ridge_ard", "silu"]
-        + _train_args(data, tmp_path, "--packed-genotypes")[6:],
-    ):
-        with pytest.raises(SystemExit) as e:
-            run_cli(*argv)
-        assert "not ported yet" in str(e.value.code)
+    """Dense sample-major training waits for a later slice (silu on packed
+    genotypes no longer does: K9); --feat-major with --packed-genotypes is
+    refused as in JAX."""
+    with pytest.raises(SystemExit) as e:
+        run_cli(*_train_args(data, tmp_path))  # dense sample-major genotypes
+    assert "not ported yet" in str(e.value.code)
     with pytest.raises(SystemExit) as e:
         run_cli(*_train_args(data, tmp_path, "--packed-genotypes", "--feat-major",
                              "--update-mode", "parallel"))
     assert "mutually exclusive" in str(e.value.code)
     assert not any(tmp_path.iterdir())
+
+
+@pytest.fixture
+def one_thread():
+    """Gradient descent's line search runs many small ops; with the test
+    workers sharing the cores, one intra-op thread keeps them from waiting
+    on each other."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _run_dir(tmp_path, out):
+    return tmp_path / out.strip().splitlines()[-1].split("/")[-1]
+
+
+@pytest.mark.parametrize("extra,chains", [
+    (["--gradient-descent"], 1),
+    (["--gd-warmup", "2"], 1),
+    (["--gd-warmup", "2", "--update-mode", "hybrid", "--num-chains", "2"], 2),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
+def test_gradient_descent_and_gd_warmup_then_jax_reads_the_samples(data, tmp_path, one_thread,
+                                                                    extra, chains):
+    """Gradient descent as the sampler (sequential), and the GD warm start
+    before sequential or hybrid sampling: finite statistics, the warm start
+    counts no branch updates, and JAX predicts the port's samples."""
+    run = _run_dir(tmp_path, run_cli(*_train_args(data, tmp_path, "--packed-genotypes", *extra)))
+    stats = json.loads((run / "training_stats").read_text())
+    assert stats["num_samples"] == 4 * G * chains
+    if "--gradient-descent" in extra:
+        assert stats["num_accepted"] == stats["num_samples"]
+    assert len(stats["mse_train"]) == len(stats["mse_test"]) == len(stats["lpd"]) == 5
+    assert all(np.isfinite(stats["mse_train"] + stats["mse_test"] + stats["lpd"]))
+    samples = ["1.npz", "2.npz", "3.npz", "4.npz"]
+    dirs = ([run / "models"] if chains == 1
+            else [run / "models" / f"chain{c}" for c in range(chains)])
+    for d in dirs:
+        _predict_matches_jax(data, d, samples)
+
+
+def test_silu_on_packed_genotypes_then_jax_reads_the_samples(data, tmp_path, one_thread):
+    """silu on packed genotypes (layer 0 on K9a's plain version), hybrid with
+    the folded transition, then packed predict against JAX's."""
+    argv = _train_args(data, tmp_path, "--packed-genotypes", "--update-mode", "hybrid")
+    argv[5] = "silu"
+    run = _run_dir(tmp_path, run_cli(*argv))
+    stats = json.loads((run / "training_stats").read_text())
+    assert stats["num_samples"] == 4 * G
+    assert all(np.isfinite(stats["mse_train"] + stats["mse_test"] + stats["lpd"]))
+    _predict_matches_jax(data, run / "models", ["1.npz", "2.npz", "3.npz", "4.npz"])
+
+
+@pytest.mark.parametrize("act", ["identity", "silu"])
+def test_gradients_json_matches_jax(data, tmp_path, one_thread, act):
+    """gradients --packed-genotypes --cpu on the port's samples writes the
+    JSON JAX's gradients writes on the same samples (each array within rtol
+    1e-4 of its largest entry: f32 sums over n in another order)."""
+    argv = _train_args(data, tmp_path, "--packed-genotypes")
+    argv[5] = act
+    run = _run_dir(tmp_path, run_cli(*argv))
+    shutil.copytree(run / "models", tmp_path / "jax" / "models")
+    dirs = {}
+    for name, models, cli in (("port", run / "models", main),
+                              ("jax", tmp_path / "jax" / "models", jax_main)):
+        out = run_cli("gradients", data / "test", data / "test.phen", data / "train.groups",
+                      "-m", models, "--packed-genotypes", "--cpu", cli=cli)
+        dirs[name] = models.parent / "gradients"
+        assert out.strip().splitlines()[-1] == str(dirs[name])
+    files = sorted(p.name for p in dirs["port"].iterdir())
+    assert files == sorted(p.name for p in dirs["jax"].iterdir()) == [
+        "1.json", "2.json", "3.json", "4.json"]
+    for f in files:
+        port, ref = (json.loads((dirs[k] / f).read_text()) for k in ("port", "jax"))
+        assert len(port) == len(ref) == G
+        for bp, bj in zip(port, ref):
+            assert set(bp) == set(bj) == {"wrt_weights", "wrt_biases"}
+            for key in bp:
+                assert len(bp[key]) == len(bj[key])
+                for a, b in zip(bp[key], bj[key]):
+                    a, b = np.asarray(a), np.asarray(b)
+                    assert a.shape == b.shape
+                    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())

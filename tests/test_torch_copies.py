@@ -1,8 +1,8 @@
 """The port's own copies of the JAX package's plain-Python modules against the
 originals: ``MCMCCfg`` (fields and defaults), ``NetArch`` (padded sizes and
 counts), the groupings and .bed/.phen readers (the same files read the same),
-and the ``train-new`` / ``predict`` parsers (the same flags with the same
-defaults), so ``args.json`` and model files mean the same to both packages.
+and the ``train-new`` / ``predict`` / ``gradients`` parsers (the same flags
+with the same defaults), so ``args.json`` and model files mean the same to both packages.
 
 ``port`` builds the port's NetArch or MCMCCfg from a JAX one's fields; the
 other tests use it wherever they hand a JAX object's settings to the port.
@@ -90,6 +90,6 @@ def _flags(parser, cmd):
             for a in sub.choices[cmd]._actions if a.dest != "help"}
 
 
-@pytest.mark.parametrize("cmd", ["train-new", "predict"])
+@pytest.mark.parametrize("cmd", ["train-new", "predict", "gradients"])
 def test_cli_parsers_take_the_same_flags_with_the_same_defaults(cmd):
     assert _flags(TCLI.build_parser(), cmd) == _flags(JCLI.build_parser(), cmd)

@@ -6,8 +6,10 @@ run these with ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 
 Shapes are small but cover what the full-shape checks in chip_smoke.py do
 not: every activation, depth 0 and 1, a ragged n, a batched G, lasso
-(K5, K6), and the wrappers' refusals. Tolerances: K2 atol 1e-4 (f32 sums
-over <= 104 markers in another order); K4 and K7 y_pred atol 1e-4 and
+(K5, K6), more than one marker tile and a k not a multiple of 16 (K3,
+K9b), and the wrappers' refusals. Tolerances: K2 and K9a atol 1e-4 (f32
+sums over <= 300 markers in another order); K3 and K9b rtol 1e-4 of the
+largest entry (sums over n); K4 and K7 y_pred atol 1e-4 and
 gradients rtol 1e-4 against the largest entry (sums over n in another
 order); K5 and K6 rtol 1e-4 of the largest entry after 3 steps (the same
 sums, compounded).
@@ -54,6 +56,94 @@ def test_packed_linear_kernel_matches_plain(dev, act, k):
     assert (out - ref).abs().max().item() <= 1e-4
     single = PM.packed_linear(by[1], a[1], off[1], n, act)
     assert torch.equal(single, out[1])
+
+
+@pytest.mark.parametrize("k", [16, 64, 5])
+def test_packed_matmul_kernel_matches_plain(dev, k):
+    """K9a (K2's kernel without its epilogue) against its plain version."""
+    rng = np.random.default_rng(6)
+    G, m, n = 3, 104, 1300
+    by = _bytes(rng, G, m, n, dev)
+    a = torch.from_numpy(rng.standard_normal((G, m, k)).astype(np.float32)).to(dev) * 0.2
+    before = PM.packed_matmul.launches
+    z = PM.packed_matmul(by, a, n)
+    assert PM.packed_matmul.launches == before + 1
+    ref = PM.packed_matmul_ref(by, a, n)
+    torch.cuda.synchronize()
+    assert z.shape == (G, n, k)
+    assert (z - ref).abs().max().item() <= 1e-4
+    assert torch.equal(PM.packed_matmul(by[1], a[1], n), z[1])
+
+
+def _rel_close(got, ref, tol=1e-4):
+    return (got - ref).abs().max().item() <= tol * max(ref.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("act", PM.FUSED_ACTIVATIONS)
+@pytest.mark.parametrize("m,n,k", [(104, 1300, 16), (300, 2100, 5), (24, 700, 40)])
+def test_packed_linear_vjp_kernel_matches_plain(dev, act, m, n, k):
+    """K3 against its plain version: ragged n, several marker and feature
+    tiles, exactly-zero outputs (relu, leaky_relu: h' = 0 there)."""
+    rng = np.random.default_rng(7)
+    G = 3
+    by = _bytes(rng, G, m, n, dev)
+    g = torch.from_numpy(rng.standard_normal((G, n, k)).astype(np.float32)).to(dev)
+    out = torch.from_numpy(rng.standard_normal((G, n, k)).astype(np.float32)).to(dev)
+    out[:, ::7] = 0.0
+    if act == "tanh":
+        out = torch.tanh(out)
+    before = PM.packed_linear_vjp.launches
+    da, d_off = PM.packed_linear_vjp(by, g, out, n, act)
+    assert PM.packed_linear_vjp.launches == before + 1
+    da_ref, d_off_ref = PM.packed_linear_vjp_ref(by, g, out, n, act)
+    torch.cuda.synchronize()
+    assert da.shape == (G, m, k) and d_off.shape == (G, k)
+    assert _rel_close(da, da_ref) and _rel_close(d_off, d_off_ref)
+    # the same inputs give the same bits: fixed-order partial sums
+    da2, d_off2 = PM.packed_linear_vjp(by, g, out, n, act)
+    assert torch.equal(da, da2) and torch.equal(d_off, d_off2)
+    da1, d_off1 = PM.packed_linear_vjp(by[2], g[2], out[2], n, act)
+    assert _rel_close(da1, da_ref[2]) and _rel_close(d_off1, d_off_ref[2])
+
+
+@pytest.mark.parametrize("m,n,k", [(104, 1300, 16), (300, 513, 5)])
+def test_packed_matmul_vjp_kernel_matches_plain(dev, m, n, k):
+    rng = np.random.default_rng(8)
+    G = 2
+    by = _bytes(rng, G, m, n, dev)
+    g = torch.from_numpy(rng.standard_normal((G, n, k)).astype(np.float32)).to(dev)
+    before = PM.packed_matmul_vjp.launches
+    da = PM.packed_matmul_vjp(by, g, n)
+    assert PM.packed_matmul_vjp.launches == before + 1
+    ref = PM.packed_matmul_vjp_ref(by, g, n)
+    torch.cuda.synchronize()
+    assert da.shape == (G, m, k) and _rel_close(da, ref)
+    assert torch.equal(da, PM.packed_matmul_vjp(by, g, n))
+
+
+@pytest.mark.parametrize("act", ["identity", "tanh", "silu"])
+def test_autograd_through_the_packed_layer0_on_the_card(dev, act):
+    """The density's packed forward and autograd on the card (K2 + K3, or
+    K9a + K9b under silu) against the same on the CPU's plain versions."""
+    from rs_bann_tpu_torch.models import density as D
+
+    rng = np.random.default_rng(9)
+    G, m, n = 2, 104, 1300
+    by = _bytes(rng, G, m, n, dev)
+    scale, shift = torch.rand(G, m) + 0.5, torch.rand(G, m) * 2
+    w = (torch.from_numpy(rng.standard_normal((G, m, 16)).astype(np.float32)) * 0.2,
+         torch.from_numpy(rng.standard_normal((G, 16, 1)).astype(np.float32)))
+    b = (torch.from_numpy(rng.standard_normal((G, 16)).astype(np.float32)) * 0.1,)
+    y = torch.randn(G, n)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        x = PackedX(by.to(d), scale.to(d), shift.to(d), n)
+        ws = [t.to(d).requires_grad_() for t in w]
+        bs = [t.to(d).requires_grad_() for t in b]
+        rss = D.branch_rss(act, ws, bs, x, y.to(d))
+        grads.append([t.cpu() for t in torch.autograd.grad(rss.sum(), ws + bs)])
+    for got, ref in zip(*grads):
+        assert _rel_close(got, ref)
 
 
 @pytest.mark.parametrize("depth", [0, 1])
@@ -215,6 +305,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         PM.packed_linear(by, torch.zeros(m, 8, device=dev, dtype=torch.float64),
                          torch.zeros(8, device=dev, dtype=torch.float64), n, "identity")
+    with pytest.raises(TypeError):
+        PM.packed_matmul(by, torch.zeros(m, 8, device=dev, dtype=torch.float64), n)
+    with pytest.raises(ValueError):  # cotangent rows != n
+        PM.packed_matmul_vjp(by, torch.zeros(n + 1, 8, device=dev), n)
+    with pytest.raises(ValueError):  # the bytes hold fewer than n individuals
+        PM.packed_linear_vjp(by, torch.zeros(4 * by.shape[-1] + 1, 8, device=dev),
+                             torch.zeros(4 * by.shape[-1] + 1, 8, device=dev),
+                             4 * by.shape[-1] + 1, "tanh")
     x = PackedX(by, torch.ones(m, device=dev), torch.zeros(m, device=dev), n)
     deep = (torch.zeros(m, 8, device=dev), torch.zeros(8, 8, device=dev),
             torch.zeros(8, 8, device=dev), torch.zeros(8, 1, device=dev))

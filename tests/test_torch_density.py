@@ -76,8 +76,10 @@ def test_activations_and_derivatives_match_jax(act):
     np.testing.assert_allclose(TA.prime(act, T(z), ta).numpy(), jd, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("act", ["identity", "tanh"])
+@pytest.mark.parametrize("act", ["identity", "tanh", "silu"])
 def test_packed_forward_and_predict_match_jax(act):
+    """The packed forward (K2's plain version; under silu K9a's, unfused,
+    with its pre-activation) against JAX's."""
     rng = np.random.default_rng(1)
     G, m, n = 2, 24, 700
     by = np.stack([pack_strided(rng.integers(0, 3, (m, n)).astype(np.float32)) for _ in range(G)])
@@ -94,9 +96,13 @@ def test_packed_forward_and_predict_match_jax(act):
         jx = JD.PackedX(jnp.asarray(by[g]), jnp.asarray(scale[g]), jnp.asarray(shift[g]), n)
         jw = tuple(jnp.asarray(w[g]) for w in ws)
         jb = tuple(jnp.asarray(b[g]) for b in bs)
-        _, jacts = JD.forward(act, jw, jb, jx)
+        jpre, jacts = JD.forward(act, jw, jb, jx)
         pre, tacts = TD.forward(act, tuple(T(w[g]) for w in ws), tuple(T(b[g]) for b in bs), tx[g])
-        assert pre[0] is None and len(tacts) == len(jacts)
+        if act == "silu":
+            np.testing.assert_allclose(pre[0].numpy(), np.asarray(jpre[0]), rtol=1e-5, atol=1e-5)
+        else:
+            assert pre[0] is None
+        assert len(tacts) == len(jacts)
         for t, j in zip(tacts, jacts):
             np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(
@@ -104,10 +110,10 @@ def test_packed_forward_and_predict_match_jax(act):
         )
 
 
-@pytest.mark.parametrize("act", ["identity", "tanh"])
+@pytest.mark.parametrize("act", ["identity", "tanh", "silu"])
 def test_chain_folded_predict_matches_jax(act):
-    """predict_chains (C chains' layer 0 side by side in one K2 call) against
-    JAX's predict of each chain and branch."""
+    """predict_chains (C chains' layer 0 side by side in one K2 call, or one
+    K9a call under silu) against JAX's predict of each chain and branch."""
     rng = np.random.default_rng(2)
     C, B, m, n = 3, 2, 24, 700
     by = np.stack([pack_strided(rng.integers(0, 3, (m, n)).astype(np.float32)) for _ in range(B)])

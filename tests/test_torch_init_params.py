@@ -52,7 +52,14 @@ def test_fixed_precision_ard_refused_like_jax():
     with pytest.raises(NotImplementedError):
         JI.init_net(RAGGED, "ridge_ard", JI.InitCfg(**cfg))
     with pytest.raises(NotImplementedError):
-        TI.init_net(port(RAGGED), "ridge_ard", TI.InitCfg(**cfg))
+        TI.init_net(port(RAGGED), "ridge_ard", TI.InitCfg(**cfg), device="cpu")
+
+
+def test_init_net_takes_no_default_device():
+    """The caller names the device: a call without one is refused rather
+    than quietly put on the CPU."""
+    with pytest.raises(TypeError, match="device"):
+        TI.init_net(port(RAGGED), "ridge_base", TI.InitCfg(seed=1))
 
 
 def test_state_numpy_round_trip():

@@ -43,7 +43,7 @@ for new in ("rs_bann_tpu_torch.ops.leapfrog", "rs_bann_tpu_torch.samplers.hmc",
     assert new in names, new
 print(len(names))
 from rs_bann_tpu_torch.cli.main import main
-for argv in (["--help"], ["train-new", "--help"], ["predict", "--help"]):
+for argv in (["--help"], ["train-new", "--help"], ["predict", "--help"], ["gradients", "--help"]):
     try:
         main(argv)
     except SystemExit as e:
@@ -102,6 +102,25 @@ def test_profile_script_flagship_runs_on_the_cpu_without_jax():
     assert "(K7, K6)" in proc.stdout
 
 
+def test_profile_script_gd_runs_on_the_cpu_without_jax():
+    """The same with ``--gd`` (the GD warm-start sweep, identity and silu)
+    at a toy size."""
+    run = SCRIPT.split("import rs_bann_tpu_torch")[0] + (
+        "import runpy\n"
+        "sys.argv = ['profile_hybrid_torch.py', '--device', 'cpu', '--gd', '--groups', '2',"
+        " '--n', '600', '--sweeps', '1']\n"
+        "runpy.run_path('scripts/profile_hybrid_torch.py', run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", run], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    for case in ("GD warm start identity C=4", "GD warm start silu C=4"):
+        assert case + ": ms per sweep" in proc.stdout, proc.stdout
+    assert "(K2, K3, K9a, K9b)" in proc.stdout
+
+
 def test_chip_smoke_without_a_card_exits_nonzero_before_any_result():
     """chip_smoke.py with jax and the JAX package blocked and no CUDA device:
     its imports load, and it stops at phase 0 with a non-zero code and no
@@ -129,3 +148,4 @@ def test_port_imports_and_runs_without_jax():
     n_modules = int(proc.stdout.split("\n")[0])
     assert n_modules >= 24
     assert "train-new" in proc.stdout and "--packed-genotypes" in proc.stdout
+    assert "gradients" in proc.stdout
