@@ -54,11 +54,27 @@ Phases, each of which raises on failure (the exit code is then non-zero):
  12. the same with silu: K9a in place of K2 and K9b in place of K3, no K2,
      K3 or K4; predict --packed-genotypes (K9a) and gradients (K9a + K9b),
      each against the CPU's
+ 13. K8a (data_vg, one flagship branch) and K8b (data_vg_blocked: 4 chains
+     x a random block of 8 branches each, X read in place through an
+     index; then all 64 branches of one chain) against their plain
+     versions at the flagship's shape, weights from its initial state,
+     each instance's perturbed; identical bits on a repeat; K8's
+     forward-only instantiation against its y_pred
+ 14. the flagship through the CLI under the sequential schedule, one chain:
+     train-new --feat-major (2 sweeps of L = 64: exactly G x (L + 1) x 2 =
+     8,320 K8a launches, no other kernel), dense predict, the card's
+     predictions against the CPU's
+ 15. the same with --update-mode hybrid --per-chain-block-perm --num-chains
+     4 (each block's 4 x 8 (chain, branch) pairs in one batched lean body:
+     exactly blocks x (L + 2) x 2 = 1,056 K8b launches and one forward-only
+     K8 launch per block, no other kernel), predict on each chain's samples
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
-for K9a and K9b), error against
+for K9a and K9b, 14 for K8a, 15 for K8b), error against
 its plain version (max_abs_err, and max_rel_err: the largest difference
-over max(1, largest plain entry), the ratio held to REL_TOL), times, and
+over max(1, largest plain entry), the ratio held to REL_TOL), times (of
+the wrapper's call, except K8's: its launch alone from back-to-back
+launches, the wrapper's call beside it as wrapper_ms), and
 the bound (the larger of its FLOPs over the
 67 TFLOP/s f32 peak and its bytes, each input read once and each output
 written once, over 3.35 TB/s); the last line is {"ok": true, "device":
@@ -67,6 +83,7 @@ written once, over 3.35 TB/s); the last line is {"ok": true, "device":
 
 import contextlib
 import csv
+import ctypes
 import io
 import json
 import logging
@@ -195,6 +212,7 @@ def main():
     import torch
 
     # ---- phase 0
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,6 +232,7 @@ def main():
     from rs_bann_tpu_torch.models import density as D
     from rs_bann_tpu_torch.models import params as P
     from rs_bann_tpu_torch.ops import _build
+    from rs_bann_tpu_torch.ops.activations import ACT_CODES
     from rs_bann_tpu_torch.ops import branch_mlp as BM
     from rs_bann_tpu_torch.ops import leapfrog as LF
     from rs_bann_tpu_torch.ops import packed_matmul as PM
@@ -912,6 +931,161 @@ def main():
                 raise AssertionError("the card's gradients disagree with the CPU's")
             gd_runs[act] = {"launches": total, "warm_ms": warm_ms, "sweep_ms": sweep_ms}
         logging.getLogger("rs_bann_tpu_torch").removeHandler(warm_handler)
+
+        # ---- phase 13: K8a and K8b at the dense flagship's shape
+        xT = CompressedGenotypes(f_bed, fgroups).to_feature_major(farch, dev).X.xT
+        print(f"phase 13: K8a data_vg and K8b data_vg_blocked vs plain at the dense flagship's "
+              f"shape: xT {tuple(xT.shape)}, tanh depth 1, h = s = {FH}")
+        k8gen = np.random.default_rng(13)
+
+        def instances(ix):  # the initial state's branches ix, each instance perturbed
+            def one(tree):
+                return tuple(torch.as_tensor(
+                    (a[ix] * (1.0 + 0.1 * k8gen.standard_normal((len(ix),) + a.shape[1:])))
+                    .astype(np.float32), device=dev) for a in tree)
+
+            return one(s0.params.weights), one(s0.params.biases)
+
+        def k8_launch_ms(X, ix, ws, bs, targets, reps=20):
+            """CUDA-event ms of one K8 launch with its tile sum, from runs of
+            ``reps`` back-to-back calls of the C entry on buffers made once:
+            the wrapper's own host work (the flat weights, the views of the
+            gradients) would otherwise stall the card between launches."""
+            NB, (_, m, n) = ws[0].shape[0], X.shape
+            q = BM.flat_params(tuple(w.unsqueeze(1) for w in ws),
+                               tuple(b.unsqueeze(1) for b in bs))
+            P = q.shape[-1]
+            y = torch.empty((NB, n), device=dev)
+            partial = torch.empty((NB, -(-n // BM.DENSE_TILE), P), device=dev)
+            grads = torch.empty((NB, P), device=dev)
+            vp = ctypes.c_void_p
+            c_args = (vp(X.data_ptr()), vp(0 if ix is None else ix.data_ptr()),
+                      vp(targets.data_ptr()), vp(q.data_ptr()), vp(y.data_ptr()),
+                      vp(partial.data_ptr()), vp(grads.data_ptr()), NB, m, n,
+                      ws[0].shape[-1], ws[-1].shape[-2], P, len(ws) - 2, ACT_CODES["tanh"], 1,
+                      vp(_build.stream_ptr(X)))
+            lib = _build.lib()
+
+            def run():
+                for _ in range(reps):
+                    _build.check(lib.vg_dense_f32(*c_args), "vg_dense_f32")
+
+            return cuda_ms(run) / reps
+
+        def k8_case(name, label, fn, ref, args, ix_x, nb, raw):
+            """Check, repeat and time one K8 call (the wrapper, and with ``raw``
+            = (X, ix, weights, biases, targets) with a leading instance axis,
+            the launch alone); returns (err, ms, wrapper ms, plain ms, bound)."""
+            out, want = fn(*args), ref(*args)
+            names = ("y_pred", "rss", "dW0", "dW1", "dw_out", "db0", "db1")
+            err = max(check_close(name, f"{label} {nm}", got, w) for nm, got, w in
+                      zip(names, [out[0], out[1], *out[2], *out[3]],
+                          [want[0], want[1], *want[2], *want[3]]))
+            again = fn(*args)
+            if not all(torch.equal(a, b) for a, b in zip([out[0], *out[2], *out[3]],
+                                                         [again[0], *again[2], *again[3]])):
+                raise AssertionError(f"{label}: two calls with the same inputs differ")
+            wrapper_ms, plain_ms = cuda_ms(lambda: fn(*args)), cuda_ms(lambda: ref(*args))
+            ms = k8_launch_ms(*raw)
+            ws, bs = args[-3], args[-2]
+            # the X branches read, each once; targets and weights in, y_pred and gradients out
+            case_bound = bound(2 * nb * FN_TRAIN * mlp_fmas(fm, fk0, fs, 1),
+                               4 * len(set(ix_x)) * fm * FN_TRAIN + nbytes(args[-1], out[0])
+                               + 2 * nbytes(*ws, *bs))
+            print(f"  {label}: kernel {ms:.4f} ms (launch alone; the wrapper {wrapper_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, bound {case_bound[0]:.4f} ms ({case_bound[1]}); "
+                  f"identical repeat")
+            return err, ms, wrapper_ms, plain_ms, case_bound
+
+        g = FG // 2
+        ws1, bs1 = instances([g])
+        t1 = fy + 0.1 * torch.randn(FN_TRAIN, device=dev, generator=fgen)
+        k8a_err, k8a_ms, k8a_wrapper_ms, k8a_plain_ms, k8a_bound = k8_case(
+            "data_vg", "K8a NB=1", BM.data_vg, BM.data_vg_ref,
+            ("tanh", xT[g], tuple(w[0] for w in ws1), tuple(b[0] for b in bs1), t1), [g], 1,
+            (xT[g][None], None, ws1, bs1, t1[None]))
+        k8b = {}
+        # 4 chains x a random block of 8 branches each; then one chain's 64 branches
+        blocks = np.concatenate([k8gen.permutation(FG)[:8] for _ in range(FCHAINS)])
+        for nb, ix_np in ((FCHAINS * 8, blocks), (FG, np.arange(FG))):
+            wsb, bsb = instances(ix_np)
+            tb = fy + 0.1 * torch.randn((nb, FN_TRAIN), device=dev, generator=fgen)
+            ix = torch.as_tensor(ix_np, dtype=torch.int32, device=dev)
+            k8b[nb] = k8_case("data_vg_blocked", f"K8b NB={nb}", BM.data_vg_blocked,
+                              BM.data_vg_blocked_ref, ("tanh", xT, ix, wsb, bsb, tb), ix_np, nb,
+                              (xT, ix, wsb, bsb, tb))
+        k8b_err = max(v[0] for v in k8b.values())
+        y_fwd = BM.forward_blocked("tanh", xT, ix, wsb, bsb)
+        if not torch.equal(y_fwd, BM.data_vg_blocked("tanh", xT, ix, wsb, bsb, tb)[0]):
+            raise AssertionError("K8's forward-only instantiation differs from its y_pred")
+        del xT, y_fwd
+
+        # ---- phases 14 and 15: the flagship through the CLI, sequential one
+        # chain (K8a per leapfrog step) and unfolded hybrid with 4 chains (K8b
+        # per leapfrog step for each block's (chain, branch) pairs)
+        k8_counted = {"data_vg": BM.data_vg, "data_vg_blocked": BM.data_vg_blocked,
+                      "forward_blocked": BM.forward_blocked, "data_vg_chains": BM.data_vg_chains,
+                      "traj_dense": LF.integrate_chains, **counted}
+        flag_args = [
+            "train-new", os.path.join(fdir, "train"), os.path.join(fdir, "train.phen"),
+            os.path.join(fdir, "train.groups"), "ridge_base", "tanh", "1", CHAIN, FL,
+            "--fixed-hidden-layer-width", FH, "--fixed-summary-layer-width", FH, "--feat-major",
+            "--burn-in", "1", "--bfile-test", os.path.join(fdir, "test"),
+            "--p-test", os.path.join(fdir, "test.phen"), "-o", runs,
+        ]
+        fblock = FG // 8  # the hybrid's default block size at G = 64
+        k8_runs = {}
+        for phase, extra, chains, want in (
+            (14, [], 1, {"data_vg": FG * (FL + 1) * CHAIN}),
+            (15, ["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", FCHAINS],
+             FCHAINS, {"data_vg_blocked": (FG // fblock) * (FL + 2) * CHAIN,
+                       "forward_blocked": (FG // fblock) * CHAIN}),
+        ):
+            print(f"phase {phase}: train-new --feat-major {' '.join(map(str, extra))} "
+                  f"({CHAIN} sweeps of L {FL}) -> predict")
+            for f in k8_counted.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            run = run_cli(cli, flag_args + extra).strip().splitlines()[-1]
+            secs = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {n: f.launches for n, f in k8_counted.items()}
+            print(f"  kernel launches in train-new: {launches}")
+            for n, v in launches.items():
+                if v != want.get(n, 0):
+                    raise AssertionError(f"{n} launched {v} times, expected {want.get(n, 0)}")
+            stats = json.load(open(os.path.join(run, "training_stats")))
+            series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+            if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+                raise AssertionError(f"non-finite or missing training statistics: {stats}")
+            if stats["num_samples"] != CHAIN * FG * chains:
+                raise AssertionError(f"{stats['num_samples']} branch updates counted, "
+                                     f"expected {CHAIN * FG * chains}")
+            dirs = ([os.path.join(run, "models")] if chains == 1
+                    else [os.path.join(run, "models", f"chain{c}") for c in range(chains)])
+            chain_preds = [np.asarray(list(csv.reader(io.StringIO(run_cli(cli, [
+                "predict", os.path.join(fdir, "test"), os.path.join(fdir, "train.groups"),
+                "-m", d])))), np.float64) for d in dirs]
+            preds = np.concatenate(chain_preds)
+            if preds.shape != (chains * CHAIN, FN_TEST) or not np.all(np.isfinite(preds)):
+                raise AssertionError(f"predictions of shape {preds.shape}, finite: "
+                                     f"{np.all(np.isfinite(preds))}")
+            done = [r for r in log_records if str(r.msg).startswith("Completed training")][-1]
+            sweep_ms = 1000.0 * done.args[0] / CHAIN
+            r2 = 1.0 - np.mean((fy_test - preds.mean(axis=0)) ** 2) / np.var(fy_test)
+            print(f"  {sweep_ms:.1f} ms per sweep of {chains} chain(s), "
+                  f"{sweep_ms / chains:.1f} ms per chain-sweep; train-new {secs:.1f} s in all")
+            print(f"  acceptance {stats['num_accepted'] / stats['num_samples']:.3f}, "
+                  f"early rejection {stats['num_early_rejected'] / stats['num_samples']:.3f}; "
+                  f"mse train {stats['mse_train'][-1]:.4f}, mse test {stats['mse_test'][-1]:.4f}, "
+                  f"test r2 of the posterior mean {r2:.4f}")
+            net = Net.load(os.path.join(dirs[0], f"{CHAIN}.npz"), "cpu")
+            cpu_pred = net.predict(f_test.to_stacked(net.arch, "cpu").X).numpy()
+            err = np.abs(cpu_pred - chain_preds[0][-1]).max()
+            print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
+            if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
+                raise AssertionError("the card's predictions disagree with the CPU's")
+            k8_runs[phase] = {"launches": launches, "sweep_ms": sweep_ms}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -968,9 +1142,29 @@ def main():
          "launches": gd_runs["silu"]["launches"]["packed_matmul_vjp"], "max_abs_err": k9b_err,
          "ms": k9b_ms, "plain_ms": k9b_plain_ms, "bound_ms": k9b_bound[0],
          "bound_by": k9b_bound[1], "library_ms": None},
+        # launches: the sequential flagship of phase 14 (K8a) and the unfolded
+        # hybrid of phase 15 (K8b, whose times are at its NB = 32 of 4 chains
+        # x 8 branches; NB = 64 and the forward-only launches beside them)
+        {"name": "data_vg", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/branch_vg_dense.cu",
+         "replaces": "rs_bann_tpu/ops/branch_mlp.py:96",
+         "launches": k8_runs[14]["launches"]["data_vg"], "max_abs_err": k8a_err,
+         "ms": k8a_ms, "plain_ms": k8a_plain_ms, "bound_ms": k8a_bound[0],
+         "bound_by": k8a_bound[1], "library_ms": None, "wrapper_ms": k8a_wrapper_ms},
+        {"name": "data_vg_blocked", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/branch_vg_dense.cu",
+         "replaces": "rs_bann_tpu/ops/branch_mlp.py:335",
+         "launches": k8_runs[15]["launches"]["data_vg_blocked"], "max_abs_err": k8b_err,
+         "ms": k8b[FCHAINS * 8][1], "plain_ms": k8b[FCHAINS * 8][3],
+         "bound_ms": k8b[FCHAINS * 8][4][0], "bound_by": k8b[FCHAINS * 8][4][1],
+         "library_ms": None, "wrapper_ms": k8b[FCHAINS * 8][2], "nb64_ms": k8b[FG][1],
+         "nb64_wrapper_ms": k8b[FG][2], "nb64_plain_ms": k8b[FG][3],
+         "nb64_bound_ms": k8b[FG][4][0],
+         "forward_launches": k8_runs[15]["launches"]["forward_blocked"]},
     ]
     for k in kernels:  # the scale-free error that the checks gate on
         k["max_rel_err"] = REL_ERR[k["name"]]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

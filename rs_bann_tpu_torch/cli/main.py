@@ -4,9 +4,11 @@
 Counterpart of rs_bann_tpu/cli/main.py with the same arguments (the port's
 own copies of the JAX package's argparse helpers, cli/args.py) and the same
 run-directory naming, args.json, model samples and predict CSV. Training
-takes 2-bit packed genotypes (``--packed-genotypes``) or, under the
-parallel and hybrid schedules, dense feature-major ones (``--feat-major``);
-``predict`` and ``gradients`` take packed or dense genotypes. Options whose
+takes 2-bit packed genotypes (``--packed-genotypes``) or dense
+feature-major ones (``--feat-major``) under every schedule: the folded
+parallel or hybrid sweep on K6 and K7, the sequential one on K8a, the
+unfolded hybrid one (``--per-chain-block-perm``) on K8b. ``predict`` and
+``gradients`` take packed or dense genotypes. Options whose
 code paths wait for later slices of the port exit non-zero with "not ported
 yet".
 
@@ -70,29 +72,28 @@ def _unported(args, cfg) -> list:
         bad.append("--checkpoint-interval")
     if args.resume is not None:
         bad.append("--resume")
-    if args.feat_major and cfg.update_mode == "sequential":
-        bad.append("--feat-major under the sequential schedule")
     if not (args.packed_genotypes or args.feat_major):
         bad.append("dense sample-major genotypes (pass --packed-genotypes or --feat-major)")
     return bad
 
 
 def _beyond_kernels(args, cfg, arch, device) -> list:
-    """On a CUDA device, the folded feature-major sweep runs every branch
-    on K6/K7; a branch beyond their limits (depth above 1, a width above 32,
-    too many markers for shared memory) is refused rather than run on the
-    plain version. The CPU runs the plain versions at any shape."""
+    """On a CUDA device a feature-major sweep runs every branch on K6/K7
+    (folded) or K8 (sequential or unfolded); a branch beyond their limits
+    (depth above 1, a width above 32, too many markers for shared memory) is
+    refused rather than run on the plain version. The CPU runs the plain
+    versions at any shape."""
     from ..models.net import chain_fold_eligible
     from ..ops.branch_mlp import dense_chains_smem
 
-    if (device.type != "cuda" or not args.feat_major
-            or not chain_fold_eligible(args.model_type, args.activation_function, cfg)):
+    if device.type != "cuda" or not args.feat_major:
         return []
     if dense_chains_smem(arch.m_pad, arch.layer_out_pad(0), arch.s_pad, arch.depth) >= 0:
         return []
-    return [f"--feat-major branches beyond the K6/K7 CUDA kernels' limits (depth "
-            f"{arch.depth}, {arch.m_pad} markers, widths {arch.layer_out_pad(0)}/{arch.s_pad}; "
-            f"they take depth 0 or 1 and widths up to 32)"]
+    folded = chain_fold_eligible(args.model_type, args.activation_function, cfg)
+    return [f"--feat-major branches beyond the {'K6/K7' if folded else 'K8'} CUDA kernels' "
+            f"limits (depth {arch.depth}, {arch.m_pad} markers, widths "
+            f"{arch.layer_out_pad(0)}/{arch.s_pad}; they take depth 0 or 1 and widths up to 32)"]
 
 
 def _load_train_data(args):

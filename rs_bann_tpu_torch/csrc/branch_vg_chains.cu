@@ -36,16 +36,9 @@ __global__ void __launch_bounds__(kThreads, 2) vg_chains_kernel(ChainArgs a) {
     chain_item<KM, DEEP, GRAD>(a, blockIdx.y, blockIdx.x, reinterpret_cast<float*>(smem4));
 }
 
-// grads[bc, p] = sum over tiles t in order of partial[bc, t, p]
 __global__ void reduce_tiles_kernel(const float* __restrict__ partial, float* __restrict__ grads,
                                     long long total, int ntiles, int P) {
-    const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (e >= total) return;
-    const long long bc = e / P;
-    const float* src = partial + bc * ntiles * P + e % P;
-    float sum = 0.f;
-    for (int t = 0; t < ntiles; ++t) sum += src[static_cast<size_t>(t) * P];
-    grads[e] = sum;
+    reduce_tiles(partial, grads, total, ntiles, P);
 }
 
 template <int KM, bool DEEP, bool GRAD>

@@ -1,10 +1,11 @@
 // K7's device code: the chain-folded feature-major branch MLP, its error and
-// its backward for one work item, shared by K7 (csrc/branch_vg_chains.cu)
-// and the gradient phase of K6 (csrc/traj_dense.cu), so the two cannot drift
-// apart.
+// its backward for one work item, shared by K7 (csrc/branch_vg_chains.cu),
+// the gradient phase of K6 (csrc/traj_dense.cu) and K8 at C = 1
+// (csrc/branch_vg_dense.cu), so they cannot drift apart.
 //
 // Replaces the body of rs_bann_tpu/ops/branch_mlp.py::_chain_kernel (and the
-// data_grad of ::leapfrog.py::_traj_kernel, which is the same computation).
+// data_grad of ::leapfrog.py::_traj_kernel, and ::_kernel / ::_blocked_kernel
+// at one chain, which are the same computation).
 //
 // A work item is (branch g, tile of kTile = 128 individuals). The X tile
 // xT[g, :, tile] ([m, 128] f32, 33 KB at m = 64) is staged once in shared
@@ -56,7 +57,23 @@ struct ChainArgs {
     float* y_pred;        // [G, C, n] or null
     float* partial;       // [G, C, ntiles, P] (gradient passes)
     int C, m, n, k0, s, P, act, ntiles;
+    const int* xix = nullptr;  // [G]: work row g reads X branch xix[g] (K8); null: branch g
 };
+
+// grads[bc, p] = sum over tiles t in order of partial[bc, t, p], one thread
+// per element of grads [total = rows * P]: the fixed-order tile sum that
+// follows K7's and K8's gradient passes.
+__device__ __forceinline__ void reduce_tiles(const float* __restrict__ partial,
+                                             float* __restrict__ grads, long long total,
+                                             int ntiles, int P) {
+    const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (e >= total) return;
+    const long long bc = e / P;
+    const float* src = partial + bc * ntiles * P + e % P;
+    float sum = 0.f;
+    for (int t = 0; t < ntiles; ++t) sum += src[static_cast<size_t>(t) * P];
+    grads[e] = sum;
+}
 
 template <int KT>
 __device__ __forceinline__ void load_k(const float* p, float (&w)[KT]) {
@@ -173,7 +190,7 @@ __device__ void chain_item(const ChainArgs& a, int g, int tile, float* smem) {
 
     // ---- the X tile, once for all chains (zero past n)
     __syncthreads();  // the previous item is done with shared memory
-    const float* xg = a.x + static_cast<size_t>(g) * m * n;
+    const float* xg = a.x + static_cast<size_t>(a.xix != nullptr ? a.xix[g] : g) * m * n;
     if ((n & 3) == 0) {
         for (int idx = tid; idx < m * (kTile / 4); idx += kThreads) {
             const int mm = idx / (kTile / 4), v = idx % (kTile / 4);

@@ -16,8 +16,9 @@ Counterpart of rs_bann_tpu/models/net.py for three schedules:
   kernel. With a shared block permutation, one whole-trajectory call (K5
   on packed genotypes, K6 on a FeatX) integrates the whole block for all
   chains, one chain included (``chain_fold_eligible``); otherwise each
-  (chain, branch) runs its own lean transition (K4 on packed genotypes,
-  autograd on a FeatX).
+  (chain, branch) runs its own lean transition: K4 per branch on packed
+  genotypes; on a FeatX all of the block's (chain, branch) pairs at once,
+  one K8b call per leapfrog step, each reading its branch of X in place.
 * parallel: the hybrid sweep with one block of all G branches in their own
   order, every sweep (``make_hybrid_sweep``).
 
@@ -44,13 +45,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS
+from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS, forward_blocked
 from ..samplers import gibbs
 from ..samplers.hmc import (
     HMCProposal,
     HMCResult,
     make_gradient_descent,
     make_hmc_step,
+    make_lean_batch,
     make_transition_batch,
 )
 from ..samplers.mcmc_cfg import MCMCCfg
@@ -316,8 +318,11 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
 
     ``fold`` picks the block transition: one whole-trajectory call for the
     whole block and all chains (True: K5 on packed genotypes, K6 on a
-    FeatX), or each (chain, branch) on its own lean transition (False). The
-    default folds when ``chain_fold_eligible`` holds. Both
+    FeatX), or each (chain, branch) on its own lean transition (False: K4
+    per branch on packed genotypes; on a FeatX the lean body batched over
+    the block's (chain, branch) pairs, ``make_lean_batch``, with the
+    snapshot predictions from K8's forward-only pass, both reading X in
+    place). The default folds when ``chain_fold_eligible`` holds. Both
     consume the same random draws, so for one generator state they give the
     same chain up to f32 rounding.
 
@@ -365,13 +370,22 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     transition = (make_gradient_descent(model_type, act, cfg) if gd
                   else make_hmc_step(model_type, act, cfg, defer_accept=True))
     fold_transition = make_transition_batch(model_type, act, cfg) if folded else None
+    lean_batch = make_lean_batch(model_type, act, cfg)
     cix = torch.arange(C, device=device)[:, None]
 
-    def hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x, targets, preds, mw_b, mb_b, st_b,
+    def flat(ts):  # [C, Bk, ...] -> [C * Bk, ...], chain-major
+        return tuple(t.reshape((C * Bk,) + t.shape[2:]) for t in ts)
+
+    def unflat(t):  # [C * Bk, ...] -> [C, Bk, ...]
+        return t.reshape((C, Bk) + t.shape[1:])
+
+    def hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x, ix, targets, preds, mw_b, mb_b, st_b,
                   residual):
-        """The block's HMC proposals (folded, or per (chain, branch) against
-        each chain's ``x[c]`` when the permutation is not shared), accepted
-        one by one against the live residual."""
+        """The block's HMC proposals (folded; on a FeatX every (chain,
+        branch) of the block in one batched lean body reading X in place
+        through ``ix``; else per (chain, branch) against each chain's ``x[c]``
+        when the permutation is not shared), accepted one by one against the
+        live residual."""
         momenta = (
             tuple(torch.randn(w.shape, generator=gen, device=gen.device) for w in w_b),
             tuple(torch.randn(b.shape, generator=gen, device=gen.device) for b in b_b),
@@ -379,6 +393,13 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         if folded:
             prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x, targets, mw_b, mb_b,
                                    momenta, y_pred0=preds)
+        elif ix is not None:
+            p = lean_batch(gen, flat(w_b), flat(b_b), flat(wp_b), flat(bp_b),
+                           err_prec.repeat_interleave(Bk), x, ix, targets.reshape(C * Bk, -1),
+                           flat(mw_b), flat(mb_b), st_b.n_params.reshape(-1),
+                           (flat(momenta[0]), flat(momenta[1])))
+            prop = HMCProposal(tuple(map(unflat, p.weights)), tuple(map(unflat, p.biases)),
+                               *map(unflat, p[2:]))
         else:
             props = []
             for c in range(C):
@@ -430,7 +451,12 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         wp_b = tuple(take(a) for a in wp)
         bp_b = tuple(take(a) for a in bp)
 
-        if shared:  # the block's genotypes, shared by the chains
+        ix = None
+        if isinstance(X, D.FeatX) and not (folded or gd):
+            # every (chain, branch) reads its branch of X in place
+            x_blk, ix = X, ixs.reshape(-1).to(torch.int32)
+            preds = unflat(forward_blocked(act, X.xT, ix, flat(w_b), flat(b_b)))
+        elif shared:  # the block's genotypes, shared by the chains
             x_blk = X if parallel else X[ixs[0]]
             preds = D.predict_chains(act, w_b, b_b, x_blk)  # [C, Bk, n]
         else:  # each chain's own block
@@ -444,7 +470,7 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             res = _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec,
                             [x_blk] * C if shared else x_blk, targets)
         else:
-            res = hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, targets, preds, mw_b,
+            res = hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, ix, targets, preds, mw_b,
                             mb_b, st_b, residual)
         for l in range(L):
             params.weights[l][cix, ixs] = res.weights[l]

@@ -1,9 +1,10 @@
 """Fused value-and-gradient of the branch MLP's data term: packed, one
-branch (K4), and dense feature-major, C chains folded (K7).
+branch (K4); dense feature-major, C chains folded (K7); dense
+feature-major, one instance per X read (K8a, K8b).
 
-Counterpart of rs_bann_tpu/ops/branch_mlp.py ``data_vg_packed`` and
-``data_vg_chains``. For one branch network f(x; W, b) on 2-bit packed
-genotypes ``data_vg_packed`` returns
+Counterpart of rs_bann_tpu/ops/branch_mlp.py ``data_vg_packed``,
+``data_vg_chains`` and ``data_vg``. For one branch network f(x; W, b) on
+2-bit packed genotypes ``data_vg_packed`` returns
 
     y_pred[i]      = f(x_i)                      (i < n)
     rss            = sum_i (y_pred[i] - target[i])^2
@@ -28,6 +29,15 @@ kernel's forward-only instantiation (y_pred alone), which the folded
 transition's value passes use. On a CPU tensor both run their plain
 versions (``data_vg_chains_ref``, ``forward_chains_ref``). Both count their
 launches in ``data_vg_chains.launches``.
+
+``data_vg`` is the same for one branch and one chain (xT [m_pad, n]: the
+sequential schedule's leapfrog step, K8a), ``data_vg_blocked`` for NB
+independent instances, instance i on X[ix[i]] of X [G, m_pad, n] read in
+place (every (chain, branch) of an unfolded hybrid block, K8b), and
+``forward_blocked`` its y_pred alone. On a CUDA tensor all three are
+csrc/branch_vg_dense.cu (K7's device code at one chain; the limits of K6
+and K7), each counting its own launches; on a CPU tensor their plain
+versions (``data_vg_ref``: autograd of the feature-major forward).
 """
 
 from __future__ import annotations
@@ -42,6 +52,11 @@ from .activations import apply as _act_apply
 from .packed_matmul import GBYTES, _check, unpack_strided
 
 SUPPORTED_ACTIVATIONS = ("identity", "relu", "leaky_relu", "tanh", "silu")
+
+
+def _check_act(act_name):
+    if act_name not in SUPPORTED_ACTIVATIONS:
+        raise ValueError(f"unsupported activation: {act_name}")
 
 
 def data_vg_packed_ref(act, bytes_mb, target, weights, biases, n: int):
@@ -127,8 +142,7 @@ def data_vg_packed(act_name, x, weights, biases, target):
     Returns (y_pred [n], rss, dws, dbs): the data term's prediction, rss and
     the gradients of rss / 2.
     """
-    if act_name not in SUPPORTED_ACTIVATIONS:
-        raise ValueError(f"unsupported activation: {act_name}")
+    _check_act(act_name)
     s = x.w_scale
     w0p = s[:, None] * weights[0]
     off = biases[0] - x.shift @ w0p
@@ -154,7 +168,7 @@ _MAX_SMEM = 232448  # dynamic shared memory a block may use
 
 
 def dense_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
-    """Shared memory (bytes) that K6 and K7 need for one branch of m_pad
+    """Shared memory (bytes) that K6, K7 and K8 need for one branch of m_pad
     markers and layer widths k0, s, or -1 if they cannot run it (depth above
     1, a width above 32, or more than 227 KB). The same rule as the CUDA
     entry point ``dense_chains_smem``; the CLI asks it before training on
@@ -191,14 +205,21 @@ def unflat_params(flat, like_w, like_b):
     return tuple(ws), tuple(bs)
 
 
-def forward_chains_ref(act, xT, weights, biases) -> torch.Tensor:
-    """Feature-major forward of C chains: z [G, C, out, n] = W^T a + b per
-    layer, then the width-1 output as a sum over the summary rows. xT
-    [G, m_pad, n] -> y_pred [G, C, n]."""
-    a = xT[:, None]
+def _forward_fm(act, xT, weights, biases) -> torch.Tensor:
+    """Feature-major forward: z [..., out, n] = W^T a + b per layer, then the
+    width-1 output as a sum over the summary rows. xT [..., m_pad, n],
+    weights[l] [..., in, out] -> y_pred [..., n] (models/density.py
+    ``forward`` on a FeatX)."""
+    a = xT
     for l in range(len(weights) - 1):
         a = _act_apply(act, weights[l].transpose(-1, -2) @ a + biases[l][..., None])
     return torch.sum(weights[-1] * a, dim=-2)
+
+
+def forward_chains_ref(act, xT, weights, biases) -> torch.Tensor:
+    """Feature-major forward of C chains: xT [G, m_pad, n], weights[l]
+    [G, C, in, out] -> y_pred [G, C, n]."""
+    return _forward_fm(act, xT[:, None], weights, biases)
 
 
 def data_vg_chains_ref(act, xT, weights, biases, target):
@@ -266,8 +287,7 @@ def data_vg_chains(act_name, xT, weights, biases, target):
     Returns (y_pred [G, C, n], rss [G, C], dws, dbs) with dW/db =
     d(rss/2)/d(.) in the input layouts. A CPU tensor runs the plain version;
     a CUDA tensor launches K7 (and raises if it cannot)."""
-    if act_name not in SUPPORTED_ACTIVATIONS:
-        raise ValueError(f"unsupported activation: {act_name}")
+    _check_act(act_name)
     if xT.device.type == "cpu":
         return data_vg_chains_ref(act_name, xT, weights, biases, target)
     target = target.contiguous()
@@ -279,11 +299,149 @@ def data_vg_chains(act_name, xT, weights, biases, target):
 def forward_chains(act_name, xT, weights, biases) -> torch.Tensor:
     """y_pred [G, C, n] of ``data_vg_chains`` alone: on a CUDA tensor K7's
     forward-only instantiation, on a CPU tensor ``forward_chains_ref``."""
-    if act_name not in SUPPORTED_ACTIVATIONS:
-        raise ValueError(f"unsupported activation: {act_name}")
+    _check_act(act_name)
     if xT.device.type == "cpu":
         return forward_chains_ref(act_name, xT, weights, biases)
     return _vg_chains_cuda(act_name, xT.contiguous(), weights, biases, None, False)[0]
 
 
 data_vg_chains.launches = 0  # K7 launches (both instantiations) since the last reset
+
+
+# ------------------------------------- dense, one instance per X read (K8)
+
+
+def data_vg_ref(act, xT, weights, biases, target):
+    """Plain PyTorch version of K8a: the feature-major forward, autograd for
+    the gradients of rss / 2. xT [m_pad, n]; weights[l] [in, out]; biases[l]
+    [out]; target [n]. Every tensor may carry the same leading axes (one
+    value of rss per leading index). Returns (y_pred, rss, dws, dbs)."""
+    ws = [w.detach().requires_grad_(True) for w in weights]
+    bs = [b.detach().requires_grad_(True) for b in biases]
+    with torch.enable_grad():
+        pred = _forward_fm(act, xT, ws, bs)
+        rss = torch.sum((pred - target) ** 2, dim=-1)
+        grads = torch.autograd.grad(0.5 * torch.sum(rss), ws + bs)
+    return pred.detach(), rss.detach(), tuple(grads[: len(ws)]), tuple(grads[len(ws):])
+
+
+def _gather(X, ix):
+    return X if ix is None else X[ix.long()]
+
+
+def data_vg_blocked_ref(act, X, ix, weights, biases, targets):
+    """Plain PyTorch version of K8b: instance i on X[ix[i]] (X[i] when ix is
+    None), by ``data_vg_ref`` over the leading [NB] axis."""
+    return data_vg_ref(act, _gather(X, ix), weights, biases, targets)
+
+
+def forward_blocked_ref(act, X, ix, weights, biases) -> torch.Tensor:
+    """Plain PyTorch version of K8's forward-only instantiation: y_pred
+    [NB, n] of instance i on X[ix[i]]."""
+    return _forward_fm(act, _gather(X, ix), weights, biases)
+
+
+def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
+    """Launch csrc/branch_vg_dense.cu once (plus its fixed-order tile sum
+    when ``grad``) for NB instances: weights[l] [NB, in, out], instance i on
+    X[ix[i]]. Returns y_pred [NB, n] and, with ``grad``, the flat gradients
+    [NB, P]."""
+    G, m, n = X.shape
+    NB, depth = weights[0].shape[0], len(weights) - 2
+    k0, s = weights[0].shape[-1], weights[-1].shape[-2]
+    if dense_chains_smem(m, k0, s, depth) < 0:
+        raise NotImplementedError(
+            f"the K8 CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
+            f"within 227 KB of shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
+        )
+    dev = X.device
+    lib = _build.lib()
+    q = flat_params(tuple(w.unsqueeze(1) for w in weights),
+                    tuple(b.unsqueeze(1) for b in biases))
+    P = q.shape[-1]
+    _check(X, "X", torch.float32, (G, m, n), dev)
+    _check(q, "weights", torch.float32, (NB, 1, P), dev)
+    if ix is None:
+        if NB != G:
+            raise ValueError(f"{NB} instances on {G} branches need an index")
+    else:
+        ix = ix.to(torch.int32).contiguous()
+        _check(ix, "ix", torch.int32, (NB,), dev)
+    y_pred = torch.empty((NB, n), dtype=torch.float32, device=dev)
+    partial = grads = None
+    if grad:
+        _check(targets, "targets", torch.float32, (NB, n), dev)
+        partial = torch.empty((NB, -(-n // DENSE_TILE), P), dtype=torch.float32, device=dev)
+        grads = torch.empty((NB, P), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+    status = lib.vg_dense_f32(
+        ptr(X), ptr(ix), ptr(targets if grad else None), ptr(q), ptr(y_pred), ptr(partial),
+        ptr(grads), NB, m, n, k0, s, P, depth, ACT_CODES[act], int(grad),
+        ctypes.c_void_p(_build.stream_ptr(X)),
+    )
+    _build.check(status, "vg_dense_f32")
+    return y_pred, grads
+
+
+def _unflat_blocked(grads, weights, biases):
+    """Flat gradients [NB, P] -> views shaped as the [NB, ...] weights and biases."""
+    dws, dbs = unflat_params(grads[:, None], tuple(w.unsqueeze(1) for w in weights),
+                             tuple(b.unsqueeze(1) for b in biases))
+    return tuple(d[:, 0] for d in dws), tuple(d[:, 0] for d in dbs)
+
+
+def data_vg_blocked(act_name, X, ix, weights, biases, targets):
+    """Dense value-and-gradient of NB independent instances, the JAX
+    package's ``data_vg`` under a vmap (K8b): instance i of weights[l]
+    [NB, in, out], biases[l] [NB, out] and targets [NB, n] on X[ix[i]] of
+    feature-major X [G, m_pad, n] (X[i] when ix is None), read in place.
+    Returns (y_pred [NB, n], rss [NB], dws, dbs) with dW/db = d(rss/2)/d(.)
+    in the input layouts. A CPU tensor runs ``data_vg_blocked_ref``; a CUDA
+    tensor launches csrc/branch_vg_dense.cu (and raises if it cannot)."""
+    _check_act(act_name)
+    if X.device.type == "cpu":
+        return data_vg_blocked_ref(act_name, X, ix, weights, biases, targets)
+    targets = targets.contiguous()
+    y_pred, grads = _vg_dense_cuda(act_name, X.contiguous(), ix, weights, biases, targets, True)
+    data_vg_blocked.launches += 1
+    dws, dbs = _unflat_blocked(grads, weights, biases)
+    return y_pred, torch.sum((y_pred - targets) ** 2, dim=-1), dws, dbs
+
+
+def data_vg(act_name, xT, weights, biases, target):
+    """Dense value-and-gradient of one branch, the JAX package's ``data_vg``
+    unvmapped (K8a): xT [m_pad, n] (FeatX.xT); weights[l] [in, out];
+    biases[l] [out]; target [n]. Returns (y_pred [n], rss, dws, dbs) with
+    dW/db = d(rss/2)/d(.) in the input layouts. A CPU tensor runs
+    ``data_vg_ref``; a CUDA tensor launches csrc/branch_vg_dense.cu with one
+    instance (and raises if it cannot)."""
+    _check_act(act_name)
+    if xT.device.type == "cpu":
+        return data_vg_ref(act_name, xT, weights, biases, target)
+    target = target.contiguous()
+    weights, biases = tuple(w[None] for w in weights), tuple(b[None] for b in biases)
+    y_pred, grads = _vg_dense_cuda(act_name, xT.contiguous()[None], None, weights, biases,
+                                   target[None], True)
+    data_vg.launches += 1
+    dws, dbs = _unflat_blocked(grads, weights, biases)
+    return (y_pred[0], torch.sum((y_pred[0] - target) ** 2), tuple(d[0] for d in dws),
+            tuple(d[0] for d in dbs))
+
+
+def forward_blocked(act_name, X, ix, weights, biases) -> torch.Tensor:
+    """y_pred [NB, n] of ``data_vg_blocked`` alone: on a CUDA tensor K8's
+    forward-only instantiation, on a CPU tensor ``forward_blocked_ref``."""
+    _check_act(act_name)
+    if X.device.type == "cpu":
+        return forward_blocked_ref(act_name, X, ix, weights, biases)
+    y_pred = _vg_dense_cuda(act_name, X.contiguous(), ix, weights, biases, None, False)[0]
+    forward_blocked.launches += 1
+    return y_pred
+
+
+data_vg.launches = 0  # K8a launches since the last reset
+data_vg_blocked.launches = 0  # K8b launches since the last reset
+forward_blocked.launches = 0  # forward-only K8 launches since the last reset

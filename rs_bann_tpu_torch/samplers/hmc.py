@@ -2,16 +2,18 @@
 gradient descent.
 
 Counterpart of rs_bann_tpu/samplers/hmc.py ``step_sizes``, ``HMCProposal``,
-``make_hmc_step`` (the default body and the deferred-accept lean body), the
+``make_hmc_step`` (the default body and the deferred-accept lean body, the
+latter also over a batch of instances: ``make_lean_batch``), the
 chain-folded block transition of ``make_transition_batch`` and the MAP
 transition ``make_gradient_descent``.
 
 Per branch, each leapfrog step's potential and gradient come from the fused
-packed value-and-gradient (ops/branch_mlp.py, kernel K4) on packed
-genotypes, or from autograd of the plain forward on a FeatX (as the JAX
-package's dense path outside ``branch_mlp.FORCE``), plus the closed-form
-prior gradient: a default transition of L steps takes L + 1 gradients, a
-lean (deferred-accept) one L + 2. The folded block transition integrates
+value-and-gradient (ops/branch_mlp.py): K4 on packed genotypes, K8a on a
+FeatX (the JAX package's dispatch under ``branch_mlp.FORCE``), plus the
+closed-form prior gradient: a default transition of L steps takes L + 1
+gradients, a lean (deferred-accept) one L + 2. ``make_lean_batch`` runs the
+lean body for every (chain, branch) of an unfolded block on a FeatX at
+once, one K8b call per gradient. The folded block transition integrates
 all branches of a block for all C chains in one call of a whole-trajectory
 kernel (ops/leapfrog.py: K5 on packed genotypes, K6 on a FeatX), between
 two forward-only value passes through ``D.predict_chains`` (K2, or K7's
@@ -143,16 +145,25 @@ def step_sizes(
     return eps_w, eps_b
 
 
-def _data_vg_autograd(act_name, x, weights, biases, y):
-    """(y_pred, rss, d(rss/2)/dW, d(rss/2)/db) of one branch by autograd of
-    the plain forward."""
-    ws = [w.detach().requires_grad_(True) for w in weights]
-    bs = [b.detach().requires_grad_(True) for b in biases]
-    with torch.enable_grad():
-        pred = D.predict(act_name, ws, bs, x)
-        rss = torch.sum((pred - y) ** 2)
-        grads = torch.autograd.grad(0.5 * rss, ws + bs)
-    return pred.detach(), rss.detach(), tuple(grads[: len(ws)]), tuple(grads[len(ws):])
+def _lean_trajectory(vg, weights, biases, eps_w, eps_b, p_w, p_b, L, max_err, kinetic):
+    """The deferred-accept lean body: L plain leapfrog steps, then the final
+    value through the same ``vg`` operator as the initial one, and divergence
+    tested once at the end (dead iff the final |Delta H| exceeds ``max_err``
+    or is NaN; the test is symmetric under reversal). ``vg(w, b)`` returns
+    (ld, y_pred, grad_w, grad_b, prior); ``kinetic(p_w, p_b)`` K(p)."""
+    ld0, y_pred0, gw, gb, prior0 = vg(weights, biases)
+    kin0 = kinetic(p_w, p_b)
+    w, b, pw, pb = weights, biases, p_w, p_b
+    for _ in range(L):
+        pw, pb = _mul_add(pw, eps_w, gw, 0.5), _mul_add(pb, eps_b, gb, 0.5)
+        w, b = _mul_add(w, eps_w, pw), _mul_add(b, eps_b, pb)
+        _, _, gw, gb, _ = vg(w, b)
+        pw, pb = _mul_add(pw, eps_w, gw, 0.5), _mul_add(pb, eps_b, gb, 0.5)
+    ld_f, y_pred_f, _, _, prior_f = vg(w, b)
+    kin_f = kinetic(pw, pb)
+    # NaN-safe: a NaN comparison is False, so ~(|dH| <= max) catches NaN
+    dead = ~(torch.abs((ld_f - kin_f) - (ld0 - kin0)) <= max_err)
+    return HMCProposal(w, b, y_pred_f, y_pred0, prior_f, prior0, kin_f, kin0, dead)
 
 
 def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bool = False):
@@ -165,10 +176,7 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
     uniform ``u`` may be passed in; otherwise they are drawn from ``gen``.
 
     With ``defer_accept`` (the hybrid schedule's live accept) it returns an
-    HMCProposal from the lean body instead: L plain leapfrog steps, then
-    the final value through the same K4 operator as the initial one, and
-    divergence tested once at the end (dead iff the final |Delta H| exceeds
-    the threshold or is NaN; the test is symmetric under reversal).
+    HMCProposal from the lean body instead (``_lean_trajectory``).
     """
     L = cfg.hmc_integration_length
     max_err = cfg.hmc_max_hamiltonian_error
@@ -177,7 +185,7 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
         if isinstance(x, D.PackedX):
             y_pred, rss, dws, dbs = branch_mlp.data_vg_packed(act_name, x, weights, biases, y)
         else:
-            y_pred, rss, dws, dbs = _data_vg_autograd(act_name, x, weights, biases, y)
+            y_pred, rss, dws, dbs = branch_mlp.data_vg(act_name, x.xT, weights, biases, y)
         prior = D.log_density_wrt_weights(
             model_type, weights, w_precisions
         ) + D.log_density_wrt_biases(model_type, biases)
@@ -186,21 +194,6 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
         gw = tuple(p - error_precision * d for p, d in zip(pgw, dws))
         gb = tuple(p - error_precision * d for p, d in zip(pgb, dbs))
         return ld, y_pred, gw, gb, prior
-
-    def lean(weights, biases, w_precisions, error_precision, x, y, eps_w, eps_b, p_w, p_b):
-        ld0, y_pred0, gw, gb, prior0 = vg(weights, biases, w_precisions, error_precision, x, y)
-        kin0 = _kinetic(p_w, p_b)
-        w, b, pw, pb = weights, biases, p_w, p_b
-        for _ in range(L):
-            pw, pb = _mul_add(pw, eps_w, gw, 0.5), _mul_add(pb, eps_b, gb, 0.5)
-            w, b = _mul_add(w, eps_w, pw), _mul_add(b, eps_b, pb)
-            _, _, gw, gb, _ = vg(w, b, w_precisions, error_precision, x, y)
-            pw, pb = _mul_add(pw, eps_w, gw, 0.5), _mul_add(pb, eps_b, gb, 0.5)
-        ld_f, y_pred_f, _, _, prior_f = vg(w, b, w_precisions, error_precision, x, y)
-        kin_f = _kinetic(pw, pb)
-        # NaN-safe: a NaN comparison is False, so ~(|dH| <= max) catches NaN
-        dead = ~(torch.abs((ld_f - kin_f) - (ld0 - kin0)) <= max_err)
-        return HMCProposal(w, b, y_pred_f, y_pred0, prior_f, prior0, kin_f, kin0, dead)
 
     def hmc(
         gen, weights, biases, w_precisions, b_precisions, error_precision, x, y,
@@ -220,8 +213,9 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
         p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
         p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
         if defer_accept:
-            return lean(weights, biases, w_precisions, error_precision, x, y, eps_w, eps_b,
-                        p_w, p_b)
+            return _lean_trajectory(
+                lambda w, b: vg(w, b, w_precisions, error_precision, x, y),
+                weights, biases, eps_w, eps_b, p_w, p_b, L, max_err, _kinetic)
 
         ld0, y_pred0, g_w, g_b, _ = vg(weights, biases, w_precisions, error_precision, x, y)
         neg_h0 = ld0 - _kinetic(p_w, p_b)
@@ -280,9 +274,70 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
     return hmc
 
 
-def _kinetic_batch(p_w, p_b):
-    """K(p) per leading (chain, branch) index of [C, B, ...] momenta."""
-    return 0.5 * sum(torch.sum(p * p, dim=tuple(range(2, p.dim()))) for p in p_w + p_b)
+def _kinetic_batch(p_w, p_b, lead=2):
+    """K(p) per index of the ``lead`` leading axes of the momenta ([C, B, ...]
+    by default)."""
+    return 0.5 * sum(torch.sum(p * p, dim=tuple(range(lead, p.dim()))) for p in p_w + p_b)
+
+
+def make_lean_batch(model_type: str, act_name: str, cfg: MCMCCfg):
+    """The deferred-accept lean body of ``make_hmc_step`` over a leading [NB]
+    axis of independent (chain, branch) instances on feature-major X: one
+    ``branch_mlp.data_vg_blocked`` call (K8b) per gradient serves them all,
+    L + 2 launches per block transition, where JAX vmaps the lean body over
+    the block's branches and its custom_vmap rule sends each gradient to its
+    branch-blocked kernel.
+
+      lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets,
+           masks_w, masks_b, n_params, momenta) -> HMCProposal, [NB] leaves
+
+    weights/biases/precisions/masks/momenta per layer [NB, ...]; err_prec and
+    n_params [NB]; ``x`` the FeatX of all G branches, instance i reading
+    branch ix[i] in place; targets [NB, n]; ``momenta`` = (p_w, p_b)
+    unmasked standard normals. Per-instance step sizes, kinetic energies and
+    ``dead``. It consumes the draws that make_hmc_step(defer_accept=True)
+    called instance by instance with the same momenta consumes (none, except
+    the random step-size mode's, drawn here in the same order), so both give
+    the same proposals up to f32 rounding.
+    """
+    L = cfg.hmc_integration_length
+    max_err = cfg.hmc_max_hamiltonian_error
+    random_eps = cfg.hmc_step_size_mode == "random"
+
+    def lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets, masks_w, masks_b,
+             n_params, momenta):
+        if random_eps:  # instance by instance, as the per-branch calls draw them
+            def one(ts, i):
+                return tuple(t[i] for t in ts)
+
+            per = [step_sizes(gen, model_type, cfg, one(weights, i), one(biases, i),
+                              one(w_prec, i), one(b_prec, i), n_params[i])
+                   for i in range(ix.shape[0])]
+            eps_w = tuple(torch.stack(e) for e in zip(*(p[0] for p in per)))
+            eps_b = tuple(torch.stack(e) for e in zip(*(p[1] for p in per)))
+        else:
+            eps_w, eps_b = step_sizes(gen, model_type, cfg, weights, biases, w_prec, b_prec,
+                                      n_params)
+        p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
+        p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
+
+        def vg(w, b):
+            y_pred, rss, dws, dbs = branch_mlp.data_vg_blocked(act_name, x.xT, ix, w, b, targets)
+            prior = D.log_density_wrt_weights(model_type, w, w_prec) + D.log_density_wrt_biases(
+                model_type, b)
+            pgw, pgb = D.prior_grad(model_type, w, b, w_prec)
+
+            def err(t):  # err_prec [NB] against a [NB, ...] leaf
+                return err_prec.reshape((-1,) + (1,) * (t.dim() - 1))
+
+            gw = tuple(p - err(d) * d for p, d in zip(pgw, dws))
+            gb = tuple(p - err(d) * d for p, d in zip(pgb, dbs))
+            return prior - err_prec * rss / 2.0, y_pred, gw, gb, prior
+
+        return _lean_trajectory(vg, weights, biases, eps_w, eps_b, p_w, p_b, L, max_err,
+                                lambda pw, pb: _kinetic_batch(pw, pb, lead=1))
+
+    return lean
 
 
 def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):

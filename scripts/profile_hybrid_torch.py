@@ -10,20 +10,25 @@ L = 30, the hybrid schedule in blocks of 10. With ``--flagship`` it is the
 dense flagship of chip_smoke.py phase 9 (bench.py workload 1): G = 64
 groups of 64 markers, n = 4,096, feature-major X, ridge_base, tanh, depth
 1, h = s = 32, L = 64, the parallel schedule. Random genotypes and a sparse
-linear phenotype made from seed 1. Three cases:
+linear phenotype made from seed 1. Three cases, and a fourth for the
+flagship:
 
-  C=4 folded    four chains, every block transition one whole-trajectory
-                call (K5 packed, K6 dense)
-  C=1 folded    one chain, the same
-  C=1 unfolded  one chain, each branch its own lean transition (K4 per
-                leapfrog step on packed genotypes, autograd on dense ones)
+  C=4 folded      four chains, every block transition one whole-trajectory
+                  call (K5 packed, K6 dense)
+  C=1 folded      one chain, the same
+  C=1 unfolded    one chain, each branch its own lean transition: K4 per
+                  leapfrog step on packed genotypes; on dense ones the
+                  block's branches batched, one K8b call per step
+  C=1 sequential  (flagship) the sequential schedule, one K8a call per
+                  branch and leapfrog step: the JAX bench's self-baseline
 
 For each it prints the milliseconds of ``--sweeps`` sweeps (the first pays
 the kernel build and warm-up), the acceptance rate and the kernel
-launches per sweep (K2, K4, K5, or K7, K6). Each folded case then runs one
-sweep under torch.profiler and prints its wall time, the device's kernel
-time and busy share (kernel time / wall) and the launches of all kinds;
-the profiler tables go to ``--out``. ``--groups``, ``--n`` and ``--device
+launches per sweep (K2, K4, K5, or K7, K6, K8a, K8b and K8's forward-only
+pass). Each case then runs one sweep under torch.profiler (the packed
+unfolded one excepted: ~2.5 s of K4 launches) and prints its wall time,
+the device's kernel time and busy share (kernel time / wall) and the
+launches of all kinds; the profiler tables go to ``--out``. ``--groups``, ``--n`` and ``--device
 cpu`` shrink the run for a check without a card (no profile then).
 
 With ``--gd`` the cases are the trainer's GD warm-start sweep
@@ -165,9 +170,11 @@ def main(argv=None):
     watch = ()
     if flag:
         model, mode, steps = "ridge_base", "parallel", FLAG_L
-        kernels, names = (BM.data_vg_chains, LF.integrate_chains), "(K7, K6)"
+        kernels = (BM.data_vg_chains, LF.integrate_chains, BM.data_vg, BM.data_vg_blocked,
+                   BM.forward_blocked)
+        names = "(K7, K6, K8a, K8b, K8 forward-only)"
         cases = [("C=4 folded", "tanh", 4, True), ("C=1 folded", "tanh", 1, True),
-                 ("C=1 unfolded", "tanh", 1, False)]
+                 ("C=1 unfolded", "tanh", 1, False), ("C=1 sequential", "tanh", 1, None)]
     elif args.gd:
         model, mode, steps = "ridge_ard", "hybrid", L
         kernels = (PM.packed_linear, PM.packed_linear_vjp, PM.packed_matmul,
@@ -183,13 +190,17 @@ def main(argv=None):
                  ("C=1 unfolded", "identity", 1, False)]
     try:
         for name, act, C, fold in cases:
-            cfg = MCMCCfg(hmc_integration_length=steps, update_mode=mode, num_chains=C, seed=0)
+            sequential = name.endswith("sequential")
+            cfg = MCMCCfg(hmc_integration_length=steps, num_chains=C, seed=0,
+                          update_mode="sequential" if sequential else mode)
             arch = dataclasses.replace(arch, activation=act)
             state, _ = init_net(arch, model, InitCfg(seed=0), device=dev)
             net = prepare_state_for_training(Net(model, arch, D.Hyperparameters(), state), None)
             if args.gd:
                 sweep = make_chain_sweep(model, act, arch, gd_warmup_cfg(cfg), net.hyper, dev,
                                          chain_by_chain=True)
+            elif sequential:
+                sweep = make_chain_sweep(model, act, arch, cfg, net.hyper, dev)
             else:
                 sweep = make_hybrid_sweep(model, act, arch, cfg, net.hyper, dev, fold=fold)
             carry = net.init_carry(data.X, data.y, chains=C)
@@ -208,7 +219,7 @@ def main(argv=None):
             print(f"{name}: ms per sweep {[round(t, 3) for t in times]}, acceptance "
                   f"{int(counts[0]) / int(counts.sum()):.3f}, launches per sweep "
                   f"{names} {launches[-1]}")
-            if on_card and fold is not False:
+            if on_card and (flag or fold is not False):
                 if out is not None:
                     out.write(f"==== {name}\n")
                 profiled_sweep(torch, sweep, carry, data, gen, out, watch)

@@ -4,7 +4,8 @@ saved samples must reproduce the port's CSV (rtol 1e-5), for one chain and
 for C chains (``models/chain<c>``) under the sequential and the hybrid
 schedule, with the GD warm start, gradient descent and silu too; the same
 for ``train-new --feat-major`` under the parallel and hybrid schedules with
-dense ``predict``. ``gradients --cpu`` writes the JAX package's JSON
+dense ``predict``, and under the sequential schedule (one chain and two)
+and the unfolded hybrid one. ``gradients --cpu`` writes the JAX package's JSON
 (rtol 1e-4 of each array's largest entry). Every option outside the ported
 slice exits non-zero with "not ported yet".
 """
@@ -137,6 +138,10 @@ def test_hybrid_and_chains_train_then_jax_reads_the_samples(data, tmp_path, extr
 @pytest.mark.parametrize("extra,chains", [
     (["--update-mode", "parallel", "--num-chains", "2"], 2),
     (["--update-mode", "hybrid", "--block-size", "1"], 1),
+    ([], 1),  # sequential: K8a per leapfrog step
+    (["--num-chains", "2"], 2),  # sequential, chain after chain
+    # unfolded hybrid: each block's (chain, branch) pairs batched on K8b
+    (["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", "2"], 2),
 ], ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
 def test_feat_major_train_then_dense_predict_and_jax_reads_the_samples(data, tmp_path, extra,
                                                                         chains):
@@ -167,7 +172,6 @@ UNPORTED = [
     ["--num-grad"],
     ["--num-grad-traj"],
     ["--effect-sizes"],
-    ["--feat-major"],  # under the sequential schedule
     ["--x-bf16", "--feat-major"],
     ["--x-bf16", "--feat-major", "--update-mode", "parallel"],
     ["--feat-major", "--update-mode", "parallel", "--bf16"],
@@ -187,24 +191,37 @@ def test_unported_options_exit_nonzero(data, tmp_path, extra, capsys):
     assert not any(tmp_path.iterdir())  # refused before writing anything
 
 
-@pytest.mark.parametrize("depth,width", [("1", "64"), ("2", "6")])
+SCHEDULES = {  # schedule -> (its options, the kernels that run it on the card)
+    "parallel": (["--update-mode", "parallel"], "K6/K7"),
+    "sequential": ([], "K8"),
+    "unfolded": (["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", "2"],
+                 "K8"),
+}
+
+
+@pytest.mark.parametrize("depth,width,schedule", [
+    pytest.param(d, w, sch, id=f"{d}-{w}" + ("" if sch == "parallel" else f"-{sch}"))
+    for sch in SCHEDULES for d, w in (("1", "64"), ("2", "6"))])
 def test_feat_major_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkeypatch, depth,
-                                                           width):
-    """On a CUDA device a folded --feat-major branch beyond K6/K7's limits
-    (width above 32, depth above 1) exits "not ported yet" before anything
-    is written or put on the device, instead of running the plain version.
-    The device is faked: the check comes before the first CUDA tensor."""
+                                                           width, schedule):
+    """On a CUDA device a --feat-major branch beyond the kernels' limits
+    (width above 32, depth above 1) exits "not ported yet" naming the
+    kernels of its schedule (K6/K7 folded, K8 sequential or unfolded) before
+    anything is written or put on the device, instead of running the plain
+    version. The device is faked: the check comes before the first CUDA
+    tensor."""
     import torch
 
     from rs_bann_tpu_torch.cli import main as cli_main
 
     monkeypatch.setattr(cli_main, "_device", lambda args: torch.device("cuda"))
-    argv = _train_args(data, tmp_path, "--feat-major", "--update-mode", "parallel")
+    extra, kernels = SCHEDULES[schedule]
+    argv = _train_args(data, tmp_path, "--feat-major", *extra)
     argv[4:7] = ["ridge_base", "tanh", depth]
     argv[argv.index("--fixed-hidden-layer-width") + 1] = width
     with pytest.raises(SystemExit) as e:
         run_cli(*argv)
-    assert "not ported yet" in str(e.value.code) and "K6/K7" in str(e.value.code)
+    assert "not ported yet" in str(e.value.code) and f"the {kernels} CUDA" in str(e.value.code)
     assert not any(tmp_path.iterdir())
 
 

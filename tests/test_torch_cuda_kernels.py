@@ -7,9 +7,10 @@ run these with ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 Shapes are small but cover what the full-shape checks in chip_smoke.py do
 not: every activation, depth 0 and 1, a ragged n, a batched G, lasso
 (K5, K6), more than one marker tile and a k not a multiple of 16 (K3,
-K9b), and the wrappers' refusals. Tolerances: K2 and K9a atol 1e-4 (f32
+K9b), X read in place through an index (K8b), and the wrappers'
+refusals. Tolerances: K2 and K9a atol 1e-4 (f32
 sums over <= 300 markers in another order); K3 and K9b rtol 1e-4 of the
-largest entry (sums over n); K4 and K7 y_pred atol 1e-4 and
+largest entry (sums over n); K4, K7 and K8 y_pred atol 1e-4 and
 gradients rtol 1e-4 against the largest entry (sums over n in another
 order); K5 and K6 rtol 1e-4 of the largest entry after 3 steps (the same
 sums, compounded).
@@ -335,3 +336,90 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError):  # K6 width above 32
         TL.integrate_chains("tanh", xT, torch.zeros(1, 2, n, device=dev), torch.ones(1, 2, device=dev),
                             wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, 2)
+
+
+def _vg_dense_inputs(rng, dev, lead, m, n, k, depth):
+    widths = [(m, k), (k, k), (k, 1)] if depth else [(m, k), (k, 1)]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    ws = tuple(t(rng.standard_normal(lead + (i, o)) * 0.2) for i, o in widths)
+    bs = tuple(t(rng.standard_normal(lead + (o,)) * 0.1) for _, o in widths[:-1])
+    return ws, bs, t(rng.standard_normal(lead + (n,)))
+
+
+def _vg_close(got, ref):
+    y, rss, dws, dbs = got
+    y_ref, rss_ref, dws_ref, dbs_ref = ref
+    assert (y - y_ref).abs().max().item() <= 1e-4
+    assert _rel_close(rss, rss_ref)
+    for g, r in zip(dws + dbs, dws_ref + dbs_ref):
+        assert g.shape == r.shape and _rel_close(g, r)
+
+
+@pytest.mark.parametrize("depth,act,n,k", DENSE_CASES)
+def test_data_vg_kernel_matches_plain(dev, depth, act, n, k):
+    """K8a (one branch, one instance) against its plain version; identical
+    bits on a repeat."""
+    rng = np.random.default_rng(12)
+    xT = torch.from_numpy(rng.standard_normal((40, n)).astype(np.float32)).to(dev)
+    ws, bs, target = _vg_dense_inputs(rng, dev, (), 40, n, k, depth)
+    before = BM.data_vg.launches
+    got = BM.data_vg(act, xT, ws, bs, target)
+    assert BM.data_vg.launches == before + 1
+    torch.cuda.synchronize()
+    assert got[2][-1].shape == (ws[-1].shape[0], 1)
+    _vg_close(got, BM.data_vg_ref(act, xT, ws, bs, target))
+    again = BM.data_vg(act, xT, ws, bs, target)
+    assert all(torch.equal(a, b) for a, b in zip([got[0], *got[2], *got[3]],
+                                                 [again[0], *again[2], *again[3]]))
+
+
+@pytest.mark.parametrize("depth,act,n,k", DENSE_CASES)
+def test_data_vg_blocked_kernel_matches_plain(dev, depth, act, n, k):
+    """K8b: 5 instances on X of 3 branches through ix (repeats included),
+    against its plain version; X read in place through ix gives the bits of
+    the gathered X; the forward-only instantiation gives y_pred's bits;
+    identical bits on a repeat."""
+    rng = np.random.default_rng(13)
+    X = torch.from_numpy(rng.standard_normal((3, 40, n)).astype(np.float32)).to(dev)
+    ix = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32, device=dev)
+    ws, bs, targets = _vg_dense_inputs(rng, dev, (5,), 40, n, k, depth)
+    before = (BM.data_vg_blocked.launches, BM.forward_blocked.launches)
+    got = BM.data_vg_blocked(act, X, ix, ws, bs, targets)
+    y_fwd = BM.forward_blocked(act, X, ix, ws, bs)
+    assert (BM.data_vg_blocked.launches, BM.forward_blocked.launches) == (before[0] + 1,
+                                                                         before[1] + 1)
+    torch.cuda.synchronize()
+    _vg_close(got, BM.data_vg_blocked_ref(act, X, ix, ws, bs, targets))
+    assert torch.equal(y_fwd, got[0])
+    flat = lambda o: [o[0], *o[2], *o[3]]  # noqa: E731
+    gathered = BM.data_vg_blocked(act, X[ix.long()].contiguous(), None, ws, bs, targets)
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(gathered)))
+    again = BM.data_vg_blocked(act, X, ix, ws, bs, targets)
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+
+
+def test_dense_vg_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    """K8 beyond K6/K7's limits raises NotImplementedError on the card (the
+    plain version never runs there)."""
+    rng = np.random.default_rng(14)
+    m, n = 40, 300
+    X = torch.zeros(2, m, n, device=dev)
+    ix = torch.zeros(2, dtype=torch.int32, device=dev)
+    for depth, k in ((2, 8), (1, 64)):
+        ws = tuple(torch.zeros((2, i, o), device=dev) for i, o in
+                   [(m, k)] + [(k, k)] * depth + [(k, 1)])
+        bs = tuple(torch.zeros((2, k), device=dev) for _ in range(depth + 1))
+        targets = torch.zeros(2, n, device=dev)
+        with pytest.raises(NotImplementedError):
+            BM.data_vg_blocked("tanh", X, ix, ws, bs, targets)
+        with pytest.raises(NotImplementedError):
+            BM.forward_blocked("tanh", X, ix, ws, bs)
+        with pytest.raises(NotImplementedError):
+            BM.data_vg("tanh", X[0], tuple(w[0] for w in ws), tuple(b[0] for b in bs),
+                       targets[0])
+    ws, bs, targets = _vg_dense_inputs(rng, dev, (3,), m, n, 8, 0)
+    with pytest.raises(ValueError):  # 3 instances on 2 branches need an index
+        BM.data_vg_blocked("tanh", X, None, ws, bs, targets)

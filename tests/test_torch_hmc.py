@@ -6,8 +6,8 @@ transition is held draw for draw: the test derives JAX's own momenta and
 accept uniform from its key the way ``make_hmc_step`` does, hands them to
 the port, and the port's HMCResult must match JAX's (weights, biases, code,
 y_pred, log_density) to rtol 1e-4 and its accept probability to atol
-1e-3, with JAX's fused K4 kernel in interpret
-mode on its path. rtol 1e-4: each leapfrog step's gradient is a sum over n
+1e-3, with JAX's fused K4 kernel (packed genotypes) or K8a (a FeatX) in
+interpret mode on its path. rtol 1e-4: each leapfrog step's gradient is a sum over n
 in another order, and L steps compound it.
 """
 
@@ -76,8 +76,13 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("model_type,act,depth,factor,max_err", CASES)
-def test_one_transition_draw_for_draw(model_type, act, depth, factor, max_err):
+@pytest.mark.parametrize("layout,model_type,act,depth,factor,max_err", [
+    pytest.param(layout, *c, id=("" if layout == "packed" else "feat-") + "-".join(map(str, c)))
+    for layout in ("packed", "feat") for c in CASES])
+def test_one_transition_draw_for_draw(layout, model_type, act, depth, factor, max_err):
+    """On packed genotypes (K4 on both sides) or on a FeatX of the same
+    standardized genotypes (K8a: JAX's data_vg under FORCE, the port's
+    data_vg)."""
     rng = np.random.default_rng(3)
     arch, ws, bs, wp, bp = _branch(model_type, act, depth, seed=4)
     m_pad = arch.m_pad
@@ -89,6 +94,8 @@ def test_one_transition_draw_for_draw(model_type, act, depth, factor, max_err):
     scale[:20] = 1.0 / vals[:20].std(axis=1)
     shift[:20] = vals[:20].mean(axis=1)
     xs = (vals[:20] - shift[:20, None]) * scale[:20, None]
+    xT = np.zeros((m_pad, N), np.float32)
+    xT[:20] = xs
     y = (rng.standard_normal(20) @ xs * 0.3 + rng.standard_normal(N)).astype(np.float32)
     cfg = MCMCCfg(hmc_integration_length=8, hmc_step_size_factor=factor,
                   hmc_max_hamiltonian_error=max_err)
@@ -108,9 +115,10 @@ def test_one_transition_draw_for_draw(model_type, act, depth, factor, max_err):
 
     JBM.FORCE = "interpret"
     try:
+        jx = (JD.PackedX(jnp.asarray(by), jnp.asarray(scale), jnp.asarray(shift), N)
+              if layout == "packed" else JD.FeatX(jnp.asarray(xT)))
         jres = JH.make_hmc_step(model_type, act, cfg)(
-            key, *(tuple(map(jnp.asarray, t)) for t in (ws, bs, wp, bp)), jnp.asarray(err),
-            JD.PackedX(jnp.asarray(by), jnp.asarray(scale), jnp.asarray(shift), N),
+            key, *(tuple(map(jnp.asarray, t)) for t in (ws, bs, wp, bp)), jnp.asarray(err), jx,
             jnp.asarray(y), tuple(map(jnp.asarray, mw)), tuple(map(jnp.asarray, mb)),
             jnp.asarray(n_params),
         )
@@ -122,7 +130,8 @@ def test_one_transition_draw_for_draw(model_type, act, depth, factor, max_err):
 
     tres = TH.make_hmc_step(model_type, act, port(cfg))(
         torch.Generator(), *(tuple(map(T, t)) for t in (ws, bs, wp, bp)), torch.tensor(err),
-        TD.PackedX(T(by), T(scale), T(shift), N), T(y), tuple(map(T, mw)), tuple(map(T, mb)),
+        TD.PackedX(T(by), T(scale), T(shift), N) if layout == "packed" else TD.FeatX(T(xT)),
+        T(y), tuple(map(T, mw)), tuple(map(T, mb)),
         torch.tensor(n_params), momenta=(tuple(map(T, p_w)), tuple(map(T, p_b))), u=u,
     )
     assert int(tres.code) == int(jres.code)

@@ -84,7 +84,7 @@ def test_profile_script_runs_on_the_cpu_without_jax():
 
 def test_profile_script_flagship_runs_on_the_cpu_without_jax():
     """The same with ``--flagship`` (the dense parallel sweep on feature-major
-    X) at a toy size."""
+    X, and the sequential one) at a toy size."""
     run = SCRIPT.split("import rs_bann_tpu_torch")[0] + (
         "import runpy\n"
         "sys.argv = ['profile_hybrid_torch.py', '--device', 'cpu', '--flagship', '--groups', '2',"
@@ -97,9 +97,9 @@ def test_profile_script_flagship_runs_on_the_cpu_without_jax():
         env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stderr
-    for case in ("C=4 folded", "C=1 folded", "C=1 unfolded"):
+    for case in ("C=4 folded", "C=1 folded", "C=1 unfolded", "C=1 sequential"):
         assert case + ": ms per sweep" in proc.stdout, proc.stdout
-    assert "(K7, K6)" in proc.stdout
+    assert "(K7, K6, K8a, K8b, K8 forward-only)" in proc.stdout
 
 
 def test_profile_script_gd_runs_on_the_cpu_without_jax():
@@ -137,6 +137,45 @@ def test_chip_smoke_without_a_card_exits_nonzero_before_any_result():
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr, proc.stderr
     assert '"ok"' not in proc.stdout
+
+
+def test_feat_major_sequential_and_unfolded_run_without_jax(tmp_path):
+    """train-new --feat-major --cpu under the sequential schedule (K8a's plain
+    version) and the unfolded hybrid one (K8b's), then dense predict, at a
+    toy size with any jax import raising."""
+    run = SCRIPT.split("import rs_bann_tpu_torch")[0] + f"""
+import numpy as np
+from rs_bann_tpu_torch.cli.main import main
+from rs_bann_tpu_torch.io import BedVM, Phenotypes, UniformGrouping
+d = {str(tmp_path)!r}
+BedVM.random(200, 6, seed=1).to_file(d + "/train")
+Phenotypes(np.random.default_rng(0).standard_normal(200).astype(np.float32)).to_file(
+    d + "/train.phen")
+UniformGrouping(2, 3).to_file(d + "/train")
+for extra in ([], ["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", "2"]):
+    main(["train-new", d + "/train", d + "/train.phen", d + "/train.groups", "ridge_base",
+          "tanh", "1", "2", "3", "--fixed-hidden-layer-width", "4", "--fixed-summary-layer-width",
+          "4", "--feat-major", "--cpu", "-o", d + "/runs", *extra])
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", run], cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    runs = sorted((tmp_path / "runs").iterdir())
+    assert len(runs) == 2
+    assert (runs[0] / "models" / "2.npz").exists()
+    assert (runs[1] / "models" / "chain1" / "2.npz").exists()
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT.split("import rs_bann_tpu_torch")[0]
+         + "from rs_bann_tpu_torch.cli.main import main\n"
+         + f"main(['predict', {str(tmp_path / 'train')!r}, {str(tmp_path / 'train.groups')!r}, "
+         + f"'-m', {str(runs[0] / 'models')!r}, '--cpu'])\n"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert len(proc.stdout.strip().splitlines()) == 2
 
 
 def test_port_imports_and_runs_without_jax():
