@@ -79,21 +79,29 @@ def _unported(args, cfg) -> list:
 
 def _beyond_kernels(args, cfg, arch, device) -> list:
     """On a CUDA device a feature-major sweep runs every branch on K6/K7
-    (folded) or K8 (sequential or unfolded); a branch beyond their limits
+    (folded) or K8 (sequential or unfolded), and a packed HMC sweep on K5
+    (folded) or K4 (sequential or unfolded); a branch beyond their limits
     (depth above 1, a width above 32, too many markers for shared memory) is
-    refused rather than run on the plain version. The CPU runs the plain
-    versions at any shape."""
+    refused rather than run on the plain version. Packed gradient descent
+    runs K2, K3 and K9 at any width. The CPU runs the plain versions at any
+    shape."""
     from ..models.net import chain_fold_eligible
-    from ..ops.branch_mlp import dense_chains_smem
+    from ..ops import branch_mlp as BM
 
-    if device.type != "cuda" or not args.feat_major:
-        return []
-    if dense_chains_smem(arch.m_pad, arch.layer_out_pad(0), arch.s_pad, arch.depth) >= 0:
+    if device.type != "cuda" or (args.packed_genotypes and cfg.gradient_descent):
         return []
     folded = chain_fold_eligible(args.model_type, args.activation_function, cfg)
-    return [f"--feat-major branches beyond the {'K6/K7' if folded else 'K8'} CUDA kernels' "
-            f"limits (depth {arch.depth}, {arch.m_pad} markers, widths "
-            f"{arch.layer_out_pad(0)}/{arch.s_pad}; they take depth 0 or 1 and widths up to 32)"]
+    if args.feat_major:
+        limit, kernels, layout = BM.dense_chains_smem, "K6/K7" if folded else "K8", "--feat-major"
+    else:
+        limit, kernels = (BM.traj_packed_smem, "K5") if folded else (BM.branch_vg_packed_smem, "K4")
+        layout = "--packed-genotypes"
+    widths = (arch.layer_out_pad(0), arch.s_pad)
+    if limit(arch.m_pad, *widths, arch.depth) >= 0:
+        return []
+    return [f"{layout} branches beyond the {kernels} CUDA kernels' limits (depth {arch.depth}, "
+            f"{arch.m_pad} markers, widths {widths[0]}/{widths[1]}; they take depth 0 or 1, "
+            f"widths up to 32 and 227 KB of shared memory)"]
 
 
 def _load_train_data(args):

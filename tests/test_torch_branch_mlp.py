@@ -70,3 +70,28 @@ def test_data_vg_packed_matches_jax(depth, act):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4, atol=1e-4 * np.abs(j).max())
     # padded marker rows get exactly zero gradient, so they never move
     assert np.all(tdws[0].numpy()[20:] == 0)
+
+
+# (m, k0, s, depth) -> shared memory of K4 and of K5, by hand from the C
+# rules (csrc/branch_vg_packed.cu and csrc/traj_packed.cu smem_bytes): floats
+# 512 (KM + 4) (x3 at depth 1) + m KM + KM (+ KM^2 + KM) + KM + 4 KM (K5:
+# + 2 m), times 4, plus the byte tile of m rows of 132 bytes; -1 above
+# 232,448 bytes, past depth 1 or past width 32
+PACKED_LIMITS = [
+    ((104, 16, 16, 0), 61728, 62560),  # the main path: width 10 padded to 16
+    ((104, 56, 56, 0), -1, -1),  # the default width rule at m = 100: h = s = 50
+    ((104, 16, 16, 2), -1, -1),  # depth 2
+    ((975, 16, 16, 0), 232444, -1),
+    ((936, 16, 16, 0), 224800, 232288),
+    ((976, 16, 16, 0), -1, -1),  # too many markers
+    ((23, 32, 32, 1), 232156, 232340),
+    ((24, 32, 32, 1), 232416, -1),
+]
+
+
+@pytest.mark.parametrize("shape,k4,k5", PACKED_LIMITS, ids=lambda a: str(a))
+def test_packed_kernel_limits(shape, k4, k5):
+    """The Python mirrors of K4's and K5's shared-memory rules, which the
+    CLI asks before a packed HMC run on the card."""
+    assert TBM.branch_vg_packed_smem(*shape) == k4
+    assert TBM.traj_packed_smem(*shape) == k5

@@ -225,6 +225,64 @@ def test_feat_major_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkey
     assert not any(tmp_path.iterdir())
 
 
+PACKED_SCHEDULES = {  # schedule -> (its options, the kernel that runs it on the card)
+    "folded": (["--update-mode", "hybrid", "--num-chains", "2", "--block-size", "3"], "K5"),
+    "sequential": ([], "K4"),
+    "unfolded": (["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", "2"],
+                 "K4"),
+}
+
+
+@pytest.mark.parametrize("depth,width,schedule", [
+    pytest.param(d, w, sch, id=f"{d}-{w}-{sch}")
+    for sch in PACKED_SCHEDULES for d, w in (("0", "64"), ("2", "6"))])
+def test_packed_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkeypatch, depth, width,
+                                                       schedule):
+    """The same for a --packed-genotypes HMC run: a branch beyond K5's
+    limits (folded) or K4's (sequential or unfolded) exits "not ported yet"
+    naming the kernel, before anything is written or loaded onto the
+    device."""
+    import torch
+
+    from rs_bann_tpu_torch.cli import main as cli_main
+
+    monkeypatch.setattr(cli_main, "_device", lambda args: torch.device("cuda"))
+    extra, kernel = PACKED_SCHEDULES[schedule]
+    argv = _train_args(data, tmp_path, "--packed-genotypes", *extra)
+    argv[6] = depth
+    argv[argv.index("--fixed-hidden-layer-width") + 1] = width
+    with pytest.raises(SystemExit) as e:
+        run_cli(*argv)
+    assert "not ported yet" in str(e.value.code) and f"the {kernel} CUDA" in str(e.value.code)
+    assert "--packed-genotypes" in str(e.value.code)
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("extra,refused", [
+    (["--gradient-descent"], False),
+    (["--gradient-descent", "--update-mode", "hybrid", "--num-chains", "2"], False),
+    (["--gd-warmup", "1"], True),  # GD warms up, HMC on K4 samples
+])
+def test_packed_gradient_descent_is_not_refused(data, tmp_path, extra, refused):
+    """Gradient descent as the sampler runs K2, K3 and K9 at any width, so
+    a packed run at width 64 on the card is not refused; HMC after a GD
+    warm start is."""
+    import torch
+
+    from rs_bann_tpu_torch.cli import main as cli_main
+    from rs_bann_tpu_torch.cli.args import mcmc_cfg_from_args
+    from rs_bann_tpu_torch.models import NetArch
+
+    argv = _train_args(data, tmp_path, "--packed-genotypes", *extra)
+    argv[argv.index("--fixed-hidden-layer-width") + 1] = "64"
+    args = cli_main.build_parser().parse_args([str(a) for a in argv])
+    cfg = mcmc_cfg_from_args(args, str(tmp_path))
+    arch = NetArch.uniform(G, M, 64, 0, activation="identity")
+    bad = cli_main._beyond_kernels(args, cfg, arch, torch.device("cuda"))
+    assert bool(bad) == refused
+    assert cli_main._beyond_kernels(args, cfg, arch, torch.device("cpu")) == []
+
+
 def test_dense_and_silu_exit_nonzero(data, tmp_path):
     """Dense sample-major training waits for a later slice (silu on packed
     genotypes no longer does: K9); --feat-major with --packed-genotypes is
