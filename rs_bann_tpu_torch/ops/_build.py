@@ -1,18 +1,19 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a`` (all in
-parallel) and linked into one shared library with a plain C interface,
-loaded with ``ctypes`` (no PyTorch headers). The library lands in
-``build/rs_bann_tpu_torch/`` at the root of the checkout, named by a hash
-of the sources, so an unchanged tree reuses it and a changed one rebuilds.
-``build.log`` there gives each source's compile time and ``ptxas -v``
-(registers, spills).
+parallel) into an object, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers). Each object is cached in ``build/rs_bann_tpu_torch/obj/`` at the
+root of the checkout under a key that hashes its source, every
+``csrc/*.cuh`` and the flags, so an edit to one ``.cu`` recompiles that
+source alone and an edit to a header recompiles them all; the library is
+named by its objects' keys. ``build.log`` there says which sources were
+compiled (with their seconds) and which reused, then gives each source's
+``ptxas -v`` (registers, spills).
 
 Nothing here runs at import. ``lib()`` builds on first use and raises if
 there is no ``nvcc`` or no CUDA device: the kernels have no quiet fallback.
 """
-
-from __future__ import annotations
 
 import ctypes
 import hashlib
@@ -51,13 +52,30 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> Path:
+def _keys() -> dict:
+    """Each source's object key: a hash of the source, every header and the
+    flags."""
     cu, cuh = _sources()
-    h = hashlib.sha256()
-    for p in cu + cuh:
+    common = hashlib.sha256()
+    for p in cuh:
+        common.update(p.name.encode())
+        common.update(p.read_bytes())
+    common.update(" ".join(NVCC_FLAGS).encode())
+    keys = {}
+    for p in cu:
+        h = common.copy()
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+        keys[p] = h.hexdigest()[:16]
+    return keys
+
+
+def _object(src: Path, key: str) -> Path:
+    return BUILD_DIR / "obj" / f"{src.stem}_{key}.o"
+
+
+def library_path() -> Path:
+    h = hashlib.sha256("".join(_keys().values()).encode())
     return BUILD_DIR / f"librsbann_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -89,30 +107,49 @@ def compile_all(compiler: str, flags, cu, tmpdir):
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists: one
-    ``nvcc -c`` per source, all started together, then one link."""
+    """Compile the sources whose objects are not cached (one ``nvcc -c``
+    each, all started together), then link, unless a library of these
+    objects exists."""
     out = library_path()
     if out.exists():
         return out
     compiler = nvcc()
-    cu, _ = _sources()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    keys = _keys()
+    objs = {src: _object(src, key) for src, key in keys.items()}
+    missing = [src for src, obj in objs.items() if not obj.exists()]
+    (BUILD_DIR / "obj").mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        objs, codes, _, text = compile_all(compiler, NVCC_FLAGS, cu, tmpdir)
-        (BUILD_DIR / "build.log").write_text(text)
-        if any(codes):
-            raise RuntimeError(f"nvcc failed ({codes}):\n{text}")
-        # link under a temporary name, then rename: concurrent processes
-        # never load a half-written library
+        head = ""
+        if missing:
+            tmp_objs, codes, seconds, text = compile_all(compiler, NVCC_FLAGS, missing, tmpdir)
+            for src, tmp, code, sec in zip(missing, tmp_objs, codes, seconds):
+                if code == 0:  # each object and its log written under a temporary
+                    # name, then renamed: concurrent builds never see half an object
+                    os.replace(Path(tmpdir) / f"{src.stem}.log", objs[src].with_suffix(".log"))
+                    os.replace(tmp, objs[src])
+                    head += f"{src.name}: {sec:.1f} s\n"
+            if any(codes):
+                (BUILD_DIR / "build.log").write_text(text)
+                raise RuntimeError(f"nvcc failed ({codes}):\n{text}")
+        head += "".join(f"{src.name}: reused {obj.name}\n"
+                        for src, obj in objs.items() if src not in missing)
+        logs = "".join(f"==== {src.name}\n" + obj.with_suffix(".log").read_text()
+                       for src, obj in objs.items() if obj.with_suffix(".log").exists())
+        (BUILD_DIR / "build.log").write_text(head + logs)
         tmp = Path(tmpdir) / out.name
-        proc = subprocess.run(
-            [compiler, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        link(compiler, list(objs.values()), tmp)
         os.replace(tmp, out)
     return out
+
+
+def link(compiler: str, objs, out: Path) -> None:
+    """Link the objects into the shared library ``out``."""
+    proc = subprocess.run(
+        [compiler, *NVCC_FLAGS[:2], "-shared", "-o", str(out), *map(str, objs)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
 
 
 def lib() -> ctypes.CDLL:
@@ -138,10 +175,12 @@ def lib() -> ctypes.CDLL:
     so.branch_vg_packed_f32.restype = i
     so.branch_vg_packed_smem.argtypes = [i, i, i, i]
     so.branch_vg_packed_smem.restype = ctypes.c_longlong
-    so.traj_packed_f32.argtypes = [vp] * 10 + [i] * 12 + [vp]
+    so.traj_packed_f32.argtypes = [vp] * 10 + [i] * 13 + [vp]
     so.traj_packed_f32.restype = i
     so.traj_packed_smem.argtypes = [i, i, i, i]
     so.traj_packed_smem.restype = ctypes.c_longlong
+    so.traj_packed_km.argtypes = [i, i, i, i]
+    so.traj_packed_km.restype = i
     so.vg_chains_f32.argtypes = [vp] * 6 + [i] * 10 + [vp]
     so.vg_chains_f32.restype = i
     so.dense_chains_smem.argtypes = [i, i, i, i]
