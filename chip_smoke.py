@@ -19,7 +19,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      [10, 104, 25088], k = C * 16) against its plain version, and
      predict_chains on the card against the CPU's; then K5
      (integrate_chains_packed) against its plain version, izmailov step
-     sizes from the initial state, at L = 1 and L = 30
+     sizes from the initial state, at L = 1 and L = 30, and the block's
+     live columns (width 10 of the 16 stored) stored at width 10: the same
+     bits
   6. the hybrid path end to end through the CLI: train-new --update-mode
      hybrid --num-chains 4 (blocks of 10, every block transition one K5
      call, 2 sweeps of L = 30), predict on each chain's samples, the card's
@@ -430,6 +432,16 @@ def main():
                              D.PackedX(*cpu((x_b.bytes, x_b.w_scale, x_b.shift)), N_TRAIN))))
         del A_c, off_c, w_cb, b_cb
 
+        # K5 computes the block's live layer-0 columns only: the padded ones
+        # have zero weights and momenta (their step sizes are not zero)
+        k0 = ws[0].shape[-1]
+        k_live = LF.live_width(k0, *(BM.flat_params(a, b) for a, b in (
+            (ws, bs), (p_w, p_b), (eps_w, eps_b), (lam_w, lam_b))))
+        k5_km = _build.lib().traj_packed_km(k0, k0, k_live, 0)
+        print(f"  K5: width {arch.s[0]} stored at {k0}, live width {k_live}, register width "
+              f"{k5_km}")
+        if k_live != arch.s[0]:
+            raise AssertionError(f"live width {k_live}, expected the branch width {arch.s[0]}")
         k5_err, k5_ms, k5_plain_ms = 0.0, None, None
         for steps, tol in ((1, REL_TOL), (L, REL_TOL_TRAJ)):
             args = (x_b.bytes, x_b.w_scale, x_b.shift, targets, err, ws, bs, p_w, p_b,
@@ -451,12 +463,34 @@ def main():
                   f"max |W0_L - W0_0| {moved:.3e}")
             k5_ms, k5_plain_ms = ms, plain_ms  # the main path's L
             state_bytes = nbytes(*ws, *bs)
+            # the work of the function: the live columns, at the start and
+            # at each of L steps
             k5_bound = bound(
                 2 * BLOCK * CHAINS * N_TRAIN * (steps + 1)
-                * mlp_fmas(x_b.bytes.shape[1], ws[0].shape[-1], ws[-1].shape[-2], 0),
+                * mlp_fmas(x_b.bytes.shape[1], k_live, k_live, 0),
                 nbytes(x_b.bytes, x_b.w_scale, x_b.shift, targets, err) + 8 * state_bytes)
-            del out, ref, again
-        del targets
+            del ref, again
+        # the live columns stored at width k_live, with no dead column: the
+        # same bits; the dead columns come out as they went in
+        def cut(ts, bias=False):
+            return ((ts[0][..., :k_live].contiguous(),) if bias else
+                    (ts[0][..., :k_live].contiguous(), ts[1][..., :k_live, :].contiguous()))
+
+        narrow = LF.integrate_chains_packed(
+            "identity", x_b.bytes, x_b.w_scale, x_b.shift, targets, err, cut(ws), cut(bs, True),
+            cut(p_w), cut(p_b, True), cut(eps_w), cut(eps_b, True), cut(lam_w), cut(lam_b, True),
+            L, N_TRAIN)
+        for got_p, nar_p, start_p in zip(out, narrow, (ws, bs, p_w, p_b)):
+            for got, nar, start in zip(got_p, nar_p, start_p):
+                lead = (slice(None),) * (got.dim() - (2 if got.shape[-1] == 1 else 1))
+                if not (torch.equal(got[lead + (slice(0, k_live),)], nar)
+                        and torch.equal(got[lead + (slice(k_live, None),)],
+                                        start[lead + (slice(k_live, None),)])):
+                    raise AssertionError("K5: the live columns stored at width "
+                                         f"{k_live} and at {k0} differ")
+        print(f"  L={L}: the live columns stored at width {k_live} give the same bits; the "
+              f"dead ones come out as they went in")
+        del out, narrow, targets
 
         # ---- phase 6: the hybrid path, C chains, through the CLI
         print(f"phase 6: train-new --update-mode hybrid --num-chains {CHAINS} -> predict")
@@ -1106,7 +1140,8 @@ def main():
          "source": "rs_bann_tpu_torch/csrc/traj_packed.cu",
          "replaces": "rs_bann_tpu/ops/leapfrog.py:470",
          "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
-         "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None},
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None,
+         "k_live": k_live, "km": k5_km},
         # the flagship launches K7's forward-only instantiation (the value
         # passes); the value-and-gradient one runs inside K6 and is timed too
         {"name": "data_vg_chains", "route": "cuda",

@@ -17,14 +17,31 @@
 //
 // What bounds it on the H100: per step and per 512-individual group the
 // forward and the dW0 pass each cost m * KM * 512 FMAs per chain; at the
-// hybrid slice's shape (B = 10 branches, C = 4 chains, m = 104, KM = 16,
-// n = 100,352 padded) that is ~2.7e10 FLOP a step against 26 MB of bytes
-// read once a step for all four chains (and held in the 50 MB L2 across
-// steps), so f32 FMA issue bounds it, not device memory. The partial sums
-// (53 MB at that shape) are written and read once a step, ~35 us of
-// traffic against ~1.2 ms of arithmetic. Measured there at L = 30: 38.8 ms
-// a launch, 21 TFLOP/s, 32% of the f32 peak, against 164.9 ms for the
-// plain version (H100 80GB HBM3, 700 W; PERF.md).
+// hybrid slice's shape (B = 10 branches, C = 4 chains, m = 104, n = 100,352
+// padded, width 10 stored at 16) that is ~2.7e10 FLOP a step at KM = 16
+// against 26 MB of bytes read once a step for all four chains (and held in
+// the 50 MB L2 across steps), so f32 FMA issue bounds it, not device memory.
+// The partial sums (53 MB at that shape) are written and read once a step,
+// ~35 us of traffic against ~1.2 ms of arithmetic. Measured there at L = 30
+// on all 16 stored columns: 39.3 ms a launch, 32% of the f32 peak, 20% when
+// only the live work is counted (H100 80GB HBM3, 700 W; PERF.md).
+//
+// The live columns. The JAX package pads every width to 8 sublanes, so a
+// width of 10 is stored as 16 and 6 of every 16 FMAs of the forward, the
+// backward and the dW0 pass go into columns whose weights and momenta are
+// masked to zero (the TPU's matrix unit pads anyway; here they cost issue
+// slots). Every activation has act(0) = 0, so such a column adds nothing
+// to a prediction, its gradient is zero and the leapfrog leaves it as it
+// is. At depth 0 the wrapper passes the block's live width k_live (1 + the
+// last column with a nonzero weight or momentum, or a step size or prior
+// precision that is not finite) beside the storage width k0, and the
+// kernel computes KM columns, the smallest of {8, 12, 16, 24, 32} that
+// holds k_live (12 for width 10: a quarter fewer FMAs than at 16). It
+// stages, multiplies and writes partial sums for live coordinates only,
+// and the update phase leaves the dead ones untouched (their partials are
+// never written). A dead column would only add fmaf(0, act(0), pred) and
+// zero partials, so the live coordinates get the bits they got at KM = 16.
+// Depth 1 computes every stored column (k_live = k0).
 //
 // Design:
 //  * One cooperative launch per block transition (cudaLaunchCooperativeKernel,
@@ -61,7 +78,19 @@ constexpr int kThreads = kGBytes;  // one thread per byte column of a group
 constexpr int kRow = kGBytes + 4;  // shared-memory row stride of the byte tile
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
 
-__host__ __device__ constexpr int row_stride(int km) { return km + 4; }
+// Row stride (floats) of the per-individual rows: an odd number of 16-byte
+// units, so the float4 stores of neighbouring rows hit distinct banks
+// (12, 20, 20, 28, 36 for KM = 8, 12, 16, 24, 32).
+__host__ __device__ constexpr int row_stride(int km) { return (km / 4) % 2 ? km + 8 : km + 4; }
+
+// K5's register width for a depth-0 block of live width k_live.
+inline int live_km(int k_live) {
+    if (k_live <= 8) return 8;
+    if (k_live <= 12) return 12;
+    if (k_live <= 16) return 16;
+    if (k_live <= 24) return 24;
+    return k_live <= 32 ? 32 : -1;
+}
 
 size_t smem_bytes(int m, int km, bool deep) {
     const size_t floats = static_cast<size_t>(kGroup) * row_stride(km) * (deep ? 3 : 1) +
@@ -82,14 +111,17 @@ struct Args {
     float* pw;             // [nb, C, P] momentum, updated in place
     float* partial;        // [nb, C, B / 128, P] scratch
     int nb, C, m, B, n, k0, s, P, steps, act, l1;
+    int k_live;            // layer-0 columns computed: [0, k_live) (k0 at depth 1)
 };
 
 // d(rss/2)/d(q) of one 512-individual group of branch b, for each chain in
-// turn, written to the group's partial sums.
+// turn, written to the group's partial sums of the live coordinates.
 template <int KM, bool DEEP>
 __device__ void gradient_item(const Args& a, float* smem, int b, int grp) {
     constexpr int RS = row_stride(KM);
     const int m = a.m, k0 = a.k0, s = a.s, P = a.P;
+    const int kl = a.k_live;           // live layer-0 columns
+    const int sl = DEEP ? s : kl;      // live inputs of the output layer
     const int tid = threadIdx.x;
     const int ngrp = a.B / kGBytes;
     float* dz0_s = smem;                            // [512][RS]
@@ -128,14 +160,14 @@ __device__ void gradient_item(const Args& a, float* smem, int b, int grp) {
         const size_t bc = static_cast<size_t>(b) * a.C + c;
         const float* q = a.w + bc * P;
 
-        // ---- chain c's weights, zero-padded to KM
+        // ---- chain c's live weights, zero-padded to KM
         for (int idx = tid; idx < m * KM; idx += kThreads) {
             const int mm = idx / KM, kk = idx % KM;
-            w0_s[idx] = kk < k0 ? __ldcg(q + mm * k0 + kk) : 0.f;
+            w0_s[idx] = kk < kl ? __ldcg(q + mm * k0 + kk) : 0.f;
         }
         if (tid < KM) {
-            b0_s[tid] = tid < k0 ? __ldcg(q + off_db0 + tid) : 0.f;
-            wo_s[tid] = tid < s ? __ldcg(q + off_wo + tid) : 0.f;
+            b0_s[tid] = tid < kl ? __ldcg(q + off_db0 + tid) : 0.f;
+            wo_s[tid] = tid < sl ? __ldcg(q + off_wo + tid) : 0.f;
             if (DEEP) b1_s[tid] = tid < s ? __ldcg(q + off_b1 + tid) : 0.f;
         }
         if (DEEP) {
@@ -235,8 +267,8 @@ __device__ void gradient_item(const Args& a, float* smem, int b, int grp) {
         float* part = a.partial + (bc * ngrp + grp) * P;
 
         // ---- small sums over the block
-        block_sum<KM>(db0p, red_s, part + off_db0, k0);
-        block_sum<KM>(dwo, red_s, part + off_wo, s);
+        block_sum<KM>(db0p, red_s, part + off_db0, kl);
+        block_sum<KM>(dwo, red_s, part + off_wo, sl);
         if (DEEP) block_sum<KM>(db1p, red_s, part + off_b1, s);
 
         // ---- dW0[mm, :] = sum over the group's 512 individuals of x[mm, i] * dz0[i, :]
@@ -267,7 +299,9 @@ __device__ void gradient_item(const Args& a, float* smem, int b, int grp) {
                     }
                 }
             }
-            for (int k = 0; k < k0; ++k) part[mm * k0 + k] = acc2[k];
+#pragma unroll
+            for (int k = 0; k < KM; ++k)
+                if (k < kl) part[mm * k0 + k] = acc2[k];
         }
 
         // ---- dW1[k, ss] = sum over the group of a0[i, k] * dz1[i, ss] (depth 1)
@@ -301,6 +335,10 @@ __global__ void __launch_bounds__(kThreads) traj_packed_kernel(Args a) {
 
         for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
              e += stride) {
+            // depth 0: W0 [m, k0], b0 [k0] and w_out [k0] are rows of k0 (P
+            // a multiple of k0), so a coordinate's layer-0 column is its
+            // index mod k0; a dead one has no partials and stays as it is
+            if (!DEEP && static_cast<int>(e % a.k0) >= a.k_live) continue;
             const long long bc = e / a.P;
             const float* src = a.partial + bc * ngrp * a.P + e % a.P;
             float sum = 0.f;
@@ -347,7 +385,8 @@ int launch(Args a, cudaStream_t stream) {
 
 }  // namespace
 
-// Shared memory K5 needs at these widths, or -1 if it cannot run them.
+// Shared memory K5 needs at these (padded) widths, or -1 if it cannot run
+// them. A block's live width never needs more.
 extern "C" long long traj_packed_smem(int m, int k0, int s, int depth) {
     const int km = pick_km(k0, s);
     if (km < 0 || depth < 0 || depth > 1) return -1;
@@ -355,27 +394,37 @@ extern "C" long long traj_packed_smem(int m, int k0, int s, int depth) {
     return smem > static_cast<size_t>(kMaxSmem) ? -1 : static_cast<long long>(smem);
 }
 
+// The register width K5 computes with: at depth 0 the smallest of
+// {8, 12, 16, 24, 32} holding k_live, at depth 1 pick_km(k0, s); -1 if
+// it cannot run these widths.
+extern "C" int traj_packed_km(int k0, int s, int k_live, int depth) {
+    if (pick_km(k0, s) < 0 || depth < 0 || depth > 1) return -1;
+    if (depth == 1) return k_live == k0 ? pick_km(k0, s) : -1;
+    return s == k0 && k_live >= 0 && k_live <= k0 ? live_km(k_live) : -1;
+}
+
 // bytes u8 [nb, m, B]; scale, shift f32 [nb, m]; target f32 [nb, C, n];
 // err f32 [nb, C]; eps, lam f32 [nb, C, P]; w, pw f32 [nb, C, P], the start
 // on entry and the end of the trajectory on return; partial f32
 // [nb, C, B / 128, P] scratch. The flat layout is W0 [m, k0], b0 [k0],
-// (W1 [k0, s], b1 [s]), w_out [s].
+// (W1 [k0, s], b1 [s]), w_out [s]. k_live: the layer-0 columns [0, k_live)
+// are integrated, the rest left as they are (depth 0; k0 at depth 1).
 extern "C" int traj_packed_f32(const void* bytes, const void* scale, const void* shift,
                                const void* target, const void* err, const void* eps,
                                const void* lam, void* w, void* pw, void* partial, int nb, int C,
-                               int m, int B, int n, int k0, int s, int P, int depth, int steps,
-                               int act, int l1, void* stream) {
-    const int km = pick_km(k0, s);
+                               int m, int B, int n, int k0, int k_live, int s, int P, int depth,
+                               int steps, int act, int l1, void* stream) {
+    const int km = traj_packed_km(k0, s, k_live, depth);
     const bool deep = depth == 1;
-    if (km < 0 || depth < 0 || depth > 1 || P != partial_size(m, k0, s, deep) || steps < 0 ||
-        smem_bytes(m, km, deep) > static_cast<size_t>(kMaxSmem))
+    if (km < 0 || P != partial_size(m, k0, s, deep) || steps < 0 ||
+        traj_packed_smem(m, k0, s, depth) < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     Args a{static_cast<const uint8_t*>(bytes), static_cast<const float*>(scale),
            static_cast<const float*>(shift),   static_cast<const float*>(target),
            static_cast<const float*>(err),     static_cast<const float*>(eps),
            static_cast<const float*>(lam),     static_cast<float*>(w),
            static_cast<float*>(pw),            static_cast<float*>(partial),
-           nb, C, m, B, n, k0, s, P, steps, act, l1};
+           nb, C, m, B, n, k0, s, P, steps, act, l1, k_live};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (deep) {
         if (km == 8) return launch<8, true>(a, st);
@@ -383,6 +432,8 @@ extern "C" int traj_packed_f32(const void* bytes, const void* scale, const void*
         return launch<32, true>(a, st);
     }
     if (km == 8) return launch<8, false>(a, st);
+    if (km == 12) return launch<12, false>(a, st);
     if (km == 16) return launch<16, false>(a, st);
+    if (km == 24) return launch<24, false>(a, st);
     return launch<32, false>(a, st);
 }

@@ -55,11 +55,28 @@ def integrate_chains_packed_ref(
                                 lam_w, lam_b, L_steps, l1)
 
 
+def live_width(k0: int, w, pw, eps, lam) -> int:
+    """Live layer-0 width of a depth-0 block: 1 + the last column of W0 [m,
+    k0], b0 [k0] or w_out [k0], over (branch, chain, row), with a nonzero
+    position ``w`` or momentum ``pw``, or a step size ``eps`` or prior
+    precision ``lam`` that is not finite (flat_params layouts [nb, C,
+    (m + 2) * k0]). Every activation has act(0) = 0, so a column past it
+    adds nothing to any prediction, its gradient is zero, and the leapfrog
+    leaves it exactly as it is whatever its (finite) step size: the padded
+    columns, whose weights and momenta are masked to zero. One reduction on
+    the device and one host read."""
+    live = (w.ne(0) | pw.ne(0) | ~eps.isfinite() | ~lam.isfinite()).reshape(-1, k0).any(0)
+    cols = torch.arange(1, k0 + 1, device=live.device)
+    return int(torch.where(live, cols, 0).max().item())
+
+
 def _integrate_packed_cuda(
     act, bytes_g, w_scale, shift, targets, err, weights, biases, p_w, p_b,
     eps_w, eps_b, lam_w, lam_b, L_steps, n, l1,
 ):
-    """Launch csrc/traj_packed.cu once for the whole block and trajectory."""
+    """Launch csrc/traj_packed.cu once for the whole block and trajectory.
+    At depth 0 the kernel computes only the block's live columns
+    (``live_width``); the others it leaves as they are."""
     nb, m, B = bytes_g.shape
     C = targets.shape[1]
     depth = len(weights) - 2
@@ -78,6 +95,7 @@ def _integrate_packed_cuda(
     w, pw = flat_params(weights, biases), flat_params(p_w, p_b)
     eps, lam = flat_params(eps_w, eps_b), flat_params(lam_w, lam_b)
     P = w.shape[-1]
+    k_live = live_width(k0, w, pw, eps, lam) if depth == 0 else k0
     scale, shift = w_scale.contiguous(), shift.contiguous()
     targets, err = targets.contiguous(), err.contiguous()
     _check(bytes_g, "bytes", torch.uint8, (nb, m, B), dev)
@@ -93,7 +111,7 @@ def _integrate_packed_cuda(
         vp(bytes_g.data_ptr()), vp(scale.data_ptr()), vp(shift.data_ptr()),
         vp(targets.data_ptr()), vp(err.data_ptr()), vp(eps.data_ptr()),
         vp(lam.data_ptr()), vp(w.data_ptr()), vp(pw.data_ptr()),
-        vp(partial.data_ptr()), nb, C, m, B, n, k0, s, P, depth, int(L_steps),
+        vp(partial.data_ptr()), nb, C, m, B, n, k0, k_live, s, P, depth, int(L_steps),
         ACT_CODES[act], int(bool(l1)), vp(_build.stream_ptr(bytes_g)),
     )
     _build.check(status, "traj_packed_f32")

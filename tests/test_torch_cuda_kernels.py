@@ -222,6 +222,61 @@ def test_integrate_chains_packed_kernel_matches_plain(dev, depth, act, l1):
     assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
 
 
+def _live_traj_inputs(rng, dev, live, k0):
+    """Depth-0 K5 inputs at m = 104, C = 2, n = 1300 whose layer-0 columns
+    from ``live`` on are dead (zero weight and momentum; their step sizes
+    and prior precisions are not zero, as on the folded path), stored at
+    width k0."""
+    args = list(_traj_inputs(rng, dev, 3, 2, 104, 1300, 0))
+    for ix in (5, 7):  # weights, momenta: W0 [.., m, k], w_out [.., k, 1]
+        w0, wo = (t.clone() for t in args[ix])
+        w0[..., live:], wo[..., live:, :] = 0, 0
+        args[ix] = (w0, wo)
+    for ix in (6, 8):  # their biases b0 [.., k]
+        b0 = args[ix][0].clone()
+        b0[..., live:] = 0
+        args[ix] = (b0,)
+
+    def stored(ts, bias=False):
+        return (ts[0][..., :k0].contiguous(),) if bias else (
+            ts[0][..., :k0].contiguous(), ts[1][..., :k0, :].contiguous())
+
+    for ix in (5, 7, 9, 11):
+        args[ix] = stored(args[ix])
+    for ix in (6, 8, 10, 12):
+        args[ix] = stored(args[ix], bias=True)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("live,narrow", [(10, 10), (10, 12), (13, 13)])
+def test_integrate_chains_packed_computes_only_the_live_columns(dev, live, narrow):
+    """K5 at depth 0 on a block whose columns from ``live`` on are dead,
+    stored at width 16: within 1e-4 of the plain version, the dead columns
+    exactly as they went in, the live ones bit for bit what the same
+    columns give stored at width ``narrow`` (KM is the smallest of 8, 12,
+    16, 24, 32 holding ``live`` either way), and a bit-identical repeat."""
+    from rs_bann_tpu_torch.ops import _build
+
+    assert _build.lib().traj_packed_km(16, 16, live, 0) == (12 if live <= 12 else 16)
+    rng = np.random.default_rng(7)
+    wide = _live_traj_inputs(rng, dev, live, 16)
+    w_narrow = _live_traj_inputs(np.random.default_rng(7), dev, live, narrow)
+    steps, n = 3, 1300
+    out = TL.integrate_chains_packed("tanh", *wide, steps, n)
+    ref = TL.integrate_chains_packed_ref("tanh", *wide, steps, n)
+    out_n = TL.integrate_chains_packed("tanh", *w_narrow, steps, n)
+    again = TL.integrate_chains_packed("tanh", *wide, steps, n)
+    torch.cuda.synchronize()
+    starts = (wide[5], wide[6], wide[7], wide[8])
+    for got_p, ref_p, nar_p, start_p, again_p in zip(out, ref, out_n, starts, again):
+        for got, want, nar, start, rep in zip(got_p, ref_p, nar_p, start_p, again_p):
+            assert (got - want).abs().max().item() <= 1e-4 * max(want.abs().max().item(), 1.0)
+            assert torch.equal(got, rep)
+            col = (slice(None),) * (got.dim() - (2 if got.shape[-1] == 1 and got.dim() == 4 else 1))
+            assert torch.equal(got[col + (slice(live, None),)], start[col + (slice(live, None),)])
+            assert torch.equal(got[col + (slice(0, live),)], nar[col + (slice(0, live),)])
+
+
 def _dense_inputs(rng, dev, G, C, m, n, k, depth):
     widths = [(m, k), (k, k), (k, 1)] if depth else [(m, k), (k, 1)]
 
@@ -297,6 +352,18 @@ def test_dense_limits_agree_with_the_kernels(dev):
     for shape in [(64, 32, 32, 1), (40, 16, 16, 0), (254, 32, 32, 1), (300, 32, 32, 1),
                   (64, 64, 32, 1), (64, 8, 8, 2)]:
         assert lib.dense_chains_smem(*shape) == BM.dense_chains_smem(*shape), shape
+
+
+def test_packed_limits_agree_with_the_kernels(dev):
+    from rs_bann_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    for shape in [(64, 32, 32, 1), (40, 16, 16, 0), (254, 32, 32, 1), (300, 32, 32, 1),
+                  (64, 64, 32, 1), (64, 8, 8, 2), (104, 16, 16, 0), (975, 16, 16, 0),
+                  (976, 16, 16, 0), (936, 16, 16, 0), (937, 16, 16, 0), (23, 32, 32, 1),
+                  (24, 32, 32, 1)]:
+        assert lib.branch_vg_packed_smem(*shape) == BM.branch_vg_packed_smem(*shape), shape
+        assert lib.traj_packed_smem(*shape) == BM.traj_packed_smem(*shape), shape
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -100,6 +100,86 @@ def test_cpu_tensors_run_the_plain_version():
         TL.integrate_chains_packed("softplus", *args, 2, 700)
 
 
+def _live_block(live, k0=16, seed=4):
+    """Positions, momenta, step sizes and prior precisions of a depth-0
+    block (2 branches, 3 chains, m 24) whose layer-0 columns from ``live``
+    on have zero weight and momentum, as padded columns have; their step
+    sizes and precisions are not zero, as on the folded path."""
+    rng = np.random.default_rng(seed)
+    m = 24
+
+    def block(scale, dead=True):
+        ws = (rng.standard_normal((2, 3, m, k0)), rng.standard_normal((2, 3, k0, 1)))
+        bs = (rng.standard_normal((2, 3, k0)),)
+        ws = tuple(torch.from_numpy((np.abs(w) * scale).astype(np.float32)) for w in ws)
+        bs = tuple(torch.from_numpy((np.abs(b) * scale).astype(np.float32)) for b in bs)
+        if dead:
+            for t in ws[:1] + bs:
+                t[..., live:] = 0
+            ws[1][..., live:, :] = 0
+        return ws, bs
+
+    return block(0.3), block(1.0), block(0.01, dead=False), block(2.0, dead=False)
+
+
+@pytest.mark.parametrize("live,poke,want", [
+    (10, None, 10),
+    (10, ("momentum", 12), 13),  # a nonzero momentum of the output layer
+    (10, ("eps", 14), 15),  # a step size that is not finite
+    (10, ("lam", 11), 12),  # a prior precision that is not finite
+    (16, None, 16),
+])
+def test_live_width(live, poke, want):
+    """K5's wrapper computes only a depth-0 block's live columns: 1 + the
+    last column with a nonzero weight or momentum, or a step size or prior
+    precision that is not finite."""
+    from rs_bann_tpu_torch.ops.branch_mlp import flat_params
+
+    (w, b), (pw, pb), (ew, eb), (lw, lb) = _live_block(live)
+    if poke is not None:
+        what, col = poke
+        {"momentum": pw, "eps": ew, "lam": lw}[what][1][1, 2, col, 0] = (
+            0.5 if what == "momentum" else float("inf"))
+    flat = [flat_params(ws, bs) for ws, bs in ((w, b), (pw, pb), (ew, eb), (lw, lb))]
+    assert TL.live_width(16, *flat) == want
+
+
+def test_dead_columns_are_left_as_they_are():
+    """A column with zero weight and momentum (its step size and prior
+    precision not zero) comes out of the plain trajectory exactly as it went
+    in, and the live columns do not depend on it: what lets K5 skip it."""
+    (w, b), (pw, pb), (ew, eb), (lw, lb) = _live_block(10)
+    rng = np.random.default_rng(5)
+    m, n = 24, 700
+    vals = rng.integers(0, 3, size=(2, m, n)).astype(np.float32)
+    by = torch.from_numpy(np.stack([pack_strided(v) for v in vals]))
+    scale = torch.from_numpy((rng.random((2, m)) + 0.5).astype(np.float32))
+    shift = torch.from_numpy(rng.random((2, m)).astype(np.float32))
+    targets = torch.from_numpy(rng.standard_normal((2, 3, n)).astype(np.float32))
+    err = torch.full((2, 3), 0.7)
+
+    def run(cols):
+        def cut(ts):
+            return (ts[0][..., :cols], ts[1][..., :cols, :])
+
+        def cutb(ts):
+            return (ts[0][..., :cols],)
+
+        return TL.integrate_chains_packed_ref(
+            "tanh", by, scale, shift, targets, err, cut(w), cutb(b), cut(pw), cutb(pb),
+            cut(ew), cutb(eb), cut(lw), cutb(lb), 3, n)
+
+    wide, narrow = run(16), run(10)
+    for got16, got10, start in zip(wide, narrow, (w, b, pw, pb)):
+        for t16, t10, t0 in zip(got16, got10, start):
+            lead = (slice(None),) * (t16.dim() - (2 if t16.shape[-1] == 1 else 1))
+            assert torch.equal(t16[lead + (slice(10, None),)], t0[lead + (slice(10, None),)])
+            # the CPU's matmuls round another way at another width: f32 sums
+            # over 700 individuals, 3 steps
+            np.testing.assert_allclose(t16[lead + (slice(0, 10),)].numpy(), t10.numpy(),
+                                       rtol=1e-5, atol=1e-6)
+
+
 def _dense_inputs(n):
     """The inputs of tests/test_leapfrog.py: G 2, C 3, m 16, h 8, s 8."""
     rng = np.random.default_rng(0)

@@ -52,7 +52,7 @@ for argv in (["--help"], ["train-new", "--help"], ["predict", "--help"], ["gradi
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/profile_hybrid_torch.py",
-                                    "scripts/build_time_torch.py"])
+                                    "scripts/build_time_torch.py", "scripts/bench_k5_torch.py"])
 def test_card_scripts_import_only_the_port(script):
     """The card's scripts import neither jax nor the JAX package: what they
     need of it comes through rs_bann_tpu_torch."""
