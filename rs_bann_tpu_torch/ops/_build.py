@@ -15,6 +15,8 @@ Nothing here runs at import. ``lib()`` builds on first use and raises if
 there is no ``nvcc`` or no CUDA device: the kernels have no quiet fallback.
 """
 
+from __future__ import annotations
+
 import ctypes
 import hashlib
 import os
@@ -136,20 +138,17 @@ def build() -> Path:
         logs = "".join(f"==== {src.name}\n" + obj.with_suffix(".log").read_text()
                        for src, obj in objs.items() if obj.with_suffix(".log").exists())
         (BUILD_DIR / "build.log").write_text(head + logs)
+        # link under a temporary name, then rename: concurrent processes
+        # never load a half-written library
         tmp = Path(tmpdir) / out.name
-        link(compiler, list(objs.values()), tmp)
+        proc = subprocess.run(
+            [compiler, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs.values())],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, out)
     return out
-
-
-def link(compiler: str, objs, out: Path) -> None:
-    """Link the objects into the shared library ``out``."""
-    proc = subprocess.run(
-        [compiler, *NVCC_FLAGS[:2], "-shared", "-o", str(out), *map(str, objs)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
 
 
 def lib() -> ctypes.CDLL:

@@ -184,17 +184,17 @@ def dense_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
 _PACKED_ROW = GBYTES + 4  # shared-memory row stride of K4's and K5's byte tile (kRow)
 
 
-def _packed_smem(m: int, k0: int, s: int, depth: int, extra_floats) -> int:
+def _packed_smem(m: int, k0: int, s: int, depth: int, extra_floats: int) -> int:
     """The rule K4 and K5 share: register width KM from ``pick_km``
     (csrc/packed_decode.cuh), depth 0 or 1, the weights and one [512, KM + 4]
     row tile per saved per-individual row (three at depth 1), the byte tile,
-    within 227 KB. ``extra_floats(m)`` is what the kernel adds of its own."""
+    within 227 KB. ``extra_floats`` is what the kernel adds of its own."""
     km = next((k for k in (8, 16, 32) if max(k0, s) <= k), -1)
     if km < 0 or depth not in (0, 1):
         return -1
     deep = depth == 1
     floats = (4 * GBYTES * (km + 4) * (3 if deep else 1) + m * km + km
-              + (km * km + km if deep else 0) + km + 4 * km + extra_floats(m))
+              + (km * km + km if deep else 0) + km + 4 * km + extra_floats)
     smem = 4 * floats + m * _PACKED_ROW
     return smem if smem <= _MAX_SMEM else -1
 
@@ -204,7 +204,7 @@ def branch_vg_packed_smem(m: int, k0: int, s: int, depth: int) -> int:
     padded widths k0, s, or -1 if it cannot run it. The rule of the CUDA
     entry point of the same name; the CLI asks it before a packed HMC run on
     the card whose branches step one by one."""
-    return _packed_smem(m, k0, s, depth, lambda m: 0)
+    return _packed_smem(m, k0, s, depth, 0)
 
 
 def traj_packed_smem(m: int, k0: int, s: int, depth: int) -> int:
@@ -213,7 +213,7 @@ def traj_packed_smem(m: int, k0: int, s: int, depth: int) -> int:
     of the CUDA entry point of the same name; the CLI asks it before a
     folded packed HMC run on the card. (K5 computes only a block's live
     columns, which never need more.)"""
-    return _packed_smem(m, k0, s, depth, lambda m: 2 * m)
+    return _packed_smem(m, k0, s, depth, 2 * m)
 
 
 def flat_params(weights, biases) -> torch.Tensor:
