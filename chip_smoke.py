@@ -21,7 +21,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      (integrate_chains_packed) against its plain version, izmailov step
      sizes from the initial state, at L = 1 and L = 30, and the block's
      live columns (width 10 of the 16 stored) stored at width 10: the same
-     bits
+     bits; K5's chains per chunk, resident blocks per SM and each
+     instantiation's registers and spills (ptxas -v, build.log)
   6. the hybrid path end to end through the CLI: train-new --update-mode
      hybrid --num-chains 4 (blocks of 10, every block transition one K5
      call, 2 sweeps of L = 30), predict on each chain's samples, the card's
@@ -440,6 +441,17 @@ def main():
         k5_km = _build.lib().traj_packed_km(k0, k0, k_live, 0)
         print(f"  K5: width {arch.s[0]} stored at {k0}, live width {k_live}, register width "
               f"{k5_km}")
+        k5_cc, k5_per_sm, k5_smem = LF.traj_packed_occupancy(x_b.bytes.shape[1], k0, k0, k_live, 0,
+                                                             CHAINS)
+        print(f"  K5: {k5_cc} chains per chunk, {k5_per_sm} resident blocks per SM, {k5_smem} "
+              f"bytes of shared memory per block")
+        if build_log.exists():
+            sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+            from bench_k5_torch import ptxas
+
+            for r in ptxas(build_log):
+                print(f"  ptxas traj_packed_kernel<KM={r['km']}, CC={r['cc']}, depth {r['depth']}>: "
+                      f"{r['registers']} registers, {r['spill_stores']} bytes of spill stores")
         if k_live != arch.s[0]:
             raise AssertionError(f"live width {k_live}, expected the branch width {arch.s[0]}")
         k5_err, k5_ms, k5_plain_ms = 0.0, None, None
@@ -1141,7 +1153,7 @@ def main():
          "replaces": "rs_bann_tpu/ops/leapfrog.py:470",
          "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None,
-         "k_live": k_live, "km": k5_km},
+         "k_live": k_live, "km": k5_km, "cc": k5_cc, "blocks_per_sm": k5_per_sm},
         # the flagship launches K7's forward-only instantiation (the value
         # passes); the value-and-gradient one runs inside K6 and is timed too
         {"name": "data_vg_chains", "route": "cuda",

@@ -180,6 +180,9 @@ def lib() -> ctypes.CDLL:
     so.traj_packed_smem.restype = ctypes.c_longlong
     so.traj_packed_km.argtypes = [i, i, i, i]
     so.traj_packed_km.restype = i
+    pi = ctypes.POINTER(ctypes.c_int)
+    so.traj_packed_occupancy.argtypes = [i] * 6 + [pi, pi, ctypes.POINTER(ctypes.c_longlong)]
+    so.traj_packed_occupancy.restype = i
     so.vg_chains_f32.argtypes = [vp] * 6 + [i] * 10 + [vp]
     so.vg_chains_f32.restype = i
     so.dense_chains_smem.argtypes = [i, i, i, i]

@@ -20,7 +20,11 @@ precision factors per layer [B, C, in, out] (biases [B, C, out]).
 On a CUDA tensor one call is one launch of csrc/traj_packed.cu (K5) or
 csrc/traj_dense.cu (K6); on a CPU tensor it runs the plain PyTorch version
 the kernel is held against (``integrate_chains_packed_ref``,
-``integrate_chains_ref``).
+``integrate_chains_ref``). At depth 0, K5 decodes each genotype of a staged
+byte tile once for a chunk of CC chains (``traj_packed_occupancy`` says
+which CC and how many resident blocks a launch uses); the packed
+standardization is folded into the weights inside the kernel, so its f32
+sums are rounded in another order than the plain version's.
 """
 
 from __future__ import annotations
@@ -70,13 +74,31 @@ def live_width(k0: int, w, pw, eps, lam) -> int:
     return int(torch.where(live, cols, 0).max().item())
 
 
+def traj_packed_occupancy(m: int, k0: int, s: int, k_live: int, depth: int, C: int):
+    """What K5 launches for a block of m_pad markers, padded widths k0 and
+    s, live width k_live (k0 at depth 1) and C chains, on the current CUDA
+    device: (chains per chunk CC, resident blocks per SM, shared memory per
+    block in bytes). The cooperative grid is blocks per SM times the SMs."""
+    lib = _build.lib()
+    cc, per_sm, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    status = lib.traj_packed_occupancy(m, k0, s, k_live, depth, C, ctypes.byref(cc),
+                                       ctypes.byref(per_sm), ctypes.byref(smem))
+    _build.check(status, "traj_packed_occupancy")
+    return cc.value, per_sm.value, smem.value
+
+
 def _integrate_packed_cuda(
     act, bytes_g, w_scale, shift, targets, err, weights, biases, p_w, p_b,
     eps_w, eps_b, lam_w, lam_b, L_steps, n, l1,
 ):
     """Launch csrc/traj_packed.cu once for the whole block and trajectory.
     At depth 0 the kernel computes only the block's live columns
-    (``live_width``); the others it leaves as they are."""
+    (``live_width``), the others it leaves as they are, and it serves the
+    C chains in chunks of CC from each staged byte tile: the launch takes
+    the largest CC instantiated at the live register width that is at most
+    C and fits shared memory (``traj_packed_occupancy``). A shape that
+    passes ``traj_packed_smem`` always fits at CC = 1; anything else
+    raises."""
     nb, m, B = bytes_g.shape
     C = targets.shape[1]
     depth = len(weights) - 2

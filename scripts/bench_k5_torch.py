@@ -20,7 +20,8 @@ L = 1 (REL_TOL) and L = 30 (REL_TOL_TRAJ), each with a bit-identical
 repeat, checks at L = 30 that the same live columns stored at width 10 give
 the same bits as stored at 16, and prints K5's CUDA-event median of 7, the
 plain version's, the bound on the live work, the share of the f32 peak,
-and the registers and spills of traj_packed.cu's kernels from build.log.
+the chains per chunk (CC) and resident blocks per SM the launch uses, and
+the registers and spills of traj_packed.cu's kernels from build.log.
 
   --root DIR   import rs_bann_tpu_torch from DIR: another checkout (say the
                parent commit, unpacked with ``git archive`` into a directory
@@ -159,8 +160,10 @@ def ptxas(build_log):
     for line in build_log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S*traj_packed_kernel\S*)'", line)
         if m:
-            t = re.search(r"ILi(\d+)ELb([01])E", m.group(1))
-            cur = {"km": int(t.group(1)), "depth": int(t.group(2))} if t else {"name": m.group(1)}
+            # <KM, CC, DEEP> (<KM, DEEP> before chunks of chains)
+            t = re.search(r"ILi(\d+)E(?:Li(\d+)E)?Lb([01])E", m.group(1))
+            cur = ({"km": int(t.group(1)), "cc": int(t.group(2) or 1), "depth": int(t.group(3))}
+                   if t else {"name": m.group(1)})
             found.append(cur)
         elif "Compiling entry function" in line:
             cur = None
@@ -213,10 +216,19 @@ def main():
     k_live = LF.live_width(k0, *(LF.flat_params(args[ix], args[ix + 1]) for ix in (5, 7, 9, 11))
                            ) if hasattr(LF, "live_width") else WIDTH
     km = lib.traj_packed_km(k0, k0, k_live, 0) if hasattr(lib, "traj_packed_km") else 16
+    # chains per chunk and resident blocks per SM (checkouts since the
+    # chunks of chains; one chain at a time and the occupancy API before)
+    cc, per_sm, smem = (LF.traj_packed_occupancy(m_pad, k0, k0, k_live, 0, C)
+                        if hasattr(LF, "traj_packed_occupancy") else (1, None, None))
     print(f"B {B}, C {C}, m_pad {m_pad}, n {N}, width {WIDTH} stored at {k0}: "
-          f"k_live {k_live}, KM {km}")
+          f"k_live {k_live}, KM {km}, CC {cc}, {per_sm} blocks per SM, {smem} bytes of shared "
+          f"memory per block")
+    for r in regs:
+        if r.get("km") == km and r.get("cc") == cc and r.get("depth") == 0:
+            print(f"  the launched instantiation: {r}")
 
-    res = {"device": smi, "build_s": build_s, "k_live": k_live, "km": km, "ptxas": regs}
+    res = {"device": smi, "build_s": build_s, "k_live": k_live, "km": km, "cc": cc,
+           "blocks_per_sm": per_sm, "smem": smem, "ptxas": regs}
     for steps, tol in ((1, REL_TOL), (L, REL_TOL_TRAJ)):
         out = LF.integrate_chains_packed("identity", *args, steps, N)
         ref = LF.integrate_chains_packed_ref("identity", *args, steps, N)

@@ -7,13 +7,15 @@ run these with ``python -m pytest --noconftest tests/test_torch_cuda_kernels.py`
 Shapes are small but cover what the full-shape checks in chip_smoke.py do
 not: every activation, depth 0 and 1, a ragged n, a batched G, lasso
 (K5, K6), more than one marker tile and a k not a multiple of 16 (K3,
-K9b), X read in place through an index (K8b), and the wrappers'
-refusals. Tolerances: K2 and K9a atol 1e-4 (f32
+K9b), X read in place through an index (K8b), K5's chunks of chains (C
+not a multiple of the chunk, one chain a chunk at a large m_pad), and the
+wrappers' refusals. Tolerances: K2 and K9a atol 1e-4 (f32
 sums over <= 300 markers in another order); K3 and K9b rtol 1e-4 of the
 largest entry (sums over n); K4, K7 and K8 y_pred atol 1e-4 and
 gradients rtol 1e-4 against the largest entry (sums over n in another
 order); K5 and K6 rtol 1e-4 of the largest entry after 3 steps (the same
-sums, compounded).
+sums, compounded), K5's chunks 1e-4 after 1 step and 1e-3 after 30 (as
+chip_smoke's REL_TOL and REL_TOL_TRAJ).
 """
 
 import numpy as np
@@ -222,12 +224,12 @@ def test_integrate_chains_packed_kernel_matches_plain(dev, depth, act, l1):
     assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
 
 
-def _live_traj_inputs(rng, dev, live, k0):
-    """Depth-0 K5 inputs at m = 104, C = 2, n = 1300 whose layer-0 columns
-    from ``live`` on are dead (zero weight and momentum; their step sizes
-    and prior precisions are not zero, as on the folded path), stored at
-    width k0."""
-    args = list(_traj_inputs(rng, dev, 3, 2, 104, 1300, 0))
+def _live_traj_inputs(rng, dev, live, k0, C=2, m=104, nb=3):
+    """Depth-0 K5 inputs at n = 1300 (m = 104, C = 2 and nb = 3 unless
+    given) whose layer-0 columns from ``live`` on are dead (zero weight and
+    momentum; their step sizes and prior precisions are not zero, as on the
+    folded path), stored at width k0."""
+    args = list(_traj_inputs(rng, dev, nb, C, m, 1300, 0))
     for ix in (5, 7):  # weights, momenta: W0 [.., m, k], w_out [.., k, 1]
         w0, wo = (t.clone() for t in args[ix])
         w0[..., live:], wo[..., live:, :] = 0, 0
@@ -275,6 +277,43 @@ def test_integrate_chains_packed_computes_only_the_live_columns(dev, live, narro
             col = (slice(None),) * (got.dim() - (2 if got.shape[-1] == 1 and got.dim() == 4 else 1))
             assert torch.equal(got[col + (slice(live, None),)], start[col + (slice(live, None),)])
             assert torch.equal(got[col + (slice(0, live),)], nar[col + (slice(0, live),)])
+
+
+# (C, m_pad, live width, activation, l1) of a depth-0 block stored at width
+# 16: C = 1, 3 and 5 leave a chunk of CC = 2 chains (KM = 12) partly or
+# wholly past C; m_pad = 936 with all 16 columns live fits shared memory only
+# at one chain a chunk
+CHUNK_CASES = [(1, 104, 10, "identity", False), (3, 104, 10, "tanh", False),
+               (5, 104, 10, "identity", True), (4, 936, 16, "tanh", False)]
+
+
+@pytest.mark.parametrize("steps,tol", [(1, 1e-4), (30, 1e-3)])
+@pytest.mark.parametrize("C,m,live,act,l1", CHUNK_CASES)
+def test_integrate_chains_packed_chunks_match_plain(dev, C, m, live, act, l1, steps, tol):
+    """K5's depth-0 chunks of CC chains against ``integrate_chains_packed_ref``:
+    within REL_TOL (L = 1) and REL_TOL_TRAJ (L = 30) of the largest entry
+    (f32 sums in another order, the standardization folded into the weights,
+    compounded over the steps), the dead columns exactly as they went in, and
+    a bit-identical repeat. The launch takes the CC the case is built for."""
+    want_cc = 1 if C == 1 or m > 104 else 2
+    assert TL.traj_packed_occupancy(m, 16, 16, live, 0, C)[:1] == (want_cc,)
+    assert TL.traj_packed_occupancy(m, 16, 16, live, 0, C)[1] >= 1
+    args = _live_traj_inputs(np.random.default_rng(11), dev, live, 16, C=C, m=m, nb=2)
+    n = 1300
+    before = TL.integrate_chains_packed.launches
+    out = TL.integrate_chains_packed(act, *args, steps, n, l1=l1)
+    assert TL.integrate_chains_packed.launches == before + 1
+    ref = TL.integrate_chains_packed_ref(act, *args, steps, n, l1=l1)
+    again = TL.integrate_chains_packed(act, *args, steps, n, l1=l1)
+    torch.cuda.synchronize()
+    starts = (args[5], args[6], args[7], args[8])
+    for got_p, ref_p, start_p, again_p in zip(out, ref, starts, again):
+        for got, want, start, rep in zip(got_p, ref_p, start_p, again_p):
+            assert got.shape == want.shape
+            assert (got - want).abs().max().item() <= tol * max(want.abs().max().item(), 1.0)
+            assert torch.equal(got, rep)
+            col = (slice(None),) * (got.dim() - (2 if got.shape[-1] == 1 and got.dim() == 4 else 1))
+            assert torch.equal(got[col + (slice(live, None),)], start[col + (slice(live, None),)])
 
 
 def _dense_inputs(rng, dev, G, C, m, n, k, depth):
