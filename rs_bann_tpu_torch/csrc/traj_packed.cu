@@ -25,9 +25,10 @@
 // index arithmetic, barriers) takes an issue slot from the FMAs, and the
 // register tiles that amortize them cost occupancy, so the depth-0 design
 // below is about issuing FMAs from tiles that still leave 3 blocks (12
-// warps) per SM. Measured times, shares of the f32 peak and the parent's
-// time in the same call: PERF.md section 6 (K5's row, with the card's name
-// and power limit), from scripts/bench_k5_torch.py.
+// warps) per SM. Measured there at L = 30 (scripts/bench_k5_torch.py, H100
+// 80GB HBM3, 700 W power limit): 22.2 ms a launch, 35% of the f32 peak on
+// the live work, against 34.0 ms for the one-chain-at-a-time design it
+// replaces, in the same run (PERF.md section 6).
 //
 // The live columns. The JAX package pads every width to 8 sublanes, so a
 // width of 10 is stored as 16. Every activation has act(0) = 0, so a
