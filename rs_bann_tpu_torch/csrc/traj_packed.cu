@@ -22,7 +22,7 @@
 // step against 26 MB of bytes read once a step for all four chains (held in
 // the 50 MB L2 across steps), so f32 FMA issue bounds it, not device memory.
 // Every instruction that is not an FMA (the decode, shared-memory loads,
-// index arithmetic, barriers) takes an issue slot from the FMAs, and the
+// index arithmetic, barriers) takes a scheduler slot from the FMAs, and the
 // register tiles that amortize them cost occupancy, so the depth-0 design
 // below is about issuing FMAs from tiles that still leave 3 blocks (12
 // warps) per SM. Measured there at L = 30 (scripts/bench_k5_torch.py, H100
