@@ -7,7 +7,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   0. require a CUDA device; print the card, its power limit and the versions
   1. build the CUDA kernels from rs_bann_tpu_torch/csrc with nvcc
   2. K2 (packed_linear) against its plain PyTorch version at the slice's
-     full shape: bytes [100, 104, 25088], k = 16, n = 100,000
+     full shape: bytes [100, 104, 25088], k = 16, n = 100,000; identical
+     bits on a repeat; its time, plain time and bound (below)
   3. K4 (data_vg_packed) against its plain version, one branch, same shape
   4. the sequential path end to end through the CLI: train-new
      --packed-genotypes (G = 100 groups of 100 markers, n = 100,000,
@@ -16,8 +17,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      card's predictions against the plain version's on the CPU
   5. on one hybrid block at the full shape (B = 10 branches, C = 4 chains,
      n = 100,000): K2 at the hybrid's chain-folded value-pass shape (bytes
-     [10, 104, 25088], k = C * 16) against its plain version, and
-     predict_chains on the card against the CPU's; then K5
+     [10, 104, 25088], k = C * 16 stored and C * 10 live) against its plain
+     version, with a repeat, its time and bound, and predict_chains on the
+     card, uncut and cut to the live width, against the CPU's; then K5
      (integrate_chains_packed) against its plain version, izmailov step
      sizes from the initial state, at L = 1 and L = 30, and the block's
      live columns (width 10 of the 16 stored) stored at width 10: the same
@@ -25,8 +27,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      instantiation's registers and spills (ptxas -v, build.log)
   6. the hybrid path end to end through the CLI: train-new --update-mode
      hybrid --num-chains 4 (blocks of 10, every block transition one K5
-     call, 2 sweeps of L = 30), predict on each chain's samples, the card's
-     predictions against the CPU's
+     call, 2 sweeps of L = 30; the two value passes of each block one K2
+     launch each on the live width, k = 4 x 10), predict on each chain's
+     samples, the card's predictions against the CPU's
   7. the dense flagship (bench.py workload 1: G = 64 groups of 64 markers,
      n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
      K7 (data_vg_chains, feature-major X [64, 64, 4096]) and its
@@ -45,7 +48,7 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      activations) and K9b (packed_matmul_vjp) against their plain versions
      at the slice's full shape (bytes [100, 104, 25088], k = 16, n =
      100,000; K9a also at the hybrid value pass, bytes [10, 104, 25088],
-     k = 64), the cotangent from a seed, K3's saved output the plain
+     k = 64 stored and 40 live), the cotangent from a seed, K3's saved output the plain
      forward at the perturbed initial state; identical bits on a repeat
  11. identity through the CLI: train-new --update-mode hybrid --num-chains
      4 --gd-warmup 1 (one GD sweep, then 2 sweeps of L = 30): exactly
@@ -80,8 +83,10 @@ the wrapper's call, except K8's: its launch alone from back-to-back
 launches, the wrapper's call beside it as wrapper_ms), and
 the bound (the larger of its FLOPs over the
 67 TFLOP/s f32 peak and its bytes, each input read once and each output
-written once, over 3.35 TB/s); the last line is {"ok": true, "device":
-{...}}. The data lives in a temporary directory, removed at the end.
+written once, over 3.35 TB/s; for K2 and K9a the work as implemented,
+three bf16 tensor-core products per f32 one at 989 TFLOP/s, with the f32
+figure beside it as f32_bound_ms, and their value pass on the live width
+as value_pass_*); the last line is {"ok": true, "device": {...}}. The data lives in a temporary directory, removed at the end.
 """
 
 import contextlib
@@ -108,8 +113,9 @@ N_CAUSAL = 500  # markers with an effect in the simulated phenotype
 FG, FM, FN_TRAIN, FN_TEST, FH = 64, 64, 4096, 1024, 32
 FL, FCHAINS, FCAUSAL = 64, 4, 256
 TIMED_RUNS = 7
-# H100 SXM: f32 FMA peak outside the tensor cores and HBM bandwidth
-PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+# H100 SXM: f32 FMA peak outside the tensor cores, dense bf16 tensor-core
+# peak and HBM bandwidth
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = 67e12, 989e12, 3.35e12
 # max |kernel - plain| / max(1, max |plain|): both sum in f32 in different
 # orders, over <= 104 markers (K2, K4's forward) or n = 100,000 (K4's and
 # K5's sums); a 30-step trajectory compounds the differences (K5 at L = 30)
@@ -147,6 +153,14 @@ def bound(flop, nbytes):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def tc_bound(flop, nbytes):
+    """(least ms, what bounds it) of K2 and K9a as implemented: each f32
+    product is three bf16 tensor-core products (the exact split), so 3 x
+    ``flop`` at the dense bf16 peak, against ``nbytes`` moved."""
+    ops_ms, bytes_ms = 3e3 * flop / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def mlp_fmas(m, k0, s, depth, grad=True):
     """FMAs of one branch MLP (W0 [m, k0], (W1 [k0, s]), w_out [s]) for one
     individual and one chain: the forward, plus the backward with ``grad``."""
@@ -172,6 +186,17 @@ def check_close(kernel, name, got, ref, tol=REL_TOL):
         raise AssertionError(f"{name}: kernel and plain version differ by {err} > {tol} * {scale}")
     REL_ERR[kernel] = max(REL_ERR.get(kernel, 0.0), err / scale)
     return err
+
+
+def identical(fn, first, what):
+    """Raise unless fn() gives the same bits as ``first`` (a tensor or a
+    tuple of them)."""
+    import torch
+
+    again = fn()
+    pairs = zip(first, again) if isinstance(first, tuple) else [(first, again)]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{what}: two calls with the same inputs differ")
 
 
 def run_cli(cli, argv):
@@ -275,14 +300,20 @@ def main():
             out = PM.packed_linear(X.bytes, A, off, N_TRAIN, act)
             ref = PM.packed_linear_ref(X.bytes, A, off, N_TRAIN, act)
             k2_err = max(k2_err, check_close("packed_linear", act, out, ref))
+            identical(lambda: PM.packed_linear(X.bytes, A, off, N_TRAIN, act), out, f"K2 {act}")
             del out, ref
             ms = cuda_ms(lambda: PM.packed_linear(X.bytes, A, off, N_TRAIN, act))
             plain_ms = cuda_ms(lambda: PM.packed_linear_ref(X.bytes, A, off, N_TRAIN, act))
             print(f"  {act}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
             if act == "identity":  # the slice's activation
                 k2_ms, k2_plain_ms = ms, plain_ms
-        k2_bound = bound(2 * G * X.bytes.shape[1] * N_TRAIN * A.shape[-1],
-                         nbytes(X.bytes, A, off) + 4 * G * N_TRAIN * A.shape[-1])
+        # the work as implemented (three bf16 tensor-core products per f32
+        # one), and the f32 FMA figure beside it
+        k2_flop = 2 * G * X.bytes.shape[1] * N_TRAIN * A.shape[-1]
+        k2_nbytes = nbytes(X.bytes, A, off) + 4 * G * N_TRAIN * A.shape[-1]
+        k2_bound, k2_f32_bound = tc_bound(k2_flop, k2_nbytes), bound(k2_flop, k2_nbytes)
+        print(f"  bound {k2_bound[0]:.3f} ms ({k2_bound[1]}; f32 FMA {k2_f32_bound[0]:.3f} ms); "
+              f"identity {100 * k2_bound[0] / k2_ms:.1f}% of it")
 
         # ---- phase 3: K4 for one branch at the slice's full shape
         print("phase 3: K4 data_vg_packed vs plain, one branch, n", N_TRAIN)
@@ -416,22 +447,44 @@ def main():
                 t.transpose(0, 1).shape, device=dev, generator=kgen)) for t in ts)
 
         w_cb, b_cb = per_chain(ws), per_chain(bs)
-        A_c, off_c = D.chain_layer0(w_cb[0], b_cb[0], x_b)
-        print("  K2 packed_linear vs plain, chain-folded: bytes", tuple(x_b.bytes.shape),
-              "k", A_c.shape[-1])
-        k2_err = max(k2_err, check_close(
-            "packed_linear", "identity", PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity"),
-            PM.packed_linear_ref(x_b.bytes, A_c, off_c, N_TRAIN, "identity")))
-        ms = cuda_ms(lambda: PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity"))
-        plain_ms = cuda_ms(lambda: PM.packed_linear_ref(x_b.bytes, A_c, off_c, N_TRAIN, "identity"))
-        print(f"  identity: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        # the stored width (C x 16 columns) and the live one the value
+        # passes take (C x the branch width, 10)
+        vp_live = arch.s[0]
+        for width in (ws[0].shape[-1], vp_live):
+            A_c, off_c = D.chain_layer0(w_cb[0][..., :width], b_cb[0][..., :width], x_b)
+            kc = A_c.shape[-1]
+            print("  K2 packed_linear vs plain, chain-folded: bytes", tuple(x_b.bytes.shape),
+                  "k", kc)
+            got = PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity")
+            k2_err = max(k2_err, check_close(
+                "packed_linear", f"identity, k {kc}", got,
+                PM.packed_linear_ref(x_b.bytes, A_c, off_c, N_TRAIN, "identity")))
+            identical(lambda: PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity"), got,
+                      f"K2 value pass, k {kc}")
+            del got
+            ms = cuda_ms(lambda: PM.packed_linear(x_b.bytes, A_c, off_c, N_TRAIN, "identity"))
+            plain_ms = cuda_ms(lambda: PM.packed_linear_ref(x_b.bytes, A_c, off_c, N_TRAIN,
+                                                            "identity"))
+            vp_flop = 2 * BLOCK * x_b.bytes.shape[1] * N_TRAIN * kc
+            vp_nbytes = nbytes(x_b.bytes, A_c, off_c) + 4 * BLOCK * N_TRAIN * kc
+            vp2_bound, vp2_f32 = tc_bound(vp_flop, vp_nbytes), bound(vp_flop, vp_nbytes)
+            print(f"  identity, k {kc}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{vp2_bound[0]:.3f} ms ({vp2_bound[1]}; f32 FMA {vp2_f32[0]:.3f} ms), "
+                  f"{100 * vp2_bound[0] / ms:.1f}% of it; identical repeat")
+            del A_c, off_c
+        # the live value pass, the main path's: its numbers go to the kernels line
+        k2_vp = {"value_pass_k": kc, "value_pass_ms": ms, "value_pass_plain_ms": plain_ms,
+                 "value_pass_bound_ms": vp2_bound[0], "value_pass_f32_bound_ms": vp2_f32[0]}
         cpu = lambda ts: tuple(t.cpu() for t in ts)  # noqa: E731
+        x_cpu = D.PackedX(*cpu((x_b.bytes, x_b.w_scale, x_b.shift)), N_TRAIN)
+        full = D.predict_chains("identity", cpu(w_cb), cpu(b_cb), x_cpu)
         k2_err = max(k2_err, check_close(
             "packed_linear", "predict_chains, card vs CPU plain version",
-            D.predict_chains("identity", w_cb, b_cb, x_b).cpu(),
-            D.predict_chains("identity", cpu(w_cb), cpu(b_cb),
-                             D.PackedX(*cpu((x_b.bytes, x_b.w_scale, x_b.shift)), N_TRAIN))))
-        del A_c, off_c, w_cb, b_cb
+            D.predict_chains("identity", w_cb, b_cb, x_b).cpu(), full))
+        k2_err = max(k2_err, check_close(
+            "packed_linear", f"predict_chains on the live width {vp_live}, card vs CPU uncut",
+            D.predict_chains("identity", w_cb, b_cb, x_b, vp_live).cpu(), full))
+        del w_cb, b_cb, full
 
         # K5 computes the block's live layer-0 columns only: the padded ones
         # have zero weights and momenta (their step sizes are not zero)
@@ -507,10 +560,12 @@ def main():
         # ---- phase 6: the hybrid path, C chains, through the CLI
         print(f"phase 6: train-new --update-mode hybrid --num-chains {CHAINS} -> predict")
         PM.packed_linear.launches = 0
+        PM.packed_linear.widths = {}
         BM.data_vg_packed.launches = 0
         LF.integrate_chains_packed.launches = 0
         t0 = time.perf_counter()
         run = run_cli(cli, train_args + ["--update-mode", "hybrid", "--num-chains", CHAINS])
+        vp_widths = dict(PM.packed_linear.widths)  # before predict's own launches
         run = run.strip().splitlines()[-1]
         hybrid_s = time.perf_counter() - t0
         chain_preds = []
@@ -532,6 +587,14 @@ def main():
             raise AssertionError(f"the folded path launched data_vg_packed {k4_hybrid} times")
         if k2_hybrid <= 0:
             raise AssertionError("packed_linear was not launched on the hybrid path")
+        # the value passes (2 per block) hand K2 the chains' live columns
+        print(f"  train-new's K2 launches by width k: {vp_widths}; the value passes' live "
+              f"width {vp_live} (k = {CHAINS} x {vp_live} = {CHAINS * vp_live}): K2 there "
+              f"{k2_vp['value_pass_ms']:.3f} ms, plain {k2_vp['value_pass_plain_ms']:.3f} ms, "
+              f"bound {k2_vp['value_pass_bound_ms']:.3f} ms (phase 5)")
+        if vp_widths.get(CHAINS * vp_live) != CHAIN * (G // BLOCK) * 2:
+            raise AssertionError(f"the value passes launched K2 at widths {vp_widths}, expected "
+                                 f"{CHAIN * (G // BLOCK) * 2} at {CHAINS * vp_live}")
         stats = json.load(open(os.path.join(run, "training_stats")))
         series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
         if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
@@ -766,38 +829,42 @@ def main():
         flop = 2 * G * X.bytes.shape[1] * N_TRAIN * k
         out_bytes = 4 * G * N_TRAIN * k
 
-        def identical(fn, first, what):
-            again = fn()
-            pairs = zip(first, again) if isinstance(first, tuple) else [(first, again)]
-            if not all(torch.equal(a, b) for a, b in pairs):
-                raise AssertionError(f"{what}: two calls with the same inputs differ")
-
         k9a_err = check_close("packed_matmul", "Z", PM.packed_matmul(X.bytes, A, N_TRAIN),
                               PM.packed_matmul_ref(X.bytes, A, N_TRAIN))
         identical(lambda: PM.packed_matmul(X.bytes, A, N_TRAIN),
                   PM.packed_matmul(X.bytes, A, N_TRAIN), "K9a")
         k9a_ms = cuda_ms(lambda: PM.packed_matmul(X.bytes, A, N_TRAIN))
         k9a_plain_ms = cuda_ms(lambda: PM.packed_matmul_ref(X.bytes, A, N_TRAIN))
-        k9a_bound = bound(flop, nbytes(X.bytes, A) + out_bytes)
+        k9a_nbytes = nbytes(X.bytes, A) + out_bytes
+        k9a_bound, k9a_f32_bound = tc_bound(flop, k9a_nbytes), bound(flop, k9a_nbytes)
         print(f"  K9a G={G}, k={k}: kernel {k9a_ms:.3f} ms, plain {k9a_plain_ms:.3f} ms, bound "
-              f"{k9a_bound[0]:.3f} ms ({k9a_bound[1]}); identical repeat")
-        # K9a at the silu hybrid value pass: one block's bytes, C chains side by side
+              f"{k9a_bound[0]:.3f} ms ({k9a_bound[1]}; f32 FMA {k9a_f32_bound[0]:.3f} ms), "
+              f"{100 * k9a_bound[0] / k9a_ms:.1f}% of it; identical repeat")
+        # K9a at the silu hybrid value pass: one block's bytes, C chains side
+        # by side, at the stored width and at the live one the value passes take
         w_cb = tuple(t.transpose(0, 1).contiguous() for t in chains_of((W0p, Wout)))
         b_cb = tuple(t.transpose(0, 1).contiguous() for t in chains_of((b0,)))
-        A_c, _ = D.chain_layer0(w_cb[0], b_cb[0], x_b)
-        k9a_err = max(k9a_err, check_close(
-            "packed_matmul", f"Z, value pass B={BLOCK}, k={A_c.shape[-1]}",
-            PM.packed_matmul(x_b.bytes, A_c, N_TRAIN),
-            PM.packed_matmul_ref(x_b.bytes, A_c, N_TRAIN)))
-        identical(lambda: PM.packed_matmul(x_b.bytes, A_c, N_TRAIN),
-                  PM.packed_matmul(x_b.bytes, A_c, N_TRAIN), "K9a value pass")
-        vp_ms = cuda_ms(lambda: PM.packed_matmul(x_b.bytes, A_c, N_TRAIN))
-        vp_plain_ms = cuda_ms(lambda: PM.packed_matmul_ref(x_b.bytes, A_c, N_TRAIN))
-        vp_bound = bound(2 * BLOCK * x_b.bytes.shape[1] * N_TRAIN * A_c.shape[-1],
-                         nbytes(x_b.bytes, A_c) + 4 * BLOCK * N_TRAIN * A_c.shape[-1])
-        print(f"  K9a value pass B={BLOCK}, k={A_c.shape[-1]}: kernel {vp_ms:.3f} ms, plain "
-              f"{vp_plain_ms:.3f} ms, bound {vp_bound[0]:.3f} ms ({vp_bound[1]}); identical repeat")
-        del w_cb, b_cb, A_c
+        for width in (w_cb[0].shape[-1], vp_live):
+            A_c, _ = D.chain_layer0(w_cb[0][..., :width], b_cb[0][..., :width], x_b)
+            kc = A_c.shape[-1]
+            got = PM.packed_matmul(x_b.bytes, A_c, N_TRAIN)
+            k9a_err = max(k9a_err, check_close(
+                "packed_matmul", f"Z, value pass B={BLOCK}, k={kc}", got,
+                PM.packed_matmul_ref(x_b.bytes, A_c, N_TRAIN)))
+            identical(lambda: PM.packed_matmul(x_b.bytes, A_c, N_TRAIN), got, "K9a value pass")
+            del got
+            vp_ms = cuda_ms(lambda: PM.packed_matmul(x_b.bytes, A_c, N_TRAIN))
+            vp_plain_ms = cuda_ms(lambda: PM.packed_matmul_ref(x_b.bytes, A_c, N_TRAIN))
+            vp_flop = 2 * BLOCK * x_b.bytes.shape[1] * N_TRAIN * kc
+            vp_nbytes = nbytes(x_b.bytes, A_c) + 4 * BLOCK * N_TRAIN * kc
+            vp_bound, vp_f32 = tc_bound(vp_flop, vp_nbytes), bound(vp_flop, vp_nbytes)
+            print(f"  K9a value pass B={BLOCK}, k={kc}: kernel {vp_ms:.3f} ms, plain "
+                  f"{vp_plain_ms:.3f} ms, bound {vp_bound[0]:.3f} ms ({vp_bound[1]}; f32 FMA "
+                  f"{vp_f32[0]:.3f} ms), {100 * vp_bound[0] / vp_ms:.1f}% of it; identical repeat")
+            del A_c
+        k9a_vp = {"value_pass_k": kc, "value_pass_ms": vp_ms, "value_pass_plain_ms": vp_plain_ms,
+                  "value_pass_bound_ms": vp_bound[0], "value_pass_f32_bound_ms": vp_f32[0]}
+        del w_cb, b_cb
 
         k3_err, k3_ms, k3_plain_ms = 0.0, None, None
         for act in PM.FUSED_ACTIVATIONS:
@@ -1142,7 +1209,8 @@ def main():
          "source": "rs_bann_tpu_torch/csrc/packed_linear.cu",
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:202",
          "launches": k2_hybrid, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
+         "f32_bound_ms": k2_f32_bound[0], **k2_vp},
         {"name": "data_vg_packed", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/branch_vg_packed.cu",
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:365",
@@ -1175,8 +1243,8 @@ def main():
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:178",
          "launches": gd_runs["silu"]["launches"]["packed_matmul"], "max_abs_err": k9a_err,
          "ms": k9a_ms, "plain_ms": k9a_plain_ms, "bound_ms": k9a_bound[0],
-         "bound_by": k9a_bound[1], "library_ms": None, "value_pass_ms": vp_ms,
-         "value_pass_plain_ms": vp_plain_ms, "value_pass_bound_ms": vp_bound[0]},
+         "bound_by": k9a_bound[1], "library_ms": None, "f32_bound_ms": k9a_f32_bound[0],
+         **k9a_vp},
         {"name": "packed_linear_vjp", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/packed_bwd.cu",
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:256",

@@ -233,7 +233,7 @@ def chain_layer0(w0, b0, x: PackedX):
     return w0p.permute(1, 2, 0, 3).reshape(B, m, C * k), off.permute(1, 0, 2).reshape(B, C * k)
 
 
-def predict_chains(act_name: str, weights, biases, x) -> torch.Tensor:
+def predict_chains(act_name: str, weights, biases, x, k_live=None) -> torch.Tensor:
     """Predictions [C, B, n] of C chains' weights (per layer [C, B, ...]) on
     one block's genotypes: a PackedX (bytes [B, m_pad, Bytes]) or a FeatX
     (xT [B, m_pad, n]).
@@ -241,7 +241,11 @@ def predict_chains(act_name: str, weights, biases, x) -> torch.Tensor:
     Packed: the chains' folded layer-0 weights sit side by side in K2's
     output width (``chain_layer0``), so one K2 launch serves every chain and
     the block's bytes are read once; under silu one K9a launch, then the
-    offset and the activation. Feature-major: one launch of K7's
+    offset and the activation. ``k_live`` (packed only) cuts layer 0 to its
+    first k_live columns, so K2 or K9a computes and writes C * k_live
+    columns: the caller passes it when every column past it has zero
+    weights, bias and next-layer rows (the padded ones), which add exactly
+    nothing since act(0) = 0. Feature-major: one launch of K7's
     forward-only pass (``forward_chains``), which reads each X tile once for
     all chains."""
     canon = _A.canonical(act_name)
@@ -250,6 +254,9 @@ def predict_chains(act_name: str, weights, biases, x) -> torch.Tensor:
             return tuple(t.transpose(0, 1) for t in ts)
 
         return forward_chains(canon, x.xT, bc(weights), bc(biases)).transpose(0, 1)
+    if k_live is not None:
+        weights = (weights[0][..., :k_live], weights[1][..., :k_live, :]) + tuple(weights[2:])
+        biases = (biases[0][..., :k_live],) + tuple(biases[1:])
     C, B, _, k = weights[0].shape
     A, off = chain_layer0(weights[0], biases[0], x)
     if canon in FUSED_ACTIVATIONS:

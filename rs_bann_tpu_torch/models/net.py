@@ -372,6 +372,10 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     fold_transition = make_transition_batch(model_type, act, cfg) if folded else None
     lean_batch = make_lean_batch(model_type, act, cfg)
     cix = torch.arange(C, device=device)[:, None]
+    # at depth 0 the packed value passes take layer 0's true width: the
+    # padded columns' weights, biases and w_out rows are zero (masked
+    # momenta), so they add nothing
+    k_live = max(arch.s) if arch.depth == 0 else None
 
     def flat(ts):  # [C, Bk, ...] -> [C * Bk, ...], chain-major
         return tuple(t.reshape((C * Bk,) + t.shape[2:]) for t in ts)
@@ -392,7 +396,7 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         )
         if folded:
             prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x, targets, mw_b, mb_b,
-                                   momenta, y_pred0=preds)
+                                   momenta, y_pred0=preds, k_live=k_live)
         elif ix is not None:
             p = lean_batch(gen, flat(w_b), flat(b_b), flat(wp_b), flat(bp_b),
                            err_prec.repeat_interleave(Bk), x, ix, targets.reshape(C * Bk, -1),
@@ -458,7 +462,7 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             preds = unflat(forward_blocked(act, X.xT, ix, flat(w_b), flat(b_b)))
         elif shared:  # the block's genotypes, shared by the chains
             x_blk = X if parallel else X[ixs[0]]
-            preds = D.predict_chains(act, w_b, b_b, x_blk)  # [C, Bk, n]
+            preds = D.predict_chains(act, w_b, b_b, x_blk, k_live)  # [C, Bk, n]
         else:  # each chain's own block
             x_blk = [X[ixs[c]] for c in range(C)]
             preds = torch.stack([

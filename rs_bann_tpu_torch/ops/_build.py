@@ -166,6 +166,8 @@ def lib() -> ctypes.CDLL:
     so.packed_linear_f32.restype = i
     so.packed_matmul_f32.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     so.packed_matmul_f32.restype = i
+    so.packed_linear_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.packed_linear_plan.restype = i
     so.packed_bwd_f32.argtypes = [vp] * 7 + [i] * 9 + [vp]
     so.packed_bwd_f32.restype = i
     so.packed_bwd_tile_m.argtypes = []

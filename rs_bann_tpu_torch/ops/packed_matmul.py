@@ -10,8 +10,9 @@ Four hand-written CUDA kernels, each with a plain PyTorch version it is
 held against and a launch counter:
 
 * ``packed_linear``     K2, ``act(decode(bytes)[:, :n]^T @ a + off)``
-  (csrc/packed_linear.cu), for the activations whose derivative the
-  output determines (FUSED_ACTIVATIONS);
+  (csrc/packed_linear.cu: bf16 tensor cores with ``a`` split into three
+  bf16 parts, so the f32 products stay exact), for the activations whose
+  derivative the output determines (FUSED_ACTIVATIONS);
 * ``packed_matmul``     K9a, ``decode(bytes)[:, :n]^T @ a``, the same
   kernel without the epilogue, for silu;
 * ``packed_linear_vjp`` K3, the backward of ``packed_linear``:
@@ -121,6 +122,28 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+PLAN_FIELDS = ("nt", "passes", "slab_markers", "slabs", "tiles", "ctas", "ctas_per_sm",
+               "stage_row", "weight_row", "smem")
+
+
+def packed_linear_plan(G: int, m: int, B: int, k: int, n: int, fused: bool = True) -> dict:
+    """What a launch of K2 (``fused``) or K9a on bytes [G, m, B] with k
+    columns and n individuals uses on the current CUDA device, as the
+    kernel picks it from the shape: column tiles of 8 per pass (nt), column
+    passes, markers per slab and slabs, tiles of 64 byte columns per branch,
+    CTAs in the grid and resident per SM, the staged output and weight row
+    widths, and the shared bytes per CTA."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    _build.check(_build.lib().packed_linear_plan(int(fused), G, m, B, k, n, out),
+                 "packed_linear_plan")
+    return dict(zip(PLAN_FIELDS, out))
+
+
+def _check_aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _packed_linear_cuda(bytes_g, a, off, n: int, act: str) -> torch.Tensor:
     """Launch K2 (csrc/packed_linear.cu) on [G, m, B] bytes; returns [G, n, k]."""
     G, m, B = bytes_g.shape
@@ -128,6 +151,7 @@ def _packed_linear_cuda(bytes_g, a, off, n: int, act: str) -> torch.Tensor:
     dev = bytes_g.device
     _check_packed(B, n)
     _check(bytes_g, "bytes", torch.uint8, (G, m, B), dev)
+    _check_aligned(bytes_g, "bytes")
     _check(a, "a", torch.float32, (G, m, k), dev)
     _check(off, "off", torch.float32, (G, k), dev)
     out = torch.empty((G, n, k), dtype=torch.float32, device=dev)
@@ -139,6 +163,7 @@ def _packed_linear_cuda(bytes_g, a, off, n: int, act: str) -> torch.Tensor:
     )
     _build.check(status, "packed_linear_f32")
     packed_linear.launches += 1
+    packed_linear.widths[k] = packed_linear.widths.get(k, 0) + 1
     return out
 
 
@@ -150,6 +175,7 @@ def _packed_matmul_cuda(bytes_g, a, n: int) -> torch.Tensor:
     dev = bytes_g.device
     _check_packed(B, n)
     _check(bytes_g, "bytes", torch.uint8, (G, m, B), dev)
+    _check_aligned(bytes_g, "bytes")
     _check(a, "a", torch.float32, (G, m, k), dev)
     out = torch.empty((G, n, k), dtype=torch.float32, device=dev)
     vp = ctypes.c_void_p
@@ -159,6 +185,7 @@ def _packed_matmul_cuda(bytes_g, a, n: int) -> torch.Tensor:
     )
     _build.check(status, "packed_matmul_f32")
     packed_matmul.launches += 1
+    packed_matmul.widths[k] = packed_matmul.widths.get(k, 0) + 1
     return out
 
 
@@ -306,8 +333,11 @@ def packed_matmul(bytes_mb, a, n: int) -> torch.Tensor:
     return _PackedMatmul.apply(bytes_mb, a, n)
 
 
-# kernel launches since the last reset
+# kernel launches since the last reset; K2's and K9a's also by output
+# width k (launches per k)
 packed_linear.launches = 0
 packed_matmul.launches = 0
+packed_linear.widths = {}
+packed_matmul.widths = {}
 packed_linear_vjp.launches = 0
 packed_matmul_vjp.launches = 0

@@ -357,7 +357,10 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     or [C, B, ...]; ``momenta`` = (p_w, p_b) unmasked standard normals.
     ``y_pred0`` may pass the block's snapshot predictions at the current
     state when they come from ``D.predict_chains`` on the same inputs (then
-    they are the H0 value pass); otherwise that pass runs here. Step sizes
+    they are the H0 value pass); otherwise that pass runs here. ``k_live``
+    goes to both value passes (``D.predict_chains``): the layer-0 width past
+    which every column is padding, whose zero weights and momenta the
+    trajectory leaves as they are. Step sizes
     follow the per-branch rule per (chain, branch) (izmailov or
     std_scaled).
     """
@@ -379,7 +382,7 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
         )
 
     def fold(weights, biases, w_prec, b_prec, err_prec, x, targets, masks_w, masks_b, momenta,
-             y_pred0=None):
+             y_pred0=None, k_live=None):
         eps_w, eps_b = step_sizes(None, model_type, cfg, weights, biases, w_prec, b_prec, None)
         p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
         p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
@@ -393,7 +396,7 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
             lam_w = tuple(lam.expand_as(w) for lam, w in zip(w_prec, weights))
             lam_b = tuple(torch.zeros_like(b) for b in biases)
         if y_pred0 is None:
-            y_pred0 = D.predict_chains(act_name, weights, biases, x)
+            y_pred0 = D.predict_chains(act_name, weights, biases, x, k_live)
         err = err_prec[:, None]
 
         def neg_h(y_pred, ws, bs, pws, pbs):
@@ -417,7 +420,7 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
             out = integrate_chains_packed(act_name, x.bytes, x.w_scale, x.shift,
                                           targets.transpose(0, 1), err_bc, *state, L, x.n, l1=l1)
         w_f, b_f, pw_f, pb_f = (bc(t) for t in out)
-        y_pred_f = D.predict_chains(act_name, w_f, b_f, x)
+        y_pred_f = D.predict_chains(act_name, w_f, b_f, x, k_live)
         neg_h_f, prior_f, kin_f = neg_h(y_pred_f, w_f, b_f, pw_f, pb_f)
         dead = ~(torch.abs(neg_h_f - neg_h0) <= max_err)
         return HMCProposal(w_f, b_f, y_pred_f, y_pred0, prior_f, prior0, kin_f, kin0, dead)

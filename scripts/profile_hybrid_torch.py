@@ -179,7 +179,7 @@ def main(argv=None):
         model, mode, steps = "ridge_ard", "hybrid", L
         kernels = (PM.packed_linear, PM.packed_linear_vjp, PM.packed_matmul,
                    PM.packed_matmul_vjp)
-        names, watch = "(K2, K3, K9a, K9b)", ("packed_bwd", "packed_linear_kernel")
+        names, watch = "(K2, K3, K9a, K9b)", ("packed_bwd", "packed_linear")
         cases = [("GD warm start identity C=4", "identity", 4, None),
                  ("GD warm start silu C=4", "silu", 4, None)]
     else:

@@ -10,7 +10,8 @@ not: every activation, depth 0 and 1, a ragged n, a batched G, lasso
 K9b), X read in place through an index (K8b), K5's chunks of chains (C
 not a multiple of the chunk, one chain a chunk at a large m_pad), and the
 wrappers' refusals. Tolerances: K2 and K9a atol 1e-4 (f32
-sums over <= 300 markers in another order); K3 and K9b rtol 1e-4 of the
+sums over <= 300 markers in another order), and 1e-4 of the largest entry
+with weights spanning 1e-6 to 1e3; K3 and K9b rtol 1e-4 of the
 largest entry (sums over n); K4, K7 and K8 y_pred atol 1e-4 and
 gradients rtol 1e-4 against the largest entry (sums over n in another
 order); K5 and K6 rtol 1e-4 of the largest entry after 3 steps (the same
@@ -43,7 +44,7 @@ def _bytes(rng, G, m, n, dev):
 
 
 @pytest.mark.parametrize("act", PM.FUSED_ACTIVATIONS)
-@pytest.mark.parametrize("k", [8, 16, 40])
+@pytest.mark.parametrize("k", [5, 8, 16, 40, 64])
 def test_packed_linear_kernel_matches_plain(dev, act, k):
     rng = np.random.default_rng(0)
     G, m, n = 3, 104, 1300
@@ -61,7 +62,7 @@ def test_packed_linear_kernel_matches_plain(dev, act, k):
     assert torch.equal(single, out[1])
 
 
-@pytest.mark.parametrize("k", [16, 64, 5])
+@pytest.mark.parametrize("k", [16, 64, 5, 8, 40])
 def test_packed_matmul_kernel_matches_plain(dev, k):
     """K9a (K2's kernel without its epilogue) against its plain version."""
     rng = np.random.default_rng(6)
@@ -80,6 +81,51 @@ def test_packed_matmul_kernel_matches_plain(dev, k):
 
 def _rel_close(got, ref, tol=1e-4):
     return (got - ref).abs().max().item() <= tol * max(ref.abs().max().item(), 1.0)
+
+
+# (m, n): one marker chunk and a half (24), the main path's m_pad (104), two
+# marker slabs at k >= 40 (300); n past the last full group of 512 and
+# below 4 * B
+K2_SHAPES = [(24, 700), (104, 1300), (300, 2100)]
+
+
+@pytest.mark.parametrize("act", PM.FUSED_ACTIVATIONS + ("none",))
+@pytest.mark.parametrize("k", [5, 8, 16, 40, 64, 100])
+@pytest.mark.parametrize("m,n", K2_SHAPES)
+def test_packed_linear_kernel_wide_weights(dev, act, k, m, n):
+    """K2 (every fused activation) and K9a ("none") against their plain
+    versions within REL_TOL of the largest entry of the pre-activation (each
+    fused activation is 1-Lipschitz, so that is the sums' rounding scale;
+    for identity and K9a the largest entry of the output), with ``a``
+    spanning 1e-6 to 1e3 in magnitude (the lo part of the bf16 split
+    matters), k over one to eight column tiles and two passes (100), m over
+    one and two slabs; a repeat gives the same bits."""
+    rng = np.random.default_rng(11)
+    G = 2
+    by = _bytes(rng, G, m, n, dev)
+    mag = 10.0 ** rng.uniform(-6, 3, (G, m, k))
+    a = torch.from_numpy((mag * rng.choice([-1.0, 1.0], (G, m, k))).astype(np.float32)).to(dev)
+    off = torch.from_numpy(rng.standard_normal((G, k)).astype(np.float32)).to(dev)
+    if act == "none":
+        got, ref = PM.packed_matmul(by, a, n), PM.packed_matmul_ref(by, a, n)
+        again = PM.packed_matmul(by, a, n)
+    else:
+        got, ref = PM.packed_linear(by, a, off, n, act), PM.packed_linear_ref(by, a, off, n, act)
+        again = PM.packed_linear(by, a, off, n, act)
+    torch.cuda.synchronize()
+    assert got.shape == (G, n, k)
+    scale = max(1.0, (PM.packed_matmul_ref(by, a, n) + (off[:, None] if act != "none" else 0))
+                .abs().max().item())
+    assert (got - ref).abs().max().item() <= 1e-4 * scale
+    assert torch.equal(got, again)
+
+
+def test_packed_linear_plan_covers_slabs_and_passes(dev):
+    """The shapes above reach the kernel's marker slabs and column passes."""
+    assert PM.packed_linear_plan(2, 104, 384, 40, 1300)["slabs"] == 1
+    assert PM.packed_linear_plan(2, 300, 640, 64, 2100)["slabs"] == 2
+    assert PM.packed_linear_plan(2, 104, 384, 100, 1300)["passes"] == 2
+    assert PM.packed_linear_plan(2, 300, 640, 16, 2100, fused=False)["slabs"] == 1
 
 
 @pytest.mark.parametrize("act", PM.FUSED_ACTIVATIONS)
@@ -414,6 +460,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                          torch.zeros(8, device=dev, dtype=torch.float64), n, "identity")
     with pytest.raises(TypeError):
         PM.packed_matmul(by, torch.zeros(m, 8, device=dev, dtype=torch.float64), n)
+    # K2 and K9a copy the byte tiles in 16-byte units: bytes off that boundary
+    shifted = torch.empty(by.numel() + 1, dtype=torch.uint8, device=dev)[1:].view(by.shape)
+    shifted.copy_(by)
+    with pytest.raises(ValueError):
+        PM.packed_linear(shifted, torch.zeros(m, 8, device=dev), torch.zeros(8, device=dev), n,
+                         "identity")
+    with pytest.raises(ValueError):
+        PM.packed_matmul(shifted, torch.zeros(m, 8, device=dev), n)
     with pytest.raises(ValueError):  # cotangent rows != n
         PM.packed_matmul_vjp(by, torch.zeros(n + 1, 8, device=dev), n)
     with pytest.raises(ValueError):  # the bytes hold fewer than n individuals

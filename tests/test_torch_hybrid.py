@@ -139,8 +139,10 @@ FOLD_CASES = [
 ]
 
 
-@pytest.mark.parametrize("model_type,act,depth,mode,factor", FOLD_CASES)
-def test_folded_block_transition_matches_jax_chain_rule(model_type, act, depth, mode, factor):
+def _fold_case(model_type, act, depth, mode, factor):
+    """A block of C = 2 chains x G = 3 branches (width 6 stored at 8), its
+    momenta from JAX's chain rule, and JAX's folded proposals. Returns
+    (the port's fold arguments, JAX's proposal, the port's cfg)."""
     rng = np.random.default_rng(5)
     C, G, m = 2, 3, 12
     arch = NetArch.uniform(G, m, 6, depth, 6, activation=act)
@@ -186,16 +188,77 @@ def test_folded_block_transition_matches_jax_chain_rule(model_type, act, depth, 
         )(keys, J(ws), J(bs), J(wp), J(bp), jnp.asarray(err), jx, jnp.asarray(targets),
           J(mw), J(mb), n_params, jnp.ones(G), None, None, None)
 
-    jp = _interpret(run)
-    fold = TH.make_transition_batch(model_type, act, port(cfg))
-    tp = fold(*(tuple(map(T, t)) for t in (ws, bs, wp, bp)), T(err),
-              TD.PackedX(T(by), T(scale), T(shift), N), T(targets), tuple(map(T, mw)),
-              tuple(map(T, mb)), (tuple(map(T, p_w)), tuple(map(T, p_b))))
+    fold_args = ((*(tuple(map(T, t)) for t in (ws, bs, wp, bp)), T(err),
+                  TD.PackedX(T(by), T(scale), T(shift), N), T(targets), tuple(map(T, mw)),
+                  tuple(map(T, mb)), (tuple(map(T, p_w)), tuple(map(T, p_b)))))
+    return fold_args, _interpret(run), port(cfg)
+
+
+@pytest.mark.parametrize("model_type,act,depth,mode,factor", FOLD_CASES)
+def test_folded_block_transition_matches_jax_chain_rule(model_type, act, depth, mode, factor):
+    fold_args, jp, cfg = _fold_case(model_type, act, depth, mode, factor)
+    fold = TH.make_transition_batch(model_type, act, cfg)
+    tp = fold(*fold_args)
     np.testing.assert_array_equal(tp.dead.numpy(), np.asarray(jp.dead))
     for t, j in zip(tp.weights + tp.biases, tuple(jp.weights) + tuple(jp.biases)):
         _close(t, j, atol=1e-6)
     for f in ("y_pred_prop", "y_pred0", "prior_prop", "prior0", "kin_prop", "kin0"):
         _close(getattr(tp, f), getattr(jp, f))
+
+
+@pytest.mark.parametrize("model_type,act,depth,mode,factor", FOLD_CASES[:2])
+def test_folded_transition_on_the_live_columns_accepts_alike(model_type, act, depth, mode,
+                                                              factor):
+    """The value passes cut to the live width (6 of the 8 stored columns):
+    the same proposals as the uncut passes and JAX's, and the same accept
+    decisions for the same accept draws."""
+    fold_args, jp, cfg = _fold_case(model_type, act, depth, mode, factor)
+    ws = fold_args[0]
+    assert torch.all(ws[0][..., 6:] == 0) and torch.all(ws[1][..., 6:, :] == 0)
+    fold = TH.make_transition_batch(model_type, act, cfg)
+    full, cut = fold(*fold_args), fold(*fold_args, k_live=6)
+    np.testing.assert_array_equal(cut.dead.numpy(), np.asarray(jp.dead))
+    for f in ("y_pred_prop", "y_pred0"):
+        _close(getattr(cut, f), getattr(full, f), rtol=1e-5, atol=1e-6)
+        _close(getattr(cut, f), getattr(jp, f))
+    for t, u in zip(cut.weights + cut.biases, full.weights + full.biases):
+        assert torch.equal(t, u)  # the trajectory does not see the cut
+    gen = torch.Generator().manual_seed(3)
+    C, B = cut.dead.shape
+    order = torch.argsort(torch.rand((C, B), generator=gen), dim=-1)
+    us = torch.rand((C, B), generator=gen)
+    err, targets = fold_args[4], fold_args[6]
+    residual = targets[:, 0] - full.y_pred0[:, 0]
+    res = [TN._live_accept_select(residual, p.y_pred0, p, err, fold_args[0], fold_args[1], order,
+                                  us) for p in (full, cut)]
+    np.testing.assert_array_equal(res[0].code.numpy(), res[1].code.numpy())
+
+
+@pytest.mark.parametrize("act", ["identity", "tanh", "silu"])
+def test_predict_chains_on_the_live_columns_matches_uncut_and_jax(act):
+    """predict_chains with k_live (K2 or K9a on C * k_live columns) against
+    the uncut pass and JAX's predict of each chain and branch, at the
+    repository's f32 parity tolerance."""
+    rng = np.random.default_rng(8)
+    C, G, m, width = 3, 2, 20, 6
+    arch = NetArch.uniform(G, m, width, 0, width, activation=act)
+    state, _ = JI.init_net(arch, "ridge_ard", JI.InitCfg(seed=4))
+    by, scale, shift = _packed(rng, G, m, arch.m_pad, N)
+    ws = tuple((np.asarray(w)[None] * (1.0 + 0.2 * rng.standard_normal((C,) + w.shape)))
+               .astype(np.float32) for w in state.params.weights)
+    bs = tuple((np.asarray(b)[None] * (1.0 + 0.2 * rng.standard_normal((C,) + b.shape)))
+               .astype(np.float32) for b in state.params.biases)
+    assert ws[0].shape[-1] == 8 and not np.any(ws[0][..., width:]) and not np.any(bs[0][..., width:])
+    x = TD.PackedX(T(by), T(scale), T(shift), N)
+    tw, tb = tuple(map(T, ws)), tuple(map(T, bs))
+    full, cut = TD.predict_chains(act, tw, tb, x), TD.predict_chains(act, tw, tb, x, width)
+    _close(cut, full.numpy(), rtol=1e-5, atol=1e-6)
+    for c in range(C):
+        for j in range(G):
+            jx = JD.PackedX(jnp.asarray(by[j]), jnp.asarray(scale[j]), jnp.asarray(shift[j]), N)
+            want = JD.predict(act, tuple(jnp.asarray(w[c, j]) for w in ws),
+                              tuple(jnp.asarray(b[c, j]) for b in bs), jx)
+            _close(cut[c, j], want)
 
 
 # ----------------------------------------------------- 3. the live accept
