@@ -9,7 +9,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   2. K2 (packed_linear) against its plain PyTorch version at the slice's
      full shape: bytes [100, 104, 25088], k = 16, n = 100,000; identical
      bits on a repeat; its time, plain time and bound (below)
-  3. K4 (data_vg_packed) against its plain version, one branch, same shape
+  3. K4 (data_vg_packed) against its plain version, one branch, same shape:
+     depth 0 (the main path's tensor-core kernel) at all five activations
+     and depth 1 identity (widths 16, 16 from a seed), each also against the
+     plain version run in f64 (max_rel_err_f64), identical bits on a
+     repeat; its launch alone (the pass and its reduce, back to back through
+     the C entry) beside the wrapper's call, the plain version's time, and
+     the bound as K2's (below)
   4. the sequential path end to end through the CLI: train-new
      --packed-genotypes (G = 100 groups of 100 markers, n = 100,000,
      ridge_ard identity depth 0, 2 sequential sweeps of L = 30, one chain)
@@ -79,14 +85,14 @@ its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
 for K9a and K9b, 14 for K8a, 15 for K8b), error against
 its plain version (max_abs_err, and max_rel_err: the largest difference
 over max(1, largest plain entry), the ratio held to REL_TOL), times (of
-the wrapper's call, except K8's: its launch alone from back-to-back
-launches, the wrapper's call beside it as wrapper_ms), and
+the wrapper's call, except K4's and K8's: the launch alone from
+back-to-back launches, the wrapper's call beside it as wrapper_ms), and
 the bound (the larger of its FLOPs over the
 67 TFLOP/s f32 peak and its bytes, each input read once and each output
-written once, over 3.35 TB/s; for K2 and K9a the work as implemented,
+written once, over 3.35 TB/s; for K2, K9a and K4 the work as implemented,
 three bf16 tensor-core products per f32 one at 989 TFLOP/s, with the f32
-figure beside it as f32_bound_ms, and their value pass on the live width
-as value_pass_*); the last line is {"ok": true, "device": {...}}. The data lives in a temporary directory, removed at the end.
+figure beside it as f32_bound_ms, and K2's and K9a's value pass on the
+live width as value_pass_*); the last line is {"ok": true, "device": {...}}. The data lives in a temporary directory, removed at the end.
 """
 
 import contextlib
@@ -320,26 +326,77 @@ def main():
         g = G // 2
         xg = X[g]
         w_g, b_g = (W0[g], Wout[g]), (b0[g],)
+        m_pad, k0 = w_g[0].shape
         target = torch.randn(N_TRAIN, device=dev, generator=torch.Generator(dev).manual_seed(0))
-        y, rss, dws, dbs = BM.data_vg_packed("identity", xg, w_g, b_g, target)
-        wf = (xg.w_scale[:, None] * w_g[0], w_g[1])
-        bf = (b_g[0] - xg.shift @ wf[0],)
-        y_ref, dws_ref, dbs_ref = BM.data_vg_packed_ref("identity", xg.bytes, target, wf, bf, N_TRAIN)
-        dW0_ref = xg.w_scale[:, None] * dws_ref[0] - (xg.shift * xg.w_scale)[:, None] * dbs_ref[0]
-        k4_err = max(
-            check_close("data_vg_packed", "y_pred", y, y_ref),
-            check_close("data_vg_packed", "dW0", dws[0], dW0_ref),
-            check_close("data_vg_packed", "db0", dbs[0], dbs_ref[0]),
-            check_close("data_vg_packed", "dW1", dws[1], dws_ref[1]),
-        )
-        k4_ms = cuda_ms(lambda: BM.data_vg_packed("identity", xg, w_g, b_g, target))
-        k4_plain_ms = cuda_ms(
-            lambda: BM.data_vg_packed_ref("identity", xg.bytes, target, wf, bf, N_TRAIN))
-        print(f"  kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms")
-        k4_bound = bound(
-            2 * N_TRAIN * mlp_fmas(xg.bytes.shape[0], w_g[0].shape[1], w_g[1].shape[0], 0),
-            nbytes(xg.bytes, xg.w_scale, xg.shift, target, *w_g, *b_g) + 4 * N_TRAIN
-            + nbytes(*w_g, *b_g))
+
+        def k4_plain(act, ws, bs, dtype=torch.float32):
+            """K4's plain version with the wrapper's fold, rss and unfold: in
+            f32 as the wrapper's, or every step in f64."""
+            s, sh, t = (v.to(dtype) for v in (xg.w_scale, xg.shift, target))
+            ws, bs = tuple(w.to(dtype) for w in ws), tuple(b.to(dtype) for b in bs)
+            wf = (s[:, None] * ws[0],) + ws[1:]
+            bf = (bs[0] - sh @ wf[0],) + bs[1:]
+            y_ref, dws_ref, dbs_ref = BM.data_vg_packed_ref(act, xg.bytes, t, wf, bf, N_TRAIN)
+            dW0 = s[:, None] * dws_ref[0] - (sh * s)[:, None] * dbs_ref[0]
+            return y_ref, torch.sum((y_ref - t) ** 2), (dW0,) + dws_ref[1:], dbs_ref
+
+        def k4_case(label, act, ws, bs):
+            """Check one K4 call against its plain version (and, held to the
+            same tolerance, against the plain version in f64) and its repeat;
+            returns the largest difference from the f32 plain version."""
+            got, want = BM.data_vg_packed(act, xg, ws, bs, target), k4_plain(act, ws, bs)
+            want64 = k4_plain(act, ws, bs, torch.float64)
+            flat = lambda r: (r[0], r[1]) + tuple(r[2]) + tuple(r[3])  # noqa: E731
+            names = ["y_pred", "rss"] + [f"dW{l}" for l in range(len(ws))] + \
+                [f"db{l}" for l in range(len(bs))]
+            err = max(check_close("data_vg_packed", f"{label} {nm}", a, b)
+                      for nm, a, b in zip(names, flat(got), flat(want)))
+            for nm, a, b in zip(names, flat(got), flat(want64)):
+                check_close("data_vg_packed f64", f"{label} {nm} (f64)", a.double(), b)
+            identical(lambda: flat(BM.data_vg_packed(act, xg, ws, bs, target)), flat(got),
+                      f"K4 {label}")
+            return err
+
+        k4_err = max(k4_case(f"depth 0 {act}", act, w_g, b_g) for act in BM.SUPPORTED_ACTIVATIONS)
+        # depth 1 (its own kernel): widths 16 and 16 from a seed
+        d1gen = torch.Generator(dev).manual_seed(3)
+        w_d1 = (0.2 * torch.randn((m_pad, 16), device=dev, generator=d1gen),
+                0.2 * torch.randn((16, 16), device=dev, generator=d1gen), Wout[g])
+        b_d1 = (0.1 * torch.randn(16, device=dev, generator=d1gen),
+                0.1 * torch.randn(16, device=dev, generator=d1gen))
+        k4_err = max(k4_err, k4_case("depth 1 identity", "identity", w_d1, b_d1))
+        # the launch alone: back-to-back calls of the C entry (the pass and its
+        # reduce) on buffers made once, beside the wrapper's call
+        k4_plan = BM.branch_vg_packed0_plan(m_pad, xg.bytes.shape[1], N_TRAIN, k0)
+        k4_out = torch.empty(N_TRAIN + m_pad * k0 + 2 * k0 + 1, device=dev)
+        k4_part = torch.empty(k4_plan["ctas"] * k4_plan["row"], device=dev)
+        vp = ctypes.c_void_p
+        k4_args = (vp(xg.bytes.data_ptr()), vp(target.data_ptr()), vp(w_g[0].data_ptr()),
+                   vp(b_g[0].data_ptr()), vp(w_g[1].data_ptr()), vp(xg.w_scale.data_ptr()),
+                   vp(xg.shift.data_ptr()), vp(k4_out.data_ptr()), vp(k4_part.data_ptr()),
+                   k4_part.numel(), vp(k4_out.data_ptr() + 4 * N_TRAIN), m_pad,
+                   xg.bytes.shape[1], N_TRAIN, k0, ACT_CODES["identity"],
+                   vp(_build.stream_ptr(xg.bytes)))
+        lib = _build.lib()
+
+        def k4_launches_run(reps=20):
+            for _ in range(reps):
+                _build.check(lib.branch_vg_packed0_f32(*k4_args), "branch_vg_packed0_f32")
+
+        k4_ms = cuda_ms(k4_launches_run) / 20
+        k4_wrapper_ms = cuda_ms(lambda: BM.data_vg_packed("identity", xg, w_g, b_g, target))
+        k4_plain_ms = cuda_ms(lambda: k4_plain("identity", w_g, b_g))
+        # both layer-0 products (forward and dW0') and the output layer's, per
+        # individual; bytes, target, weights and scale/shift in, y_pred and
+        # gradients out
+        k4_flop = 2 * N_TRAIN * mlp_fmas(m_pad, k0, w_g[1].shape[0], 0)
+        k4_nbytes = (nbytes(xg.bytes, xg.w_scale, xg.shift, target, *w_g, *b_g) + 4 * N_TRAIN
+                     + nbytes(*w_g, *b_g))
+        k4_bound, k4_f32_bound = tc_bound(k4_flop, k4_nbytes), bound(k4_flop, k4_nbytes)
+        print(f"  identity: launch alone {k4_ms:.4f} ms (the pass and its reduce), wrapper "
+              f"{k4_wrapper_ms:.4f} ms, plain {k4_plain_ms:.3f} ms; bound {k4_bound[0]:.4f} ms "
+              f"({k4_bound[1]}; f32 FMA {k4_f32_bound[0]:.4f} ms); plan {k4_plan}")
+        del k4_out, k4_part
 
         del A, off
 
@@ -1215,7 +1272,10 @@ def main():
          "source": "rs_bann_tpu_torch/csrc/branch_vg_packed.cu",
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:365",
          "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
-         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
+         "wrapper_ms": k4_wrapper_ms, "f32_bound_ms": k4_f32_bound[0],
+         "ctas": k4_plan["ctas"], "ctas_per_sm": k4_plan["ctas_per_sm"],
+         "max_rel_err_f64": REL_ERR["data_vg_packed f64"]},
         {"name": "traj_packed", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/traj_packed.cu",
          "replaces": "rs_bann_tpu/ops/leapfrog.py:470",

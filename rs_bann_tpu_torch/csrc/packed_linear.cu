@@ -61,6 +61,7 @@
 #include <cstdint>
 
 #include "packed_decode.cuh"
+#include "packed_mma.cuh"
 
 namespace {
 
@@ -87,56 +88,6 @@ struct Args {
     int kp;           // floats per staged output row
     int stage;        // floats of one warp's output stage
 };
-
-// bf16 bits of genotype code c: byte c of kLutHi is the high byte, byte c of
-// kLutLo the low byte (00 -> 2.0 = 0x4000, 10 -> 1.0 = 0x3F80, else 0).
-constexpr uint32_t kLutHi = 0x003F0040u;
-constexpr uint32_t kLutLo = 0x00800000u;
-
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-    uint32_t d;
-    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
-    return d;
-}
-
-// Two genotypes as bf16x2, from the prmt selectors of their codes (the low
-// 16 bits of ``sel``, built by ``selectors``).
-__device__ __forceinline__ uint32_t decode_pair(uint32_t sel) {
-    return prmt(kLutHi, kLutLo, sel);
-}
-
-// The prmt selectors of part q of the four bytes of ``pair``: per byte,
-// nibbles (4 + c, c) for its code c, which pick the low and the high byte
-// of the genotype's bf16 bits.
-__device__ __forceinline__ uint32_t selectors(uint32_t pair, int q) {
-    return ((pair >> (2 * q)) & 0x03030303u) * 0x11u + 0x04040404u;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
-                 "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;" ::"n"(N));
-}
-
-// Position of local marker u (0..15) of a chunk in the weight planes: the
-// MMA's K index 2 * tig + {0, 1} holds markers tig and tig + 4, and
-// 2 * tig + 8 + {0, 1} markers tig + 8 and tig + 12, at positions 4 * tig .. + 3.
-__device__ __forceinline__ int k_position(int u) { return 4 * (u & 3) + (u >> 2); }
 
 template <int NT>
 __device__ void stage_weights(const Args& p, int g, int pass, int slab, __nv_bfloat16* w_s) {

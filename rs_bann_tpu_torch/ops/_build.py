@@ -174,6 +174,10 @@ def lib() -> ctypes.CDLL:
     so.packed_bwd_tile_m.restype = i
     so.branch_vg_packed_f32.argtypes = [vp] * 10 + [i] * 9 + [vp]
     so.branch_vg_packed_f32.restype = i
+    so.branch_vg_packed0_f32.argtypes = [vp] * 9 + [ctypes.c_longlong, vp] + [i] * 5 + [vp]
+    so.branch_vg_packed0_f32.restype = i
+    so.branch_vg_packed0_plan.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.branch_vg_packed0_plan.restype = i
     so.branch_vg_packed_smem.argtypes = [i, i, i, i]
     so.branch_vg_packed_smem.restype = ctypes.c_longlong
     so.traj_packed_f32.argtypes = [vp] * 10 + [i] * 13 + [vp]

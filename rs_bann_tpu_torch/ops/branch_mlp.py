@@ -16,8 +16,13 @@ Standardization is folded into layer 0 before the pass
     dW0 = w_scale * dW0' - (shift * w_scale) * d_off,    db0 = d_off
 
 On a CUDA tensor the pass is the hand-written kernel in
-csrc/branch_vg_packed.cu (depth 0 and 1, every activation); on a CPU tensor
-it is ``data_vg_packed_ref``: decode with ``unpack_strided``, dense forward,
+csrc/branch_vg_packed.cu (depth 0 and 1, every activation). At depth 0 the
+fold, rss and unfold run inside its two launches (the tensor-core pass and
+its fixed-order reduce), so a call issues no other device op; the kernel
+sums off = b0 - shift @ W0' in f64 and rounds it once, where the wrapper's
+f32 fold here rounds each step. At depth 1 the wrapper folds and unfolds
+around them. On a CPU tensor the pass is
+``data_vg_packed_ref``: decode with ``unpack_strided``, dense forward,
 autograd for the gradients.
 
 ``data_vg_chains`` computes the same for every (branch g, chain c) of
@@ -43,13 +48,14 @@ versions (``data_vg_ref``: autograd of the feature-major forward).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 from .activations import ACT_CODES
 from .activations import apply as _act_apply
-from .packed_matmul import GBYTES, _check, unpack_strided
+from .packed_matmul import GBYTES, _check, _check_aligned, _check_packed, unpack_strided
 
 SUPPORTED_ACTIVATIONS = ("identity", "relu", "leaky_relu", "tanh", "silu")
 
@@ -63,13 +69,14 @@ def data_vg_packed_ref(act, bytes_mb, target, weights, biases, n: int):
     """Plain PyTorch version of K4 on pre-folded weights, one branch.
 
     bytes [m, B] u8; target [n]; weights (W0' [m, k0], ..., w_out [s, 1]);
-    biases (off [k0], ...). Returns (y_pred [n], dws, dbs) with the
-    gradients of rss / 2 in the folded coordinates.
+    biases (off [k0], ...), all f32, or all f64 for a reference in f64 (the
+    genotypes are decoded to the weights' dtype). Returns (y_pred [n], dws,
+    dbs) with the gradients of rss / 2 in the folded coordinates.
     """
     ws = [w.detach().requires_grad_(True) for w in weights]
     bs = [b.detach().requires_grad_(True) for b in biases]
     with torch.enable_grad():
-        a = unpack_strided(bytes_mb, n).transpose(0, 1)  # [n, m]
+        a = unpack_strided(bytes_mb, n).to(ws[0].dtype).transpose(0, 1)  # [n, m]
         for l in range(len(ws) - 1):
             a = _act_apply(act, a @ ws[l] + bs[l][None, :])
         pred = (a @ ws[-1])[:, 0]
@@ -78,37 +85,38 @@ def data_vg_packed_ref(act, bytes_mb, target, weights, biases, n: int):
     return pred.detach(), tuple(grads[: len(ws)]), tuple(grads[len(ws):])
 
 
-def _data_vg_packed_cuda(act, bytes_mb, target, weights, biases, n: int):
-    """Launch csrc/branch_vg_packed.cu for one branch (folded weights)."""
-    depth = len(weights) - 2
-    m, B = bytes_mb.shape
-    k0 = weights[0].shape[1]
-    s = weights[-1].shape[0]
-    dev = bytes_mb.device
-    if B % GBYTES or n > 4 * B or n <= 0:
-        raise ValueError(f"bad packed shape: B={B}, n={n}")
-    lib = _build.lib()
-    if lib.branch_vg_packed_smem(m, k0, s, depth) < 0:
+def _check_packed_widths(m: int, k0: int, s: int, depth: int) -> None:
+    if branch_vg_packed_smem(m, k0, s, depth) < 0:
         raise NotImplementedError(
             f"the K4 CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
             f"within 227 KB of shared memory; got depth={depth}, m={m}, "
             f"k0={k0}, s={s}"
         )
+
+
+def _data_vg_packed_cuda(act, bytes_mb, target, weights, biases, n: int):
+    """Launch csrc/branch_vg_packed.cu's depth-1 kernel for one branch
+    (folded weights)."""
+    depth = len(weights) - 2
+    m, B = bytes_mb.shape
+    k0 = weights[0].shape[1]
+    s = weights[-1].shape[0]
+    dev = bytes_mb.device
+    _check_packed(B, n)
+    _check_packed_widths(m, k0, s, depth)
+    lib = _build.lib()
     w0 = weights[0].contiguous()
     b0 = biases[0].contiguous()
     wout = weights[-1].reshape(s).contiguous()
-    if depth == 1:
-        w1, b1 = weights[1].contiguous(), biases[1].contiguous()
-        _check(w1, "w1", torch.float32, (k0, s), dev)
-        _check(b1, "b1", torch.float32, (s,), dev)
-    else:
-        w1 = b1 = wout  # unused by the depth-0 kernel
+    w1, b1 = weights[1].contiguous(), biases[1].contiguous()
+    _check(w1, "w1", torch.float32, (k0, s), dev)
+    _check(b1, "b1", torch.float32, (s,), dev)
     _check(bytes_mb, "bytes", torch.uint8, (m, B), dev)
     _check(target, "target", torch.float32, (n,), dev)
     _check(w0, "w0", torch.float32, (m, k0), dev)
     _check(b0, "b0", torch.float32, (k0,), dev)
     _check(wout, "w_out", torch.float32, (s,), dev)
-    P = m * k0 + k0 + (k0 * s + s if depth == 1 else 0) + s
+    P = m * k0 + k0 + k0 * s + s + s
     y_pred = torch.empty(n, dtype=torch.float32, device=dev)
     partial = torch.empty((B // GBYTES, P), dtype=torch.float32, device=dev)
     grads = torch.empty(P, dtype=torch.float32, device=dev)
@@ -122,16 +130,67 @@ def _data_vg_packed_cuda(act, bytes_mb, target, weights, biases, n: int):
     )
     _build.check(status, "branch_vg_packed_f32")
     data_vg_packed.launches += 1
-    dW0 = grads[: m * k0].view(m, k0)
-    db0 = grads[m * k0 : m * k0 + k0]
     ix = m * k0 + k0
-    dws, dbs = [dW0], [db0]
-    if depth == 1:
-        dws.append(grads[ix : ix + k0 * s].view(k0, s))
-        dbs.append(grads[ix + k0 * s : ix + k0 * s + s])
-        ix += k0 * s + s
-    dws.append(grads[ix : ix + s].view(s, 1))
-    return y_pred, tuple(dws), tuple(dbs)
+    dws = (grads[: m * k0].view(m, k0), grads[ix : ix + k0 * s].view(k0, s),
+           grads[ix + k0 * s + s :].view(s, 1))
+    dbs = (grads[m * k0 : ix], grads[ix + k0 * s : ix + k0 * s + s])
+    return y_pred, dws, dbs
+
+
+PLAN0_FIELDS = ("ctas", "row", "nt", "buffers", "ctas_per_sm", "tiles", "smem", "weight_row")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan0(device_index: int, m: int, B: int, n: int, k0: int) -> tuple:
+    out = (ctypes.c_longlong * len(PLAN0_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.lib().branch_vg_packed0_plan(m, B, n, k0, out),
+                     "branch_vg_packed0_plan")
+    return tuple(out)
+
+
+def branch_vg_packed0_plan(m: int, B: int, n: int, k0: int, device=None) -> dict:
+    """What a launch of K4's depth-0 kernel on one branch of bytes [m, B]
+    with n individuals and width k0 uses on a CUDA device (the current one
+    by default), as the kernel picks it from the shape: CTAs in the grid
+    (one partial row each) and floats per partial row, column tiles of 8
+    (nt), byte tile buffers, resident CTAs per SM, tiles of 64 byte
+    columns, shared bytes per CTA and bf16 per weight plane row."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(zip(PLAN0_FIELDS, _plan0(index, m, B, n, k0)))
+
+
+def _data_vg_packed0_cuda(act, x, weights, biases, target):
+    """Launch K4's depth-0 kernel and its reduce for one branch: the fold,
+    rss and unfold inside the two launches. Returns (y_pred, rss, dws, dbs)."""
+    bytes_mb, n = x.bytes, x.n
+    m, B = bytes_mb.shape
+    k0 = weights[0].shape[1]
+    dev = bytes_mb.device
+    _check_packed(B, n)
+    _check_packed_widths(m, k0, weights[1].shape[0], 0)
+    w0, wout, b0 = weights[0].contiguous(), weights[1].contiguous(), biases[0].contiguous()
+    _check(bytes_mb, "bytes", torch.uint8, (m, B), dev)
+    _check_aligned(bytes_mb, "bytes")
+    _check(target, "target", torch.float32, (n,), dev)
+    _check(w0, "w0", torch.float32, (m, k0), dev)
+    _check(b0, "b0", torch.float32, (k0,), dev)
+    _check(wout, "w_out", torch.float32, (k0, 1), dev)
+    _check(x.w_scale, "w_scale", torch.float32, (m,), dev)
+    _check(x.shift, "shift", torch.float32, (m,), dev)
+    ctas, row = _plan0(dev.index, m, B, n, k0)[:2]
+    partial = torch.empty(ctas * row, dtype=torch.float32, device=dev)  # the entry checks the size
+    mk = m * k0
+    out = torch.empty(n + mk + 2 * k0 + 1, dtype=torch.float32, device=dev)
+    status = _build.lib().branch_vg_packed0_f32(
+        bytes_mb.data_ptr(), target.data_ptr(), w0.data_ptr(), b0.data_ptr(), wout.data_ptr(),
+        x.w_scale.data_ptr(), x.shift.data_ptr(), out.data_ptr(), partial.data_ptr(),
+        partial.numel(), out.data_ptr() + 4 * n, m, B, n, k0, ACT_CODES[act],
+        _build.stream_ptr(bytes_mb))
+    _build.check(status, "branch_vg_packed0_f32")
+    data_vg_packed.launches += 1
+    y_pred, dW0, db0, dWout, rss = out.split_with_sizes((n, mk, k0, k0, 1))
+    return y_pred, rss.view(()), (dW0.view(m, k0), dWout.view(k0, 1)), (db0,)
 
 
 def data_vg_packed(act_name, x, weights, biases, target):
@@ -143,15 +202,18 @@ def data_vg_packed(act_name, x, weights, biases, target):
     the gradients of rss / 2.
     """
     _check_act(act_name)
+    on_card = x.bytes.device.type != "cpu"
+    if on_card and len(weights) == 2:
+        return _data_vg_packed0_cuda(act_name, x, weights, biases, target)
     s = x.w_scale
     w0p = s[:, None] * weights[0]
     off = biases[0] - x.shift @ w0p
     wf = (w0p,) + tuple(weights[1:])
     bf = (off,) + tuple(biases[1:])
-    if x.bytes.device.type == "cpu":
-        y_pred, dws, dbs = data_vg_packed_ref(act_name, x.bytes, target, wf, bf, x.n)
-    else:
+    if on_card:
         y_pred, dws, dbs = _data_vg_packed_cuda(act_name, x.bytes, target, wf, bf, x.n)
+    else:
+        y_pred, dws, dbs = data_vg_packed_ref(act_name, x.bytes, target, wf, bf, x.n)
     rss = torch.sum((y_pred - target) ** 2)
     dW0 = s[:, None] * dws[0] - (x.shift * s)[:, None] * dbs[0]
     return y_pred, rss, (dW0,) + tuple(dws[1:]), dbs
@@ -199,6 +261,7 @@ def _packed_smem(m: int, k0: int, s: int, depth: int, extra_floats: int) -> int:
     return smem if smem <= _MAX_SMEM else -1
 
 
+@functools.lru_cache(maxsize=None)
 def branch_vg_packed_smem(m: int, k0: int, s: int, depth: int) -> int:
     """Shared memory (bytes) K4 needs for one branch of m_pad markers and
     padded widths k0, s, or -1 if it cannot run it. The rule of the CUDA

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time and profile the PyTorch port's hybrid and parallel sweeps on one
-NVIDIA GPU.
+"""Time and profile the PyTorch port's sweeps on one NVIDIA GPU.
 
-    python3 scripts/profile_hybrid_torch.py [--flagship | --gd] [--sweeps 3] [--out FILE]
+    python3 scripts/profile_hybrid_torch.py [--flagship | --gd] [--only NAME] [--sweeps 3]
+        [--out FILE] [--root DIR]
 
 Without ``--flagship`` the shape is chip_smoke.py's packed one: G = 100
 groups of 100 markers, n = 100,000, ridge_ard, identity, depth 0, width 10,
@@ -10,26 +10,36 @@ L = 30, the hybrid schedule in blocks of 10. With ``--flagship`` it is the
 dense flagship of chip_smoke.py phase 9 (bench.py workload 1): G = 64
 groups of 64 markers, n = 4,096, feature-major X, ridge_base, tanh, depth
 1, h = s = 32, L = 64, the parallel schedule. Random genotypes and a sparse
-linear phenotype made from seed 1. Three cases, and a fourth for the
-flagship:
+linear phenotype made from seed 1. The cases:
 
   C=4 folded      four chains, every block transition one whole-trajectory
                   call (K5 packed, K6 dense)
   C=1 folded      one chain, the same
   C=1 unfolded    one chain, each branch its own lean transition: K4 per
-                  leapfrog step on packed genotypes; on dense ones the
-                  block's branches batched, one K8b call per step
-  C=1 sequential  (flagship) the sequential schedule, one K8a call per
-                  branch and leapfrog step: the JAX bench's self-baseline
+                  leapfrog step on packed genotypes (L + 2 calls per branch);
+                  on dense ones the block's branches batched, one K8b call
+                  per step
+  C=1 sequential  the sequential schedule, one chain: one K4 (packed) or
+                  K8a (flagship) call per branch and leapfrog step, G x (L +
+                  1) per sweep; the packed one is the default of
+                  ``train-new --packed-genotypes``, the flagship's the JAX
+                  bench's self-baseline
 
 For each it prints the milliseconds of ``--sweeps`` sweeps (the first pays
 the kernel build and warm-up), the acceptance rate and the kernel
 launches per sweep (K2, K4, K5, or K7, K6, K8a, K8b and K8's forward-only
-pass). Each case then runs one sweep under torch.profiler (the packed
-unfolded one excepted: ~2.5 s of K4 launches) and prints its wall time,
-the device's kernel time and busy share (kernel time / wall) and the
-launches of all kinds; the profiler tables go to ``--out``. ``--groups``, ``--n`` and ``--device
-cpu`` shrink the run for a check without a card (no profile then).
+pass). Each case then runs one sweep under torch.profiler and prints its
+wall time, the device's kernel time and busy share (kernel time / wall)
+and the launches of all kinds; the profiler tables go to ``--out``. In the
+packed unfolded and sequential cases the profiled sweep also splits its
+wall time into K4's device time, the host time inside ``data_vg_packed``
+(the wrapper: its checks, allocations and launches; a record_function range
+around each call), the rest of the HMC step (the transition's host time
+outside the wrapper) and the rest of the sweep. ``--only`` runs the cases
+whose name holds one of the comma-separated NAMEs. ``--groups``, ``--n`` and ``--device cpu`` shrink
+the run for a check without a card (no profile then). ``--root DIR``
+imports rs_bann_tpu_torch from another checkout (say the parent commit,
+unpacked with ``git archive``), to profile its code in the same call.
 
 With ``--gd`` the cases are the trainer's GD warm-start sweep
 (``train.gd_warmup_cfg``: gradient descent, at most 20 iterations, each
@@ -47,10 +57,11 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 M, L, WIDTH, N_CAUSAL = 100, 30, 10, 500
 FLAG_M, FLAG_L, FLAG_WIDTH = 64, 64, 32  # the dense flagship
+K4_KERNELS = ("vg_packed", "reduce0", "reduce_partials")  # K4's pass and reduce, any version
+RANGES = ("K4 wrapper", "HMC step")  # record_function ranges of the split
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernel", "cuLaunchKernelEx")
 
@@ -82,7 +93,18 @@ def make_data(G, n, device, flagship=False):
     return arch, pack_stacked(arch, bed, UniformGrouping(G, m), y, device)
 
 
-def profiled_sweep(torch, sweep, carry, data, gen, out, watch=()):
+def traced(fn, label):
+    """fn inside a torch.profiler range named ``label``."""
+    from torch.profiler import record_function
+
+    def wrapped(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def profiled_sweep(torch, sweep, carry, data, gen, out, watch=(), split=False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -99,8 +121,9 @@ def profiled_sweep(torch, sweep, carry, data, gen, out, watch=()):
         return getattr(a, "self_cuda_time_total", 0.0) if v is None else v
 
     # the device's own events (kernels, copies, fills): an aten op's row
-    # repeats the time of the kernels it launched, so host rows are left out
-    on_device = [a for a in avgs if a.device_type == DeviceType.CUDA]
+    # repeats the time of the kernels it launched, so host rows are left out,
+    # and so are the device rows of this script's own ranges (RANGES)
+    on_device = [a for a in avgs if a.device_type == DeviceType.CUDA and a.key not in RANGES]
     device_ms = sum(self_device_us(a) for a in on_device) / 1000.0
     launches = sum(a.count for a in avgs if a.key in LAUNCH_NAMES)
     sync_ms = sum(a.self_cpu_time_total for a in avgs if a.key == "cudaStreamSynchronize") / 1000.0
@@ -111,6 +134,18 @@ def profiled_sweep(torch, sweep, carry, data, gen, out, watch=()):
     for a in by_device[:3]:
         print(f"  device share: {a.key[:60]} {self_device_us(a) / 1000.0:.1f} ms "
               f"({100.0 * self_device_us(a) / 1000.0 / device_ms:.1f}%), {a.count} calls")
+    if split:  # K4's device time; host time in its wrapper, the HMC step, the rest
+        k4_ms = sum(self_device_us(a) for a in on_device
+                    if any(k in a.key for k in K4_KERNELS)) / 1000.0
+        k4_calls = sum(a.count for a in on_device if any(k in a.key for k in K4_KERNELS))
+        host = {a.key: a.cpu_time_total / 1000.0 for a in avgs
+                if a.key in RANGES and a.device_type == DeviceType.CPU}
+        wrapper_ms, hmc_ms = host.get("K4 wrapper", 0.0), host.get("HMC step", 0.0)
+        print(f"  split: K4 device {k4_ms:.1f} ms ({k4_calls} kernels, "
+              f"{100.0 * k4_ms / wall_ms:.1f}% of wall); host in the K4 wrapper "
+              f"{wrapper_ms:.1f} ms ({100.0 * wrapper_ms / wall_ms:.1f}%); rest of the HMC step "
+              f"{hmc_ms - wrapper_ms:.1f} ms ({100.0 * (hmc_ms - wrapper_ms) / wall_ms:.1f}%); "
+              f"rest of the sweep {wall_ms - hmc_ms:.1f} ms; busy {100.0 * device_ms / wall_ms:.1f}%")
     for name in watch:  # kernels whose (mangled) name holds ``name``
         rows = [a for a in on_device if name in a.key]
         ms = sum(self_device_us(a) for a in rows) / 1000.0
@@ -135,11 +170,17 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=None, help="100,000 packed, 4,096 flagship")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="file for the profiler tables")
+    ap.add_argument("--only", default=None,
+                    help="run the cases whose name holds one of these (comma-separated)")
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
+                    help="the checkout to import rs_bann_tpu_torch from")
     args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
 
     import torch
 
     from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models import net as NM
     from rs_bann_tpu_torch.models.init import InitCfg, init_net
     from rs_bann_tpu_torch.models.net import Net, make_chain_sweep, make_hybrid_sweep
     from rs_bann_tpu_torch.ops import branch_mlp as BM
@@ -187,7 +228,9 @@ def main(argv=None):
         kernels = (PM.packed_linear, BM.data_vg_packed, LF.integrate_chains_packed)
         names = "(K2, K4, K5)"
         cases = [("C=4 folded", "identity", 4, True), ("C=1 folded", "identity", 1, True),
-                 ("C=1 unfolded", "identity", 1, False)]
+                 ("C=1 unfolded", "identity", 1, False), ("C=1 sequential", "identity", 1, None)]
+    if args.only:
+        cases = [c for c in cases if any(o in c[0] for o in args.only.split(","))]
     try:
         for name, act, C, fold in cases:
             sequential = name.endswith("sequential")
@@ -219,10 +262,23 @@ def main(argv=None):
             print(f"{name}: ms per sweep {[round(t, 3) for t in times]}, acceptance "
                   f"{int(counts[0]) / int(counts.sum()):.3f}, launches per sweep "
                   f"{names} {launches[-1]}")
-            if on_card and (flag or fold is not False):
+            if on_card:
                 if out is not None:
                     out.write(f"==== {name}\n")
-                profiled_sweep(torch, sweep, carry, data, gen, out, watch)
+                split = not (flag or args.gd or fold)
+                if split:  # ranges around the K4 wrapper and the HMC step
+                    k4, make_step = BM.data_vg_packed, NM.make_hmc_step
+                    BM.data_vg_packed = traced(k4, RANGES[0])
+                    BM.data_vg_packed.launches = 0
+                    NM.make_hmc_step = lambda *a, **k: traced(make_step(*a, **k), RANGES[1])
+                    sweep = (make_chain_sweep(model, act, arch, cfg, net.hyper, dev)
+                             if sequential else
+                             make_hybrid_sweep(model, act, arch, cfg, net.hyper, dev, fold=fold))
+                try:
+                    profiled_sweep(torch, sweep, carry, data, gen, out, watch, split)
+                finally:
+                    if split:
+                        BM.data_vg_packed, NM.make_hmc_step = k4, make_step
             del carry, sweep, net
     finally:
         if out is not None:
