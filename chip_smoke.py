@@ -54,8 +54,13 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      activations) and K9b (packed_matmul_vjp) against their plain versions
      at the slice's full shape (bytes [100, 104, 25088], k = 16, n =
      100,000; K9a also at the hybrid value pass, bytes [10, 104, 25088],
-     k = 64 stored and 40 live), the cotangent from a seed, K3's saved output the plain
-     forward at the perturbed initial state; identical bits on a repeat
+     k = 64 stored and 40 live; K3 and K9b also at the GD warm start's
+     block, bytes [10, 104, 25088]), the cotangent from a seed, K3's saved
+     output the plain forward at the perturbed initial state; K3 and K9b
+     also against the plain version in f64 (no further from it than the
+     f32 plain version, plus REL_TOL); identical bits on a repeat; K3's
+     and K9b's bound from the bytes as implemented (the saved output only
+     where h' reads it)
  11. identity through the CLI: train-new --update-mode hybrid --num-chains
      4 --gd-warmup 1 (one GD sweep, then 2 sweeps of L = 30): exactly
      chains x blocks x min(L, 20) = 800 K3 launches in the warm start (each
@@ -89,10 +94,12 @@ the wrapper's call, except K4's and K8's: the launch alone from
 back-to-back launches, the wrapper's call beside it as wrapper_ms), and
 the bound (the larger of its FLOPs over the
 67 TFLOP/s f32 peak and its bytes, each input read once and each output
-written once, over 3.35 TB/s; for K2, K9a and K4 the work as implemented,
-three bf16 tensor-core products per f32 one at 989 TFLOP/s, with the f32
-figure beside it as f32_bound_ms, and K2's and K9a's value pass on the
-live width as value_pass_*); the last line is {"ok": true, "device": {...}}. The data lives in a temporary directory, removed at the end.
+written once, over 3.35 TB/s; for K2, K9a, K4, K3 and K9b the work as
+implemented, three bf16 tensor-core products per f32 one at 989 TFLOP/s,
+with the f32 figure beside it as f32_bound_ms, K2's and K9a's value pass
+on the live width as value_pass_*, K3's and K9b's times at the warm
+start's block as warm_*); the last line is {"ok": true, "device":
+{...}}. The data lives in a temporary directory, removed at the end.
 """
 
 import contextlib
@@ -266,7 +273,7 @@ def main():
     from rs_bann_tpu_torch.models import density as D
     from rs_bann_tpu_torch.models import params as P
     from rs_bann_tpu_torch.ops import _build
-    from rs_bann_tpu_torch.ops.activations import ACT_CODES
+    from rs_bann_tpu_torch.ops.activations import ACT_CODES, prime_from_out
     from rs_bann_tpu_torch.ops import branch_mlp as BM
     from rs_bann_tpu_torch.ops import leapfrog as LF
     from rs_bann_tpu_torch.ops import packed_matmul as PM
@@ -923,39 +930,57 @@ def main():
                   "value_pass_bound_ms": vp_bound[0], "value_pass_f32_bound_ms": vp_f32[0]}
         del w_cb, b_cb
 
-        k3_err, k3_ms, k3_plain_ms = 0.0, None, None
-        for act in PM.FUSED_ACTIVATIONS:
-            res = PM.packed_linear_ref(X.bytes, A, off, N_TRAIN, act)  # the saved output
-            got = PM.packed_linear_vjp(X.bytes, cot, res, N_TRAIN, act)
-            ref = PM.packed_linear_vjp_ref(X.bytes, cot, res, N_TRAIN, act)
-            k3_err = max(k3_err, check_close("packed_linear_vjp", f"{act} dA", got[0], ref[0]),
-                         check_close("packed_linear_vjp", f"{act} d_off", got[1], ref[1]))
-            identical(lambda: PM.packed_linear_vjp(X.bytes, cot, res, N_TRAIN, act), got,
-                      f"K3 {act}")
-            del got, ref
-            if act in ("identity", "tanh"):
-                ms = cuda_ms(lambda: PM.packed_linear_vjp(X.bytes, cot, res, N_TRAIN, act))
-                plain_ms = cuda_ms(lambda: PM.packed_linear_vjp_ref(X.bytes, cot, res, N_TRAIN,
-                                                                    act))
-                print(f"  K3 {act}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; identical repeat")
-                if act == "identity":  # the slice's activation
-                    k3_ms, k3_plain_ms = ms, plain_ms
-            del res
-        # g and the saved output read, dA and d_off written
-        k3_bound = bound(flop, nbytes(X.bytes, cot) + out_bytes
-                         + 4 * G * k * (X.bytes.shape[1] + 1))
-        print(f"  K3 bound {k3_bound[0]:.3f} ms ({k3_bound[1]})")
+        # K3 (every fused activation) and K9b at G = 100 (one `gradients`
+        # sample) and at the GD warm start's block (its first 10 branches:
+        # 800 launches per warm-start sweep), each against the f32 plain
+        # version and the plain version in f64 (no further from it than the
+        # f32 plain version, plus REL_TOL); the bound from the bytes as
+        # implemented: the saved output only where h' reads it (not at
+        # identity, not for K9b), dA and d_off written once
+        bwd_err = {"packed_linear_vjp": 0.0, "packed_matmul_vjp": 0.0}
+        bwd_runs = {}  # (shape, activation or None for K9b) -> times and bounds
+        for shape, nb in (("G=100", G), ("warm-start block", BLOCK)):
+            xb, cot_b = X.bytes[:nb], cot[:nb]
+            x64 = PM.unpack_strided(xb, N_TRAIN).double()
+            flop_b = 2 * nb * xb.shape[1] * N_TRAIN * k
+            for act in PM.FUSED_ACTIVATIONS + (None,):
+                name = "packed_linear_vjp" if act else "packed_matmul_vjp"
+                tag = f"{'K3 ' + act if act else 'K9b'} {shape}"
+                if act:
+                    res = PM.packed_linear_ref(xb, A[:nb], off[:nb], N_TRAIN, act)  # saved output
+                    fn = lambda: PM.packed_linear_vjp(xb, cot_b, res, N_TRAIN, act)  # noqa: E731
+                    ref_fn = lambda: PM.packed_linear_vjp_ref(xb, cot_b, res, N_TRAIN,  # noqa: E731
+                                                              act)
+                    dz64 = cot_b.double() * prime_from_out(act, res).double()
+                    want64 = (x64 @ dz64, dz64.sum(dim=-2))
+                    del dz64
+                else:
+                    res = None
+                    fn = lambda: (PM.packed_matmul_vjp(xb, cot_b, N_TRAIN),)  # noqa: E731
+                    ref_fn = lambda: (PM.packed_matmul_vjp_ref(xb, cot_b, N_TRAIN),)  # noqa: E731
+                    want64 = (x64 @ cot_b.double(),)
+                got, want = fn(), ref_fn()
+                for out_name, a, b, c in zip(("dA", "d_off"), got, want, want64):
+                    bwd_err[name] = max(bwd_err[name], check_close(name, f"{tag} {out_name}", a, b))
+                    plain64 = (b.double() - c).abs().max().item() / max(1.0, c.abs().max().item())
+                    check_close(f"{name} f64", f"{tag} {out_name} (f64; the f32 plain version "
+                                f"{plain64:.3e})", a.double(), c, tol=plain64 + REL_TOL)
+                identical(fn, got, tag)
+                del got, want, want64
+                if act in ("identity", "tanh", None):
+                    ms, plain_ms = cuda_ms(fn), cuda_ms(ref_fn)
+                    moved = nbytes(xb, cot_b) + 4 * nb * xb.shape[1] * k
+                    if act:
+                        moved += 4 * nb * k + (nbytes(res) if act != "identity" else 0)
+                    tc, f32 = tc_bound(flop_b, moved), bound(flop_b, moved)
+                    print(f"  {tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                          f"{tc[0]:.3f} ms ({tc[1]}, {moved / 1e6:.1f} MB; f32 FMA {f32[0]:.3f} "
+                          f"ms), {100 * tc[0] / ms:.1f}% of it; identical repeat")
+                    bwd_runs[shape, act] = {"ms": ms, "plain_ms": plain_ms, "bound": tc,
+                                            "f32_bound_ms": f32[0]}
+                del res
+            del x64
 
-        got = PM.packed_matmul_vjp(X.bytes, cot, N_TRAIN)
-        k9b_err = check_close("packed_matmul_vjp", "silu dA", got,
-                              PM.packed_matmul_vjp_ref(X.bytes, cot, N_TRAIN))
-        identical(lambda: PM.packed_matmul_vjp(X.bytes, cot, N_TRAIN), got, "K9b")
-        del got
-        k9b_ms = cuda_ms(lambda: PM.packed_matmul_vjp(X.bytes, cot, N_TRAIN))
-        k9b_plain_ms = cuda_ms(lambda: PM.packed_matmul_vjp_ref(X.bytes, cot, N_TRAIN))
-        k9b_bound = bound(flop, nbytes(X.bytes, cot) + 4 * G * k * X.bytes.shape[1])
-        print(f"  K9b: kernel {k9b_ms:.3f} ms, plain {k9b_plain_ms:.3f} ms, bound "
-              f"{k9b_bound[0]:.3f} ms ({k9b_bound[1]}); identical repeat")
         del X, state, x_b, A, off, cot, W0p
 
         # ---- phases 11 and 12: the GD warm start, hybrid sampling, predict and
@@ -1305,18 +1330,39 @@ def main():
          "ms": k9a_ms, "plain_ms": k9a_plain_ms, "bound_ms": k9a_bound[0],
          "bound_by": k9a_bound[1], "library_ms": None, "f32_bound_ms": k9a_f32_bound[0],
          **k9a_vp},
+        # ms, plain_ms and bound_ms: the wrapper's call at G = 100 (K3 at
+        # identity, the slice's activation); warm_*: at the warm start's block
         {"name": "packed_linear_vjp", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/packed_bwd.cu",
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:256",
-         "launches": gd_runs["identity"]["launches"]["packed_linear_vjp"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": None},
+         "launches": gd_runs["identity"]["launches"]["packed_linear_vjp"],
+         "max_abs_err": bwd_err["packed_linear_vjp"],
+         "ms": bwd_runs["G=100", "identity"]["ms"],
+         "plain_ms": bwd_runs["G=100", "identity"]["plain_ms"],
+         "bound_ms": bwd_runs["G=100", "identity"]["bound"][0],
+         "bound_by": bwd_runs["G=100", "identity"]["bound"][1], "library_ms": None,
+         "f32_bound_ms": bwd_runs["G=100", "identity"]["f32_bound_ms"],
+         "tanh_ms": bwd_runs["G=100", "tanh"]["ms"],
+         "tanh_bound_ms": bwd_runs["G=100", "tanh"]["bound"][0],
+         "warm_ms": bwd_runs["warm-start block", "identity"]["ms"],
+         "warm_plain_ms": bwd_runs["warm-start block", "identity"]["plain_ms"],
+         "warm_bound_ms": bwd_runs["warm-start block", "identity"]["bound"][0],
+         "warm_tanh_ms": bwd_runs["warm-start block", "tanh"]["ms"],
+         "warm_tanh_bound_ms": bwd_runs["warm-start block", "tanh"]["bound"][0],
+         "max_rel_err_f64": REL_ERR["packed_linear_vjp f64"]},
         {"name": "packed_matmul_vjp", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/packed_bwd.cu",
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:233",
-         "launches": gd_runs["silu"]["launches"]["packed_matmul_vjp"], "max_abs_err": k9b_err,
-         "ms": k9b_ms, "plain_ms": k9b_plain_ms, "bound_ms": k9b_bound[0],
-         "bound_by": k9b_bound[1], "library_ms": None},
+         "launches": gd_runs["silu"]["launches"]["packed_matmul_vjp"],
+         "max_abs_err": bwd_err["packed_matmul_vjp"],
+         "ms": bwd_runs["G=100", None]["ms"], "plain_ms": bwd_runs["G=100", None]["plain_ms"],
+         "bound_ms": bwd_runs["G=100", None]["bound"][0],
+         "bound_by": bwd_runs["G=100", None]["bound"][1], "library_ms": None,
+         "f32_bound_ms": bwd_runs["G=100", None]["f32_bound_ms"],
+         "warm_ms": bwd_runs["warm-start block", None]["ms"],
+         "warm_plain_ms": bwd_runs["warm-start block", None]["plain_ms"],
+         "warm_bound_ms": bwd_runs["warm-start block", None]["bound"][0],
+         "max_rel_err_f64": REL_ERR["packed_matmul_vjp f64"]},
         # launches: the sequential flagship of phase 14 (K8a) and the unfolded
         # hybrid of phase 15 (K8b, whose times are at its NB = 32 of 4 chains
         # x 8 branches; NB = 64 and the forward-only launches beside them)

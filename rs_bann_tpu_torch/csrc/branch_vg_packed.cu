@@ -451,11 +451,6 @@ __device__ __forceinline__ void forward0(const Args0& p, const uint8_t* tile,
     }
 }
 
-__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo16, __nv_bfloat16 hi16) {
-    return static_cast<uint32_t>(__bfloat16_as_ushort(lo16)) |
-           (static_cast<uint32_t>(__bfloat16_as_ushort(hi16)) << 16);
-}
-
 // From the D fragments of tile t and the targets of its rows (tgt[h][q]):
 // y_pred, dz0 into dz_s, and the thread's sums of dz0 (db), a0 * err (dwo)
 // and err^2 (e2). Row r of part q is byte
@@ -521,15 +516,9 @@ __device__ __forceinline__ void epilogue0(const Args0& p, int t, const float (&a
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
             for (int c = 0; c < 2; ++c) {
-                __nv_bfloat16 sp[3][4];
-#pragma unroll
-                for (int q = 0; q < 4; ++q) split3(dz[q][nt][c], sp[0][q], sp[1][q], sp[2][q]);
-                uint32_t* dst = dz_s + (nt * 8 + 2 * tig + c) * kDzStride + 2 * cc;
-#pragma unroll
-                for (int pl = 0; pl < 3; ++pl) {
-                    *reinterpret_cast<uint2*>(dst + pl * KM * kDzStride) =
-                        make_uint2(bf16_pair(sp[pl][0], sp[pl][1]), bf16_pair(sp[pl][2], sp[pl][3]));
-                }
+                const float v[4] = {dz[0][nt][c], dz[1][nt][c], dz[2][nt][c], dz[3][nt][c]};
+                store_split3x4(dz_s + (nt * 8 + 2 * tig + c) * kDzStride + 2 * cc,
+                               KM * kDzStride, v);
             }
     }
     // rows r and r + 8 of part tig are adjacent individuals
@@ -580,26 +569,12 @@ __device__ __forceinline__ void gradient0(const Args0& p, const uint8_t* tile,
 #pragma unroll
             for (int b = 0; b < 4; ++b) {
                 uint2 bf[NT][3];
-                const uint32_t* d = dz_s + r * kDzStride + 2 * (16 * J + 4 * tig + b);
-#pragma unroll
-                for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-                    for (int pl = 0; pl < 3; ++pl)
-                        bf[nt][pl] = *reinterpret_cast<const uint2*>(
-                            d + (pl * KM + nt * 8) * kDzStride);
+                grad_b_frags<NT>(dz_s + r * kDzStride + 2 * (16 * J + 4 * tig + b), kDzStride, bf);
 #pragma unroll
                 for (int i = 0; i < kMtw; ++i) {
                     if (!on[i]) continue;
-                    // bytes [x_r, x_r, x_r8, x_r8], then the codes of parts
-                    // (0, 1) and (2, 3) of each
-                    const uint32_t pb = prmt(wr[i], wr8[i], b * 0x0011u + (4 + b) * 0x1100u);
-                    const uint32_t s01 =
-                        ((pb & 0x00030003u) | ((pb >> 2) & 0x03000300u)) * 0x11u + 0x04040404u;
-                    const uint32_t s23 =
-                        (((pb >> 4) & 0x00030003u) | ((pb >> 6) & 0x03000300u)) * 0x11u +
-                        0x04040404u;
-                    const uint32_t af[4] = {decode_pair(s01), decode_pair(s01 >> 16),
-                                            decode_pair(s23), decode_pair(s23 >> 16)};
+                    uint32_t af[4];
+                    grad_a_frag(wr[i], wr8[i], b, af);
 #pragma unroll
                     for (int nt = 0; nt < NT; ++nt) mma_split3_add(g[i][nt], af, bf[nt]);
                 }

@@ -1,6 +1,7 @@
 // Tensor-core helpers shared by the packed kernels that run their f32
-// products as exact bf16 MMAs: K2 and K9a (packed_linear.cu) and K4's
-// depth-0 kernel (branch_vg_packed.cu).
+// products as exact bf16 MMAs: K2 and K9a (packed_linear.cu), K4's depth-0
+// kernel (branch_vg_packed.cu), and K3 and K9b (packed_bwd.cu), whose
+// product X dz is K4's gradient.
 //
 // A genotype (0, 1 or 2) is exact in bf16. Each f32 operand a is split into
 // three bf16 parts, hi = bf16(a), mid = bf16(a - hi), lo = bf16(a - hi - mid),
@@ -104,6 +105,62 @@ __device__ __forceinline__ void split3(float v, __nv_bfloat16& hi, __nv_bfloat16
     const float r1 = v - __bfloat162float(hi);
     mid = __float2bfloat16_rn(r1);
     lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+}
+
+// The gradient X dz (K4's dW0', K3's dA) as MMAs with markers as rows and
+// individuals as the reduction. A k-step takes byte column c_tig of four
+// adjacent ones (tig = 0..3): K index 2 tig + {0, 1} holds parts 0 and 1 of
+// c_tig, 2 tig + 8 + {0, 1} parts 2 and 3, so one 32-bit shared load of a
+// marker row feeds four k-steps, and dz is staged in three bf16 planes in
+// the same order.
+//
+// The A fragment of k-step b from the 32-bit words wr (marker r) and wr8
+// (marker r + 8) of byte columns 4 tig .. 4 tig + 3: byte b of each.
+__device__ __forceinline__ void grad_a_frag(uint32_t wr, uint32_t wr8, int b, uint32_t (&af)[4]) {
+    // bytes [x_r, x_r, x_r8, x_r8], then the codes of parts (0, 1) and (2, 3) of each
+    const uint32_t pb = prmt(wr, wr8, b * 0x0011u + (4 + b) * 0x1100u);
+    const uint32_t s01 = ((pb & 0x00030003u) | ((pb >> 2) & 0x03000300u)) * 0x11u + 0x04040404u;
+    const uint32_t s23 =
+        (((pb >> 4) & 0x00030003u) | ((pb >> 6) & 0x03000300u)) * 0x11u + 0x04040404u;
+    af[0] = decode_pair(s01);        // marker r, parts 0, 1
+    af[1] = decode_pair(s01 >> 16);  // marker r + 8
+    af[2] = decode_pair(s23);        // marker r, parts 2, 3
+    af[3] = decode_pair(s23 >> 16);  // marker r + 8
+}
+
+// dz of the four parts of one byte column, split into three bf16 planes:
+// one 8-byte unit per plane, parts (0, 1) then (2, 3), as the B fragment
+// reads them. ``dst`` is plane 0's unit; the planes lie ``plane`` words
+// apart. split3 two parts at a time: one cvt.rn.bf16x2.f32 rounds both.
+__device__ __forceinline__ void store_split3x4(uint32_t* dst, int plane, const float (&v)[4]) {
+    uint32_t w[3][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2 * h], v[2 * h + 1]);
+        const float2 hf = __bfloat1622float2(hi);
+        const float r0 = v[2 * h] - hf.x, r1 = v[2 * h + 1] - hf.y;
+        const __nv_bfloat162 mid = __floats2bfloat162_rn(r0, r1);
+        const float2 mf = __bfloat1622float2(mid);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+        w[0][h] = *reinterpret_cast<const uint32_t*>(&hi);
+        w[1][h] = *reinterpret_cast<const uint32_t*>(&mid);
+        w[2][h] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+#pragma unroll
+    for (int pl = 0; pl < 3; ++pl)
+        *reinterpret_cast<uint2*>(dst + pl * plane) = make_uint2(w[pl][0], w[pl][1]);
+}
+
+// The B fragments of one k-step, all NT column tiles, three planes: ``d``
+// is the word of column r at the k-step's byte column, the columns
+// ``stride`` words apart, each plane 8 NT columns.
+template <int NT>
+__device__ __forceinline__ void grad_b_frags(const uint32_t* d, int stride, uint2 (&bf)[NT][3]) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int pl = 0; pl < 3; ++pl)
+            bf[nt][pl] = *reinterpret_cast<const uint2*>(d + (pl * 8 * NT + nt * 8) * stride);
 }
 
 }  // namespace rsbann

@@ -168,10 +168,10 @@ def lib() -> ctypes.CDLL:
     so.packed_matmul_f32.restype = i
     so.packed_linear_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
     so.packed_linear_plan.restype = i
-    so.packed_bwd_f32.argtypes = [vp] * 7 + [i] * 9 + [vp]
+    so.packed_bwd_f32.argtypes = [vp] * 4 + [ctypes.c_longlong, vp, vp] + [i] * 7 + [vp]
     so.packed_bwd_f32.restype = i
-    so.packed_bwd_tile_m.argtypes = []
-    so.packed_bwd_tile_m.restype = i
+    so.packed_bwd_plan.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.packed_bwd_plan.restype = i
     so.branch_vg_packed_f32.argtypes = [vp] * 10 + [i] * 9 + [vp]
     so.branch_vg_packed_f32.restype = i
     so.branch_vg_packed0_f32.argtypes = [vp] * 9 + [ctypes.c_longlong, vp] + [i] * 5 + [vp]

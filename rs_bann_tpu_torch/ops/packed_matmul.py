@@ -17,7 +17,9 @@ held against and a launch counter:
   kernel without the epilogue, for silu;
 * ``packed_linear_vjp`` K3, the backward of ``packed_linear``:
   ``dz = g * h'(out)``, ``da = decode(bytes) @ dz``, ``d_off = sum_n dz``
-  (csrc/packed_bwd.cu);
+  (csrc/packed_bwd.cu: K4's gradient on bf16 tensor cores, dz split into
+  three bf16 parts, the tiles streamed by cp.async; the saved output is
+  read only where h' needs it);
 * ``packed_matmul_vjp`` K9b, the backward of ``packed_matmul``:
   ``da = decode(bytes) @ g``, the same kernel without h' and d_off.
 
@@ -189,45 +191,49 @@ def _packed_matmul_cuda(bytes_g, a, n: int) -> torch.Tensor:
     return out
 
 
-BWD_BLOCKS = 2048  # blocks the backward's grid aims for: ~15 per SM of the H100
+BWD_PLAN_FIELDS = ("nt", "slab_markers", "marker_slabs", "column_slabs", "tiles", "ctas",
+                   "ctas_per_sm", "row", "rows", "stage", "smem")
 
 
-def bwd_chunks(blocks_per_chunk: int, ngroups: int):
-    """(strided groups per chunk, chunks) of the backward kernel: the
-    contraction over individuals is cut into chunks of consecutive groups so
-    the grid has about BWD_BLOCKS blocks; each chunk's partial sums are added
-    in chunk order afterwards."""
-    chunks = min(ngroups, max(1, -(-BWD_BLOCKS // blocks_per_chunk)))
-    gpc = -(-ngroups // chunks)
-    return gpc, -(-ngroups // gpc)
+def packed_bwd_plan(G: int, m: int, B: int, k: int, n: int, act: str = "identity",
+                    fused: bool = True) -> dict:
+    """What a launch of K3 (``fused``, under ``act``) or K9b on bytes [G, m,
+    B] with k columns and n individuals uses on the current CUDA device, as
+    the kernel picks it from the shape: column tiles of 8 (nt), markers per
+    slab, marker and column slabs, tiles of 64 byte columns per branch, CTAs
+    in the grid and resident per SM, floats per partial row and partial
+    rows, bytes per staged tile and shared bytes per CTA."""
+    out = (ctypes.c_longlong * len(BWD_PLAN_FIELDS))()
+    _build.check(_build.lib().packed_bwd_plan(int(fused), ACT_CODES[act] if fused else 0, G, m,
+                                              B, k, n, out), "packed_bwd_plan")
+    return dict(zip(BWD_PLAN_FIELDS, out))
 
 
 def _packed_bwd_cuda(bytes_g, g, out, n: int, act: str, fused: bool):
     """Launch K3 (``fused``) or K9b (csrc/packed_bwd.cu) on [G, m, B] bytes
     and the cotangent g [G, n, k] (and K2's output ``out`` [G, n, k] for K3);
-    returns (da [G, m, k], d_off [G, k] or None)."""
+    returns (da [G, m, k], d_off [G, k] or None). The partial rows' size
+    comes from the kernel's own plan."""
     G, m, B = bytes_g.shape
     k = g.shape[-1]
     dev = bytes_g.device
     _check_packed(B, n)
     _check(bytes_g, "bytes", torch.uint8, (G, m, B), dev)
+    _check_aligned(bytes_g, "bytes")
     _check(g, "g", torch.float32, (G, n, k), dev)
     if fused:
         _check(out, "out", torch.float32, (G, n, k), dev)
-    lib = _build.lib()
-    tiles = -(-m // lib.packed_bwd_tile_m()) * -(-k // 16)
-    gpc, chunks = bwd_chunks(G * tiles, B // GBYTES)
-    part = torch.empty((G, chunks, m, k), dtype=torch.float32, device=dev)
+    plan = packed_bwd_plan(G, m, B, k, n, act, fused)
+    part = torch.empty(plan["rows"] * plan["row"], dtype=torch.float32, device=dev)
     da = torch.empty((G, m, k), dtype=torch.float32, device=dev)
-    doff_part = torch.empty((G, chunks, k), dtype=torch.float32, device=dev) if fused else None
     doff = torch.empty((G, k), dtype=torch.float32, device=dev) if fused else None
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
-    status = lib.packed_bwd_f32(
-        ptr(bytes_g), ptr(g), ptr(out if fused else None), ptr(part), ptr(doff_part), ptr(da),
-        ptr(doff), G, m, B, k, n, ACT_CODES[act] if fused else 0, int(fused), gpc, chunks,
+    status = _build.lib().packed_bwd_f32(
+        ptr(bytes_g), ptr(g), ptr(out if fused else None), ptr(part), part.numel(), ptr(da),
+        ptr(doff), G, m, B, k, n, ACT_CODES[act] if fused else 0, int(fused),
         ctypes.c_void_p(_build.stream_ptr(bytes_g)),
     )
     _build.check(status, "packed_bwd_f32")

@@ -14,7 +14,8 @@ admits (its launches counted by torch.profiler), and the wrappers'
 refusals. Tolerances: K2 and K9a atol 1e-4 (f32
 sums over <= 300 markers in another order), and 1e-4 of the largest entry
 with weights spanning 1e-6 to 1e3; K3 and K9b rtol 1e-4 of the
-largest entry (sums over n); K4, K7 and K8 y_pred atol 1e-4 and
+largest entry (sums over n), and no further from the plain version run in
+f64 than the f32 plain version, plus 1e-4; K4, K7 and K8 y_pred atol 1e-4 and
 gradients (K4: and rss) rtol 1e-4 against the largest entry (sums over n
 in another order); K5 and K6 rtol 1e-4 of the largest entry after 3 steps (the same
 sums, compounded), K5's chunks 1e-4 after 1 step and 1e-3 after 30 (as
@@ -130,11 +131,30 @@ def test_packed_linear_plan_covers_slabs_and_passes(dev):
     assert PM.packed_linear_plan(2, 300, 640, 16, 2100, fused=False)["slabs"] == 1
 
 
+def _vjp_f64(by, g, out, n, act):
+    """K3's plain version in f64 (K9b's with ``act`` None)."""
+    from rs_bann_tpu_torch.ops.activations import prime_from_out
+
+    x = PM.unpack_strided(by, n).double()
+    if act is None:
+        return (x @ g.double(),)
+    dz = g.double() * prime_from_out(act, out).double()
+    return x @ dz, dz.sum(dim=-2)
+
+
+def _no_further_from_f64(got, ref, ref64, tol=1e-4):
+    """The kernel lies no further from f64 than the f32 plain version, plus
+    tol of the largest entry."""
+    def err(a, b):
+        return (a.double() - b).abs().max().item() / max(b.abs().max().item(), 1.0)
+    return all(err(a, c) <= err(b, c) + tol for a, b, c in zip(got, ref, ref64))
+
+
 @pytest.mark.parametrize("act", PM.FUSED_ACTIVATIONS)
 @pytest.mark.parametrize("m,n,k", [(104, 1300, 16), (300, 2100, 5), (24, 700, 40)])
 def test_packed_linear_vjp_kernel_matches_plain(dev, act, m, n, k):
-    """K3 against its plain version: ragged n, several marker and feature
-    tiles, exactly-zero outputs (relu, leaky_relu: h' = 0 there)."""
+    """K3 against its plain version (and f64): ragged n, several marker and
+    feature tiles, exactly-zero outputs (relu, leaky_relu: h' = 0 there)."""
     rng = np.random.default_rng(7)
     G = 3
     by = _bytes(rng, G, m, n, dev)
@@ -150,6 +170,7 @@ def test_packed_linear_vjp_kernel_matches_plain(dev, act, m, n, k):
     torch.cuda.synchronize()
     assert da.shape == (G, m, k) and d_off.shape == (G, k)
     assert _rel_close(da, da_ref) and _rel_close(d_off, d_off_ref)
+    assert _no_further_from_f64((da, d_off), (da_ref, d_off_ref), _vjp_f64(by, g, out, n, act))
     # the same inputs give the same bits: fixed-order partial sums
     da2, d_off2 = PM.packed_linear_vjp(by, g, out, n, act)
     assert torch.equal(da, da2) and torch.equal(d_off, d_off2)
@@ -169,7 +190,38 @@ def test_packed_matmul_vjp_kernel_matches_plain(dev, m, n, k):
     ref = PM.packed_matmul_vjp_ref(by, g, n)
     torch.cuda.synchronize()
     assert da.shape == (G, m, k) and _rel_close(da, ref)
+    assert _no_further_from_f64((da,), (ref,), _vjp_f64(by, g, None, n, None))
     assert torch.equal(da, PM.packed_matmul_vjp(by, g, n))
+
+
+@pytest.mark.parametrize("act", ["identity", "tanh", None], ids=lambda a: a or "K9b")
+def test_packed_bwd_kernels_at_the_warm_start_block(dev, act):
+    """K3 (identity, tanh) and K9b at the GD warm start's block: G = 10, m =
+    104, n = 100,000, k = 16, against the f32 plain version and f64, with a
+    bit-identical repeat and exactly one counted call."""
+    gen = torch.Generator(dev).manual_seed(12)
+    G, m, n, k = 10, 104, 100_000, 16
+    by = torch.randint(0, 256, (G, m, -(-n // 512) * 128), dtype=torch.uint8, device=dev,
+                       generator=gen)
+    g = torch.randn((G, n, k), device=dev, generator=gen)
+    out = torch.randn((G, n, k), device=dev, generator=gen)
+    if act == "tanh":
+        out = torch.tanh(out)
+    counter = PM.packed_linear_vjp if act else PM.packed_matmul_vjp
+    before = counter.launches
+    if act:
+        got = PM.packed_linear_vjp(by, g, out, n, act)
+        ref = PM.packed_linear_vjp_ref(by, g, out, n, act)
+        again = PM.packed_linear_vjp(by, g, out, n, act)
+    else:
+        got = (PM.packed_matmul_vjp(by, g, n),)
+        ref = (PM.packed_matmul_vjp_ref(by, g, n),)
+        again = (PM.packed_matmul_vjp(by, g, n),)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert all(_rel_close(a, b) for a, b in zip(got, ref))
+    assert _no_further_from_f64(got, ref, _vjp_f64(by, g, out, n, act))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("act", ["identity", "tanh", "silu"])
