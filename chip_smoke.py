@@ -76,7 +76,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      index; then all 64 branches of one chain) against their plain
      versions at the flagship's shape, weights from its initial state,
      each instance's perturbed; identical bits on a repeat; K8's
-     forward-only instantiation against its y_pred
+     forward-only instantiation against its y_pred; the launch alone (the
+     pass and its reduce through the C entry), the wrapper's call, the
+     plain version's, and the bound as implemented (the five products in
+     3xTF32, three tf32 products per f32 one at 494.7 TFLOP/s) with the f32
+     bound beside it
  14. the flagship through the CLI under the sequential schedule, one chain:
      train-new --feat-major (2 sweeps of L = 64: exactly G x (L + 1) x 2 =
      8,320 K8a launches, no other kernel), dense predict, the card's
@@ -94,9 +98,10 @@ the wrapper's call, except K4's and K8's: the launch alone from
 back-to-back launches, the wrapper's call beside it as wrapper_ms), and
 the bound (the larger of its FLOPs over the
 67 TFLOP/s f32 peak and its bytes, each input read once and each output
-written once, over 3.35 TB/s; for K2, K9a, K4, K3 and K9b the work as
-implemented, three bf16 tensor-core products per f32 one at 989 TFLOP/s,
-with the f32 figure beside it as f32_bound_ms, K2's and K9a's value pass
+written once, over 3.35 TB/s; for K2, K9a, K4, K3, K9b, K8a and K8b the work as
+implemented, three bf16 tensor-core products per f32 one at 989 TFLOP/s
+(K8a and K8b: three tf32 ones at 494.7 TFLOP/s), with the f32 figure
+beside it as f32_bound_ms, K2's and K9a's value pass
 on the live width as value_pass_*, K3's and K9b's times at the warm
 start's block as warm_*); the last line is {"ok": true, "device":
 {...}}. The data lives in a temporary directory, removed at the end.
@@ -129,6 +134,7 @@ TIMED_RUNS = 7
 # H100 SXM: f32 FMA peak outside the tensor cores, dense bf16 tensor-core
 # peak and HBM bandwidth
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES_S = 67e12, 989e12, 3.35e12
+PEAK_TF32_FLOPS = 494.7e12  # dense tf32 tensor-core peak (K8's 3xTF32 products)
 # max |kernel - plain| / max(1, max |plain|): both sum in f32 in different
 # orders, over <= 104 markers (K2, K4's forward) or n = 100,000 (K4's and
 # K5's sums); a 30-step trajectory compounds the differences (K5 at L = 30)
@@ -1142,23 +1148,21 @@ def main():
             return one(s0.params.weights), one(s0.params.biases)
 
         def k8_launch_ms(X, ix, ws, bs, targets, reps=20):
-            """CUDA-event ms of one K8 launch with its tile sum, from runs of
-            ``reps`` back-to-back calls of the C entry on buffers made once:
-            the wrapper's own host work (the flat weights, the views of the
-            gradients) would otherwise stall the card between launches."""
+            """CUDA-event ms of one K8 call of the C entry (the pass and its
+            fixed-order reduce, rss included), from runs of ``reps``
+            back-to-back calls on buffers made once."""
             NB, (_, m, n) = ws[0].shape[0], X.shape
-            q = BM.flat_params(tuple(w.unsqueeze(1) for w in ws),
-                               tuple(b.unsqueeze(1) for b in bs))
-            P = q.shape[-1]
-            y = torch.empty((NB, n), device=dev)
-            partial = torch.empty((NB, -(-n // BM.DENSE_TILE), P), device=dev)
-            grads = torch.empty((NB, P), device=dev)
+            k0, s = ws[0].shape[-1], ws[-1].shape[-2]
+            P = m * k0 + k0 + k0 * s + s + s
+            plan = BM.vg_dense_plan(NB, m, n, k0, s, 1)
+            out = torch.empty(NB * (n + P + 1), device=dev)
+            scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
             vp = ctypes.c_void_p
             c_args = (vp(X.data_ptr()), vp(0 if ix is None else ix.data_ptr()),
-                      vp(targets.data_ptr()), vp(q.data_ptr()), vp(y.data_ptr()),
-                      vp(partial.data_ptr()), vp(grads.data_ptr()), NB, m, n,
-                      ws[0].shape[-1], ws[-1].shape[-2], P, len(ws) - 2, ACT_CODES["tanh"], 1,
-                      vp(_build.stream_ptr(X)))
+                      vp(targets.data_ptr()), vp(ws[0].data_ptr()), vp(bs[0].data_ptr()),
+                      vp(ws[1].data_ptr()), vp(bs[1].data_ptr()), vp(ws[2].data_ptr()),
+                      vp(out.data_ptr()), vp(scratch.data_ptr()), plan["scratch"], NB, m, n, k0,
+                      s, 1, ACT_CODES["tanh"], 1, vp(_build.stream_ptr(X)))
             lib = _build.lib()
 
             def run():
@@ -1170,7 +1174,8 @@ def main():
         def k8_case(name, label, fn, ref, args, ix_x, nb, raw):
             """Check, repeat and time one K8 call (the wrapper, and with ``raw``
             = (X, ix, weights, biases, targets) with a leading instance axis,
-            the launch alone); returns (err, ms, wrapper ms, plain ms, bound)."""
+            the launch alone); returns (err, ms, wrapper ms, plain ms, bound,
+            f32 bound)."""
             out, want = fn(*args), ref(*args)
             names = ("y_pred", "rss", "dW0", "dW1", "dw_out", "db0", "db1")
             err = max(check_close(name, f"{label} {nm}", got, w) for nm, got, w in
@@ -1184,18 +1189,23 @@ def main():
             ms = k8_launch_ms(*raw)
             ws, bs = args[-3], args[-2]
             # the X branches read, each once; targets and weights in, y_pred and gradients out
-            case_bound = bound(2 * nb * FN_TRAIN * mlp_fmas(fm, fk0, fs, 1),
-                               4 * len(set(ix_x)) * fm * FN_TRAIN + nbytes(args[-1], out[0])
-                               + 2 * nbytes(*ws, *bs))
+            moved = (4 * len(set(ix_x)) * fm * FN_TRAIN + nbytes(args[-1], out[0])
+                     + 2 * nbytes(*ws, *bs))
+            f32_bound = bound(2 * nb * FN_TRAIN * mlp_fmas(fm, fk0, fs, 1), moved)
+            # as implemented: the five products in 3xTF32 (three tf32 tensor-core
+            # products per f32 one) at the dense tf32 peak
+            mma = 2 * nb * FN_TRAIN * (2 * fm * fk0 + 3 * fk0 * fs)
+            ops_ms, bytes_ms = 3e3 * mma / PEAK_TF32_FLOPS, 1e3 * moved / PEAK_BYTES_S
+            case_bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
             print(f"  {label}: kernel {ms:.4f} ms (launch alone; the wrapper {wrapper_ms:.4f} ms), "
-                  f"plain {plain_ms:.4f} ms, bound {case_bound[0]:.4f} ms ({case_bound[1]}); "
-                  f"identical repeat")
-            return err, ms, wrapper_ms, plain_ms, case_bound
+                  f"plain {plain_ms:.4f} ms, bound {case_bound[0]:.4f} ms ({case_bound[1]}; "
+                  f"3xTF32 as implemented; f32 {f32_bound[0]:.4f} ms); identical repeat")
+            return err, ms, wrapper_ms, plain_ms, case_bound, f32_bound
 
         g = FG // 2
         ws1, bs1 = instances([g])
         t1 = fy + 0.1 * torch.randn(FN_TRAIN, device=dev, generator=fgen)
-        k8a_err, k8a_ms, k8a_wrapper_ms, k8a_plain_ms, k8a_bound = k8_case(
+        k8a_err, k8a_ms, k8a_wrapper_ms, k8a_plain_ms, k8a_bound, k8a_f32_bound = k8_case(
             "data_vg", "K8a NB=1", BM.data_vg, BM.data_vg_ref,
             ("tanh", xT[g], tuple(w[0] for w in ws1), tuple(b[0] for b in bs1), t1), [g], 1,
             (xT[g][None], None, ws1, bs1, t1[None]))
@@ -1371,14 +1381,16 @@ def main():
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:96",
          "launches": k8_runs[14]["launches"]["data_vg"], "max_abs_err": k8a_err,
          "ms": k8a_ms, "plain_ms": k8a_plain_ms, "bound_ms": k8a_bound[0],
-         "bound_by": k8a_bound[1], "library_ms": None, "wrapper_ms": k8a_wrapper_ms},
+         "bound_by": k8a_bound[1], "library_ms": None, "wrapper_ms": k8a_wrapper_ms,
+         "f32_bound_ms": k8a_f32_bound[0]},
         {"name": "data_vg_blocked", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/branch_vg_dense.cu",
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:335",
          "launches": k8_runs[15]["launches"]["data_vg_blocked"], "max_abs_err": k8b_err,
          "ms": k8b[FCHAINS * 8][1], "plain_ms": k8b[FCHAINS * 8][3],
          "bound_ms": k8b[FCHAINS * 8][4][0], "bound_by": k8b[FCHAINS * 8][4][1],
-         "library_ms": None, "wrapper_ms": k8b[FCHAINS * 8][2], "nb64_ms": k8b[FG][1],
+         "library_ms": None, "wrapper_ms": k8b[FCHAINS * 8][2],
+         "f32_bound_ms": k8b[FCHAINS * 8][5][0], "nb64_ms": k8b[FG][1],
          "nb64_wrapper_ms": k8b[FG][2], "nb64_plain_ms": k8b[FG][3],
          "nb64_bound_ms": k8b[FG][4][0],
          "forward_launches": k8_runs[15]["launches"]["forward_blocked"]},

@@ -1,11 +1,10 @@
 // K7's device code: the chain-folded feature-major branch MLP, its error and
-// its backward for one work item, shared by K7 (csrc/branch_vg_chains.cu),
-// the gradient phase of K6 (csrc/traj_dense.cu) and K8 at C = 1
-// (csrc/branch_vg_dense.cu), so they cannot drift apart.
+// its backward for one work item, shared by K7 (csrc/branch_vg_chains.cu)
+// and the gradient phase of K6 (csrc/traj_dense.cu), so they cannot drift
+// apart. (K8 runs its own tensor-core device code, csrc/dense_vg_mma.cuh.)
 //
 // Replaces the body of rs_bann_tpu/ops/branch_mlp.py::_chain_kernel (and the
-// data_grad of ::leapfrog.py::_traj_kernel, and ::_kernel / ::_blocked_kernel
-// at one chain, which are the same computation).
+// data_grad of ::leapfrog.py::_traj_kernel, which is the same computation).
 //
 // A work item is (branch g, tile of kTile = 128 individuals). The X tile
 // xT[g, :, tile] ([m, 128] f32, 33 KB at m = 64) is staged once in shared

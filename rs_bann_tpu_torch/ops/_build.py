@@ -195,8 +195,10 @@ def lib() -> ctypes.CDLL:
     so.dense_chains_smem.restype = ctypes.c_longlong
     so.traj_dense_f32.argtypes = [vp] * 8 + [i] * 11 + [vp]
     so.traj_dense_f32.restype = i
-    so.vg_dense_f32.argtypes = [vp] * 7 + [i] * 9 + [vp]
+    so.vg_dense_f32.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i] * 8 + [vp]
     so.vg_dense_f32.restype = i
+    so.vg_dense_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.vg_dense_plan.restype = i
     _LIB = so
     return so
 

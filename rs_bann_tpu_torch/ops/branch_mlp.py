@@ -40,9 +40,12 @@ sequential schedule's leapfrog step, K8a), ``data_vg_blocked`` for NB
 independent instances, instance i on X[ix[i]] of X [G, m_pad, n] read in
 place (every (chain, branch) of an unfolded hybrid block, K8b), and
 ``forward_blocked`` its y_pred alone. On a CUDA tensor all three are
-csrc/branch_vg_dense.cu (K7's device code at one chain; the limits of K6
-and K7), each counting its own launches; on a CPU tensor their plain
-versions (``data_vg_ref``: autograd of the feature-major forward).
+csrc/branch_vg_dense.cu (tf32 tensor cores in 3xTF32, csrc/dense_vg_mma.cuh;
+the limits of K6 and K7): the weights read through their own pointers, rss
+and the fixed-order sum of the CTAs' partial rows inside its launches, so a
+call issues one pass and its reduce and no other device op.
+Each counts its own launches; on a CPU tensor they run their plain versions
+(``data_vg_ref``: autograd of the feature-major forward).
 """
 
 from __future__ import annotations
@@ -230,11 +233,12 @@ _MAX_SMEM = 232448  # dynamic shared memory a block may use
 
 
 def dense_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
-    """Shared memory (bytes) that K6, K7 and K8 need for one branch of m_pad
+    """Shared memory (bytes) that K6 and K7 need for one branch of m_pad
     markers and layer widths k0, s, or -1 if they cannot run it (depth above
     1, a width above 32, or more than 227 KB). The same rule as the CUDA
-    entry point ``dense_chains_smem``; the CLI asks it before training on
-    the card."""
+    entry point ``dense_chains_smem``, which K8 takes as its own (it needs
+    less shared memory at every shape the rule admits); the CLI asks it
+    before training on the card."""
     w = max(k0, s)
     km = next((k for k in (8, 16, 32) if w <= k), -1)
     if km < 0 or depth not in (0, 1) or m <= 0:
@@ -439,74 +443,122 @@ def forward_blocked_ref(act, X, ix, weights, biases) -> torch.Tensor:
     return _forward_fm(act, _gather(X, ix), weights, biases)
 
 
+K8_PLAN_FIELDS = ("ctas", "tiles", "smem", "ctas_per_sm", "buffers", "slots", "scratch", "km")
+
+
+@functools.lru_cache(maxsize=None)
+def _k8_plan(device_index: int, NB: int, m: int, n: int, k0: int, s: int, depth: int,
+             grad: bool, act: int) -> tuple:
+    out = (ctypes.c_longlong * len(K8_PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.lib().vg_dense_plan(NB, m, n, k0, s, depth, int(grad), act, out),
+                     "vg_dense_plan")
+    return tuple(out)
+
+
+def vg_dense_plan(NB: int, m: int, n: int, k0: int, s: int, depth: int, grad: bool = True,
+                  act: str = "tanh", device=None) -> dict:
+    """What a K8 launch for NB instances on X of m_pad markers and n
+    individuals under ``act`` uses on a CUDA device (the current one by
+    default; each activation is its own instantiation): CTAs in
+    the grid, tiles of 32 individuals per instance, shared bytes per CTA,
+    resident CTAs per SM, X tile buffers, partial-row slots, scratch bytes
+    and the register width KM."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(zip(K8_PLAN_FIELDS, _k8_plan(index, NB, m, n, k0, s, depth, grad,
+                                             ACT_CODES[act])))
+
+
+_K8_SCRATCH = {}  # (device index, shape) -> K8's scratch: partial rows, err^2
+
+
+def _k8_scratch(dev, key, nbytes: int) -> torch.Tensor:
+    """The scratch of one K8 shape, made once: later calls allocate nothing."""
+    buf = _K8_SCRATCH.get(key)
+    if buf is None:
+        buf = _K8_SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return buf
+
+
 def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
-    """Launch csrc/branch_vg_dense.cu once (plus its fixed-order tile sum
-    when ``grad``) for NB instances: weights[l] [NB, in, out], instance i on
-    X[ix[i]]. Returns y_pred [NB, n] and, with ``grad``, the flat gradients
-    [NB, P]."""
-    G, m, n = X.shape
-    NB, depth = weights[0].shape[0], len(weights) - 2
+    """Launch csrc/branch_vg_dense.cu for NB instances, X [G, m_pad, n] and
+    weights[l] [NB, in, out] (instance i on X[ix[i]]), or for one, xT
+    [m_pad, n] and weights[l] [in, out]: with ``grad`` the pass and its
+    reduce, else the forward-only pass, and no other device op. Returns
+    (y_pred, rss, dws, dbs) with ``grad``, else y_pred, each shaped as its
+    inputs (a leading [NB] or none): views of one buffer."""
+    lead = X.dim() == 3
+    G, (m, n) = X.shape[0] if lead else 1, X.shape[-2:]
+    NB, depth = weights[0].shape[0] if lead else 1, len(weights) - 2
     k0, s = weights[0].shape[-1], weights[-1].shape[-2]
     if dense_chains_smem(m, k0, s, depth) < 0:
         raise NotImplementedError(
             f"the K8 CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
             f"within 227 KB of shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
         )
-    dev = X.device
-    lib = _build.lib()
-    q = flat_params(tuple(w.unsqueeze(1) for w in weights),
-                    tuple(b.unsqueeze(1) for b in biases))
-    P = q.shape[-1]
-    _check(X, "X", torch.float32, (G, m, n), dev)
-    _check(q, "weights", torch.float32, (NB, 1, P), dev)
+    dev, pre = X.device, (NB,) if lead else ()
+    X = X.contiguous()  # each of these is itself when contiguous: no copy on the main paths
+    _check(X, "X", torch.float32, (G, m, n) if lead else (m, n), dev)
+    ws = [w.contiguous() for w in weights]
+    bs = [b.contiguous() for b in biases]
+    dims = [m, k0] + ([s] if depth else []) + [1]
+    for l, w in enumerate(ws):
+        _check(w, f"weights[{l}]", torch.float32, pre + (dims[l], dims[l + 1]), dev)
+    for l, b in enumerate(bs):
+        _check(b, f"biases[{l}]", torch.float32, pre + (dims[l + 1],), dev)
     if ix is None:
         if NB != G:
             raise ValueError(f"{NB} instances on {G} branches need an index")
     else:
-        ix = ix.to(torch.int32).contiguous()
         _check(ix, "ix", torch.int32, (NB,), dev)
-    y_pred = torch.empty((NB, n), dtype=torch.float32, device=dev)
-    partial = grads = None
     if grad:
-        _check(targets, "targets", torch.float32, (NB, n), dev)
-        partial = torch.empty((NB, -(-n // DENSE_TILE), P), dtype=torch.float32, device=dev)
-        grads = torch.empty((NB, P), dtype=torch.float32, device=dev)
+        targets = targets.contiguous()
+        _check(targets, "targets", torch.float32, pre + (n,), dev)
+    code = ACT_CODES[act]
+    nbytes = _k8_plan(dev.index, NB, m, n, k0, s, depth, grad, code)[6]  # scratch bytes
+    P = m * k0 + k0 + (k0 * s + s if depth else 0) + s
+    out = torch.empty(NB * (n + P + 1) if grad else NB * n, dtype=torch.float32, device=dev)
+    scratch = _k8_scratch(dev, (dev.index, NB, m, n, k0, s, depth), nbytes) if grad else None
 
     def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+        return t.data_ptr() if t is not None else None
 
-    status = lib.vg_dense_f32(
-        ptr(X), ptr(ix), ptr(targets if grad else None), ptr(q), ptr(y_pred), ptr(partial),
-        ptr(grads), NB, m, n, k0, s, P, depth, ACT_CODES[act], int(grad),
-        ctypes.c_void_p(_build.stream_ptr(X)),
+    status = _build.lib().vg_dense_f32(
+        X.data_ptr(), ptr(ix), ptr(targets if grad else None), ws[0].data_ptr(),
+        bs[0].data_ptr(), ptr(ws[1] if depth else None), ptr(bs[1] if depth else None),
+        ws[-1].data_ptr(), out.data_ptr(), ptr(scratch), nbytes, NB, m, n, k0, s, depth,
+        code, int(grad), _build.stream_ptr(X),
     )
     _build.check(status, "vg_dense_f32")
-    return y_pred, grads
-
-
-def _unflat_blocked(grads, weights, biases):
-    """Flat gradients [NB, P] -> views shaped as the [NB, ...] weights and biases."""
-    dws, dbs = unflat_params(grads[:, None], tuple(w.unsqueeze(1) for w in weights),
-                             tuple(b.unsqueeze(1) for b in biases))
-    return tuple(d[:, 0] for d in dws), tuple(d[:, 0] for d in dbs)
+    y_pred = out[: NB * n].view(pre + (n,))
+    if not grad:
+        return y_pred
+    # [NB, P] gradients in the kernels' flat layout, then rss
+    o = NB * n
+    grads = out[o : o + NB * P].view(pre + (P,))
+    parts = grads.split((m * k0, k0) + ((k0 * s, s) if depth else ()) + (s,), dim=-1)
+    dws = ((parts[0].view(pre + (m, k0)),) + ((parts[2].view(pre + (k0, s)),) if depth else ())
+           + (parts[-1].view(pre + (s, 1)),))
+    dbs = (parts[1],) + ((parts[3],) if depth else ())
+    rss = out[o + NB * P :] if lead else out[o + P]
+    return y_pred, rss, dws, dbs
 
 
 def data_vg_blocked(act_name, X, ix, weights, biases, targets):
     """Dense value-and-gradient of NB independent instances, the JAX
     package's ``data_vg`` under a vmap (K8b): instance i of weights[l]
     [NB, in, out], biases[l] [NB, out] and targets [NB, n] on X[ix[i]] of
-    feature-major X [G, m_pad, n] (X[i] when ix is None), read in place.
-    Returns (y_pred [NB, n], rss [NB], dws, dbs) with dW/db = d(rss/2)/d(.)
-    in the input layouts. A CPU tensor runs ``data_vg_blocked_ref``; a CUDA
-    tensor launches csrc/branch_vg_dense.cu (and raises if it cannot)."""
+    feature-major X [G, m_pad, n] (X[i] when ix is None; ix int32 on the
+    card), read in place. Returns (y_pred [NB, n], rss [NB], dws, dbs) with
+    dW/db = d(rss/2)/d(.) in the input layouts. A CPU tensor runs
+    ``data_vg_blocked_ref``; a CUDA tensor launches csrc/branch_vg_dense.cu
+    (and raises if it cannot), rss and all."""
     _check_act(act_name)
     if X.device.type == "cpu":
         return data_vg_blocked_ref(act_name, X, ix, weights, biases, targets)
-    targets = targets.contiguous()
-    y_pred, grads = _vg_dense_cuda(act_name, X.contiguous(), ix, weights, biases, targets, True)
+    out = _vg_dense_cuda(act_name, X, ix, weights, biases, targets, True)
     data_vg_blocked.launches += 1
-    dws, dbs = _unflat_blocked(grads, weights, biases)
-    return y_pred, torch.sum((y_pred - targets) ** 2, dim=-1), dws, dbs
+    return out
 
 
 def data_vg(act_name, xT, weights, biases, target):
@@ -515,18 +567,13 @@ def data_vg(act_name, xT, weights, biases, target):
     biases[l] [out]; target [n]. Returns (y_pred [n], rss, dws, dbs) with
     dW/db = d(rss/2)/d(.) in the input layouts. A CPU tensor runs
     ``data_vg_ref``; a CUDA tensor launches csrc/branch_vg_dense.cu with one
-    instance (and raises if it cannot)."""
+    instance (and raises if it cannot), rss and all."""
     _check_act(act_name)
     if xT.device.type == "cpu":
         return data_vg_ref(act_name, xT, weights, biases, target)
-    target = target.contiguous()
-    weights, biases = tuple(w[None] for w in weights), tuple(b[None] for b in biases)
-    y_pred, grads = _vg_dense_cuda(act_name, xT.contiguous()[None], None, weights, biases,
-                                   target[None], True)
+    out = _vg_dense_cuda(act_name, xT, None, weights, biases, target, True)
     data_vg.launches += 1
-    dws, dbs = _unflat_blocked(grads, weights, biases)
-    return (y_pred[0], torch.sum((y_pred[0] - target) ** 2), tuple(d[0] for d in dws),
-            tuple(d[0] for d in dbs))
+    return out
 
 
 def forward_blocked(act_name, X, ix, weights, biases) -> torch.Tensor:
@@ -535,7 +582,7 @@ def forward_blocked(act_name, X, ix, weights, biases) -> torch.Tensor:
     _check_act(act_name)
     if X.device.type == "cpu":
         return forward_blocked_ref(act_name, X, ix, weights, biases)
-    y_pred = _vg_dense_cuda(act_name, X.contiguous(), ix, weights, biases, None, False)[0]
+    y_pred = _vg_dense_cuda(act_name, X, ix, weights, biases, None, False)
     forward_blocked.launches += 1
     return y_pred
 

@@ -31,11 +31,12 @@ launches per sweep (K2, K4, K5, or K7, K6, K8a, K8b and K8's forward-only
 pass). Each case then runs one sweep under torch.profiler and prints its
 wall time, the device's kernel time and busy share (kernel time / wall)
 and the launches of all kinds; the profiler tables go to ``--out``. In the
-packed unfolded and sequential cases the profiled sweep also splits its
-wall time into K4's device time, the host time inside ``data_vg_packed``
-(the wrapper: its checks, allocations and launches; a record_function range
-around each call), the rest of the HMC step (the transition's host time
-outside the wrapper) and the rest of the sweep. ``--only`` runs the cases
+packed unfolded and sequential cases and the flagship's sequential one the
+profiled sweep also splits its wall time into K4's (K8a's) device time,
+the host time inside ``data_vg_packed`` (``data_vg``: the wrapper, its
+checks, allocations and launches; a record_function range around each
+call), the rest of the HMC step (the transition's host time outside the
+wrapper) and the rest of the sweep. ``--only`` runs the cases
 whose name holds one of the comma-separated NAMEs. ``--groups``, ``--n`` and ``--device cpu`` shrink
 the run for a check without a card (no profile then). ``--root DIR``
 imports rs_bann_tpu_torch from another checkout (say the parent commit,
@@ -61,7 +62,8 @@ import numpy as np
 M, L, WIDTH, N_CAUSAL = 100, 30, 10, 500
 FLAG_M, FLAG_L, FLAG_WIDTH = 64, 64, 32  # the dense flagship
 K4_KERNELS = ("vg_packed", "reduce0", "reduce_partials")  # K4's pass and reduce, any version
-RANGES = ("K4 wrapper", "HMC step")  # record_function ranges of the split
+K8_KERNELS = ("vg_dense", "reduce_dense")  # K8's pass and reduce, any version
+RANGES = ("kernel wrapper", "HMC step")  # record_function ranges of the split
 LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernel", "cuLaunchKernelEx")
 
@@ -104,7 +106,7 @@ def traced(fn, label):
     return wrapped
 
 
-def profiled_sweep(torch, sweep, carry, data, gen, out, watch=(), split=False):
+def profiled_sweep(torch, sweep, carry, data, gen, out, watch=(), split=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -134,15 +136,16 @@ def profiled_sweep(torch, sweep, carry, data, gen, out, watch=(), split=False):
     for a in by_device[:3]:
         print(f"  device share: {a.key[:60]} {self_device_us(a) / 1000.0:.1f} ms "
               f"({100.0 * self_device_us(a) / 1000.0 / device_ms:.1f}%), {a.count} calls")
-    if split:  # K4's device time; host time in its wrapper, the HMC step, the rest
+    if split:  # the kernel's device time; host time in its wrapper, the HMC step, the rest
+        label, kernels = split
         k4_ms = sum(self_device_us(a) for a in on_device
-                    if any(k in a.key for k in K4_KERNELS)) / 1000.0
-        k4_calls = sum(a.count for a in on_device if any(k in a.key for k in K4_KERNELS))
+                    if any(k in a.key for k in kernels)) / 1000.0
+        k4_calls = sum(a.count for a in on_device if any(k in a.key for k in kernels))
         host = {a.key: a.cpu_time_total / 1000.0 for a in avgs
                 if a.key in RANGES and a.device_type == DeviceType.CPU}
-        wrapper_ms, hmc_ms = host.get("K4 wrapper", 0.0), host.get("HMC step", 0.0)
-        print(f"  split: K4 device {k4_ms:.1f} ms ({k4_calls} kernels, "
-              f"{100.0 * k4_ms / wall_ms:.1f}% of wall); host in the K4 wrapper "
+        wrapper_ms, hmc_ms = host.get(RANGES[0], 0.0), host.get(RANGES[1], 0.0)
+        print(f"  split: {label} device {k4_ms:.1f} ms ({k4_calls} kernels, "
+              f"{100.0 * k4_ms / wall_ms:.1f}% of wall); host in the {label} wrapper "
               f"{wrapper_ms:.1f} ms ({100.0 * wrapper_ms / wall_ms:.1f}%); rest of the HMC step "
               f"{hmc_ms - wrapper_ms:.1f} ms ({100.0 * (hmc_ms - wrapper_ms) / wall_ms:.1f}%); "
               f"rest of the sweep {wall_ms - hmc_ms:.1f} ms; busy {100.0 * device_ms / wall_ms:.1f}%")
@@ -265,11 +268,15 @@ def main(argv=None):
             if on_card:
                 if out is not None:
                     out.write(f"==== {name}\n")
-                split = not (flag or args.gd or fold)
-                if split:  # ranges around the K4 wrapper and the HMC step
-                    k4, make_step = BM.data_vg_packed, NM.make_hmc_step
-                    BM.data_vg_packed = traced(k4, RANGES[0])
-                    BM.data_vg_packed.launches = 0
+                # the packed unfolded and sequential cases, the flagship's sequential one
+                split = None
+                if not (args.gd or fold) and (sequential or not flag):
+                    split = ("K8a", K8_KERNELS) if flag else ("K4", K4_KERNELS)
+                    wrapper = "data_vg" if flag else "data_vg_packed"
+                if split:  # ranges around the kernel's wrapper and the HMC step
+                    k4, make_step = getattr(BM, wrapper), NM.make_hmc_step
+                    setattr(BM, wrapper, traced(k4, RANGES[0]))
+                    getattr(BM, wrapper).launches = 0
                     NM.make_hmc_step = lambda *a, **k: traced(make_step(*a, **k), RANGES[1])
                     sweep = (make_chain_sweep(model, act, arch, cfg, net.hyper, dev)
                              if sequential else
@@ -278,7 +285,8 @@ def main(argv=None):
                     profiled_sweep(torch, sweep, carry, data, gen, out, watch, split)
                 finally:
                     if split:
-                        BM.data_vg_packed, NM.make_hmc_step = k4, make_step
+                        NM.make_hmc_step = make_step
+                        setattr(BM, wrapper, k4)
             del carry, sweep, net
     finally:
         if out is not None:
