@@ -43,8 +43,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      versions, weights from the flagship's initial state, each chain's
      perturbed; identical bits on a repeat
   8. K6 (integrate_chains) against its plain version at the same shape,
-     izmailov step sizes from the initial state, at L = 1 and L = 64;
-     identical bits on a repeat
+     izmailov step sizes from the initial state, at L = 1, 8 and 64;
+     identical bits on a repeat; times at L = 1 and 64 beside the bound as
+     implemented (3xTF32 at 494.7 TFLOP/s), the f32 bound and X's time read
+     once per gradient evaluation, and the launch's grid
   9. the flagship end to end through the CLI: train-new --feat-major
      --update-mode parallel --num-chains 4 (2 sweeps of L = 64: exactly one
      K6 launch and two K7 launches, snapshot/H0 and Hf, per sweep; no K4 or
@@ -98,9 +100,9 @@ the wrapper's call, except K4's and K8's: the launch alone from
 back-to-back launches, the wrapper's call beside it as wrapper_ms), and
 the bound (the larger of its FLOPs over the
 67 TFLOP/s f32 peak and its bytes, each input read once and each output
-written once, over 3.35 TB/s; for K2, K9a, K4, K3, K9b, K8a and K8b the work as
+written once, over 3.35 TB/s; for K2, K9a, K4, K3, K9b, K8a, K8b and K6 the work as
 implemented, three bf16 tensor-core products per f32 one at 989 TFLOP/s
-(K8a and K8b: three tf32 ones at 494.7 TFLOP/s), with the f32 figure
+(K8a, K8b and K6: three tf32 ones at 494.7 TFLOP/s), with the f32 figure
 beside it as f32_bound_ms, K2's and K9a's value pass
 on the live width as value_pass_*, K3's and K9b's times at the warm
 start's block as warm_*); the last line is {"ok": true, "device":
@@ -797,11 +799,22 @@ def main():
                 continue
             ms = cuda_ms(lambda: LF.integrate_chains("tanh", *args))
             plain_ms = cuda_ms(lambda: LF.integrate_chains_ref("tanh", *args))
-            k6_bound = bound(2 * per * (steps + 1) * mlp_fmas(fm, fk0, fs, 1),
-                             nbytes(xT, ftargets, ferr) + 8 * param_bytes)
+            # each input read once (X, targets, err, positions, momenta, step
+            # sizes, prior factors) and the end written once
+            k6_bytes = nbytes(xT, ftargets, ferr) + 6 * param_bytes
+            x_stream_ms = 1e3 * (steps + 1) * nbytes(xT) / PEAK_BYTES_S  # X once per evaluation
+            k6_f32_bound = bound(2 * per * (steps + 1) * mlp_fmas(fm, fk0, fs, 1), k6_bytes)
+            # as implemented: the five products of each evaluation in 3xTF32
+            # (three tf32 tensor-core products per f32 one) at the tf32 peak
+            k6_mma = 2 * per * (steps + 1) * (2 * fm * fk0 + 3 * fk0 * fs)
+            ops_ms, bytes_ms = 3e3 * k6_mma / PEAK_TF32_FLOPS, 1e3 * k6_bytes / PEAK_BYTES_S
+            k6_bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            plan = LF.traj_dense_plan(FG, FCHAINS, fm, FN_TRAIN, fk0, fs, 1, "tanh")
             print(f"  L={steps}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                  f"{k6_bound[0]:.3f} ms ({k6_bound[1]}), identical repeat, "
-                  f"max |W0_L - W0_0| {moved:.3e}")
+                  f"{k6_bound[0]:.3f} ms ({k6_bound[1]}; 3xTF32 as implemented; f32 "
+                  f"{k6_f32_bound[0]:.3f} ms; X read once per evaluation {x_stream_ms:.3f} ms), "
+                  f"identical repeat, max |W0_L - W0_0| {moved:.3e}; {plan['ctas']} CTAs of "
+                  f"{plan['cc']} chains")
             k6_ms, k6_plain_ms = ms, plain_ms  # the main path's L
         print("  max abs err against L: " + ", ".join(f"L={k} {v:.3e}" for k, v in k6_errs.items()))
         del fws, fbs, ftargets, f_pw, f_pb, f_eps_w, f_eps_b, f_lam_w, f_lam_b, fdata, xT, fchains
@@ -1330,7 +1343,8 @@ def main():
          "source": "rs_bann_tpu_torch/csrc/traj_dense.cu",
          "replaces": "rs_bann_tpu/ops/leapfrog.py:63",
          "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
-         "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None},
+         "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None,
+         "f32_bound_ms": k6_f32_bound[0]},
         # launches: the GD warm start and hybrid sampling of phase 11
         # (identity, K3) and of phase 12 (silu: K9a, K9b)
         {"name": "packed_matmul", "route": "cuda",

@@ -89,22 +89,6 @@ __device__ void load_x(const Args& a, int j, int tl, float* xs) {
     cp_async_commit();
 }
 
-// The thread's share of pred for its two individuals: sum over its units
-// 16 mt + g + 8 h of w_out * a, in order.
-template <int MT>
-__device__ __forceinline__ void pred_terms(const float (&v)[MT][4], const float* wos, float& p_a,
-                                           float& p_b) {
-    const int g = (threadIdx.x & 31) >> 2;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const float wo = wos[16 * mt + g + 8 * h];
-            p_a = fmaf(wo, v[mt][2 * h], p_a);
-            p_b = fmaf(wo, v[mt][2 * h + 1], p_b);
-        }
-}
-
 // 3 CTAs (12 warps) per SM where shared memory allows: at the flagship's
 // width the registers fit 168 a thread and one X buffer 74 KB a CTA
 template <int KM, bool DEEP, bool GRAD, int ACT>

@@ -1,10 +1,9 @@
 // K7's device code: the chain-folded feature-major branch MLP, its error and
-// its backward for one work item, shared by K7 (csrc/branch_vg_chains.cu)
-// and the gradient phase of K6 (csrc/traj_dense.cu), so they cannot drift
-// apart. (K8 runs its own tensor-core device code, csrc/dense_vg_mma.cuh.)
+// its backward for one work item (csrc/branch_vg_chains.cu). K6 and K8 run
+// the tensor-core device code of csrc/dense_vg_mma.cuh instead (K6's
+// gradient phase ran this code before it moved there).
 //
-// Replaces the body of rs_bann_tpu/ops/branch_mlp.py::_chain_kernel (and the
-// data_grad of ::leapfrog.py::_traj_kernel, which is the same computation).
+// Replaces the body of rs_bann_tpu/ops/branch_mlp.py::_chain_kernel.
 //
 // A work item is (branch g, tile of kTile = 128 individuals). The X tile
 // xT[g, :, tile] ([m, 128] f32, 33 KB at m = 64) is staged once in shared
@@ -209,8 +208,7 @@ __device__ void chain_item(const ChainArgs& a, int g, int tile, float* smem) {
         const size_t bc = static_cast<size_t>(g) * a.C + c;
         const float* q = a.q + bc * P;
 
-        // ---- chain c's weights, zero-padded to KM (read through L2: K6
-        // rewrites them inside its launch)
+        // ---- chain c's weights, zero-padded to KM (read through L2)
         for (int idx = tid; idx < m * KM; idx += kThreads) {
             const int mm = idx / KM, k = idx % KM;
             w0s[idx] = k < k0 ? __ldcg(q + mm * k0 + k) : 0.f;

@@ -1,13 +1,15 @@
-// K8's device code: the dense branch MLP's value and gradient on tf32
-// tensor cores kept exact at f32 level (csrc/branch_vg_dense.cu; K6 moves
-// onto it next). K7 and K6 keep their own f32 device code,
-// csrc/dense_chain_mlp.cuh.
+// The dense branch MLP's value and gradient on tf32 tensor cores kept exact
+// at f32 level: the device code of K8a/K8b (csrc/branch_vg_dense.cu) and of
+// K6's gradient phase (csrc/traj_dense.cu). K7 keeps its own f32 device
+// code, csrc/dense_chain_mlp.cuh.
 //
 // A work item is (instance j, tile of kT = 32 individuals) of feature-major
-// X [m, n]. A CTA of 4 warps takes a contiguous run of items, one instance
+// X [m, n]. A group of 4 warps takes a contiguous run of items, one instance
 // after another, and keeps that instance's gradient sums in shared memory
 // over the run; it writes one partial row per instance it touched
-// ("segment"), and the segments are summed in a fixed order afterwards.
+// ("segment"), and the segments are summed in a fixed order afterwards. (K8
+// is one group per CTA; K6's CTA holds CC groups, one chain each, on one X
+// tile.)
 //
 // The five products run as mma.sync.m16n8k8 tf32 in 3xTF32: each f32
 // operand v is split into hi = tf32(v) and lo = tf32(v - hi) (v - hi is
@@ -98,6 +100,26 @@ __device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
     lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// x ~ hi + lo by integer operations on the bits, in fewer issue slots than
+// cvt.rna (K6's products use it; K8's keep split2): hi = x with its low 13
+// bits cleared (toward zero), lo = x - hi (exact) rounded to tf32, to
+// nearest with ties away (half a tf32 ulp added to the magnitude, the low
+// 13 bits cleared). hi + lo is x to 2^-21 of |x| (split2: 2^-22); a NaN or
+// an infinite x stays so in hi.
+__device__ __forceinline__ void split2_int(float x, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+template <bool INT>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    if (INT) {
+        split2_int(x, hi, lo);
+    } else {
+        split2(x, hi, lo);
+    }
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
     asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
@@ -164,41 +186,47 @@ __device__ __forceinline__ void store_frag(float* frags, int r, int c, float v) 
     d[128] = lo;
 }
 
-// Instance j's weights, once per instance and CTA: W0 as Z0's A fragments
-// (K = markers, M = units), W1 as Z1's (K = k0, M = s) and as dA0's (K = s,
-// M = k0), b0, b1 and w_out as [K16] vectors. The entries past the real rows
-// and columns stay as the CTA zeroed them. Warp w reads rows w, w + 4, ...,
-// lane c column c (widths <= 32): coalesced, and every load of W1, the
-// vectors and a batch of kBatch rows of W0 in flight at once (at the
-// flagship all of them).
-template <int MT, int K16, bool DEEP, bool GRAD>
-__device__ void stage_weights(const Args& a, int j, float* w0f, float* w1a, float* w1b,
-                              float* vecs) {
-    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, tid = threadIdx.x;
-    const int m = a.m, k0 = a.k0, s = a.s;
+// One instance's weights (W0 [m, k0], b0 [k0], (W1 [k0, s], b1 [s]), w_out
+// [s], each from its own pointer), staged by the 4 warps of a group (``tid``
+// its thread, 0 .. 127): W0 as Z0's A fragments (K = markers, M = units),
+// W1 as Z1's (K = k0, M = s) and as dA0's (K = s, M = k0), b0, b1 and w_out
+// as [K16] vectors. The entries past the real rows and columns stay as the
+// group zeroed them. Warp w reads rows w, w + 4, ..., lane c column c
+// (widths <= 32): coalesced, and every load of W1, the vectors and a batch
+// of kBatch rows of W0 in flight at once (at the flagship all of them).
+// L2: read through L2 only (__ldcg), for weights that the launch rewrites
+// (K6); else through the read-only path (__ldg).
+template <bool L2>
+__device__ __forceinline__ float ld_weight(const float* p) {
+    return L2 ? __ldcg(p) : __ldg(p);
+}
+
+template <int MT, int K16, bool DEEP, bool GRAD, bool L2>
+__device__ void stage_weights_from(const float* w0, const float* b0, const float* w1,
+                                   const float* b1, const float* wout, int m, int k0, int s,
+                                   int tid, float* w0f, float* w1a, float* w1b, float* vecs) {
+    const int lane = tid & 31, w = tid >> 5;
     constexpr int R1 = 32 / kWarps;  // rows of W1 per warp
     float v1[R1], vv = 0.f;
     if (DEEP) {
-        const float* w1 = a.w1 + static_cast<size_t>(j) * k0 * s;
 #pragma unroll
         for (int u = 0; u < R1; ++u) {
             const int k = w + kWarps * u;
-            v1[u] = k < k0 && lane < s ? __ldg(w1 + k * s + lane) : 0.f;
+            v1[u] = k < k0 && lane < s ? ld_weight<L2>(w1 + k * s + lane) : 0.f;
         }
     }
     if (tid < 3 * K16) {
         const int which = tid / K16, u = tid - which * K16;
-        if (which == 0 && u < k0) vv = __ldg(a.b0 + static_cast<size_t>(j) * k0 + u);
-        if (which == 1 && DEEP && u < s) vv = __ldg(a.b1 + static_cast<size_t>(j) * s + u);
-        if (which == 2 && u < s) vv = __ldg(a.wout + static_cast<size_t>(j) * s + u);
+        if (which == 0 && u < k0) vv = ld_weight<L2>(b0 + u);
+        if (which == 1 && DEEP && u < s) vv = ld_weight<L2>(b1 + u);
+        if (which == 2 && u < s) vv = ld_weight<L2>(wout + u);
     }
-    const float* w0 = a.w0 + static_cast<size_t>(j) * m * k0;
     for (int r0 = 0; r0 < m; r0 += kWarps * kBatch) {
         float v0[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
             const int r = r0 + w + kWarps * u;
-            v0[u] = r < m && lane < k0 ? __ldg(w0 + r * k0 + lane) : 0.f;
+            v0[u] = r < m && lane < k0 ? ld_weight<L2>(w0 + r * k0 + lane) : 0.f;
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
@@ -219,6 +247,18 @@ __device__ void stage_weights(const Args& a, int j, float* w0f, float* w1a, floa
     if (tid < 3 * K16) vecs[tid] = vv;
 }
 
+// Instance j's weights, once per instance and CTA (K8: one group per CTA).
+template <int MT, int K16, bool DEEP, bool GRAD>
+__device__ void stage_weights(const Args& a, int j, float* w0f, float* w1a, float* w1b,
+                              float* vecs) {
+    const int m = a.m, k0 = a.k0, s = a.s;
+    stage_weights_from<MT, K16, DEEP, GRAD, false>(
+        a.w0 + static_cast<size_t>(j) * m * k0, a.b0 + static_cast<size_t>(j) * k0,
+        DEEP ? a.w1 + static_cast<size_t>(j) * k0 * s : nullptr,
+        DEEP ? a.b1 + static_cast<size_t>(j) * s : nullptr, a.wout + static_cast<size_t>(j) * s,
+        m, k0, s, threadIdx.x, w0f, w1a, w1b, vecs);
+}
+
 __device__ __forceinline__ void ld_frag(const float* f, int lane, uint32_t (&ah)[4],
                                         uint32_t (&al)[4]) {
     const uint4 h = *reinterpret_cast<const uint4*>(f + 4 * lane);
@@ -229,8 +269,8 @@ __device__ __forceinline__ void ld_frag(const float* f, int lane, uint32_t (&ah)
 
 // D[MT] = A B over ``ksteps``: A the staged fragments ``frags`` ((kc, mt)
 // order), B rows 8 kc + t and 8 kc + t + 4, column ``col`` of the swizzled
-// buffer ``bp`` (f32 values, split here).
-template <int MT>
+// buffer ``bp`` (f32 values, split here; INT: by split2_int).
+template <int MT, bool INT = false>
 __device__ __forceinline__ void product_a(const float* frags, const float* bp, int ksteps, int col,
                                           float (&d)[MT][4]) {
     const int lane = threadIdx.x & 31, t = lane & 3;
@@ -241,8 +281,8 @@ __device__ __forceinline__ void product_a(const float* frags, const float* bp, i
 #pragma unroll 4
     for (int kc = 0; kc < ksteps; ++kc) {
         uint32_t bh0, bh1, bl0, bl1;
-        split2(bp[swz(8 * kc + t, col)], bh0, bl0);
-        split2(bp[swz(8 * kc + t + 4, col)], bh1, bl1);
+        split<INT>(bp[swz(8 * kc + t, col)], bh0, bl0);
+        split<INT>(bp[swz(8 * kc + t + 4, col)], bh1, bl1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
             uint32_t ah[4], al[4];
@@ -250,6 +290,22 @@ __device__ __forceinline__ void product_a(const float* frags, const float* bp, i
             mma3_add(d[mt], ah, al, bh0, bh1, bl0, bl1);
         }
     }
+}
+
+// The thread's share of pred for its two individuals: sum over its units
+// 16 mt + g + 8 h of w_out * a, in order.
+template <int MT>
+__device__ __forceinline__ void pred_terms(const float (&v)[MT][4], const float* wos, float& p_a,
+                                           float& p_b) {
+    const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const float wo = wos[16 * mt + g + 8 * h];
+            p_a = fmaf(wo, v[mt][2 * h], p_a);
+            p_b = fmaf(wo, v[mt][2 * h + 1], p_b);
+        }
 }
 
 // D[MT] (rows: units, columns 2t, 2t + 1 of the warp's 8) into the plane at
@@ -269,8 +325,8 @@ __device__ __forceinline__ void store_plane(float* plane, int col, const float (
 // u = 0 .. NTU - 1 of one row tile: A rows ``arow`` .. + 15 of ``ap``, loaded
 // and split once per k-step for all NTU; B rows ``brow`` + 8 u .. + 7 of
 // ``bp`` (one ldmatrix for both column tiles); individuals as columns, f32
-// values split here.
-template <int NTU>
+// values split here (INT: by split2_int).
+template <int NTU, bool INT = false>
 __device__ __forceinline__ void product_b(const float* ap, int arow, const float* bp, int brow,
                                           float (&acc)[NTU][4]) {
     const int lane = threadIdx.x & 31;
@@ -283,7 +339,7 @@ __device__ __forceinline__ void product_b(const float* ap, int arow, const float
         uint32_t raw[4], ah[4], al[4], bh[4], bl[4];
         ldsm_x4(raw, ap + swz(arow + (lane & 15), 8 * ks + 4 * (lane >> 4)));
 #pragma unroll
-        for (int r = 0; r < 4; ++r) split2(__uint_as_float(raw[r]), ah[r], al[r]);
+        for (int r = 0; r < 4; ++r) split<INT>(__uint_as_float(raw[r]), ah[r], al[r]);
         // matrices: (tile u, columns 8 ks .. + 3), (u, 8 ks + 4 .. + 7) per u
         const float* b = bp + swz(brow + 8 * (lane >> 4) + (lane & 7), 8 * ks + 4 * ((lane >> 3) & 1));
         if (NTU == 2) {
@@ -292,7 +348,7 @@ __device__ __forceinline__ void product_b(const float* ap, int arow, const float
             ldsm_x2(raw, b);
         }
 #pragma unroll
-        for (int r = 0; r < 2 * NTU; ++r) split2(__uint_as_float(raw[r]), bh[r], bl[r]);
+        for (int r = 0; r < 2 * NTU; ++r) split<INT>(__uint_as_float(raw[r]), bh[r], bl[r]);
 #pragma unroll
         for (int u = 0; u < NTU; ++u)
             mma3_add(acc[u], ah, al, bh[2 * u], bh[2 * u + 1], bl[2 * u], bl[2 * u + 1]);

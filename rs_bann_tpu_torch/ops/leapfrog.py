@@ -20,16 +20,21 @@ precision factors per layer [B, C, in, out] (biases [B, C, out]).
 On a CUDA tensor one call is one launch of csrc/traj_packed.cu (K5) or
 csrc/traj_dense.cu (K6); on a CPU tensor it runs the plain PyTorch version
 the kernel is held against (``integrate_chains_packed_ref``,
-``integrate_chains_ref``). At depth 0, K5 decodes each genotype of a staged
-byte tile once for a chunk of CC chains (``traj_packed_occupancy`` says
-which CC and how many resident blocks a launch uses); the packed
+``integrate_chains_ref``). At depth 0, K5 decodes each genotype of a
+staged byte tile once for a chunk of CC chains (``traj_packed_occupancy``
+says which CC and how many resident blocks a launch uses); the packed
 standardization is folded into the weights inside the kernel, so its f32
-sums are rounded in another order than the plain version's.
+sums are rounded in another order than the plain version's. K6 runs its
+gradients on tf32 tensor cores in 3xTF32 (three tf32 products per f32
+one), a branch's C chains in chunks of CC on each staged tile of X
+(``traj_dense_plan`` says which CC and grid a launch uses), and reads its
+per-layer inputs in place; its sums are rounded in another order too.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,7 +42,6 @@ from . import _build
 from .activations import ACT_CODES
 from .branch_mlp import (
     SUPPORTED_ACTIVATIONS,
-    DENSE_TILE,
     _dense_shape,
     data_vg_chains_ref,
     flat_params,
@@ -192,34 +196,118 @@ def integrate_chains_ref(
     return ws, bs, pws, pbs
 
 
+K6_PLAN_FIELDS = ("ctas", "ctas_per_sm", "cc", "chunks", "tiles", "smem", "buffers", "scratch",
+                  "km")
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_plan(device_index: int, G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
+             act: int, cc: int) -> tuple:
+    out = (ctypes.c_longlong * len(K6_PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.lib().traj_dense_plan(G, C, m, n, k0, s, depth, act, cc, out),
+                     "traj_dense_plan")
+    return tuple(out)
+
+
+def traj_dense_plan(G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
+                    act: str = "tanh", cc: int = 0, device=None) -> dict:
+    """What a K6 launch for G branches of m_pad markers, C chains and n
+    individuals under ``act`` uses on a CUDA device (the current one by
+    default): CTAs in the cooperative grid, resident CTAs per SM, chains per
+    CTA (CC; ``cc`` > 0 asks for that many), chunks of chains, tiles of 32
+    individuals per branch, shared bytes per CTA, X tile buffers, scratch
+    bytes (the partial rows of one evaluation) and the register width KM."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(zip(K6_PLAN_FIELDS, _k6_plan(index, G, C, m, n, k0, s, depth, ACT_CODES[act],
+                                             cc)))
+
+
+_K6_SCRATCH = {}  # (device index, shape) -> K6's partial rows
+
+
+def _instances(t, name, shape, dev):
+    """A [G, C, ...] f32 tensor as the kernel reads it: (the tensor, its
+    pointer, its strides over branches and chains). Its trailing dims must be
+    contiguous; a tensor whose are not (an expanded one) is copied."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t[0, 0].is_contiguous():
+        t = t.contiguous()
+    return t, t.data_ptr(), t.stride(0), t.stride(1)
+
+
 def _integrate_dense_cuda(
     act, xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w, lam_b, L_steps, l1,
 ):
-    """Launch csrc/traj_dense.cu once for the whole trajectory."""
+    """Launch csrc/traj_dense.cu once for the whole trajectory, and no other
+    device op: the kernel reads every per-layer input where it lies (strided
+    over branches and chains, as the sampler's transposed views are) and
+    writes the end of the trajectory into one new buffer, returned as
+    per-layer views."""
     G, C, m, n, k0, s, depth = _dense_shape(xT, weights)
-    dev = xT.device
-    lib = _build.lib()
-    w, pw = flat_params(weights, biases), flat_params(p_w, p_b)
-    eps, lam = flat_params(eps_w, eps_b), flat_params(lam_w, lam_b)
-    P = w.shape[-1]
-    xT, targets, err = xT.contiguous(), targets.contiguous(), err.contiguous()
+    dev, xT = xT.device, xT.contiguous()
     _check(xT, "xT", torch.float32, (G, m, n), dev)
-    _check(targets, "targets", torch.float32, (G, C, n), dev)
-    _check(err, "err", torch.float32, (G, C), dev)
-    for name, t in (("weights", w), ("momenta", pw), ("eps", eps), ("lam", lam)):
-        _check(t, name, torch.float32, (G, C, P), dev)
-    partial = torch.empty((G, C, -(-n // DENSE_TILE), P), dtype=torch.float32, device=dev)
+    code = ACT_CODES[act]
+    plan = _k6_plan(dev.index, G, C, m, n, k0, s, depth, code, 0)
+    key = (dev.index, G, C, m, n, k0, s, depth)
+    scratch = _K6_SCRATCH.get(key)
+    if scratch is None or scratch.numel() < plan[7]:
+        scratch = _K6_SCRATCH[key] = torch.empty(plan[7], dtype=torch.uint8, device=dev)
+    # the layers in the kernel's slots W0, b0, W1, b1, w_out (W1, b1 absent at depth 0)
+    dims = [(m, k0)] + ([(k0, s)] if depth else []) + [(s, 1)]
+    w_shapes = [(G, C) + d for d in dims]
+    b_shapes = [(G, C, d[1]) for d in dims[:-1]]
+
+    def slots(ws, bs):
+        return [ws[0], bs[0]] + ([ws[1], bs[1]] if depth else [None, None]) + [ws[-1]]
+
+    shapes = slots(w_shapes, b_shapes)
+    sizes = [0 if sh is None else G * C * int(torch.Size(sh[2:]).numel()) for sh in shapes]
+    out = torch.empty(2 * sum(sizes), dtype=torch.float32, device=dev)
+    views, off = [], 0
+    for sh, size in zip(shapes + shapes, sizes + sizes):
+        views.append(None if sh is None else out[off : off + size].view(sh))
+        off += size
+    keep, ptrs, strides = [], [], []
+
+    def add(t, name, shape):
+        if t is None:
+            ptrs.append(None)
+            strides.extend((0, 0))
+            return
+        t, ptr, sg, sc = _instances(t, name, shape, dev)
+        keep.append(t)
+        ptrs.append(ptr)
+        strides.extend((sg, sc))
+
+    add(targets, "targets", (G, C, n))
+    add(err, "err", (G, C))
+    for name, ws, bs in (("weights", weights, biases), ("momenta", p_w, p_b),
+                         ("eps", eps_w, eps_b), ("lam", lam_w, lam_b)):
+        for k, (t, sh) in enumerate(zip(slots(ws, bs), shapes)):
+            add(t, f"{name}[{k}]", sh)
+    for v, sh in zip(views, shapes + shapes):
+        add(v, "out", sh)
     vp = ctypes.c_void_p
-    status = lib.traj_dense_f32(
-        vp(xT.data_ptr()), vp(targets.data_ptr()), vp(err.data_ptr()), vp(eps.data_ptr()),
-        vp(lam.data_ptr()), vp(w.data_ptr()), vp(pw.data_ptr()), vp(partial.data_ptr()),
-        G, C, m, n, k0, s, P, depth, int(L_steps), ACT_CODES[act], int(bool(l1)),
-        vp(_build.stream_ptr(xT)),
+    status = _build.lib().traj_dense_f32(
+        vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
+        vp(scratch.data_ptr()), plan[7], G, C, m, n, k0, s, depth, int(L_steps), code,
+        int(bool(l1)), 0, vp(_build.stream_ptr(xT)),
     )
     _build.check(status, "traj_dense_f32")
     integrate_chains.launches += 1
-    w_f, b_f = unflat_params(w, weights, biases)
-    pw_f, pb_f = unflat_params(pw, weights, biases)
+
+    def layers(vs):
+        mid = (vs[2],) if depth else ()
+        return (vs[0],) + mid + (vs[4],), (vs[1],) + ((vs[3],) if depth else ())
+
+    w_f, b_f = layers(views[:5])
+    pw_f, pb_f = layers(views[5:])
     return w_f, b_f, pw_f, pb_f
 
 

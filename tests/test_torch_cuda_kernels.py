@@ -12,7 +12,10 @@ not a multiple of the chunk, one chain a chunk at a large m_pad), K4 at
 k0 = 8, 16 and 32, a width stored wider than it is and the largest m it
 admits (its launches counted by torch.profiler), K8 at the dense
 flagship's branch (one instance, and 64 through an index) and the largest m
-it admits (its launches counted too), and the wrappers' refusals.
+it admits (its launches counted too), K6 with one chain, five (a ragged
+chunk), more instances than resident CTAs, depth 0 at width 8, the
+flagship's block at L = 1 and the largest m it admits (one call one device
+op), and the wrappers' refusals.
 Tolerances: K2 and K9a atol 1e-4 (f32
 sums over <= 300 markers in another order), and 1e-4 of the largest entry
 with weights spanning 1e-6 to 1e3; K3 and K9b rtol 1e-4 of the
@@ -22,7 +25,7 @@ gradients (K4: and rss) rtol 1e-4 against the largest entry (sums over n
 in another order), each entry of the gradients at relu and leaky_relu less
 its kink allowance (``kink_allowance``), K4 and K8 against the plain
 version in f64 too; K5 and K6 rtol 1e-4 of the largest entry after 3 steps (the same
-sums, compounded), K5's chunks 1e-4 after 1 step and 1e-3 after 30 (as
+sums, compounded; K6 against the plain version in f64 too), K5's chunks 1e-4 after 1 step and 1e-3 after 30 (as
 chip_smoke's REL_TOL and REL_TOL_TRAJ).
 """
 
@@ -610,30 +613,94 @@ def test_data_vg_chains_kernel_matches_plain(dev, depth, act, n, k):
     assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
 
 
-@pytest.mark.parametrize("depth,act,l1", [(0, "identity", False), (1, "relu", True), (1, "tanh", False)])
-def test_integrate_chains_kernel_matches_plain(dev, depth, act, l1):
-    """K6 against its plain version: 3 steps, rtol 1e-4 of the largest entry."""
-    rng = np.random.default_rng(5)
-    G, C, n, steps = 3, 2, 1300, 3
-    xT, targets, weights, biases, mk, mkb = _dense_inputs(rng, dev, G, C, 40, n, 16, depth)
+def _traj_dense_inputs(rng, dev, G, C, m, n, k, depth, steps):
+    xT, targets, weights, biases, mk, mkb = _dense_inputs(rng, dev, G, C, m, n, k, depth)
     p_w, p_b = mk(1.0), mkb(1.0)
     eps_w = tuple(e.abs() * 1e-3 for e in mk(1.0))
     eps_b = tuple(e.abs() * 1e-3 for e in mkb(1.0))
     lam_w = tuple(e.abs() + 0.5 for e in mk(1.0))
     lam_b = tuple(torch.zeros_like(b) for b in biases)
     err = torch.rand(G, C, device=dev) * 0.5 + 0.5
-    args = (xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w, lam_b, steps)
+    return (xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w, lam_b, steps)
+
+
+def _k6_check(act, args, l1, tol=1e-4):
+    """K6 against its plain version in f32 and in f64, rtol ``tol`` of the
+    largest entry; one call is one count and exactly one device op, the
+    kernel (the wrapper reads the per-layer inputs in place); a repeat gives
+    the same bits. Returns the result."""
     before = TL.integrate_chains.launches
     out = TL.integrate_chains(act, *args, l1=l1)
     assert TL.integrate_chains.launches == before + 1
-    ref = TL.integrate_chains_ref(act, *args, l1=l1)
     torch.cuda.synchronize()
-    for got_part, ref_part in zip(out, ref):
-        for got, want in zip(got_part, ref_part):
-            assert got.shape == want.shape
-            assert (got - want).abs().max().item() <= 1e-4 * max(want.abs().max().item(), 1.0)
-    again = TL.integrate_chains(act, *args, l1=l1)
+    for dtype in (torch.float32, torch.float64):
+        cast = [tuple(t.to(dtype) for t in a) if isinstance(a, tuple)
+                else a.to(dtype) if isinstance(a, torch.Tensor) else a for a in args]
+        ref = TL.integrate_chains_ref(act, *cast, l1=l1)
+        for got_part, ref_part in zip(out, ref):
+            for got, want in zip(got_part, ref_part):
+                assert got.shape == want.shape
+                assert (got.to(dtype) - want).abs().max().item() <= tol * max(
+                    want.abs().max().item(), 1.0)
+    # any other device op fails at once; a trace that lost its event is taken again
+    for _ in range(5):
+        again, ops = _device_ops(lambda: TL.integrate_chains(act, *args, l1=l1))
+        assert all("traj_dense_kernel" in o for o in ops), ops
+        if len(ops) == 1:
+            break
+    assert len(ops) == 1, ops
     assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
+    return out
+
+
+@pytest.mark.parametrize("depth,act,l1", [(0, "identity", False), (1, "relu", True), (1, "tanh", False)])
+def test_integrate_chains_kernel_matches_plain(dev, depth, act, l1):
+    """K6 against its plain version in f32 and f64: 3 steps, rtol 1e-4 of
+    the largest entry; exactly its launch; identical bits on a repeat."""
+    rng = np.random.default_rng(5)
+    G, C, n, steps = 3, 2, 1300, 3
+    _k6_check(act, _traj_dense_inputs(rng, dev, G, C, 40, n, 16, depth, steps), l1)
+
+
+# G, C, m, n, width, depth, activation, lasso: one chain; five (chunks of
+# 2, 2 and 1); more instances than resident CTAs (one wave whose CTAs take
+# several); depth 0 at width 8
+K6_CASES = [(3, 1, 40, 1300, 16, 1, "tanh", False), (3, 5, 40, 701, 16, 1, "silu", False),
+            (300, 4, 24, 257, 32, 1, "tanh", False), (3, 2, 40, 333, 8, 0, "leaky_relu", True)]
+
+
+@pytest.mark.parametrize("G,C,m,n,k,depth,act,l1", K6_CASES)
+def test_integrate_chains_kernel_shapes(dev, G, C, m, n, k, depth, act, l1):
+    rng = np.random.default_rng(17)
+    plan = TL.traj_dense_plan(G, C, m, n, k, k, depth, act)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan["ctas"] <= plan["ctas_per_sm"] * sms
+    if G == 300:
+        assert plan["ctas"] < G * plan["chunks"]  # one wave over the instances
+    _k6_check(act, _traj_dense_inputs(rng, dev, G, C, m, n, k, depth, 3), l1)
+
+
+def test_integrate_chains_at_the_flagship_shape(dev):
+    """The dense flagship's block (G = 64, C = 4, m = 64, k0 = s = 32, depth
+    1, n = 4,096, tanh) at L = 1: two chains per CTA on each X tile, one CTA
+    per (branch, chunk)."""
+    rng = np.random.default_rng(18)
+    plan = TL.traj_dense_plan(64, 4, 64, 4096, 32, 32, 1, "tanh")
+    assert plan["cc"] == 2 and plan["chunks"] == 2 and plan["tiles"] == 128
+    assert plan["ctas"] == 128  # R = 1 CTA per instance at one CTA per SM
+    _k6_check("tanh", _traj_dense_inputs(rng, dev, 64, 4, 64, 4096, 32, 1, 1), False)
+
+
+@pytest.mark.parametrize("m,k,depth", [(263, 32, 1), (345, 16, 1), (390, 8, 0)],
+                         ids=lambda v: str(v))
+def test_integrate_chains_runs_every_admitted_m(dev, m, k, depth):
+    """The largest m_pad that dense_chains_smem admits at each register
+    width: K6 fits it (one chain per CTA where two do not fit)."""
+    assert BM.dense_chains_smem(m, k, k, depth) > 0
+    assert BM.dense_chains_smem(m + 1, k, k, depth) < 0
+    assert TL.traj_dense_plan(2, 2, m, 301, k, k, depth, "tanh")["cc"] in (1, 2)
+    rng = np.random.default_rng(19)
+    _k6_check("tanh", _traj_dense_inputs(rng, dev, 2, 2, m, 301, k, depth, 2), False)
 
 
 def test_dense_limits_agree_with_the_kernels(dev):
