@@ -111,6 +111,8 @@ __device__ __forceinline__ void split2_int(float x, uint32_t& hi, uint32_t& lo) 
     lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
+// INT: split2_int (K6), else split2 (K8, whose outputs keep their bits;
+// moving K8 onto split2_int and dropping this switch is ROADMAP Queue 2B's)
 template <bool INT>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
     if (INT) {
@@ -194,14 +196,8 @@ __device__ __forceinline__ void store_frag(float* frags, int r, int c, float v) 
 // group zeroed them. Warp w reads rows w, w + 4, ..., lane c column c
 // (widths <= 32): coalesced, and every load of W1, the vectors and a batch
 // of kBatch rows of W0 in flight at once (at the flagship all of them).
-// L2: read through L2 only (__ldcg), for weights that the launch rewrites
-// (K6); else through the read-only path (__ldg).
-template <bool L2>
-__device__ __forceinline__ float ld_weight(const float* p) {
-    return L2 ? __ldcg(p) : __ldg(p);
-}
-
-template <int MT, int K16, bool DEEP, bool GRAD, bool L2>
+// Read through L2 only (__ldcg): K6 rewrites the weights inside its launch.
+template <int MT, int K16, bool DEEP, bool GRAD>
 __device__ void stage_weights_from(const float* w0, const float* b0, const float* w1,
                                    const float* b1, const float* wout, int m, int k0, int s,
                                    int tid, float* w0f, float* w1a, float* w1b, float* vecs) {
@@ -212,21 +208,21 @@ __device__ void stage_weights_from(const float* w0, const float* b0, const float
 #pragma unroll
         for (int u = 0; u < R1; ++u) {
             const int k = w + kWarps * u;
-            v1[u] = k < k0 && lane < s ? ld_weight<L2>(w1 + k * s + lane) : 0.f;
+            v1[u] = k < k0 && lane < s ? __ldcg(w1 + k * s + lane) : 0.f;
         }
     }
     if (tid < 3 * K16) {
         const int which = tid / K16, u = tid - which * K16;
-        if (which == 0 && u < k0) vv = ld_weight<L2>(b0 + u);
-        if (which == 1 && DEEP && u < s) vv = ld_weight<L2>(b1 + u);
-        if (which == 2 && u < s) vv = ld_weight<L2>(wout + u);
+        if (which == 0 && u < k0) vv = __ldcg(b0 + u);
+        if (which == 1 && DEEP && u < s) vv = __ldcg(b1 + u);
+        if (which == 2 && u < s) vv = __ldcg(wout + u);
     }
     for (int r0 = 0; r0 < m; r0 += kWarps * kBatch) {
         float v0[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
             const int r = r0 + w + kWarps * u;
-            v0[u] = r < m && lane < k0 ? ld_weight<L2>(w0 + r * k0 + lane) : 0.f;
+            v0[u] = r < m && lane < k0 ? __ldcg(w0 + r * k0 + lane) : 0.f;
         }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
@@ -252,7 +248,7 @@ template <int MT, int K16, bool DEEP, bool GRAD>
 __device__ void stage_weights(const Args& a, int j, float* w0f, float* w1a, float* w1b,
                               float* vecs) {
     const int m = a.m, k0 = a.k0, s = a.s;
-    stage_weights_from<MT, K16, DEEP, GRAD, false>(
+    stage_weights_from<MT, K16, DEEP, GRAD>(
         a.w0 + static_cast<size_t>(j) * m * k0, a.b0 + static_cast<size_t>(j) * k0,
         DEEP ? a.w1 + static_cast<size_t>(j) * k0 * s : nullptr,
         DEEP ? a.b1 + static_cast<size_t>(j) * s : nullptr, a.wout + static_cast<size_t>(j) * s,

@@ -50,8 +50,10 @@
 //    atomics, so the same inputs give the same bits), the prior gradient and
 //    err applied, and the momentum and position updated; then grid.sync()
 //    again. Weights, momenta, step sizes and prior factors are read layer by
-//    layer from the caller's tensors (strided over branches and chains) and
-//    the trajectory's end written layer by layer, so a call copies nothing.
+//    layer from the caller's tensors (strided over branches and chains; the
+//    step sizes and prior factors at any strides, so a broadcast one is read
+//    in place) and the trajectory's end written layer by layer, so a call
+//    copies nothing.
 //    State written inside the launch (the outputs, the partial rows) is read
 //    through L2 only (__ldcg); X, which never changes, is read ahead across
 //    the grid syncs for the next evaluation's first tile.
@@ -75,15 +77,23 @@ using namespace rsbann::vg;
 constexpr int kMaxCC = 2;   // chains (groups of 4 warps) per CTA
 constexpr int kLayers = 5;  // W0, b0, W1, b1, w_out (W1 and b1 unused at depth 0)
 
-// A [G, C, ...] f32 tensor whose trailing dims are contiguous: element
-// (g, c, i) at p + g * sg + c * sc + i.
+// A [G, C, rows, cols] f32 tensor (a bias [G, C, cols] is one row, w_out
+// [G, C, s, 1] one column): element (g, c, r, k) at p + g * sg + c * sc +
+// r * sr + k * sk. Only the step sizes and prior factors are read through
+// sr and sk; the other tensors' trailing dims are contiguous (element (g, c,
+// i) at at(v, g, c) + i).
 struct Inst {
     const float* p;
-    long long sg, sc;
+    long long sg, sc, sr, sk;
 };
 
 __device__ __forceinline__ const float* at(const Inst& v, int g, int c) {
     return v.p + g * v.sg + c * v.sc;
+}
+
+// Element (r, k) of instance (g, c), at any strides.
+__device__ __forceinline__ float ld_any(const Inst& v, int g, int c, int r, int k) {
+    return __ldg(at(v, g, c) + r * v.sr + k * v.sk);
 }
 
 struct TrajArgs {
@@ -98,6 +108,7 @@ struct TrajArgs {
     int chunks, NB, tiles, ctas, rper;  // rper: CTAs per instance (0: one wave over several)
     int m16, m8, nbuf, vec16;
     int lsize[kLayers], loff[kLayers];  // elements of each layer per (branch, chain), offset in P
+    int lcols[kLayers];                 // columns of each layer
 };
 
 // Floats of shared memory of one group (one chain): the weight fragments,
@@ -153,6 +164,7 @@ __device__ __forceinline__ void update_layer(const TrajArgs& a, int l) {
     for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
         const int bc = e / size, i = e - bc * size;
         const int g = bc / a.C, c = bc - g * a.C;
+        const int r = i / a.lcols[LY], k = i - r * a.lcols[LY];
         const int j = g * a.chunks + c / CC, ci = c % CC;
         int first, nseg;
         if (a.rper) {
@@ -167,9 +179,9 @@ __device__ __forceinline__ void update_layer(const TrajArgs& a, int l) {
         for (int r = 0; r < nseg; ++r) sum += __ldcg(src + static_cast<size_t>(r) * CC * a.P);
         float q = __ldcg((l == 0 ? at(a.w[LY], g, c) : at(a.qo[LY], g, c)) + i);
         float p = __ldcg((l == 0 ? at(a.pw[LY], g, c) : at(a.po[LY], g, c)) + i);
-        const float ep = __ldg(at(a.eps[LY], g, c) + i);
+        const float ep = ld_any(a.eps[LY], g, c, r, k);
         const float prior = a.l1 ? (q > 0.f ? 1.f : (q < 0.f ? -1.f : 0.f)) : q;
-        const float gr = -__ldg(at(a.lam[LY], g, c) + i) * prior - __ldg(at(a.err, g, c)) * sum;
+        const float gr = -ld_any(a.lam[LY], g, c, r, k) * prior - __ldg(at(a.err, g, c)) * sum;
         if (l > 0) p += 0.5f * ep * gr;  // closes step l
         if (l < a.steps) {                // opens step l + 1
             p += 0.5f * ep * gr;
@@ -294,7 +306,7 @@ __global__ void __launch_bounds__(kThreads * CC, CC == 1 ? 3 : 1)
                 live = c < a.C;
                 if (live) {
                     const bool st = l == 0;
-                    stage_weights_from<MT, K16, DEEP, true, true>(
+                    stage_weights_from<MT, K16, DEEP, true>(
                         at(pick(st, a.w[0], a.qo[0]), gb, c), at(pick(st, a.w[1], a.qo[1]), gb, c),
                         DEEP ? at(pick(st, a.w[2], a.qo[2]), gb, c) : nullptr,
                         DEEP ? at(pick(st, a.w[3], a.qo[3]), gb, c) : nullptr,
@@ -475,11 +487,10 @@ struct Occupancy {
 };
 Occupancy g_occ[3 * 2 * 5 * kMaxCC];
 
-// The largest CC of (2, 1) that is at most C (cc_req: that CC alone) and
-// fits, its X buffers and resident CTAs per SM, and the work split.
-int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, int cc_req, Plan* pl) {
-    if (G <= 0 || C <= 0 || n <= 0 || act < 0 || act > 4 || cc_req < 0 || cc_req > kMaxCC ||
-        dense_chains_smem(m, k0, s, depth) < 0)
+// The largest CC of (2, 1) that is at most C and fits, its X buffers and
+// resident CTAs per SM, and the work split.
+int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, Plan* pl) {
+    if (G <= 0 || C <= 0 || n <= 0 || act < 0 || act > 4 || dense_chains_smem(m, k0, s, depth) < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const bool deep = depth == 1;
     pl->km = pick_km(k0, s);
@@ -491,7 +502,7 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, int cc_r
     if (e != cudaSuccess) return static_cast<int>(e);
     pl->cc = 0;
     for (int cc = kMaxCC; cc >= 1 && pl->cc == 0; --cc) {
-        if (cc_req ? cc != cc_req : (cc > C && cc > 1)) continue;
+        if (cc > C && cc > 1) continue;
         // two X buffers (the next tile's copy under this one's work) unless
         // they cost a resident CTA per SM or do not fit
         const long long s1 = 4 * smem_floats(pl->km, deep, cc, pl->m16, pl->m8, 1);
@@ -545,15 +556,14 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, int cc_r
 
 }  // namespace
 
-// What a K6 launch uses on this shape and activation on the current device
-// (cc: 0 for the plan's own choice, else that many chains per CTA): out[0..8]
-// = CTAs, resident CTAs per SM, chains per CTA (CC), chunks of chains, tiles
-// of 32 individuals per branch, shared bytes per CTA, X tile buffers,
-// scratch bytes (the partial rows), register width KM.
+// What a K6 launch uses on this shape and activation on the current device:
+// out[0..8] = CTAs, resident CTAs per SM, chains per CTA (CC), chunks of
+// chains, tiles of 32 individuals per branch, shared bytes per CTA, X tile
+// buffers, scratch bytes (the partial rows), register width KM.
 extern "C" int traj_dense_plan(int G, int C, int m, int n, int k0, int s, int depth, int act,
-                               int cc, long long* out) {
+                               long long* out) {
     Plan pl;
-    const int status = plan(G, C, m, n, k0, s, depth, act, cc, &pl);
+    const int status = plan(G, C, m, n, k0, s, depth, act, &pl);
     if (status != 0) return status;
     const long long v[9] = {pl.ctas, pl.per_sm, pl.cc, pl.chunks, pl.tiles, pl.smem, pl.nbuf,
                             pl.scratch, pl.km};
@@ -561,20 +571,21 @@ extern "C" int traj_dense_plan(int G, int C, int m, int n, int k0, int s, int de
     return 0;
 }
 
-// x f32 [G, m, n] contiguous. ptrs[32] and strides[64] (two per pointer:
-// over branches and over chains, in floats) describe [G, C, ...] f32 tensors
-// whose trailing dims are contiguous: ptrs[0] targets [G, C, n], ptrs[1] err
-// [G, C], then for each of the start w, the start momenta pw, the step sizes,
-// the prior precision factors and the outputs (the end's positions, then
-// its momenta) five layers W0 [m, k0], b0 [k0], W1 [k0, s], b1 [s], w_out
-// [s, 1] (W1 and b1 null at depth 0). The outputs must not overlap the
-// inputs. scratch: the plan's bytes. cc: 0, or the chains per CTA to use.
+// x f32 [G, m, n] contiguous. ptrs[32] and strides[128] (four per pointer,
+// in floats: over branches, chains, rows and columns, as Inst) describe
+// [G, C, ...] f32 tensors: ptrs[0] targets [G, C, n], ptrs[1] err [G, C],
+// then for each of the start w, the start momenta pw, the step sizes, the
+// prior precision factors and the outputs (the end's positions, then its
+// momenta) five layers W0 [m, k0], b0 [k0], W1 [k0, s], b1 [s], w_out
+// [s, 1] (W1 and b1 null at depth 0). The step sizes and prior factors may
+// have any strides (a broadcast one, stride 0, is read in place); the
+// other tensors' trailing dims must be contiguous. The outputs must not
+// overlap the inputs. scratch: the plan's bytes.
 extern "C" int traj_dense_f32(const void* x, const void* const* ptrs, const long long* strides,
                               void* scratch, long long scratch_bytes, int G, int C, int m, int n,
-                              int k0, int s, int depth, int steps, int act, int l1, int cc,
-                              void* stream) {
+                              int k0, int s, int depth, int steps, int act, int l1, void* stream) {
     Plan pl;
-    int status = plan(G, C, m, n, k0, s, depth, act, cc, &pl);
+    int status = plan(G, C, m, n, k0, s, depth, act, &pl);
     if (status != 0) return status;
     const int P = partial_size(m, k0, s, depth == 1);
     if (steps < 0 || scratch_bytes < pl.scratch ||
@@ -582,7 +593,8 @@ extern "C" int traj_dense_f32(const void* x, const void* const* ptrs, const long
         return static_cast<int>(cudaErrorInvalidValue);
     const bool deep = depth == 1;
     auto inst = [&](int k) {
-        return Inst{static_cast<const float*>(ptrs[k]), strides[2 * k], strides[2 * k + 1]};
+        return Inst{static_cast<const float*>(ptrs[k]), strides[4 * k], strides[4 * k + 1],
+                    strides[4 * k + 2], strides[4 * k + 3]};
     };
     TrajArgs a{};
     a.x = static_cast<const float*>(x);
@@ -604,9 +616,11 @@ extern "C" int traj_dense_f32(const void* x, const void* const* ptrs, const long
     a.m16 = pl.m16, a.m8 = pl.m8, a.nbuf = pl.nbuf;
     a.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
     const int sizes[kLayers] = {m * k0, k0, deep ? k0 * s : 0, deep ? s : 0, s};
+    const int cols[kLayers] = {k0, k0, s, s, 1};
     for (int ly = 0, off = 0; ly < kLayers; off += sizes[ly], ++ly) {
         a.lsize[ly] = sizes[ly];
         a.loff[ly] = off;
+        a.lcols[ly] = cols[ly];
     }
     void* params[] = {&a};
     const cudaError_t e = cudaLaunchCooperativeKernel(

@@ -193,9 +193,9 @@ def lib() -> ctypes.CDLL:
     so.vg_chains_f32.restype = i
     so.dense_chains_smem.argtypes = [i, i, i, i]
     so.dense_chains_smem.restype = ctypes.c_longlong
-    so.traj_dense_f32.argtypes = [vp] * 4 + [ctypes.c_longlong] + [i] * 11 + [vp]
+    so.traj_dense_f32.argtypes = [vp] * 4 + [ctypes.c_longlong] + [i] * 10 + [vp]
     so.traj_dense_f32.restype = i
-    so.traj_dense_plan.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.traj_dense_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     so.traj_dense_plan.restype = i
     so.vg_dense_f32.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i] * 8 + [vp]
     so.vg_dense_f32.restype = i

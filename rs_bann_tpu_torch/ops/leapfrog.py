@@ -28,7 +28,8 @@ sums are rounded in another order than the plain version's. K6 runs its
 gradients on tf32 tensor cores in 3xTF32 (three tf32 products per f32
 one), a branch's C chains in chunks of CC on each staged tile of X
 (``traj_dense_plan`` says which CC and grid a launch uses), and reads its
-per-layer inputs in place; its sums are rounded in another order too.
+per-layer inputs in place, broadcast step sizes and prior factors
+included; its sums are rounded in another order too.
 """
 
 from __future__ import annotations
@@ -202,43 +203,50 @@ K6_PLAN_FIELDS = ("ctas", "ctas_per_sm", "cc", "chunks", "tiles", "smem", "buffe
 
 @functools.lru_cache(maxsize=None)
 def _k6_plan(device_index: int, G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
-             act: int, cc: int) -> tuple:
+             act: int) -> tuple:
     out = (ctypes.c_longlong * len(K6_PLAN_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.lib().traj_dense_plan(G, C, m, n, k0, s, depth, act, cc, out),
+        _build.check(_build.lib().traj_dense_plan(G, C, m, n, k0, s, depth, act, out),
                      "traj_dense_plan")
     return tuple(out)
 
 
 def traj_dense_plan(G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
-                    act: str = "tanh", cc: int = 0, device=None) -> dict:
+                    act: str = "tanh", device=None) -> dict:
     """What a K6 launch for G branches of m_pad markers, C chains and n
     individuals under ``act`` uses on a CUDA device (the current one by
     default): CTAs in the cooperative grid, resident CTAs per SM, chains per
-    CTA (CC; ``cc`` > 0 asks for that many), chunks of chains, tiles of 32
-    individuals per branch, shared bytes per CTA, X tile buffers, scratch
-    bytes (the partial rows of one evaluation) and the register width KM."""
+    CTA (CC), chunks of chains, tiles of 32 individuals per branch, shared
+    bytes per CTA, X tile buffers, scratch bytes (the partial rows of one
+    evaluation) and the register width KM."""
     index = torch.cuda.current_device() if device is None else torch.device(device).index
-    return dict(zip(K6_PLAN_FIELDS, _k6_plan(index, G, C, m, n, k0, s, depth, ACT_CODES[act],
-                                             cc)))
+    return dict(zip(K6_PLAN_FIELDS, _k6_plan(index, G, C, m, n, k0, s, depth, ACT_CODES[act])))
 
 
 _K6_SCRATCH = {}  # (device index, shape) -> K6's partial rows
 
 
-def _instances(t, name, shape, dev):
+def _instances(t, name, shape, dev, any_strides=False):
     """A [G, C, ...] f32 tensor as the kernel reads it: (the tensor, its
-    pointer, its strides over branches and chains). Its trailing dims must be
-    contiguous; a tensor whose are not (an expanded one) is copied."""
+    pointer, its strides over branches, chains, rows and columns; a bias
+    [G, C, cols] is one row). With ``any_strides`` (the step sizes and prior
+    factors) it is read where it lies, broadcast dims included; else its
+    trailing dims must be contiguous, and a tensor whose are not is copied."""
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name} has dtype {t.dtype}, expected torch.float32")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t[0, 0].is_contiguous():
+    if not any_strides and not t[0, 0].is_contiguous():
         t = t.contiguous()
-    return t, t.data_ptr(), t.stride(0), t.stride(1)
+    if t.dim() == 4:
+        rows_cols = t.stride()[2:]
+    elif t.dim() == 3:
+        rows_cols = (0, t.stride(2))
+    else:
+        rows_cols = (0, 0)
+    return t, t.data_ptr(), (t.stride(0), t.stride(1)) + tuple(rows_cols)
 
 
 def _integrate_dense_cuda(
@@ -246,14 +254,15 @@ def _integrate_dense_cuda(
 ):
     """Launch csrc/traj_dense.cu once for the whole trajectory, and no other
     device op: the kernel reads every per-layer input where it lies (strided
-    over branches and chains, as the sampler's transposed views are) and
-    writes the end of the trajectory into one new buffer, returned as
-    per-layer views."""
+    over branches and chains, as the sampler's transposed views are; the
+    step sizes and prior factors broadcast, as the sampler's expanded ones
+    are) and writes the end of the trajectory into one new buffer, returned
+    as per-layer views."""
     G, C, m, n, k0, s, depth = _dense_shape(xT, weights)
     dev, xT = xT.device, xT.contiguous()
     _check(xT, "xT", torch.float32, (G, m, n), dev)
     code = ACT_CODES[act]
-    plan = _k6_plan(dev.index, G, C, m, n, k0, s, depth, code, 0)
+    plan = _k6_plan(dev.index, G, C, m, n, k0, s, depth, code)
     key = (dev.index, G, C, m, n, k0, s, depth)
     scratch = _K6_SCRATCH.get(key)
     if scratch is None or scratch.numel() < plan[7]:
@@ -275,29 +284,29 @@ def _integrate_dense_cuda(
         off += size
     keep, ptrs, strides = [], [], []
 
-    def add(t, name, shape):
+    def add(t, name, shape, any_strides=False):
         if t is None:
             ptrs.append(None)
-            strides.extend((0, 0))
+            strides.extend((0, 0, 0, 0))
             return
-        t, ptr, sg, sc = _instances(t, name, shape, dev)
+        t, ptr, st = _instances(t, name, shape, dev, any_strides)
         keep.append(t)
         ptrs.append(ptr)
-        strides.extend((sg, sc))
+        strides.extend(st)
 
     add(targets, "targets", (G, C, n))
     add(err, "err", (G, C))
     for name, ws, bs in (("weights", weights, biases), ("momenta", p_w, p_b),
                          ("eps", eps_w, eps_b), ("lam", lam_w, lam_b)):
         for k, (t, sh) in enumerate(zip(slots(ws, bs), shapes)):
-            add(t, f"{name}[{k}]", sh)
+            add(t, f"{name}[{k}]", sh, name in ("eps", "lam"))
     for v, sh in zip(views, shapes + shapes):
         add(v, "out", sh)
     vp = ctypes.c_void_p
     status = _build.lib().traj_dense_f32(
         vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
         vp(scratch.data_ptr()), plan[7], G, C, m, n, k0, s, depth, int(L_steps), code,
-        int(bool(l1)), 0, vp(_build.stream_ptr(xT)),
+        int(bool(l1)), vp(_build.stream_ptr(xT)),
     )
     _build.check(status, "traj_dense_f32")
     integrate_chains.launches += 1

@@ -19,14 +19,16 @@ instantiations only) and called through the same C entry point:
   cvt_split     the split by cvt.rna.tf32 (K8's), not by integer operations
   two_barriers  a second CTA-wide barrier at the end of each tile
   no_update     the update phase skipped (the grid syncs stay)
-Every variant but ``kernel``, ``cvt_split`` and ``two_barriers`` gives
-wrong numbers; only its time means anything. The case: the dense
-flagship's block (G = 64, C = 4, m_pad = 64, k0 = s = 32, depth 1, n =
-4,096, tanh) at L = 64, the plan's CC, then ``kernel`` at CC = 1; then the
-cost of an evaluation beyond its tiles: ``kernel`` at n = 32 (one tile per
-instance, 128 CTAs) and at G = C = 1, n = 32 (one CTA), each from L = 0 and
-L = 64. Times: CUDA-event medians of 5 calls. The last line is a JSON object
-of the numbers.
+  cc1           one chain per CTA (kMaxCC = 1): no X tile shared by chains
+  act_runtime   the activation a launch argument read at run time, not a
+                template parameter (one instantiation for every activation)
+Every variant but ``kernel``, ``cvt_split``, ``two_barriers``, ``cc1`` and
+``act_runtime`` gives wrong numbers; only its time means anything. The case:
+the dense flagship's block (G = 64, C = 4, m_pad = 64, k0 = s = 32, depth 1,
+n = 4,096, tanh) at L = 64; then the cost of an evaluation beyond its
+tiles: ``kernel`` at n = 32 (one tile per instance, 128 CTAs) and at G = C
+= 1, n = 32 (one CTA), each from L = 0 and L = 64. Times: CUDA-event
+medians of 5 calls. The last line is a JSON object of the numbers.
 """
 
 import argparse
@@ -72,6 +74,13 @@ EDITS = {  # variant: [(file, old, new)]
                    "            if (a.steps < 0) update_layer<2, CC>(a, l);\n"
                    "            if (a.steps < 0) update_layer<3, CC>(a, l);\n        }\n"
                    "        if (a.steps < 0) update_layer<4, CC>(a, l);")],
+    "cc1": [("traj_dense.cu", "constexpr int kMaxCC = 2;", "constexpr int kMaxCC = 1;")],
+    "act_runtime": [("traj_dense.cu", "act_apply(ACT,", "act_apply(a.act,"),
+                    ("traj_dense.cu", "act_prime(ACT,", "act_prime(a.act,"),
+                    ("traj_dense.cu", "int G, C, m, n, k0, s, P, steps, l1;",
+                     "int G, C, m, n, k0, s, P, steps, l1, act;"),
+                    ("traj_dense.cu", "a.steps = steps, a.l1 = l1;",
+                     "a.steps = steps, a.l1 = l1, a.act = act;")],
 }
 
 
@@ -108,7 +117,7 @@ def cuda_ms(fn):
 
 def case(dev, g, c, n):
     """X, and the C entry's pointer and stride arrays (per-layer tensors
-    made once), for g branches, c chains, n individuals."""
+    made once, contiguous), for g branches, c chains, n individuals."""
     import torch
 
     gen = torch.Generator(dev).manual_seed(1)
@@ -122,9 +131,10 @@ def case(dev, g, c, n):
             keep.append({"w": 0.2 * t, "pw": t, "eps": 1e-3 * t.abs(), "lam": t.abs() + 0.5,
                          "out": torch.empty_like(t)}[kind])
     ptrs = [t.data_ptr() for t in keep]
-    strides = [s for t in keep for s in (t.stride(0), t.stride(1))]
+    # over branches and chains, then the last two dims' (a bias's first unused)
+    strides = [s for t in keep for s in t.stride()[:2] + t.stride()[-2:]]
     vp = ctypes.c_void_p
-    return X, keep, (vp * 32)(*ptrs), (ctypes.c_longlong * 64)(*strides)
+    return X, keep, (vp * 32)(*ptrs), (ctypes.c_longlong * 128)(*strides)
 
 
 def main():
@@ -162,22 +172,22 @@ def main():
         if proc.returncode:
             raise SystemExit(f"ablate_k6_torch: nvcc failed on {name}:\n{log}")
         so = ctypes.CDLL(str(out_dir / name / "lib.so"))
-        so.traj_dense_f32.argtypes = [vp] * 4 + [i64] + [i32] * 11 + [vp]
+        so.traj_dense_f32.argtypes = [vp] * 4 + [i64] + [i32] * 10 + [vp]
         so.traj_dense_f32.restype = i32
-        so.traj_dense_plan.argtypes = [i32] * 9 + [ctypes.POINTER(i64)]
+        so.traj_dense_plan.argtypes = [i32] * 8 + [ctypes.POINTER(i64)]
         so.traj_dense_plan.restype = i32
         libs[name] = so
     dev = torch.device("cuda")
     stream = vp(torch.cuda.current_stream().cuda_stream)
     res = {"device": smi, "ms": {}}
 
-    def timed(so, g, c, n, steps, cc=0):
+    def timed(so, g, c, n, steps):
         X, keep, ptrs, strides = case(dev, g, c, n)
         plan = (i64 * 9)()
-        _build.check(so.traj_dense_plan(g, c, M, n, K, K, 1, 3, cc, plan), "traj_dense_plan")
+        _build.check(so.traj_dense_plan(g, c, M, n, K, K, 1, 3, plan), "traj_dense_plan")
         scratch = torch.empty(plan[7], dtype=torch.uint8, device=dev)
         args = (vp(X.data_ptr()), ptrs, strides, vp(scratch.data_ptr()), plan[7], g, c, M, n, K,
-                K, 1, steps, 3, 0, cc, stream)
+                K, 1, steps, 3, 0, stream)
         return cuda_ms(lambda: _build.check(so.traj_dense_f32(*args), "traj_dense_f32"))
 
     for name, so in libs.items():
@@ -185,8 +195,6 @@ def main():
         print(f"{name}: L=64 {res['ms'][name]:.3f} ms", flush=True)
     if "kernel" in libs:
         so = libs["kernel"]
-        res["ms"]["kernel CC=1"] = timed(so, G, C, N, 64, cc=1)
-        print(f"kernel CC=1: L=64 {res['ms']['kernel CC=1']:.3f} ms", flush=True)
         for label, g, c in (("one tile per instance", G, C), ("one CTA", 1, 1)):
             l0, l64 = timed(so, g, c, 32, 0), timed(so, g, c, 32, 64)
             res["ms"][label] = {"L=0": l0, "L=64": l64, "per_evaluation_us": (l64 - l0) / 64 * 1e3}

@@ -33,8 +33,8 @@ flagship's shape too, whose outputs ``--compare`` holds bit for bit.
                that differ and the worst difference of each; K7's and K8's
                words must not differ, K6's must agree within REL_TOL_TRAJ
   --ablate     also time the launch at L = 64 under identity (the
-               activation's share) and with the other number of chains per
-               CTA, and at L = 0
+               activation's share), and at L = 0 (scripts/ablate_k6_torch.py
+               times the kernel at one chain per CTA and with edited pieces)
 The last line is a JSON object of the numbers.
 """
 
@@ -106,12 +106,11 @@ def rel_err(got, want):
                / max(1.0, b.double().abs().max().item()) for a, b in zip(flat(got), flat(want)))
 
 
-def launcher(TL, BM, _build, X, state, steps, act, cc):
-    """The C entry alone, on buffers made once (``cc``: chains per CTA, 0
-    for the plan's). This design takes the per-layer tensors and writes new
-    outputs; the first K6 design takes flat [G, C, P] state updated in
-    place, and a partial row per 128-individual tile (its copies are made
-    here, once)."""
+def launcher(TL, BM, _build, X, state, steps, act):
+    """The C entry alone, on buffers made once. This design takes the
+    per-layer tensors and writes new outputs; the first K6 design takes flat
+    [G, C, P] state updated in place, and a partial row per 128-individual
+    tile (its copies are made here, once)."""
     import torch
 
     from rs_bann_tpu_torch.ops.activations import ACT_CODES
@@ -123,25 +122,26 @@ def launcher(TL, BM, _build, X, state, steps, act, cc):
     stream = vp(_build.stream_ptr(X))
     code = ACT_CODES[act]
     if hasattr(TL, "traj_dense_plan"):
-        plan = TL.traj_dense_plan(G, C, M, N, K, K, 1, act, cc)
+        plan = TL.traj_dense_plan(G, C, M, N, K, K, 1, act)
         scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=X.device)
         out = torch.empty(2 * G * C * P, device=X.device)
         outs, off = [], 0
         for tns in (ws[0], bs[0], ws[1], bs[1], ws[2]) * 2:
             outs.append(out[off: off + tns.numel()])
             off += tns.numel()
+        # strides over branches and chains, then the last two dims' (a
+        # bias's first unused; every tensor here is contiguous)
         ptrs = [targets.data_ptr(), err.data_ptr()]
-        strides = [targets.stride(0), targets.stride(1), err.stride(0), err.stride(1)]
+        strides = list(targets.stride()[:2] + targets.stride()[-2:] + err.stride() * 2)
         for w_, b_ in ((ws, bs), (p_w, p_b), (eps_w, eps_b), (lam_w, lam_b)):
             for tns in (w_[0], b_[0], w_[1], b_[1], w_[2]):
                 ptrs.append(tns.data_ptr())
-                strides += [tns.stride(0), tns.stride(1)]
+                strides += tns.stride()[:2] + tns.stride()[-2:]
         for o, tns in zip(outs, (ws[0], bs[0], ws[1], bs[1], ws[2]) * 2):
-            per = tns[0, 0].numel()
             ptrs.append(o.data_ptr())
-            strides += [C * per, per]
-        args = (vp(X.data_ptr()), (vp * 32)(*ptrs), (ctypes.c_longlong * 64)(*strides),
-                vp(scratch.data_ptr()), plan["scratch"], G, C, M, N, K, K, 1, steps, code, 0, cc,
+            strides += tns.stride()[:2] + tns.stride()[-2:]
+        args = (vp(X.data_ptr()), (vp * 32)(*ptrs), (ctypes.c_longlong * 128)(*strides),
+                vp(scratch.data_ptr()), plan["scratch"], G, C, M, N, K, K, 1, steps, code, 0,
                 stream)
         keep = (scratch, out)
     else:
@@ -273,18 +273,15 @@ def main():
                "bytes_bound_ms": 1e3 * nbytes / PEAK_BYTES_S,
                "f32_bound_ms": 1e3 * 2 * per * fmas * evals / PEAK_F32_FLOPS}
         row["bound_ms"] = max(row["tensor_bound_ms"], row["bytes_bound_ms"])
-        run = launcher(TL, BM, _build, X, state, steps, "tanh", 0)
+        run = launcher(TL, BM, _build, X, state, steps, "tanh")
         row["launch_ms"] = cuda_ms(run)
         row["wrapper_ms"] = cuda_ms(call)
         row["plain_ms"] = cuda_ms(lambda: TL.integrate_chains_ref("tanh", X, *state, steps), runs=3)
         row.update(max_rel_err=err, max_rel_err_f64=err64, plain_max_rel_err_f64=plain64)
         if opts.ablate and new and steps == 64:
             row["identity_launch_ms"] = cuda_ms(launcher(TL, BM, _build, X, state, steps,
-                                                         "identity", 0))
-            other = 1 if res["plan"]["cc"] == 2 else 2
-            row[f"cc{other}_launch_ms"] = cuda_ms(launcher(TL, BM, _build, X, state, steps,
-                                                           "tanh", other))
-            row["L0_launch_ms"] = cuda_ms(launcher(TL, BM, _build, X, state, 0, "tanh", 0))
+                                                         "identity"))
+            row["L0_launch_ms"] = cuda_ms(launcher(TL, BM, _build, X, state, 0, "tanh"))
         print(f"L={steps}: launch {row['launch_ms']:.3f} ms, wrapper {row['wrapper_ms']:.3f} ms, "
               f"plain {row['plain_ms']:.3f} ms; bounds: 3xTF32 {row['tensor_bound_ms']:.3f}, "
               f"bytes {row['bytes_bound_ms']:.3f}, f32 {row['f32_bound_ms']:.3f} ms; share of "

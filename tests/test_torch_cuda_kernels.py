@@ -680,6 +680,43 @@ def test_integrate_chains_kernel_shapes(dev, G, C, m, n, k, depth, act, l1):
     _k6_check(act, _traj_dense_inputs(rng, dev, G, C, m, n, k, depth, 3), l1)
 
 
+@pytest.mark.parametrize("model_type,l1", [("ridge_ard", False), ("lasso_base", True)])
+def test_integrate_chains_reads_the_folds_inputs_in_place(dev, model_type, l1):
+    """The folded transition's own inputs (samplers/hmc.py ``fold``):
+    izmailov step sizes and prior factors expanded from [C, G, in, 1] and
+    [C, G, 1, 1] precisions (stride 0 in their trailing dims), err expanded
+    over branches, every tensor a [G, C] view of [C, G] storage. One call is
+    the K6 launch alone, no copy, and agrees with the plain version."""
+    from rs_bann_tpu_torch.samplers import hmc as TH
+    from rs_bann_tpu_torch.samplers.mcmc_cfg import MCMCCfg
+
+    rng = np.random.default_rng(21)
+    G, C, m, n, k, steps = 3, 2, 40, 333, 16, 3
+    xT, targets, weights, biases, _, _ = _dense_inputs(rng, dev, G, C, m, n, k, 1)
+
+    def cg(ts):  # [G, C, ...] -> [C, G, ...] storage
+        return tuple(t.transpose(0, 1).contiguous() for t in ts)
+
+    def bc(ts):  # the fold's [C, G, ...] -> [G, C, ...] views
+        return tuple(t.transpose(0, 1) for t in ts)
+
+    ws, bs = cg(weights), cg(biases)
+    pos = lambda *shape: torch.rand(shape, device=dev) + 0.5  # noqa: E731
+    w_prec = (pos(C, G, m, 1), pos(C, G, k, 1), pos(C, G, 1, 1))
+    b_prec = (pos(C, G, 1), pos(C, G, 1))
+    cfg = MCMCCfg(hmc_step_size_factor=0.1, hmc_integration_length=steps)
+    eps_w, eps_b = TH.step_sizes(None, model_type, cfg, ws, bs, w_prec, b_prec, None)
+    lam_w = tuple(lam.expand_as(w) for lam, w in zip(w_prec, ws))
+    lam_b = tuple(torch.zeros_like(b) for b in bs)
+    assert eps_w[0].stride(-1) == 0 and eps_b[0].stride(-1) == 0 and lam_w[0].stride(-1) == 0
+    p_w, p_b = cg(tuple(torch.randn_like(w) for w in weights)), cg(
+        tuple(torch.randn_like(b) for b in biases))
+    err = (torch.rand(C, device=dev) + 0.5)[None, :].expand(G, -1)
+    args = (xT, targets.transpose(0, 1).contiguous().transpose(0, 1), err, *map(
+        bc, (ws, bs, p_w, p_b, eps_w, eps_b, lam_w, lam_b)), steps)
+    _k6_check("tanh", args, l1)
+
+
 def test_integrate_chains_at_the_flagship_shape(dev):
     """The dense flagship's block (G = 64, C = 4, m = 64, k0 = s = 32, depth
     1, n = 4,096, tanh) at L = 1: two chains per CTA on each X tile, one CTA
