@@ -472,7 +472,9 @@ const void* kernel_km(bool deep, int act, int cc) {
 }
 
 // The instantiation for the shape: the activation is a template parameter,
-// so each one holds one activation's code.
+// so each one holds one activation's code (read at run time it made the
+// flagship's launch 47% slower, PERF.md section 6; the 60 instantiations
+// compile in parallel with branch_vg_packed.cu, which takes longer).
 const void* kernel_for(int km, bool deep, int act, int cc) {
     if (km == 8) return kernel_km<8>(deep, act, cc);
     if (km == 16) return kernel_km<16>(deep, act, cc);

@@ -23,7 +23,9 @@ adds, the tile's dW0 and dW1 added to the group's accumulators, the small
 sums per thread, then over the quad's lanes and the warps in order. The
 update phase: per (branch, chain, coordinate) the segments' rows added in
 order, then the prior gradient, err, the two half kicks and the drift in
-f32, as the kernel writes them.
+f32, as the kernel writes them. Last, the pointer and strides the wrapper
+passes for each layout of a per-layer tensor that the folded transition
+makes, read as the kernel reads them.
 """
 
 import jax.numpy as jnp
@@ -377,3 +379,47 @@ def test_integer_split_error():
     with np.errstate(invalid="ignore"):  # lo = inf - inf
         hi = split_int(special)[0]
     assert np.all(np.isnan(hi[:2])) and list(hi[2:]) == [np.inf, -np.inf]
+
+
+def _fold_layouts():
+    """[G, C, ...] views as the folded transition hands them to K6: [C, G]
+    storage transposed, the step sizes and prior factors expanded from
+    per-row, per-layer and per-bias precisions, err expanded over branches;
+    and a weight whose trailing dims are not contiguous."""
+    G, C, m, k = 3, 2, 5, 4
+    gen = torch.Generator().manual_seed(3)
+    r = lambda *s: torch.rand(s, generator=gen)  # noqa: E731
+    w = r(C, G, m, k)
+    return {
+        "weight": (r(C, G, m, k).transpose(0, 1), False),
+        "ard eps": ((1 / r(C, G, m, 1)).expand_as(w).transpose(0, 1), True),
+        "base lam": (r(C, G, 1, 1).expand_as(w).transpose(0, 1), True),
+        "w_out lam": (r(C, G, 1, 1).expand(C, G, k, 1).transpose(0, 1), True),
+        "bias eps": (r(C, G, 1).expand(C, G, k).transpose(0, 1), True),
+        "eps, not broadcast": (r(C, G, m, k).transpose(0, 1), True),
+        "bias lam, not broadcast": (r(C, G, k).transpose(0, 1), True),
+        "err": (r(1, C).expand(G, C), False),
+        "weight, trailing dims transposed": (r(G, C, k, m).transpose(2, 3), False),
+    }
+
+
+@pytest.mark.parametrize("kind", list(_fold_layouts()))
+def test_the_wrapper_passes_each_tensor_as_it_lies(kind):
+    """What ``_integrate_dense_cuda`` hands the C entry for one per-layer
+    tensor (``_instances``): read at the strides it passes as the kernel
+    reads it (the step sizes and prior factors at (g, c, row, column), the
+    others at (g, c) plus the element's index), every element is the
+    tensor's. Broadcast step sizes and prior factors are passed in place
+    (stride 0, no copy); only a tensor with non-contiguous trailing dims
+    that the kernel reads as contiguous is copied."""
+    t, any_strides = _fold_layouts()[kind]
+    held, ptr, (sg, sc, sr, sk) = TL._instances(t, kind, t.shape, t.device, any_strides)
+    G, C = t.shape[:2]
+    rows, cols = tuple(t.shape[2:]) if t.dim() == 4 else (1, t[0, 0].numel())
+    if any_strides:
+        assert ptr == t.data_ptr() and held is t
+        read = held.as_strided((G, C, rows, cols), (sg, sc, sr, sk))
+    else:
+        assert (ptr == t.data_ptr()) == t[0, 0].is_contiguous()
+        read = held.as_strided((G, C, rows * cols), (sg, sc, 1)).reshape(G, C, rows, cols)
+    assert torch.equal(read, t.reshape(G, C, rows, cols))
