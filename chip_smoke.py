@@ -40,8 +40,11 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
      K7 (data_vg_chains, feature-major X [64, 64, 4096]) and its
      forward-only instantiation (forward_chains) against their plain
-     versions, weights from the flagship's initial state, each chain's
-     perturbed; identical bits on a repeat
+     versions, in f32 and in f64 (max_rel_err_f64), weights from the
+     flagship's initial state, each chain's perturbed; identical bits on a
+     repeat; each launch alone (the C entry, back to back) beside the
+     wrapper's call, the plain version's, and the bound as implemented (the
+     products in 3xTF32, as K6's) with the f32 bound beside it
   8. K6 (integrate_chains) against its plain version at the same shape,
      izmailov step sizes from the initial state, at L = 1, 8 and 64;
      identical bits on a repeat; times at L = 1 and 64 beside the bound as
@@ -96,13 +99,14 @@ its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
 for K9a and K9b, 14 for K8a, 15 for K8b), error against
 its plain version (max_abs_err, and max_rel_err: the largest difference
 over max(1, largest plain entry), the ratio held to REL_TOL), times (of
-the wrapper's call, except K4's and K8's: the launch alone from
-back-to-back launches, the wrapper's call beside it as wrapper_ms), and
-the bound (the larger of its FLOPs over the
+the wrapper's call, except K4's, K7's and K8's: the launch alone from
+back-to-back launches, the wrapper's call beside it as wrapper_ms; K7's
+ms is its forward-only launch, the main path's, its value and gradient
+beside it as grad_*), and the bound (the larger of its FLOPs over the
 67 TFLOP/s f32 peak and its bytes, each input read once and each output
-written once, over 3.35 TB/s; for K2, K9a, K4, K3, K9b, K8a, K8b and K6 the work as
+written once, over 3.35 TB/s; for K2, K9a, K4, K3, K9b, K8a, K8b, K7 and K6 the work as
 implemented, three bf16 tensor-core products per f32 one at 989 TFLOP/s
-(K8a, K8b and K6: three tf32 ones at 494.7 TFLOP/s), with the f32 figure
+(K8a, K8b, K7 and K6: three tf32 ones at 494.7 TFLOP/s), with the f32 figure
 beside it as f32_bound_ms, K2's and K9a's value pass
 on the live width as value_pass_*, K3's and K9b's times at the warm
 start's block as warm_*); the last line is {"ok": true, "device":
@@ -179,6 +183,14 @@ def tc_bound(flop, nbytes):
     product is three bf16 tensor-core products (the exact split), so 3 x
     ``flop`` at the dense bf16 peak, against ``nbytes`` moved."""
     ops_ms, bytes_ms = 3e3 * flop / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def tf32_bound(flop, nbytes):
+    """(least ms, what bounds it) of K8, K7 and K6 as implemented: each f32
+    product is three tf32 tensor-core products (3xTF32), so 3 x ``flop`` at
+    the dense tf32 peak, against ``nbytes`` moved."""
+    ops_ms, bytes_ms = 3e3 * flop / PEAK_TF32_FLOPS, 1e3 * nbytes / PEAK_BYTES_S
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -734,36 +746,77 @@ def main():
         ftargets = fy + 0.1 * torch.randn((FG, FCHAINS, FN_TRAIN), device=dev, generator=fgen)
         out = BM.data_vg_chains("tanh", xT, fws, fbs, ftargets)
         ref = BM.data_vg_chains_ref("tanh", xT, fws, fbs, ftargets)
+        ref64 = BM.data_vg_chains_ref("tanh", xT.double(), tuple(w.double() for w in fws),
+                                      tuple(b.double() for b in fbs), ftargets.double())
+        flat7 = lambda r: [r[0], r[1], *r[2], *r[3]]  # noqa: E731
         names = ("y_pred", "rss", "dW0", "dW1", "dw_out", "db0", "db1")
         k7_err = 0.0
-        for name, got, want in zip(names, [out[0], out[1], *out[2], *out[3]],
-                                   [ref[0], ref[1], *ref[2], *ref[3]]):
+        for name, got, want, want64 in zip(names, flat7(out), flat7(ref), flat7(ref64)):
             k7_err = max(k7_err, check_close("data_vg_chains", name, got, want))
+            check_close("data_vg_chains f64", f"{name} (f64)", got.double(), want64)
         y_fwd = BM.forward_chains("tanh", xT, fws, fbs)
         k7_err = max(k7_err, check_close("data_vg_chains", "forward-only y_pred", y_fwd,
                                            ref[0]))
+        check_close("data_vg_chains f64", "forward-only y_pred (f64)", y_fwd.double(), ref64[0])
+        if not torch.equal(y_fwd, out[0]):
+            raise AssertionError("K7: the forward-only y_pred differs from the gradient pass's")
         again = BM.data_vg_chains("tanh", xT, fws, fbs, ftargets)
-        if not all(torch.equal(a, b) for a, b in zip([out[0], *out[2], *out[3]],
-                                                     [again[0], *again[2], *again[3]])):
+        if not all(torch.equal(a, b) for a, b in zip(flat7(out), flat7(again))):
             raise AssertionError("K7: two calls with the same inputs differ")
         if not torch.equal(y_fwd, BM.forward_chains("tanh", xT, fws, fbs)):
             raise AssertionError("K7 forward-only: two calls with the same inputs differ")
-        del out, ref, again, y_fwd
-        k7_grad_ms = cuda_ms(lambda: BM.data_vg_chains("tanh", xT, fws, fbs, ftargets))
-        k7_grad_plain_ms = cuda_ms(lambda: BM.data_vg_chains_ref("tanh", xT, fws, fbs, ftargets))
-        k7_ms = cuda_ms(lambda: BM.forward_chains("tanh", xT, fws, fbs))
-        k7_plain_ms = cuda_ms(lambda: BM.forward_chains_ref("tanh", xT, fws, fbs))
+        del out, ref, ref64, again, y_fwd
         fm, fk0, fs = xT.shape[1], fws[0].shape[-1], fws[-1].shape[-2]
+        P7 = fm * fk0 + fk0 + fk0 * fs + fs + fs
+
+        def k7_launch_ms(grad, reps=20):
+            """CUDA-event ms of one K7 call of the C entry (forward only, or
+            the pass and its fixed-order reduce), from runs of ``reps``
+            back-to-back calls on buffers made once."""
+            plan = BM.vg_chains_plan(FG, FCHAINS, fm, FN_TRAIN, fk0, fs, 1, grad)
+            keep, ptrs, strides = BM.chain_instances(ftargets if grad else None, fws, fbs,
+                                                     xT.device)
+            per7 = FG * FCHAINS
+            out7 = torch.empty(per7 * (FN_TRAIN + P7 + 1) if grad else per7 * FN_TRAIN, device=dev)
+            scratch = torch.empty(max(plan["scratch"], 8), dtype=torch.uint8, device=dev)
+            vp = ctypes.c_void_p
+            c_args = (vp(xT.data_ptr()), (vp * 6)(*ptrs), (ctypes.c_longlong * 24)(*strides),
+                      vp(out7.data_ptr()), vp(scratch.data_ptr()), plan["scratch"], FG, FCHAINS,
+                      fm, FN_TRAIN, fk0, fs, 1, ACT_CODES["tanh"], int(grad),
+                      vp(_build.stream_ptr(xT)))
+            lib = _build.lib()
+
+            def run():
+                for _ in range(reps):
+                    _build.check(lib.vg_chains_f32(*c_args), "vg_chains_f32")
+
+            ms = cuda_ms(run) / reps
+            del keep, out7, scratch
+            return ms, plan
+
+        k7_ms, k7_plan = k7_launch_ms(False)
+        k7_grad_ms, k7_grad_plan = k7_launch_ms(True)
+        k7_wrapper_ms = cuda_ms(lambda: BM.forward_chains("tanh", xT, fws, fbs))
+        k7_grad_wrapper_ms = cuda_ms(lambda: BM.data_vg_chains("tanh", xT, fws, fbs, ftargets))
+        k7_plain_ms = cuda_ms(lambda: BM.forward_chains_ref("tanh", xT, fws, fbs))
+        k7_grad_plain_ms = cuda_ms(lambda: BM.data_vg_chains_ref("tanh", xT, fws, fbs, ftargets))
         per = FG * FCHAINS * FN_TRAIN
         param_bytes = nbytes(*fws, *fbs)
-        k7_bound = bound(2 * per * mlp_fmas(fm, fk0, fs, 1, grad=False),
-                         nbytes(xT) + param_bytes + 4 * per)
-        k7_grad_bound = bound(2 * per * mlp_fmas(fm, fk0, fs, 1),
-                              nbytes(xT, ftargets) + 2 * param_bytes + 4 * per)
-        print(f"  value and gradient: kernel {k7_grad_ms:.3f} ms, plain {k7_grad_plain_ms:.3f} ms, "
-              f"bound {k7_grad_bound[0]:.3f} ms ({k7_grad_bound[1]}); identical repeat")
-        print(f"  forward only: kernel {k7_ms:.3f} ms, plain {k7_plain_ms:.3f} ms, "
-              f"bound {k7_bound[0]:.3f} ms ({k7_bound[1]}); identical repeat")
+        k7_bytes = nbytes(xT) + param_bytes + 4 * per  # X and the weights in, y_pred out
+        k7_grad_bytes = k7_bytes + nbytes(ftargets) + param_bytes + 4 * FG * FCHAINS
+        k7_f32_bound = bound(2 * per * mlp_fmas(fm, fk0, fs, 1, grad=False), k7_bytes)
+        k7_grad_f32_bound = bound(2 * per * mlp_fmas(fm, fk0, fs, 1), k7_grad_bytes)
+
+        # as implemented: Z0 and Z1 forward; with the gradient the five products
+        k7_bound = tf32_bound(2 * per * (fm * fk0 + fk0 * fs), k7_bytes)
+        k7_grad_bound = tf32_bound(2 * per * (2 * fm * fk0 + 3 * fk0 * fs), k7_grad_bytes)
+        print(f"  forward only: launch {k7_ms:.4f} ms (wrapper {k7_wrapper_ms:.4f} ms), plain "
+              f"{k7_plain_ms:.3f} ms, bound {k7_bound[0]:.4f} ms ({k7_bound[1]}; 3xTF32 as "
+              f"implemented; f32 {k7_f32_bound[0]:.4f} ms); plan {k7_plan}; identical repeat")
+        print(f"  value and gradient: launch {k7_grad_ms:.4f} ms (the pass and its reduce; "
+              f"wrapper {k7_grad_wrapper_ms:.4f} ms), plain {k7_grad_plain_ms:.3f} ms, bound "
+              f"{k7_grad_bound[0]:.4f} ms ({k7_grad_bound[1]}; f32 {k7_grad_f32_bound[0]:.4f} "
+              f"ms); plan {k7_grad_plan}; identical repeat")
 
         # ---- phase 8: K6 at the same shape
         print(f"phase 8: K6 integrate_chains vs plain at the same shape, L = 1, 8, {FL}")
@@ -806,9 +859,7 @@ def main():
             k6_f32_bound = bound(2 * per * (steps + 1) * mlp_fmas(fm, fk0, fs, 1), k6_bytes)
             # as implemented: the five products of each evaluation in 3xTF32
             # (three tf32 tensor-core products per f32 one) at the tf32 peak
-            k6_mma = 2 * per * (steps + 1) * (2 * fm * fk0 + 3 * fk0 * fs)
-            ops_ms, bytes_ms = 3e3 * k6_mma / PEAK_TF32_FLOPS, 1e3 * k6_bytes / PEAK_BYTES_S
-            k6_bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            k6_bound = tf32_bound(2 * per * (steps + 1) * (2 * fm * fk0 + 3 * fk0 * fs), k6_bytes)
             plan = LF.traj_dense_plan(FG, FCHAINS, fm, FN_TRAIN, fk0, fs, 1, "tanh")
             print(f"  L={steps}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
                   f"{k6_bound[0]:.3f} ms ({k6_bound[1]}; 3xTF32 as implemented; f32 "
@@ -1207,9 +1258,7 @@ def main():
             f32_bound = bound(2 * nb * FN_TRAIN * mlp_fmas(fm, fk0, fs, 1), moved)
             # as implemented: the five products in 3xTF32 (three tf32 tensor-core
             # products per f32 one) at the dense tf32 peak
-            mma = 2 * nb * FN_TRAIN * (2 * fm * fk0 + 3 * fk0 * fs)
-            ops_ms, bytes_ms = 3e3 * mma / PEAK_TF32_FLOPS, 1e3 * moved / PEAK_BYTES_S
-            case_bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            case_bound = tf32_bound(2 * nb * FN_TRAIN * (2 * fm * fk0 + 3 * fk0 * fs), moved)
             print(f"  {label}: kernel {ms:.4f} ms (launch alone; the wrapper {wrapper_ms:.4f} ms), "
                   f"plain {plain_ms:.4f} ms, bound {case_bound[0]:.4f} ms ({case_bound[1]}; "
                   f"3xTF32 as implemented; f32 {f32_bound[0]:.4f} ms); identical repeat")
@@ -1331,14 +1380,18 @@ def main():
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None,
          "k_live": k_live, "km": k5_km, "cc": k5_cc, "blocks_per_sm": k5_per_sm},
         # the flagship launches K7's forward-only instantiation (the value
-        # passes); the value-and-gradient one runs inside K6 and is timed too
+        # passes; its code csrc/branch_fwd_chains.cu and csrc/vg_chains.cuh);
+        # the value-and-gradient one is timed too (grad_*)
         {"name": "data_vg_chains", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/branch_vg_chains.cu",
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:649",
          "launches": k7_launches, "max_abs_err": k7_err, "ms": k7_ms, "plain_ms": k7_plain_ms,
          "bound_ms": k7_bound[0], "bound_by": k7_bound[1], "library_ms": None,
-         "grad_ms": k7_grad_ms, "grad_plain_ms": k7_grad_plain_ms,
-         "grad_bound_ms": k7_grad_bound[0]},
+         "wrapper_ms": k7_wrapper_ms, "f32_bound_ms": k7_f32_bound[0],
+         "grad_ms": k7_grad_ms, "grad_wrapper_ms": k7_grad_wrapper_ms,
+         "grad_plain_ms": k7_grad_plain_ms, "grad_bound_ms": k7_grad_bound[0],
+         "grad_f32_bound_ms": k7_grad_f32_bound[0], "ctas": k7_plan["ctas"], "cc": k7_plan["cc"],
+         "max_rel_err_f64": REL_ERR["data_vg_chains f64"]},
         {"name": "traj_dense", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/traj_dense.cu",
          "replaces": "rs_bann_tpu/ops/leapfrog.py:63",

@@ -91,13 +91,16 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
     if device.type != "cuda" or (args.packed_genotypes and cfg.gradient_descent):
         return []
     folded = chain_fold_eligible(args.model_type, args.activation_function, cfg)
-    if args.feat_major:
-        limit, kernels, layout = BM.dense_chains_smem, "K6/K7" if folded else "K8", "--feat-major"
+    if args.feat_major:  # folded: K6 for the trajectories, K7 for the value passes
+        rules, kernels = (((BM.traj_dense_smem, BM.vg_chains_smem), "K6/K7") if folded
+                          else ((BM.vg_dense_smem,), "K8"))
+        layout = "--feat-major"
     else:
-        limit, kernels = (BM.traj_packed_smem, "K5") if folded else (BM.branch_vg_packed_smem, "K4")
+        rules, kernels = (((BM.traj_packed_smem,), "K5") if folded
+                          else ((BM.branch_vg_packed_smem,), "K4"))
         layout = "--packed-genotypes"
     widths = (arch.layer_out_pad(0), arch.s_pad)
-    if limit(arch.m_pad, *widths, arch.depth) >= 0:
+    if all(rule(arch.m_pad, *widths, arch.depth) >= 0 for rule in rules):
         return []
     return [f"{layout} branches beyond the {kernels} CUDA kernels' limits (depth {arch.depth}, "
             f"{arch.m_pad} markers, widths {widths[0]}/{widths[1]}; they take depth 0 or 1, "

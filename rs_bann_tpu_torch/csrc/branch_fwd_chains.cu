@@ -1,0 +1,16 @@
+// K7's forward-only instantiations (y_pred alone: the folded transition's
+// value passes, through forward_chains), in a source of their own so that
+// they compile beside the value-and-gradient ones of
+// csrc/branch_vg_chains.cu, which holds the entry points. The kernel:
+// csrc/vg_chains.cuh.
+#include "vg_chains.cuh"
+
+namespace rsbann {
+namespace vg {
+
+const void* vg_chains_fwd_kernel(int km, bool deep, int act, int cc) {
+    return chains_kernel<false>(km, deep, act, cc);
+}
+
+}  // namespace vg
+}  // namespace rsbann

@@ -4,95 +4,223 @@
 // _data_vg_chains_impl, reached through data_vg_chains). For every (branch
 // g, chain c) on feature-major X xT [G, m, n]:
 //
-//     y_pred[g, c, i] = f(x_i; q[g, c])                       (i < n)
-//     grads[g, c]     = d(rss / 2) / d(q[g, c]),  rss = sum_i (y_pred - t)^2
+//     y_pred[g, c, i] = f(x_i; W[g, c])                        (i < n)
+//     rss[g, c]       = sum_i (y_pred - t)^2
+//     grads[g, c]     = d(rss / 2) / d(W0, b0, (W1, b1), w_out)[g, c]
 //
-// in the flat layout W0 [m, k0], b0 [k0], (W1 [k0, s], b1 [s]), w_out [s].
-// The device code is csrc/dense_chain_mlp.cuh, which K6 shares. One launch
-// is one block per (tile of 128 individuals, branch), then a second kernel
-// adds the tiles' partial sums in a fixed order: no float atomics, so the
-// same inputs give the same bits. A forward-only instantiation (grad = 0)
-// writes y_pred alone; the folded transition's value passes use it.
+// at depth 0 or 1, widths up to 32, every activation. The kernel is
+// csrc/vg_chains.cuh on the 3xTF32 tensor-core device code of
+// csrc/dense_vg_mma.cuh, which K6 and K8 run too; this source holds its
+// value-and-gradient instantiations, the fixed-order segment sum and the
+// entry points, csrc/branch_fwd_chains.cu the forward-only ones (y_pred
+// alone: the folded transition's value passes).
 //
-// What bounds it on the H100: per (branch, chain, individual) the pass does
-// 2 m k0 + 2 k0 s + s (forward) and 2 m k0 + 4 k0 s (backward) FMAs; at the
-// dense flagship (G = 64, C = 4, m = 64, k0 = s = 32, n = 4,096) that is
-// 1.5e10 FLOP against 67 MB of X and 4 MB of targets, so the f32 FMA rate
-// bounds it (0.23 ms at 67 TFLOP/s; the forward alone 0.10 ms), not device
-// memory (0.02 ms at 3.35 TB/s). The partial sums add 104 MB written and
-// read once per pass. Measured times: PERF.md section 6.
+// What bounds it on the H100: per (branch, chain, individual) the five
+// products are 2 m k0 + 3 k0 s multiply-adds (the forward's two m k0 + k0
+// s); at the dense flagship (G = 64, C = 4, m = 64, k0 = s = 32, depth 1,
+// n = 4,096) 1.5e10 FLOP (6.4e9 forward), three tf32 tensor-core products
+// per f32 one: 0.091 ms at 494.7 TFLOP/s (forward 0.039), against X (67
+// MB f32) read once, 0.020 ms at 3.35 TB/s. One partial row per (segment,
+// chain): 3.24 MB at the flagship. Measured times: PERF.md section 6.
 #include <cuda_runtime.h>
 
-#include "dense_chain_mlp.cuh"
+#include <cstdint>
+
+#include "vg_chains.cuh"
+
+namespace rsbann {
+namespace vg {
+
+const void* vg_chains_grad_kernel(int km, bool deep, int act, int cc) {
+    return chains_kernel<true>(km, deep, act, cc);
+}
+
+}  // namespace vg
+}  // namespace rsbann
 
 namespace {
 
 using namespace rsbann;
-using namespace rsbann::dense;
+using namespace rsbann::vg;
 
-template <int KM, bool DEEP, bool GRAD>
-__global__ void __launch_bounds__(kThreads, 2) vg_chains_kernel(ChainArgs a) {
-    extern __shared__ float4 smem4[];
-    chain_item<KM, DEEP, GRAD>(a, blockIdx.y, blockIdx.x, reinterpret_cast<float*>(smem4));
+// grads[g, c] and rss[g, c] (grid.y = g C + c) from the chain's segments:
+// instance j = (g, chunk of c), chain i = c % cc in rows (first + j + q) cc
+// + i for its CTAs first .. first + nseg - 1.
+__global__ void __launch_bounds__(32 * kSlices) vg_chains_reduce(const ChainArgs a, int ctas) {
+    const int gc = blockIdx.y, g = gc / a.C, c = gc - g * a.C;
+    const int j = g * a.chunks + c / a.cc;
+    const long long items = static_cast<long long>(a.NB) * a.tiles;
+    const int first = cta_of(static_cast<long long>(j) * a.tiles, ctas, items);
+    const int nseg = cta_of(static_cast<long long>(j + 1) * a.tiles - 1, ctas, items) - first + 1;
+    reduce_rows(a.partial, a.e2, a.P, (static_cast<long long>(first) + j) * a.cc + c % a.cc, a.cc,
+                nseg, a.grads + static_cast<size_t>(gc) * a.P, a.rss + gc);
 }
 
-__global__ void reduce_tiles_kernel(const float* __restrict__ partial, float* __restrict__ grads,
-                                    long long total, int ntiles, int P) {
-    reduce_tiles(partial, grads, total, ntiles, P);
+struct Plan {
+    int km, cc, chunks, NB, tiles, m16, m8, nbuf, per_sm, ctas;
+    long long smem, scratch;  // bytes
+};
+
+const void* kernel_for(int km, bool deep, bool grad, int act, int cc) {
+    return grad ? vg_chains_grad_kernel(km, deep, act, cc) : vg_chains_fwd_kernel(km, deep, act, cc);
 }
 
-template <int KM, bool DEEP, bool GRAD>
-int launch(const ChainArgs& a, int G, cudaStream_t stream) {
-    auto kern = vg_chains_kernel<KM, DEEP, GRAD>;
-    const size_t smem = smem_bytes(a.m, KM);
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// The shared memory attribute and the occupancy of each instantiation, kept
+// per device and shared size.
+struct Occupancy {
+    int dev = -1, sms = 0, per_sm = 0, nbuf = 0;
+    long long smem1 = -1, smem2 = -1;  // shared bytes with one and two X buffers
+};
+Occupancy g_occ[3 * 2 * 2 * 5 * kMaxCC];
+
+// The largest CC of (2, 1) that is at most C and fits, its X buffers and
+// resident CTAs per SM, and the work split over one wave.
+int plan(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl) {
+    if (G <= 0 || C <= 0 || n <= 0 || act < 0 || act > 4 ||
+        cta_smem(m, k0, s, depth, true, true, 1, 1) < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const bool deep = depth == 1;
+    pl->km = pick_km(k0, s);
+    pl->tiles = (n + kT - 1) / kT;
+    pl->m16 = (m + 15) & ~15;
+    pl->m8 = (m + 7) & ~7;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    kern<<<dim3(a.ntiles, G), kThreads, smem, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
-}
-
-template <bool DEEP, bool GRAD>
-int launch_km(int km, const ChainArgs& a, int G, cudaStream_t stream) {
-    if (km == 8) return launch<8, DEEP, GRAD>(a, G, stream);
-    if (km == 16) return launch<16, DEEP, GRAD>(a, G, stream);
-    return launch<32, DEEP, GRAD>(a, G, stream);
+    pl->cc = 0;
+    for (int cc = kMaxCC; cc >= 1 && pl->cc == 0; --cc) {
+        if (cc > C && cc > 1) continue;
+        // two X buffers (the next tile's copy under this one's work) unless
+        // they cost a resident CTA per SM or do not fit
+        const long long s1 = cta_smem(m, k0, s, depth, grad, true, cc, 1);
+        const long long s2 = cta_smem(m, k0, s, depth, grad, true, cc, 2);
+        if (s1 < 0) continue;
+        const int slot =
+            ((((pl->km == 8 ? 0 : pl->km == 16 ? 1 : 2) * 2 + (deep ? 1 : 0)) * 2 + (grad ? 1 : 0)) * 5 +
+             act) * kMaxCC + cc - 1;
+        Occupancy& occ = g_occ[slot];
+        if (occ.dev != dev || occ.smem1 != s1 || occ.smem2 != s2) {
+            const void* fn = kernel_for(pl->km, deep, grad, act, cc);
+            const bool two = s2 > 0;
+            int p1 = 0, p2 = 0;
+            if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          static_cast<int>(two ? s2 : s1))) != cudaSuccess ||
+                (e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev)) !=
+                    cudaSuccess ||
+                (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p1, fn, kThreads * cc, s1)) !=
+                    cudaSuccess ||
+                (two && (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p2, fn, kThreads * cc,
+                                                                           s2)) != cudaSuccess)) {
+                occ.dev = -1;
+                return static_cast<int>(e);
+            }
+            occ.nbuf = two && p2 >= p1 ? 2 : 1;
+            occ.per_sm = occ.nbuf == 2 ? p2 : p1;
+            occ.dev = dev;
+            occ.smem1 = s1;
+            occ.smem2 = s2;
+        }
+        if (occ.per_sm < 1) continue;
+        pl->cc = cc;
+        pl->nbuf = occ.nbuf;
+        pl->smem = occ.nbuf == 2 ? s2 : s1;
+        pl->per_sm = occ.per_sm;
+        const long long wave = static_cast<long long>(occ.per_sm) * occ.sms;
+        pl->chunks = (C + cc - 1) / cc;
+        pl->NB = G * pl->chunks;
+        if (wave >= pl->NB) {  // R CTAs per instance, each a run of one branch's tiles
+            const long long r = wave / pl->NB < pl->tiles ? wave / pl->NB : pl->tiles;
+            pl->ctas = static_cast<int>(pl->NB * r);
+        } else {  // one wave, several instances per CTA
+            pl->ctas = static_cast<int>(wave);
+        }
+    }
+    if (pl->cc == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long rows = (static_cast<long long>(pl->ctas) + pl->NB) * pl->cc;
+    // partial rows (f32), then each row's err^2 (f64)
+    pl->scratch = grad ? ((rows * partial_size(m, k0, s, deep) * 4 + 7) & ~7LL) + 8 * rows : 0;
+    return 0;
 }
 
 }  // namespace
 
-// Shared memory K6 and K7 need at these widths, or -1 if they cannot run
-// them (depth above 1, a width above 32, or more than 227 KB).
-extern "C" long long dense_chains_smem(int m, int k0, int s, int depth) {
-    const int km = pick_km(k0, s);
-    if (km < 0 || depth < 0 || depth > 1 || m <= 0) return -1;
-    const size_t smem = smem_bytes(m, km);
-    return smem > static_cast<size_t>(kMaxSmem) ? -1 : static_cast<long long>(smem);
+// Shared memory (bytes) K7 needs at these widths with one chain per CTA and
+// one X buffer (the value-and-gradient kernel: the forward-only one needs
+// less), or -1 if it cannot run them (depth above 1, a width above 32, or
+// more than 227 KB).
+extern "C" long long vg_chains_smem(int m, int k0, int s, int depth) {
+    return cta_smem(m, k0, s, depth, true, true, 1, 1);
 }
 
-// x f32 [G, m, n]; target f32 [G, C, n] (grad only); q f32 [G, C, P] flat
-// weights; y_pred f32 [G, C, n]; partial f32 [G, C, ceil(n / 128), P]
-// scratch and grads f32 [G, C, P] (grad only).
-extern "C" int vg_chains_f32(const void* x, const void* target, const void* q, void* y_pred,
-                             void* partial, void* grads, int G, int C, int m, int n, int k0,
-                             int s, int P, int depth, int act, int grad, void* stream) {
-    const int km = pick_km(k0, s);
-    const bool deep = depth == 1;
-    if (dense_chains_smem(m, k0, s, depth) < 0 || P != partial_size(m, k0, s, deep) || n <= 0 ||
-        G <= 0 || C <= 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int ntiles = (n + kTile - 1) / kTile;
-    ChainArgs a{static_cast<const float*>(x), static_cast<const float*>(target),
-                static_cast<const float*>(q),  static_cast<float*>(y_pred),
-                static_cast<float*>(partial),  C, m, n, k0, s, P, act, ntiles};
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    int status;
-    if (!grad) return deep ? launch_km<true, false>(km, a, G, st) : launch_km<false, false>(km, a, G, st);
-    status = deep ? launch_km<true, true>(km, a, G, st) : launch_km<false, true>(km, a, G, st);
+// What a K7 launch uses on this shape and activation on the current device:
+// out[0..8] = CTAs, resident CTAs per SM, chains per CTA (CC), chunks of
+// chains, tiles of 32 individuals per branch, shared bytes per CTA, X tile
+// buffers, scratch bytes (partial rows and err^2; zero for the forward-only
+// pass), register width KM.
+extern "C" int vg_chains_plan(int G, int C, int m, int n, int k0, int s, int depth, int grad,
+                              int act, long long* out) {
+    Plan pl;
+    const int status = plan(G, C, m, n, k0, s, depth, grad, act, &pl);
     if (status != 0) return status;
-    const long long total = static_cast<long long>(G) * C * P;
-    const int threads = 256;
-    reduce_tiles_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0, st>>>(
-        static_cast<const float*>(partial), static_cast<float*>(grads), total, ntiles, P);
-    return static_cast<int>(cudaGetLastError());
+    const long long v[9] = {pl.ctas, pl.per_sm, pl.cc, pl.chunks, pl.tiles, pl.smem, pl.nbuf,
+                            pl.scratch, pl.km};
+    for (int i = 0; i < 9; ++i) out[i] = v[i];
+    return 0;
+}
+
+// x f32 [G, m, n] contiguous. ptrs[6] and strides[24] (four per pointer, in
+// floats: over branches, chains, rows and columns; only the first two are
+// read) describe [G, C, ...] f32 tensors whose trailing dims are
+// contiguous: ptrs[0] the targets [G, C, n] (grad only), then W0 [m, k0],
+// b0 [k0], W1 [k0, s], b1 [s], w_out [s, 1] (W1 and b1 null at depth 0).
+// out f32: y_pred [G, C, n], then with grad grads [G, C, P] (P =
+// partial_size) and rss [G, C]; scratch of the plan's bytes (8-byte
+// aligned). With grad, two launches: the pass and the fixed-order reduce;
+// else the forward-only pass alone.
+extern "C" int vg_chains_f32(const void* x, const void* const* ptrs, const long long* strides,
+                             void* out, void* scratch, long long scratch_bytes, int G, int C,
+                             int m, int n, int k0, int s, int depth, int act, int grad,
+                             void* stream) {
+    Plan pl;
+    int status = plan(G, C, m, n, k0, s, depth, grad, act, &pl);
+    if (status != 0) return status;
+    if ((grad && (scratch_bytes < pl.scratch || reinterpret_cast<uintptr_t>(scratch) & 7)) ||
+        static_cast<long long>(G) * C > 65535)  // the reduce's grid.y
+        return static_cast<int>(cudaErrorInvalidValue);
+    const bool deep = depth == 1;
+    const int P = partial_size(m, k0, s, deep);
+    auto inst = [&](int k) {
+        return Inst{static_cast<const float*>(ptrs[k]), strides[4 * k], strides[4 * k + 1],
+                    strides[4 * k + 2], strides[4 * k + 3]};
+    };
+    ChainArgs a{};
+    a.x = static_cast<const float*>(x);
+    a.target = inst(0);
+    for (int ly = 0; ly < kLayers; ++ly) a.w[ly] = inst(1 + ly);
+    const size_t pairs = static_cast<size_t>(G) * C;
+    float* o = static_cast<float*>(out);
+    a.y_pred = o;
+    if (grad) {
+        const long long rows = (static_cast<long long>(pl.ctas) + pl.NB) * pl.cc;
+        a.grads = o + pairs * n;
+        a.rss = a.grads + pairs * P;
+        a.partial = static_cast<float*>(scratch);
+        a.e2 = reinterpret_cast<double*>(static_cast<char*>(scratch) +
+                                         ((rows * P * 4 + 7) & ~7LL));
+    }
+    a.G = G, a.C = C, a.m = m, a.n = n, a.k0 = k0, a.s = s, a.P = P;
+    a.cc = pl.cc, a.chunks = pl.chunks, a.NB = pl.NB, a.tiles = pl.tiles;
+    a.m16 = pl.m16, a.m8 = pl.m8, a.nbuf = pl.nbuf;
+    a.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    void* params[] = {&a};
+    cudaError_t e = cudaLaunchKernel(kernel_for(pl.km, deep, grad, act, pl.cc), dim3(pl.ctas),
+                                     dim3(kThreads * pl.cc), params, pl.smem, st);
+    if (e != cudaSuccess || !grad) return static_cast<int>(e);
+    int ctas = pl.ctas;
+    void* rparams[] = {&a, &ctas};
+    e = cudaLaunchKernel(reinterpret_cast<const void*>(&vg_chains_reduce),
+                         dim3((P + 1 + 31) / 32, static_cast<unsigned>(pairs)), dim3(32 * kSlices),
+                         rparams, 0, st);
+    return static_cast<int>(e);
 }

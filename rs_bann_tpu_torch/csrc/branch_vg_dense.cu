@@ -31,8 +31,11 @@
 //    buffered where that costs no resident CTA (not at the flagship: 3 CTAs
 //    of 74 KB fit an SM with one buffer, 2 with two).
 //  * The weights are read through their own pointers and staged once per
-//    instance and CTA as tf32 hi/lo fragments; err, rss and the partial rows
-//    come out of the same launch.
+//    instance and CTA as tf32 hi/lo fragments (cvt.rna), every other
+//    operand split as it is loaded by integer operations on its bits
+//    (split2_int, as K6 and K7); err, rss and the partial rows come out of
+//    the same launch. The CTA is one group of the device code K6 and K7 run
+//    (its tile, flush and segment sum).
 //  * A second launch sums the segments in a fixed order, rss over them in
 //    f64. (Summing them in the pass, by the last CTA of each instance found
 //    with an integer ticket, took longer at NB = 1, 32 and 64: one CTA
@@ -47,322 +50,112 @@
 
 #include "dense_vg_mma.cuh"
 
-// K6's and K7's limits, which K8 shares (csrc/branch_vg_chains.cu)
-extern "C" long long dense_chains_smem(int m, int k0, int s, int depth);
-
 namespace {
 
 using namespace rsbann;
 using namespace rsbann::vg;
 
-// Floats of shared memory of one CTA (the carve in vg_dense_kernel).
-long long smem_floats(int km, bool deep, bool grad, int m16, int m8, int nbuf) {
-    const long long k16 = km16(km), mt = k16 / 16, plane = k16 * kS;
-    long long f = static_cast<long long>(nbuf) * m16 * kS + (m8 / 8) * mt * 256;
-    if (deep) f += (km / 8) * mt * 256 * (grad ? 2 : 1) + plane;
-    if (grad) f += plane * (deep ? 2 : 1) + (m16 + (deep ? k16 : 0)) * acc_stride(km);
-    f += 3 * k16 + kWarps * 3 * k16 + 2 * kWarps;  // b0, b1, w_out; red; e2red
-    return f;
-}
-
-// The X tile tl of instance j into ``xs``: rows past m and individuals past
-// n are zero.
-__device__ void load_x(const Args& a, int j, int tl, float* xs) {
-    const float* xg =
-        a.x + static_cast<size_t>(a.xix != nullptr ? a.xix[j] : j) * a.m * a.n;
-    const int i0 = tl * kT;
-    if (a.vec16) {
-        for (int idx = threadIdx.x; idx < a.m16 * (kT / 4); idx += kThreads) {
-            const int row = idx >> 3, c4 = idx & 7, i = i0 + 4 * c4;
-            const bool ok = row < a.m && i < a.n;
-            cp_async16(xs + swz(row, 4 * c4), ok ? xg + static_cast<size_t>(row) * a.n + i : xg,
-                       ok ? 16 : 0);
-        }
-    } else {
-        for (int idx = threadIdx.x; idx < a.m16 * kT; idx += kThreads) {
-            const int row = idx >> 5, c = idx & 31, i = i0 + c;
-            const bool ok = row < a.m && i < a.n;
-            cp_async4(xs + swz(row, c), ok ? xg + static_cast<size_t>(row) * a.n + i : xg,
-                      ok ? 4 : 0);
-        }
-    }
-    cp_async_commit();
-}
+struct Args {
+    const float* x;       // [G, m, n]
+    const int* xix;       // [NB]: instance j reads X branch xix[j]; null: branch j
+    const float* target;  // [NB, n]
+    const float* w0;      // [NB, m, k0]
+    const float* b0;      // [NB, k0]
+    const float* w1;      // [NB, k0, s] (depth 1)
+    const float* b1;      // [NB, s]
+    const float* wout;    // [NB, s] (s = k0 at depth 0)
+    float* y_pred;        // [NB, n]
+    float* grads;         // [NB, P]: W0, b0, (W1, b1), w_out
+    float* rss;           // [NB]
+    float* partial;       // [ctas + NB, P]: segment (c, j) in row c + j
+    double* e2;           // [ctas + NB]: each segment's err^2
+    int NB, m, n, k0, s, P;
+    int tiles;  // tiles of kT individuals per instance
+    int m16, m8, nbuf, vec16;
+};
 
 // 3 CTAs (12 warps) per SM where shared memory allows: at the flagship's
-// width the registers fit 168 a thread and one X buffer 74 KB a CTA
+// width the registers fit 168 a thread and one X buffer 74 KB a CTA. The CTA
+// is one group of csrc/dense_vg_mma.cuh.
 template <int KM, bool DEEP, bool GRAD, int ACT>
 __global__ void __launch_bounds__(kThreads, 3) vg_dense_kernel(const Args a) {
-    constexpr int K16 = km16(KM), MT = K16 / 16, NT = KM / 8, AS = acc_stride(KM);
-    constexpr int PL = K16 * kS;  // floats per plane
+    constexpr int K16 = km16(KM), MT = K16 / 16;
     extern __shared__ float4 smem4[];
-    float* xs = reinterpret_cast<float*>(smem4);            // [nbuf][m16][kS]
-    float* w0f = xs + a.nbuf * a.m16 * kS;                   // Z0's A fragments
-    float* w1a = w0f + (a.m8 / 8) * MT * 256;                // Z1's (depth 1)
-    float* w1b = w1a + (DEEP ? NT * MT * 256 : 0);           // dA0's (depth 1, grad)
-    float* a0t = w1b + (DEEP && GRAD ? NT * MT * 256 : 0);   // [K16][kS] (depth 1)
-    float* dz1t = a0t + (DEEP ? PL : 0);                     // (depth 1, grad)
-    float* dz0t = dz1t + (DEEP && GRAD ? PL : 0);            // (grad)
-    float* acc0 = dz0t + (GRAD ? PL : 0);                    // dW0 [m16][AS] (grad)
-    float* acc1 = acc0 + (GRAD ? a.m16 * AS : 0);            // dW1 [K16][AS] (depth 1, grad)
-    float* b0s = acc1 + (GRAD && DEEP ? K16 * AS : 0);       // [K16]
-    float* b1s = b0s + K16;
-    float* wos = b1s + K16;
-    float* red = wos + K16;                                  // [kWarps][3][K16]
-    double* e2red = reinterpret_cast<double*>(red + kWarps * 3 * K16);  // [kWarps]
-
-    const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, g = lane >> 2, t = lane & 3;
+    float* xs = reinterpret_cast<float*>(smem4);  // [nbuf][m16][kS]
+    const Group<KM, DEEP, GRAD> gs(xs + a.nbuf * a.m16 * kS, a.m16, a.m8);
+    const int tid = threadIdx.x, w = tid >> 5, t = tid & 3;
     const int m = a.m, n = a.n, k0 = a.k0, s = a.s, P = a.P;
     const long long items = static_cast<long long>(a.NB) * a.tiles;
     const long long it_begin = blockIdx.x * items / gridDim.x;
     const long long it_end = (blockIdx.x + 1) * items / gridDim.x;
-    const int off_b0 = m * k0, off_w1 = off_b0 + k0, off_b1 = off_w1 + k0 * s;
-    const int off_wo = DEEP ? off_b1 + s : off_w1;
-
-    // the thread's sums over its individuals: db0, db1, dw_out per (tile mt,
-    // row half h) of units 16 mt + g + 8 h, and err^2
-    float db0[MT][2], db1[MT][2], dwo[MT][2];
-    double e2 = 0.0;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) db0[mt][0] = db0[mt][1] = db1[mt][0] = db1[mt][1] = dwo[mt][0] = dwo[mt][1] = 0.f;
-
-    // the CTA's gradient sums of instance j into its segment row; the
-    // thread's sums restart at zero, the shared ones with the next first tile
-    auto flush = [&](int j) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int o = 1; o < 4; o <<= 1) {
-                    db0[mt][h] += __shfl_xor_sync(0xffffffffu, db0[mt][h], o);
-                    db1[mt][h] += __shfl_xor_sync(0xffffffffu, db1[mt][h], o);
-                    dwo[mt][h] += __shfl_xor_sync(0xffffffffu, dwo[mt][h], o);
-                }
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) e2 += __shfl_xor_sync(0xffffffffu, e2, o);
-        if (t == 0) {
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int u = 16 * mt + g + 8 * h;
-                    red[(w * 3 + 0) * K16 + u] = db0[mt][h];
-                    red[(w * 3 + 1) * K16 + u] = db1[mt][h];
-                    red[(w * 3 + 2) * K16 + u] = dwo[mt][h];
-                }
-        }
-        if (lane == 0) e2red[w] = e2;
-        __syncthreads();
-        auto warps = [&](int which, int u) {
-            return ((red[which * K16 + u] + red[(3 + which) * K16 + u]) + red[(6 + which) * K16 + u]) +
-                   red[(9 + which) * K16 + u];
-        };
-        // the row: dW0 and dW1 a row of units per warp, the sums over units
-        float* part = a.partial + static_cast<size_t>(blockIdx.x + j) * P;
-        if (lane < k0) {
-            for (int mm = w; mm < m; mm += kWarps) part[mm * k0 + lane] = acc0[mm * AS + lane];
-        }
-        if (DEEP && lane < s) {
-            for (int kk = w; kk < k0; kk += kWarps) part[off_w1 + kk * s + lane] = acc1[kk * AS + lane];
-        }
-        if (tid < k0) part[off_b0 + tid] = warps(0, tid);
-        if (DEEP && tid < s) part[off_b1 + tid] = warps(1, tid);
-        if (tid < s) part[off_wo + tid] = warps(2, tid);
-        if (tid == 0) a.e2[blockIdx.x + j] = ((e2red[0] + e2red[1]) + e2red[2]) + e2red[3];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) db0[mt][0] = db0[mt][1] = db1[mt][0] = db1[mt][1] = dwo[mt][0] = dwo[mt][1] = 0.f;
-        e2 = 0.0;
-        __syncthreads();
+    // the X tile tl of instance j into dst: rows past m and individuals past n are zero
+    auto x_tile = [&](int j, int tl, float* dst) {
+        load_x(a.x + static_cast<size_t>(a.xix != nullptr ? a.xix[j] : j) * m * n, m, n, a.m16,
+               a.vec16, tl, dst);
     };
+    Sums<MT> sm;
+    sm.zero();
 
     // this item's instance and tile, and the next item's
     int jj = static_cast<int>(it_begin / a.tiles), tl = static_cast<int>(it_begin % a.tiles);
     int j = -1, buf = 0;
-    load_x(a, jj, tl, xs);
-    // the weight fragments' padding (rows past m, k0 or s, columns past k0
-    // or s) is zero for every instance; staging writes the rest
-    {
-        float4* f4 = reinterpret_cast<float4*>(w0f);
-        const int n4 = ((a.m8 / 8) * MT + (DEEP ? (GRAD ? 2 : 1) * NT * MT : 0)) * 64;
-        for (int i = tid; i < n4; i += kThreads) f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        __syncthreads();
-    }
+    x_tile(jj, tl, xs);
+    zero_frags<KM, DEEP, GRAD>(gs, a.m8, tid);
+    __syncthreads();
     for (long long it = it_begin; it < it_end; ++it) {
         const int i0 = tl * kT;
         const bool first = jj != j;  // the segment's first tile
         if (first) {
-            if (GRAD && j >= 0) flush(j);
+            if constexpr (GRAD) {
+                if (j >= 0)
+                    flush<KM, DEEP, true>(gs, sm, a.partial + static_cast<size_t>(blockIdx.x + j) * P,
+                                          a.e2 + blockIdx.x + j, m, k0, s, 0);
+            }
             j = jj;
-            stage_weights<MT, K16, DEEP, GRAD>(a, j, w0f, w1a, w1b, b0s);
+            stage_weights_from<MT, K16, DEEP, GRAD>(
+                a.w0 + static_cast<size_t>(j) * m * k0, a.b0 + static_cast<size_t>(j) * k0,
+                DEEP ? a.w1 + static_cast<size_t>(j) * k0 * s : nullptr,
+                DEEP ? a.b1 + static_cast<size_t>(j) * s : nullptr, a.wout + static_cast<size_t>(j) * s,
+                m, k0, s, tid, gs.w0f, gs.w1a, gs.w1b, gs.b0s);
         }
         if (++tl == a.tiles) tl = 0, ++jj;
         const bool next = it + 1 < it_end;
         if (next && a.nbuf == 2) {
-            load_x(a, jj, tl, xs + (buf ^ 1) * a.m16 * kS);
+            x_tile(jj, tl, xs + (buf ^ 1) * a.m16 * kS);
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
         }
-        // the two individuals of this thread's column pair and their targets
-        const int col = 8 * w + 2 * t;
-        const int i_a = i0 + col, i_b = i_a + 1;
+        // the targets of this thread's two individuals
         float tg_a = 0.f, tg_b = 0.f;
         if (GRAD) {
+            const int i_a = i0 + 8 * w + 2 * t;
             if (i_a < n) tg_a = __ldg(a.target + static_cast<size_t>(j) * n + i_a);
-            if (i_b < n) tg_b = __ldg(a.target + static_cast<size_t>(j) * n + i_b);
+            if (i_a + 1 < n) tg_b = __ldg(a.target + static_cast<size_t>(j) * n + i_a + 1);
         }
         __syncthreads();  // the X tile and the staged weights are visible
-        const float* xt = xs + buf * a.m16 * kS;
-
-        // ---- phase A: the warp's 8 individuals through the whole MLP
-        float z0[MT][4], a0[MT][4];
-        product_a<MT>(w0f, xt, a.m8 / 8, 8 * w + g, z0);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                z0[mt][e] += b0s[16 * mt + g + 8 * (e >> 1)];
-                a0[mt][e] = act_apply(ACT, z0[mt][e]);
-            }
-        float z1[MT][4], a1[MT][4];
-        if (DEEP) {
-            store_plane<MT>(a0t, col, a0);
-            __syncwarp();
-            product_a<MT>(w1a, a0t, NT, 8 * w + g, z1);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    z1[mt][e] += b1s[16 * mt + g + 8 * (e >> 1)];
-                    a1[mt][e] = act_apply(ACT, z1[mt][e]);
-                }
-        }
-        float p_a = 0.f, p_b = 0.f;
-        if constexpr (DEEP) {
-            pred_terms<MT>(a1, wos, p_a, p_b);
-        } else {
-            pred_terms<MT>(a0, wos, p_a, p_b);
-        }
-        // over the units of the other lanes with this t: every lane gets the same bits
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-            p_a += __shfl_xor_sync(0xffffffffu, p_a, o);
-            p_b += __shfl_xor_sync(0xffffffffu, p_b, o);
-        }
-        if (g == 0) {
-            if (i_a < n) a.y_pred[static_cast<size_t>(j) * n + i_a] = p_a;
-            if (i_b < n) a.y_pred[static_cast<size_t>(j) * n + i_b] = p_b;
-        }
-        if (GRAD) {
-            const float err[2] = {i_a < n ? p_a - tg_a : 0.f, i_b < n ? p_b - tg_b : 0.f};
-            if (g == 0) {
-                e2 = fma(static_cast<double>(err[0]), static_cast<double>(err[0]), e2);
-                e2 = fma(static_cast<double>(err[1]), static_cast<double>(err[1]), e2);
-            }
-            float dz0[MT][4];
-            if (DEEP) {
-                float dz1[MT][4];
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int h = e >> 1;
-                        const float er = err[e & 1];
-                        dz1[mt][e] = wos[16 * mt + g + 8 * h] * er * act_prime(ACT, z1[mt][e], a1[mt][e]);
-                        dwo[mt][h] = fmaf(a1[mt][e], er, dwo[mt][h]);
-                        db1[mt][h] += dz1[mt][e];
-                    }
-                store_plane<MT>(dz1t, col, dz1);
-                __syncwarp();
-                float da[MT][4];
-                product_a<MT>(w1b, dz1t, NT, 8 * w + g, da);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) dz0[mt][e] = da[mt][e] * act_prime(ACT, z0[mt][e], a0[mt][e]);
-            } else {
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int h = e >> 1;
-                        const float er = err[e & 1];
-                        dz0[mt][e] = wos[16 * mt + g + 8 * h] * er * act_prime(ACT, z0[mt][e], a0[mt][e]);
-                        dwo[mt][h] = fmaf(a0[mt][e], er, dwo[mt][h]);
-                    }
-            }
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) db0[mt][e >> 1] += dz0[mt][e];
-            store_plane<MT>(dz0t, col, dz0);
-            __syncthreads();  // every warp's planes are written
-
-            // ---- phase B: dW0 = X dz0 and dW1 = a0^T dz1 over the tile, in
-            // units of a row tile and NTU column tiles that share its A
-            constexpr int NTU = NT >= 2 ? 2 : 1, NU = NT / NTU;
-            const int u0 = (a.m16 / 16) * NU, u1 = DEEP ? MT * NU : 0;
-            for (int u = w; u < u0 + u1; u += kWarps) {
-                float acc[NTU][4];
-                if (u < u0) {
-                    const int mt = u / NU, nt = (u - mt * NU) * NTU;
-                    product_b<NTU>(xt, 16 * mt, dz0t, 8 * nt, acc);
-                    add_tiles<NTU>(acc0, AS, 16 * mt, 8 * nt, first, acc);
-                } else {
-                    const int kt = (u - u0) / NU, nt = (u - u0 - kt * NU) * NTU;
-                    product_b<NTU>(a0t, 16 * kt, dz1t, 8 * nt, acc);
-                    add_tiles<NTU>(acc1, AS, 16 * kt, 8 * nt, first, acc);
-                }
-            }
-        }
+        tile<KM, DEEP, GRAD, ACT, true>(gs, sm, xs + buf * a.m16 * kS, a.m8, a.m16, n, i0, tg_a,
+                                        tg_b, first, 0, a.y_pred + static_cast<size_t>(j) * n);
         __syncthreads();  // the tile, the planes and the accumulators are free again
-        if (next && a.nbuf == 1) load_x(a, jj, tl, xs);
+        if (next && a.nbuf == 1) x_tile(jj, tl, xs);
         if (a.nbuf == 2) buf ^= 1;
     }
-    if (GRAD && j >= 0) flush(j);
+    if constexpr (GRAD) {
+        if (j >= 0)
+            flush<KM, DEEP, true>(gs, sm, a.partial + static_cast<size_t>(blockIdx.x + j) * P,
+                                  a.e2 + blockIdx.x + j, m, k0, s, 0);
+    }
 }
 
 // grads[j] and rss[j] from instance j's segments (grid.y = j), CTAs first ..
-// first + nseg - 1 of the pass (segment (c, j) in row c + j), 32 columns x
-// kSlices row slices per block: slice sl adds segments sl, sl + kSlices, ...
-// from zero, then the slices are added in order; column P is rss, in f64.
+// first + nseg - 1 of the pass (segment (c, j) in row c + j).
 __global__ void __launch_bounds__(32 * kSlices) vg_dense_reduce(const Args a, int ctas) {
-    __shared__ float s_f[kSlices][32];
-    __shared__ double s_d[kSlices];
-    const int j = blockIdx.y, c = threadIdx.x & 31, sl = threadIdx.x >> 5;
-    const int p = blockIdx.x * 32 + c;
-    int first, nseg;
-    {
-        const long long items = static_cast<long long>(a.NB) * a.tiles;
-        first = cta_of(static_cast<long long>(j) * a.tiles, ctas, items);
-        nseg = cta_of(static_cast<long long>(j + 1) * a.tiles - 1, ctas, items) - first + 1;
-    }
-    float sum = 0.f;
-    double d = 0.0;
-    if (p < a.P) {
-        const float* part = a.partial + static_cast<size_t>(first + j) * a.P + p;
-#pragma unroll 4
-        for (int q = sl; q < nseg; q += kSlices) sum += __ldcg(part + static_cast<size_t>(q) * a.P);
-    } else if (p == a.P) {
-        for (int q = sl; q < nseg; q += kSlices) d += __ldcg(a.e2 + first + j + q);
-        s_d[sl] = d;
-    }
-    s_f[sl][c] = sum;
-    __syncthreads();
-    if (sl == 0) {
-        if (p < a.P) {
-            float tot = s_f[0][c];
-#pragma unroll
-            for (int k = 1; k < kSlices; ++k) tot += s_f[k][c];
-            a.grads[static_cast<size_t>(j) * a.P + p] = tot;
-        } else if (p == a.P) {
-            double tot = s_d[0];
-#pragma unroll
-            for (int k = 1; k < kSlices; ++k) tot += s_d[k];
-            a.rss[j] = static_cast<float>(tot);
-        }
-    }
+    const int j = blockIdx.y;
+    const long long items = static_cast<long long>(a.NB) * a.tiles;
+    const int first = cta_of(static_cast<long long>(j) * a.tiles, ctas, items);
+    const int nseg = cta_of(static_cast<long long>(j + 1) * a.tiles - 1, ctas, items) - first + 1;
+    reduce_rows(a.partial, a.e2, a.P, static_cast<long long>(first) + j, 1, nseg,
+                a.grads + static_cast<size_t>(j) * a.P, a.rss + j);
 }
 
 struct Plan {
@@ -404,7 +197,7 @@ struct Occupancy {
 Occupancy g_occ[60];
 
 int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl) {
-    if (NB <= 0 || n <= 0 || act < 0 || act > 4 || dense_chains_smem(m, k0, s, depth) < 0)
+    if (NB <= 0 || n <= 0 || act < 0 || act > 4 || cta_smem(m, k0, s, depth, true, true, 1, 1) < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const bool deep = depth == 1;
     pl->km = pick_km(k0, s);
@@ -413,9 +206,8 @@ int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan
     pl->m8 = (m + 7) & ~7;
     // two X buffers (the next tile's copy under this one's work) unless they
     // cost a resident CTA per SM or do not fit
-    const long long s1 = 4 * smem_floats(pl->km, deep, grad, pl->m16, pl->m8, 1);
-    const long long s2 = 4 * smem_floats(pl->km, deep, grad, pl->m16, pl->m8, 2);
-    if (s1 > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    const long long s1 = cta_smem(m, k0, s, depth, grad, true, 1, 1);
+    const long long s2 = cta_smem(m, k0, s, depth, grad, true, 1, 2);
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -424,7 +216,7 @@ int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan
     Occupancy& occ = g_occ[slot];
     if (occ.dev != dev || occ.smem1 != s1 || occ.smem2 != s2) {
         const void* fn = kernel_for(pl->km, deep, grad, act);
-        const bool two = s2 <= kMaxSmem;
+        const bool two = s2 > 0;
         int p1 = 0, p2 = 0;
         if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       static_cast<int>(two ? s2 : s1))) != cudaSuccess ||
@@ -459,6 +251,15 @@ int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan
 }
 
 }  // namespace
+
+// Shared memory (bytes) K8 needs at these widths with one X buffer (the
+// value-and-gradient kernel: the forward-only one needs less), or -1 if it
+// cannot run them (depth above 1, a width above 32, or more than 227 KB).
+// The CLI asks its mirror before a sequential or unfolded feature-major run
+// on the card.
+extern "C" long long vg_dense_smem(int m, int k0, int s, int depth) {
+    return cta_smem(m, k0, s, depth, true, true, 1, 1);
+}
 
 // What a K8 launch uses on this shape and activation, on the current
 // device: out[0..7] =

@@ -1,23 +1,24 @@
 // The dense branch MLP's value and gradient on tf32 tensor cores kept exact
-// at f32 level: the device code of K8a/K8b (csrc/branch_vg_dense.cu) and of
-// K6's gradient phase (csrc/traj_dense.cu). K7 keeps its own f32 device
-// code, csrc/dense_chain_mlp.cuh.
+// at f32 level: the device code of K6 (csrc/traj_dense.cu), K7
+// (csrc/vg_chains.cuh) and K8a/K8b (csrc/branch_vg_dense.cu).
 //
 // A work item is (instance j, tile of kT = 32 individuals) of feature-major
-// X [m, n]. A group of 4 warps takes a contiguous run of items, one instance
-// after another, and keeps that instance's gradient sums in shared memory
-// over the run; it writes one partial row per instance it touched
-// ("segment"), and the segments are summed in a fixed order afterwards. (K8
-// is one group per CTA; K6's CTA holds CC groups, one chain each, on one X
-// tile.)
+// X [m, n]. A group of 4 warps runs one chain: it takes a contiguous run of
+// items, one instance after another, and keeps that instance's gradient
+// sums in shared memory over the run; it writes one partial row per
+// instance it touched ("segment"), and the segments are summed in a fixed
+// order afterwards. K8's CTA is one group; K6's and K7's hold CC groups,
+// chain i of a chunk of CC chains in group i, all on one X tile.
 //
 // The five products run as mma.sync.m16n8k8 tf32 in 3xTF32: each f32
-// operand v is split into hi = tf32(v) and lo = tf32(v - hi) (v - hi is
-// exact), and a fragment is hi*hi + (lo*hi + hi*lo): 2^-21 of |a b| per
-// product. The tensor cores' f32 accumulation cuts toward zero, so each of
-// the three products runs from a zero accumulator and they join the f32 sum
-// by round-to-nearest adds (as mma_split3_add in packed_mma.cuh does for
-// its parts); no accumulator is chained across fragments.
+// operand v is split into tf32 parts hi and lo (v - hi is exact), and a
+// fragment is hi*hi + (lo*hi + hi*lo). The staged weights are split once
+// per instance by cvt.rna (hi + lo is v to 2^-22); every other operand as
+// it is loaded by integer operations on its bits (split2_int: 2^-21, in
+// fewer issue slots). The tensor cores' f32 accumulation cuts toward zero,
+// so each of the three products runs from a zero accumulator and they join
+// the f32 sum by round-to-nearest adds (as mma_split3_add in packed_mma.cuh
+// does for its parts); no accumulator is chained across fragments.
 //
 // Phase A, warp w owns individuals 8w .. 8w + 7 of the tile (the MMA's N)
 // and every unit (M, tiles of 16), so the chain stays in its registers:
@@ -49,12 +50,13 @@ namespace rsbann {
 namespace vg {
 
 constexpr int kT = 32;             // individuals per tile
-constexpr int kWarps = 4;          // warps per CTA: kT / 8
+constexpr int kWarps = 4;          // warps per group: kT / 8
 constexpr int kThreads = 32 * kWarps;
 constexpr int kS = kT + 8;         // row stride of [rows][kT] buffers (8 mod 32)
 constexpr int kSlices = 8;         // row slices of the fixed-order segment sum
 constexpr int kBatch = 16;         // weight loads in flight per thread while staging
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
+constexpr int kLayers = 5;         // W0, b0, W1, b1, w_out (W1 and b1 unused at depth 0)
 
 __host__ __device__ constexpr int km16(int km) { return km < 16 ? 16 : km; }
 // row stride of the gradient accumulators: 8 mod 32 or 24, conflict-free float2
@@ -69,24 +71,106 @@ __host__ __device__ inline int cta_of(long long x, int ctas, long long items) {
     return static_cast<int>(((x + 1) * ctas - 1) / items);
 }
 
-struct Args {
-    const float* x;       // [G, m, n]
-    const int* xix;       // [NB]: instance j reads X branch xix[j]; null: branch j
-    const float* target;  // [NB, n]
-    const float* w0;      // [NB, m, k0]
-    const float* b0;      // [NB, k0]
-    const float* w1;      // [NB, k0, s] (depth 1)
-    const float* b1;      // [NB, s]
-    const float* wout;    // [NB, s] (s = k0 at depth 0)
-    float* y_pred;        // [NB, n]
-    float* grads;         // [NB, P]: W0, b0, (W1, b1), w_out
-    float* rss;           // [NB]
-    float* partial;       // [ctas + NB, P]: segment (c, j) in row c + j
-    double* e2;           // [ctas + NB]: each segment's err^2
-    int NB, m, n, k0, s, P;
-    int tiles;  // tiles of kT individuals per instance
-    int m16, m8, nbuf, vec16;
+// Floats of shared memory of one group (one chain): the weight fragments,
+// the planes, with ``grad`` the accumulators, b0, b1, w_out, the warps'
+// small sums, and with ``grad`` and ``rss`` the warps' err^2 (f64). Every
+// part is a multiple of 4 floats, so each group and each part starts on 16
+// bytes.
+__host__ __device__ inline long long group_floats(int km, bool deep, bool grad, bool rss, int m16,
+                                                  int m8) {
+    const long long k16 = km16(km), mt = k16 / 16, plane = k16 * kS;
+    long long f = (m8 / 8) * mt * 256;
+    if (deep) f += (km / 8) * mt * 256 * (grad ? 2 : 1) + plane;
+    if (grad) f += plane * (deep ? 2 : 1) + (m16 + (deep ? k16 : 0)) * acc_stride(km);
+    f += 3 * k16 + kWarps * 3 * k16;
+    return f + (grad && rss ? 2 * kWarps : 0);
+}
+
+// Shared bytes a CTA of ``cc`` groups and ``nbuf`` X tile buffers uses at
+// padded width km, or -1 past depth 1, a width above 32 or 227 KB.
+inline long long cta_smem(int m, int k0, int s, int depth, bool grad, bool rss, int cc,
+                          int nbuf) {
+    const int km = pick_km(k0, s);
+    if (km < 0 || depth < 0 || depth > 1 || m <= 0) return -1;
+    const int m16 = (m + 15) & ~15, m8 = (m + 7) & ~7;
+    const long long b =
+        4 * (static_cast<long long>(nbuf) * m16 * kS + cc * group_floats(km, depth == 1, grad, rss, m16, m8));
+    return b > kMaxSmem ? -1 : b;
+}
+
+// One group's shared buffers, carved from ``base`` in the order of
+// group_floats.
+template <int KM, bool DEEP, bool GRAD>
+struct Group {
+    float *w0f, *w1a, *w1b, *a0t, *dz1t, *dz0t, *acc0, *acc1, *b0s, *b1s, *wos, *red;
+    double* e2red;
+    __device__ __forceinline__ Group(float* base, int m16, int m8) {
+        constexpr int K16 = km16(KM), MT = K16 / 16, NT = KM / 8, PL = K16 * kS;
+        constexpr int AS = acc_stride(KM);
+        w0f = base;                                        // Z0's A fragments
+        w1a = w0f + (m8 / 8) * MT * 256;                   // Z1's (depth 1)
+        w1b = w1a + (DEEP ? NT * MT * 256 : 0);            // dA0's (depth 1, grad)
+        a0t = w1b + (DEEP && GRAD ? NT * MT * 256 : 0);    // [K16][kS] (depth 1)
+        dz1t = a0t + (DEEP ? PL : 0);                      // (depth 1, grad)
+        dz0t = dz1t + (DEEP && GRAD ? PL : 0);             // (grad)
+        acc0 = dz0t + (GRAD ? PL : 0);                     // dW0 [m16][AS] (grad)
+        acc1 = acc0 + (GRAD ? m16 * AS : 0);               // dW1 [K16][AS] (depth 1, grad)
+        b0s = acc1 + (GRAD && DEEP ? K16 * AS : 0);        // [K16]
+        b1s = b0s + K16;
+        wos = b1s + K16;
+        red = wos + K16;                                   // [kWarps][3][K16]
+        e2red = reinterpret_cast<double*>(red + kWarps * 3 * K16);  // [kWarps] (grad, rss)
+    }
 };
+
+// The 4 warps of group grp (named barrier grp + 1; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int grp) {
+    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "r"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+                 "r"(src_bytes));
+}
+
+// The X tile tl of one branch xg [m, n] into ``xs``, by every thread of the
+// CTA: rows past m and individuals past n are zero. vec16: n % 4 == 0 and
+// X on 16 bytes, so 16-byte copies.
+__device__ __forceinline__ void load_x(const float* xg, int m, int n, int m16, int vec16, int tl,
+                                       float* xs) {
+    const int i0 = tl * kT;
+    if (vec16) {
+        for (int idx = threadIdx.x; idx < m16 * (kT / 4); idx += blockDim.x) {
+            const int row = idx >> 3, c4 = idx & 7, i = i0 + 4 * c4;
+            const bool ok = row < m && i < n;
+            cp_async16(xs + swz(row, 4 * c4), ok ? xg + static_cast<size_t>(row) * n + i : xg,
+                       ok ? 16 : 0);
+        }
+    } else {
+        for (int idx = threadIdx.x; idx < m16 * kT; idx += blockDim.x) {
+            const int row = idx >> 5, c = idx & 31, i = i0 + c;
+            const bool ok = row < m && i < n;
+            cp_async4(xs + swz(row, c), ok ? xg + static_cast<size_t>(row) * n + i : xg,
+                      ok ? 4 : 0);
+        }
+    }
+    cp_async_commit();
+}
+
+// A [G, C, rows, cols] f32 tensor (a bias [G, C, cols] is one row, w_out
+// [G, C, s, 1] one column): element (g, c, r, k) at p + g * sg + c * sc +
+// r * sr + k * sk. K6 reads its step sizes and prior factors through sr and
+// sk; every other tensor's trailing dims are contiguous (element (g, c, i)
+// at at(v, g, c) + i).
+struct Inst {
+    const float* p;
+    long long sg, sc, sr, sk;
+};
+
+__device__ __forceinline__ const float* at(const Inst& v, int g, int c) {
+    return v.p + g * v.sg + c * v.sc;
+}
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
     uint32_t r;
@@ -94,14 +178,14 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
     return r;
 }
 
-// x ~ hi + lo: hi = tf32(x), lo = tf32(x - hi)
+// x ~ hi + lo: hi = tf32(x), lo = tf32(x - hi): the staged weights' split
 __device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
     hi = tf32_rna(x);
     lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // x ~ hi + lo by integer operations on the bits, in fewer issue slots than
-// cvt.rna (K6's products use it; K8's keep split2): hi = x with its low 13
+// cvt.rna (every operand but the staged weights): hi = x with its low 13
 // bits cleared (toward zero), lo = x - hi (exact) rounded to tf32, to
 // nearest with ties away (half a tf32 ulp added to the magnitude, the low
 // 13 bits cleared). hi + lo is x to 2^-21 of |x| (split2: 2^-22); a NaN or
@@ -109,25 +193,6 @@ __device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
 __device__ __forceinline__ void split2_int(float x, uint32_t& hi, uint32_t& lo) {
     hi = __float_as_uint(x) & 0xffffe000u;
     lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
-}
-
-// INT: split2_int (K6), else split2 (K8, whose outputs keep their bits;
-// moving K8 onto split2_int and dropping this switch is ROADMAP Queue 2B's)
-template <bool INT>
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    if (INT) {
-        split2_int(x, hi, lo);
-    } else {
-        split2(x, hi, lo);
-    }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -168,12 +233,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const float* p) {
                  : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
-                 "r"(src_bytes));
-}
-
 // Element (K index r, M index c) of a fragment-ordered A operand, split
 // into its hi and lo parts: fragment (kc, mt) = (r / 8, c / 16) is 256
 // floats, hi [lane][4] then lo [lane][4], registers a0..a3 = (g, t),
@@ -191,12 +250,13 @@ __device__ __forceinline__ void store_frag(float* frags, int r, int c, float v) 
 // One instance's weights (W0 [m, k0], b0 [k0], (W1 [k0, s], b1 [s]), w_out
 // [s], each from its own pointer), staged by the 4 warps of a group (``tid``
 // its thread, 0 .. 127): W0 as Z0's A fragments (K = markers, M = units),
-// W1 as Z1's (K = k0, M = s) and as dA0's (K = s, M = k0), b0, b1 and w_out
-// as [K16] vectors. The entries past the real rows and columns stay as the
-// group zeroed them. Warp w reads rows w, w + 4, ..., lane c column c
-// (widths <= 32): coalesced, and every load of W1, the vectors and a batch
-// of kBatch rows of W0 in flight at once (at the flagship all of them).
-// Read through L2 only (__ldcg): K6 rewrites the weights inside its launch.
+// W1 as Z1's (K = k0, M = s) and with ``GRAD`` as dA0's (K = s, M = k0),
+// b0, b1 and w_out as [K16] vectors. The entries past the real rows and
+// columns stay as zero_frags left them. Warp w reads rows w, w + 4, ...,
+// lane c column c (widths <= 32): coalesced, and every load of W1, the
+// vectors and a batch of kBatch rows of W0 in flight at once (at the
+// flagship all of them). Read through L2 only (__ldcg): K6 rewrites the
+// weights inside its launch.
 template <int MT, int K16, bool DEEP, bool GRAD>
 __device__ void stage_weights_from(const float* w0, const float* b0, const float* w1,
                                    const float* b1, const float* wout, int m, int k0, int s,
@@ -243,16 +303,15 @@ __device__ void stage_weights_from(const float* w0, const float* b0, const float
     if (tid < 3 * K16) vecs[tid] = vv;
 }
 
-// Instance j's weights, once per instance and CTA (K8: one group per CTA).
-template <int MT, int K16, bool DEEP, bool GRAD>
-__device__ void stage_weights(const Args& a, int j, float* w0f, float* w1a, float* w1b,
-                              float* vecs) {
-    const int m = a.m, k0 = a.k0, s = a.s;
-    stage_weights_from<MT, K16, DEEP, GRAD>(
-        a.w0 + static_cast<size_t>(j) * m * k0, a.b0 + static_cast<size_t>(j) * k0,
-        DEEP ? a.w1 + static_cast<size_t>(j) * k0 * s : nullptr,
-        DEEP ? a.b1 + static_cast<size_t>(j) * s : nullptr, a.wout + static_cast<size_t>(j) * s,
-        m, k0, s, threadIdx.x, w0f, w1a, w1b, vecs);
+// The group's weight fragments zeroed (``tid`` its thread): their padding
+// (rows past m, k0 or s, columns past k0 or s) is zero for every instance,
+// and staging writes the rest. The caller syncs before staging.
+template <int KM, bool DEEP, bool GRAD>
+__device__ __forceinline__ void zero_frags(const Group<KM, DEEP, GRAD>& gs, int m8, int tid) {
+    constexpr int MT = km16(KM) / 16, NT = KM / 8;
+    float4* f4 = reinterpret_cast<float4*>(gs.w0f);
+    const int n4 = ((m8 / 8) * MT + (DEEP ? (GRAD ? 2 : 1) * NT * MT : 0)) * 64;
+    for (int i = tid; i < n4; i += kThreads) f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 __device__ __forceinline__ void ld_frag(const float* f, int lane, uint32_t (&ah)[4],
@@ -265,8 +324,8 @@ __device__ __forceinline__ void ld_frag(const float* f, int lane, uint32_t (&ah)
 
 // D[MT] = A B over ``ksteps``: A the staged fragments ``frags`` ((kc, mt)
 // order), B rows 8 kc + t and 8 kc + t + 4, column ``col`` of the swizzled
-// buffer ``bp`` (f32 values, split here; INT: by split2_int).
-template <int MT, bool INT = false>
+// buffer ``bp`` (f32 values, split here).
+template <int MT>
 __device__ __forceinline__ void product_a(const float* frags, const float* bp, int ksteps, int col,
                                           float (&d)[MT][4]) {
     const int lane = threadIdx.x & 31, t = lane & 3;
@@ -277,8 +336,8 @@ __device__ __forceinline__ void product_a(const float* frags, const float* bp, i
 #pragma unroll 4
     for (int kc = 0; kc < ksteps; ++kc) {
         uint32_t bh0, bh1, bl0, bl1;
-        split<INT>(bp[swz(8 * kc + t, col)], bh0, bl0);
-        split<INT>(bp[swz(8 * kc + t + 4, col)], bh1, bl1);
+        split2_int(bp[swz(8 * kc + t, col)], bh0, bl0);
+        split2_int(bp[swz(8 * kc + t + 4, col)], bh1, bl1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
             uint32_t ah[4], al[4];
@@ -321,8 +380,8 @@ __device__ __forceinline__ void store_plane(float* plane, int col, const float (
 // u = 0 .. NTU - 1 of one row tile: A rows ``arow`` .. + 15 of ``ap``, loaded
 // and split once per k-step for all NTU; B rows ``brow`` + 8 u .. + 7 of
 // ``bp`` (one ldmatrix for both column tiles); individuals as columns, f32
-// values split here (INT: by split2_int).
-template <int NTU, bool INT = false>
+// values split here.
+template <int NTU>
 __device__ __forceinline__ void product_b(const float* ap, int arow, const float* bp, int brow,
                                           float (&acc)[NTU][4]) {
     const int lane = threadIdx.x & 31;
@@ -335,7 +394,7 @@ __device__ __forceinline__ void product_b(const float* ap, int arow, const float
         uint32_t raw[4], ah[4], al[4], bh[4], bl[4];
         ldsm_x4(raw, ap + swz(arow + (lane & 15), 8 * ks + 4 * (lane >> 4)));
 #pragma unroll
-        for (int r = 0; r < 4; ++r) split<INT>(__uint_as_float(raw[r]), ah[r], al[r]);
+        for (int r = 0; r < 4; ++r) split2_int(__uint_as_float(raw[r]), ah[r], al[r]);
         // matrices: (tile u, columns 8 ks .. + 3), (u, 8 ks + 4 .. + 7) per u
         const float* b = bp + swz(brow + 8 * (lane >> 4) + (lane & 7), 8 * ks + 4 * ((lane >> 3) & 1));
         if (NTU == 2) {
@@ -344,7 +403,7 @@ __device__ __forceinline__ void product_b(const float* ap, int arow, const float
             ldsm_x2(raw, b);
         }
 #pragma unroll
-        for (int r = 0; r < 2 * NTU; ++r) split<INT>(__uint_as_float(raw[r]), bh[r], bl[r]);
+        for (int r = 0; r < 2 * NTU; ++r) split2_int(__uint_as_float(raw[r]), bh[r], bl[r]);
 #pragma unroll
         for (int u = 0; u < NTU; ++u)
             mma3_add(acc[u], ah, al, bh[2 * u], bh[2 * u + 1], bl[2 * u], bl[2 * u + 1]);
@@ -369,6 +428,238 @@ __device__ __forceinline__ void add_tiles(float* acc2, int ld, int row0, int col
             }
             *d = v;
         }
+}
+
+// The thread's sums over its individuals: db0, db1, dw_out per (tile mt,
+// row half h) of units 16 mt + g + 8 h, and err^2
+template <int MT>
+struct Sums {
+    float db0[MT][2], db1[MT][2], dwo[MT][2];
+    double e2;
+    __device__ __forceinline__ void zero() {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) db0[mt][h] = db1[mt][h] = dwo[mt][h] = 0.f;
+        e2 = 0.0;
+    }
+};
+
+// One tile of one chain by its group grp (4 warps): phase A (with OUT,
+// y_pred of the tile's individuals below n into ``y``), then with GRAD err
+// against the targets tg_a, tg_b of the thread's two individuals (with OUT
+// its err^2 into the sums), the small sums, and phase B into the group's
+// accumulators (``first``: the segment's first tile). xt: the X tile.
+template <int KM, bool DEEP, bool GRAD, int ACT, bool OUT>
+__device__ __forceinline__ void tile(const Group<KM, DEEP, GRAD>& gs, Sums<km16(KM) / 16>& sm,
+                                     const float* xt, int m8, int m16, int n, int i0, float tg_a,
+                                     float tg_b, bool first, int grp, float* y) {
+    constexpr int K16 = km16(KM), MT = K16 / 16, NT = KM / 8, AS = acc_stride(KM);
+    const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & (kWarps - 1), g = lane >> 2,
+              t = lane & 3;
+    const int col = 8 * w + 2 * t;
+    const int i_a = i0 + col, i_b = i_a + 1;
+
+    // ---- phase A: the warp's 8 individuals through the whole MLP
+    float z0[MT][4], a0[MT][4];
+    product_a<MT>(gs.w0f, xt, m8 / 8, 8 * w + g, z0);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            z0[mt][e] += gs.b0s[16 * mt + g + 8 * (e >> 1)];
+            a0[mt][e] = act_apply(ACT, z0[mt][e]);
+        }
+    float z1[MT][4], a1[MT][4];
+    if (DEEP) {
+        store_plane<MT>(gs.a0t, col, a0);
+        __syncwarp();
+        product_a<MT>(gs.w1a, gs.a0t, NT, 8 * w + g, z1);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                z1[mt][e] += gs.b1s[16 * mt + g + 8 * (e >> 1)];
+                a1[mt][e] = act_apply(ACT, z1[mt][e]);
+            }
+    }
+    float p_a = 0.f, p_b = 0.f;
+    if constexpr (DEEP) {
+        pred_terms<MT>(a1, gs.wos, p_a, p_b);
+    } else {
+        pred_terms<MT>(a0, gs.wos, p_a, p_b);
+    }
+    // over the units of the other lanes with this t: every lane gets the same bits
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+        p_a += __shfl_xor_sync(0xffffffffu, p_a, o);
+        p_b += __shfl_xor_sync(0xffffffffu, p_b, o);
+    }
+    if (OUT && g == 0) {
+        if (i_a < n) y[i_a] = p_a;
+        if (i_b < n) y[i_b] = p_b;
+    }
+    if constexpr (GRAD) {
+        const float err[2] = {i_a < n ? p_a - tg_a : 0.f, i_b < n ? p_b - tg_b : 0.f};
+        if (OUT && g == 0) {
+            sm.e2 = fma(static_cast<double>(err[0]), static_cast<double>(err[0]), sm.e2);
+            sm.e2 = fma(static_cast<double>(err[1]), static_cast<double>(err[1]), sm.e2);
+        }
+        float dz0[MT][4];
+        if (DEEP) {
+            float dz1[MT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    const float er = err[e & 1];
+                    dz1[mt][e] = gs.wos[16 * mt + g + 8 * h] * er * act_prime(ACT, z1[mt][e], a1[mt][e]);
+                    sm.dwo[mt][h] = fmaf(a1[mt][e], er, sm.dwo[mt][h]);
+                    sm.db1[mt][h] += dz1[mt][e];
+                }
+            store_plane<MT>(gs.dz1t, col, dz1);
+            __syncwarp();
+            float da[MT][4];
+            product_a<MT>(gs.w1b, gs.dz1t, NT, 8 * w + g, da);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) dz0[mt][e] = da[mt][e] * act_prime(ACT, z0[mt][e], a0[mt][e]);
+        } else {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    const float er = err[e & 1];
+                    dz0[mt][e] = gs.wos[16 * mt + g + 8 * h] * er * act_prime(ACT, z0[mt][e], a0[mt][e]);
+                    sm.dwo[mt][h] = fmaf(a0[mt][e], er, sm.dwo[mt][h]);
+                }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sm.db0[mt][e >> 1] += dz0[mt][e];
+        store_plane<MT>(gs.dz0t, col, dz0);
+        group_sync(grp);  // every warp's planes of this chain are written
+
+        // ---- phase B: dW0 = X dz0 and dW1 = a0^T dz1 over the tile, in
+        // units of a row tile and NTU column tiles that share its A
+        constexpr int NTU = NT >= 2 ? 2 : 1, NU = NT / NTU;
+        const int u0 = (m16 / 16) * NU, u1 = DEEP ? MT * NU : 0;
+        for (int u = w; u < u0 + u1; u += kWarps) {
+            float acc[NTU][4];
+            if (u < u0) {
+                const int mt = u / NU, nt = (u - mt * NU) * NTU;
+                product_b<NTU>(xt, 16 * mt, gs.dz0t, 8 * nt, acc);
+                add_tiles<NTU>(gs.acc0, AS, 16 * mt, 8 * nt, first, acc);
+            } else {
+                const int kt = (u - u0) / NU, nt = (u - u0 - kt * NU) * NTU;
+                product_b<NTU>(gs.a0t, 16 * kt, gs.dz1t, 8 * nt, acc);
+                add_tiles<NTU>(gs.acc1, AS, 16 * kt, 8 * nt, first, acc);
+            }
+        }
+    }
+}
+
+// The group's gradient sums of one segment into its partial row ``part``
+// (W0, b0, (W1, b1), w_out) and with OUT its err^2 into ``e2``: the small
+// sums over the quad's lanes and the warps in order; the thread's sums
+// restart at zero, the shared ones with the next first tile.
+template <int KM, bool DEEP, bool OUT>
+__device__ __forceinline__ void flush(const Group<KM, DEEP, true>& gs, Sums<km16(KM) / 16>& sm,
+                                      float* part, double* e2, int m, int k0, int s, int grp) {
+    constexpr int K16 = km16(KM), MT = K16 / 16, AS = acc_stride(KM);
+    const int tid = threadIdx.x - grp * kThreads, lane = tid & 31, w = tid >> 5, g = lane >> 2,
+              t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int o = 1; o < 4; o <<= 1) {
+                sm.db0[mt][h] += __shfl_xor_sync(0xffffffffu, sm.db0[mt][h], o);
+                sm.db1[mt][h] += __shfl_xor_sync(0xffffffffu, sm.db1[mt][h], o);
+                sm.dwo[mt][h] += __shfl_xor_sync(0xffffffffu, sm.dwo[mt][h], o);
+            }
+    if (OUT) {
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) sm.e2 += __shfl_xor_sync(0xffffffffu, sm.e2, o);
+    }
+    if (t == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int u = 16 * mt + g + 8 * h;
+                gs.red[(w * 3 + 0) * K16 + u] = sm.db0[mt][h];
+                gs.red[(w * 3 + 1) * K16 + u] = sm.db1[mt][h];
+                gs.red[(w * 3 + 2) * K16 + u] = sm.dwo[mt][h];
+            }
+    }
+    if (OUT && lane == 0) gs.e2red[w] = sm.e2;
+    group_sync(grp);
+    const float* red = gs.red;
+    auto warps = [&](int which, int u) {
+        return ((red[which * K16 + u] + red[(3 + which) * K16 + u]) + red[(6 + which) * K16 + u]) +
+               red[(9 + which) * K16 + u];
+    };
+    // the row: dW0 and dW1 a row of units per warp, the sums over units
+    const int off_b0 = m * k0, off_w1 = off_b0 + k0, off_b1 = off_w1 + k0 * s;
+    const int off_wo = DEEP ? off_b1 + s : off_w1;
+    if (lane < k0) {
+        for (int mm = w; mm < m; mm += kWarps) part[mm * k0 + lane] = gs.acc0[mm * AS + lane];
+    }
+    if (DEEP && lane < s) {
+        for (int kk = w; kk < k0; kk += kWarps) part[off_w1 + kk * s + lane] = gs.acc1[kk * AS + lane];
+    }
+    if (tid < k0) part[off_b0 + tid] = warps(0, tid);
+    if (DEEP && tid < s) part[off_b1 + tid] = warps(1, tid);
+    if (tid < s) part[off_wo + tid] = warps(2, tid);
+    if (OUT && tid == 0) *e2 = ((gs.e2red[0] + gs.e2red[1]) + gs.e2red[2]) + gs.e2red[3];
+    sm.zero();
+    group_sync(grp);
+}
+
+// One output's gradients and rss from its ``nseg`` segment rows (partial
+// row0, row0 + stride, ...; their err^2 at the same indices of e2), 32
+// columns x kSlices row slices per block of 32 kSlices threads (blockIdx.x:
+// the block of columns): slice sl adds rows sl, sl + kSlices, ... from zero,
+// then the slices are added in order; column P is rss, in f64.
+__device__ __forceinline__ void reduce_rows(const float* partial, const double* e2, int P,
+                                            long long row0, int stride, int nseg, float* grads,
+                                            float* rss) {
+    __shared__ float s_f[kSlices][32];
+    __shared__ double s_d[kSlices];
+    const int c = threadIdx.x & 31, sl = threadIdx.x >> 5;
+    const int p = blockIdx.x * 32 + c;
+    float sum = 0.f;
+    double d = 0.0;
+    if (p < P) {
+        const float* part = partial + static_cast<size_t>(row0) * P + p;
+#pragma unroll 4
+        for (int q = sl; q < nseg; q += kSlices)
+            sum += __ldcg(part + static_cast<size_t>(q) * stride * P);
+    } else if (p == P) {
+        for (int q = sl; q < nseg; q += kSlices) d += __ldcg(e2 + row0 + static_cast<long long>(q) * stride);
+        s_d[sl] = d;
+    }
+    s_f[sl][c] = sum;
+    __syncthreads();
+    if (sl == 0) {
+        if (p < P) {
+            float tot = s_f[0][c];
+#pragma unroll
+            for (int k = 1; k < kSlices; ++k) tot += s_f[k][c];
+            grads[p] = tot;
+        } else if (p == P) {
+            double tot = s_d[0];
+#pragma unroll
+            for (int k = 1; k < kSlices; ++k) tot += s_d[k];
+            *rss = static_cast<float>(tot);
+        }
+    }
 }
 
 }  // namespace vg

@@ -26,17 +26,18 @@
 //  * One cooperative launch per trajectory, its grid sized from the
 //    occupancy API, so an oversize grid is refused at launch instead of
 //    hanging at a grid sync.
-//  * The gradient phase runs K8's device code (csrc/dense_vg_mma.cuh), its
-//    operands but the staged weights split into tf32 hi and lo by integer
-//    operations on the bits (split2_int: fewer issue slots than cvt.rna). An
-//    instance is (branch g, chunk of CC chains). A CTA is CC groups of 4
-//    warps, group i running chain i of the chunk, all on the one X tile of
+//  * The gradient phase runs the dense device code of K7 and K8
+//    (csrc/dense_vg_mma.cuh: its tile and its flush), its operands but the
+//    staged weights split into tf32 hi and lo by integer operations on the
+//    bits (split2_int: fewer issue slots than cvt.rna). An instance is
+//    (branch g, chunk of CC chains). A CTA is CC groups of 4 warps, group
+//    i running chain i of the chunk, all on the one X tile of
 //    32 individuals the CTA stages by cp.async (double buffered where shared
 //    memory allows): each tile is read once for the chunk's chains, and each
 //    SM sub-partition holds a warp of every group, so the groups'
 //    independent MMAs issue back to back. CC is the largest instantiated
 //    (2, 1) that is at most C and fits shared memory; CC = 1 fits every
-//    shape dense_chains_smem admits. The chunks of one branch run on CTAs
+//    shape traj_dense_smem admits. The chunks of one branch run on CTAs
 //    that walk its tiles in step, so their second read of a tile can find
 //    it in L2.
 //  * A fixed work split for the whole launch: the G x chunks x ceil(n / 32)
@@ -64,9 +65,6 @@
 
 #include "dense_vg_mma.cuh"
 
-// K6's and K7's limits (csrc/branch_vg_chains.cu)
-extern "C" long long dense_chains_smem(int m, int k0, int s, int depth);
-
 namespace cg = cooperative_groups;
 
 namespace {
@@ -74,22 +72,7 @@ namespace {
 using namespace rsbann;
 using namespace rsbann::vg;
 
-constexpr int kMaxCC = 2;   // chains (groups of 4 warps) per CTA
-constexpr int kLayers = 5;  // W0, b0, W1, b1, w_out (W1 and b1 unused at depth 0)
-
-// A [G, C, rows, cols] f32 tensor (a bias [G, C, cols] is one row, w_out
-// [G, C, s, 1] one column): element (g, c, r, k) at p + g * sg + c * sc +
-// r * sr + k * sk. Only the step sizes and prior factors are read through
-// sr and sk; the other tensors' trailing dims are contiguous (element (g, c,
-// i) at at(v, g, c) + i).
-struct Inst {
-    const float* p;
-    long long sg, sc, sr, sk;
-};
-
-__device__ __forceinline__ const float* at(const Inst& v, int g, int c) {
-    return v.p + g * v.sg + c * v.sc;
-}
+constexpr int kMaxCC = 2;  // chains (groups of 4 warps) per CTA
 
 // Element (r, k) of instance (g, c), at any strides.
 __device__ __forceinline__ float ld_any(const Inst& v, int g, int c, int r, int k) {
@@ -110,48 +93,6 @@ struct TrajArgs {
     int lsize[kLayers], loff[kLayers];  // elements of each layer per (branch, chain), offset in P
     int lcols[kLayers];                 // columns of each layer
 };
-
-// Floats of shared memory of one group (one chain): the weight fragments,
-// the planes, the accumulators, b0, b1, w_out and the warps' small sums.
-__host__ __device__ inline long long group_floats(int km, bool deep, int m16, int m8) {
-    const long long k16 = km16(km), mt = k16 / 16, plane = k16 * kS;
-    long long f = (m8 / 8) * mt * 256;
-    if (deep) f += 2 * (km / 8) * mt * 256 + plane;
-    f += plane * (deep ? 2 : 1) + (m16 + (deep ? k16 : 0)) * acc_stride(km);
-    return f + 3 * k16 + kWarps * 3 * k16;
-}
-
-long long smem_floats(int km, bool deep, int cc, int m16, int m8, int nbuf) {
-    return static_cast<long long>(nbuf) * m16 * kS + cc * group_floats(km, deep, m16, m8);
-}
-
-// The 4 warps of group grp (named barrier grp + 1; 0 is __syncthreads)
-__device__ __forceinline__ void group_sync(int grp) {
-    asm volatile("bar.sync %0, %1;" ::"r"(grp + 1), "r"(kThreads) : "memory");
-}
-
-// The X tile tl of branch xb into ``xs``, by every thread of the CTA: rows
-// past m and individuals past n are zero.
-__device__ void load_x(const TrajArgs& a, int xb, int tl, float* xs) {
-    const float* xg = a.x + static_cast<size_t>(xb) * a.m * a.n;
-    const int i0 = tl * kT;
-    if (a.vec16) {
-        for (int idx = threadIdx.x; idx < a.m16 * (kT / 4); idx += blockDim.x) {
-            const int row = idx >> 3, c4 = idx & 7, i = i0 + 4 * c4;
-            const bool ok = row < a.m && i < a.n;
-            cp_async16(xs + swz(row, 4 * c4), ok ? xg + static_cast<size_t>(row) * a.n + i : xg,
-                       ok ? 16 : 0);
-        }
-    } else {
-        for (int idx = threadIdx.x; idx < a.m16 * kT; idx += blockDim.x) {
-            const int row = idx >> 5, c = idx & 31, i = i0 + c;
-            const bool ok = row < a.m && i < a.n;
-            cp_async4(xs + swz(row, c), ok ? xg + static_cast<size_t>(row) * a.n + i : xg,
-                      ok ? 4 : 0);
-        }
-    }
-    cp_async_commit();
-}
 
 // The update phase for layer LY of CC-chain instances: one thread per
 // (branch, chain, element), the per-coordinate arithmetic of the leapfrog
@@ -198,108 +139,47 @@ __device__ __forceinline__ Inst pick(bool start, Inst in, Inst out) { return sta
 template <int KM, bool DEEP, int ACT, int CC>
 __global__ void __launch_bounds__(kThreads * CC, CC == 1 ? 3 : 1)
     traj_dense_kernel(const __grid_constant__ TrajArgs a) {
-    constexpr int K16 = km16(KM), MT = K16 / 16, NT = KM / 8, AS = acc_stride(KM);
-    constexpr int PL = K16 * kS;  // floats per plane
+    constexpr int K16 = km16(KM), MT = K16 / 16;
     extern __shared__ float4 smem4[];
     cg::grid_group grid = cg::this_grid();
     const int grp = threadIdx.x / kThreads;  // this warp group's chain of the chunk
-    const int tid = threadIdx.x - grp * kThreads, lane = tid & 31, w = tid >> 5, g = lane >> 2,
-              t = lane & 3;
+    const int tid = threadIdx.x - grp * kThreads, w = tid >> 5, t = tid & 3;
     float* xs = reinterpret_cast<float*>(smem4);  // [nbuf][m16][kS], shared by the groups
-    float* w0f = xs + a.nbuf * a.m16 * kS +
-                 grp * static_cast<int>(group_floats(KM, DEEP, a.m16, a.m8));  // Z0's A fragments
-    float* w1a = w0f + (a.m8 / 8) * MT * 256;               // Z1's (depth 1)
-    float* w1b = w1a + (DEEP ? NT * MT * 256 : 0);          // dA0's (depth 1)
-    float* a0t = w1b + (DEEP ? NT * MT * 256 : 0);          // [K16][kS] (depth 1)
-    float* dz1t = a0t + (DEEP ? PL : 0);                    // (depth 1)
-    float* dz0t = dz1t + (DEEP ? PL : 0);
-    float* acc0 = dz0t + PL;                                // dW0 [m16][AS]
-    float* acc1 = acc0 + a.m16 * AS;                        // dW1 [K16][AS] (depth 1)
-    float* b0s = acc1 + (DEEP ? K16 * AS : 0);              // [K16]
-    float* b1s = b0s + K16;
-    float* wos = b1s + K16;
-    float* red = wos + K16;                                 // [kWarps][3][K16]
-
+    const Group<KM, DEEP, true> gs(
+        xs + a.nbuf * a.m16 * kS +
+            grp * static_cast<int>(group_floats(KM, DEEP, true, false, a.m16, a.m8)),
+        a.m16, a.m8);
     const int m = a.m, n = a.n, k0 = a.k0, s = a.s, P = a.P;
     const long long items = static_cast<long long>(a.NB) * a.tiles;
     const long long it_begin = blockIdx.x * items / a.ctas;
     const long long it_end = (blockIdx.x + 1) * items / a.ctas;
-    const int off_b0 = m * k0, off_w1 = off_b0 + k0, off_b1 = off_w1 + k0 * s;
-    const int off_wo = DEEP ? off_b1 + s : off_w1;
-
-    // the thread's sums over its individuals: db0, db1, dw_out per (tile mt,
-    // row half h) of units 16 mt + g + 8 h
-    float db0[MT][2], db1[MT][2], dwo[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) db0[mt][0] = db0[mt][1] = db1[mt][0] = db1[mt][1] = dwo[mt][0] = dwo[mt][1] = 0.f;
-
-    // the group's gradient sums of instance j into its segment row; the
-    // thread's sums restart at zero, the shared ones with the next first tile
-    auto flush = [&](int j) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-                for (int o = 1; o < 4; o <<= 1) {
-                    db0[mt][h] += __shfl_xor_sync(0xffffffffu, db0[mt][h], o);
-                    db1[mt][h] += __shfl_xor_sync(0xffffffffu, db1[mt][h], o);
-                    dwo[mt][h] += __shfl_xor_sync(0xffffffffu, dwo[mt][h], o);
-                }
-        if (t == 0) {
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                    const int u = 16 * mt + g + 8 * h;
-                    red[(w * 3 + 0) * K16 + u] = db0[mt][h];
-                    red[(w * 3 + 1) * K16 + u] = db1[mt][h];
-                    red[(w * 3 + 2) * K16 + u] = dwo[mt][h];
-                }
-        }
-        group_sync(grp);
-        auto warps = [&](int which, int u) {
-            return ((red[which * K16 + u] + red[(3 + which) * K16 + u]) + red[(6 + which) * K16 + u]) +
-                   red[(9 + which) * K16 + u];
-        };
-        // the row: dW0 and dW1 a row of units per warp, the sums over units
-        float* part = a.partial + (static_cast<size_t>(blockIdx.x + j) * CC + grp) * P;
-        if (lane < k0) {
-            for (int mm = w; mm < m; mm += kWarps) part[mm * k0 + lane] = acc0[mm * AS + lane];
-        }
-        if (DEEP && lane < s) {
-            for (int kk = w; kk < k0; kk += kWarps) part[off_w1 + kk * s + lane] = acc1[kk * AS + lane];
-        }
-        if (tid < k0) part[off_b0 + tid] = warps(0, tid);
-        if (DEEP && tid < s) part[off_b1 + tid] = warps(1, tid);
-        if (tid < s) part[off_wo + tid] = warps(2, tid);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) db0[mt][0] = db0[mt][1] = db1[mt][0] = db1[mt][1] = dwo[mt][0] = dwo[mt][1] = 0.f;
-        group_sync(grp);
+    // X tile tl of branch xb into dst, by every thread of the CTA
+    auto x_tile = [&](int xb, int tl, float* dst) {
+        load_x(a.x + static_cast<size_t>(xb) * m * n, m, n, a.m16, a.vec16, tl, dst);
     };
+    Sums<MT> sm;
+    sm.zero();
 
     // the first item of the CTA's run, the same in every evaluation
     const int j0 = static_cast<int>(it_begin / a.tiles), tl0 = static_cast<int>(it_begin % a.tiles);
     int buf = 0;
-    load_x(a, j0 / a.chunks, tl0, xs);
-    // the weight fragments' padding (rows past m, k0 or s, columns past k0
-    // or s) is zero for every chain; staging writes the rest
-    {
-        float4* f4 = reinterpret_cast<float4*>(w0f);
-        const int n4 = ((a.m8 / 8) * MT + (DEEP ? 2 * NT * MT : 0)) * 64;
-        for (int i = tid; i < n4; i += kThreads) f4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        __syncthreads();
-    }
+    x_tile(j0 / a.chunks, tl0, xs);
+    zero_frags<KM, DEEP, true>(gs, a.m8, tid);
+    __syncthreads();
 
     // evaluation 0 only gives the initial gradient; 1..L integrate
     for (int l = 0; l <= a.steps; ++l) {
         int jj = j0, tl = tl0, j = -1, gb = 0, c = 0;
         bool live = false;  // this group's chain exists (a ragged last chunk has fewer)
+        auto flush_j = [&]() {
+            flush<KM, DEEP, false>(gs, sm, a.partial + (static_cast<size_t>(blockIdx.x + j) * CC + grp) * P,
+                                   nullptr, m, k0, s, grp);
+        };
         for (long long it = it_begin; it < it_end; ++it) {
             const int i0 = tl * kT;
             const bool first = jj != j;  // the segment's first tile
             if (first) {
-                if (live) flush(j);
+                if (live) flush_j();
                 j = jj;
                 gb = j / a.chunks;
                 c = (j - gb * a.chunks) * CC + grp;
@@ -310,132 +190,41 @@ __global__ void __launch_bounds__(kThreads * CC, CC == 1 ? 3 : 1)
                         at(pick(st, a.w[0], a.qo[0]), gb, c), at(pick(st, a.w[1], a.qo[1]), gb, c),
                         DEEP ? at(pick(st, a.w[2], a.qo[2]), gb, c) : nullptr,
                         DEEP ? at(pick(st, a.w[3], a.qo[3]), gb, c) : nullptr,
-                        at(pick(st, a.w[4], a.qo[4]), gb, c), m, k0, s, tid, w0f, w1a, w1b, b0s);
+                        at(pick(st, a.w[4], a.qo[4]), gb, c), m, k0, s, tid, gs.w0f, gs.w1a, gs.w1b,
+                        gs.b0s);
                 }
             }
             if (++tl == a.tiles) tl = 0, ++jj;
             const bool next = it + 1 < it_end;
             cp_async_wait<0>();  // this tile's copies (the only ones in flight)
-            // the two individuals of this thread's column pair and their targets
-            const int col = 8 * w + 2 * t;
-            const int i_a = i0 + col, i_b = i_a + 1;
+            // the targets of this thread's two individuals
             float tg_a = 0.f, tg_b = 0.f;
             if (live) {
                 const float* tg = at(a.target, gb, c);
+                const int i_a = i0 + 8 * w + 2 * t;
                 if (i_a < n) tg_a = __ldg(tg + i_a);
-                if (i_b < n) tg_b = __ldg(tg + i_b);
+                if (i_a + 1 < n) tg_b = __ldg(tg + i_a + 1);
             }
             // the X tile and the staged weights are visible, and every group is
             // done with the last tile: its buffer, planes and accumulators
             __syncthreads();
-            if (next && a.nbuf == 2) load_x(a, jj / a.chunks, tl, xs + (buf ^ 1) * a.m16 * kS);
+            if (next && a.nbuf == 2) x_tile(jj / a.chunks, tl, xs + (buf ^ 1) * a.m16 * kS);
             const float* xt = xs + buf * a.m16 * kS;
-
-            if (live) {
-                // ---- phase A: the warp's 8 individuals through the whole MLP
-                float z0[MT][4], a0[MT][4];
-                product_a<MT, true>(w0f, xt, a.m8 / 8, 8 * w + g, z0);
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        z0[mt][e] += b0s[16 * mt + g + 8 * (e >> 1)];
-                        a0[mt][e] = act_apply(ACT, z0[mt][e]);
-                    }
-                float z1[MT][4], a1[MT][4];
-                if (DEEP) {
-                    store_plane<MT>(a0t, col, a0);
-                    __syncwarp();
-                    product_a<MT, true>(w1a, a0t, NT, 8 * w + g, z1);
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            z1[mt][e] += b1s[16 * mt + g + 8 * (e >> 1)];
-                            a1[mt][e] = act_apply(ACT, z1[mt][e]);
-                        }
-                }
-                float p_a = 0.f, p_b = 0.f;
-                if constexpr (DEEP) {
-                    pred_terms<MT>(a1, wos, p_a, p_b);
-                } else {
-                    pred_terms<MT>(a0, wos, p_a, p_b);
-                }
-                // over the units of the other lanes with this t: every lane gets the same bits
-#pragma unroll
-                for (int o = 4; o < 32; o <<= 1) {
-                    p_a += __shfl_xor_sync(0xffffffffu, p_a, o);
-                    p_b += __shfl_xor_sync(0xffffffffu, p_b, o);
-                }
-                const float err[2] = {i_a < n ? p_a - tg_a : 0.f, i_b < n ? p_b - tg_b : 0.f};
-                float dz0[MT][4];
-                if (DEEP) {
-                    float dz1[MT][4];
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            const int h = e >> 1;
-                            const float er = err[e & 1];
-                            dz1[mt][e] = wos[16 * mt + g + 8 * h] * er * act_prime(ACT, z1[mt][e], a1[mt][e]);
-                            dwo[mt][h] = fmaf(a1[mt][e], er, dwo[mt][h]);
-                            db1[mt][h] += dz1[mt][e];
-                        }
-                    store_plane<MT>(dz1t, col, dz1);
-                    __syncwarp();
-                    float da[MT][4];
-                    product_a<MT, true>(w1b, dz1t, NT, 8 * w + g, da);
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) dz0[mt][e] = da[mt][e] * act_prime(ACT, z0[mt][e], a0[mt][e]);
-                } else {
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            const int h = e >> 1;
-                            const float er = err[e & 1];
-                            dz0[mt][e] = wos[16 * mt + g + 8 * h] * er * act_prime(ACT, z0[mt][e], a0[mt][e]);
-                            dwo[mt][h] = fmaf(a0[mt][e], er, dwo[mt][h]);
-                        }
-                }
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) db0[mt][e >> 1] += dz0[mt][e];
-                store_plane<MT>(dz0t, col, dz0);
-                group_sync(grp);  // every warp's planes of this chain are written
-
-                // ---- phase B: dW0 = X dz0 and dW1 = a0^T dz1 over the tile, in
-                // units of a row tile and NTU column tiles that share its A
-                constexpr int NTU = NT >= 2 ? 2 : 1, NU = NT / NTU;
-                const int u0 = (a.m16 / 16) * NU, u1 = DEEP ? MT * NU : 0;
-                for (int u = w; u < u0 + u1; u += kWarps) {
-                    float acc[NTU][4];
-                    if (u < u0) {
-                        const int mt = u / NU, nt = (u - mt * NU) * NTU;
-                        product_b<NTU, true>(xt, 16 * mt, dz0t, 8 * nt, acc);
-                        add_tiles<NTU>(acc0, AS, 16 * mt, 8 * nt, first, acc);
-                    } else {
-                        const int kt = (u - u0) / NU, nt = (u - u0 - kt * NU) * NTU;
-                        product_b<NTU, true>(a0t, 16 * kt, dz1t, 8 * nt, acc);
-                        add_tiles<NTU>(acc1, AS, 16 * kt, 8 * nt, first, acc);
-                    }
-                }
-            }
+            if (live)
+                tile<KM, DEEP, true, ACT, false>(gs, sm, xt, a.m8, a.m16, n, i0, tg_a, tg_b, first,
+                                                 grp, nullptr);
             if (a.nbuf == 1) {
                 __syncthreads();  // the one X buffer is free again
-                if (next) load_x(a, jj / a.chunks, tl, xs);
+                if (next) x_tile(jj / a.chunks, tl, xs);
             } else {
                 buf ^= 1;
             }
         }
-        if (live) flush(j);
+        if (live) flush_j();
         // X never changes: the next evaluation's first tile comes in across
         // the grid syncs, into the buffer every group was done with before
         // the last tile
-        if (l < a.steps) load_x(a, j0 / a.chunks, tl0, xs + buf * a.m16 * kS);
+        if (l < a.steps) x_tile(j0 / a.chunks, tl0, xs + buf * a.m16 * kS);
         grid.sync();
 
         update_layer<0, CC>(a, l);
@@ -492,7 +281,8 @@ Occupancy g_occ[3 * 2 * 5 * kMaxCC];
 // The largest CC of (2, 1) that is at most C and fits, its X buffers and
 // resident CTAs per SM, and the work split.
 int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, Plan* pl) {
-    if (G <= 0 || C <= 0 || n <= 0 || act < 0 || act > 4 || dense_chains_smem(m, k0, s, depth) < 0)
+    if (G <= 0 || C <= 0 || n <= 0 || act < 0 || act > 4 ||
+        cta_smem(m, k0, s, depth, true, false, 1, 1) < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const bool deep = depth == 1;
     pl->km = pick_km(k0, s);
@@ -507,15 +297,15 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, Plan* pl
         if (cc > C && cc > 1) continue;
         // two X buffers (the next tile's copy under this one's work) unless
         // they cost a resident CTA per SM or do not fit
-        const long long s1 = 4 * smem_floats(pl->km, deep, cc, pl->m16, pl->m8, 1);
-        const long long s2 = 4 * smem_floats(pl->km, deep, cc, pl->m16, pl->m8, 2);
-        if (s1 > kMaxSmem) continue;
+        const long long s1 = cta_smem(m, k0, s, depth, true, false, cc, 1);
+        const long long s2 = cta_smem(m, k0, s, depth, true, false, cc, 2);
+        if (s1 < 0) continue;
         const int slot = (((pl->km == 8 ? 0 : pl->km == 16 ? 1 : 2) * 2 + (deep ? 1 : 0)) * 5 + act) *
                              kMaxCC + cc - 1;
         Occupancy& occ = g_occ[slot];
         if (occ.dev != dev || occ.smem1 != s1 || occ.smem2 != s2) {
             const void* fn = kernel_for(pl->km, deep, act, cc);
-            const bool two = s2 <= kMaxSmem;
+            const bool two = s2 > 0;
             int p1 = 0, p2 = 0;
             if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                           static_cast<int>(two ? s2 : s1))) != cudaSuccess ||
@@ -557,6 +347,14 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, Plan* pl
 }
 
 }  // namespace
+
+// Shared memory (bytes) K6 needs at these widths with one chain per CTA and
+// one X buffer, or -1 if it cannot run them (depth above 1, a width above
+// 32, or more than 227 KB). The CLI asks its mirror before a folded
+// feature-major run on the card.
+extern "C" long long traj_dense_smem(int m, int k0, int s, int depth) {
+    return cta_smem(m, k0, s, depth, true, false, 1, 1);
+}
 
 // What a K6 launch uses on this shape and activation on the current device:
 // out[0..8] = CTAs, resident CTAs per SM, chains per CTA (CC), chunks of

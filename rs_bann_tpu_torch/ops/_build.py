@@ -189,10 +189,13 @@ def lib() -> ctypes.CDLL:
     pi = ctypes.POINTER(ctypes.c_int)
     so.traj_packed_occupancy.argtypes = [i] * 6 + [pi, pi, ctypes.POINTER(ctypes.c_longlong)]
     so.traj_packed_occupancy.restype = i
-    so.vg_chains_f32.argtypes = [vp] * 6 + [i] * 10 + [vp]
+    so.vg_chains_f32.argtypes = [vp] * 5 + [ctypes.c_longlong] + [i] * 9 + [vp]
     so.vg_chains_f32.restype = i
-    so.dense_chains_smem.argtypes = [i, i, i, i]
-    so.dense_chains_smem.restype = ctypes.c_longlong
+    so.vg_chains_plan.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.vg_chains_plan.restype = i
+    for rule in (so.traj_dense_smem, so.vg_chains_smem, so.vg_dense_smem):
+        rule.argtypes = [i, i, i, i]
+        rule.restype = ctypes.c_longlong
     so.traj_dense_f32.argtypes = [vp] * 4 + [ctypes.c_longlong] + [i] * 10 + [vp]
     so.traj_dense_f32.restype = i
     so.traj_dense_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]

@@ -28,9 +28,12 @@ autograd for the gradients.
 ``data_vg_chains`` computes the same for every (branch g, chain c) of
 feature-major X xT [G, m_pad, n] (models/density.py ``FeatX``), weights[l]
 [G, C, in, out], biases[l] [G, C, out] and targets [G, C, n]: one X read
-serves all C chains. On a CUDA tensor it is csrc/branch_vg_chains.cu (depth
-0 and 1, widths up to 32, every activation); ``forward_chains`` is the
-kernel's forward-only instantiation (y_pred alone), which the folded
+serves all C chains. On a CUDA tensor it is K7, csrc/branch_vg_chains.cu
+(depth 0 and 1, widths up to 32, every activation: CTAs of CC chains on
+each staged X tile, tf32 tensor cores in 3xTF32 on csrc/dense_vg_mma.cuh,
+the weights and targets read where they lie, rss and the fixed-order sum
+of the partial rows inside its two launches); ``forward_chains`` is its
+forward-only instantiation (y_pred alone, one launch), which the folded
 transition's value passes use. On a CPU tensor both run their plain
 versions (``data_vg_chains_ref``, ``forward_chains_ref``). Both count their
 launches in ``data_vg_chains.launches``.
@@ -40,8 +43,8 @@ sequential schedule's leapfrog step, K8a), ``data_vg_blocked`` for NB
 independent instances, instance i on X[ix[i]] of X [G, m_pad, n] read in
 place (every (chain, branch) of an unfolded hybrid block, K8b), and
 ``forward_blocked`` its y_pred alone. On a CUDA tensor all three are
-csrc/branch_vg_dense.cu (tf32 tensor cores in 3xTF32, csrc/dense_vg_mma.cuh;
-the limits of K6 and K7): the weights read through their own pointers, rss
+csrc/branch_vg_dense.cu (tf32 tensor cores in 3xTF32, csrc/dense_vg_mma.cuh,
+as K6 and K7): the weights read through their own pointers, rss
 and the fixed-order sum of the CTAs' partial rows inside its launches, so a
 call issues one pass and its reduce and no other device op.
 Each counts its own launches; on a CPU tensor they run their plain versions
@@ -227,24 +230,54 @@ data_vg_packed.launches = 0  # kernel launches since the last reset
 
 # ------------------------------------------------------ dense chains (K7)
 
-DENSE_TILE = 128  # individuals per K6/K7 work item (csrc/dense_chain_mlp.cuh kTile)
-_DENSE_ROW = DENSE_TILE + 4  # shared-memory row stride (kRowT)
 _MAX_SMEM = 232448  # dynamic shared memory a block may use
+_KS, _WARPS = 40, 4  # csrc/dense_vg_mma.cuh: row stride of [rows][32] buffers, warps per group
 
 
-def dense_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
-    """Shared memory (bytes) that K6 and K7 need for one branch of m_pad
-    markers and layer widths k0, s, or -1 if they cannot run it (depth above
-    1, a width above 32, or more than 227 KB). The same rule as the CUDA
-    entry point ``dense_chains_smem``, which K8 takes as its own (it needs
-    less shared memory at every shape the rule admits); the CLI asks it
-    before training on the card."""
-    w = max(k0, s)
-    km = next((k for k in (8, 16, 32) if w <= k), -1)
+def _pick_km(k0: int, s: int) -> int:
+    """Padded register width of layers of widths k0 and s, or -1 above 32
+    (csrc/packed_decode.cuh pick_km)."""
+    return next((k for k in (8, 16, 32) if max(k0, s) <= k), -1)
+
+
+def _dense_smem(m: int, k0: int, s: int, depth: int, rss: bool) -> int:
+    """csrc/dense_vg_mma.cuh ``cta_smem`` of the value-and-gradient pass at
+    one chain per CTA and one X buffer: the X tile and one group's weight
+    fragments, planes, accumulators, vectors and small sums (with ``rss``
+    its err^2 too, ``group_floats``), within 227 KB; -1 past depth 1 or a
+    width above 32."""
+    km = _pick_km(k0, s)
     if km < 0 or depth not in (0, 1) or m <= 0:
         return -1
-    floats = m * _DENSE_ROW + 3 * km * _DENSE_ROW + m * km + 2 * km * km + 4 * km + DENSE_TILE
-    return 4 * floats if 4 * floats <= _MAX_SMEM else -1
+    deep, k16 = depth == 1, max(km, 16)
+    m16, m8, mt, plane = -(-m // 16) * 16, -(-m // 8) * 8, k16 // 16, k16 * _KS
+    floats = (m8 // 8) * mt * 256 + (2 * (km // 8) * mt * 256 + plane if deep else 0)
+    floats += plane * (2 if deep else 1) + (m16 + (k16 if deep else 0)) * (40 if km == 32 else 24)
+    floats += 3 * k16 + _WARPS * 3 * k16 + (2 * _WARPS if rss else 0)
+    smem = 4 * (m16 * _KS + floats)
+    return smem if smem <= _MAX_SMEM else -1
+
+
+def traj_dense_smem(m: int, k0: int, s: int, depth: int) -> int:
+    """Shared memory (bytes) K6 needs for one branch of m_pad markers and
+    layer widths k0, s at one chain per CTA, or -1 if it cannot run it
+    (depth above 1, a width above 32, or more than 227 KB). The rule of the
+    CUDA entry point of the same name; the CLI asks it, with
+    ``vg_chains_smem``, before a folded feature-major run on the card."""
+    return _dense_smem(m, k0, s, depth, rss=False)
+
+
+def vg_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
+    """K7's rule, as ``traj_dense_smem``: its value-and-gradient pass also
+    keeps each warp's err^2 (the forward-only pass needs less)."""
+    return _dense_smem(m, k0, s, depth, rss=True)
+
+
+def vg_dense_smem(m: int, k0: int, s: int, depth: int) -> int:
+    """K8's rule, as ``traj_dense_smem`` (its CTA is one chain's group, with
+    err^2 as K7's); the CLI asks it before a sequential or unfolded
+    feature-major run on the card."""
+    return _dense_smem(m, k0, s, depth, rss=True)
 
 
 _PACKED_ROW = GBYTES + 4  # shared-memory row stride of K4's and K5's byte tile (kRow)
@@ -255,7 +288,7 @@ def _packed_smem(m: int, k0: int, s: int, depth: int, extra_floats: int) -> int:
     (csrc/packed_decode.cuh), depth 0 or 1, the weights and one [512, KM + 4]
     row tile per saved per-individual row (three at depth 1), the byte tile,
     within 227 KB. ``extra_floats`` is what the kernel adds of its own."""
-    km = next((k for k in (8, 16, 32) if max(k0, s) <= k), -1)
+    km = _pick_km(k0, s)
     if km < 0 or depth not in (0, 1):
         return -1
     deep = depth == 1
@@ -339,47 +372,172 @@ def data_vg_chains_ref(act, xT, weights, biases, target):
     return pred, rss, tuple(grads[: len(ws)]), tuple(grads[len(ws):])
 
 
-def _dense_shape(xT, weights):
+def _dense_shape(xT, weights, rule, kernel):
+    """(G, C, m, n, k0, s, depth) of a chain-folded call; raises
+    NotImplementedError where ``kernel``'s shared-memory ``rule`` refuses
+    the shape."""
     G, m, n = xT.shape
     depth = len(weights) - 2
     k0, s = weights[0].shape[-1], weights[-1].shape[-2]
-    if dense_chains_smem(m, k0, s, depth) < 0:
+    if rule(m, k0, s, depth) < 0:
         raise NotImplementedError(
-            f"the K6/K7 CUDA kernels take depth 0 or 1 and layer widths up to 32 "
+            f"the {kernel} CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
             f"within 227 KB of shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
         )
     return G, weights[0].shape[1], m, n, k0, s, depth
 
 
+def _flat_size(m: int, k0: int, s: int, depth: int) -> int:
+    """Length P of one branch's gradients in the kernels' order W0, b0, (W1, b1), w_out."""
+    return m * k0 + k0 + (k0 * s + s if depth else 0) + s
+
+
+def _grad_views(grads, pre, m, k0, s, depth):
+    """Per-layer views (dws, dbs) of gradients ``grads`` [*pre, P] in the
+    kernels' order, shaped as the weights [*pre, in, out] and biases
+    [*pre, out]."""
+    parts = grads.split((m * k0, k0) + ((k0 * s, s) if depth else ()) + (s,), dim=-1)
+    dws = ((parts[0].view(pre + (m, k0)),) + ((parts[2].view(pre + (k0, s)),) if depth else ())
+           + (parts[-1].view(pre + (s, 1)),))
+    return dws, (parts[1],) + ((parts[3],) if depth else ())
+
+
+def layer_slots(ws, bs, depth):
+    """Per-layer tensors (or shapes) in the kernels' slots W0, b0, W1, b1,
+    w_out (None for W1 and b1 at depth 0)."""
+    return [ws[0], bs[0]] + ([ws[1], bs[1]] if depth else [None, None]) + [ws[-1]]
+
+
+def layer_shapes(G, C, m, k0, s, depth):
+    """The [G, C, ...] shapes of the five slots of ``layer_slots``."""
+    dims = [(m, k0)] + ([(k0, s)] if depth else []) + [(s, 1)]
+    return layer_slots([(G, C) + d for d in dims], [(G, C, d[1]) for d in dims[:-1]], depth)
+
+
+def _instances(t, name, shape, dev, any_strides=False):
+    """A [G, C, ...] f32 tensor as K6 and K7 read it: (the tensor, its
+    pointer, its strides over branches, chains, rows and columns; a bias
+    [G, C, cols] is one row). With ``any_strides`` (K6's step sizes and
+    prior factors) it is read where it lies, broadcast dims included; else
+    its trailing dims must be contiguous, and a tensor whose are not is
+    copied."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not any_strides and not t[0, 0].is_contiguous():
+        t = t.contiguous()
+    if t.dim() == 4:
+        rows_cols = t.stride()[2:]
+    elif t.dim() == 3:
+        rows_cols = (0, t.stride(2))
+    else:
+        rows_cols = (0, 0)
+    return t, t.data_ptr(), (t.stride(0), t.stride(1)) + tuple(rows_cols)
+
+
+def pass_instances(items, dev):
+    """What a C entry of K6 or K7 takes for its [G, C, ...] tensors, each
+    item (tensor or None, name, shape, any_strides) by ``_instances``:
+    (the tensors to keep alive, one pointer each (None: null), four strides
+    each)."""
+    keep, ptrs, strides = [], [], []
+    for t, name, shape, any_strides in items:
+        if t is None:
+            ptrs.append(None)
+            strides.extend((0, 0, 0, 0))
+            continue
+        t, ptr, st = _instances(t, name, shape, dev, any_strides)
+        keep.append(t)
+        ptrs.append(ptr)
+        strides.extend(st)
+    return keep, ptrs, strides
+
+
+def chain_instances(target, weights, biases, dev):
+    """What K7's C entry takes for the targets [G, C, n] (None for the
+    forward-only pass) and the per-layer weights [G, C, in, out] and biases
+    [G, C, out], each read where it lies (``pass_instances``)."""
+    G, C, m, k0 = weights[0].shape
+    depth, s = len(weights) - 2, weights[-1].shape[-2]
+    n = None if target is None else target.shape[-1]
+    layers = zip(layer_slots(weights, biases, depth), layer_shapes(G, C, m, k0, s, depth))
+    return pass_instances([(target, "target", (G, C, n), False)]
+                          + [(t, f"layer {k}", sh, False) for k, (t, sh) in enumerate(layers)],
+                          dev)
+
+
+_SCRATCH = {}  # (kernel, device index, shape) -> the kernel's scratch, made once
+
+
+def _scratch(dev, key, nbytes: int) -> torch.Tensor:
+    """The scratch (partial rows, err^2) of one kernel and shape: later
+    calls allocate nothing."""
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return buf
+
+
+K7_PLAN_FIELDS = ("ctas", "ctas_per_sm", "cc", "chunks", "tiles", "smem", "buffers", "scratch",
+                  "km")
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_plan(device_index: int, G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
+             grad: bool, act: int) -> tuple:
+    out = (ctypes.c_longlong * len(K7_PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.lib().vg_chains_plan(G, C, m, n, k0, s, depth, int(grad), act, out),
+                     "vg_chains_plan")
+    return tuple(out)
+
+
+def vg_chains_plan(G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
+                   grad: bool = True, act: str = "tanh", device=None) -> dict:
+    """What a K7 launch for G branches of m_pad markers, C chains and n
+    individuals under ``act`` uses on a CUDA device (the current one by
+    default), value and gradient or (``grad`` False) forward only: CTAs in
+    the grid, resident CTAs per SM, chains per CTA (CC), chunks of chains,
+    tiles of 32 individuals per branch, shared bytes per CTA, X tile
+    buffers, scratch bytes and the register width KM."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(zip(K7_PLAN_FIELDS, _k7_plan(index, G, C, m, n, k0, s, depth, grad,
+                                             ACT_CODES[act])))
+
+
 def _vg_chains_cuda(act, xT, weights, biases, target, grad: bool):
-    """Launch csrc/branch_vg_chains.cu once (plus its fixed-order tile sum
-    when ``grad``). Returns y_pred [G, C, n] and, with ``grad``, the flat
-    gradients [G, C, P]."""
-    G, C, m, n, k0, s, depth = _dense_shape(xT, weights)
-    dev = xT.device
-    lib = _build.lib()
-    q = flat_params(weights, biases)
-    P = q.shape[-1]
+    """Launch K7 (csrc/branch_vg_chains.cu) once: with ``grad`` the pass
+    and its fixed-order reduce, else the forward-only pass, and no other
+    device op. The per-layer weights and the targets are read where they
+    lie (strided over branches and chains, as ``predict_chains``'
+    transposed views are). Returns y_pred [G, C, n] and, with ``grad``,
+    (rss [G, C], dws, dbs) beside it: views of one buffer."""
+    G, C, m, n, k0, s, depth = _dense_shape(xT, weights, vg_chains_smem, "K7")
+    dev, xT = xT.device, xT.contiguous()
     _check(xT, "xT", torch.float32, (G, m, n), dev)
-    _check(q, "weights", torch.float32, (G, C, P), dev)
-    y_pred = torch.empty((G, C, n), dtype=torch.float32, device=dev)
-    partial = grads = None
-    if grad:
-        _check(target, "target", torch.float32, (G, C, n), dev)
-        partial = torch.empty((G, C, -(-n // DENSE_TILE), P), dtype=torch.float32, device=dev)
-        grads = torch.empty((G, C, P), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-    status = lib.vg_chains_f32(
-        ptr(xT), ptr(target if grad else None), ptr(q), ptr(y_pred), ptr(partial), ptr(grads),
-        G, C, m, n, k0, s, P, depth, ACT_CODES[act], int(grad),
-        ctypes.c_void_p(_build.stream_ptr(xT)),
+    code = ACT_CODES[act]
+    plan = _k7_plan(dev.index, G, C, m, n, k0, s, depth, grad, code)
+    keep, ptrs, strides = chain_instances(target if grad else None, weights, biases, dev)
+    P = _flat_size(m, k0, s, depth)
+    out = torch.empty(G * C * (n + P + 1) if grad else G * C * n, dtype=torch.float32, device=dev)
+    scratch = _scratch(dev, ("K7", dev.index, G, C, m, n, k0, s, depth), plan[7]) if grad else None
+    vp = ctypes.c_void_p
+    status = _build.lib().vg_chains_f32(
+        vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
+        vp(out.data_ptr()), vp(scratch.data_ptr() if grad else 0), plan[7], G, C, m, n, k0, s,
+        depth, code, int(grad), vp(_build.stream_ptr(xT)),
     )
     _build.check(status, "vg_chains_f32")
     data_vg_chains.launches += 1
-    return y_pred, grads
+    y_pred = out[: G * C * n].view(G, C, n)
+    if not grad:
+        return y_pred
+    o = G * C * n
+    dws, dbs = _grad_views(out[o : o + G * C * P].view(G, C, P), (G, C), m, k0, s, depth)
+    return y_pred, out[o + G * C * P :].view(G, C), dws, dbs
 
 
 def data_vg_chains(act_name, xT, weights, biases, target):
@@ -388,23 +546,22 @@ def data_vg_chains(act_name, xT, weights, biases, target):
     weights[l] [G, C, in, out]; biases[l] [G, C, out]; target [G, C, n].
     Returns (y_pred [G, C, n], rss [G, C], dws, dbs) with dW/db =
     d(rss/2)/d(.) in the input layouts. A CPU tensor runs the plain version;
-    a CUDA tensor launches K7 (and raises if it cannot)."""
+    a CUDA tensor launches K7, the pass and its reduce, rss and all (and
+    raises if it cannot)."""
     _check_act(act_name)
     if xT.device.type == "cpu":
         return data_vg_chains_ref(act_name, xT, weights, biases, target)
-    target = target.contiguous()
-    y_pred, grads = _vg_chains_cuda(act_name, xT.contiguous(), weights, biases, target, True)
-    dws, dbs = unflat_params(grads, weights, biases)
-    return y_pred, torch.sum((y_pred - target) ** 2, dim=-1), dws, dbs
+    return _vg_chains_cuda(act_name, xT, weights, biases, target, True)
 
 
 def forward_chains(act_name, xT, weights, biases) -> torch.Tensor:
     """y_pred [G, C, n] of ``data_vg_chains`` alone: on a CUDA tensor K7's
-    forward-only instantiation, on a CPU tensor ``forward_chains_ref``."""
+    forward-only instantiation (one launch, the weights read in place), on
+    a CPU tensor ``forward_chains_ref``."""
     _check_act(act_name)
     if xT.device.type == "cpu":
         return forward_chains_ref(act_name, xT, weights, biases)
-    return _vg_chains_cuda(act_name, xT.contiguous(), weights, biases, None, False)[0]
+    return _vg_chains_cuda(act_name, xT, weights, biases, None, False)
 
 
 data_vg_chains.launches = 0  # K7 launches (both instantiations) since the last reset
@@ -469,17 +626,6 @@ def vg_dense_plan(NB: int, m: int, n: int, k0: int, s: int, depth: int, grad: bo
                                              ACT_CODES[act])))
 
 
-_K8_SCRATCH = {}  # (device index, shape) -> K8's scratch: partial rows, err^2
-
-
-def _k8_scratch(dev, key, nbytes: int) -> torch.Tensor:
-    """The scratch of one K8 shape, made once: later calls allocate nothing."""
-    buf = _K8_SCRATCH.get(key)
-    if buf is None:
-        buf = _K8_SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    return buf
-
-
 def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
     """Launch csrc/branch_vg_dense.cu for NB instances, X [G, m_pad, n] and
     weights[l] [NB, in, out] (instance i on X[ix[i]]), or for one, xT
@@ -491,7 +637,7 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
     G, (m, n) = X.shape[0] if lead else 1, X.shape[-2:]
     NB, depth = weights[0].shape[0] if lead else 1, len(weights) - 2
     k0, s = weights[0].shape[-1], weights[-1].shape[-2]
-    if dense_chains_smem(m, k0, s, depth) < 0:
+    if vg_dense_smem(m, k0, s, depth) < 0:
         raise NotImplementedError(
             f"the K8 CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
             f"within 227 KB of shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
@@ -516,9 +662,9 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
         _check(targets, "targets", torch.float32, pre + (n,), dev)
     code = ACT_CODES[act]
     nbytes = _k8_plan(dev.index, NB, m, n, k0, s, depth, grad, code)[6]  # scratch bytes
-    P = m * k0 + k0 + (k0 * s + s if depth else 0) + s
+    P = _flat_size(m, k0, s, depth)
     out = torch.empty(NB * (n + P + 1) if grad else NB * n, dtype=torch.float32, device=dev)
-    scratch = _k8_scratch(dev, (dev.index, NB, m, n, k0, s, depth), nbytes) if grad else None
+    scratch = _scratch(dev, ("K8", dev.index, NB, m, n, k0, s, depth), nbytes) if grad else None
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -535,11 +681,7 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
         return y_pred
     # [NB, P] gradients in the kernels' flat layout, then rss
     o = NB * n
-    grads = out[o : o + NB * P].view(pre + (P,))
-    parts = grads.split((m * k0, k0) + ((k0 * s, s) if depth else ()) + (s,), dim=-1)
-    dws = ((parts[0].view(pre + (m, k0)),) + ((parts[2].view(pre + (k0, s)),) if depth else ())
-           + (parts[-1].view(pre + (s, 1)),))
-    dbs = (parts[1],) + ((parts[3],) if depth else ())
+    dws, dbs = _grad_views(out[o : o + NB * P].view(pre + (P,)), pre, m, k0, s, depth)
     rss = out[o + NB * P :] if lead else out[o + P]
     return y_pred, rss, dws, dbs
 

@@ -44,8 +44,13 @@ from .activations import ACT_CODES
 from .branch_mlp import (
     SUPPORTED_ACTIVATIONS,
     _dense_shape,
+    _scratch,
     data_vg_chains_ref,
     flat_params,
+    layer_shapes,
+    layer_slots,
+    pass_instances,
+    traj_dense_smem,
     unflat_params,
 )
 from .packed_matmul import GBYTES, _check, unpack_strided
@@ -223,32 +228,6 @@ def traj_dense_plan(G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
     return dict(zip(K6_PLAN_FIELDS, _k6_plan(index, G, C, m, n, k0, s, depth, ACT_CODES[act])))
 
 
-_K6_SCRATCH = {}  # (device index, shape) -> K6's partial rows
-
-
-def _instances(t, name, shape, dev, any_strides=False):
-    """A [G, C, ...] f32 tensor as the kernel reads it: (the tensor, its
-    pointer, its strides over branches, chains, rows and columns; a bias
-    [G, C, cols] is one row). With ``any_strides`` (the step sizes and prior
-    factors) it is read where it lies, broadcast dims included; else its
-    trailing dims must be contiguous, and a tensor whose are not is copied."""
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not any_strides and not t[0, 0].is_contiguous():
-        t = t.contiguous()
-    if t.dim() == 4:
-        rows_cols = t.stride()[2:]
-    elif t.dim() == 3:
-        rows_cols = (0, t.stride(2))
-    else:
-        rows_cols = (0, 0)
-    return t, t.data_ptr(), (t.stride(0), t.stride(1)) + tuple(rows_cols)
-
-
 def _integrate_dense_cuda(
     act, xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w, lam_b, L_steps, l1,
 ):
@@ -258,50 +237,27 @@ def _integrate_dense_cuda(
     step sizes and prior factors broadcast, as the sampler's expanded ones
     are) and writes the end of the trajectory into one new buffer, returned
     as per-layer views."""
-    G, C, m, n, k0, s, depth = _dense_shape(xT, weights)
+    G, C, m, n, k0, s, depth = _dense_shape(xT, weights, traj_dense_smem, "K6")
     dev, xT = xT.device, xT.contiguous()
     _check(xT, "xT", torch.float32, (G, m, n), dev)
     code = ACT_CODES[act]
     plan = _k6_plan(dev.index, G, C, m, n, k0, s, depth, code)
-    key = (dev.index, G, C, m, n, k0, s, depth)
-    scratch = _K6_SCRATCH.get(key)
-    if scratch is None or scratch.numel() < plan[7]:
-        scratch = _K6_SCRATCH[key] = torch.empty(plan[7], dtype=torch.uint8, device=dev)
+    scratch = _scratch(dev, ("K6", dev.index, G, C, m, n, k0, s, depth), plan[7])
     # the layers in the kernel's slots W0, b0, W1, b1, w_out (W1, b1 absent at depth 0)
-    dims = [(m, k0)] + ([(k0, s)] if depth else []) + [(s, 1)]
-    w_shapes = [(G, C) + d for d in dims]
-    b_shapes = [(G, C, d[1]) for d in dims[:-1]]
-
-    def slots(ws, bs):
-        return [ws[0], bs[0]] + ([ws[1], bs[1]] if depth else [None, None]) + [ws[-1]]
-
-    shapes = slots(w_shapes, b_shapes)
+    shapes = layer_shapes(G, C, m, k0, s, depth)
     sizes = [0 if sh is None else G * C * int(torch.Size(sh[2:]).numel()) for sh in shapes]
     out = torch.empty(2 * sum(sizes), dtype=torch.float32, device=dev)
     views, off = [], 0
     for sh, size in zip(shapes + shapes, sizes + sizes):
         views.append(None if sh is None else out[off : off + size].view(sh))
         off += size
-    keep, ptrs, strides = [], [], []
-
-    def add(t, name, shape, any_strides=False):
-        if t is None:
-            ptrs.append(None)
-            strides.extend((0, 0, 0, 0))
-            return
-        t, ptr, st = _instances(t, name, shape, dev, any_strides)
-        keep.append(t)
-        ptrs.append(ptr)
-        strides.extend(st)
-
-    add(targets, "targets", (G, C, n))
-    add(err, "err", (G, C))
+    items = [(targets, "targets", (G, C, n), False), (err, "err", (G, C), False)]
     for name, ws, bs in (("weights", weights, biases), ("momenta", p_w, p_b),
                          ("eps", eps_w, eps_b), ("lam", lam_w, lam_b)):
-        for k, (t, sh) in enumerate(zip(slots(ws, bs), shapes)):
-            add(t, f"{name}[{k}]", sh, name in ("eps", "lam"))
-    for v, sh in zip(views, shapes + shapes):
-        add(v, "out", sh)
+        items += [(t, f"{name}[{k}]", sh, name in ("eps", "lam"))
+                  for k, (t, sh) in enumerate(zip(layer_slots(ws, bs, depth), shapes))]
+    items += [(v, "out", sh, False) for v, sh in zip(views, shapes + shapes)]
+    keep, ptrs, strides = pass_instances(items, dev)
     vp = ctypes.c_void_p
     status = _build.lib().traj_dense_f32(
         vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),

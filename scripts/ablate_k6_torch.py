@@ -4,11 +4,11 @@ NVIDIA GPU: the kernel with one piece at a time taken out or changed.
 
     python3 scripts/ablate_k6_torch.py [--root DIR] [--variants NAME,...]
 
-Each variant is the checkout's traj_dense.cu (and, for the split and the
-joins, its copy of csrc/dense_vg_mma.cuh) edited as below (each edit
-asserts that its anchor is there), compiled with branch_vg_chains.cu (the
-limits) by nvcc into its own library (all variants in parallel; tanh's
-instantiations only) and called through the same C entry point:
+Each variant is the checkout's traj_dense.cu and its copy of
+csrc/dense_vg_mma.cuh (the tile's phases, the split and the joins) edited
+as below (each edit asserts that its anchor is there), compiled by nvcc
+into its own library (all variants in parallel; tanh's instantiations only)
+and called through the same C entry point:
   kernel        unchanged
   no_phase_b    phase B (dW0 and dW1 over each tile) removed
   no_mma_a      phase A's three products skipped (their sums zero)
@@ -20,10 +20,8 @@ instantiations only) and called through the same C entry point:
   two_barriers  a second CTA-wide barrier at the end of each tile
   no_update     the update phase skipped (the grid syncs stay)
   cc1           one chain per CTA (kMaxCC = 1): no X tile shared by chains
-  act_runtime   the activation a launch argument read at run time, not a
-                template parameter (one instantiation for every activation)
-Every variant but ``kernel``, ``cvt_split``, ``two_barriers``, ``cc1`` and
-``act_runtime`` gives wrong numbers; only its time means anything. The case:
+Every variant but ``kernel``, ``cvt_split``, ``two_barriers`` and ``cc1``
+gives wrong numbers; only its time means anything. The case:
 the dense flagship's block (G = 64, C = 4, m_pad = 64, k0 = s = 32, depth 1,
 n = 4,096, tanh) at L = 64; then the cost of an evaluation beyond its
 tiles: ``kernel`` at n = 32 (one tile per instance, 128 CTAs) and at G = C
@@ -44,11 +42,11 @@ RUNS = 5
 TANH_ONLY = ("template <int KM, bool DEEP, int CC>\nconst void* kernel_act(int act) {",
              "template <int KM>\nconst void* kernel_km")
 EDITS = {  # variant: [(file, old, new)]
-    "no_phase_b": [("traj_dense.cu", "for (int u = w; u < u0 + u1; u += kWarps) {",
+    "no_phase_b": [("dense_vg_mma.cuh", "for (int u = w; u < u0 + u1; u += kWarps) {",
                     "for (int u = w; u < 0; u += kWarps) {")],
-    "no_mma_a": [("traj_dense.cu", "(w0f, xt, a.m8 / 8,", "(w0f, xt, 0,"),
-                 ("traj_dense.cu", "(w1a, a0t, NT,", "(w1a, a0t, 0,"),
-                 ("traj_dense.cu", "(w1b, dz1t, NT,", "(w1b, dz1t, 0,")],
+    "no_mma_a": [("dense_vg_mma.cuh", "(gs.w0f, xt, m8 / 8,", "(gs.w0f, xt, 0,"),
+                 ("dense_vg_mma.cuh", "(gs.w1a, gs.a0t, NT,", "(gs.w1a, gs.a0t, 0,"),
+                 ("dense_vg_mma.cuh", "(gs.w1b, gs.dz1t, NT,", "(gs.w1b, gs.dz1t, 0,")],
     "hh_only": [("dense_vg_mma.cuh", "    mma_tf32_zero(lh, al, bh0, bh1);\n"
                  "    mma_tf32_zero(hl, ah, bl0, bl1);\n#pragma unroll\n"
                  "    for (int e = 0; e < 4; ++e) acc[e] += hh[e] + (lh[e] + hl[e]);",
@@ -75,12 +73,6 @@ EDITS = {  # variant: [(file, old, new)]
                    "            if (a.steps < 0) update_layer<3, CC>(a, l);\n        }\n"
                    "        if (a.steps < 0) update_layer<4, CC>(a, l);")],
     "cc1": [("traj_dense.cu", "constexpr int kMaxCC = 2;", "constexpr int kMaxCC = 1;")],
-    "act_runtime": [("traj_dense.cu", "act_apply(ACT,", "act_apply(a.act,"),
-                    ("traj_dense.cu", "act_prime(ACT,", "act_prime(a.act,"),
-                    ("traj_dense.cu", "int G, C, m, n, k0, s, P, steps, l1;",
-                     "int G, C, m, n, k0, s, P, steps, l1, act;"),
-                    ("traj_dense.cu", "a.steps = steps, a.l1 = l1;",
-                     "a.steps = steps, a.l1 = l1, a.act = act;")],
 }
 
 
@@ -163,7 +155,7 @@ def main():
         variant(csrc, d, name)
         procs[name] = subprocess.Popen(  # the variant's header first, then the checkout's
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d), "-I", str(csrc), "-o",
-             str(d / "lib.so"), str(d / "traj_dense.cu"), str(csrc / "branch_vg_chains.cu")],
+             str(d / "lib.so"), str(d / "traj_dense.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

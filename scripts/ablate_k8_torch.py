@@ -4,10 +4,11 @@ NVIDIA GPU: the kernel with one phase at a time taken out.
 
     python3 scripts/ablate_k8_torch.py [--root DIR] [--variants NAME,...]
 
-Each variant is the checkout's branch_vg_dense.cu with a phase removed by
-an edit of its text (each edit asserts that its anchor is there), compiled
-with branch_vg_chains.cu (K8's limits) by nvcc into its own library (all
-variants in parallel) and called through the same C entry point:
+Each variant is the checkout's branch_vg_dense.cu and its copy of
+csrc/dense_vg_mma.cuh (the tile's phases, the flush and the X copy) with a
+phase removed by an edit of their text (each edit asserts that its anchor
+is there), compiled by nvcc into its own library (all variants in
+parallel) and called through the same C entry point:
   kernel      unchanged
   no_stage    the weight fragments not staged (stale shared memory)
   no_mma_a    phase A's three products skipped (their sums zero)
@@ -34,40 +35,31 @@ from pathlib import Path
 
 M, N, K = 64, 4096, 32
 RUNS, BACK_TO_BACK = 7, 20
-STAGE = "            stage_weights<MT, K16, DEEP, GRAD>(a, j, w0f, w1a, w1b, b0s);\n"
-MMA_A = (("product_a<MT>(w0f, xt, a.m8 / 8,", "product_a<MT>(w0f, xt, 0,"),
-         ("product_a<MT>(w1a, a0t, NT,", "product_a<MT>(w1a, a0t, 0,"),
-         ("product_a<MT>(w1b, dz1t, NT,", "product_a<MT>(w1b, dz1t, 0,"))
-PHASE_B = "            // ---- phase B"
-PHASE_B_END = "        }\n        __syncthreads();  // the tile, the planes"
-FLUSH = "        if (lane < k0) {\n            for (int mm = w; mm < m; mm += kWarps)"
-COPY = "    const int i0 = tl * kT;\n    if (a.vec16) {"
+EDITS = {  # variant: [(file, old, new)]
+    "no_stage": [("branch_vg_dense.cu", "            stage_weights_from<MT, K16, DEEP, GRAD>(",
+                  "            if (m < 0) stage_weights_from<MT, K16, DEEP, GRAD>(")],
+    "no_mma_a": [("dense_vg_mma.cuh", "(gs.w0f, xt, m8 / 8,", "(gs.w0f, xt, 0,"),
+                 ("dense_vg_mma.cuh", "(gs.w1a, gs.a0t, NT,", "(gs.w1a, gs.a0t, 0,"),
+                 ("dense_vg_mma.cuh", "(gs.w1b, gs.dz1t, NT,", "(gs.w1b, gs.dz1t, 0,")],
+    "no_phase_b": [("dense_vg_mma.cuh", "for (int u = w; u < u0 + u1; u += kWarps) {",
+                    "for (int u = w; u < 0; u += kWarps) {")],
+    "no_flush": [("dense_vg_mma.cuh", "    if (lane < k0) {\n        for (int mm = w; mm < m;",
+                  "    if (lane < 0) {\n        for (int mm = w; mm < m;")],
+    "no_copy": [("dense_vg_mma.cuh", "    const int i0 = tl * kT;\n    if (vec16) {",
+                 "    const int i0 = tl * kT;\n    cp_async_commit();\n    return;\n"
+                 "    if (vec16) {")],
+}
 
 
-def cut(src, start, end):
-    a, b = src.index(start), src.index(end)
-    return src[:a] + src[b:]
-
-
-def variant(src, name):
-    """branch_vg_dense.cu with ``name``'s phase taken out."""
-    if name == "no_stage":
-        assert STAGE in src
-        src = src.replace(STAGE, "")
-    elif name == "no_mma_a":
-        for old, new in MMA_A:
-            assert old in src
-            src = src.replace(old, new)
-    elif name == "no_phase_b":
-        src = cut(src, PHASE_B, PHASE_B_END)
-    elif name == "no_flush":
-        assert FLUSH in src
-        src = src.replace(FLUSH, FLUSH.replace("lane < k0", "lane < 0"))
-    elif name == "no_copy":
-        assert COPY in src
-        src = src.replace(COPY, "    const int i0 = tl * kT;\n    cp_async_commit();\n    return;\n"
-                                "    if (a.vec16) {")
-    return src
+def variant(csrc, out, name):
+    """Write ``name``'s branch_vg_dense.cu and dense_vg_mma.cuh into ``out``."""
+    out.mkdir(parents=True, exist_ok=True)
+    files = {f: (csrc / f).read_text() for f in ("branch_vg_dense.cu", "dense_vg_mma.cuh")}
+    for f, old, new in EDITS.get(name, []):
+        assert old in files[f], (name, old)
+        files[f] = files[f].replace(old, new)
+    for f, text in files.items():
+        (out / f).write_text(text)
 
 
 def cuda_ms(fn):
@@ -109,17 +101,15 @@ def main():
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"{smi}; torch {torch.__version__}")
     csrc = root / "rs_bann_tpu_torch" / "csrc"
-    src = (csrc / "branch_vg_dense.cu").read_text()
     out_dir = root / "build" / "ablate_k8"
-    out_dir.mkdir(parents=True, exist_ok=True)
     names = opts.variants.split(",")
     procs = {}
     for name in names:
-        cu = out_dir / f"branch_vg_dense_{name}.cu"
-        cu.write_text(variant(src, name))
-        procs[name] = subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(csrc), "-o",
-             str(out_dir / f"lib_{name}.so"), str(cu), str(csrc / "branch_vg_chains.cu")],
+        d = out_dir / name
+        variant(csrc, d, name)
+        procs[name] = subprocess.Popen(  # the variant's header first, then the checkout's
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d), "-I", str(csrc), "-o",
+             str(d / "lib.so"), str(d / "branch_vg_dense.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, res = {}, {"device": smi, "ms": {}}
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -127,7 +117,7 @@ def main():
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"ablate_k8_torch: nvcc failed on {name}:\n{log}")
-        so = ctypes.CDLL(str(out_dir / f"lib_{name}.so"))
+        so = ctypes.CDLL(str(out_dir / name / "lib.so"))
         so.vg_dense_f32.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i32] * 8 + [vp]
         so.vg_dense_f32.restype = i32
         libs[name] = so

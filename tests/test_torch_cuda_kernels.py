@@ -222,12 +222,17 @@ def _vjp_f64(by, g, out, n, act):
     return x @ dz, dz.sum(dim=-2)
 
 
-def _no_further_from_f64(got, ref, ref64, tol=1e-4):
+def _no_further_from_f64(got, ref, ref64, tol=1e-4, allow=None):
     """The kernel lies no further from f64 than the f32 plain version, plus
-    tol of the largest entry."""
-    def err(a, b):
-        return (a.double() - b).abs().max().item() / max(b.abs().max().item(), 1.0)
-    return all(err(a, c) <= err(b, c) + tol for a, b, c in zip(got, ref, ref64))
+    tol of the largest entry; each of the kernel's entries after taking off
+    its ``allow`` (``kink_allowance``, one per output)."""
+    def err(a, b, al=None):
+        diff = (a.double() - b).abs()
+        if al is not None:
+            diff = (diff - al.to(diff.dtype)).clamp(min=0)
+        return diff.max().item() / max(b.abs().max().item(), 1.0)
+    allow = allow or [None] * len(got)
+    return all(err(a, c, al) <= err(b, c) + tol for a, b, c, al in zip(got, ref, ref64, allow))
 
 
 @pytest.mark.parametrize("act", PM.FUSED_ACTIVATIONS)
@@ -365,6 +370,20 @@ def _device_ops(fn):
     return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def _one_op(call, names):
+    """call()'s result and its device ops, which must be exactly ``names``
+    in order (any other device op fails at once; a trace that lost an event,
+    as CUPTI now and then does after many profiling sessions in one process,
+    is taken again)."""
+    for _ in range(5):
+        out, ops = _device_ops(call)
+        assert all(any(nm in o for nm in names) for o in ops), ops
+        if len(ops) == len(names):
+            break
+    assert len(ops) == len(names) and all(nm in o for nm, o in zip(names, ops)), ops
+    return out
+
+
 def _k4_check(act, x, ws, bs, target):
     """K4 against its plain version, and against the plain version in f64;
     one call is one count and, at depth 0, exactly its two kernels and no
@@ -379,27 +398,21 @@ def _k4_check(act, x, ws, bs, target):
         return again[:2] + again[2] + again[3]
 
     if len(ws) == 2:
-        # any other device op fails at once; a trace that lost an event, as
-        # CUPTI now and then does after many profiling sessions in one
-        # process, is taken again
-        for _ in range(5):
-            again, ops = _device_ops(repeat)
-            assert all("vg_packed0_kernel" in o or "reduce0_kernel" in o for o in ops), ops
-            if len(ops) == 2:
-                break
-        assert len(ops) == 2, ops
-        assert "vg_packed0_kernel" in ops[0] and "reduce0_kernel" in ops[1], ops
+        again = _one_op(repeat, ["vg_packed0_kernel", "reduce0_kernel"])
     else:
         again = repeat()
     # the same inputs give the same bits: no float atomics
     assert all(torch.equal(a, b) for a, b in zip(first, again))
-    # the plain version with the wrapper's fold, in f32 as the wrapper's and
-    # (the same tolerance) every step in f64; at relu's and leaky_relu's
-    # kink each near term counted on either side
+    # the plain version with the wrapper's fold, every step in f64 and in f32
+    # as the wrapper's; at relu's and leaky_relu's kink each near term
+    # counted on either side. The gradients are sums over n that cancel, so
+    # against the f32 plain version they are held to the nearer reference:
+    # no further from f64 than it is, plus the tolerance
     allow = kink_allowance(act, PM.unpack_strided(x.bytes, x.n), ws, bs, target,
                            fold=(x.w_scale, x.shift))
     allow = allow or [None] * (len(ws) + len(bs))
-    for dtype in (torch.float32, torch.float64):
+    refs = {}
+    for dtype in (torch.float64, torch.float32):
         s, sh, t = (v.to(dtype) for v in (x.w_scale, x.shift, target))
         wf = (s[:, None] * ws[0].to(dtype),) + tuple(w.to(dtype) for w in ws[1:])
         bf = (bs[0].to(dtype) - sh @ wf[0],) + tuple(b.to(dtype) for b in bs[1:])
@@ -408,9 +421,12 @@ def _k4_check(act, x, ws, bs, target):
         rss_ref = torch.sum((y_ref - t) ** 2)
         assert abs(rss.item() - rss_ref.item()) <= 1e-4 * max(rss_ref.item(), 1.0)
         dws_ref = (s[:, None] * dws_ref[0] - (sh * s)[:, None] * dbs_ref[0],) + dws_ref[1:]
-        for got, ref, al in zip(dws + dbs, dws_ref + dbs_ref, allow):
+        refs[dtype] = dws_ref + dbs_ref
+        for got, ref in zip(dws + dbs, refs[dtype]):
             assert got.shape == ref.shape
-            assert _rel_close(got.to(dtype), ref, allow=al)
+    for got, ref, al in zip(dws + dbs, refs[torch.float64], allow):
+        assert _rel_close(got.double(), ref, allow=al)
+    assert _no_further_from_f64(dws + dbs, refs[torch.float32], refs[torch.float64], allow=allow)
     return dws
 
 
@@ -420,6 +436,19 @@ def test_data_vg_packed_kernel_matches_plain(dev, act, shape):
     rng = np.random.default_rng(1)
     depth, m, n, k0, live = shape
     _k4_check(act, *_k4_inputs(rng, depth, m, n, k0, live, dev))
+
+
+# draws of the first case above (torch's generator seeded so first, as
+# scripts/repeat_k4_torch.py draws them) whose db0 lay beyond the tolerance
+# from the f32 plain version (1.020x and 2.222x) while the f32 plain
+# version lay 0.974x and 2.137x from f64 and K4 0.046x and 0.090x
+K4_DRAWS = [182, 757]
+
+
+@pytest.mark.parametrize("seed", K4_DRAWS, ids=lambda s: f"seed{s}")
+def test_data_vg_packed_kernel_at_a_drawn_case(dev, seed):
+    torch.manual_seed(seed)
+    _k4_check("identity", *_k4_inputs(np.random.default_rng(1), *K4_SHAPES[0], dev))
 
 
 @pytest.mark.parametrize("shape", K4_LARGEST, ids=lambda s: "m{}_k{}".format(s[1], s[3]))
@@ -591,26 +620,91 @@ DENSE_CASES = [(0, "identity", 333, 8), (0, "relu", 512, 16), (1, "tanh", 1300, 
                (1, "silu", 701, 16), (1, "leaky_relu", 257, 8)]
 
 
-@pytest.mark.parametrize("depth,act,n,k", DENSE_CASES)
-def test_data_vg_chains_kernel_matches_plain(dev, depth, act, n, k):
-    rng = np.random.default_rng(4)
-    xT, target, ws, bs, _, _ = _dense_inputs(rng, dev, 3, 2, 40, n, k, depth)
+def _k7_check(act, xT, ws, bs, target):
+    """K7 against its plain version in f32 and in f64 (y_pred atol 1e-4, rss
+    and gradients 1e-4 of max(1, the largest entry), each gradient entry at
+    relu and leaky_relu less its kink allowance); the forward-only call's
+    y_pred the same bits; one value-and-gradient call is one count and
+    exactly the pass and its reduce, a forward-only call one count and
+    exactly its pass; repeats give the same bits."""
     before = BM.data_vg_chains.launches
     y, rss, dws, dbs = BM.data_vg_chains(act, xT, ws, bs, target)
     y_fwd = BM.forward_chains(act, xT, ws, bs)
     assert BM.data_vg_chains.launches == before + 2
-    y_ref, rss_ref, dws_ref, dbs_ref = BM.data_vg_chains_ref(act, xT, ws, bs, target)
     torch.cuda.synchronize()
-    assert (y - y_ref).abs().max().item() <= 1e-4
-    assert (y_fwd - y_ref).abs().max().item() <= 1e-4
-    assert (rss - rss_ref).abs().max().item() <= 1e-4 * rss_ref.abs().max().item()
+    assert torch.equal(y, y_fwd)
     allow = kink_allowance(act, xT[:, None], ws, bs, target) or [None] * len(ws + bs)
-    for got, ref, al in zip(dws + dbs, dws_ref + dbs_ref, allow):
-        assert got.shape == ref.shape
-        assert _rel_close(got, ref, allow=al)
+    for dtype in (torch.float32, torch.float64):
+        y_ref, rss_ref, dws_ref, dbs_ref = BM.data_vg_chains_ref(
+            act, xT.to(dtype), _f64(ws, dtype), _f64(bs, dtype), target.to(dtype))
+        assert (y.to(dtype) - y_ref).abs().max().item() <= 1e-4
+        assert _rel_close(rss.to(dtype), rss_ref)
+        for got, ref, al in zip(dws + dbs, dws_ref + dbs_ref, allow):
+            assert got.shape == ref.shape
+            assert _rel_close(got.to(dtype), ref, allow=al)
     # the same inputs give the same bits: no float atomics
-    y2, _, dws2, dbs2 = BM.data_vg_chains(act, xT, ws, bs, target)
-    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
+    y2, rss2, dws2, dbs2 = _one_op(lambda: BM.data_vg_chains(act, xT, ws, bs, target),
+                                   ["vg_chains_kernel", "vg_chains_reduce"])
+    assert torch.equal(y, y2) and torch.equal(rss, rss2)
+    assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
+    assert torch.equal(y_fwd, _one_op(lambda: BM.forward_chains(act, xT, ws, bs),
+                                      ["vg_chains_kernel"]))
+
+
+@pytest.mark.parametrize("depth,act,n,k", DENSE_CASES)
+def test_data_vg_chains_kernel_matches_plain(dev, depth, act, n, k):
+    rng = np.random.default_rng(4)
+    xT, target, ws, bs, _, _ = _dense_inputs(rng, dev, 3, 2, 40, n, k, depth)
+    _k7_check(act, xT, ws, bs, target)
+
+
+# G, C, m, n, width, depth, activation: one chain; three (a ragged chunk of
+# two); the flagship's width with five chains; more instances than one
+# wave holds
+K7_CASES = [(3, 1, 40, 700, 16, 1, "tanh"), (3, 3, 24, 333, 8, 0, "silu"),
+            (4, 5, 64, 1100, 32, 1, "tanh"), (300, 4, 24, 257, 32, 1, "tanh")]
+
+
+@pytest.mark.parametrize("G,C,m,n,k,depth,act", K7_CASES)
+def test_data_vg_chains_kernel_shapes(dev, G, C, m, n, k, depth, act):
+    rng = np.random.default_rng(22)
+    plan = BM.vg_chains_plan(G, C, m, n, k, k, depth, act=act)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan["ctas"] <= plan["ctas_per_sm"] * sms  # one wave
+    if G == 300:
+        assert plan["ctas"] < G * plan["chunks"]  # the wave's CTAs take several instances
+    xT, target, ws, bs, _, _ = _dense_inputs(rng, dev, G, C, m, n, k, depth)
+    _k7_check(act, xT, ws, bs, target)
+
+
+def test_data_vg_chains_reads_the_value_pass_inputs_in_place(dev):
+    """``predict_chains``' own inputs on a FeatX: [C, G] weights as [G, C]
+    views (models/density.py), y_pred the bits of the same weights made
+    contiguous, one forward-only launch and no copy."""
+    from rs_bann_tpu_torch.models import density as D
+
+    rng = np.random.default_rng(23)
+    G, C, m, n, k = 3, 4, 40, 333, 16
+    xT, _, ws, bs, _, _ = _dense_inputs(rng, dev, G, C, m, n, k, 1)
+    ws_cg = tuple(w.transpose(0, 1).contiguous() for w in ws)  # [C, G, ...] storage
+    bs_cg = tuple(b.transpose(0, 1).contiguous() for b in bs)
+    got = _one_op(lambda: D.predict_chains("tanh", ws_cg, bs_cg, D.FeatX(xT)),
+                  ["vg_chains_kernel"])
+    assert torch.equal(got, BM.forward_chains("tanh", xT, ws, bs).transpose(0, 1))
+
+
+@pytest.mark.parametrize("m,k,depth", [(263, 32, 1), (345, 16, 1), (390, 8, 0)],
+                         ids=lambda v: str(v))
+def test_data_vg_chains_runs_every_admitted_m(dev, m, k, depth):
+    """The largest m_pad that the parent's rule admitted at each register
+    width (one chain per CTA, one X buffer) still runs on K7."""
+    from test_torch_dense_smem import old_dense_chains_smem
+
+    assert old_dense_chains_smem(m, k, k, depth) > 0 > old_dense_chains_smem(m + 1, k, k, depth)
+    assert BM.vg_chains_plan(2, 2, m, 301, k, k, depth)["cc"] in (1, 2)
+    rng = np.random.default_rng(24)
+    xT, target, ws, bs, _, _ = _dense_inputs(rng, dev, 2, 2, m, 301, k, depth)
+    _k7_check("tanh", xT, ws, bs, target)
 
 
 def _traj_dense_inputs(rng, dev, G, C, m, n, k, depth, steps):
@@ -642,13 +736,7 @@ def _k6_check(act, args, l1, tol=1e-4):
                 assert got.shape == want.shape
                 assert (got.to(dtype) - want).abs().max().item() <= tol * max(
                     want.abs().max().item(), 1.0)
-    # any other device op fails at once; a trace that lost its event is taken again
-    for _ in range(5):
-        again, ops = _device_ops(lambda: TL.integrate_chains(act, *args, l1=l1))
-        assert all("traj_dense_kernel" in o for o in ops), ops
-        if len(ops) == 1:
-            break
-    assert len(ops) == 1, ops
+    again = _one_op(lambda: TL.integrate_chains(act, *args, l1=l1), ["traj_dense_kernel"])
     assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
     return out
 
@@ -731,10 +819,13 @@ def test_integrate_chains_at_the_flagship_shape(dev):
 @pytest.mark.parametrize("m,k,depth", [(263, 32, 1), (345, 16, 1), (390, 8, 0)],
                          ids=lambda v: str(v))
 def test_integrate_chains_runs_every_admitted_m(dev, m, k, depth):
-    """The largest m_pad that dense_chains_smem admits at each register
-    width: K6 fits it (one chain per CTA where two do not fit)."""
-    assert BM.dense_chains_smem(m, k, k, depth) > 0
-    assert BM.dense_chains_smem(m + 1, k, k, depth) < 0
+    """The largest m_pad that the parent's rule (dense_chains_smem) admitted
+    at each register width: K6 fits it (one chain per CTA where two do not
+    fit)."""
+    from test_torch_dense_smem import old_dense_chains_smem
+
+    assert old_dense_chains_smem(m, k, k, depth) > 0 > old_dense_chains_smem(m + 1, k, k, depth)
+    assert BM.traj_dense_smem(m, k, k, depth) > 0
     assert TL.traj_dense_plan(2, 2, m, 301, k, k, depth, "tanh")["cc"] in (1, 2)
     rng = np.random.default_rng(19)
     _k6_check("tanh", _traj_dense_inputs(rng, dev, 2, 2, m, 301, k, depth, 2), False)
@@ -745,8 +836,10 @@ def test_dense_limits_agree_with_the_kernels(dev):
 
     lib = _build.lib()
     for shape in [(64, 32, 32, 1), (40, 16, 16, 0), (254, 32, 32, 1), (300, 32, 32, 1),
-                  (64, 64, 32, 1), (64, 8, 8, 2)]:
-        assert lib.dense_chains_smem(*shape) == BM.dense_chains_smem(*shape), shape
+                  (64, 64, 32, 1), (64, 8, 8, 2), (263, 32, 32, 1), (345, 16, 16, 1),
+                  (390, 8, 8, 0), (330, 32, 32, 1), (331, 32, 32, 1)]:
+        for rule in ("traj_dense_smem", "vg_chains_smem", "vg_dense_smem"):
+            assert getattr(lib, rule)(*shape) == getattr(BM, rule)(*shape), (rule, shape)
 
 
 def test_packed_limits_agree_with_the_kernels(dev):
@@ -841,14 +934,7 @@ def _k8_check(act, call, ref, xT, ws, bs, targets, kernel_launches):
     allow = kink_allowance(act, xT, ws, bs, targets)
     for dtype in (torch.float32, torch.float64):
         _vg_close(got, ref(dtype), allow)
-    # any other device op fails at once; a trace that lost an event is taken again
-    want = ["vg_dense_kernel", "vg_dense_reduce"]
-    for _ in range(5):
-        again, ops = _device_ops(call)
-        assert all("vg_dense_kernel" in o or "vg_dense_reduce" in o for o in ops), ops
-        if len(ops) == len(want):
-            break
-    assert len(ops) == len(want) and all(w in o for w, o in zip(want, ops)), ops
+    again = _one_op(call, ["vg_dense_kernel", "vg_dense_reduce"])
     assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
     return got
 
@@ -917,15 +1003,17 @@ def test_data_vg_blocked_at_the_flagship_shape(dev, NB):
     assert torch.equal(BM.forward_blocked("tanh", X, ix, ws, bs), got[0])
 
 
-# the largest m_pad that dense_chains_smem admits at each register width
-# (one X tile buffer in shared memory), ragged n
+# the largest m_pad that the parent's rule (dense_chains_smem) admitted at
+# each register width (one X tile buffer in shared memory), ragged n
 K8_LARGEST = [(263, 32, 1), (345, 16, 1), (390, 8, 0)]
 
 
 @pytest.mark.parametrize("m,k,depth", K8_LARGEST, ids=lambda v: str(v))
 def test_data_vg_runs_every_admitted_m(dev, m, k, depth):
-    assert BM.dense_chains_smem(m, k, k, depth) > 0
-    assert BM.dense_chains_smem(m + 1, k, k, depth) < 0
+    from test_torch_dense_smem import old_dense_chains_smem
+
+    assert old_dense_chains_smem(m, k, k, depth) > 0 > old_dense_chains_smem(m + 1, k, k, depth)
+    assert BM.vg_dense_smem(m, k, k, depth) > 0
     n = 301
     assert BM.vg_dense_plan(2, m, n, k, k, depth)["buffers"] in (1, 2)
     rng = np.random.default_rng(16)

@@ -14,8 +14,8 @@ split evenly over the CTAs, which are R per instance where the wave holds
 one per instance and else one wave whose CTAs take several instances in
 turn; group i of a CTA runs chain i of the chunk (none past C), one
 partial row per (segment, chain), row (b + j) CC + i. Each tile of a
-segment as K8's emulation (tests/test_torch_k8_split.py) computes it, but
-for the split of every operand other than the staged weights (hi = x
+segment as K8's emulation (tests/test_torch_k8_split.py) computes it, with
+its split of every operand other than the staged weights (hi = x
 truncated to tf32, lo = x - hi rounded to tf32): the five products in
 3xTF32 with the tensor cores at their worst, each
 fragment's three MMAs from zero accumulators joined by round-to-nearest f32
@@ -35,32 +35,14 @@ import torch
 
 from rs_bann_tpu.ops import branch_mlp as JBM
 from rs_bann_tpu.ops import leapfrog as JL
+from rs_bann_tpu_torch.ops import branch_mlp as TBM
 from rs_bann_tpu_torch.ops import leapfrog as TL
 from test_torch_k4_split import act_np, act_prime_np, f32, fma
-from test_torch_k8_split import TILE, WARPS, cta_of, km_of, mma3, pad, split2, tf32
+from test_torch_k8_split import TILE, WARPS, cta_of, km_of, mma3, pad, product, split_int, tf32
 
 REL_TOL = 1e-4  # as the card's check of K6 after 3 steps (tests/test_torch_cuda_kernels.py)
 
 F32 = np.float32
-
-
-def split_int(x):
-    """dense_vg_mma.cuh split2_int, K6's split of every operand but the
-    staged weights: hi = x with its low 13 bits cleared, lo = tf32(x - hi)
-    (round to nearest, ties away)."""
-    x = np.asarray(x, F32)
-    hi = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(F32)
-    return hi, tf32(f32(x.astype(np.float64) - hi))
-
-
-def product(A, B, k):
-    """D [M, N] = A [M, k] @ B [k, N] over k-steps of 8, each joined by mma3:
-    A the staged weights (split2), B split by split_int."""
-    d = np.zeros((A.shape[0], B.shape[1]), F32)
-    sa, sb = split2(A), split_int(B)
-    for kc in range(0, k, 8):
-        d = mma3(d, tuple(p[:, kc:kc + 8] for p in sa), tuple(p[kc:kc + 8] for p in sb))
-    return d
 
 
 def work_split(G, C, n, cc, wave):
@@ -97,9 +79,12 @@ def instance_rows(j, NB, tiles, ctas, rper):
     return first, cta_of((j + 1) * tiles - 1, ctas, items) - first + 1
 
 
-def segment_row(xg, tg, ws, bs, act, tls):
-    """One group's partial row for one chain over the tiles ``tls`` of its
-    branch: xg [m, n], tg [n], ws/bs the chain's layers (W [in, out])."""
+def segment(xg, tg, ws, bs, act, tls):
+    """One group's run over the tiles ``tls`` of its branch for one chain:
+    xg [m, n], tg [n], ws/bs the chain's layers (W [in, out]). Returns its
+    partial row, its predictions ({individual: y_pred}) and its err^2 (f64:
+    each thread's, over the quad's lanes and the warps in order, as K7 and
+    K8 sum it)."""
     m, n = xg.shape
     depth, k0, s = len(ws) - 2, ws[0].shape[-1], ws[-1].shape[-2]
     KM = km_of(k0, s)
@@ -112,6 +97,7 @@ def segment_row(xg, tg, ws, bs, act, tls):
         b1 = pad(bs[1], (K16,))
     acc = {"dW0": None, "dW1": None}
     small = np.zeros((3, WARPS, 4, K16), F32)
+    preds, e2 = {}, np.zeros((WARPS, 4))
     lanes = lambda v: v.reshape(K16, WARPS, 4, 2).transpose(3, 1, 2, 0)  # noqa: E731
     for tl in tls:
         xt = np.zeros((m16, TILE), F32)
@@ -137,6 +123,9 @@ def segment_row(xg, tg, ws, bs, act, tls):
         for o in (1, 2, 4):
             p = f32(p + p[np.arange(8) ^ o])
         err = np.where(valid, f32(p[0] - tgt), F32(0))
+        preds.update(zip(cols.tolist(), p[0][:len(cols)].tolist()))
+        ew = err.reshape(WARPS, 4, 2).astype(np.float64)  # thread (w, t): 8 w + 2 t, then + 1
+        e2 = e2 + ew[..., 0] ** 2 + ew[..., 1] ** 2
         errs = lanes(np.broadcast_to(err, (K16, TILE)))
         if depth:
             dz1 = f32(f32(wo[:, None] * err) * act_prime_np(act, z1, a1))
@@ -168,7 +157,8 @@ def segment_row(xg, tg, ws, bs, act, tls):
     if depth:
         row += [acc["dW1"][:k0, :s].ravel(), tot[1, :s]]
     row.append(tot[2, :s])
-    return np.concatenate(row)
+    ws2 = (e2[:, 0] + e2[:, 1]) + (e2[:, 2] + e2[:, 3])
+    return np.concatenate(row), preds, ((ws2[0] + ws2[1]) + ws2[2]) + ws2[3]
 
 
 def flat(ws, bs):
@@ -209,9 +199,9 @@ def emulate(act, xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_
             for i in range(cc):
                 c = (j % chunks) * cc + i
                 if c < C:
-                    partial[(b + j) * cc + i] = segment_row(
+                    partial[(b + j) * cc + i] = segment(
                         xT[g], targets[g, c], [w[g, c] for w in ws], [v[g, c] for v in bs], act,
-                        tls)
+                        tls)[0]
         for g in range(G):
             for c in range(C):
                 j, i = g * chunks + c // cc, c % cc
@@ -406,14 +396,15 @@ def _fold_layouts():
 @pytest.mark.parametrize("kind", list(_fold_layouts()))
 def test_the_wrapper_passes_each_tensor_as_it_lies(kind):
     """What ``_integrate_dense_cuda`` hands the C entry for one per-layer
-    tensor (``_instances``): read at the strides it passes as the kernel
-    reads it (the step sizes and prior factors at (g, c, row, column), the
+    tensor (``pass_instances``, each by ``_instances``): read at the strides
+    it passes as the kernel reads it (the step sizes and prior factors at
+    (g, c, row, column), the
     others at (g, c) plus the element's index), every element is the
     tensor's. Broadcast step sizes and prior factors are passed in place
     (stride 0, no copy); only a tensor with non-contiguous trailing dims
     that the kernel reads as contiguous is copied."""
     t, any_strides = _fold_layouts()[kind]
-    held, ptr, (sg, sc, sr, sk) = TL._instances(t, kind, t.shape, t.device, any_strides)
+    held, ptr, (sg, sc, sr, sk) = TBM._instances(t, kind, t.shape, t.device, any_strides)
     G, C = t.shape[:2]
     rows, cols = tuple(t.shape[2:]) if t.dim() == 4 else (1, t[0, 0].numel())
     if any_strides:

@@ -9,8 +9,10 @@ run it), within REL_TOL of the largest entry of each output.
 
 The emulation follows the kernel's data path: the work split (items =
 (instance, tile of 32 individuals), an even run per CTA, one partial row per
-instance a CTA touches, in row c + j); each operand split into tf32 parts,
-hi = tf32(v) (round to nearest, ties away) and lo = tf32(v - hi); the five
+instance a CTA touches, in row c + j); each operand split into tf32 parts:
+the staged weights by cvt.rna, hi = tf32(v) (round to nearest, ties away)
+and lo = tf32(v - hi), every other operand as csrc/dense_vg_mma.cuh
+split2_int splits it, hi = v truncated to tf32 and lo = tf32(v - hi); the five
 products as m16n8k8 fragments over k-steps of 8 (markers or units for Z0,
 Z1 and dA0; the tile's individuals for dW0 and dW1), each fragment's
 hi*hi, lo*hi and hi*lo from zero accumulators, joined to the f32 sum by
@@ -24,8 +26,8 @@ quad's lanes and the warps in order; each tile's dW0 and dW1 added to the
 CTA's accumulators; err^2 in f64; and the reduce's slices.
 
 Why 3xTF32 and not three bf16 parts each: v - hi is exact, so hi + lo is v
-to 2^-22 and the dropped lo*lo term 2^-22 of |a b|: 2^-21 per product,
-2^-7.7 below REL_TOL, in three MMAs per fragment at the tf32 rate (the
+to 2^-22 (2^-21 truncated) and the dropped lo*lo term 2^-22 of |a b|: 2^-21
+(2^-20) per product, at least 2^-6.7 below REL_TOL, in three MMAs per fragment at the tf32 rate (the
 tensor time of six bf16 products, which would reach 2^-24) and two parts
 per operand instead of three (``test_tf32_split_error``).
 """
@@ -52,8 +54,18 @@ def tf32(x):
 
 
 def split2(x):
+    """dense_vg_mma.cuh split2, the staged weights' split (cvt.rna twice)."""
     x = np.asarray(x, F32)
     hi = tf32(x)
+    return hi, tf32(f32(x.astype(np.float64) - hi))
+
+
+def split_int(x):
+    """dense_vg_mma.cuh split2_int, the split of every operand but the
+    staged weights: hi = x with its low 13 bits cleared, lo = tf32(x - hi)
+    (round to nearest, ties away)."""
+    x = np.asarray(x, F32)
+    hi = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(F32)
     return hi, tf32(f32(x.astype(np.float64) - hi))
 
 
@@ -84,9 +96,10 @@ def mma3(acc, A, B, chained=False):
 
 
 def product(A, B, k):
-    """D [M, N] = A [M, k] @ B [k, N] over k-steps of 8, each joined by mma3."""
+    """D [M, N] = A [M, k] @ B [k, N] over k-steps of 8, each joined by mma3:
+    A the staged weights (split2), B split by split_int."""
     d = np.zeros((A.shape[0], B.shape[1]), F32)
-    sa, sb = split2(A), split2(B)
+    sa, sb = split2(A), split_int(B)
     for kc in range(0, k, 8):
         d = mma3(d, tuple(p[:, kc:kc + 8] for p in sa), tuple(p[kc:kc + 8] for p in sb))
     return d
@@ -189,7 +202,7 @@ def emulate(X, ix, weights, biases, targets, act, ctas, chained=False):
             # ---- phase B: dW0 = X dz0^T, dW1 = a0 dz1^T over the tile's k-steps
             pairs = [("dW0", xt, dz0[:KM])] + ([("dW1", a0, dz1[:KM])] if depth else [])
             for name, A, D in pairs:
-                sa, sb = split2(A), split2(D.T)
+                sa, sb = split_int(A), split_int(D.T)
                 if chained:
                     for ks in range(0, TILE, 8):
                         acc[name] = mma3(acc[name], tuple(q[:, ks:ks + 8] for q in sa),
