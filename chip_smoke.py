@@ -29,13 +29,26 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      (integrate_chains_packed) against its plain version, izmailov step
      sizes from the initial state, at L = 1 and L = 30, and the block's
      live columns (width 10 of the 16 stored) stored at width 10: the same
-     bits; K5's chains per chunk, resident blocks per SM and each
-     instantiation's registers and spills (ptxas -v, build.log)
+     bits; K5 again on phase 6b's step sizes (each chain and branch its
+     dual-averaging factor and mass estimate: per-coordinate, in the fold's
+     transposed views, nonzero on the padded columns), L = 1 and 30, the
+     padded columns exactly 0; K5's chains per chunk, resident blocks per
+     SM and each instantiation's registers and spills (ptxas -v, build.log)
   6. the hybrid path end to end through the CLI: train-new --update-mode
      hybrid --num-chains 4 (blocks of 10, every block transition one K5
      call, 2 sweeps of L = 30; the two value passes of each block one K2
      launch each on the live width, k = 4 x 10), predict on each chain's
      samples, the card's predictions against the CPU's
+ 6b. the same with the production recipe's adaptation, --step-size-mode
+     dual_averaging --mass-adaptation, 2 sweeps at burn-in 1 (the first
+     adapts, the second is frozen), each sweep recorded: exactly one K5
+     launch and two value-pass K2 launches per block in each sweep (phase
+     6's count), the adaptation's state moved by the first sweep and left
+     bit for bit by the second, every carry tensor finite, acceptance in
+     (0, 1); the adapted factors' range, ms per sweep beside phase 6's,
+     predict on each chain's samples against the CPU's; then the kernel
+     launches of one sweep (torch.profiler) without the options, with them
+     in an adapting sweep and in a frozen one
   7. the dense flagship (bench.py workload 1: G = 64 groups of 64 markers,
      n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
      K7 (data_vg_chains, feature-major X [64, 64, 4096]) and its
@@ -49,12 +62,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      izmailov step sizes from the initial state, at L = 1, 8 and 64;
      identical bits on a repeat; times at L = 1 and 64 beside the bound as
      implemented (3xTF32 at 494.7 TFLOP/s), the f32 bound and X's time read
-     once per gradient evaluation, and the launch's grid
+     once per gradient evaluation, and the launch's grid; then at L = 1 and
+     64 on phase 9b's step sizes (per-coordinate, the fold's transposed
+     views read in place)
   9. the flagship end to end through the CLI: train-new --feat-major
      --update-mode parallel --num-chains 4 (2 sweeps of L = 64: exactly one
      K6 launch and two K7 launches, snapshot/H0 and Hf, per sweep; no K4 or
      K5), dense predict on each chain's samples, the card's predictions
      against the CPU's
+ 9b. phase 9's run with the adaptation, as phase 6b: exactly one K6 and two
+     K7 launches per sweep, ms per sweep beside phase 9's, the launches of
+     one sweep without and with the options
  10. K9a (packed_matmul), K3 (packed_linear_vjp, all four fused
      activations) and K9b (packed_matmul_vjp) against their plain versions
      at the slice's full shape (bytes [100, 104, 25088], k = 16, n =
@@ -96,7 +114,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      K8 launch per block, no other kernel), predict on each chain's samples
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
-for K9a and K9b, 14 for K8a, 15 for K8b), error against
+for K9a and K9b, 14 for K8a, 15 for K8b; K5's, K2's, K6's and K7's under
+the adaptation, phases 6b and 9b, as adapted_launches), error against
 its plain version (max_abs_err, and max_rel_err: the largest difference
 over max(1, largest plain entry), the ratio held to REL_TOL), times (of
 the wrapper's call, except K4's, K7's and K8's: the launch alone from
@@ -238,6 +257,173 @@ def run_cli(cli, argv):
     with contextlib.redirect_stdout(out):
         cli([str(a) for a in argv])
     return out.getvalue()
+
+
+ADAPT_ARGS = ["--step-size-mode", "dual_averaging", "--mass-adaptation"]
+# the carry's dual-averaging and mass-adaptation state
+ADAPT_FIELDS = ("da_log_eps", "da_log_eps_bar", "da_h_bar", "mm_mean", "mm_m2")
+LAUNCH_NAMES = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def recorded_run(cli, argv, kernels):
+    """Run the port's CLI (train-new) with each sweep of the trainer's main
+    loop recorded: the launches of each counted wrapper in ``kernels``
+    (name -> wrapper) in that sweep, device copies of the adaptation's
+    state after it, and the carry. Returns (the last line of standard
+    output, the records)."""
+    from rs_bann_tpu_torch.models.net import Net
+
+    records = []
+    make = Net.make_chain_sweep
+
+    def make_chain_sweep(self, cfg, chain_by_chain=False):
+        sweep = make(self, cfg, chain_by_chain)
+        if chain_by_chain:  # the GD warm start's sweep
+            return sweep
+
+        def recorded(carry, X, y, gen):
+            before = {k: w.launches for k, w in kernels.items()}
+            carry, st = sweep(carry, X, y, gen)
+            records.append({
+                "launches": {k: w.launches - before[k] for k, w in kernels.items()},
+                "state": {f: getattr(carry, f).clone() for f in ADAPT_FIELDS},
+                "carry": carry})
+            return carry, st
+
+        return recorded
+
+    Net.make_chain_sweep = make_chain_sweep
+    try:
+        return run_cli(cli, argv).strip().splitlines()[-1], records
+    finally:
+        Net.make_chain_sweep = make
+
+
+def check_adapted(recs, stats, chains, kernels_per_sweep):
+    """The checks of an adapted CLI run (2 sweeps, burn-in 1): each sweep's
+    launches of each kernel as ``kernels_per_sweep`` says, the first sweep
+    moved every branch's dual-averaging state (and the Welford mean), the
+    second (frozen) left the adaptation's state bit for bit, every float
+    tensor of the final carry is finite, and the acceptance rate is in (0,
+    1). Prints the adapted factors' range; returns it."""
+    import torch
+
+    from rs_bann_tpu_torch.models.net import _carry_tensors
+
+    if len(recs) != CHAIN:
+        raise AssertionError(f"{len(recs)} sweeps recorded, expected {CHAIN}")
+    for i, rec in enumerate(recs):
+        if rec["launches"] != kernels_per_sweep:
+            raise AssertionError(f"sweep {i + 1} launched {rec['launches']}, expected "
+                                 f"{kernels_per_sweep}")
+    warm, frozen = recs[0]["state"], recs[1]["state"]
+    if not bool(torch.all(warm["da_log_eps_bar"] != 0.0)) or not bool(
+            torch.any(warm["mm_mean"] != 0.0)):  # log eps started at log(1) = 0
+        raise AssertionError("the warm sweep left some branch's adaptation state as it was")
+    unchanged = {f: bool(torch.equal(warm[f], frozen[f])) for f in ADAPT_FIELDS}
+    print(f"  the frozen sweep left the adaptation's state bit for bit: {unchanged}")
+    if not all(unchanged.values()):
+        raise AssertionError("the frozen sweep moved the adaptation's state")
+    floats = [t for t in _carry_tensors(recs[-1]["carry"]) if t.is_floating_point()]
+    if not bool(torch.stack([torch.isfinite(t).all() for t in floats]).all()):
+        raise AssertionError("a carry tensor is not finite")
+    acc = stats["num_accepted"] / stats["num_samples"]
+    if not 0.0 < acc < 1.0:
+        raise AssertionError(f"acceptance {acc} is not in (0, 1)")
+    eps_bar = torch.exp(warm["da_log_eps_bar"])
+    eps = torch.exp(warm["da_log_eps"])
+    rng = (float(eps_bar.min()), float(eps_bar.max()))
+    print(f"  adapted factors over {chains} chains x {eps_bar.shape[-1]} branches: "
+          f"exp(log eps_bar) {rng[0]:.4g}-{rng[1]:.4g}, exp(log eps) "
+          f"{float(eps.min()):.4g}-{float(eps.max()):.4g}; Welford state "
+          f"{tuple(warm['mm_m2'].shape)}; acceptance {acc:.3f}; all {len(floats)} float carry "
+          f"tensors finite")
+    return rng
+
+
+def adapted_step_sizes(model_type, steps, ws, bs, wps, bps, seed):
+    """The step sizes of the adapted fold for a block whose per-layer
+    tensors are [B, C, ...] (the kernels' layout): each (chain, branch)'s
+    dual-averaging factor (exp of U(-2, -1)) and mass estimate (``_mass_std``
+    of a Welford M2 of U(0, 0.02) at count 3) computed in the sampler's
+    [C, B] storage, handed over as the fold's [B, C] views (not
+    contiguous), as hmc.make_transition_batch hands them to K5 and K6."""
+    import torch
+
+    from rs_bann_tpu_torch.models.net import _mass_std
+    from rs_bann_tpu_torch.samplers import MCMCCfg
+    from rs_bann_tpu_torch.samplers.hmc import flatten_wb, step_sizes
+
+    def cb(ts):  # [B, C, ...] -> [C, B, ...] storage
+        return tuple(t.transpose(0, 1).contiguous() for t in ts)
+
+    ws, bs, wps, bps = cb(ws), cb(bs), cb(wps), cb(bps)
+    gen = torch.Generator(ws[0].device).manual_seed(seed)
+    m2 = 0.02 * torch.rand(flatten_wb(ws, bs).shape, generator=gen, device=ws[0].device)
+    mass_w, mass_b = _mass_std(model_type, m2, 3.0, wps, bps, ws, bs)
+    factors = torch.exp(-1.0 - torch.rand(ws[0].shape[:2], generator=gen, device=ws[0].device))
+    cfg = MCMCCfg(hmc_integration_length=steps, hmc_step_size_mode="dual_averaging",
+                  mass_adaptation=True)
+    eps_w, eps_b = step_sizes(None, model_type, cfg, ws, bs, wps, bps, None, factors, mass_w,
+                              mass_b)
+    return tuple(t.transpose(0, 1) for t in eps_w), tuple(t.transpose(0, 1) for t in eps_b)
+
+
+def device_launches(fn):
+    """fn()'s result and the kernel launches it made, counted by
+    torch.profiler as the runtime's launch calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(a.count for a in prof.key_averages() if a.key in LAUNCH_NAMES)
+
+
+def sweep_launches(argv, model_type, arch, state, X, y, chains, blocks):
+    """Kernel launches per sweep of the configuration ``argv`` (train-new's
+    arguments, parsed as the CLI parses them) without and with
+    ``ADAPT_ARGS`` (burn-in 1): the unadapted sweep, the adapted one that
+    adapts and the adapted one after it (frozen), each on a fresh carry
+    from ``state`` after one unprofiled sweep of the unadapted
+    configuration. Prints them and each one's difference per block from
+    the unadapted sweep; returns the three counts and that difference of
+    the adapting sweep."""
+    import torch
+
+    from rs_bann_tpu_torch.cli.args import mcmc_cfg_from_args
+    from rs_bann_tpu_torch.cli.main import build_parser
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models.net import Net
+    from rs_bann_tpu_torch.train import prepare_state_for_training
+
+    counts = []
+    for extra in ([], ADAPT_ARGS):
+        cfg = mcmc_cfg_from_args(build_parser().parse_args([str(a) for a in argv + extra]),
+                                 os.devnull)
+        net = prepare_state_for_training(Net(model_type, arch, D.Hyperparameters(), state), None)
+        carry = net.init_carry(X, y, chains=chains, step_size_factor=cfg.hmc_step_size_factor,
+                               mass_adaptation=cfg.mass_adaptation)
+        sweep = net.make_chain_sweep(cfg)
+        gen = torch.Generator(X.xT.device if isinstance(X, D.FeatX) else X.bytes.device)
+        gen.manual_seed(3)
+        if not extra:
+            sweep(net.init_carry(X, y, chains=chains), X, y, gen)  # unprofiled first sweep
+        for _ in range(1 if not extra else 2):
+            (carry, _), n = device_launches(lambda: sweep(carry, X, y, gen))
+            counts.append(n)
+    plain, warm, frozen = counts
+    if not min(counts) > 0:
+        raise AssertionError(f"torch.profiler saw no kernel launches in a sweep: {counts}")
+    extra_per_block = (warm - plain) / blocks
+    print(f"  kernel launches per sweep (torch.profiler): unadapted {plain}, adapting {warm} "
+          f"({extra_per_block:+.1f} per block of {blocks}), frozen {frozen} "
+          f"({(frozen - plain) / blocks:+.1f} per block)")
+    return {"plain": plain, "adapting": warm, "frozen": frozen,
+            "adapting_extra_per_block": extra_per_block}
 
 
 def write_data(d, groups=G, markers=M, n_train=N_TRAIN, n_test=N_TEST, n_causal=N_CAUSAL):
@@ -639,7 +825,34 @@ def main():
                                          f"{k_live} and at {k0} differ")
         print(f"  L={L}: the live columns stored at width {k_live} give the same bits; the "
               f"dead ones come out as they went in")
-        del out, narrow, targets
+        # phase 6b's fold: per-coordinate step sizes of the adaptation, in
+        # transposed views, nonzero on the padded columns too
+        a_eps_w, a_eps_b = adapted_step_sizes("ridge_ard", L, ws, bs, wps, bps, 8)
+        if not a_eps_w[0][..., k_live:].abs().min().item() > 0:
+            raise AssertionError("the adapted step sizes of the padded columns are zero")
+        for steps, tol in ((1, REL_TOL), (L, REL_TOL_TRAJ)):
+            args = (x_b.bytes, x_b.w_scale, x_b.shift, targets, err, ws, bs, p_w, p_b,
+                    a_eps_w, a_eps_b, lam_w, lam_b, steps, N_TRAIN)
+            out = LF.integrate_chains_packed("identity", *args)
+            ref = LF.integrate_chains_packed_ref("identity", *args)
+            names = ("W0", "w_out", "b0", "pW0", "pw_out", "pb0")
+            for name, got, want in zip(names, [t for o in out for t in o],
+                                       [t for r in ref for t in r]):
+                k5_err = max(k5_err, check_close(
+                    "traj_packed", f"adapted step sizes, L={steps} {name}", got, want, tol))
+            identical(lambda: tuple(t for o in LF.integrate_chains_packed("identity", *args)
+                                    for t in o), tuple(t for o in out for t in o),
+                      f"K5 with adapted step sizes, L={steps}")
+            w_f, b_f = out[0], out[1]
+            if not (torch.all(w_f[0][..., k_live:] == 0) and torch.all(w_f[1][..., k_live:, :] == 0)
+                    and torch.all(b_f[0][..., k_live:] == 0)):
+                raise AssertionError("K5 moved a padded column under the adapted step sizes")
+            del ref
+        k5_adapted_ms = cuda_ms(lambda: LF.integrate_chains_packed("identity", *args))
+        print(f"  adapted step sizes (phase 6b's fold, [C, B] -> [B, C] views): identical "
+              f"repeats, the padded columns exactly 0; L={L}: kernel {k5_adapted_ms:.3f} ms "
+              f"(izmailov {k5_ms:.3f} ms)")
+        del out, narrow, targets, a_eps_w, a_eps_b
 
         # ---- phase 6: the hybrid path, C chains, through the CLI
         print(f"phase 6: train-new --update-mode hybrid --num-chains {CHAINS} -> predict")
@@ -705,6 +918,68 @@ def main():
         print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
         if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
             raise AssertionError("the card's hybrid predictions disagree with the CPU's")
+
+        # ---- phase 6b: the hybrid path with the recipe's adaptation
+        print(f"phase 6b: train-new --update-mode hybrid --num-chains {CHAINS} "
+              f"{' '.join(ADAPT_ARGS)} -> predict (burn-in 1: the first sweep adapts, the "
+              f"second is frozen)")
+        packed_kernels = {"integrate_chains_packed": LF.integrate_chains_packed,
+                          "packed_linear": PM.packed_linear, "data_vg_packed": BM.data_vg_packed}
+        for counted in packed_kernels.values():
+            counted.launches = 0
+        PM.packed_linear.widths = {}
+        hybrid_args = train_args + ["--update-mode", "hybrid", "--num-chains", CHAINS]
+        t0 = time.perf_counter()
+        run, recs = recorded_run(cli, hybrid_args + ADAPT_ARGS, packed_kernels)
+        vp_widths_a = dict(PM.packed_linear.widths)  # before predict's own launches
+        adapted_s = time.perf_counter() - t0
+        k5_adapted = LF.integrate_chains_packed.launches
+        k2_adapted = vp_widths_a.get(CHAINS * vp_live, 0)
+        print(f"  kernel launches per sweep: {[r['launches'] for r in recs]}; train-new's K2 "
+              f"launches by width k: {vp_widths_a} (phase 6: {vp_widths})")
+        # per sweep: one K5 launch and two value passes (K2 at the live width) a block
+        stats = json.load(open(os.path.join(run, "training_stats")))
+        adapted_factors = check_adapted(recs, stats, CHAINS, {
+            "integrate_chains_packed": G // BLOCK, "packed_linear": 2 * (G // BLOCK),
+            "data_vg_packed": 0})
+        if k2_adapted != vp_widths.get(CHAINS * vp_live):
+            raise AssertionError(f"the adapted run's value passes launched K2 {k2_adapted} "
+                                 f"times at k = {CHAINS * vp_live}, phase 6's "
+                                 f"{vp_widths.get(CHAINS * vp_live)}")
+        series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+        if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+            raise AssertionError(f"non-finite or missing training statistics: {stats}")
+        chain_preds = []
+        for c in range(CHAINS):
+            rows = run_cli(cli, ["predict", os.path.join(work, "test"),
+                                 os.path.join(work, "train.groups"), "-m",
+                                 os.path.join(run, "models", f"chain{c}"), "--packed-genotypes"])
+            chain_preds.append(np.asarray(list(csv.reader(io.StringIO(rows))), np.float64))
+        preds = np.concatenate(chain_preds)
+        if preds.shape != (CHAINS * CHAIN, N_TEST) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"adapted predictions of shape {preds.shape}, finite: "
+                                 f"{np.all(np.isfinite(preds))}")
+        done = [r for r in log_records if str(r.msg).startswith("Completed training")]
+        adapted_sweep_ms = 1000.0 * done[-1].args[0] / CHAIN
+        r2_a = 1.0 - np.mean((y_test - preds.mean(axis=0)) ** 2) / np.var(y_test)
+        print(f"  {adapted_sweep_ms:.1f} ms per sweep of {CHAINS} chains with the adaptation, "
+              f"{hybrid_sweep_ms:.1f} without (phase 6); train-new {adapted_s:.1f} s in all")
+        print(f"  mse train {stats['mse_train'][-1]:.4f}, mse test {stats['mse_test'][-1]:.4f}, "
+              f"test r2 of the {CHAINS}-chain posterior mean {r2_a:.4f}")
+        net = Net.load(os.path.join(run, "models", "chain0", f"{CHAIN}.npz"), "cpu")
+        cpu_pred = net.predict(test_gen.to_packed(net.arch, "cpu").X).numpy()
+        err = np.abs(cpu_pred - chain_preds[0][-1]).max()
+        print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
+        if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
+            raise AssertionError("the card's adapted predictions disagree with the CPU's")
+        packed_launches = sweep_launches(
+            hybrid_args, "ridge_ard", arch, state, X,
+            torch.as_tensor(y_train, dtype=torch.float32, device=dev), CHAINS, G // BLOCK)
+        adapted_runs = {"packed": {
+            "sweep_ms": adapted_sweep_ms, "unadapted_sweep_ms": hybrid_sweep_ms,
+            "k5_launches": k5_adapted, "k2_value_passes": k2_adapted,
+            "factors": adapted_factors, "launches_per_sweep": packed_launches}}
+        del recs
 
         # ---- phase 7: K7 at the dense flagship's shape
         fdir = os.path.join(work, "flagship")
@@ -868,7 +1143,28 @@ def main():
                   f"{plan['cc']} chains")
             k6_ms, k6_plain_ms = ms, plain_ms  # the main path's L
         print("  max abs err against L: " + ", ".join(f"L={k} {v:.3e}" for k, v in k6_errs.items()))
+        # phase 9b's fold: per-coordinate step sizes of the adaptation, read
+        # where they lie in the fold's transposed views
+        a_eps_w, a_eps_b = adapted_step_sizes("ridge_base", FL, fws, fbs, fwp, fbp, 9)
+        if a_eps_w[0].is_contiguous() or a_eps_w[0].stride(-1) != 1:
+            raise AssertionError("the adapted step sizes are not the fold's transposed views")
+        for steps, tol in ((1, REL_TOL), (FL, REL_TOL_TRAJ)):
+            args = (xT, ftargets, ferr, fws, fbs, f_pw, f_pb, a_eps_w, a_eps_b, f_lam_w, f_lam_b,
+                    steps)
+            out = LF.integrate_chains("tanh", *args)
+            ref = LF.integrate_chains_ref("tanh", *args)
+            for name, got, want in zip(names, [t for o in out for t in o],
+                                       [t for r in ref for t in r]):
+                k6_err = max(k6_err, check_close(
+                    "traj_dense", f"adapted step sizes, L={steps} {name}", got, want, tol))
+            identical(lambda: tuple(t for o in LF.integrate_chains("tanh", *args) for t in o),
+                      tuple(t for o in out for t in o), f"K6 with adapted step sizes, L={steps}")
+            del out, ref
+        k6_adapted_ms = cuda_ms(lambda: LF.integrate_chains("tanh", *args))
+        print(f"  adapted step sizes (phase 9b's fold, [C, G] -> [G, C] views): identical "
+              f"repeats; L={FL}: kernel {k6_adapted_ms:.3f} ms (izmailov {k6_ms:.3f} ms)")
         del fws, fbs, ftargets, f_pw, f_pb, f_eps_w, f_eps_b, f_lam_w, f_lam_b, fdata, xT, fchains
+        del a_eps_w, a_eps_b
 
         # ---- phase 9: the dense flagship through the CLI
         print(f"phase 9: train-new --feat-major --update-mode parallel --num-chains {FCHAINS} "
@@ -887,16 +1183,17 @@ def main():
                 mse_k7[0] += BM.data_vg_chains.launches - before
 
         Net.mse = counted_mse
+        flag_args = [
+            "train-new", os.path.join(fdir, "train"), os.path.join(fdir, "train.phen"),
+            os.path.join(fdir, "train.groups"), "ridge_base", "tanh", "1", CHAIN, FL,
+            "--fixed-hidden-layer-width", FH, "--fixed-summary-layer-width", FH,
+            "--feat-major", "--update-mode", "parallel", "--num-chains", FCHAINS,
+            "--burn-in", "1", "--bfile-test", os.path.join(fdir, "test"),
+            "--p-test", os.path.join(fdir, "test.phen"), "-o", runs,
+        ]
         t0 = time.perf_counter()
         try:
-            run = run_cli(cli, [
-                "train-new", os.path.join(fdir, "train"), os.path.join(fdir, "train.phen"),
-                os.path.join(fdir, "train.groups"), "ridge_base", "tanh", "1", CHAIN, FL,
-                "--fixed-hidden-layer-width", FH, "--fixed-summary-layer-width", FH,
-                "--feat-major", "--update-mode", "parallel", "--num-chains", FCHAINS,
-                "--burn-in", "1", "--bfile-test", os.path.join(fdir, "test"),
-                "--p-test", os.path.join(fdir, "test.phen"), "-o", runs,
-            ]).strip().splitlines()[-1]
+            run = run_cli(cli, flag_args).strip().splitlines()[-1]
         finally:
             Net.mse = net_mse
         flag_s = time.perf_counter() - t0
@@ -949,6 +1246,62 @@ def main():
         print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
         if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
             raise AssertionError("the card's flagship predictions disagree with the CPU's")
+
+        # ---- phase 9b: the flagship with the recipe's adaptation
+        print(f"phase 9b: phase 9's train-new with {' '.join(ADAPT_ARGS)} -> predict")
+        dense_kernels = {"integrate_chains": LF.integrate_chains,
+                         "data_vg_chains": BM.data_vg_chains,
+                         "integrate_chains_packed": LF.integrate_chains_packed,
+                         "data_vg_packed": BM.data_vg_packed}
+        for counted in dense_kernels.values():
+            counted.launches = 0
+        t0 = time.perf_counter()
+        run, recs = recorded_run(cli, flag_args + ADAPT_ARGS, dense_kernels)
+        flag_adapted_s = time.perf_counter() - t0
+        k6_adapted = LF.integrate_chains.launches
+        k7_adapted = sum(r["launches"]["data_vg_chains"] for r in recs)
+        print(f"  kernel launches per sweep: {[r['launches'] for r in recs]}")
+        # per sweep, as phase 9: one K6 launch and two K7 value passes
+        stats = json.load(open(os.path.join(run, "training_stats")))
+        flag_factors = check_adapted(recs, stats, FCHAINS, {
+            "integrate_chains": 1, "data_vg_chains": 2, "integrate_chains_packed": 0,
+            "data_vg_packed": 0})
+        series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+        if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+            raise AssertionError(f"non-finite or missing training statistics: {stats}")
+        chain_preds = []
+        for c in range(FCHAINS):
+            rows = run_cli(cli, ["predict", os.path.join(fdir, "test"),
+                                 os.path.join(fdir, "train.groups"), "-m",
+                                 os.path.join(run, "models", f"chain{c}")])
+            chain_preds.append(np.asarray(list(csv.reader(io.StringIO(rows))), np.float64))
+        preds = np.concatenate(chain_preds)
+        if preds.shape != (FCHAINS * CHAIN, FN_TEST) or not np.all(np.isfinite(preds)):
+            raise AssertionError(f"adapted flagship predictions of shape {preds.shape}, "
+                                 f"finite: {np.all(np.isfinite(preds))}")
+        done = [r for r in log_records if str(r.msg).startswith("Completed training")]
+        flag_adapted_ms = 1000.0 * done[-1].args[0] / CHAIN
+        r2_fa = 1.0 - np.mean((fy_test - preds.mean(axis=0)) ** 2) / np.var(fy_test)
+        print(f"  {flag_adapted_ms:.1f} ms per sweep of {FCHAINS} chains with the adaptation, "
+              f"{flag_sweep_ms:.1f} without (phase 9); train-new {flag_adapted_s:.1f} s in all")
+        print(f"  mse train {stats['mse_train'][-1]:.4f}, mse test {stats['mse_test'][-1]:.4f}, "
+              f"test r2 of the {FCHAINS}-chain posterior mean {r2_fa:.4f}")
+        net = Net.load(os.path.join(run, "models", "chain0", f"{CHAIN}.npz"), "cpu")
+        cpu_pred = net.predict(f_test.to_stacked(net.arch, "cpu").X).numpy()
+        err = np.abs(cpu_pred - chain_preds[0][-1]).max()
+        print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
+        if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
+            raise AssertionError("the card's adapted flagship predictions disagree with the CPU's")
+        fdata = CompressedGenotypes(f_bed, fgroups).to_feature_major(farch, dev, fy_train)
+        flag_launches = sweep_launches(
+            flag_args, "ridge_base", farch,
+            init_net(farch, "ridge_base", InitCfg(seed=0), device=dev)[0], fdata.X, fdata.y,
+            FCHAINS, 1)
+        adapted_runs["flagship"] = {
+            "sweep_ms": flag_adapted_ms, "unadapted_sweep_ms": flag_sweep_ms,
+            "k6_launches": k6_adapted, "k7_launches": k7_adapted, "factors": flag_factors,
+            "launches_per_sweep": flag_launches}
+        del recs, fdata
 
         # ---- phase 10: K9a, K3 and K9b at the slice's full shape
         print(f"phase 10: K9a packed_matmul, K3 packed_linear_vjp and K9b packed_matmul_vjp vs "
@@ -1364,7 +1717,8 @@ def main():
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:202",
          "launches": k2_hybrid, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
-         "f32_bound_ms": k2_f32_bound[0], **k2_vp},
+         "f32_bound_ms": k2_f32_bound[0], **k2_vp,
+         "adapted_launches": adapted_runs["packed"]["k2_value_passes"]},
         {"name": "data_vg_packed", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/branch_vg_packed.cu",
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:365",
@@ -1378,7 +1732,8 @@ def main():
          "replaces": "rs_bann_tpu/ops/leapfrog.py:470",
          "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None,
-         "k_live": k_live, "km": k5_km, "cc": k5_cc, "blocks_per_sm": k5_per_sm},
+         "k_live": k_live, "km": k5_km, "cc": k5_cc, "blocks_per_sm": k5_per_sm,
+         "adapted_launches": adapted_runs["packed"]["k5_launches"]},
         # the flagship launches K7's forward-only instantiation (the value
         # passes; its code csrc/branch_fwd_chains.cu and csrc/vg_chains.cuh);
         # the value-and-gradient one is timed too (grad_*)
@@ -1391,13 +1746,15 @@ def main():
          "grad_ms": k7_grad_ms, "grad_wrapper_ms": k7_grad_wrapper_ms,
          "grad_plain_ms": k7_grad_plain_ms, "grad_bound_ms": k7_grad_bound[0],
          "grad_f32_bound_ms": k7_grad_f32_bound[0], "ctas": k7_plan["ctas"], "cc": k7_plan["cc"],
-         "max_rel_err_f64": REL_ERR["data_vg_chains f64"]},
+         "max_rel_err_f64": REL_ERR["data_vg_chains f64"],
+         "adapted_launches": adapted_runs["flagship"]["k7_launches"]},
         {"name": "traj_dense", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/traj_dense.cu",
          "replaces": "rs_bann_tpu/ops/leapfrog.py:63",
          "launches": k6_launches, "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
          "bound_ms": k6_bound[0], "bound_by": k6_bound[1], "library_ms": None,
-         "f32_bound_ms": k6_f32_bound[0]},
+         "f32_bound_ms": k6_f32_bound[0],
+         "adapted_launches": adapted_runs["flagship"]["k6_launches"]},
         # launches: the GD warm start and hybrid sampling of phase 11
         # (identity, K3) and of phase 12 (silu: K9a, K9b)
         {"name": "packed_matmul", "route": "cuda",
@@ -1464,6 +1821,7 @@ def main():
     ]
     for k in kernels:  # the scale-free error that the checks gate on
         k["max_rel_err"] = REL_ERR[k["name"]]
+    print("adaptation (phases 6b, 9b): " + json.dumps(adapted_runs))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,11 @@ live accept and no fold: the hybrid block runs it for all its branches at
 once, against the block's frozen targets, and takes the results as they
 are. The trainer's GD warm start (``cfg.gd_warmup``) is such a sweep.
 
+Under ``hmc_step_size_mode="dual_averaging"`` and ``cfg.mass_adaptation``
+every schedule adapts, per chain and branch, the step factor and a
+diagonal mass estimate over the sweeps below ``cfg.burn_in`` and then
+freezes them (``_Adaptation``); the carry holds their state.
+
 A carry for C chains (``Net.init_carry(..., chains=C)``) stacks every
 tensor of the one-chain carry on a leading [C] axis; ``make_chain_sweep``
 sweeps such a carry under either schedule (the sequential one chain after
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -50,10 +56,12 @@ from ..samplers import gibbs
 from ..samplers.hmc import (
     HMCProposal,
     HMCResult,
+    flatten_wb,
     make_gradient_descent,
     make_hmc_step,
     make_lean_batch,
     make_transition_batch,
+    unflatten_wb,
 )
 from ..samplers.mcmc_cfg import MCMCCfg
 from . import NetArch
@@ -72,7 +80,19 @@ class TrainCarry(NamedTuple):
     lpd_out: torch.Tensor
     lpd_rss: torch.Tensor
     counts: torch.Tensor  # [3] int64: accepted / rejected / rejected-early
-    sweeps: int = 0  # completed sweeps (keys the hybrid's shared permutation)
+    # dual-averaging step-size adaptation (Hoffman & Gelman 2014), per
+    # branch; inert unless hmc_step_size_mode == "dual_averaging"
+    da_log_eps: torch.Tensor  # [G]
+    da_log_eps_bar: torch.Tensor  # [G]
+    da_h_bar: torch.Tensor  # [G]
+    # diagonal-mass-matrix adaptation (cfg.mass_adaptation): Welford mean
+    # and M2 of each branch's padded-flat params (``flatten_wb``) over the
+    # warm-up sweeps; [G, 0] placeholders when it is off
+    mm_mean: torch.Tensor  # [G, P_flat]
+    mm_m2: torch.Tensor  # [G, P_flat]
+    # completed sweeps: keys the hybrid's shared permutation and is the
+    # JAX package's da_t, the adaptation's clock (warm while below burn_in)
+    sweeps: int = 0
 
 
 class SweepStats(NamedTuple):
@@ -90,7 +110,6 @@ _UNPORTED = {
     "ss_markers": False,
     "ss_rows": False,
     "tempering": False,
-    "mass_adaptation": False,
     "hmc_traj_length_mode": "fixed",
     "trajectories": False,
     "num_grad": False,
@@ -104,9 +123,117 @@ def unported_options(cfg: MCMCCfg) -> list:
     bad = [k for k, v in _UNPORTED.items() if getattr(cfg, k) != v]
     if cfg.update_mode != "sequential" and not cfg.live_accept and not cfg.gradient_descent:
         bad.append("live_accept=False")
-    if cfg.hmc_step_size_mode == "dual_averaging":
-        bad.append("hmc_step_size_mode=dual_averaging")
     return bad
+
+
+# --------------------------------------------------------------------------
+# Step-size and mass adaptation
+# --------------------------------------------------------------------------
+
+# dual-averaging constants (Hoffman & Gelman 2014, the NUTS paper's defaults)
+_DA_GAMMA, _DA_T0, _DA_KAPPA = 0.05, 10.0, 0.75
+
+# pseudo-observations shrinking the Welford variance toward the prior
+# variance (Stan's windowed-adaptation regularization, aimed at the prior
+# scale, so that count 0 gives the izmailov rule exactly)
+_MASS_SHRINK = 5.0
+
+
+def _da_update(cfg, t, h_bar, log_eps_bar, alpha, mu):
+    """One dual-averaging update at iteration ``t`` (a number or a tensor)
+    of h_bar, log_eps_bar and the acceptance probabilities alpha (tensors
+    over any leading axes); returns (h_bar, log_eps, log_eps_bar)."""
+    eta = 1.0 / (t + _DA_T0)
+    h_bar = (1.0 - eta) * h_bar + eta * (cfg.target_accept - alpha)
+    log_eps = mu - t ** 0.5 / _DA_GAMMA * h_bar
+    w = t ** (-_DA_KAPPA)
+    log_eps_bar = w * log_eps + (1.0 - w) * log_eps_bar
+    return h_bar, log_eps, log_eps_bar
+
+
+def _prior_var_trees(model_type, wp_g, bp_g, w_like, b_like):
+    """Per-coordinate prior variances (the mass estimate's shrinkage
+    target), shaped as w_like / b_like over any leading axes: ridge N(0,
+    1/lam) -> 1/lam; lasso Laplace(lam) -> 2/lam^2; biases always ridge."""
+    if D.is_lasso(model_type):
+        var_w = tuple((2.0 / (lam * lam)).expand_as(w) for w, lam in zip(w_like, wp_g))
+    else:
+        var_w = tuple((1.0 / lam).expand_as(w) for w, lam in zip(w_like, wp_g))
+    var_b = tuple((1.0 / lam).expand_as(b) for b, lam in zip(b_like, bp_g))
+    return var_w, var_b
+
+
+def _mass_std(model_type, m2_g, count, wp_g, bp_g, w_like, b_like):
+    """Per-coordinate posterior-std estimate: the Welford variance over
+    ``count`` warm-up states (m2_g [..., P_flat]; ``count`` a number),
+    shrunk toward the current prior variance. Returns (mass_w, mass_b)
+    shaped as w_like / b_like. (The JAX package's takes the Welford mean
+    too, and does not read it.)"""
+    emp_var = m2_g / max(count - 1.0, 1.0)
+    ew, eb = unflatten_wb(emp_var, w_like, b_like)
+    pw, pb = _prior_var_trees(model_type, wp_g, bp_g, w_like, b_like)
+    wgt = count / (count + _MASS_SHRINK)
+    mass_w = tuple(torch.sqrt(wgt * e + (1.0 - wgt) * p) for e, p in zip(ew, pw))
+    mass_b = tuple(torch.sqrt(wgt * e + (1.0 - wgt) * p) for e, p in zip(eb, pb))
+    return mass_w, mass_b
+
+
+def _welford(mean, m2, x, n):
+    """One Welford update at new count ``n`` (elementwise over any shape)."""
+    delta = x - mean
+    mean = mean + delta / n
+    m2 = m2 + delta * (x - mean)
+    return mean, m2
+
+
+class _Adaptation:
+    """The sweeps' dual-averaging and mass adaptation (the JAX package's
+    make_sweep, net.py:1085-1185, 1553-1760, 1984-2216), for one branch of
+    the sequential sweep or a [C, B] block of the hybrid and parallel ones.
+    The clock is the carry's completed sweeps (JAX's da_t), a host integer,
+    so whether a sweep is warm (sweeps < burn_in) costs no device sync.
+
+    ``inputs`` gives the transition's factor (exp(log eps) while warm,
+    exp(log eps_bar) after) and mass (``_mass_std`` at count min(sweeps,
+    burn_in), from the carry before the transition); ``update`` runs, in a
+    warm sweep only, the DA update on the accept probabilities and the
+    Welford update on the accept-selected parameters, both at t = sweeps +
+    1, and writes them into the carry in place at ``index``: a fixed number
+    of tensor ops whatever the block's size."""
+
+    def __init__(self, model_type: str, cfg: MCMCCfg, gd: bool):
+        self.model_type = model_type
+        self.cfg = cfg
+        self.adaptive = cfg.hmc_step_size_mode == "dual_averaging"
+        self.mass = cfg.mass_adaptation and not gd
+        self.mu = math.log(10.0 * cfg.hmc_step_size_factor)
+
+    def inputs(self, carry: TrainCarry, index, wp, bp, ws, bs):
+        """(step factor or None, (mass_w, mass_b) or (None, None)) of the
+        branches at ``index`` (an int, or (chain, branch) index tensors)."""
+        warm = carry.sweeps < self.cfg.burn_in
+        factor = mass_w = mass_b = None
+        if self.adaptive:
+            factor = torch.exp((carry.da_log_eps if warm else carry.da_log_eps_bar)[index])
+        if self.mass:
+            cnt = float(min(carry.sweeps, self.cfg.burn_in))
+            mass_w, mass_b = _mass_std(self.model_type, carry.mm_m2[index], cnt, wp, bp, ws, bs)
+        return factor, (mass_w, mass_b)
+
+    def update(self, carry: TrainCarry, index, accept_prob, ws, bs):
+        if carry.sweeps >= self.cfg.burn_in:
+            return
+        t = float(carry.sweeps + 1)
+        if self.adaptive:
+            h, le, leb = _da_update(self.cfg, t, carry.da_h_bar[index],
+                                    carry.da_log_eps_bar[index], accept_prob, self.mu)
+            carry.da_h_bar[index] = h
+            carry.da_log_eps[index] = le
+            carry.da_log_eps_bar[index] = leb
+        if self.mass:
+            mean, m2 = _welford(carry.mm_mean[index], carry.mm_m2[index], flatten_wb(ws, bs), t)
+            carry.mm_mean[index] = mean
+            carry.mm_m2[index] = m2
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +328,8 @@ def chain_fold_eligible(model_type: str, act: str, cfg: MCMCCfg) -> bool:
     the parallel schedule, or the hybrid one with its shared per-sweep block
     permutation (each chain's own permutation would give each chain another
     block of genotypes), the live accept, fixed-length marginal HMC with
-    izmailov or std_scaled step sizes, and an activation the kernels take.
+    izmailov, std_scaled or dual-averaging step sizes (with or without mass
+    adaptation), and an activation the kernels take.
     The trainer folds whenever this holds, for any number of chains. On a
     CUDA tensor a branch beyond the kernels' limits makes the kernels'
     wrappers raise (the CLI refuses it before training); it never runs on
@@ -214,7 +342,7 @@ def chain_fold_eligible(model_type: str, act: str, cfg: MCMCCfg) -> bool:
         and not cfg.trajectories
         and not (cfg.num_grad or cfg.num_grad_traj)
         and cfg.hmc_traj_length_mode == "fixed"
-        and cfg.hmc_step_size_mode in ("izmailov", "std_scaled")
+        and cfg.hmc_step_size_mode in ("izmailov", "std_scaled", "dual_averaging")
         and act in SUPPORTED_ACTIVATIONS
     )
 
@@ -371,6 +499,7 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
                   else make_hmc_step(model_type, act, cfg, defer_accept=True))
     fold_transition = make_transition_batch(model_type, act, cfg) if folded else None
     lean_batch = make_lean_batch(model_type, act, cfg)
+    adapt = _Adaptation(model_type, cfg, gd=gd)
     cix = torch.arange(C, device=device)[:, None]
     # at depth 0 the packed value passes take layer 0's true width: the
     # padded columns' weights, biases and w_out rows are zero (masked
@@ -384,24 +513,31 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         return t.reshape((C, Bk) + t.shape[1:])
 
     def hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x, ix, targets, preds, mw_b, mb_b, st_b,
-                  residual):
+                  residual, factors, mass):
         """The block's HMC proposals (folded; on a FeatX every (chain,
         branch) of the block in one batched lean body reading X in place
         through ``ix``; else per (chain, branch) against each chain's ``x[c]``
         when the permutation is not shared), accepted one by one against the
-        live residual."""
+        live residual. ``factors`` [C, Bk] (or None) and ``mass`` (per-layer
+        [C, Bk, ...] estimates, or Nones) are the adapted step factors and
+        mass."""
         momenta = (
             tuple(torch.randn(w.shape, generator=gen, device=gen.device) for w in w_b),
             tuple(torch.randn(b.shape, generator=gen, device=gen.device) for b in b_b),
         )
+        mass_w, mass_b = mass
         if folded:
             prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x, targets, mw_b, mb_b,
-                                   momenta, y_pred0=preds, k_live=k_live)
+                                   momenta, y_pred0=preds, k_live=k_live, step_factors=factors,
+                                   mass_w=mass_w, mass_b=mass_b)
         elif ix is not None:
             p = lean_batch(gen, flat(w_b), flat(b_b), flat(wp_b), flat(bp_b),
                            err_prec.repeat_interleave(Bk), x, ix, targets.reshape(C * Bk, -1),
                            flat(mw_b), flat(mb_b), st_b.n_params.reshape(-1),
-                           (flat(momenta[0]), flat(momenta[1])))
+                           (flat(momenta[0]), flat(momenta[1])),
+                           step_factor=None if factors is None else factors.reshape(-1),
+                           mass_w=None if mass_w is None else flat(mass_w),
+                           mass_b=None if mass_b is None else flat(mass_b))
             prop = HMCProposal(tuple(map(unflat, p.weights)), tuple(map(unflat, p.biases)),
                                *map(unflat, p[2:]))
         else:
@@ -409,12 +545,14 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             for c in range(C):
                 for j in range(Bk):
                     def one(ts):
-                        return tuple(t[c, j] for t in ts)
+                        return None if ts is None else tuple(t[c, j] for t in ts)
 
                     props.append(transition(
                         gen, one(w_b), one(b_b), one(wp_b), one(bp_b), err_prec[c],
                         x[j] if shared else x[c][j], targets[c, j], one(mw_b), one(mb_b),
                         st_b.n_params[c, j], momenta=(one(momenta[0]), one(momenta[1])),
+                        step_factor=None if factors is None else factors[c, j],
+                        mass_w=one(mass_w), mass_b=one(mass_b),
                     ))
             prop = _stack_proposals(props, C, Bk)
         order = torch.argsort(torch.rand((C, Bk), generator=gen, device=gen.device), dim=-1)
@@ -474,13 +612,18 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             res = _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec,
                             [x_blk] * C if shared else x_blk, targets)
         else:
+            # the factors and masses of the block's [C, Bk] branches, once
+            factors, mass = adapt.inputs(carry, (cix, ixs), wp_b, bp_b, w_b, b_b)
             res = hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, ix, targets, preds, mw_b,
-                            mb_b, st_b, residual)
+                            mb_b, st_b, residual, factors, mass)
         for l in range(L):
             params.weights[l][cix, ixs] = res.weights[l]
         for l in range(L - 1):
             params.biases[l][cix, ixs] = res.biases[l]
         residual = residual + torch.sum(preds - res.y_pred, dim=1)
+        # DA on the live accept's probabilities, Welford on the accept-selected
+        # parameters
+        adapt.update(carry, (cix, ixs), res.accept_prob, res.weights, res.biases)
 
         # log posterior density bookkeeping
         carry.lpd_local[cix, ixs] = D.joint_local_term(
@@ -498,14 +641,11 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             cfg, hyper, gen, residual, state.output_bias, state.output_bias_precision, err_prec
         )
         carry.counts.add_(torch.nn.functional.one_hot(res.code, 3).sum(dim=1))
-        return TrainCarry(
+        return carry._replace(
             state=NetState(params, StackedPrecisions(wp, bp, err_prec), bias, bias_prec),
             residual=residual,
-            lpd_local=carry.lpd_local,
             lpd_out=lpd_out,
             lpd_rss=lpd_rss,
-            counts=carry.counts,
-            sweeps=carry.sweeps,
         )
 
     def sweep(carry: TrainCarry, X, y, gen):
@@ -531,16 +671,15 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
 
 
 def _carry_tensors(carry: TrainCarry) -> list:
-    return P.state_leaves(carry.state) + [carry.residual, carry.lpd_local, carry.lpd_out,
-                                          carry.lpd_rss, carry.counts]
+    return P.state_leaves(carry.state) + [getattr(carry, f) for f in TrainCarry._fields[1:-1]]
 
 
 def chain_carry(carry: TrainCarry, c: int) -> TrainCarry:
     """Chain c of a stacked carry, as views into it."""
     return TrainCarry(
         state=P.map_state(lambda a: a[c], carry.state),
-        residual=carry.residual[c], lpd_local=carry.lpd_local[c], lpd_out=carry.lpd_out[c],
-        lpd_rss=carry.lpd_rss[c], counts=carry.counts[c], sweeps=carry.sweeps,
+        **{f: getattr(carry, f)[c] for f in TrainCarry._fields[1:-1]},
+        sweeps=carry.sweeps,
     )
 
 
@@ -614,6 +753,7 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
                   else make_hmc_step(model_type, act, cfg))
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
+    adapt = _Adaptation(model_type, cfg, gd=cfg.gradient_descent)
 
     def branch_update(carry: TrainCarry, g: int, X, var_y, gen) -> TrainCarry:
         state, residual = carry.state, carry.residual
@@ -644,9 +784,18 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
         bp_g = tuple(a[g] for a in bp)
 
         target = residual + D.predict(act, w_g, b_g, x_g)
-        res = transition(
-            gen, w_g, b_g, wp_g, bp_g, err_prec, x_g, target, mw_g, mb_g, st_g.n_params
-        )
+        if cfg.gradient_descent:
+            res = transition(
+                gen, w_g, b_g, wp_g, bp_g, err_prec, x_g, target, mw_g, mb_g, st_g.n_params
+            )
+        else:
+            factor, (mass_w, mass_b) = adapt.inputs(carry, g, wp_g, bp_g, w_g, b_g)
+            res = transition(
+                gen, w_g, b_g, wp_g, bp_g, err_prec, x_g, target, mw_g, mb_g, st_g.n_params,
+                step_factor=factor, mass_w=mass_w, mass_b=mass_b,
+            )
+        # DA on the accept probability, Welford on the accepted parameters
+        adapt.update(carry, g, res.accept_prob, res.weights, res.biases)
         residual = target - res.y_pred
         for l in range(L):
             params.weights[l][g] = res.weights[l]
@@ -665,13 +814,11 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
             err_prec,
         )
         carry.counts.index_add_(0, res.code.reshape(1), torch.ones_like(carry.counts[:1]))
-        return TrainCarry(
+        return carry._replace(
             state=NetState(params, StackedPrecisions(wp, bp, err_prec), bias, bias_prec),
             residual=residual,
-            lpd_local=carry.lpd_local,
             lpd_out=lpd_out,
             lpd_rss=lpd_rss,
-            counts=carry.counts,
         )
 
     def sweep(carry: TrainCarry, X, y, gen):
@@ -679,6 +826,7 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
         perm = torch.randperm(G, generator=gen, device=gen.device).tolist()
         for g in perm:
             carry = branch_update(carry, g, X, var_y, gen)
+        carry = carry._replace(sweeps=carry.sweeps + 1)
         n = float(carry.residual.shape[0])
         return carry, SweepStats(
             counts=carry.counts.clone(),
@@ -830,19 +978,26 @@ class Net:
 
     # ------------------------------------------------------------- training
     def init_carry(self, X, y, state: Optional[NetState] = None,
-                   chains: Optional[int] = None) -> TrainCarry:
+                   chains: Optional[int] = None, step_size_factor: float = 1.0,
+                   mass_adaptation: bool = False) -> TrainCarry:
         """residual = y - bias - sum_g pred_g and the initial LPD terms, on a
         copy of the state.
 
         With ``chains``, a carry for that many chains (leading [C] axis):
         every chain starts from ``state``, or each from its own slice of a
-        chain-stacked state."""
+        chain-stacked state.
+
+        The dual-averaging state starts at log eps = log eps_bar =
+        log(``step_size_factor``), h_bar = 0; ``mass_adaptation`` sizes the
+        Welford accumulators ([G, P_flat] when on, [G, 0] placeholders when
+        off: the state is two parameter-sized copies)."""
         if chains is not None:
             s = self.state if state is None else state
+            kw = dict(step_size_factor=step_size_factor, mass_adaptation=mass_adaptation)
             if s.params.weights[0].dim() == 4:  # [C, G, in, out]
-                return stack_carries([self.init_carry(X, y, P.map_state(lambda a: a[c], s))
+                return stack_carries([self.init_carry(X, y, P.map_state(lambda a: a[c], s), **kw)
                                       for c in range(chains)])
-            return stack_carries([self.init_carry(X, y, s)] * chains)
+            return stack_carries([self.init_carry(X, y, s, **kw)] * chains)
         s = clone_state(self.state if state is None else state)
         residual = y - self.predict(X, s)
         statics = D.branch_statics(self.arch, self.device)
@@ -871,6 +1026,10 @@ class Net:
             s.precisions.error, torch.sum(residual**2), self.hyper,
             float(residual.shape[0]),
         )
+        flat_dim = (sum(math.prod(w.shape[1:]) for w in s.params.weights)
+                    + sum(math.prod(b.shape[1:]) for b in s.params.biases)
+                    if mass_adaptation else 0)
+        log_eps0 = torch.full((G,), math.log(step_size_factor), device=self.device)
         return TrainCarry(
             state=s,
             residual=residual,
@@ -878,6 +1037,11 @@ class Net:
             lpd_out=lpd_out,
             lpd_rss=lpd_rss,
             counts=torch.zeros(3, dtype=torch.int64, device=self.device),
+            da_log_eps=log_eps0,
+            da_log_eps_bar=log_eps0.clone(),
+            da_h_bar=torch.zeros(G, device=self.device),
+            mm_mean=torch.zeros((G, flat_dim), device=self.device),
+            mm_m2=torch.zeros((G, flat_dim), device=self.device),
         )
 
     def make_sweep(self, cfg: MCMCCfg):

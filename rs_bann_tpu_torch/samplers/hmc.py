@@ -30,6 +30,10 @@ Step-size modes:
   std_scaled eps = factor/sqrt(lambda)
   random     eps ~ U(0,1) * factor * n_params^(-1/4) per coordinate
   uniform    eps = factor
+  dual_averaging
+             the izmailov shape with the sweep's adapted per-branch factor
+With a diagonal mass estimate sigma (mass adaptation) eps_i = scale *
+sigma_i, scale = factor (std_scaled) or factor*pi/(2L) (otherwise).
 
 Result codes: 0 = accepted, 1 = rejected at end, 2 = rejected early.
 """
@@ -91,20 +95,43 @@ def _kinetic(p_w, p_b):
     return 0.5 * sum(torch.sum(p * p) for p in p_w + p_b)
 
 
+def _lead(f, t):
+    """A step factor (a number, or a tensor over leading axes such as [C, B])
+    shaped to broadcast over ``t``'s trailing axes; a view, no host sync."""
+    if isinstance(f, torch.Tensor) and f.dim():
+        return f.reshape(f.shape + (1,) * (t.dim() - f.dim()))
+    return f
+
+
 def step_sizes(
     gen, model_type: str, cfg: MCMCCfg, weights, biases, w_precisions,
-    b_precisions, n_params,
+    b_precisions, n_params, step_factor=None, mass_w=None, mass_b=None,
 ):
     """Per-coordinate leapfrog step sizes for (weights, biases).
 
-    Dual averaging (whose adaptation waits) uses the izmailov shape with the
-    cfg factor.
+    ``step_factor`` overrides the cfg factor: the dual-averaging factor,
+    which scales the izmailov shape (the sweeps pass it under dual averaging
+    only). It may be a number or a tensor over the leading axes of the
+    weights ([C, B] of a block, [NB] of a batch, 0-d for one branch) and
+    broadcasts over each layer's trailing axes.
+
+    ``mass_w`` / ``mass_b`` (per-coordinate posterior-std estimates shaped
+    as weights / biases) switch on the diagonal mass matrix: leapfrog with
+    unit momenta and eps_i = scale * sigma_i is HMC with M_ii = 1 /
+    sigma_i^2, where scale is the factor (std_scaled) or factor * pi / (2 L)
+    (the izmailov shape, for every prior family): izmailov's rule is the
+    case sigma = the prior std.
     """
     mode = cfg.hmc_step_size_mode
-    factor = cfg.hmc_step_size_factor
+    factor = cfg.hmc_step_size_factor if step_factor is None else step_factor
     if mode == "dual_averaging":
         mode = "izmailov"
     L = cfg.hmc_integration_length
+    if mass_w is not None:
+        scale = factor if mode == "std_scaled" else factor * math.pi / (2.0 * L)
+        eps_w = tuple(_lead(scale, s) * s for s in mass_w)
+        eps_b = tuple(_lead(scale, s) * s for s in mass_b)
+        return eps_w, eps_b
     if mode == "uniform":
         eps_w = tuple(torch.full_like(w, factor) for w in weights)
         eps_b = tuple(torch.full_like(b, factor) for b in biases)
@@ -118,31 +145,57 @@ def step_sizes(
         eps_b = tuple(draw(b) for b in biases)
     elif mode == "std_scaled":
         eps_w = tuple(
-            (factor / torch.sqrt(lam)).expand_as(w) for w, lam in zip(weights, w_precisions)
+            (_lead(factor, w) / torch.sqrt(lam)).expand_as(w)
+            for w, lam in zip(weights, w_precisions)
         )
         eps_b = tuple(
-            (factor / torch.sqrt(lam)).expand_as(b) for b, lam in zip(biases, b_precisions)
+            (_lead(factor, b) / torch.sqrt(lam)).expand_as(b)
+            for b, lam in zip(biases, b_precisions)
         )
     elif mode == "izmailov":
-        # the reference's std_normal izmailov ignores the factor
-        fac = 1.0 if model_type == "std_normal" else factor
+        # the reference's std_normal izmailov ignores the factor; an
+        # adapted factor overrides that
+        fac = 1.0 if (model_type == "std_normal" and step_factor is None) else factor
         if D.is_lasso(model_type):
             eps_w = tuple(
-                (factor / (4.0 * lam * L)).expand_as(w)
+                (_lead(factor, w) / (4.0 * lam * L)).expand_as(w)
                 for w, lam in zip(weights, w_precisions)
             )
         else:
             eps_w = tuple(
-                (fac * math.pi / (2.0 * torch.sqrt(lam) * L)).expand_as(w)
+                (_lead(fac, w) * math.pi / (2.0 * torch.sqrt(lam) * L)).expand_as(w)
                 for w, lam in zip(weights, w_precisions)
             )
         eps_b = tuple(
-            (fac * math.pi / (2.0 * torch.sqrt(lam) * L)).expand_as(b)
+            (_lead(fac, b) * math.pi / (2.0 * torch.sqrt(lam) * L)).expand_as(b)
             for b, lam in zip(biases, b_precisions)
         )
     else:
         raise ValueError(mode)
     return eps_w, eps_b
+
+
+def flatten_wb(ws, bs) -> torch.Tensor:
+    """Padded-flat vector over any leading axes: each layer's weights
+    raveled, then each layer's biases (the JAX package's order): per layer
+    [..., in, out] and [..., out] -> [..., P_flat]."""
+    lead = ws[-1].shape[:-2]
+    return torch.cat([w.reshape(lead + (-1,)) for w in ws] + [b.reshape(lead + (-1,)) for b in bs],
+                     dim=-1)
+
+
+def unflatten_wb(vec, like_w, like_b):
+    """Inverse of ``flatten_wb``: views of ``vec`` [..., P_flat] shaped as
+    the trailing axes of like_w / like_b (which may carry leading axes)."""
+    lead = vec.shape[:-1]
+    ws, bs, ix = [], [], 0
+    for like, out in ((like_w, ws), (like_b, bs)):
+        for t in like:
+            shape = t.shape[t.dim() - (2 if out is ws else 1):]
+            size = math.prod(shape)
+            out.append(vec[..., ix : ix + size].reshape(lead + tuple(shape)))
+            ix += size
+    return tuple(ws), tuple(bs)
 
 
 def _lean_trajectory(vg, weights, biases, eps_w, eps_b, p_w, p_b, L, max_err, kinetic):
@@ -171,9 +224,12 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
 
     Returned signature:
       hmc(gen, weights, biases, w_precisions, b_precisions, error_precision,
-          x, y, masks_w, masks_b, n_params, momenta=None, u=None) -> HMCResult
+          x, y, masks_w, masks_b, n_params, momenta=None, u=None,
+          step_factor=None, mass_w=None, mass_b=None) -> HMCResult
     ``x`` is a single-branch PackedX or FeatX. ``momenta`` = (p_w, p_b) and the accept
     uniform ``u`` may be passed in; otherwise they are drawn from ``gen``.
+    ``step_factor``, ``mass_w`` and ``mass_b`` go to ``step_sizes`` (the
+    adapted factor and the diagonal mass estimate).
 
     With ``defer_accept`` (the hybrid schedule's live accept) it returns an
     HMCProposal from the lean body instead (``_lean_trajectory``).
@@ -197,12 +253,14 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
 
     def hmc(
         gen, weights, biases, w_precisions, b_precisions, error_precision, x, y,
-        masks_w, masks_b, n_params, momenta=None, u=None,
+        masks_w, masks_b, n_params, momenta=None, u=None, step_factor=None, mass_w=None,
+        mass_b=None,
     ):
         if not isinstance(x, (D.PackedX, D.FeatX)):
             raise NotImplementedError("the port's HMC runs on packed or feature-major genotypes")
         eps_w, eps_b = step_sizes(
-            gen, model_type, cfg, weights, biases, w_precisions, b_precisions, n_params
+            gen, model_type, cfg, weights, biases, w_precisions, b_precisions, n_params,
+            step_factor, mass_w, mass_b,
         )
         if momenta is None:
             momenta = (
@@ -289,12 +347,15 @@ def make_lean_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     branch-blocked kernel.
 
       lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets,
-           masks_w, masks_b, n_params, momenta) -> HMCProposal, [NB] leaves
+           masks_w, masks_b, n_params, momenta, step_factor=None, mass_w=None,
+           mass_b=None) -> HMCProposal, [NB] leaves
 
     weights/biases/precisions/masks/momenta per layer [NB, ...]; err_prec and
     n_params [NB]; ``x`` the FeatX of all G branches, instance i reading
     branch ix[i] in place; targets [NB, n]; ``momenta`` = (p_w, p_b)
-    unmasked standard normals. Per-instance step sizes, kinetic energies and
+    unmasked standard normals; ``step_factor`` [NB] and ``mass_w`` /
+    ``mass_b`` per layer [NB, ...] each instance's adapted factor and mass
+    estimate (or None). Per-instance step sizes, kinetic energies and
     ``dead``. It consumes the draws that make_hmc_step(defer_accept=True)
     called instance by instance with the same momenta consumes (none, except
     the random step-size mode's, drawn here in the same order), so both give
@@ -305,19 +366,21 @@ def make_lean_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     random_eps = cfg.hmc_step_size_mode == "random"
 
     def lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets, masks_w, masks_b,
-             n_params, momenta):
+             n_params, momenta, step_factor=None, mass_w=None, mass_b=None):
         if random_eps:  # instance by instance, as the per-branch calls draw them
             def one(ts, i):
-                return tuple(t[i] for t in ts)
+                return None if ts is None else tuple(t[i] for t in ts)
 
             per = [step_sizes(gen, model_type, cfg, one(weights, i), one(biases, i),
-                              one(w_prec, i), one(b_prec, i), n_params[i])
+                              one(w_prec, i), one(b_prec, i), n_params[i],
+                              None if step_factor is None else step_factor[i],
+                              one(mass_w, i), one(mass_b, i))
                    for i in range(ix.shape[0])]
             eps_w = tuple(torch.stack(e) for e in zip(*(p[0] for p in per)))
             eps_b = tuple(torch.stack(e) for e in zip(*(p[1] for p in per)))
         else:
             eps_w, eps_b = step_sizes(gen, model_type, cfg, weights, biases, w_prec, b_prec,
-                                      n_params)
+                                      n_params, step_factor, mass_w, mass_b)
         p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
         p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
 
@@ -349,7 +412,8 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     written as a plain function over [C, B] instead of a vmap rule:
 
       fold(weights, biases, w_prec, b_prec, err_prec, x, targets, masks_w,
-           masks_b, momenta, y_pred0=None) -> HMCProposal with [C, B] leaves
+           masks_b, momenta, y_pred0=None, k_live=None, step_factors=None,
+           mass_w=None, mass_b=None) -> HMCProposal with [C, B] leaves
 
     weights/biases/precisions/momenta per layer [C, B, ...]; err_prec [C];
     ``x`` the block's PackedX (bytes [B, m_pad, Bytes]) or FeatX (xT
@@ -361,14 +425,18 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     goes to both value passes (``D.predict_chains``): the layer-0 width past
     which every column is padding, whose zero weights and momenta the
     trajectory leaves as they are. Step sizes
-    follow the per-branch rule per (chain, branch) (izmailov or
-    std_scaled).
+    follow the per-branch rule per (chain, branch) (izmailov, std_scaled or
+    dual averaging's izmailov shape), with ``step_factors`` [C, B] the
+    adapted factors (dual averaging) and ``mass_w`` / ``mass_b`` per layer
+    [C, B, ...] the diagonal mass estimates, or None; the per-coordinate
+    step sizes reach the kernel through the same [C, B] -> [B, C] views as
+    the other per-layer inputs.
     """
     from ..ops.leapfrog import integrate_chains, integrate_chains_packed
 
-    if cfg.hmc_step_size_mode not in ("izmailov", "std_scaled"):
+    if cfg.hmc_step_size_mode not in ("izmailov", "std_scaled", "dual_averaging"):
         raise NotImplementedError(
-            f"the folded transition takes izmailov or std_scaled step sizes, "
+            f"the folded transition takes izmailov, std_scaled or dual_averaging step sizes, "
             f"not {cfg.hmc_step_size_mode}"
         )
     L = cfg.hmc_integration_length
@@ -382,8 +450,9 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
         )
 
     def fold(weights, biases, w_prec, b_prec, err_prec, x, targets, masks_w, masks_b, momenta,
-             y_pred0=None, k_live=None):
-        eps_w, eps_b = step_sizes(None, model_type, cfg, weights, biases, w_prec, b_prec, None)
+             y_pred0=None, k_live=None, step_factors=None, mass_w=None, mass_b=None):
+        eps_w, eps_b = step_sizes(None, model_type, cfg, weights, biases, w_prec, b_prec, None,
+                                  step_factors, mass_w, mass_b)
         p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
         p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
         # prior precision factors in the weight layout: grad = -lam * w

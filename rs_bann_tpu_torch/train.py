@@ -145,7 +145,10 @@ def gd_warmup_cfg(cfg: MCMCCfg) -> MCMCCfg:
     trainer's overrides: gradient descent, a static step-size mode (GD sets
     its own rate by line search; the mode only builds the transition), the
     factor at most 1e-3, at most 20 iterations, and none of joint HMC,
-    trajectory recording, mass adaptation, tempering or spike-and-slab."""
+    trajectory recording, mass adaptation, tempering or spike-and-slab. So
+    the warm start leaves the dual-averaging and mass-adaptation state as
+    it is, and the trainer starts the sweep counter (their clock) again
+    after it."""
     return dataclasses.replace(
         cfg, gradient_descent=True, joint_hmc=False, trajectories=False,
         mass_adaptation=False, tempering=False, spike_slab=False,
@@ -171,7 +174,8 @@ def train(
     a gradient-descent run), that many gradient-descent sweeps of the
     schedule (``gd_warmup_cfg``) start every chain, one chain after another,
     before the first record; the acceptance counts and the sweep counter
-    then start again from 0. Returns (net, TrainingStats); ``net.state`` is
+    (the clock of the step-size and mass adaptation) then start again from
+    0. Returns (net, TrainingStats); ``net.state`` is
     left at chain 0's final iteration."""
     os.makedirs(cfg.outpath, exist_ok=True)
     save_models = cfg.chain_length > cfg.burn_in
@@ -183,7 +187,8 @@ def train(
     C = max(int(cfg.num_chains), 1)
     sweep = net.make_chain_sweep(cfg)
     X, y = train_data.X, train_data.y
-    carry = net.init_carry(X, y, chains=C)
+    carry = net.init_carry(X, y, chains=C, step_size_factor=cfg.hmc_step_size_factor,
+                           mass_adaptation=cfg.mass_adaptation)
     if cfg.gd_warmup > 0 and not (cfg.gradient_descent or cfg.gradient_descent_joint):
         gd_sweep = net.make_chain_sweep(gd_warmup_cfg(cfg), chain_by_chain=True)
         t0 = time.time()

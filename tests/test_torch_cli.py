@@ -5,7 +5,8 @@ for C chains (``models/chain<c>``) under the sequential and the hybrid
 schedule, with the GD warm start, gradient descent and silu too; the same
 for ``train-new --feat-major`` under the parallel and hybrid schedules with
 dense ``predict``, and under the sequential schedule (one chain and two)
-and the unfolded hybrid one. ``gradients --cpu`` writes the JAX package's JSON
+and the unfolded hybrid one, and with dual averaging and mass adaptation on
+every schedule and layout. ``gradients --cpu`` writes the JAX package's JSON
 (rtol 1e-4 of each array's largest entry). Every option outside the ported
 slice exits non-zero with "not ported yet".
 """
@@ -165,8 +166,6 @@ UNPORTED = [
     ["--ss-markers"],
     ["--ss-rows"],
     ["--tempering", "--num-chains", "2"],
-    ["--mass-adaptation"],
-    ["--step-size-mode", "dual_averaging"],
     ["--traj-length-mode", "jittered"],
     ["--trajectories"],
     ["--num-grad"],
@@ -189,6 +188,44 @@ def test_unported_options_exit_nonzero(data, tmp_path, extra, capsys):
     assert e.value.code not in (0, None)
     assert "not ported yet" in str(e.value.code)
     assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
+# three warm sweeps of four: at the default factor 1 the toy run accepts
+# nothing without the adaptation
+ADAPTED = ["--step-size-mode", "dual_averaging", "--mass-adaptation", "--burn-in", "3"]
+
+
+@pytest.mark.parametrize("layout,extra,chains", [
+    ("--packed-genotypes", ["--update-mode", "hybrid", "--num-chains", "2", "--block-size", "3"],
+     2),  # folded: K5
+    ("--packed-genotypes", [], 1),  # sequential: K4
+    ("--packed-genotypes", ["--update-mode", "hybrid", "--per-chain-block-perm",
+                            "--num-chains", "2"], 2),  # unfolded: K4
+    ("--feat-major", ["--update-mode", "parallel", "--num-chains", "2"], 2),  # folded: K6/K7
+    ("--feat-major", ["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", "2"],
+     2),  # unfolded: K8b
+], ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
+def test_dual_averaging_and_mass_adaptation_train_then_predict(data, tmp_path, layout, extra,
+                                                               chains):
+    """train-new with --step-size-mode dual_averaging --mass-adaptation runs
+    on every schedule and layout, writes the ``_mass`` run directory with
+    finite statistics and some accepted and some rejected moves, and JAX
+    predicts its samples as the port does."""
+    argv = _train_args(data, tmp_path, layout, *extra, *ADAPTED)
+    if layout == "--feat-major":
+        argv[4:7] = ["ridge_base", "tanh", "1"]
+        argv += ["--fixed-summary-layer-width", "4"]
+    run = _run_dir(tmp_path, run_cli(*argv))
+    assert "_dual_averaging_" in run.name and "_mass_" in run.name
+    stats = json.loads((run / "training_stats").read_text())
+    assert stats["num_samples"] == 4 * G * chains
+    assert 0 < stats["num_accepted"] < stats["num_samples"]
+    assert all(np.isfinite(stats["mse_train"] + stats["mse_test"] + stats["lpd"]))
+    samples = ["3.npz", "4.npz"]  # from the last warm sweep on
+    dirs = ([run / "models"] if chains == 1
+            else [run / "models" / f"chain{c}" for c in range(chains)])
+    for d in dirs:
+        _predict_matches_jax(data, d, samples, packed=layout == "--packed-genotypes")
 
 
 SCHEDULES = {  # schedule -> (its options, the kernels that run it on the card)

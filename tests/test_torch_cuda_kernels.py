@@ -15,7 +15,10 @@ flagship's branch (one instance, and 64 through an index) and the largest m
 it admits (its launches counted too), K6 with one chain, five (a ragged
 chunk), more instances than resident CTAs, depth 0 at width 8, the
 flagship's block at L = 1 and the largest m it admits (one call one device
-op), and the wrappers' refusals.
+op), K5 and K6 with the per-coordinate step sizes of dual averaging and
+mass adaptation in the fold's transposed views (and a whole folded packed
+block with them: its padded columns stay exactly 0), and the wrappers'
+refusals.
 Tolerances: K2 and K9a atol 1e-4 (f32
 sums over <= 300 markers in another order), and 1e-4 of the largest entry
 with weights spanning 1e-6 to 1e3; K3 and K9b rtol 1e-4 of the
@@ -1048,3 +1051,179 @@ def test_dense_vg_wrappers_refuse_what_the_kernel_does_not_take(dev):
     ws, bs, targets = _vg_dense_inputs(rng, dev, (3,), m, n, 8, 0)
     with pytest.raises(ValueError):  # 3 instances on 2 branches need an index
         BM.data_vg_blocked("tanh", X, None, ws, bs, targets)
+
+
+def _adapted_block(dev, model_type, act, depth, C, B, m, n, width, L, seed, packed=True):
+    """A hybrid block as the folded sweep hands it to K5 (``packed``) or K6
+    under dual averaging and mass adaptation: C chains x B branches of an
+    initial state (m markers, layer widths ``width`` stored at the next
+    multiple of 8), each chain's perturbed; per-(chain, branch) factors and
+    mass estimates (``_mass_std`` of a Welford M2 at count 3), so the step
+    sizes, sized for trajectories of L steps, are full per-coordinate
+    tensors; every per-layer input in the
+    sampler's [C, B] storage, handed over as [B, C] views. Returns (the
+    kernel's arguments after ``act``, the step sizes [C, B, ...], the live
+    width)."""
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models import net as TN
+    from rs_bann_tpu_torch.models import params as TP
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+    from rs_bann_tpu_torch.samplers import hmc as TH
+    from rs_bann_tpu_torch.samplers.mcmc_cfg import MCMCCfg
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(dev).manual_seed(seed)
+    arch = NetArch.uniform(B, m, width, depth, width, activation=act)
+    state, _ = init_net(arch, model_type, InitCfg(seed=seed), device=dev)
+
+    def chains(ts, sd):  # [B, ...] -> [C, B, ...], each chain perturbed
+        return tuple(t[None] * (1.0 + sd * torch.randn((C,) + t.shape, generator=gen,
+                                                       device=dev)) for t in ts)
+
+    ws, bs = chains(state.params.weights, 0.2), chains(state.params.biases, 0.2)
+    wp, bp = chains(state.precisions.weights, 0.1), chains(state.precisions.biases, 0.1)
+    P = TH.flatten_wb(ws, bs).shape[-1]
+    m2 = torch.rand((C, B, P), generator=gen, device=dev) * 0.05
+    mass_w, mass_b = TN._mass_std(model_type, m2, 3.0, wp, bp, ws, bs)
+    factors = torch.exp(torch.rand((C, B), generator=gen, device=dev) - 2.0)
+    cfg = MCMCCfg(hmc_integration_length=L, hmc_step_size_mode="dual_averaging",
+                  mass_adaptation=True)
+    eps_w, eps_b = TH.step_sizes(None, model_type, cfg, ws, bs, wp, bp, None, factors, mass_w,
+                                 mass_b)
+    mw, mb = TP.weight_masks(arch, dev), TP.bias_masks(arch, dev)
+    p_w = tuple(torch.randn(w.shape, generator=gen, device=dev) * k for w, k in zip(ws, mw))
+    p_b = tuple(torch.randn(b.shape, generator=gen, device=dev) * k for b, k in zip(bs, mb))
+    lam_w = tuple(lam.expand_as(w) for lam, w in zip(wp, ws))
+    lam_b = tuple(torch.zeros_like(b) for b in bs)
+    targets = torch.randn((C, B, n), generator=gen, device=dev)
+    err = (torch.rand(C, generator=gen, device=dev) + 0.5)[None, :].expand(B, -1)
+
+    def bc(ts):  # the fold's [C, B, ...] -> [B, C, ...] views
+        return tuple(t.transpose(0, 1) for t in ts)
+
+    layers = tuple(map(bc, (ws, bs, p_w, p_b, eps_w, eps_b, lam_w, lam_b)))
+    assert not layers[4][0].is_contiguous() and layers[4][0].stride(-1) == 1
+    if packed:
+        vals = np.zeros((B, arch.m_pad, n), np.float32)
+        vals[:, :m] = rng.integers(0, 3, size=(B, m, n))
+        by = torch.from_numpy(np.stack([PM.pack_strided(v) for v in vals])).to(dev)
+        scale = torch.zeros(B, arch.m_pad, device=dev)
+        shift = torch.zeros(B, arch.m_pad, device=dev)
+        scale[:, :m] = torch.from_numpy(1.0 / vals[:, :m].std(axis=2)).to(dev)
+        shift[:, :m] = torch.from_numpy(vals[:, :m].mean(axis=2)).to(dev)
+        x = (by, scale, shift)
+    else:
+        xT = torch.zeros(B, arch.m_pad, n, device=dev)
+        xT[:, :m] = torch.randn((B, m, n), generator=gen, device=dev)
+        x = (xT,)
+    return (*x, targets.transpose(0, 1), err, *layers), (eps_w, eps_b), width
+
+
+@pytest.mark.parametrize("steps,tol", [(1, 1e-4), (30, 1e-3)])
+@pytest.mark.parametrize("model_type,l1", [("ridge_ard", False), ("lasso_ard", True)])
+def test_integrate_chains_packed_with_mass_scaled_step_sizes(dev, model_type, l1, steps, tol):
+    """K5 on the main path's block shape (B = 10, C = 4, m = 100 stored at
+    104, width 10 stored at 16, identity, depth 0) under dual averaging and
+    mass adaptation: per-coordinate step sizes (sized for L = 30), nonzero
+    on the padded columns too, in the fold's transposed views. Within
+    REL_TOL (L = 1) and REL_TOL_TRAJ (L = 30) of its plain version; the
+    padded columns' weights and momenta stay exactly 0; a repeat gives the
+    same bits."""
+    n = 1300
+    args, (eps_w, _), live = _adapted_block(dev, model_type, "identity", 0, 4, 10, 100, n, 10,
+                                            30, 31)
+    assert eps_w[0][..., live:].abs().min() > 0  # padded columns step too
+    before = TL.integrate_chains_packed.launches
+    out = TL.integrate_chains_packed("identity", *args, steps, n, l1=l1)
+    assert TL.integrate_chains_packed.launches == before + 1
+    ref = TL.integrate_chains_packed_ref("identity", *args, steps, n, l1=l1)
+    again = TL.integrate_chains_packed("identity", *args, steps, n, l1=l1)
+    torch.cuda.synchronize()
+    for got_p, ref_p, rep_p in zip(out, ref, again):
+        for got, want, rep in zip(got_p, ref_p, rep_p):
+            assert got.shape == want.shape
+            assert (got - want).abs().max().item() <= tol * max(want.abs().max().item(), 1.0)
+            assert torch.equal(got, rep)
+    for w, pw in ((out[0], out[2]), (ref[0], ref[2])):  # W0 [.., m, k], w_out [.., k, 1]
+        assert torch.all(w[0][..., live:] == 0) and torch.all(w[1][..., live:, :] == 0)
+        assert torch.all(pw[0][..., live:] == 0) and torch.all(pw[1][..., live:, :] == 0)
+    assert torch.all(out[1][0][..., live:] == 0)
+
+
+@pytest.mark.parametrize("steps,tol", [(3, 1e-4), (64, 1e-3)])
+@pytest.mark.parametrize("model_type,l1", [("ridge_base", False), ("lasso_base", True)])
+def test_integrate_chains_with_mass_scaled_step_sizes(dev, model_type, l1, steps, tol):
+    """K6 at the dense flagship's widths (C = 4 chains x B = 8 branches, m =
+    64, h = s = 32, tanh, depth 1) under dual averaging and mass
+    adaptation: the per-coordinate step sizes in the fold's transposed,
+    non-contiguous views, read where they lie. Against its plain version in
+    f32 and f64, rtol 1e-4 after 3 steps and 1e-3 after L = 64 (the step
+    sizes sized for L = 64, as the sampler sizes them); one call is the
+    launch alone; a repeat gives the same bits."""
+    args, _, _ = _adapted_block(dev, model_type, "tanh", 1, 4, 8, 64, 1024, 32, 64, 32,
+                                packed=False)
+    _k6_check("tanh", args + (steps,), l1, tol=tol)
+
+
+def test_folded_packed_block_with_mass_keeps_padded_columns_zero(dev):
+    """A whole folded block transition on the card (``make_transition_batch``:
+    the value passes on the live width, one K5 launch) under dual averaging
+    and mass adaptation, where the mass-scaled step sizes of the padded
+    columns are not zero: their weights, biases and momenta come out
+    exactly 0, and a repeat gives the same bits."""
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models import net as TN
+    from rs_bann_tpu_torch.models import params as TP
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+    from rs_bann_tpu_torch.samplers import hmc as TH
+    from rs_bann_tpu_torch.samplers.mcmc_cfg import MCMCCfg
+
+    C, B, m, n, width = 4, 10, 100, 1300, 10
+    rng = np.random.default_rng(33)
+    gen = torch.Generator(dev).manual_seed(33)
+    arch = NetArch.uniform(B, m, width, 0, width, activation="identity")
+    state, _ = init_net(arch, "ridge_ard", InitCfg(seed=33), device=dev)
+
+    def chains(ts):
+        return tuple(t[None].expand((C,) + t.shape).contiguous() for t in ts)
+
+    ws, bs = chains(state.params.weights), chains(state.params.biases)
+    wp, bp = chains(state.precisions.weights), chains(state.precisions.biases)
+    m2 = torch.rand((C, B, TH.flatten_wb(ws, bs).shape[-1]), generator=gen, device=dev)
+    mass_w, mass_b = TN._mass_std("ridge_ard", m2, 3.0, wp, bp, ws, bs)
+    factors = torch.exp(torch.rand((C, B), generator=gen, device=dev) - 2.0)
+    vals = np.zeros((B, arch.m_pad, n), np.float32)
+    vals[:, :m] = rng.integers(0, 3, size=(B, m, n))
+    scale = np.zeros((B, arch.m_pad), np.float32)
+    shift = np.zeros((B, arch.m_pad), np.float32)
+    scale[:, :m], shift[:, :m] = 1.0 / vals[:, :m].std(axis=2), vals[:, :m].mean(axis=2)
+    x = PackedX(torch.from_numpy(np.stack([PM.pack_strided(v) for v in vals])).to(dev),
+                torch.from_numpy(scale).to(dev), torch.from_numpy(shift).to(dev), n)
+    targets = torch.randn((C, B, n), generator=gen, device=dev)
+    err = torch.rand(C, generator=gen, device=dev) + 0.5
+    momenta = (tuple(torch.randn(w.shape, generator=gen, device=dev) for w in ws),
+               tuple(torch.randn(b.shape, generator=gen, device=dev) for b in bs))
+    cfg = MCMCCfg(hmc_integration_length=30, hmc_step_size_mode="dual_averaging",
+                  mass_adaptation=True, update_mode="hybrid", num_chains=C)
+    fold = TH.make_transition_batch("ridge_ard", "identity", cfg)
+    eps_w, _ = TH.step_sizes(None, "ridge_ard", cfg, ws, bs, wp, bp, None, factors, mass_w,
+                             mass_b)
+    assert eps_w[0][..., width:].abs().min() > 0
+
+    def call():
+        return fold(ws, bs, wp, bp, err, x, targets, TP.weight_masks(arch, dev),
+                    TP.bias_masks(arch, dev), momenta, k_live=width, step_factors=factors,
+                    mass_w=mass_w, mass_b=mass_b)
+
+    before = TL.integrate_chains_packed.launches
+    prop = call()
+    assert TL.integrate_chains_packed.launches == before + 1
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.all(prop.weights[0][..., width:] == 0)
+    assert torch.all(prop.weights[1][..., width:, :] == 0)
+    assert torch.all(prop.biases[0][..., width:] == 0)
+    assert torch.isfinite(prop.y_pred_prop).all() and not prop.dead.all()
+    for a, b in zip(prop, again):
+        for t, u in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(t, u)

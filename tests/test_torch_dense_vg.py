@@ -144,16 +144,18 @@ def _loop_lean(model_type, act, cfg):
     step = TH.make_hmc_step(model_type, act, cfg, defer_accept=True)
 
     def lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets, masks_w, masks_b,
-             n_params, momenta):
+             n_params, momenta, step_factor=None, mass_w=None, mass_b=None):
         props = []
         for i in range(ix.shape[0]):
             def one(ts):
-                return tuple(t[i] for t in ts)
+                return None if ts is None else tuple(t[i] for t in ts)
 
             props.append(step(gen, one(weights), one(biases), one(w_prec), one(b_prec),
                               err_prec[i], x[int(ix[i])], targets[i], one(masks_w),
                               one(masks_b), n_params[i],
-                              momenta=(one(momenta[0]), one(momenta[1]))))
+                              momenta=(one(momenta[0]), one(momenta[1])),
+                              step_factor=None if step_factor is None else step_factor[i],
+                              mass_w=one(mass_w), mass_b=one(mass_b)))
         return TH.HMCProposal(
             tuple(torch.stack(t) for t in zip(*(p.weights for p in props))),
             tuple(torch.stack(t) for t in zip(*(p.biases for p in props))),
