@@ -49,6 +49,26 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      predict on each chain's samples against the CPU's; then the kernel
      launches of one sweep (torch.profiler) without the options, with them
      in an adapting sweep and in a frozen one
+ 6c. phase 6b's run with the recipe's per-marker spike-and-slab,
+     --ss-markers --ssm-fixed-pi --ssm-pi 0.1 --ssm-warmup 1 (the first
+     sweep keeps every marker in, the second draws z), each sweep recorded:
+     exactly one K9b launch (the scan's u0), one marker_scan launch, one K5
+     launch and three value-pass K2 launches (the snapshot, the initial
+     state after the scan, the final one) per block, the adaptation checks
+     of 6b; at least one true marker excluded, every excluded row of each
+     chain's saved W0 exactly 0, inclusion_probs with G lists of m PIPs in
+     [0, 1] and pi_markers 0.1; predict on each chain's samples against
+     the CPU's; ms per sweep beside 6b's and the branch Grams' one-off
+     time; then, at the block (C x B = 40 instances, m_pad 104, width 16)
+     on the run's final state, the scan's u0 (K9b at k = C with the
+     residuals broadcast over the branches, then the standardization)
+     against the plain standardized product in f32 and f64, and the scan
+     kernel on it against its plain version: z equal but on near ties of
+     the plain version in f64 on all but I // 20 instances, W0_new within
+     REL_TOL, identical repeats, times beside the plain versions' and the
+     scan's bytes bound; and the kernel
+     launches (torch.profiler) of a sweep that draws z beside 6b's frozen
+     sweep
   7. the dense flagship (bench.py workload 1: G = 64 groups of 64 markers,
      n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
      K7 (data_vg_chains, feature-major X [64, 64, 4096]) and its
@@ -114,8 +134,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      K8 launch per block, no other kernel), predict on each chain's samples
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
-for K9a and K9b, 14 for K8a, 15 for K8b; K5's, K2's, K6's and K7's under
-the adaptation, phases 6b and 9b, as adapted_launches), error against
+for K9a and K9b, 14 for K8a, 15 for K8b, 6c for marker_scan; K5's, K2's,
+K6's and K7's under the adaptation, phases 6b and 9b, as
+adapted_launches; K9b's as the scan's u0 in 6c as ssm_launches, beside
+u0's times and error), error against
 its plain version (max_abs_err, and max_rel_err: the largest difference
 over max(1, largest plain entry), the ratio held to REL_TOL), times (of
 the wrapper's call, except K4's, K7's and K8's: the launch alone from
@@ -426,6 +448,126 @@ def sweep_launches(argv, model_type, arch, state, X, y, chains, blocks):
             "adapting_extra_per_block": extra_per_block}
 
 
+SSM_ARGS = ["--ss-markers", "--ssm-fixed-pi", "--ssm-pi", "0.1", "--ssm-warmup", "1"]
+
+
+def scan_block_check(X, carry, arch, ixs):
+    """The marker scan's two device steps at the main path's block against
+    their plain versions: the C x B (chain, branch) instances of the
+    branches ``ixs`` at the state of ``carry`` (a hybrid carry after a run
+    with ss_markers). First u0 = X_b^T e, one K9b launch on the block's
+    bytes with the chains' residuals broadcast over the branches (k = C),
+    then the standardization (``D.marker_u0``), against the plain
+    standardized product ((decode - shift) * w_scale) @ e in f32 and in f64
+    (no further from f64 than the f32 plain version, plus REL_TOL), with an
+    identical repeat and both times. Then the scan kernel on that u0, the
+    ridge slab precisions from the carry's row precisions (broadcast over
+    the columns, read in place) and draws from a seed: z must agree but on
+    near ties (``scan_ties``), on at least I - max(1, I // 20) instances,
+    W0_new within REL_TOL of the largest entry on those, and a repeat give
+    the same bits. Returns the times of both steps and of their plain
+    versions, the errors, the near ties and the scan's bound (the bytes the
+    kernel reads and writes: the block's B Grams once, its inputs and draws
+    at their stored size, the outputs once; the operations are a few per
+    byte). The comparison's launches are not counted."""
+    import torch
+
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models import params as P
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+
+    dev = X.bytes.device
+    C, B = carry.residual.shape[0], ixs.numel()
+    I, m, s = C * B, arch.m_pad, arch.layer_out_pad(0)
+    k9b_before, scan_before = PM.packed_matmul_vjp.launches, MS.marker_scan.launches
+
+    x_b, e = X[ixs], carry.residual.transpose(0, 1)  # [n, C], as the sweep hands it
+    u0_fn = lambda: D.marker_u0(x_b, e)  # noqa: E731
+
+    def u0_plain(dtype):
+        xs = (PM.unpack_strided(x_b.bytes, x_b.n).to(dtype) - x_b.shift[..., None].to(dtype)) \
+            * x_b.w_scale[..., None].to(dtype)
+        return xs @ e.to(dtype)
+
+    u0 = u0_fn()
+    identical(u0_fn, u0, "marker_u0 (K9b) at the block")
+    u0_ref, u0_64 = u0_plain(torch.float32), u0_plain(torch.float64)
+    u0_err = check_close("packed_matmul_vjp", f"u0 = X_b^T e at the block (K9b at k = {C}, "
+                         f"broadcast over {B} branches, then the standardization)", u0, u0_ref)
+    plain64 = (u0_ref.double() - u0_64).abs().max().item() / max(1.0, u0_64.abs().max().item())
+    check_close("packed_matmul_vjp f64", f"u0 at the block (f64; the f32 plain version "
+                f"{plain64:.3e})", u0.double(), u0_64, tol=plain64 + REL_TOL)
+    del u0_ref, u0_64
+    u0_ms = cuda_ms(u0_fn)
+    u0_plain_ms = cuda_ms(lambda: u0_plain(torch.float32), runs=3)
+
+    gen = torch.Generator(dev).manual_seed(6)
+    w, lam = carry.state.params.weights, carry.state.precisions.weights[0]
+    gix = ixs.repeat(C)
+    eta = torch.clamp(lam[:, ixs, :, 0].reshape(I, m), 1e-6, 1e12)[..., None].expand(I, m, s)
+    args = (X.gram, gix, u0.permute(2, 0, 1).reshape(I, m),
+            w[0][:, ixs].reshape(I, m, s), w[1][:, ixs, :, 0].reshape(I, s), eta,
+            carry.state.precisions.error.repeat_interleave(B),
+            carry.ssm_pi.repeat_interleave(B),
+            D.branch_statics(arch, dev).row_masks[0][gix, :, 0], P.bias_masks(arch, dev)[0][gix],
+            False, torch.argsort(torch.rand((I, m), generator=gen, device=dev), dim=-1),
+            torch.rand((I, m), generator=gen, device=dev),
+            torch.randn((I, m), generator=gen, device=dev),
+            torch.randn((I, m, s), generator=gen, device=dev))
+    args = tuple(a.contiguous() if isinstance(a, torch.Tensor) and a is not eta else a
+                 for a in args)
+    z, W = MS.marker_scan(*args)
+    identical(lambda: MS.marker_scan(*args), (z, W), "marker_scan")
+    z_ref, W_ref = MS.marker_scan_ref(*args)
+    f64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+           for a in args]
+    p64 = MS.marker_scan_ref(*f64, probs=True)[2]
+    same, ties = MS.scan_ties(z, z_ref, args[11], args[12], p64)
+    if int(same.sum()) < I - max(1, I // 20):
+        raise AssertionError(f"marker_scan: z agrees on {int(same.sum())} of {I} instances "
+                             f"({ties} near ties)")
+    same = same.to(dev)
+    err = check_close("marker_scan", f"W0_new ({int(same.sum())} of {I} instances, {ties} near "
+                      f"ties)", W[same], W_ref[same])
+    if not torch.all(W[z == 0] == 0):
+        raise AssertionError("the scan kernel left an excluded row nonzero")
+    ms = cuda_ms(lambda: MS.marker_scan(*args))
+    plain_ms = cuda_ms(lambda: MS.marker_scan_ref(*args), runs=3)
+    PM.packed_matmul_vjp.launches, MS.marker_scan.launches = k9b_before, scan_before
+    gram_bytes = B * m * m * 4  # the block's B Grams, each read by C instances
+    moved = gram_bytes + nbytes(*(a for a in args[1:] if isinstance(a, torch.Tensor)
+                                  and a is not eta), z, W) + I * m * 4  # eta: [I, m] in place
+    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "near_ties": ties,
+            "bound": bound(0.0, moved), "us_per_marker": 1e3 * ms / m, "instances": I,
+            "markers": m, "u0_ms": u0_ms, "u0_plain_ms": u0_plain_ms, "u0_max_abs_err": u0_err}
+
+
+def ssm_sweep_launches(argv, arch, state, X, y, chains):
+    """Kernel launches (torch.profiler) of one sweep of ``argv`` (train-new's
+    arguments, with ss_markers), the second of a fresh carry from
+    ``state`` on ``X`` (its Grams formed): the first keeps every marker in
+    (warm-up 1), the second draws z."""
+    import torch
+
+    from rs_bann_tpu_torch.cli.args import mcmc_cfg_from_args
+    from rs_bann_tpu_torch.cli.main import build_parser
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models.net import Net
+    from rs_bann_tpu_torch.train import prepare_state_for_training
+
+    cfg = mcmc_cfg_from_args(build_parser().parse_args([str(a) for a in argv]), os.devnull)
+    net = prepare_state_for_training(Net("ridge_ard", arch, D.Hyperparameters(), state), None)
+    carry = net.init_carry(X, y, chains=chains, step_size_factor=cfg.hmc_step_size_factor,
+                           mass_adaptation=cfg.mass_adaptation, ss_markers=True,
+                           ssm_pi=cfg.ssm_pi)
+    sweep = net.make_chain_sweep(cfg)
+    gen = torch.Generator(X.bytes.device).manual_seed(3)
+    carry, _ = sweep(carry, X, y, gen)
+    (carry, _), n = device_launches(lambda: sweep(carry, X, y, gen))
+    return n
+
+
 def write_data(d, groups=G, markers=M, n_train=N_TRAIN, n_test=N_TEST, n_causal=N_CAUSAL):
     """Train and test genotypes of one population (per-marker allele
     frequencies shared), ``groups`` groups of ``markers`` markers, and a
@@ -482,6 +624,7 @@ def main():
     from rs_bann_tpu_torch.ops.activations import ACT_CODES, prime_from_out
     from rs_bann_tpu_torch.ops import branch_mlp as BM
     from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import marker_scan as MS
     from rs_bann_tpu_torch.ops import packed_matmul as PM
     from rs_bann_tpu_torch.samplers import MCMCCfg
     from rs_bann_tpu_torch.samplers import hmc as H
@@ -980,6 +1123,101 @@ def main():
             "k5_launches": k5_adapted, "k2_value_passes": k2_adapted,
             "factors": adapted_factors, "launches_per_sweep": packed_launches}}
         del recs
+
+        # ---- phase 6c: the recipe with per-marker spike-and-slab
+        print(f"phase 6c: phase 6b's train-new with {' '.join(SSM_ARGS)} -> predict (burn-in "
+              f"1: the first sweep keeps every marker in, the second draws z)")
+        ssm_kernels = dict(packed_kernels, packed_matmul_vjp=PM.packed_matmul_vjp,
+                           marker_scan=MS.marker_scan)
+        for counted in ssm_kernels.values():
+            counted.launches = 0
+        PM.packed_linear.widths = {}
+        t0 = time.perf_counter()
+        run, recs = recorded_run(cli, hybrid_args + ADAPT_ARGS + SSM_ARGS, ssm_kernels)
+        vp_widths_s = dict(PM.packed_linear.widths)  # before predict's own launches
+        ssm_s = time.perf_counter() - t0
+        scan_launches, k9b_ssm = MS.marker_scan.launches, PM.packed_matmul_vjp.launches
+        print(f"  kernel launches per sweep: {[r['launches'] for r in recs]}; train-new's K2 "
+              f"launches by width k: {vp_widths_s}")
+        # per sweep and block: the scan's u0 (K9b), the scan, K5, and three
+        # value passes (the snapshot, y_pred0 at the post-scan layer 0, Hf)
+        stats = json.load(open(os.path.join(run, "training_stats")))
+        check_adapted(recs, stats, CHAINS, {
+            "integrate_chains_packed": G // BLOCK, "packed_linear": 3 * (G // BLOCK),
+            "data_vg_packed": 0, "packed_matmul_vjp": G // BLOCK, "marker_scan": G // BLOCK})
+        if vp_widths_s.get(CHAINS * vp_live) != CHAIN * 3 * (G // BLOCK):
+            raise AssertionError(f"the value passes launched K2 at widths {vp_widths_s}, expected "
+                                 f"{CHAIN * 3 * (G // BLOCK)} at {CHAINS * vp_live}")
+        carry = recs[-1]["carry"]
+        true = (D.branch_statics(arch, dev).row_masks[0][..., 0] > 0).cpu().numpy()
+        z = carry.ssm_z.cpu().numpy()
+        excluded = (z == 0) & true
+        if not excluded.any() or not (z[:, ~true] == 0).all():
+            raise AssertionError(f"{int(excluded.sum())} true markers excluded, padded ones "
+                                 f"in: {int((z[:, ~true] != 0).sum())}")
+        for c in range(CHAINS):
+            w0 = np.load(os.path.join(run, "models", f"chain{c}", f"{CHAIN}.npz"))["w0"]
+            if not np.array_equal(w0, carry.state.params.weights[0][c].cpu().numpy()):
+                raise AssertionError(f"chain {c}'s saved W0 is not the run's last state")
+            if not np.all(w0[excluded[c]] == 0):
+                raise AssertionError(f"chain {c}: an excluded row of the saved W0 is not 0")
+        probs = json.load(open(os.path.join(run, "inclusion_probs")))
+        pip = np.concatenate([np.asarray(p) for p in probs["pip_markers"]])
+        if [len(p) for p in probs["pip_markers"]] != [M] * G or not np.all(
+                (pip >= 0) & (pip <= 1)):
+            raise AssertionError("inclusion_probs: pip_markers not G lists of m in [0, 1]")
+        if abs(probs["pi_markers"] - 0.1) > 1e-7:
+            raise AssertionError(f"pi_markers {probs['pi_markers']}, expected the fixed 0.1")
+        print(f"  after sweep 2: {int(excluded.sum())} of {CHAINS * G * M} true markers "
+              f"excluded, their rows of every chain's saved W0 exactly 0; inclusion_probs: "
+              f"{G} branches of {M}, mean pip {pip.mean():.4f}, pi_markers "
+              f"{probs['pi_markers']:.7g}")
+        series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+        if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+            raise AssertionError(f"non-finite or missing training statistics: {stats}")
+        for c in range(CHAINS):
+            rows = run_cli(cli, ["predict", os.path.join(work, "test"),
+                                 os.path.join(work, "train.groups"), "-m",
+                                 os.path.join(run, "models", f"chain{c}"), "--packed-genotypes"])
+            card = np.asarray(list(csv.reader(io.StringIO(rows))), np.float64)
+            net = Net.load(os.path.join(run, "models", f"chain{c}", f"{CHAIN}.npz"), "cpu")
+            cpu_pred = net.predict(test_gen.to_packed(net.arch, "cpu").X).numpy()
+            err = np.abs(cpu_pred - card[-1]).max()
+            if card.shape != (CHAIN, N_TEST) or not err <= REL_TOL * max(
+                    1.0, np.abs(cpu_pred).max()):
+                raise AssertionError(f"chain {c}: the card's predictions {card.shape} disagree "
+                                     f"with the CPU's by {err}")
+        print(f"  predict on each chain's samples, card vs CPU plain version: within "
+              f"{REL_TOL} of the largest prediction")
+        done = [r for r in log_records if str(r.msg).startswith("Completed training")]
+        ssm_sweep_ms = 1000.0 * done[-1].args[0] / CHAIN
+        gram_s = [r for r in log_records if str(r.msg).startswith("branch Grams")][-1].args[0]
+        print(f"  {ssm_sweep_ms:.1f} ms per sweep of {CHAINS} chains with ss_markers, "
+              f"{adapted_sweep_ms:.1f} without (phase 6b); the branch Grams, formed once "
+              f"before the sweeps, {1000.0 * gram_s:.1f} ms; train-new {ssm_s:.1f} s in all; "
+              f"acceptance {stats['num_accepted'] / stats['num_samples']:.3f}")
+        ixs_c = torch.arange(BLOCK, device=dev) * (G // BLOCK)
+        X.form_gram()
+        scan = scan_block_check(X, carry, arch, ixs_c)
+        print(f"  u0 at the block (K9b and the standardization): {scan['u0_ms']:.4f} ms, plain "
+              f"(decode, standardize, matmul) {scan['u0_plain_ms']:.3f} ms; identical repeats")
+        print(f"  marker_scan at the block ({scan['instances']} instances of {scan['markers']} "
+              f"markers, width {arch.layer_out_pad(0)}): kernel {scan['ms']:.4f} ms "
+              f"({scan['us_per_marker']:.3f} us per dependent marker step), plain "
+              f"{scan['plain_ms']:.3f} ms, bytes bound {scan['bound'][0]:.5f} ms; identical "
+              f"repeats")
+        ssm_launch = ssm_sweep_launches(hybrid_args + ADAPT_ARGS + SSM_ARGS, arch, state, X,
+                                        torch.as_tensor(y_train, dtype=torch.float32,
+                                                        device=dev), CHAINS)
+        frozen = packed_launches["frozen"]
+        print(f"  kernel launches of a sweep that draws z (torch.profiler): {ssm_launch} "
+              f"({(ssm_launch - frozen) / (G // BLOCK):+.1f} per block beside phase 6b's frozen "
+              f"sweep, {frozen})")
+        ssm_run = {"sweep_ms": ssm_sweep_ms, "adapted_sweep_ms": adapted_sweep_ms,
+                   "gram_ms": 1000.0 * gram_s,
+                   "launches_per_sweep": ssm_launch, "excluded": int(excluded.sum()),
+                   "mean_pip": float(pip.mean())}
+        del recs, carry
 
         # ---- phase 7: K7 at the dense flagship's shape
         fdir = os.path.join(work, "flagship")
@@ -1796,7 +2034,9 @@ def main():
          "warm_ms": bwd_runs["warm-start block", None]["ms"],
          "warm_plain_ms": bwd_runs["warm-start block", None]["plain_ms"],
          "warm_bound_ms": bwd_runs["warm-start block", None]["bound"][0],
-         "max_rel_err_f64": REL_ERR["packed_matmul_vjp f64"]},
+         "max_rel_err_f64": REL_ERR["packed_matmul_vjp f64"],
+         "ssm_launches": k9b_ssm, "ssm_u0_ms": scan["u0_ms"],
+         "ssm_u0_plain_ms": scan["u0_plain_ms"], "ssm_u0_max_abs_err": scan["u0_max_abs_err"]},
         # launches: the sequential flagship of phase 14 (K8a) and the unfolded
         # hybrid of phase 15 (K8b, whose times are at its NB = 32 of 4 chains
         # x 8 branches; NB = 64 and the forward-only launches beside them)
@@ -1818,10 +2058,20 @@ def main():
          "nb64_wrapper_ms": k8b[FG][2], "nb64_plain_ms": k8b[FG][3],
          "nb64_bound_ms": k8b[FG][4][0],
          "forward_launches": k8_runs[15]["launches"]["forward_blocked"]},
+        # no TPU kernel: the JAX package's scan is jnp inside lax.scan; its
+        # floor is the chain of dependent marker steps (us_per_marker)
+        {"name": "marker_scan", "route": "cuda",
+         "source": "rs_bann_tpu_torch/csrc/marker_scan.cu",
+         "replaces": "rs_bann_tpu/models/net.py:218",
+         "launches": scan_launches, "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
+         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound"][0],
+         "bound_by": scan["bound"][1], "library_ms": None,
+         "us_per_marker": scan["us_per_marker"], "near_ties": scan["near_ties"]},
     ]
     for k in kernels:  # the scale-free error that the checks gate on
         k["max_rel_err"] = REL_ERR[k["name"]]
     print("adaptation (phases 6b, 9b): " + json.dumps(adapted_runs))
+    print("ss_markers (phase 6c): " + json.dumps(ssm_run))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

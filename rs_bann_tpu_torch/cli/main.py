@@ -83,13 +83,20 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
     (folded) or K4 (sequential or unfolded); a branch beyond their limits
     (depth above 1, a width above 32, too many markers for shared memory) is
     refused rather than run on the plain version. Packed gradient descent
-    runs K2, K3 and K9 at any width. The CPU runs the plain versions at any
-    shape."""
+    runs K2, K3 and K9 at any width. With ``--ss-markers`` the marker scan's
+    kernel takes m_pad up to ops/marker_scan.MAX_M and a layer-0 width up
+    to MAX_S. The CPU runs the plain versions at any shape."""
     from ..models.net import chain_fold_eligible
     from ..ops import branch_mlp as BM
+    from ..ops import marker_scan as MS
 
     if device.type != "cuda" or (args.packed_genotypes and cfg.gradient_descent):
         return []
+    bad = []
+    if cfg.ss_markers and (arch.m_pad > MS.MAX_M or arch.layer_out_pad(0) > MS.MAX_S):
+        bad.append(f"--ss-markers beyond the marker scan CUDA kernel's limits ({arch.m_pad} "
+                   f"markers, width {arch.layer_out_pad(0)}; it takes up to {MS.MAX_M} markers "
+                   f"and width {MS.MAX_S})")
     folded = chain_fold_eligible(args.model_type, args.activation_function, cfg)
     if args.feat_major:  # folded: K6 for the trajectories, K7 for the value passes
         rules, kernels = (((BM.traj_dense_smem, BM.vg_chains_smem), "K6/K7") if folded
@@ -101,10 +108,10 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
         layout = "--packed-genotypes"
     widths = (arch.layer_out_pad(0), arch.s_pad)
     if all(rule(arch.m_pad, *widths, arch.depth) >= 0 for rule in rules):
-        return []
-    return [f"{layout} branches beyond the {kernels} CUDA kernels' limits (depth {arch.depth}, "
-            f"{arch.m_pad} markers, widths {widths[0]}/{widths[1]}; they take depth 0 or 1, "
-            f"widths up to 32 and 227 KB of shared memory)"]
+        return bad
+    return bad + [f"{layout} branches beyond the {kernels} CUDA kernels' limits (depth "
+                  f"{arch.depth}, {arch.m_pad} markers, widths {widths[0]}/{widths[1]}; they take "
+                  f"depth 0 or 1, widths up to 32 and 227 KB of shared memory)"]
 
 
 def _load_train_data(args):
@@ -133,7 +140,7 @@ def cmd_train_new(args):
     from ..models import NetArch
     from ..models import density as D
     from ..models.init import InitCfg, init_net
-    from ..models.net import Net
+    from ..models.net import Net, ssm_unsupported
     from ..train import train
 
     outdir = set_replicate_ix(args.outpath, run_outdir_name(args))
@@ -162,6 +169,9 @@ def cmd_train_new(args):
         train_data.num_markers_per_branch(), args.branch_depth, hlwr, slwr,
         activation=args.activation_function,
     )
+    why = ssm_unsupported(args.model_type, arch) if cfg.ss_markers else None
+    if why:  # as the JAX package refuses it
+        sys.exit(f"error: {why}")
     bad = _beyond_kernels(args, cfg, arch, device)
     if bad:
         sys.exit("error: not ported yet: " + ", ".join(bad))

@@ -34,7 +34,13 @@ import torch
 
 from ..ops import activations as _A
 from ..ops.branch_mlp import forward_chains
-from ..ops.packed_matmul import FUSED_ACTIVATIONS, packed_linear, packed_matmul
+from ..ops.packed_matmul import (
+    FUSED_ACTIVATIONS,
+    packed_linear,
+    packed_matmul,
+    packed_matmul_vjp,
+    unpack_strided,
+)
 from . import NetArch
 from . import params as P
 
@@ -128,6 +134,8 @@ class PackedX:
                 zero-variance markers)
     ``shift``   [..., m_pad] = mu per marker (raw column means)
     ``n``       number of individuals
+    ``gram``    the branch Grams [G, m_pad, m_pad] of the per-marker
+                spike-and-slab scan, None until ``form_gram`` forms them
 
     Standardization folds into layer 0:
       X_std @ W = decode(bytes) @ (w_scale * W) - mu @ (w_scale * W)
@@ -138,25 +146,77 @@ class PackedX:
         self.w_scale = w_scale
         self.shift = shift
         self.n = int(n)
+        self.gram = None
 
     def __getitem__(self, g):
         return PackedX(self.bytes[g], self.w_scale[g], self.shift[g], self.n)
+
+    def form_gram(self) -> torch.Tensor:
+        """Form and keep ``gram`` (``marker_gram``), once per training run."""
+        self.gram = marker_gram(self)
+        return self.gram
 
 
 class FeatX:
     """Feature-major dense standardized branch genotypes ``xT`` [..., m_pad, n]
     (f32): the layout of the dense flagship, whose kernels (K6, K7) read a
-    tile of individuals for all markers at once."""
+    tile of individuals for all markers at once. ``gram`` as PackedX's."""
 
     def __init__(self, xT):
         self.xT = xT
+        self.gram = None
 
     def __getitem__(self, g):
         return FeatX(self.xT[g])
 
+    def form_gram(self) -> torch.Tensor:
+        """Form and keep ``gram`` (``marker_gram``), once per training run."""
+        self.gram = marker_gram(self)
+        return self.gram
+
     @property
     def n(self) -> int:
         return self.xT.shape[-1]
+
+
+def _standardized_rows(x, s: int, e: int) -> torch.Tensor:
+    """Branches s..e of a PackedX or FeatX as standardized rows [e - s,
+    m_pad, n] f32: (decode - shift) * w_scale on packed genotypes, the JAX
+    package's X_J of its marker scan."""
+    if isinstance(x, FeatX):
+        return x.xT[s:e]
+    raw = unpack_strided(x.bytes[s:e], x.n)
+    return (raw - x.shift[s:e, :, None]) * x.w_scale[s:e, :, None]
+
+
+def marker_gram(x) -> torch.Tensor:
+    """The branch Grams X_g X_g^T [G, m_pad, m_pad] (f32) of the markers'
+    standardized genotypes of ``x`` (all G branches of a PackedX or FeatX),
+    for the per-marker spike-and-slab scan, by decode and a matmul in
+    chunks of branches: data, so formed once per training run
+    (``x.form_gram()``). The diagonal is each marker's x_j^T x_j, as the JAX
+    package's ``gram[t, t]``. Made exactly symmetric (the upper triangle
+    mirrored), since the scan reads a marker's row of it as its column."""
+    G, m = x.w_scale.shape if isinstance(x, PackedX) else x.xT.shape[:2]
+    chunk = max(1, int(2.5e8 // (m * x.n)))
+    parts = []
+    for s in range(0, G, chunk):
+        rows = _standardized_rows(x, s, min(G, s + chunk))
+        parts.append(rows @ rows.transpose(-1, -2))
+    g = torch.cat(parts)
+    return torch.triu(g) + torch.triu(g, 1).transpose(-1, -2)
+
+
+def marker_u0(x, e) -> torch.Tensor:
+    """u0 = X_b^T e of the scan: a block's (or one branch's) standardized
+    genotypes against residuals e [n, k], [..., m_pad, k]. On a PackedX one
+    K9b launch (``packed_matmul_vjp``) on the raw genotypes, then the
+    standardization, w_scale * (raw - shift * sum_n e); on a FeatX one
+    matmul."""
+    if isinstance(x, FeatX):
+        return x.xT @ e
+    raw = packed_matmul_vjp(x.bytes, e.expand(x.bytes.shape[:-2] + e.shape), x.n)
+    return x.w_scale[..., None] * (raw - x.shift[..., None] * torch.sum(e, dim=0))
 
 
 def matmul_fm(w, a):

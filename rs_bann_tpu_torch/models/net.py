@@ -33,6 +33,17 @@ every schedule adapts, per chain and branch, the step factor and a
 diagonal mass estimate over the sweeps below ``cfg.burn_in`` and then
 freezes them (``_Adaptation``); the carry holds their state.
 
+With ``cfg.ss_markers`` (per-marker spike-and-slab, identity depth-0
+``ridge_ard`` or ``lasso_ard`` branches) every branch update first runs the
+collapsed conjugate scan over its layer-0 rows (``_marker_scans``: the
+draws here, the scan one launch of csrc/marker_scan.cu for all of a block's
+(chain, branch) instances, ops/marker_scan.py), which draws each marker's
+inclusion z and row; the HMC transition then pins the excluded rows at 0
+(samplers/hmc.pin_rows), excluded rows take their precision from the prior,
+and each sweep ends with the inclusion probability's Gibbs draw and the
+posterior inclusion probabilities' running mean (``_ssm_sweep_end``). The
+carry holds z, pi and the PIPs.
+
 A carry for C chains (``Net.init_carry(..., chains=C)``) stacks every
 tensor of the one-chain carry on a leading [C] axis; ``make_chain_sweep``
 sweeps such a carry under either schedule (the sequential one chain after
@@ -51,7 +62,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops.activations import canonical
 from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS, forward_blocked
+from ..ops.marker_scan import marker_scan
 from ..samplers import gibbs
 from ..samplers.hmc import (
     HMCProposal,
@@ -90,6 +103,12 @@ class TrainCarry(NamedTuple):
     # warm-up sweeps; [G, 0] placeholders when it is off
     mm_mean: torch.Tensor  # [G, P_flat]
     mm_m2: torch.Tensor  # [G, P_flat]
+    # per-marker spike-and-slab (cfg.ss_markers): layer-0 row inclusion
+    # indicators (starting at 1), the marker inclusion probability and the
+    # post-burn-in running mean of z; [G, 0] placeholders when it is off
+    ssm_z: torch.Tensor  # [G, m_pad]
+    ssm_pi: torch.Tensor  # scalar
+    ssm_pip: torch.Tensor  # [G, m_pad]
     # completed sweeps: keys the hybrid's shared permutation and is the
     # JAX package's da_t, the adaptation's clock (warm while below burn_in)
     sweeps: int = 0
@@ -107,7 +126,6 @@ _UNPORTED = {
     "joint_hmc": False,
     "gradient_descent_joint": False,
     "spike_slab": False,
-    "ss_markers": False,
     "ss_rows": False,
     "tempering": False,
     "hmc_traj_length_mode": "fixed",
@@ -116,6 +134,29 @@ _UNPORTED = {
     "num_grad_traj": False,
     "effect_sizes": False,
 }
+
+
+def ssm_unsupported(model_type: str, arch: NetArch) -> Optional[str]:
+    """Why ``cfg.ss_markers`` cannot run on this model, or None: the JAX
+    package's guards (net.py:791-806). The collapsed move needs a branch
+    output linear in each layer-0 row (identity, depth 0) and a slab
+    precision per row (``ridge_ard``, ``lasso_ard``)."""
+    if arch.depth != 0 or canonical(arch.activation) != "identity":
+        return "ss_markers needs the identity depth-0 architecture"
+    if model_type not in ("ridge_ard", "lasso_ard"):
+        return "ss_markers needs per-row slab precisions (ridge_ard or lasso_ard)"
+    return None
+
+
+def _check_ssm(model_type: str, arch: NetArch, cfg: MCMCCfg, gd: bool) -> bool:
+    """Whether the sweep runs the marker scan (``cfg.ss_markers``, not under
+    gradient descent, as in the JAX package); raises where it cannot."""
+    if not cfg.ss_markers or gd:
+        return False
+    why = ssm_unsupported(model_type, arch)
+    if why:
+        raise NotImplementedError(why)
+    return True
 
 
 def unported_options(cfg: MCMCCfg) -> list:
@@ -241,14 +282,20 @@ class _Adaptation:
 # --------------------------------------------------------------------------
 
 
-def _gibbs_local_precisions(gen, model_type, w_b, b_b, st_b, hyper, num_layers, lam_floor=0.0):
+def _gibbs_local_precisions(gen, model_type, w_b, b_b, st_b, hyper, num_layers, lam_floor=0.0,
+                            z_rows0=None):
     """Gibbs draw of the local weight and bias precisions of one branch or
     of a batch of them (leading axes, e.g. [C, B] of a hybrid block):
     weights [..., in, out], biases [..., out], statics [...]. Bias
     precisions are always ridge-updated; ``lam_floor`` floors the WEIGHT
     precisions only (biases are unregularized in the marginal potential).
-    All the Gamma draws come from one ``_gamma`` call: one host
-    synchronization per call, not one per branch or layer."""
+    ``z_rows0`` [..., in] (per-marker spike-and-slab, ARD): an excluded
+    layer-0 row is the spike, not a slab draw, so its precision takes the
+    PRIOR draw Gamma(shape, scale), clipped to [1e-6, 1e8] (the JAX
+    package's net.py:587-599: the near-improper default hyperprior
+    underflows f32 to 0, and a 0 slab precision would make the re-entry
+    draw infinite). All the Gamma draws come from one ``_gamma`` call: one
+    host synchronization per call, not one per branch or layer."""
     L = num_layers
     dims = (-2, -1)
     params = []
@@ -268,9 +315,16 @@ def _gibbs_local_precisions(gen, model_type, w_b, b_b, st_b, hyper, num_layers, 
         params.append(gibbs.ridge_posterior_params(
             shape, scale, torch.sum(b_b[l] ** 2, dim=-1, keepdim=True), st_b.b_counts[l][..., None]
         ))
+    prior = z_rows0 is not None and D.is_ard(model_type)
+    if prior:
+        shape, scale = hyper.layer(0, L)
+        params.append((shape, torch.full_like(z_rows0[..., None], scale)))
     draws = gibbs.gamma_many(gen, params)
-    new_wp = tuple(torch.clamp(d, min=lam_floor) if lam_floor > 0 else d for d in draws[0::2])
-    return new_wp, tuple(draws[1::2])
+    lam = list(draws[0:2 * (L - 1):2])
+    if prior:
+        lam[0] = torch.where(z_rows0[..., None] > 0, lam[0], torch.clamp(draws[-1], 1e-6, 1e8))
+    new_wp = tuple(torch.clamp(d, min=lam_floor) if lam_floor > 0 else d for d in lam)
+    return new_wp, tuple(draws[1:2 * (L - 1):2])
 
 
 def _gibbs_output_precision(gen, model_type, reg_all, n_out, hyper):
@@ -308,6 +362,70 @@ def _update_output_bias(cfg, hyper, gen, residual, bias, bias_prec, err_prec):
 
 
 # --------------------------------------------------------------------------
+# Per-marker spike-and-slab
+# --------------------------------------------------------------------------
+
+
+def _marker_scans(gen, lasso, force, gram, gix, u0, W0, w_out, lam_rows, err, pi, row_mask,
+                  col_mask):
+    """The marker scans of I (chain, branch) instances (the JAX package's
+    ``_marker_ss_scan``, net.py:218, each): their draws from ``gen``, then
+    one ``marker_scan`` call. gix [I] each instance's branch of ``gram``
+    (the data's, ``D.marker_gram``); u0 [I, m] = X_g^T e at the current
+    parameters; W0 [I, m, s]; w_out [I, s]; lam_rows [I, m] the rows' ARD precisions; err
+    and pi [I]; row_mask [I, m], col_mask [I, s]; ``force`` keeps every true
+    marker in (the warm-up). The slab precisions: ridge lam_rows on every
+    column; lasso the Park-Casella augmentation's draws, InvGauss(r / |w|,
+    r^2) where w != 0 and the prior's 1 / Exp(r^2 / 2) where w = 0, r the
+    Laplace rate; both floored at 1e-6 and clipped to [1e-6, 1e12]. Then
+    each instance's visiting order, Bernoulli uniforms, normals of a_j and
+    of the row. Returns (z [I, m], W0_new [I, m, s])."""
+    I, m, s = W0.shape
+    dev = W0.device
+    rate = torch.clamp(lam_rows, min=1e-6)[..., None]
+    if lasso:
+        eta_w = gibbs.inverse_gaussian(gen, rate / torch.clamp(W0.abs(), min=1e-12), rate * rate)
+        s_prior = torch.empty_like(W0).exponential_(generator=gen) / (rate * rate / 2.0)
+        eta = torch.clamp(torch.where(W0.abs() > 0, eta_w, 1.0 / s_prior), 1e-6, 1e12)
+    else:  # the row's precision on every column, read in place
+        eta = torch.clamp(rate, 1e-6, 1e12).expand(I, m, s)
+    order = torch.argsort(torch.rand((I, m), generator=gen, device=dev), dim=-1)
+    u_z = torch.rand((I, m), generator=gen, device=dev)
+    n_a = torch.randn((I, m), generator=gen, device=dev)
+    xi = torch.randn((I, m, s), generator=gen, device=dev)
+    return marker_scan(gram, gix, u0, W0, w_out, eta, err, pi, row_mask, col_mask, force, order,
+                       u_z, n_a, xi)
+
+
+def _require_gram(X) -> None:
+    """The marker scan reads the data's branch Grams, formed once per run by
+    ``X.form_gram()`` before the sweeps (``train`` does it)."""
+    if X.gram is None:
+        raise ValueError("ss_markers: the data's branch Grams are not formed; call "
+                         "X.form_gram() before the first sweep")
+
+
+def _ssm_sweep_end(gen, carry: TrainCarry, cfg: MCMCCfg, marker_rows) -> TrainCarry:
+    """The end of a sweep with the marker scan, after ``sweeps`` was
+    incremented (the JAX package's ``ssm_sweep_end``, net.py:1256): unless
+    ``cfg.ssm_fixed_pi``, pi ~ Beta(1 + nz, 1 + M - nz) per chain, nz the
+    included true markers of M, clipped to [1e-4, 0.999] and drawn as
+    Ga(a) / (Ga(a) + Ga(b)) (one ``_gamma`` call); then, once sweeps >
+    burn_in, the running mean of z over the sweeps after burn-in, the
+    posterior inclusion probabilities (in place). ``marker_rows`` [G, m_pad]
+    are the true markers."""
+    if not cfg.ssm_fixed_pi:
+        nz = torch.sum(carry.ssm_z * marker_rows, dim=(-2, -1))
+        tot = float(marker_rows.sum())
+        ga, gb = gibbs.gamma_many(gen, [(1.0 + nz, 1.0), (1.0 + tot - nz, 1.0)])
+        carry = carry._replace(ssm_pi=torch.clamp(ga / (ga + gb), 1e-4, 0.999))
+    post = carry.sweeps - cfg.burn_in
+    if post > 0:
+        carry.ssm_pip.add_((carry.ssm_z - carry.ssm_pip) / float(post))
+    return carry
+
+
+# --------------------------------------------------------------------------
 # Sweeps
 # --------------------------------------------------------------------------
 
@@ -329,8 +447,10 @@ def chain_fold_eligible(model_type: str, act: str, cfg: MCMCCfg) -> bool:
     permutation (each chain's own permutation would give each chain another
     block of genotypes), the live accept, fixed-length marginal HMC with
     izmailov, std_scaled or dual-averaging step sizes (with or without mass
-    adaptation), and an activation the kernels take.
-    The trainer folds whenever this holds, for any number of chains. On a
+    adaptation), and an activation the kernels take; with or without the
+    per-marker spike-and-slab (whose scan runs before the fold and whose row
+    pins reach the kernels as step sizes and momenta), as in the JAX
+    package. The trainer folds whenever this holds, for any number of chains. On a
     CUDA tensor a branch beyond the kernels' limits makes the kernels'
     wrappers raise (the CLI refuses it before training); it never runs on
     the plain version."""
@@ -338,7 +458,7 @@ def chain_fold_eligible(model_type: str, act: str, cfg: MCMCCfg) -> bool:
         (cfg.update_mode == "parallel" or (cfg.update_mode == "hybrid" and cfg.hybrid_shared_perm))
         and cfg.live_accept
         and not (cfg.joint_hmc or cfg.gradient_descent or cfg.gradient_descent_joint)
-        and not (cfg.spike_slab or cfg.ss_markers or cfg.ss_rows)
+        and not (cfg.spike_slab or cfg.ss_rows)
         and not cfg.trajectories
         and not (cfg.num_grad or cfg.num_grad_traj)
         and cfg.hmc_traj_length_mode == "fixed"
@@ -469,6 +589,15 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     counts. On the default configuration the two agree step for step; the
     port draws in another order (one Gamma call for all local precisions,
     not one key per branch).
+
+    With ``cfg.ss_markers`` each block follows the JAX block body
+    (net.py:1923-1943, 2090-2096): the local precisions with the excluded
+    rows' prior draws, the snapshot predictions and targets, the marker
+    scans of all the block's (chain, branch) instances against the
+    block-start residual in one launch (``scan_block``), layer 0 replaced
+    and z written, the transition with the row pins and its initial-state
+    value pass at the post-scan layer 0, then the live accept on the
+    snapshot rebased to it, ``residual += sum_B (preds - y_pred0)``.
     """
     bad = unported_options(cfg)
     if bad:
@@ -494,12 +623,15 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     sample_local = not cfg.fixed_param_precisions and model_type != "std_normal"
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
+    lasso = D.is_lasso(model_type)
     gd = cfg.gradient_descent
     transition = (make_gradient_descent(model_type, act, cfg) if gd
                   else make_hmc_step(model_type, act, cfg, defer_accept=True))
     fold_transition = make_transition_batch(model_type, act, cfg) if folded else None
     lean_batch = make_lean_batch(model_type, act, cfg)
     adapt = _Adaptation(model_type, cfg, gd=gd)
+    ssm = _check_ssm(model_type, arch, cfg, gd)
+    marker_rows = statics.row_masks[0][..., 0]  # [G, m_pad] true markers
     cix = torch.arange(C, device=device)[:, None]
     # at depth 0 the packed value passes take layer 0's true width: the
     # padded columns' weights, biases and w_out rows are zero (masked
@@ -512,15 +644,40 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     def unflat(t):  # [C * Bk, ...] -> [C, Bk, ...]
         return t.reshape((C, Bk) + t.shape[1:])
 
+    def scan_block(carry, gen, X, x_blk, ix, ixs, w_b, wp_b, err_prec, residual):
+        """The marker scans of the block's [C, Bk] (chain, branch)
+        instances, chain-major, in one ``marker_scan`` call, against the
+        block-start residual: u0 from one K9b launch (or matmul) on the
+        shared block, else one per chain. Writes z into the carry; returns
+        (w_b with the new layer 0, z [C, Bk, m_pad])."""
+        if shared and ix is None:
+            u0 = D.marker_u0(x_blk, residual.transpose(0, 1)).permute(2, 0, 1)
+        else:  # each chain's own block, or a FeatX read in place
+            u0 = torch.stack([
+                D.marker_u0(x_blk[c] if isinstance(x_blk, list) else X[ixs[c]],
+                            residual[c, :, None])[..., 0] for c in range(C)])
+        gix = ixs.reshape(-1)
+        z, w0 = _marker_scans(
+            gen, lasso, carry.sweeps < cfg.ssm_warmup, X.gram, gix,
+            u0.reshape(C * Bk, -1), flat(w_b[:1])[0], w_b[-1].reshape(C * Bk, -1),
+            wp_b[0].reshape(C * Bk, -1), err_prec.repeat_interleave(Bk),
+            carry.ssm_pi.repeat_interleave(Bk), marker_rows[gix], masks_b[0][gix])
+        carry.ssm_z[cix, ixs] = unflat(z)
+        return (unflat(w0),) + tuple(w_b[1:]), unflat(z)
+
     def hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x, ix, targets, preds, mw_b, mb_b, st_b,
-                  residual, factors, mass):
+                  residual, factors, mass, pins):
         """The block's HMC proposals (folded; on a FeatX every (chain,
         branch) of the block in one batched lean body reading X in place
         through ``ix``; else per (chain, branch) against each chain's ``x[c]``
         when the permutation is not shared), accepted one by one against the
         live residual. ``factors`` [C, Bk] (or None) and ``mass`` (per-layer
         [C, Bk, ...] estimates, or Nones) are the adapted step factors and
-        mass."""
+        mass; ``pins`` [C, Bk, m_pad] the marker scan's row pins, or None.
+        With pins the snapshot ``preds`` (taken before the scan) is rebased
+        to the proposals' own initial-state predictions first. Returns (the
+        accept-selected HMCResult, the residual and the predictions the
+        accept ran against)."""
         momenta = (
             tuple(torch.randn(w.shape, generator=gen, device=gen.device) for w in w_b),
             tuple(torch.randn(b.shape, generator=gen, device=gen.device) for b in b_b),
@@ -528,8 +685,9 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         mass_w, mass_b = mass
         if folded:
             prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x, targets, mw_b, mb_b,
-                                   momenta, y_pred0=preds, k_live=k_live, step_factors=factors,
-                                   mass_w=mass_w, mass_b=mass_b)
+                                   momenta, y_pred0=None if ssm else preds, k_live=k_live,
+                                   step_factors=factors, mass_w=mass_w, mass_b=mass_b,
+                                   row_pins=pins)
         elif ix is not None:
             p = lean_batch(gen, flat(w_b), flat(b_b), flat(wp_b), flat(bp_b),
                            err_prec.repeat_interleave(Bk), x, ix, targets.reshape(C * Bk, -1),
@@ -537,7 +695,8 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
                            (flat(momenta[0]), flat(momenta[1])),
                            step_factor=None if factors is None else factors.reshape(-1),
                            mass_w=None if mass_w is None else flat(mass_w),
-                           mass_b=None if mass_b is None else flat(mass_b))
+                           mass_b=None if mass_b is None else flat(mass_b),
+                           row_pins=None if pins is None else pins.reshape(C * Bk, -1))
             prop = HMCProposal(tuple(map(unflat, p.weights)), tuple(map(unflat, p.biases)),
                                *map(unflat, p[2:]))
         else:
@@ -553,11 +712,16 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
                         st_b.n_params[c, j], momenta=(one(momenta[0]), one(momenta[1])),
                         step_factor=None if factors is None else factors[c, j],
                         mass_w=one(mass_w), mass_b=one(mass_b),
+                        row_pins=None if pins is None else pins[c, j],
                     ))
             prop = _stack_proposals(props, C, Bk)
+        if pins is not None:
+            residual = residual + torch.sum(preds - prop.y_pred0, dim=1)
+            preds = prop.y_pred0
         order = torch.argsort(torch.rand((C, Bk), generator=gen, device=gen.device), dim=-1)
         us = torch.rand((C, Bk), generator=gen, device=gen.device)
-        return _live_accept_select(residual, preds, prop, err_prec, w_b, b_b, order, us)
+        res = _live_accept_select(residual, preds, prop, err_prec, w_b, b_b, order, us)
+        return res, residual, preds
 
     def block_update(carry: TrainCarry, ixs, X, var_y, gen) -> TrainCarry:
         """One block: ixs [C, Bk], the same row for every chain when the
@@ -581,7 +745,8 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             err_prec = torch.clamp(err_prec, min=lam_e_floor / (var_y + 1e-30))
         if sample_local:
             new_wp, new_bp = _gibbs_local_precisions(
-                gen, model_type, w_b, b_b, st_b, hyper, L, lam_floor=lam_row_floor
+                gen, model_type, w_b, b_b, st_b, hyper, L, lam_floor=lam_row_floor,
+                z_rows0=take(carry.ssm_z) if ssm else None,
             )
             for l in range(L - 1):
                 wp[l][cix, ixs] = new_wp[l]
@@ -612,10 +777,15 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             res = _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec,
                             [x_blk] * C if shared else x_blk, targets)
         else:
+            pins = None
+            if ssm:
+                w_b, pins = scan_block(carry, gen, X, x_blk, ix, ixs, w_b, wp_b, err_prec,
+                                       residual)
             # the factors and masses of the block's [C, Bk] branches, once
             factors, mass = adapt.inputs(carry, (cix, ixs), wp_b, bp_b, w_b, b_b)
-            res = hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, ix, targets, preds, mw_b,
-                            mb_b, st_b, residual, factors, mass)
+            res, residual, preds = hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, ix,
+                                             targets, preds, mw_b, mb_b, st_b, residual,
+                                             factors, mass, pins)
         for l in range(L):
             params.weights[l][cix, ixs] = res.weights[l]
         for l in range(L - 1):
@@ -649,6 +819,8 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         )
 
     def sweep(carry: TrainCarry, X, y, gen):
+        if ssm:
+            _require_gram(X)
         var_y = torch.var(y, unbiased=False)
         if parallel:
             perm = torch.arange(G, device=device).expand(C, G)
@@ -660,6 +832,8 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         for r in range(G // Bk):
             carry = block_update(carry, perm[:, r * Bk : (r + 1) * Bk], X, var_y, gen)
         carry = carry._replace(sweeps=carry.sweeps + 1)
+        if ssm:
+            carry = _ssm_sweep_end(gen, carry, cfg, marker_rows)
         n = float(carry.residual.shape[-1])
         return carry, SweepStats(
             counts=carry.counts.clone(),
@@ -739,7 +913,10 @@ def make_chain_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyp
 
 def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device):
     """Build the one-iteration sequential Gibbs sweep:
-    sweep(carry, X, y, gen) -> (TrainCarry, SweepStats)."""
+    sweep(carry, X, y, gen) -> (TrainCarry, SweepStats). With
+    ``cfg.ss_markers`` each branch update runs the marker scan of its branch
+    against the live residual before its transition (the JAX package's
+    net.py:1009-1021, row pins :1111-1112): one instance of ``marker_scan``."""
     bad = unported_options(cfg)
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
@@ -754,6 +931,9 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
     adapt = _Adaptation(model_type, cfg, gd=cfg.gradient_descent)
+    ssm = _check_ssm(model_type, arch, cfg, cfg.gradient_descent)
+    lasso = D.is_lasso(model_type)
+    marker_rows = statics.row_masks[0][..., 0]  # [G, m_pad] true markers
 
     def branch_update(carry: TrainCarry, g: int, X, var_y, gen) -> TrainCarry:
         state, residual = carry.state, carry.residual
@@ -771,7 +951,8 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
             err_prec = torch.clamp(err_prec, min=lam_e_floor / (var_y + 1e-30))
         if sample_local:
             new_wp_g, new_bp_g = _gibbs_local_precisions(
-                gen, model_type, w_g, b_g, st_g, hyper, L, lam_floor=lam_row_floor
+                gen, model_type, w_g, b_g, st_g, hyper, L, lam_floor=lam_row_floor,
+                z_rows0=carry.ssm_z[g] if ssm else None,
             )
             for l in range(L - 1):
                 wp[l][g] = new_wp_g[l]
@@ -784,6 +965,17 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
         bp_g = tuple(a[g] for a in bp)
 
         target = residual + D.predict(act, w_g, b_g, x_g)
+        pins = None
+        if ssm:
+            gix = torch.full((1,), g, dtype=torch.int64, device=residual.device)
+            z, w0 = _marker_scans(
+                gen, lasso, carry.sweeps < cfg.ssm_warmup, X.gram, gix,
+                D.marker_u0(x_g, residual[:, None])[None, :, 0], w_g[0][None],
+                w_g[-1][None, :, 0], wp_g[0][None, :, 0], err_prec.reshape(1),
+                carry.ssm_pi.reshape(1), marker_rows[g][None], mb_g[0][None])
+            w_g = (w0[0],) + tuple(w_g[1:])
+            pins = z[0]
+            carry.ssm_z[g] = pins
         if cfg.gradient_descent:
             res = transition(
                 gen, w_g, b_g, wp_g, bp_g, err_prec, x_g, target, mw_g, mb_g, st_g.n_params
@@ -792,7 +984,7 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
             factor, (mass_w, mass_b) = adapt.inputs(carry, g, wp_g, bp_g, w_g, b_g)
             res = transition(
                 gen, w_g, b_g, wp_g, bp_g, err_prec, x_g, target, mw_g, mb_g, st_g.n_params,
-                step_factor=factor, mass_w=mass_w, mass_b=mass_b,
+                step_factor=factor, mass_w=mass_w, mass_b=mass_b, row_pins=pins,
             )
         # DA on the accept probability, Welford on the accepted parameters
         adapt.update(carry, g, res.accept_prob, res.weights, res.biases)
@@ -801,6 +993,7 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
             params.weights[l][g] = res.weights[l]
         for l in range(L - 1):
             params.biases[l][g] = res.biases[l]
+        w_g = tuple(w[g] for w in params.weights)
 
         # log posterior density bookkeeping (w_g / b_g now see the new values)
         carry.lpd_local[g] = D.joint_local_term(model_type, w_g, b_g, wp_g, bp_g, hyper, st_g)
@@ -822,11 +1015,15 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
         )
 
     def sweep(carry: TrainCarry, X, y, gen):
+        if ssm:
+            _require_gram(X)
         var_y = torch.var(y, unbiased=False)
         perm = torch.randperm(G, generator=gen, device=gen.device).tolist()
         for g in perm:
             carry = branch_update(carry, g, X, var_y, gen)
         carry = carry._replace(sweeps=carry.sweeps + 1)
+        if ssm:
+            carry = _ssm_sweep_end(gen, carry, cfg, marker_rows)
         n = float(carry.residual.shape[0])
         return carry, SweepStats(
             counts=carry.counts.clone(),
@@ -979,7 +1176,8 @@ class Net:
     # ------------------------------------------------------------- training
     def init_carry(self, X, y, state: Optional[NetState] = None,
                    chains: Optional[int] = None, step_size_factor: float = 1.0,
-                   mass_adaptation: bool = False) -> TrainCarry:
+                   mass_adaptation: bool = False, ss_markers: bool = False,
+                   ssm_pi: float = 0.5) -> TrainCarry:
         """residual = y - bias - sum_g pred_g and the initial LPD terms, on a
         copy of the state.
 
@@ -990,10 +1188,13 @@ class Net:
         The dual-averaging state starts at log eps = log eps_bar =
         log(``step_size_factor``), h_bar = 0; ``mass_adaptation`` sizes the
         Welford accumulators ([G, P_flat] when on, [G, 0] placeholders when
-        off: the state is two parameter-sized copies)."""
+        off: the state is two parameter-sized copies). ``ss_markers`` sizes
+        the per-marker spike-and-slab state: z at 1 and the PIPs at 0, [G,
+        m_pad] ([G, 0] when off), and pi at ``ssm_pi``."""
         if chains is not None:
             s = self.state if state is None else state
-            kw = dict(step_size_factor=step_size_factor, mass_adaptation=mass_adaptation)
+            kw = dict(step_size_factor=step_size_factor, mass_adaptation=mass_adaptation,
+                      ss_markers=ss_markers, ssm_pi=ssm_pi)
             if s.params.weights[0].dim() == 4:  # [C, G, in, out]
                 return stack_carries([self.init_carry(X, y, P.map_state(lambda a: a[c], s), **kw)
                                       for c in range(chains)])
@@ -1030,6 +1231,7 @@ class Net:
                     + sum(math.prod(b.shape[1:]) for b in s.params.biases)
                     if mass_adaptation else 0)
         log_eps0 = torch.full((G,), math.log(step_size_factor), device=self.device)
+        m_ss = self.arch.m_pad if ss_markers else 0
         return TrainCarry(
             state=s,
             residual=residual,
@@ -1042,6 +1244,9 @@ class Net:
             da_h_bar=torch.zeros(G, device=self.device),
             mm_mean=torch.zeros((G, flat_dim), device=self.device),
             mm_m2=torch.zeros((G, flat_dim), device=self.device),
+            ssm_z=torch.ones((G, m_ss), device=self.device),
+            ssm_pi=torch.tensor(ssm_pi, dtype=torch.float32, device=self.device),
+            ssm_pip=torch.zeros((G, m_ss), device=self.device),
         )
 
     def make_sweep(self, cfg: MCMCCfg):

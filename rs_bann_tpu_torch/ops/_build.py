@@ -204,6 +204,8 @@ def lib() -> ctypes.CDLL:
     so.vg_dense_f32.restype = i
     so.vg_dense_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
     so.vg_dense_plan.restype = i
+    so.marker_scan_f32.argtypes = [vp] * 6 + [ctypes.c_longlong] * 3 + [vp] * 10 + [i] * 4 + [vp]
+    so.marker_scan_f32.restype = i
     _LIB = so
     return so
 

@@ -48,6 +48,30 @@ def _gamma(gen: torch.Generator, shape, scale) -> torch.Tensor:
     return (out * theta).to(torch.float32)
 
 
+def inverse_gaussian(gen: torch.Generator, mu, lam) -> torch.Tensor:
+    """Independent InverseGaussian(mean mu, shape lam) draws, elementwise
+    over the broadcast of (mu, lam), f32 on the generator's device.
+
+    Michael-Schucany-Haas (1976): y = nu^2 with nu ~ N(0, 1), x = mu +
+    mu (mu y - sqrt(mu y (4 lam + mu y))) / (2 lam), floored at 1e-30
+    (it can round to <= 0 in f32 for extreme mu / lam); accept x with
+    probability mu / (mu + x), else return mu^2 / x. mu is capped at 1e12
+    (beyond ~1e18, mu y (4 lam + mu y) overflows f32 and the floor would
+    stand in for a huge precision; callers clip at 1e12 anyway). The
+    Bayesian-lasso augmentation's draw (Park & Casella 2008): for w ~
+    Laplace(rate r), 1/s | w ~ InvGauss(r / |w|, r^2)."""
+    dev = gen.device
+    mu = torch.as_tensor(mu, dtype=torch.float32, device=dev)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=dev)
+    mu, lam = torch.broadcast_tensors(torch.clamp(mu, max=1e12), lam)
+    y = torch.randn(mu.shape, generator=gen, device=dev) ** 2
+    muy = mu * y
+    x = mu + mu * (muy - torch.sqrt(muy * (4.0 * lam + muy))) / (2.0 * lam)
+    x = torch.clamp(x, min=1e-30)
+    u = torch.rand(mu.shape, generator=gen, device=dev)
+    return torch.where(u <= mu / (mu + x), x, mu * mu / x)
+
+
 def ridge_posterior_params(prior_shape, prior_scale, sum_of_squares, n):
     """(shape, scale) of lambda | w ~ Gamma(k + n/2, 2s / (2 + s * sum w^2))."""
     return prior_shape + n / 2.0, 2.0 * prior_scale / (2.0 + prior_scale * sum_of_squares)

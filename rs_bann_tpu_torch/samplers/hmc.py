@@ -175,6 +175,21 @@ def step_sizes(
     return eps_w, eps_b
 
 
+def pin_rows(eps_w, masks_w, row_pins):
+    """The per-marker spike-and-slab row pins (rs_bann_tpu/samplers/hmc.py
+    ``row_freeze``, :391-400 and :1078-1087): a layer-0 row excluded by the
+    marker scan (``row_pins`` [..., in] 0) gets a zero step size, by where
+    and not by multiply (an excluded row's prior-drawn precision can make
+    its izmailov step infinite, and inf * 0 is NaN), and a zero momentum
+    mask, so the leapfrog leaves it at exactly 0. Returns (eps_w,
+    masks_w); ``row_pins`` None leaves them as they are."""
+    if row_pins is None:
+        return eps_w, masks_w
+    pins = row_pins[..., None]
+    return ((torch.where(pins > 0, eps_w[0], 0.0),) + tuple(eps_w[1:]),
+            (masks_w[0] * pins,) + tuple(masks_w[1:]))
+
+
 def flatten_wb(ws, bs) -> torch.Tensor:
     """Padded-flat vector over any leading axes: each layer's weights
     raveled, then each layer's biases (the JAX package's order): per layer
@@ -225,11 +240,12 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
     Returned signature:
       hmc(gen, weights, biases, w_precisions, b_precisions, error_precision,
           x, y, masks_w, masks_b, n_params, momenta=None, u=None,
-          step_factor=None, mass_w=None, mass_b=None) -> HMCResult
+          step_factor=None, mass_w=None, mass_b=None, row_pins=None) -> HMCResult
     ``x`` is a single-branch PackedX or FeatX. ``momenta`` = (p_w, p_b) and the accept
     uniform ``u`` may be passed in; otherwise they are drawn from ``gen``.
     ``step_factor``, ``mass_w`` and ``mass_b`` go to ``step_sizes`` (the
-    adapted factor and the diagonal mass estimate).
+    adapted factor and the diagonal mass estimate). ``row_pins`` [in] pins
+    the layer-0 rows the marker scan excluded (``pin_rows``).
 
     With ``defer_accept`` (the hybrid schedule's live accept) it returns an
     HMCProposal from the lean body instead (``_lean_trajectory``).
@@ -254,7 +270,7 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
     def hmc(
         gen, weights, biases, w_precisions, b_precisions, error_precision, x, y,
         masks_w, masks_b, n_params, momenta=None, u=None, step_factor=None, mass_w=None,
-        mass_b=None,
+        mass_b=None, row_pins=None,
     ):
         if not isinstance(x, (D.PackedX, D.FeatX)):
             raise NotImplementedError("the port's HMC runs on packed or feature-major genotypes")
@@ -262,6 +278,7 @@ def make_hmc_step(model_type: str, act_name: str, cfg: MCMCCfg, defer_accept: bo
             gen, model_type, cfg, weights, biases, w_precisions, b_precisions, n_params,
             step_factor, mass_w, mass_b,
         )
+        eps_w, masks_w = pin_rows(eps_w, masks_w, row_pins)
         if momenta is None:
             momenta = (
                 tuple(torch.randn(w.shape, generator=gen, device=w.device) for w in weights),
@@ -348,14 +365,15 @@ def make_lean_batch(model_type: str, act_name: str, cfg: MCMCCfg):
 
       lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets,
            masks_w, masks_b, n_params, momenta, step_factor=None, mass_w=None,
-           mass_b=None) -> HMCProposal, [NB] leaves
+           mass_b=None, row_pins=None) -> HMCProposal, [NB] leaves
 
     weights/biases/precisions/masks/momenta per layer [NB, ...]; err_prec and
     n_params [NB]; ``x`` the FeatX of all G branches, instance i reading
     branch ix[i] in place; targets [NB, n]; ``momenta`` = (p_w, p_b)
     unmasked standard normals; ``step_factor`` [NB] and ``mass_w`` /
     ``mass_b`` per layer [NB, ...] each instance's adapted factor and mass
-    estimate (or None). Per-instance step sizes, kinetic energies and
+    estimate (or None); ``row_pins`` [NB, in] the marker scan's row pins
+    (``pin_rows``) or None. Per-instance step sizes, kinetic energies and
     ``dead``. It consumes the draws that make_hmc_step(defer_accept=True)
     called instance by instance with the same momenta consumes (none, except
     the random step-size mode's, drawn here in the same order), so both give
@@ -366,7 +384,7 @@ def make_lean_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     random_eps = cfg.hmc_step_size_mode == "random"
 
     def lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets, masks_w, masks_b,
-             n_params, momenta, step_factor=None, mass_w=None, mass_b=None):
+             n_params, momenta, step_factor=None, mass_w=None, mass_b=None, row_pins=None):
         if random_eps:  # instance by instance, as the per-branch calls draw them
             def one(ts, i):
                 return None if ts is None else tuple(t[i] for t in ts)
@@ -381,6 +399,7 @@ def make_lean_batch(model_type: str, act_name: str, cfg: MCMCCfg):
         else:
             eps_w, eps_b = step_sizes(gen, model_type, cfg, weights, biases, w_prec, b_prec,
                                       n_params, step_factor, mass_w, mass_b)
+        eps_w, masks_w = pin_rows(eps_w, masks_w, row_pins)
         p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
         p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
 
@@ -413,7 +432,7 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
 
       fold(weights, biases, w_prec, b_prec, err_prec, x, targets, masks_w,
            masks_b, momenta, y_pred0=None, k_live=None, step_factors=None,
-           mass_w=None, mass_b=None) -> HMCProposal with [C, B] leaves
+           mass_w=None, mass_b=None, row_pins=None) -> HMCProposal with [C, B] leaves
 
     weights/biases/precisions/momenta per layer [C, B, ...]; err_prec [C];
     ``x`` the block's PackedX (bytes [B, m_pad, Bytes]) or FeatX (xT
@@ -430,7 +449,10 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
     adapted factors (dual averaging) and ``mass_w`` / ``mass_b`` per layer
     [C, B, ...] the diagonal mass estimates, or None; the per-coordinate
     step sizes reach the kernel through the same [C, B] -> [B, C] views as
-    the other per-layer inputs.
+    the other per-layer inputs. ``row_pins`` [C, B, in] pins the layer-0
+    rows the marker scan excluded (``pin_rows``): per-coordinate step sizes
+    and momenta, so no kernel changes, and the pins act on rows, so the
+    live width of the value passes and of K5 (columns) is as before.
     """
     from ..ops.leapfrog import integrate_chains, integrate_chains_packed
 
@@ -450,9 +472,11 @@ def make_transition_batch(model_type: str, act_name: str, cfg: MCMCCfg):
         )
 
     def fold(weights, biases, w_prec, b_prec, err_prec, x, targets, masks_w, masks_b, momenta,
-             y_pred0=None, k_live=None, step_factors=None, mass_w=None, mass_b=None):
+             y_pred0=None, k_live=None, step_factors=None, mass_w=None, mass_b=None,
+             row_pins=None):
         eps_w, eps_b = step_sizes(None, model_type, cfg, weights, biases, w_prec, b_prec, None,
                                   step_factors, mass_w, mass_b)
+        eps_w, masks_w = pin_rows(eps_w, masks_w, row_pins)
         p_w = tuple(p * m for p, m in zip(momenta[0], masks_w))
         p_b = tuple(p * m for p, m in zip(momenta[1], masks_b))
         # prior precision factors in the weight layout: grad = -lam * w

@@ -10,6 +10,10 @@ Counterpart of rs_bann_tpu/train.py, with the same artifacts:
   * ``training_stats``    JSON acceptance counts (summed over chains) and
                           mse / lpd series (means over chains; test mse the
                           mean of the per-chain test mse)
+  * ``inclusion_probs``   with cfg.ss_markers, JSON ``pip_markers`` (chain
+                          0's posterior inclusion probability of every true
+                          marker, per branch) and ``pi_markers`` (its
+                          marker inclusion probability)
 """
 
 from __future__ import annotations
@@ -148,10 +152,13 @@ def gd_warmup_cfg(cfg: MCMCCfg) -> MCMCCfg:
     trajectory recording, mass adaptation, tempering or spike-and-slab. So
     the warm start leaves the dual-averaging and mass-adaptation state as
     it is, and the trainer starts the sweep counter (their clock) again
-    after it."""
+    after it. Gradient descent runs no marker scan (in the JAX package
+    too), so ss_markers is off as well: the configuration would otherwise
+    be refused (``MCMCCfg``: ss_markers applies to marginal HMC only), and
+    the carry's inclusion state waits for the sampling sweeps."""
     return dataclasses.replace(
         cfg, gradient_descent=True, joint_hmc=False, trajectories=False,
-        mass_adaptation=False, tempering=False, spike_slab=False,
+        mass_adaptation=False, tempering=False, spike_slab=False, ss_markers=False,
         hmc_traj_length_mode="fixed",
         hmc_step_size_mode="izmailov",
         hmc_step_size_factor=min(cfg.hmc_step_size_factor, 1e-3),
@@ -175,8 +182,10 @@ def train(
     schedule (``gd_warmup_cfg``) start every chain, one chain after another,
     before the first record; the acceptance counts and the sweep counter
     (the clock of the step-size and mass adaptation) then start again from
-    0. Returns (net, TrainingStats); ``net.state`` is
-    left at chain 0's final iteration."""
+    0. With ``cfg.ss_markers`` the data's branch Grams (``X.form_gram()``)
+    are formed once before the first sweep, their time logged apart.
+    Returns (net, TrainingStats); ``net.state`` is left at chain 0's final
+    iteration."""
     os.makedirs(cfg.outpath, exist_ok=True)
     save_models = cfg.chain_length > cfg.burn_in
     if save_models:
@@ -188,7 +197,8 @@ def train(
     sweep = net.make_chain_sweep(cfg)
     X, y = train_data.X, train_data.y
     carry = net.init_carry(X, y, chains=C, step_size_factor=cfg.hmc_step_size_factor,
-                           mass_adaptation=cfg.mass_adaptation)
+                           mass_adaptation=cfg.mass_adaptation, ss_markers=cfg.ss_markers,
+                           ssm_pi=cfg.ssm_pi)
     if cfg.gd_warmup > 0 and not (cfg.gradient_descent or cfg.gradient_descent_joint):
         gd_sweep = net.make_chain_sweep(gd_warmup_cfg(cfg), chain_by_chain=True)
         t0 = time.time()
@@ -197,6 +207,10 @@ def train(
         carry.counts.zero_()
         carry = carry._replace(sweeps=0)
         log.info("gd warm start: %d sweeps, %.3fs", cfg.gd_warmup, time.time() - t0)
+    if cfg.ss_markers and not cfg.gradient_descent:  # the marker scan's data, once
+        t0 = time.time()
+        float(X.form_gram()[0, 0, 0])  # waits for the device
+        log.info("branch Grams for the marker scan: %.3fs", time.time() - t0)
     stats = TrainingStats()
     trace_f = open(cfg.trace_path(), "w") if cfg.trace else None
 
@@ -258,5 +272,11 @@ def train(
     lf = cfg.chain_length * cfg.hmc_integration_length * net.arch.num_branches * C
     log.info("Completed training: %.2fs, %.0f leapfrog steps/s", elapsed, lf / max(elapsed, 1e-9))
     stats.to_file(cfg.outpath)
+    if cfg.ss_markers:  # chain 0's, the true markers of each branch
+        pip = carry.ssm_pip[0].cpu().numpy()
+        with open(os.path.join(cfg.outpath, "inclusion_probs"), "w") as f:
+            json.dump({"pip_markers": [pip[g, : net.arch.m[g]].tolist()
+                                       for g in range(net.arch.num_branches)],
+                       "pi_markers": float(carry.ssm_pi[0])}, f)
     net.state = chain(carry.state, 0)
     return net, stats

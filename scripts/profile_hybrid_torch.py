@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time and profile the PyTorch port's sweeps on one NVIDIA GPU.
 
-    python3 scripts/profile_hybrid_torch.py [--flagship | --gd] [--only NAME] [--sweeps 3]
-        [--out FILE] [--root DIR]
+    python3 scripts/profile_hybrid_torch.py [--flagship | --gd | --recipe] [--only NAME]
+        [--sweeps 3] [--out FILE] [--root DIR]
 
 Without ``--flagship`` the shape is chip_smoke.py's packed one: G = 100
 groups of 100 markers, n = 100,000, ridge_ard, identity, depth 0, width 10,
@@ -41,6 +41,15 @@ whose name holds one of the comma-separated NAMEs. ``--groups``, ``--n`` and ``-
 the run for a check without a card (no profile then). ``--root DIR``
 imports rs_bann_tpu_torch from another checkout (say the parent commit,
 unpacked with ``git archive``), to profile its code in the same call.
+
+With ``--recipe`` the cases are the packed hybrid, C = 4, folded, with the
+genome-scale recipe's options (``docs/GENOME_SCALE.md``: dual-averaging
+step sizes and mass adaptation at burn-in 1, and per-marker
+spike-and-slab at a fixed pi of 0.1 with a warm-up of one sweep), and the
+same without ss_markers: the first sweep adapts and keeps every marker in,
+the later ones are frozen and draw z. The ss_markers case first times the
+branch Grams' one-off formation (``X.form_gram()``) and, in its profiled
+sweep, the device shares of the scan kernel and of K9b (its u0).
 
 With ``--gd`` the cases are the trainer's GD warm-start sweep
 (``train.gd_warmup_cfg``: gradient descent, at most 20 iterations, each
@@ -168,6 +177,8 @@ def main(argv=None):
                     help="the dense flagship (parallel, feature-major) instead of packed hybrid")
     ap.add_argument("--gd", action="store_true",
                     help="the GD warm-start sweep at the packed shape, identity and silu")
+    ap.add_argument("--recipe", action="store_true",
+                    help="the packed hybrid, C = 4, with the recipe's adaptation and ss_markers")
     ap.add_argument("--sweeps", type=int, default=3)
     ap.add_argument("--groups", type=int, default=None, help="100 packed, 64 flagship")
     ap.add_argument("--n", type=int, default=None, help="100,000 packed, 4,096 flagship")
@@ -188,6 +199,7 @@ def main(argv=None):
     from rs_bann_tpu_torch.models.net import Net, make_chain_sweep, make_hybrid_sweep
     from rs_bann_tpu_torch.ops import branch_mlp as BM
     from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import marker_scan as MS
     from rs_bann_tpu_torch.ops import packed_matmul as PM
     from rs_bann_tpu_torch.samplers import MCMCCfg
     from rs_bann_tpu_torch.train import gd_warmup_cfg, prepare_state_for_training
@@ -226,6 +238,13 @@ def main(argv=None):
         names, watch = "(K2, K3, K9a, K9b)", ("packed_bwd", "packed_linear")
         cases = [("GD warm start identity C=4", "identity", 4, None),
                  ("GD warm start silu C=4", "silu", 4, None)]
+    elif args.recipe:
+        model, mode, steps = "ridge_ard", "hybrid", L
+        kernels = (PM.packed_linear, LF.integrate_chains_packed, PM.packed_matmul_vjp,
+                   MS.marker_scan)
+        names, watch = "(K2, K5, K9b, scan)", ("marker_scan", "packed_bwd")
+        cases = [("C=4 folded recipe ss_markers", "identity", 4, True),
+                 ("C=4 folded recipe without ss_markers", "identity", 4, True)]
     else:
         model, mode, steps = "ridge_ard", "hybrid", L
         kernels = (PM.packed_linear, BM.data_vg_packed, LF.integrate_chains_packed)
@@ -239,6 +258,11 @@ def main(argv=None):
             sequential = name.endswith("sequential")
             cfg = MCMCCfg(hmc_integration_length=steps, num_chains=C, seed=0,
                           update_mode="sequential" if sequential else mode)
+            ssm = name.endswith("recipe ss_markers")
+            if args.recipe:
+                cfg = dataclasses.replace(
+                    cfg, hmc_step_size_mode="dual_averaging", mass_adaptation=True, burn_in=1,
+                    ss_markers=ssm, ssm_fixed_pi=True, ssm_pi=0.1, ssm_warmup=1)
             arch = dataclasses.replace(arch, activation=act)
             state, _ = init_net(arch, model, InitCfg(seed=0), device=dev)
             net = prepare_state_for_training(Net(model, arch, D.Hyperparameters(), state), None)
@@ -249,7 +273,17 @@ def main(argv=None):
                 sweep = make_chain_sweep(model, act, arch, cfg, net.hyper, dev)
             else:
                 sweep = make_hybrid_sweep(model, act, arch, cfg, net.hyper, dev, fold=fold)
-            carry = net.init_carry(data.X, data.y, chains=C)
+            carry = net.init_carry(data.X, data.y, chains=C,
+                                   step_size_factor=cfg.hmc_step_size_factor,
+                                   mass_adaptation=cfg.mass_adaptation, ss_markers=ssm,
+                                   ssm_pi=cfg.ssm_pi)
+            if ssm:  # the Grams' one-off formation, kept on the data for the sweeps
+                sync()
+                t0 = time.perf_counter()
+                data.X.form_gram()
+                sync()
+                print(f"{name}: the branch Grams formed in "
+                      f"{1000.0 * (time.perf_counter() - t0):.1f} ms (once per run)")
             gen = torch.Generator(dev).manual_seed(0)
             times, launches = [], []
             for _ in range(args.sweeps):

@@ -163,7 +163,6 @@ UNPORTED = [
     ["--joint-hmc"],
     ["--gradient-descent-joint"],
     ["--spike-slab"],
-    ["--ss-markers"],
     ["--ss-rows"],
     ["--tempering", "--num-chains", "2"],
     ["--traj-length-mode", "jittered"],

@@ -282,6 +282,51 @@ def test_packed_matmul_vjp_kernel_matches_plain(dev, m, n, k):
     assert torch.equal(da, PM.packed_matmul_vjp(by, g, n))
 
 
+@pytest.mark.parametrize("k", [1, 4])
+def test_packed_matmul_vjp_kernel_with_a_broadcast_cotangent(dev, k):
+    """K9b as the marker scan's u0 takes it: a block of G = 10 branches,
+    the chains' residuals [n, k] broadcast over the branches (``expand``),
+    k = 1 (one chain, or the sequential schedule) and 4 (the main path's
+    C): against the plain version on the same broadcast cotangent and on
+    its contiguous copy, no further from f64 than the f32 plain version,
+    and a bit-identical repeat; then ``marker_u0``, K9b and the
+    standardization w_scale * (raw - shift * sum e), against the plain
+    standardized product ((decode - shift) * w_scale) @ e in f32, within
+    1e-4 of its largest entry, and in f64 as K9b is."""
+    from rs_bann_tpu_torch.models import density as D
+
+    rng = np.random.default_rng(20 + k)
+    G, m, n = 10, 104, 1300
+    by = _bytes(rng, G, m, n, dev)
+    e = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)
+    g = e.expand(G, n, k)
+    before = PM.packed_matmul_vjp.launches
+    da = PM.packed_matmul_vjp(by, g, n)
+    assert PM.packed_matmul_vjp.launches == before + 1
+    ref = PM.packed_matmul_vjp_ref(by, g.contiguous(), n)
+    torch.cuda.synchronize()
+    assert da.shape == (G, m, k) and _rel_close(da, ref)
+    assert _no_further_from_f64((da,), (ref,), _vjp_f64(by, g, None, n, None))
+    assert torch.equal(da, PM.packed_matmul_vjp(by, g.contiguous(), n))
+
+    raw = PM.unpack_strided(by, n)
+    shift = raw.mean(-1)
+    w_scale = 1.0 / raw.std(-1).clamp(min=1e-3)
+    w_scale[:, -1] = 0.0  # a padded marker
+    x = D.PackedX(by, w_scale, shift, n)
+    u0 = D.marker_u0(x, e)
+    assert torch.equal(u0, D.marker_u0(x, e))
+
+    def plain(dtype):
+        xs = (raw.to(dtype) - shift[..., None].to(dtype)) * w_scale[..., None].to(dtype)
+        return xs @ e.to(dtype)
+
+    u0_ref, u0_64 = plain(torch.float32), plain(torch.float64)
+    assert u0.shape == (G, m, k) and _rel_close(u0, u0_ref)
+    assert _no_further_from_f64((u0,), (u0_ref,), (u0_64,))
+    assert torch.all(u0[:, -1] == 0)
+
+
 @pytest.mark.parametrize("act", ["identity", "tanh", None], ids=lambda a: a or "K9b")
 def test_packed_bwd_kernels_at_the_warm_start_block(dev, act):
     """K3 (identity, tanh) and K9b at the GD warm start's block: G = 10, m =
@@ -1227,3 +1272,120 @@ def test_folded_packed_block_with_mass_keeps_padded_columns_zero(dev):
     for a, b in zip(prop, again):
         for t, u in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(t, u)
+
+
+# ------------------------------------------------- the marker scan
+
+
+def _scan_inputs(dev, I, m, s, seed, n=200, G=3):
+    """Inputs of the marker scan for I instances over G branch Grams of m
+    markers (the last of every odd instance padded, the last column padded
+    where s > 1) and its draws, from a seed."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    x = rng.standard_normal((G, m, n)).astype(np.float32) / np.sqrt(n / 50)
+    gram = np.einsum("gin,gjn->gij", x, x)
+    gram = np.triu(gram) + np.triu(gram, 1).transpose(0, 2, 1)
+    gix = rng.integers(0, G, I)
+    rm = np.ones((I, m), np.float32)
+    rm[1::2, -1] = 0.0
+    cm = np.ones((I, s), np.float32)
+    if s > 1:
+        cm[:, -1] = 0.0
+    W0 = rng.standard_normal((I, m, s)) * 0.3 * rm[..., None] * cm[:, None]
+    w_out = rng.standard_normal((I, s)) * cm
+    beta = rng.standard_normal((I, m)) * (rng.random((I, m)) < 0.2)
+    u0 = np.einsum("iaj,ij->ia", gram[gix], beta) + rng.standard_normal((I, m))
+    eta = rng.uniform(0.3, 3.0, (I, m, s))
+    order = torch.argsort(torch.rand((I, m), generator=gen), dim=-1).to(dev)
+    return (t(gram), torch.from_numpy(gix).to(dev), t(u0), t(W0), t(w_out), t(eta),
+            t(rng.uniform(0.5, 2.0, I)), t(rng.uniform(0.1, 0.6, I)), t(rm), t(cm), False, order,
+            t(rng.random((I, m))), t(rng.standard_normal((I, m))),
+            t(rng.standard_normal((I, m, s))))
+
+
+@pytest.mark.parametrize("I", [1, 40, 400])
+@pytest.mark.parametrize("s", [8, 16, 32])
+@pytest.mark.parametrize("m", [24, 104, 256])
+def test_marker_scan_kernel_matches_plain(dev, m, s, I):
+    """The scan kernel against its plain version on the same draws: z equal
+    except on an instance whose first disagreement is a near tie of the
+    plain version in f64 (|u - p| < 1e-5; counted and printed), W0_new
+    within 1e-4 of max(1, max |W0_new|) on the others (sums of s terms and
+    the u updates rounded in another order), padded columns and excluded
+    rows exactly 0, identical bits on a repeat."""
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+
+    args = _scan_inputs(dev, I, m, s, seed=m + s + I)
+    before = MS.marker_scan.launches
+    z, W = MS.marker_scan(*args)
+    assert MS.marker_scan.launches == before + 1
+    z2, W2 = MS.marker_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(z, z2) and torch.equal(W, W2)
+    z_ref, W_ref = MS.marker_scan_ref(*args)
+    f64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+           for a in args]
+    *_, p64 = MS.marker_scan_ref(*f64, probs=True)
+    same, ties = MS.scan_ties(z, z_ref, args[11], args[12], p64)
+    print(f"m {m} s {s} I {I}: {ties} near-tie instances")
+    assert int(same.sum()) >= I - max(1, I // 20)
+    same = same.to(dev)
+    err = (W[same] - W_ref[same]).abs().max().item()
+    assert err <= 1e-4 * max(1.0, W_ref[same].abs().max().item())
+    assert torch.all(W[..., args[9][0] == 0] == 0) and torch.all(W[z == 0] == 0)
+    assert torch.all(z[args[8] == 0] == 0) and 0 < int(z.sum()) < int(args[8].sum())
+
+
+def test_marker_scan_kernel_forced_and_limits(dev):
+    """force keeps every true marker in; the kernel takes m_pad up to
+    MAX_M and s_pad up to MAX_S (what the CLI admits) and raises beyond
+    them."""
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+
+    args = list(_scan_inputs(dev, 40, 104, 16, seed=1))
+    args[10] = True
+    z, W = MS.marker_scan(*args)
+    z_ref, W_ref = MS.marker_scan_ref(*args)
+    assert torch.equal(z, args[8]) and torch.equal(z_ref, z)
+    assert (W - W_ref).abs().max().item() <= 1e-4 * max(1.0, W_ref.abs().max().item())
+    args = list(_scan_inputs(dev, 2, MS.MAX_M, MS.MAX_S, seed=3))
+    args[10] = True
+    z, W = MS.marker_scan(*args)
+    z_ref, W_ref = MS.marker_scan_ref(*args)
+    assert torch.equal(z, z_ref)
+    assert (W - W_ref).abs().max().item() <= 1e-4 * max(1.0, W_ref.abs().max().item())
+    for m, s in ((MS.MAX_M + 1, 8), (24, MS.MAX_S + 1)):
+        with pytest.raises(RuntimeError, match="marker_scan_f32"):
+            MS.marker_scan(*_scan_inputs(dev, 2, m, s, seed=2))
+
+
+@pytest.mark.parametrize("s", [8, 16])
+def test_marker_scan_kernel_reads_broadcast_eta_in_place(dev, s):
+    """Ridge's slab precisions, the rows' precisions broadcast over the
+    columns (column stride 0), read in place give the same bits as their
+    contiguous copy, and agree with the plain version."""
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+
+    args = list(_scan_inputs(dev, 40, 104, s, seed=4))
+    args[5] = args[5][..., :1].contiguous().expand(40, 104, s)
+    assert args[5].stride() == (104, 1, 0)
+    z, W = MS.marker_scan(*args)
+    z_ref, W_ref = MS.marker_scan_ref(*args)
+    dense = list(args)
+    dense[5] = args[5].contiguous()
+    z2, W2 = MS.marker_scan(*dense)
+    torch.cuda.synchronize()
+    assert torch.equal(z, z2) and torch.equal(W, W2)
+    f64 = [a.double() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+           for a in args]
+    *_, p64 = MS.marker_scan_ref(*f64, probs=True)
+    same, _ = MS.scan_ties(z, z_ref, args[11], args[12], p64)
+    assert int(same.sum()) >= 40 - 2
+    same = same.to(dev)
+    assert (W[same] - W_ref[same]).abs().max().item() <= 1e-4 * max(
+        1.0, W_ref[same].abs().max().item())

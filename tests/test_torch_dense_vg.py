@@ -144,7 +144,7 @@ def _loop_lean(model_type, act, cfg):
     step = TH.make_hmc_step(model_type, act, cfg, defer_accept=True)
 
     def lean(gen, weights, biases, w_prec, b_prec, err_prec, x, ix, targets, masks_w, masks_b,
-             n_params, momenta, step_factor=None, mass_w=None, mass_b=None):
+             n_params, momenta, step_factor=None, mass_w=None, mass_b=None, row_pins=None):
         props = []
         for i in range(ix.shape[0]):
             def one(ts):
@@ -155,7 +155,8 @@ def _loop_lean(model_type, act, cfg):
                               one(masks_b), n_params[i],
                               momenta=(one(momenta[0]), one(momenta[1])),
                               step_factor=None if step_factor is None else step_factor[i],
-                              mass_w=one(mass_w), mass_b=one(mass_b)))
+                              mass_w=one(mass_w), mass_b=one(mass_b),
+                              row_pins=None if row_pins is None else row_pins[i]))
         return TH.HMCProposal(
             tuple(torch.stack(t) for t in zip(*(p.weights for p in props))),
             tuple(torch.stack(t) for t in zip(*(p.biases for p in props))),
