@@ -69,6 +69,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      scan's bytes bound; and the kernel
      launches (torch.profiler) of a sweep that draws z beside 6b's frozen
      sweep
+ 6d. phase 6c's run at burn-in 2 (sweeps 1 and 2 adapt, 3 is frozen):
+     train-new 3 sweeps straight with --checkpoint-interval 1 (A), 1 sweep
+     with a checkpoint (B), and 3 sweeps resumed from B's checkpoint (C):
+     C's samples 2 and 3 of every chain, its final checkpoint (the whole
+     carry and the generator's state), training_stats and inclusion_probs
+     equal to A's bit for bit, each resumed sweep's launches and
+     adaptation state A's; the checkpoint's bytes and write ms. Then
+     train from A's sample 3 with --perturb-params 0.01 for one sweep, its
+     perturbed start against the same command's under --cpu bit for bit;
+     branch-r2 and population-effect-sizes on the training set (n =
+     100,000) and activations on the test set, each on a models directory
+     of one sample, the card's output against --cpu's within REL_TOL of
+     max(1, the largest entry), each with its K2 launches (and their
+     device time, torch.profiler) and no plain-version call on the card;
+     the phase's wall time
   7. the dense flagship (bench.py workload 1: G = 64 groups of 64 markers,
      n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
      K7 (data_vg_chains, feature-major X [64, 64, 4096]) and its
@@ -566,6 +581,228 @@ def ssm_sweep_launches(argv, arch, state, X, y, chains):
     carry, _ = sweep(carry, X, y, gen)
     (carry, _), n = device_launches(lambda: sweep(carry, X, y, gen))
     return n
+
+
+# phase 6d: burn-in 2, so sweeps 1 and 2 adapt (the checkpoint falls
+# between them) and sweep 3 is frozen
+RESUME_ARGS = ADAPT_ARGS + SSM_ARGS + ["--burn-in", "2"]
+
+
+class _StopAfterPerturb(Exception):
+    pass
+
+
+def _npz(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _same_arrays(a, b):
+    import numpy as np
+
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _kernel_ms(prof, name):
+    """Device ms of the kernels whose (mangled) name holds ``name`` and of
+    all device events, from a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    def us(a):
+        v = getattr(a, "self_device_time_total", None)
+        return getattr(a, "self_cuda_time_total", 0.0) if v is None else v
+
+    rows = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+    return (sum(us(a) for a in rows if name in a.key) / 1e3, sum(us(a) for a in rows) / 1e3)
+
+
+def resume_phase(cli, work, hybrid_args, kernels, log_records):
+    """Phase 6d: phase 6c's recipe run 3 sweeps straight with a checkpoint
+    after every sweep (A), 1 sweep with a checkpoint (B), and resumed from
+    B's checkpoint to 3 (C): C's samples 2 and 3 of every chain, its final
+    checkpoint (the whole carry and the generator's state), training_stats
+    and inclusion_probs equal to A's bit for bit, each resumed sweep's
+    launches A's; the checkpoint's bytes and write ms. Then ``train`` from
+    A's sample for one sweep, its perturbed start against the same
+    command's under --cpu bit for bit; and ``branch-r2`` and
+    ``population-effect-sizes`` on the training set, ``activations`` on the
+    test set, each on a models directory of one sample, on the card against
+    --cpu within REL_TOL of max(1, the largest entry), each with its K2
+    launches (and their device time) and no plain-version call on the card.
+    Returns the measurements."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rs_bann_tpu_torch.models import params as P
+    from rs_bann_tpu_torch.models.net import Net
+    from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "resume")
+
+    def argv(chain_length, out, *extra):
+        a = list(hybrid_args) + RESUME_ARGS
+        a[7] = chain_length  # train-new's positional chain length
+        return a + ["-o", os.path.join(root, out), *extra]
+
+    first = len(log_records)
+    run_a, recs_a = recorded_run(cli, argv(3, "a", "--checkpoint-interval", 1), kernels)
+    ckpts = [r.args for r in log_records[first:]
+             if str(r.msg).startswith("checkpoint at iteration")]
+    run_b = run_cli(cli, argv(1, "b", "--checkpoint-interval", 1)).strip().splitlines()[-1]
+    t0 = time.perf_counter()
+    run_c, recs_c = recorded_run(cli, argv(3, "c", "--checkpoint-interval", 1, "--resume",
+                                           os.path.join(run_b, "checkpoint.npz")), kernels)
+    resume_s = time.perf_counter() - t0
+    per_sweep = {"integrate_chains_packed": G // BLOCK, "packed_linear": 3 * (G // BLOCK),
+                 "data_vg_packed": 0, "packed_matmul_vjp": G // BLOCK,
+                 "marker_scan": G // BLOCK}
+    launches_a = [r["launches"] for r in recs_a]
+    launches_c = [r["launches"] for r in recs_c]
+    print(f"  kernel launches per sweep: straight {launches_a}, resumed (sweeps 2-3) "
+          f"{launches_c}")
+    if launches_a != [per_sweep] * 3 or launches_c != launches_a[1:]:
+        raise AssertionError("the resumed sweeps' launches are not the straight run's")
+    warm1, warm2, frozen = (r["state"] for r in recs_a)
+    if any(torch.equal(warm1[f], warm2[f]) for f in ("da_log_eps_bar", "mm_m2")) or not all(
+            torch.equal(warm2[f], frozen[f]) for f in ADAPT_FIELDS):
+        raise AssertionError("sweep 2 did not adapt or sweep 3 was not frozen")
+    if not all(torch.equal(recs_c[0]["state"][f], warm2[f]) for f in ADAPT_FIELDS):
+        raise AssertionError("the resumed sweep 2 adapted otherwise than the straight one")
+    same = {}
+    for c in range(CHAINS):
+        for ix in (2, 3):
+            name = os.path.join("models", f"chain{c}", f"{ix}.npz")
+            same[name] = _same_arrays(_npz(os.path.join(run_a, name)),
+                                      _npz(os.path.join(run_c, name)))
+    same["checkpoint.npz"] = _same_arrays(_npz(os.path.join(run_a, "checkpoint.npz")),
+                                          _npz(os.path.join(run_c, "checkpoint.npz")))
+    for f in ("training_stats", "inclusion_probs"):
+        same[f] = open(os.path.join(run_a, f)).read() == open(os.path.join(run_c, f)).read()
+    stats_a = json.load(open(os.path.join(run_a, "training_stats")))
+    print(f"  resumed run against the straight one, bit for bit: {same}")
+    if not all(same.values()):
+        raise AssertionError("the resumed run differs from the straight one")
+    print(f"  mse_train of sweeps 2-3 {stats_a['mse_train'][2:]}, lpd {stats_a['lpd'][2:]}; "
+          f"the resume (sweeps 2-3) {resume_s:.1f} s")
+    ckpt_bytes = [int(a[1]) for a in ckpts]
+    ckpt_ms = [float(a[2]) for a in ckpts]
+    print(f"  checkpoint: {ckpt_bytes} bytes, written in {ckpt_ms} ms after sweeps "
+          f"{[a[0] for a in ckpts]}")
+    if [a[0] for a in ckpts] != [1, 2, 3]:
+        raise AssertionError(f"checkpoints written: {ckpts}")
+    del recs_a, recs_c
+
+    # train from one of A's samples, perturbed; its start against --cpu's
+    sample = os.path.join(run_a, "models", "chain0", "3.npz")
+    train_argv = ["train", os.path.join(work, "train"), os.path.join(work, "train.phen"),
+                  os.path.join(work, "train.groups"), "ridge_ard", sample, 1, L,
+                  "--perturb-params", "0.01", "--packed-genotypes", "--burn-in", "0",
+                  "--bfile-test", os.path.join(work, "test"), "--p-test",
+                  os.path.join(work, "test.phen"), "--update-mode", "hybrid", "--num-chains",
+                  CHAINS, *ADAPT_ARGS, *SSM_ARGS, "-o", os.path.join(root, "train")]
+    starts, stop = [], []
+    perturb = Net.perturb
+
+    def captured(self, *a):
+        out = perturb(self, *a)
+        starts.append([t.cpu().clone() for t in P.state_leaves(self.state)])
+        if stop:  # the --cpu run: its start is all it is for
+            raise _StopAfterPerturb
+        return out
+
+    Net.perturb = captured
+    try:
+        LF.integrate_chains_packed.launches = 0
+        t0 = time.perf_counter()
+        run_t = run_cli(cli, train_argv).strip().splitlines()[-1]
+        train_s = time.perf_counter() - t0
+        stop.append(True)
+        try:
+            run_cli(cli, train_argv + ["--cpu"])
+        except _StopAfterPerturb:
+            pass
+    finally:
+        Net.perturb = perturb
+    same_start = len(starts) == 2 and len(starts[0]) == len(starts[1]) and all(
+        torch.equal(a, b) for a, b in zip(*starts))
+    stats_t = json.load(open(os.path.join(run_t, "training_stats")))
+    saved = sorted(os.listdir(os.path.join(run_t, "models", "chain0")))
+    print(f"  train from {os.path.relpath(sample, work)} (--perturb-params 0.01, 1 sweep): "
+          f"{os.path.basename(run_t)}, {train_s:.1f} s, K5 launches "
+          f"{LF.integrate_chains_packed.launches}, samples {saved}; the perturbed start equal "
+          f"to --cpu's bit for bit: {same_start}")
+    if (not same_start or LF.integrate_chains_packed.launches != G // BLOCK
+            or saved != ["0.npz", "1.npz"] or not all(np.isfinite(stats_t["mse_train"]))):
+        raise AssertionError("train from a saved sample failed its checks")
+
+    # the analysis commands on a models directory of one sample
+    one = os.path.join(root, "one")
+    os.makedirs(one)
+    shutil.copy(sample, one)
+    plain_calls = []
+    plains = {f: getattr(PM, f) for f in ("packed_linear_ref", "packed_matmul_ref")}
+    for f, fn in plains.items():
+        setattr(PM, f, lambda *a, _fn=fn, _f=f: plain_calls.append(_f) or _fn(*a))
+    analysis = {}
+    try:
+        for cmd, data in (("branch-r2", "train"), ("population-effect-sizes", "train"),
+                          ("activations", "test")):
+            outs = {}
+            for where in ("card", "cpu"):
+                models = os.path.join(root, f"{cmd}-{where}", "models")
+                shutil.copytree(one, models)
+                args = [cmd, os.path.join(work, data)] + (
+                    [] if cmd == "activations" else [os.path.join(work, f"{data}.phen")]) + [
+                    os.path.join(work, "train.groups"), "-m", models, "--packed-genotypes"]
+                PM.packed_linear.launches = PM.packed_matmul.launches = 0
+                del plain_calls[:]
+                t0 = time.perf_counter()
+                if where == "card":
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        out = run_cli(cli, args)
+                        torch.cuda.synchronize()
+                    k2_ms, device_ms = _kernel_ms(prof, "packed_linear_tc")
+                    card = {"s": time.perf_counter() - t0, "k2_launches": PM.packed_linear.launches,
+                            "k9a_launches": PM.packed_matmul.launches, "k2_ms": k2_ms,
+                            "device_ms": device_ms, "plain_calls": len(plain_calls)}
+                else:
+                    out = run_cli(cli, args + ["--cpu"])
+                    cpu_s = time.perf_counter() - t0
+                if cmd == "branch-r2":
+                    vals = np.asarray(list(csv.reader(io.StringIO(out))), np.float64)
+                else:
+                    res = json.load(open(os.path.join(os.path.dirname(models),
+                                                      cmd.replace("-", "_"), "3.json")))
+                    vals = (np.asarray(res, np.float64) if cmd != "activations" else
+                            np.concatenate([np.asarray(a, np.float64).ravel()
+                                            for branch in res for a in branch]))
+                outs[where] = vals
+            err = float(np.abs(outs["card"] - outs["cpu"]).max())
+            scale = max(1.0, float(np.abs(outs["cpu"]).max()))
+            analysis[cmd] = dict(card, cpu_s=cpu_s, max_abs_err=err, values=outs["cpu"].size)
+            print(f"  {cmd} ({data} set, one sample): card {card['s']:.1f} s, --cpu "
+                  f"{cpu_s:.1f} s; K2 launches {card['k2_launches']} ({card['k2_ms']:.3f} ms "
+                  f"on the device of {card['device_ms']:.3f}), K9a {card['k9a_launches']}, "
+                  f"plain-version calls on the card {card['plain_calls']}; {outs['cpu'].size} "
+                  f"values, card vs --cpu max_abs_err {err:.3e} (max(1, largest) {scale:.3e})")
+            if (outs["card"].shape != outs["cpu"].shape or not err <= REL_TOL * scale
+                    or card["k2_launches"] < 1 or card["plain_calls"]
+                    or not np.all(np.isfinite(outs["card"]))):
+                raise AssertionError(f"{cmd}: the card's output fails its checks")
+    finally:
+        for f, fn in plains.items():
+            setattr(PM, f, fn)
+    phase_s = time.perf_counter() - t_phase
+    print(f"  phase 6d: {phase_s:.1f} s in all")
+    return {"checkpoint_bytes": ckpt_bytes, "checkpoint_ms": ckpt_ms,
+            "resume_s": resume_s, "train_s": train_s, "analysis": analysis,
+            "phase_s": phase_s}
 
 
 def write_data(d, groups=G, markers=M, n_train=N_TRAIN, n_test=N_TEST, n_causal=N_CAUSAL):
@@ -1218,6 +1455,12 @@ def main():
                    "launches_per_sweep": ssm_launch, "excluded": int(excluded.sum()),
                    "mean_pip": float(pip.mean())}
         del recs, carry
+
+        # ---- phase 6d: checkpoint, resume, train and the analysis commands
+        print(f"phase 6d: phase 6c's train-new at burn-in 2, 3 sweeps straight against 1, a "
+              f"checkpoint and a resume to 3; train from a sample; branch-r2, "
+              f"population-effect-sizes, activations on the card and under --cpu")
+        resume_run = resume_phase(cli, work, hybrid_args, ssm_kernels, log_records)
 
         # ---- phase 7: K7 at the dense flagship's shape
         fdir = os.path.join(work, "flagship")
@@ -2072,6 +2315,7 @@ def main():
         k["max_rel_err"] = REL_ERR[k["name"]]
     print("adaptation (phases 6b, 9b): " + json.dumps(adapted_runs))
     print("ss_markers (phase 6c): " + json.dumps(ssm_run))
+    print("resume and analysis (phase 6d): " + json.dumps(resume_run))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

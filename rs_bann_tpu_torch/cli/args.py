@@ -2,7 +2,8 @@
 
 The port's own copy of the argparse helpers of rs_bann_tpu/cli/main.py
 (``_add_mcmc_args``, ``_add_train_io_args``, ``_mcmc_cfg_from_args``,
-``_run_outdir_name``, ``_scan_models``), with every flag name and default
+``_mode_suffixes``, ``_run_outdir_name``, ``_scan_models`` and the analysis
+commands' ``bpgm``), with every flag name and default
 kept, so ``args.json``, run directories and ``hyperparams`` files come out
 as the JAX package writes them (tests/test_torch_copies.py compares the two
 parsers).
@@ -41,7 +42,7 @@ def model_type(s: str) -> str:
 
 
 def add_mcmc_args(p: argparse.ArgumentParser):
-    """The MCMC arguments of ``train-new`` (and, later, ``train``)."""
+    """The MCMC arguments of ``train-new`` and ``train``."""
     p.add_argument("chain_length", type=int, help="full model chain length")
     p.add_argument("integration_length", type=int, help="hmc integration length")
     p.add_argument("--max-hamiltonian-error", type=float, default=10.0)
@@ -129,6 +130,20 @@ def add_mcmc_args(p: argparse.ArgumentParser):
                    help="store feature-major genotypes in bfloat16 (requires --feat-major)")
 
 
+def add_bfile_phen_args(p: argparse.ArgumentParser):
+    """The arguments of ``branch-r2``, ``gradients`` and
+    ``population-effect-sizes``: genotypes, phenotypes, groups, models."""
+    p.add_argument("bfile")
+    p.add_argument("phen")
+    p.add_argument("groups")
+    p.add_argument("-m", "--model-path", default="./models")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument(
+        "--packed-genotypes", action="store_true",
+        help="keep genotypes 2-bit packed on the device (else dense sample-major f32)",
+    )
+
+
 def add_train_io_args(p: argparse.ArgumentParser):
     p.add_argument("bfile_train", help="stem of train .bed(+.bim+.fam|.dims)")
     p.add_argument("p_train", help="train phenotype .phen file")
@@ -187,7 +202,7 @@ def mcmc_cfg_from_args(args, outpath: str) -> MCMCCfg:
     )
 
 
-def _mode_suffixes(args) -> str:
+def mode_suffixes(args) -> str:
     """Sampler-mode suffix of the run directory name."""
     name = ""
     if args.joint_hmc:
@@ -222,7 +237,7 @@ def run_outdir_name(args) -> str:
         f"_dpk{args.dpk}_dps{args.dps}_spk{args.spk}_sps{args.sps}"
         f"_opk{args.opk}_ops{args.ops}"
     )
-    name += _mode_suffixes(args)
+    name += mode_suffixes(args)
     if args.fixed_hidden_layer_width is not None:
         name += f"_fhlw{args.fixed_hidden_layer_width}"
     else:

@@ -1,16 +1,20 @@
-"""Command-line interface of the PyTorch port: ``train-new``, ``predict`` and
-``gradients``.
+"""Command-line interface of the PyTorch port: ``train-new``, ``train``,
+``predict``, ``gradients``, ``branch-r2``, ``activations``,
+``population-effect-sizes`` and ``analyze``.
 
 Counterpart of rs_bann_tpu/cli/main.py with the same arguments (the port's
 own copies of the JAX package's argparse helpers, cli/args.py) and the same
-run-directory naming, args.json, model samples and predict CSV. Training
+run-directory naming, args.json, model samples and output files. Training
 takes 2-bit packed genotypes (``--packed-genotypes``) or dense
 feature-major ones (``--feat-major``) under every schedule: the folded
 parallel or hybrid sweep on K6 and K7, the sequential one on K8a, the
-unfolded hybrid one (``--per-chain-block-perm``) on K8b. ``predict`` and
-``gradients`` take packed or dense genotypes. Options whose
-code paths wait for later slices of the port exit non-zero with "not ported
-yet".
+unfolded hybrid one (``--per-chain-block-perm``) on K8b; it writes a
+checkpoint with ``--checkpoint-interval`` and resumes one, bit for bit,
+with ``--resume``. ``train`` continues from a saved sample. The
+analysis commands take packed or dense genotypes and map the branches in
+chunks (``Net._branch_map``: one K2, or K9a, launch per chunk on packed
+ones). Options whose code paths wait for later slices of the port exit
+non-zero with "not ported yet".
 
 The device is CUDA unless ``--cpu`` is given; without a CUDA device and
 without ``--cpu`` the commands exit non-zero. Every random draw comes from
@@ -29,9 +33,11 @@ from pathlib import Path
 
 from .args import (
     ACTIVATIONS,
+    add_bfile_phen_args,
     add_mcmc_args,
     add_train_io_args,
     mcmc_cfg_from_args,
+    mode_suffixes,
     model_type,
     run_outdir_name,
     scan_models,
@@ -68,10 +74,6 @@ def _unported(args, cfg) -> list:
     for flag in ("bf16", "x_bf16"):
         if getattr(args, flag):
             bad.append("--" + flag.replace("_", "-"))
-    if args.checkpoint_interval > 0:
-        bad.append("--checkpoint-interval")
-    if args.resume is not None:
-        bad.append("--resume")
     if not (args.packed_genotypes or args.feat_major):
         bad.append("dense sample-major genotypes (pass --packed-genotypes or --feat-major)")
     return bad
@@ -97,7 +99,9 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
         bad.append(f"--ss-markers beyond the marker scan CUDA kernel's limits ({arch.m_pad} "
                    f"markers, width {arch.layer_out_pad(0)}; it takes up to {MS.MAX_M} markers "
                    f"and width {MS.MAX_S})")
-    folded = chain_fold_eligible(args.model_type, args.activation_function, cfg)
+    # train-new names the activation; train takes the saved model's
+    act = getattr(args, "activation_function", None) or arch.activation
+    folded = chain_fold_eligible(args.model_type, act, cfg)
     if args.feat_major:  # folded: K6 for the trajectories, K7 for the value passes
         rules, kernels = (((BM.traj_dense_smem, BM.vg_chains_smem), "K6/K7") if folded
                           else ((BM.vg_dense_smem,), "K8"))
@@ -134,14 +138,55 @@ def _load_train_data(args):
     return train, test
 
 
-def cmd_train_new(args):
+def _refuse_arch(args, cfg, model_type: str, arch, device) -> None:
+    """Exit where the architecture cannot run: ss_markers as the JAX
+    package refuses it, or beyond the kernels (``_beyond_kernels``)."""
+    from ..models.net import ssm_unsupported
+
+    why = ssm_unsupported(model_type, arch) if cfg.ss_markers else None
+    if why:  # as the JAX package refuses it
+        sys.exit(f"error: {why}")
+    bad = _beyond_kernels(args, cfg, arch, device)
+    if bad:
+        sys.exit("error: not ported yet: " + ", ".join(bad))
+
+
+def _run_training(args, cfg, outdir, net, device, train_data, test_data) -> None:
+    """The rest of train-new and train: the data on the device in the
+    layout the flags ask for, a resume's checks (before anything is
+    written), args.json, then training; prints the run directory."""
     import torch
 
+    from ..train import initial_carry, read_checkpoint, train
+
+    load = "to_feature_major" if args.feat_major else "to_packed"
+    dtr = getattr(train_data, load)(net.arch, device)
+    dte = getattr(test_data, load)(net.arch, device) if test_data is not None else None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    if args.resume is not None:
+        try:
+            read_checkpoint(args.resume, initial_carry(net, dtr, cfg, args.fixed_param_precision),
+                            device.type)
+        except (OSError, ValueError) as e:
+            sys.exit(f"error: --resume: {e}")
+    os.makedirs(outdir, exist_ok=True)
+    with open(cfg.args_path(), "w") as f:
+        json.dump({k: v for k, v in vars(args).items() if k != "func"}, f, indent=2)
+    log.info("Training net")
+    train(
+        net, dtr, cfg, gen, test_data=dte, report_interval=args.report_interval,
+        fixed_param_precision=args.fixed_param_precision,
+        checkpoint_interval=args.checkpoint_interval, resume_from=args.resume,
+    )
+    print(outdir)
+
+
+def cmd_train_new(args):
     from ..models import NetArch
     from ..models import density as D
     from ..models.init import InitCfg, init_net
-    from ..models.net import Net, ssm_unsupported
-    from ..train import train
+    from ..models.net import Net
 
     outdir = set_replicate_ix(args.outpath, run_outdir_name(args))
     cfg = mcmc_cfg_from_args(args, str(outdir))
@@ -169,15 +214,7 @@ def cmd_train_new(args):
         train_data.num_markers_per_branch(), args.branch_depth, hlwr, slwr,
         activation=args.activation_function,
     )
-    why = ssm_unsupported(args.model_type, arch) if cfg.ss_markers else None
-    if why:  # as the JAX package refuses it
-        sys.exit(f"error: {why}")
-    bad = _beyond_kernels(args, cfg, arch, device)
-    if bad:
-        sys.exit("error: not ported yet: " + ", ".join(bad))
-    os.makedirs(outdir, exist_ok=True)
-    with open(cfg.args_path(), "w") as f:
-        json.dump({k: v for k, v in vars(args).items() if k != "func"}, f, indent=2)
+    _refuse_arch(args, cfg, args.model_type, arch, device)
     state, _ = init_net(
         arch, args.model_type,
         InitCfg(fixed_param_precision=args.fixed_param_precision, seed=args.seed),
@@ -191,17 +228,39 @@ def cmd_train_new(args):
                 "Num params > num individuals in branch %d (with %d params, %d individuals)",
                 g, arch.num_params_branch(g), train_data.num_individuals,
             )
-    load = "to_feature_major" if args.feat_major else "to_packed"
-    dtr = getattr(train_data, load)(arch, device)
-    dte = getattr(test_data, load)(arch, device) if test_data is not None else None
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    log.info("Training net")
-    train(
-        net, dtr, cfg, gen, test_data=dte, report_interval=args.report_interval,
-        fixed_param_precision=args.fixed_param_precision,
+    _run_training(args, cfg, outdir, net, device, train_data, test_data)
+
+
+def cmd_train(args):
+    """Continue training from a saved sample (the JAX package's ``train``):
+    the sample's net, perturbed by ``--perturb-params`` /
+    ``--perturb-precisions``, trained under the MCMC arguments into
+    ``<model stem>_cl.._il.._<mode>_st.._dtheta.._dlambda..<suffixes>``."""
+    from ..models.net import Net
+
+    model_path = Path(args.model_file)
+    if not model_path.is_file():
+        log.error("Specified model: No such file found")
+        sys.exit(66)
+    name = (
+        f"{model_path.stem}_cl{args.chain_length}_il{args.integration_length}"
+        f"_{args.step_size_mode}_st{args.step_size}"
+        f"_dtheta{args.perturb_params or 0.0}_dlambda{args.perturb_precisions or 0.0}"
     )
-    print(outdir)
+    outdir = set_replicate_ix(args.outpath, name + mode_suffixes(args))
+    cfg = mcmc_cfg_from_args(args, str(outdir))
+    if args.packed_genotypes and args.feat_major:
+        sys.exit("error: --feat-major and --packed-genotypes are mutually exclusive")
+    bad = _unported(args, cfg)
+    if bad:
+        sys.exit("error: not ported yet: " + ", ".join(bad))
+    device = _device(args)
+    log.info("Loading net")
+    net = Net.load(str(model_path), device)
+    net.perturb(args.perturb_params, args.perturb_precisions)
+    _refuse_arch(args, cfg, net.model_type, net.arch, device)
+    train_data, test_data = _load_train_data(args)
+    _run_training(args, cfg, outdir, net, device, train_data, test_data)
 
 
 def _genotypes(args):
@@ -219,37 +278,20 @@ def _load_x(args, gen, arch, device):
 
 
 def cmd_predict(args):
-    from ..models.net import Net
-
     device = _device(args)
-    gen = _genotypes(args)
     w = csv.writer(sys.stdout)
-    X = None
-    for path in scan_models(args.model_path):
-        net = Net.load(str(path), device)
-        if X is None:
-            X = _load_x(args, gen, net.arch, device)
+    for _, net, X in _each_model(args, device):
         w.writerow(net.predict(X).cpu().numpy().tolist())
 
 
 def cmd_gradients(args):
     """Per-branch log-density gradients of each saved model, written to
     ``<model_path>/../gradients/<ix>.json`` in the JAX package's payload."""
-    import torch
-
-    from ..io import Phenotypes
-    from ..models.net import Net
-
     device = _device(args)
-    gen = _genotypes(args)
-    y = torch.tensor(Phenotypes.from_file(args.phen).y, dtype=torch.float32, device=device)
+    y = _phenotypes(args, device)
     outdir = Path(args.model_path).parent / "gradients"
     outdir.mkdir(parents=True, exist_ok=True)
-    X = None
-    for path in scan_models(args.model_path):
-        net = Net.load(str(path), device)
-        if X is None:
-            X = _load_x(args, gen, net.arch, device)
+    for path, net, X in _each_model(args, device):
         payload = [
             {"wrt_weights": [g.tolist() for g in gw], "wrt_biases": [g.tolist() for g in gb]}
             for gw, gb in net.gradients(X, y)
@@ -257,6 +299,115 @@ def cmd_gradients(args):
         with open(outdir / f"{path.stem}.json", "w") as f:
             json.dump(payload, f)
     print(outdir)
+
+
+def _each_model(args, device):
+    """(model file, Net on ``device``, the genotypes as its architecture
+    stacks them) for every sample in ``args.model_path``."""
+    from ..models.net import Net
+
+    gen = _genotypes(args)
+    X = None
+    for path in scan_models(args.model_path):
+        net = Net.load(str(path), device)
+        if X is None:
+            X = _load_x(args, gen, net.arch, device)
+        yield path, net, X
+
+
+def _phenotypes(args, device):
+    import torch
+
+    from ..io import Phenotypes
+
+    return torch.tensor(Phenotypes.from_file(args.phen).y, dtype=torch.float32, device=device)
+
+
+def cmd_branch_r2(args):
+    """Each branch's r2 alone, one CSV row per saved model, to standard
+    output."""
+    device = _device(args)
+    y = _phenotypes(args, device)
+    w = csv.writer(sys.stdout)
+    for _, net, X in _each_model(args, device):
+        w.writerow(net.branch_r2s(X, y).cpu().numpy().tolist())
+
+
+def cmd_activations(args):
+    """Every branch's activations of each saved model, true widths only, to
+    ``<model_path>/../activations/<ix>.json``."""
+    device = _device(args)
+    outdir = Path(args.model_path).parent / "activations"
+    outdir.mkdir(parents=True, exist_ok=True)
+    for path, net, X in _each_model(args, device):
+        payload = [
+            [a[:, : net.arch.layer_widths(g)[l]].tolist() for l, a in enumerate(branch)]
+            for g, branch in enumerate(net.activations(X))
+        ]
+        with open(outdir / f"{path.stem}.json", "w") as f:
+            json.dump(payload, f)
+    print(outdir)
+
+
+def cmd_population_effect_sizes(args):
+    """Each true marker's mean input gradient over the individuals, per
+    saved model, to ``<model_path>/../population_effect_sizes/<ix>.json``."""
+    device = _device(args)
+    _phenotypes(args, device)  # read as the JAX package does, though unused
+    outdir = Path(args.model_path).parent / "population_effect_sizes"
+    outdir.mkdir(parents=True, exist_ok=True)
+    for path, net, X in _each_model(args, device):
+        with open(outdir / f"{path.stem}.json", "w") as f:
+            json.dump(net.population_effect_sizes(X), f)
+    print(outdir)
+
+
+def cmd_analyze(args):
+    """Summarize a training run as JSON on standard output: the JAX
+    package's ``analyze`` (acceptance, final mse and lpd, inclusion
+    probabilities, each branch's median parameter ESS from the trace, the
+    posterior mean against a simulation's truth). Its plots are not ported
+    yet."""
+    import numpy as np
+
+    from .. import vis
+
+    if args.plots:
+        sys.exit("error: not ported yet: analyze --plots")
+    st = vis.load_training_stats(args.rundir)
+    out = {
+        "iterations": len(st["mse_train"]) - 1,
+        "acceptance_rate": round(st["num_accepted"] / max(st["num_samples"], 1), 3),
+        "early_rejection_rate": round(st["num_early_rejected"] / max(st["num_samples"], 1), 3),
+        "mse_train_final": round(st["mse_train"][-1], 4),
+        "lpd_final": round(st["lpd"][-1], 2),
+    }
+    if st.get("mse_test"):
+        out["mse_test_final"] = round(st["mse_test"][-1], 4)
+    ip_path = os.path.join(args.rundir, "inclusion_probs")
+    if os.path.exists(ip_path):
+        with open(ip_path) as f:
+            rec = json.load(f)
+        if "pi" in rec:
+            out["inclusion_pi"] = round(rec["pi"], 3)
+            out["branch_inclusion_probs"] = [round(p, 3) for p in rec["pip"]]
+        if "pi_markers" in rec:
+            out["marker_inclusion_pi"] = round(rec["pi_markers"], 4)
+            out["markers_pip_gt_half"] = sum(
+                1 for row in rec["pip_markers"] for p in row if p > 0.5)
+    if os.path.exists(os.path.join(args.rundir, "trace")):
+        trace = vis.load_trace(args.rundir)
+        burn = args.burn_in if args.burn_in is not None else len(trace) // 2
+        mats = [vis.trace_param_matrix(trace, g) for g in range(len(trace[0]))]
+        out["median_param_ess_per_branch"] = [
+            round(float(np.median(vis.ess_per_param(m[burn:]))), 1) for m in mats]
+        if args.sim:
+            tp = vis.load_true_params(args.sim)
+            out["posterior_mean_vs_truth"] = {
+                str(k): {kk: round(vv, 4) for kk, vv in v.items()}
+                for k, v in vis.posterior_mean_vs_truth(trace, tp, burn).items()
+            }
+    print(json.dumps(out, indent=2))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -284,6 +435,15 @@ def build_parser() -> argparse.ArgumentParser:
     add_mcmc_args(g)
     g.set_defaults(func=cmd_train_new)
 
+    g = sub.add_parser("train", help="Continue training a saved model.")
+    add_train_io_args(g)
+    g.add_argument("model_type", type=model_type)
+    g.add_argument("model_file")
+    g.add_argument("--perturb-params", type=float, default=None)
+    g.add_argument("--perturb-precisions", type=float, default=None)
+    add_mcmc_args(g)
+    g.set_defaults(func=cmd_train)
+
     g = sub.add_parser("predict", help="Predict phenotypes with saved models.")
     g.add_argument("bfile")
     g.add_argument("groups")
@@ -295,9 +455,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     g.set_defaults(func=cmd_predict)
 
-    g = sub.add_parser("gradients", help="Log-density gradients of saved models.")
+    g = sub.add_parser("branch-r2", help="Per-branch r2 for each saved model.")
+    add_bfile_phen_args(g)
+    g.set_defaults(func=cmd_branch_r2)
+
+    g = sub.add_parser("activations", help="Node activations of saved models.")
     g.add_argument("bfile")
-    g.add_argument("phen")
     g.add_argument("groups")
     g.add_argument("-m", "--model-path", default="./models")
     g.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -305,7 +468,23 @@ def build_parser() -> argparse.ArgumentParser:
         "--packed-genotypes", action="store_true",
         help="keep genotypes 2-bit packed on the device (else dense sample-major f32)",
     )
+    g.set_defaults(func=cmd_activations)
+
+    g = sub.add_parser("gradients", help="Log-density gradients of saved models.")
+    add_bfile_phen_args(g)
     g.set_defaults(func=cmd_gradients)
+
+    g = sub.add_parser("population-effect-sizes",
+                       help="Population mean marker effect sizes per saved model.")
+    add_bfile_phen_args(g)
+    g.set_defaults(func=cmd_population_effect_sizes)
+
+    g = sub.add_parser("analyze", help="Summarize a training run (stats, ESS, truth recovery).")
+    g.add_argument("rundir")
+    g.add_argument("--sim", default=None, help="sim outdir with model.params")
+    g.add_argument("--burn-in", type=int, default=None)
+    g.add_argument("--plots", default=None, help="write PNG plots here (not ported yet)")
+    g.set_defaults(func=cmd_analyze)
     return p
 
 

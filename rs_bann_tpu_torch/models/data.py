@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.packed_matmul import GBYTES, GROUP, pack_strided
+from ..ops.packed_matmul import GBYTES, GROUP, strided_from_bed
 from . import NetArch
 from .density import PackedX
 
@@ -24,19 +24,18 @@ class StackedData(NamedTuple):
 
 def pack_stacked(arch: NetArch, bed, grouping, y, device) -> StackedData:
     """Packed stacked data: X is a PackedX whose tensors have a leading branch
-    axis (bytes [G, m_pad, B], w_scale and shift [G, m_pad])."""
+    axis (bytes [G, m_pad, B], w_scale and shift [G, m_pad]). The bed's
+    bytes are moved into the group-strided layout as codes, undecoded
+    (``strided_from_bed``)."""
     n = bed.num_individuals
     G = arch.num_branches
     B = -(-n // GROUP) * GBYTES  # group-strided bytes per marker
     by = np.empty((G, arch.m_pad, B), np.uint8)
     scale = np.zeros((G, arch.m_pad), np.float32)
     shift = np.zeros((G, arch.m_pad), np.float32)
-    raw = np.zeros((arch.m_pad, n), np.float32)
     for g in range(G):
         ixs = np.asarray(grouping.group(g))
-        raw[:] = 0.0
-        raw[: arch.m[g]] = bed.get_cols(ixs)
-        by[g] = pack_strided(raw)
+        by[g] = strided_from_bed(bed.data[ixs], n, arch.m_pad)
         std = bed.col_stds[ixs]
         scale[g, : arch.m[g]] = np.where(std > 0, 1.0 / np.where(std > 0, std, 1.0), 0.0)
         shift[g, : arch.m[g]] = bed.col_means[ixs]

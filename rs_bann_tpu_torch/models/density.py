@@ -283,6 +283,37 @@ def predict(act_name: str, weights, biases, x) -> torch.Tensor:
     return forward(act_name, weights, biases, x)[1][-1][..., 0]
 
 
+def effect_sizes(act_name: str, weights, biases, x) -> torch.Tensor:
+    """d y_hat / d x on the standardized genotype scale, per individual:
+    [..., n, m_pad], with leading branch axes as ``forward``. The JAX
+    package's ``effect_sizes`` (density.py:607-640).
+
+    Dense sample-major x: autograd of the summed outputs with respect to x
+    (each individual's output depends on its own row only). A FeatX is
+    densified first. Packed x: the backward chain written out over the
+    forward's activations (K2's, or K9a's under silu), with no gradient
+    through the 2-bit decode: h' is rebuilt from the output on K2's fused
+    layer 0 and taken from the pre-activation elsewhere."""
+    if isinstance(x, FeatX):
+        x = x.xT.transpose(-1, -2)
+    if not isinstance(x, PackedX):
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            out = torch.sum(predict(act_name, tuple(w.detach() for w in weights),
+                                    tuple(b.detach() for b in biases), xx))
+            return torch.autograd.grad(out, xx)[0]
+    canon = _A.canonical(act_name)
+    pre, acts = forward(act_name, weights, biases, x)
+    # d y_hat / d (the summary activations) = w_out on every row
+    w_out = weights[-1][..., 0].unsqueeze(-2)
+    err = w_out.expand(acts[-1].shape[:-1] + w_out.shape[-1:])
+    for l in range(len(weights) - 2, -1, -1):
+        hp = (_A.prime_from_out(canon, acts[l]) if pre[l] is None
+              else _A.prime(canon, pre[l], acts[l]))
+        err = (hp * err) @ weights[l].transpose(-1, -2)
+    return err
+
+
 def chain_layer0(w0, b0, x: PackedX):
     """K2's (or K9a's) operands for C chains' layer 0 (w0 [C, B, m_pad, k0], b0
     [C, B, k0]) on one block: A [B, m_pad, C * k0] and off [B, C * k0],

@@ -132,7 +132,6 @@ _UNPORTED = {
     "trajectories": False,
     "num_grad": False,
     "num_grad_traj": False,
-    "effect_sizes": False,
 }
 
 
@@ -1062,25 +1061,36 @@ class Net:
     def predict(self, X, state: Optional[NetState] = None) -> torch.Tensor:
         """y_hat [n] = bias + sum of branch predictions."""
         state = state if state is not None else self.state
+        act = self.arch.activation
         n = X.n if isinstance(X, (D.PackedX, D.FeatX)) else X.shape[1]
-        G = self.arch.num_branches
-        chunk = self._chunk(n)
         out = state.output_bias + torch.zeros(n, device=state.output_bias.device)
-        for s in range(0, G, chunk):
-            e = min(G, s + chunk)
-            preds = D.predict(
-                self.arch.activation,
-                tuple(w[s:e] for w in state.params.weights),
-                tuple(b[s:e] for b in state.params.biases),
-                X[s:e],
-            )
-            out = out + torch.sum(preds, dim=0)
+        for part in self._branch_map(
+                lambda x, ws, bs: torch.sum(D.predict(act, ws, bs, x), dim=0), X, state):
+            out = out + part
         return out
 
-    def _chunk(self, n: int) -> int:
-        """Branches per chunk of a stacked pass over ``n`` individuals."""
-        width = max(self.arch.layer_out_pad(l) for l in range(self.arch.num_layers))
+    def _chunk(self, n: int, width: Optional[int] = None) -> int:
+        """Branches per chunk of a stacked pass over ``n`` individuals that
+        holds ``width`` f32 values per individual and branch (default: the
+        widest layer's), so each chunk holds at most PREDICT_CHUNK_BYTES."""
+        if width is None:
+            width = max(self.arch.layer_out_pad(l) for l in range(self.arch.num_layers))
         return max(1, int(self.PREDICT_CHUNK_BYTES // (4 * n * width)))
+
+    def _branch_map(self, f, X, state: NetState, width: Optional[int] = None) -> list:
+        """[f(x, weights, biases)] over chunks of branches (``_chunk``: at
+        most PREDICT_CHUNK_BYTES, 2 GB, of ``width`` f32 values per
+        individual and branch), each call on its chunk's genotypes and
+        parameters: one K2 (or K9a) launch per chunk on packed genotypes,
+        where the JAX package maps the branches one by one once their
+        stack passes its TPU budget (net.py:2299-2317). At chip_smoke's
+        shape (G = 100, n = 100,000, m_pad = 104) the effect-size stack is
+        4.16 GB; chunks of 48 branches keep each under 2 GB."""
+        n = X.n if isinstance(X, (D.PackedX, D.FeatX)) else X.shape[1]
+        G, chunk = self.arch.num_branches, self._chunk(n, width)
+        return [f(X[s:e], tuple(w[s:e] for w in state.params.weights),
+                  tuple(b[s:e] for b in state.params.biases))
+                for s, e in ((s, min(G, s + chunk)) for s in range(0, G, chunk))]
 
     def mse(self, X, y, state: Optional[NetState] = None) -> torch.Tensor:
         r = self.predict(X, state) - y
@@ -1112,6 +1122,81 @@ class Net:
             out.extend((tuple(g[j] for g in grads[:L]), tuple(g[j] for g in grads[L:]))
                        for j in range(e - s))
         return out
+
+    # ------------------------------------------------------------- analysis
+    def branch_r2s(self, X, y, state: Optional[NetState] = None) -> torch.Tensor:
+        """Per-branch 1 - rss / ssq(y) of each branch's prediction alone,
+        [G]."""
+        state = state if state is not None else self.state
+        act = self.arch.activation
+
+        def one(x, ws, bs):
+            r = D.predict(act, ws, bs, x) - y
+            return 1.0 - torch.sum(r * r, dim=-1) / torch.sum(y * y)
+
+        return torch.cat(self._branch_map(one, X, state))
+
+    def activations(self, X, state: Optional[NetState] = None) -> list:
+        """Per-branch per-layer activations: a list over branches of lists
+        over layers of numpy arrays [n, width_pad] (sample-major on every
+        layout), the last the output column [n, 1]."""
+        state = state if state is not None else self.state
+        act = self.arch.activation
+
+        def one(x, ws, bs):
+            acts = D.forward(act, ws, bs, x)[1]
+            if isinstance(x, D.FeatX):  # hidden activations are feature-major
+                acts = [a.transpose(-1, -2) for a in acts[:-1]] + acts[-1:]
+            acts = [a.cpu().numpy() for a in acts]
+            return [[a[j] for a in acts] for j in range(acts[0].shape[0])]
+
+        return [branch for part in self._branch_map(one, X, state) for branch in part]
+
+    def _effect_width(self) -> int:
+        return max(self.arch.m_pad, *(self.arch.layer_out_pad(l)
+                                      for l in range(self.arch.num_layers)))
+
+    def effect_sizes(self, X, state: Optional[NetState] = None) -> torch.Tensor:
+        """Input gradients d y_hat / d x of every branch, [G, n, m_pad]
+        (``D.effect_sizes``), chunk by chunk of branches."""
+        state = state if state is not None else self.state
+        act = self.arch.activation
+        return torch.cat(self._branch_map(lambda x, ws, bs: D.effect_sizes(act, ws, bs, x),
+                                          X, state, self._effect_width()))
+
+    def population_effect_sizes(self, X, state: Optional[NetState] = None) -> list:
+        """Each true marker's mean input gradient over the individuals, the
+        branches' markers one after another. Each chunk's gradients are
+        reduced as they come, so the [G, n, m_pad] stack never forms."""
+        state = state if state is not None else self.state
+        act = self.arch.activation
+        means = torch.cat(self._branch_map(
+            lambda x, ws, bs: torch.mean(D.effect_sizes(act, ws, bs, x), dim=-2),
+            X, state, self._effect_width())).cpu().numpy()
+        return [v for g in range(self.arch.num_branches)
+                for v in means[g, : self.arch.m[g]].tolist()]
+
+    def perturb(self, params_by: Optional[float], precisions_by: Optional[float]) -> "Net":
+        """Add ``params_by`` to every true (unpadded) weight and bias and
+        ``precisions_by`` to every precision, the error precision included
+        (the JAX package's ``Net.perturb``); None leaves them as they are."""
+        s = self.state
+        if params_by is not None:
+            mw = P.weight_masks(self.arch, self.device)
+            mb = P.bias_masks(self.arch, self.device)
+            s = s._replace(params=StackedParams(
+                tuple(w + params_by * m for w, m in zip(s.params.weights, mw)),
+                tuple(b + params_by * m for b, m in zip(s.params.biases, mb)),
+            ))
+        if precisions_by is not None:
+            q = s.precisions
+            s = s._replace(precisions=StackedPrecisions(
+                tuple(w + precisions_by for w in q.weights),
+                tuple(b + precisions_by for b in q.biases),
+                q.error + precisions_by,
+            ))
+        self.state = s
+        return self
 
     # --------------------------------------------------------------- io
     def save(self, path: str, state: Optional[NetState] = None):

@@ -77,6 +77,28 @@ def pack_strided(vals: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out.reshape(m, ngroups * GBYTES))
 
 
+def strided_from_bed(cols: np.ndarray, n: int, m_pad: int) -> np.ndarray:
+    """PLINK variant-major bytes [m, ceil(n/4)] (4 individuals a byte, in
+    order) -> the group-strided bytes [m_pad, ceil(n/512)*128] that
+    ``pack_strided`` writes for their decoded genotypes, moved as 2-bit
+    codes without decoding: a missing genotype (01, decoded as 0) becomes
+    11, rows past m hold genotype 0 (11) and individuals past n 01."""
+    m = cols.shape[0]
+    ngroups = -(-n // GROUP)
+    codes = np.full((m_pad, ngroups * GROUP), 0b01, np.uint8)
+    codes[m:, :n] = 0b11
+    c = np.stack([(cols >> (2 * q)) & 0b11 for q in range(4)], axis=-1).reshape(m, -1)[:, :n]
+    codes[:m, :n] = c | ((c & 1) << 1)
+    codes = codes.reshape(m_pad, ngroups, 4, GBYTES)
+    out = (
+        codes[:, :, 0, :]
+        | (codes[:, :, 1, :] << 2)
+        | (codes[:, :, 2, :] << 4)
+        | (codes[:, :, 3, :] << 6)
+    )
+    return np.ascontiguousarray(out.reshape(m_pad, ngroups * GBYTES))
+
+
 def unpack_strided(bytes_mb: torch.Tensor, n: int) -> torch.Tensor:
     """Group-strided packed [..., m, B] -> [..., m, n] f32 genotypes."""
     *lead, m, B = bytes_mb.shape

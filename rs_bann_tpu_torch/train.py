@@ -14,6 +14,12 @@ Counterpart of rs_bann_tpu/train.py, with the same artifacts:
                           0's posterior inclusion probability of every true
                           marker, per branch) and ``pi_markers`` (its
                           marker inclusion probability)
+  * ``effect_sizes/<ix>_<g>`` with cfg.effect_sizes, CSV of chain 0's input
+                          gradients on the training genotypes, n rows of
+                          branch g's m_g markers
+  * ``checkpoint.npz``    with a checkpoint interval, the whole sampler
+                          state (``save_checkpoint``), from which a run
+                          resumes bit for bit
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 
 from .models.data import StackedData
 from .models.init import DEFAULT_INIT_OUTPUT_LAYER_PRECISION
-from .models.net import Net
+from .models.net import Net, TrainCarry
 from .models.params import StackedPrecisions, map_state, state_to_numpy
 from .samplers.mcmc_cfg import MCMCCfg
 
@@ -166,6 +172,118 @@ def gd_warmup_cfg(cfg: MCMCCfg) -> MCMCCfg:
     )
 
 
+# marks the port's checkpoints; the JAX package's hold leaf-indexed arrays
+CHECKPOINT_FORMAT = "rs_bann_tpu_torch checkpoint 1"
+
+
+def _items(tree):
+    """(field name or index, value) of a NamedTuple or a tuple."""
+    return zip(tree._fields, tree) if hasattr(tree, "_fields") else enumerate(tree)
+
+
+def _named(tree, prefix: str = "") -> list:
+    """(name, tensor) of every tensor of a carry, named by its field path:
+    ``state.params.weights.0``, ``residual``, ... (``sweeps`` is kept
+    apart)."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    return [nt for k, v in _items(tree) if not isinstance(v, int)
+            for nt in _named(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+def _rebuild(tree, arrays, prefix: str = ""):
+    """``tree`` with every tensor replaced by ``arrays[name]`` on its device."""
+    if isinstance(tree, torch.Tensor):
+        return torch.as_tensor(arrays[prefix], device=tree.device)
+    vals = [v if isinstance(v, int) else _rebuild(v, arrays, f"{prefix}.{k}" if prefix else str(k))
+            for k, v in _items(tree)]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+def save_checkpoint(path, carry: TrainCarry, chain_ix: int, stats: TrainingStats,
+                    gen: torch.Generator) -> int:
+    """Write the whole sampler state to ``path`` (.npz): every carry tensor
+    under its field path, the sweep counter, the generator's state and its
+    device type, ``chain_ix`` and the statistics the JAX package keeps
+    (mse_train, mse_test, lpd), so a run resumes bit for bit. The file is
+    written beside ``path`` and then moved over it, so a run cut while
+    writing keeps its last checkpoint. The port's own format: its draws are
+    not the JAX package's. Returns the bytes written."""
+    arrays = {name: t.detach().cpu().numpy() for name, t in _named(carry)}
+    arrays["sweeps"] = np.asarray(carry.sweeps, np.int64)
+    arrays["generator_state"] = gen.get_state().numpy()
+    meta = {"format": CHECKPOINT_FORMAT, "chain_ix": chain_ix,
+            "generator_device": gen.device.type,
+            "stats": {"mse_train": stats.mse_train, "mse_test": stats.mse_test,
+                      "lpd": stats.lpd}}
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    tmp = f"{path}.partial"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+    return os.path.getsize(path)
+
+
+def read_checkpoint(path, carry_like: TrainCarry, device_type: str):
+    """The arrays and meta of the checkpoint at ``path``, after the checks a
+    resume makes before anything is written: it must be the port's (not
+    the JAX package's), its generator must be of ``device_type``, and its
+    arrays must have the names, shapes and dtypes of ``carry_like``'s.
+    Raises ValueError naming the mismatch."""
+    with np.load(path) as z:
+        files = set(z.files)
+        meta = json.loads(bytes(z["meta_json"]).decode()) if "meta_json" in files else {}
+        if "key_ixs" in meta or "leaf0" in files:
+            raise ValueError(f"{path} is a checkpoint of the JAX package (leaf-indexed "
+                             "arrays and a JAX PRNG key); the port resumes only its own "
+                             "checkpoints, whose draws differ")
+        if meta.get("format") != CHECKPOINT_FORMAT:
+            raise ValueError(f"{path} is not a checkpoint of this package")
+        if meta["generator_device"] != device_type:
+            raise ValueError(f"{path} holds a {meta['generator_device']} generator's state; "
+                             f"this run draws on {device_type}")
+        arrays = {k: z[k] for k in files}
+    want = {name: (tuple(t.shape), str(t.dtype).split(".")[-1])
+            for name, t in _named(carry_like)}
+    have = {name: (a.shape, a.dtype.name) for name, a in arrays.items()
+            if name not in ("meta_json", "sweeps", "generator_state")}
+    bad = [f"{k}: checkpoint {have.get(k, 'missing')}, run {want[k]}"
+           for k in want if have.get(k) != want[k]]
+    bad += [f"{k}: not in this run's carry" for k in have if k not in want]
+    if bad:
+        raise ValueError(f"{path} does not match this run's carry: " + "; ".join(bad))
+    return arrays, meta
+
+
+def load_checkpoint(path, carry_like: TrainCarry, gen: torch.Generator):
+    """Restore a checkpoint (``read_checkpoint``'s checks first): returns
+    (carry, chain_ix, stats dict) with ``gen`` set to the saved state."""
+    arrays, meta = read_checkpoint(path, carry_like, gen.device.type)
+    carry = _rebuild(carry_like, arrays)._replace(sweeps=int(arrays["sweeps"]))
+    gen.set_state(torch.from_numpy(arrays["generator_state"].copy()))
+    return carry, meta["chain_ix"], meta["stats"]
+
+
+def initial_carry(net: Net, train_data: StackedData, cfg: MCMCCfg,
+                  fixed_param_precision: Optional[float] = None) -> TrainCarry:
+    """The carry of cfg.num_chains chains that the trainer starts from:
+    ``net.state`` prepared for training (``prepare_state_for_training``)."""
+    prepare_state_for_training(net, fixed_param_precision)
+    return net.init_carry(train_data.X, train_data.y, chains=max(int(cfg.num_chains), 1),
+                          step_size_factor=cfg.hmc_step_size_factor,
+                          mass_adaptation=cfg.mass_adaptation, ss_markers=cfg.ss_markers,
+                          ssm_pi=cfg.ssm_pi)
+
+
+def _write_effect_sizes(net: Net, X, model_ix: int, outdir: str, state) -> None:
+    """effect_sizes/<model_ix>_<g> CSV: n rows of branch g's m_g input
+    gradients (the JAX package's ``_write_effect_sizes``)."""
+    es = net.effect_sizes(X, state).cpu().numpy()  # [G, n, m_pad]
+    for g in range(net.arch.num_branches):
+        np.savetxt(os.path.join(outdir, f"{model_ix}_{g}"), es[g][:, : net.arch.m[g]],
+                   delimiter=",", fmt="%.7g")
+
+
 def train(
     net: Net,
     train_data: StackedData,
@@ -174,6 +292,8 @@ def train(
     test_data: Optional[StackedData] = None,
     report_interval: int = 1,
     fixed_param_precision: Optional[float] = None,
+    checkpoint_interval: int = 0,
+    resume_from: Optional[str] = None,
 ):
     """Run cfg.num_chains MCMC chains, all drawing from ``gen`` (the
     sequential schedule runs them one after another in every sweep; the
@@ -184,22 +304,40 @@ def train(
     (the clock of the step-size and mass adaptation) then start again from
     0. With ``cfg.ss_markers`` the data's branch Grams (``X.form_gram()``)
     are formed once before the first sweep, their time logged apart.
+
+    ``checkpoint_interval`` > 0 writes <outpath>/checkpoint.npz
+    (``save_checkpoint``) after every that many sweeps and after the last.
+    ``resume_from`` restores one (refusing, before anything is written, a
+    checkpoint that does not fit: ``read_checkpoint``), skips the GD warm
+    start and the initial record, and runs the sweeps after the saved one
+    up to cfg.chain_length, as the JAX package does: the statistics' series
+    go on from the saved ones, and the acceptance counts, which the carry
+    holds, from the saved counts; the samples and the trace get the resumed
+    sweeps only. On one device the result is the uninterrupted run's bit
+    for bit.
     Returns (net, TrainingStats); ``net.state`` is left at chain 0's final
     iteration."""
+    C = max(int(cfg.num_chains), 1)
+    sweep = net.make_chain_sweep(cfg)
+    X, y = train_data.X, train_data.y
+    carry = initial_carry(net, train_data, cfg, fixed_param_precision)
+    stats = TrainingStats()
+    start_ix = 0
+    if resume_from is not None:
+        carry, start_ix, saved = load_checkpoint(resume_from, carry, gen)
+        stats.mse_train, stats.mse_test, stats.lpd = (
+            saved["mse_train"], saved["mse_test"], saved["lpd"])
+        log.info("resumed from %s at iteration %d", resume_from, start_ix)
     os.makedirs(cfg.outpath, exist_ok=True)
     save_models = cfg.chain_length > cfg.burn_in
     if save_models:
         os.makedirs(cfg.models_path(), exist_ok=True)
+        if cfg.effect_sizes:
+            os.makedirs(cfg.effect_sizes_path(), exist_ok=True)
     _write_hyperparams(net, cfg)
-    prepare_state_for_training(net, fixed_param_precision)
 
-    C = max(int(cfg.num_chains), 1)
-    sweep = net.make_chain_sweep(cfg)
-    X, y = train_data.X, train_data.y
-    carry = net.init_carry(X, y, chains=C, step_size_factor=cfg.hmc_step_size_factor,
-                           mass_adaptation=cfg.mass_adaptation, ss_markers=cfg.ss_markers,
-                           ssm_pi=cfg.ssm_pi)
-    if cfg.gd_warmup > 0 and not (cfg.gradient_descent or cfg.gradient_descent_joint):
+    if start_ix == 0 and cfg.gd_warmup > 0 and not (
+            cfg.gradient_descent or cfg.gradient_descent_joint):
         gd_sweep = net.make_chain_sweep(gd_warmup_cfg(cfg), chain_by_chain=True)
         t0 = time.time()
         for _ in range(cfg.gd_warmup):
@@ -211,8 +349,7 @@ def train(
         t0 = time.time()
         float(X.form_gram()[0, 0, 0])  # waits for the device
         log.info("branch Grams for the marker scan: %.3fs", time.time() - t0)
-    stats = TrainingStats()
-    trace_f = open(cfg.trace_path(), "w") if cfg.trace else None
+    trace_f = open(cfg.trace_path(), "a" if resume_from is not None else "w") if cfg.trace else None
 
     def chain(state, c):
         return map_state(lambda a: a[c], state)
@@ -239,21 +376,25 @@ def train(
             trace_f.write(json.dumps(_trace_line(net, chain(carry.state, 0))) + "\n")
 
     try:
-        record(
-            carry,
-            torch.sum(carry.residual**2, dim=-1) / y.shape[0],
-            carry.lpd_rss + carry.lpd_out + torch.sum(carry.lpd_local, dim=-1),
-        )
-        if cfg.burn_in == 0 and save_models:
-            save_sample(carry.state, 0)
+        if start_ix == 0:
+            record(
+                carry,
+                torch.sum(carry.residual**2, dim=-1) / y.shape[0],
+                carry.lpd_rss + carry.lpd_out + torch.sum(carry.lpd_local, dim=-1),
+            )
+            if cfg.burn_in == 0 and save_models:
+                save_sample(carry.state, 0)
 
         t0 = time.time()
-        for chain_ix in range(1, cfg.chain_length + 1):
+        for chain_ix in range(start_ix + 1, cfg.chain_length + 1):
             carry, st = sweep(carry, X, y, gen)
             record(carry, st.mse_train, st.lpd)
             stats.update_counts(st.counts.sum(dim=0).cpu().numpy())
             if chain_ix >= cfg.burn_in and save_models:
                 save_sample(carry.state, chain_ix)
+                if cfg.effect_sizes:
+                    _write_effect_sizes(net, X, chain_ix, cfg.effect_sizes_path(),
+                                        chain(carry.state, 0))
             if chain_ix % report_interval == 0:
                 msg = (
                     f"i: {chain_ix} \t | acc: {stats.acceptance_rate():.2f} \t | "
@@ -265,11 +406,18 @@ def train(
                     msg += f" \t | mse(tst): {stats.mse_test[-1]:.4f}"
                 msg += f" | lpd: {stats.lpd[-1]:.4f}"
                 log.info(msg)
+            if checkpoint_interval > 0 and (chain_ix % checkpoint_interval == 0
+                                            or chain_ix == cfg.chain_length):
+                tc = time.perf_counter()
+                size = save_checkpoint(os.path.join(cfg.outpath, "checkpoint.npz"), carry,
+                                       chain_ix, stats, gen)
+                log.info("checkpoint at iteration %d: %d bytes in %.3f ms", chain_ix, size,
+                         1e3 * (time.perf_counter() - tc))
         elapsed = time.time() - t0
     finally:
         if trace_f is not None:
             trace_f.close()
-    lf = cfg.chain_length * cfg.hmc_integration_length * net.arch.num_branches * C
+    lf = (cfg.chain_length - start_ix) * cfg.hmc_integration_length * net.arch.num_branches * C
     log.info("Completed training: %.2fs, %.0f leapfrog steps/s", elapsed, lf / max(elapsed, 1e-9))
     stats.to_file(cfg.outpath)
     if cfg.ss_markers:  # chain 0's, the true markers of each branch

@@ -8,7 +8,9 @@ dense ``predict``, and under the sequential schedule (one chain and two)
 and the unfolded hybrid one, and with dual averaging and mass adaptation on
 every schedule and layout. ``gradients --cpu`` writes the JAX package's JSON
 (rtol 1e-4 of each array's largest entry). Every option outside the ported
-slice exits non-zero with "not ported yet".
+slice exits non-zero with "not ported yet" (``--checkpoint-interval``,
+``--resume`` and ``--effect-sizes`` are ported: tests/test_torch_checkpoint.py
+and tests/test_torch_analysis.py).
 """
 
 import csv
@@ -169,13 +171,10 @@ UNPORTED = [
     ["--trajectories"],
     ["--num-grad"],
     ["--num-grad-traj"],
-    ["--effect-sizes"],
     ["--x-bf16", "--feat-major"],
     ["--x-bf16", "--feat-major", "--update-mode", "parallel"],
     ["--feat-major", "--update-mode", "parallel", "--bf16"],
     ["--bf16"],
-    ["--checkpoint-interval", "2"],
-    ["--resume", "checkpoint.npz"],
 ]
 
 
@@ -187,6 +186,16 @@ def test_unported_options_exit_nonzero(data, tmp_path, extra, capsys):
     assert e.value.code not in (0, None)
     assert "not ported yet" in str(e.value.code)
     assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
+def test_analyze_plots_exit_nonzero(data, tmp_path):
+    """analyze --plots waits for a later slice (the JAX package's plots need
+    matplotlib and do no device work): it exits "not ported yet" before
+    reading the run or writing the plot directory."""
+    with pytest.raises(SystemExit) as e:
+        run_cli("analyze", tmp_path / "run", "--plots", tmp_path / "plots")
+    assert "not ported yet: analyze --plots" in str(e.value.code)
+    assert not any(tmp_path.iterdir())
 
 
 # three warm sweeps of four: at the default factor 1 the toy run accepts

@@ -1,14 +1,18 @@
 """The port's own copies of the JAX package's plain-Python modules against the
 originals: ``MCMCCfg`` (fields and defaults), ``NetArch`` (padded sizes and
 counts), the groupings and .bed/.phen readers (the same files read the same),
-and the ``train-new`` / ``predict`` / ``gradients`` parsers (the same flags
-with the same defaults), so ``args.json`` and model files mean the same to both packages.
+the ``train-new`` / ``train`` / ``predict`` / ``gradients`` / ``branch-r2`` /
+``activations`` / ``population-effect-sizes`` / ``analyze`` parsers (the same
+flags with the same defaults), so ``args.json`` and model files mean the same
+to both packages, and ``analyze``'s loaders and summaries (rs_bann_tpu_torch/
+vis.py) on one trace.
 
 ``port`` builds the port's NetArch or MCMCCfg from a JAX one's fields; the
 other tests use it wherever they hand a JAX object's settings to the port.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -90,6 +94,34 @@ def _flags(parser, cmd):
             for a in sub.choices[cmd]._actions if a.dest != "help"}
 
 
-@pytest.mark.parametrize("cmd", ["train-new", "predict", "gradients"])
+@pytest.mark.parametrize("cmd", ["train-new", "train", "predict", "gradients", "branch-r2",
+                                 "activations", "population-effect-sizes", "analyze"])
 def test_cli_parsers_take_the_same_flags_with_the_same_defaults(cmd):
     assert _flags(TCLI.build_parser(), cmd) == _flags(JCLI.build_parser(), cmd)
+
+
+def test_vis_copies_give_the_same_summaries(tmp_path):
+    """The port's vis.py against the JAX package's on one run directory: the
+    statistics, the trace, its parameter matrices, their ESS, the true
+    params and the posterior mean against them."""
+    from rs_bann_tpu import vis as JV
+    from rs_bann_tpu_torch import vis as TV
+
+    rng = np.random.default_rng(6)
+    trace = [[{"params": {"weights": [rng.normal(size=6).tolist(), rng.normal(size=2).tolist()],
+                          "biases": [rng.normal(size=2).tolist()]}} for _ in range(2)]
+             for _ in range(40)]
+    (tmp_path / "trace").write_text("\n".join(json.dumps(t) for t in trace) + "\n\n")
+    (tmp_path / "training_stats").write_text(json.dumps({"mse_train": [1.0, 0.5]}))
+    (tmp_path / "model.params").write_text(json.dumps(trace[3]))
+    assert TV.load_training_stats(tmp_path) == JV.load_training_stats(tmp_path)
+    tr = TV.load_trace(tmp_path)
+    assert tr == JV.load_trace(tmp_path) and len(tr) == 40
+    assert TV.load_true_params(tmp_path) == JV.load_true_params(tmp_path)
+    for g in range(2):
+        m = TV.trace_param_matrix(tr, g)
+        np.testing.assert_array_equal(m, JV.trace_param_matrix(tr, g))
+        np.testing.assert_array_equal(TV.ess_per_param(m[5:]), JV.ess_per_param(m[5:]))
+    np.testing.assert_array_equal(TV.ess_per_param(np.ones((9, 2))), [9.0, 9.0])
+    assert TV.posterior_mean_vs_truth(tr, trace[3], 10) == JV.posterior_mean_vs_truth(
+        tr, trace[3], 10)

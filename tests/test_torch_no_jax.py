@@ -39,11 +39,13 @@ for new in ("rs_bann_tpu_torch.ops.leapfrog", "rs_bann_tpu_torch.samplers.hmc",
             "rs_bann_tpu_torch.models.net", "rs_bann_tpu_torch.samplers.mcmc_cfg",
             "rs_bann_tpu_torch.models.arch", "rs_bann_tpu_torch.group.grouping",
             "rs_bann_tpu_torch.io.bed", "rs_bann_tpu_torch.io.phen", "rs_bann_tpu_torch.io.dims",
-            "rs_bann_tpu_torch.cli.args"):
+            "rs_bann_tpu_torch.cli.args", "rs_bann_tpu_torch.train", "rs_bann_tpu_torch.vis"):
     assert new in names, new
 print(len(names))
 from rs_bann_tpu_torch.cli.main import main
-for argv in (["--help"], ["train-new", "--help"], ["predict", "--help"], ["gradients", "--help"]):
+for argv in [["--help"]] + [[cmd, "--help"] for cmd in (
+        "train-new", "train", "predict", "gradients", "branch-r2", "activations",
+        "population-effect-sizes", "analyze")]:
     try:
         main(argv)
     except SystemExit as e:

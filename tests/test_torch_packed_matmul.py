@@ -35,6 +35,21 @@ def test_pack_strided_matches_jax():
     np.testing.assert_array_equal(TPM.pack_strided(vals), JPM.pack_strided(vals))
 
 
+@pytest.mark.parametrize("n", [N, 1024, 5, 513])
+def test_strided_from_bed_is_pack_strided_of_the_decoded_genotypes(n):
+    """The bed's bytes moved into the group-strided layout as codes are
+    pack_strided's bytes of the decoded genotypes (missing ones, 01, read
+    as 0), padded rows included."""
+    from rs_bann_tpu_torch.io.bed import decode_bed_bytes
+
+    rng = np.random.default_rng(n)
+    m, m_pad = 13, 16
+    cols = rng.integers(0, 256, size=(m, (n + 3) // 4)).astype(np.uint8)  # every code, 01 too
+    raw = np.zeros((m_pad, n), np.float32)
+    raw[:m] = decode_bed_bytes(cols, n)
+    np.testing.assert_array_equal(TPM.strided_from_bed(cols, n, m_pad), TPM.pack_strided(raw))
+
+
 @pytest.mark.parametrize("n", [N, 1024, 5])
 def test_unpack_strided_matches_jax_and_inverts_pack(n):
     vals = _genotypes(1, n=n)
