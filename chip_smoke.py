@@ -147,9 +147,40 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      4 (each block's 4 x 8 (chain, branch) pairs in one batched lean body:
      exactly blocks x (L + 2) x 2 = 1,056 K8b launches and one forward-only
      K8 launch per block, no other kernel), predict on each chain's samples
+ 16. the packed kernels' deep design (csrc/packed_deep.cuh) at the slice's
+     shape, weights from init_net: K4 on one branch (n = 100,000) and K5
+     on one hybrid block (B = 10, C = 4, izmailov step sizes at factor
+     0.1, L = 1 and 30) at depth 2 tanh with h = s = 50 padded 56 (the JAX
+     CLI's default width rule), depth 1 identity at width 16 (the parent
+     checkout's code there is timed by scripts/bench_deep_torch.py) and depth 0
+     identity at width 56, each against its plain version (K4 also in
+     f64: no further from it than the f32 plain version, plus REL_TOL; K5
+     within REL_TOL at L = 1 and REL_TOL_TRAJ at L = 30), identical bits
+     on a repeat; at L = 30 each momentum's data-term share (the plain
+     version without the data term against with it), required at least 5x
+     the check's limit on the weight momenta; K4's launch alone (the C
+     entry) and wrapper, K5's call, the plain versions' times and the bound
+     of the function's work (the live widths, layer 0 in three bf16
+     products per f32 one at 989 TFLOP/s, the other products 3xTF32 at
+     494.7 TFLOP/s) with the work as implemented (the padded widths, the
+     hidden and output layers at the 67 TFLOP/s f32 peak) and the f32 bound
+     beside it; torch.matmul on the decoded f32 X at the block's layer 0
+     as the library yardstick
+ 16b. train-new ridge_ard tanh 2 at the default widths --update-mode hybrid
+     --num-chains 4 with the adaptation (2 sweeps at burn-in 1), each sweep
+     recorded: exactly 10 K5 and 20 value-pass K2 launches, no K4 launch
+     and no call of any kernel's plain version (train-new and predict);
+     the adaptation checks of 6b; predict on chain 0, card vs --cpu
+ 16c. the whole recipe (identity depth 0, --ss-markers, the adaptation) at
+     the default widths (layer 0 width 56: K5's deep design and the scan's
+     two columns a lane), as 16b: exactly 10 K9b, 10 marker_scan, 10 K5 and
+     30 K2 launches per sweep, no plain-version call; the scan and its u0
+     at the block against their plain versions (as 6c)
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
-for K9a and K9b, 14 for K8a, 15 for K8b, 6c for marker_scan; K5's, K2's,
+for K9a and K9b, 14 for K8a, 15 for K8b, 6c for marker_scan; K4's and K5's
+deep design's phase-16 numbers under ``deep``, K5's launches per sweep of
+16b and 16c beside them, the scan's at width 56 as ``w56``; K5's, K2's,
 K6's and K7's under the adaptation, phases 6b and 9b, as
 adapted_launches; K9b's as the scan's u0 in 6c as ssm_launches, beside
 u0's times and error), error against
@@ -163,7 +194,8 @@ beside it as grad_*), and the bound (the larger of its FLOPs over the
 written once, over 3.35 TB/s; for K2, K9a, K4, K3, K9b, K8a, K8b, K7 and K6 the work as
 implemented, three bf16 tensor-core products per f32 one at 989 TFLOP/s
 (K8a, K8b, K7 and K6: three tf32 ones at 494.7 TFLOP/s), with the f32 figure
-beside it as f32_bound_ms, K2's and K9a's value pass
+beside it as f32_bound_ms; the deep design's as in phase 16, its work as
+implemented as impl_bound_ms; K2's and K9a's value pass
 on the live width as value_pass_*, K3's and K9b's times at the warm
 start's block as warm_*); the last line is {"ok": true, "device":
 {...}}. The data lives in a temporary directory, removed at the end.
@@ -581,6 +613,367 @@ def ssm_sweep_launches(argv, arch, state, X, y, chains):
     carry, _ = sweep(carry, X, y, gen)
     (carry, _), n = device_launches(lambda: sweep(carry, X, y, gen))
     return n
+
+
+def deep_fmas(m, h, s, depth):
+    """FMAs of one branch MLP of ``depth`` hidden layers of width h and a
+    summary layer of width s, for one individual and one chain, forward and
+    backward: (layer 0's two products, every other layer's)."""
+    dims = [(h, h)] * (depth - 1) + ([(h, s)] if depth else [])
+    k0 = h if depth else s
+    return 2 * m * k0, sum(i * o for i, o in dims) * 3 + 2 * s
+
+
+def deep_bound(n_evals, live, padded, depth, nbytes_moved):
+    """The deep design's bounds for ``n_evals`` (individual, chain)
+    evaluations against the bytes it must move: (least ms, what bounds it)
+    of the function's work, the live widths ``live`` = (m, h, s) with every
+    product at the card's f32-exact tensor-core rate (layer 0 three bf16
+    products per f32 one at 989 TFLOP/s, the genotype the exact operand, as
+    K2 and K4 at depth 0; the hidden and output products 3xTF32 at 494.7
+    TFLOP/s, as K6-K8); the ms of the work as implemented (the padded
+    widths ``padded``, layer 0 as above, the hidden and output layers on
+    the f32 cores at 67 TFLOP/s); and the ms of every live FMA at the f32
+    peak."""
+    bytes_ms = 1e3 * nbytes_moved / PEAK_BYTES_S
+    l0, rest = deep_fmas(*live, depth)
+    ops_ms = 2e3 * n_evals * (3 * l0 / PEAK_BF16_FLOPS + 3 * rest / PEAK_TF32_FLOPS)
+    p0, prest = deep_fmas(*padded, depth)
+    impl_ms = max(2e3 * n_evals * (3 * p0 / PEAK_BF16_FLOPS + prest / PEAK_F32_FLOPS), bytes_ms)
+    f32_ms = max(2e3 * n_evals * (l0 + rest) / PEAK_F32_FLOPS, bytes_ms)
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")), impl_ms, f32_ms
+
+
+# the plain versions no path on the card may call (phases 16b, 16c count them)
+PLAIN_VERSIONS = (("leapfrog", "integrate_chains_packed_ref"), ("branch_mlp", "data_vg_packed_ref"),
+                  ("packed_matmul", "packed_linear_ref"), ("packed_matmul", "packed_matmul_ref"),
+                  ("packed_matmul", "packed_linear_vjp_ref"),
+                  ("packed_matmul", "packed_matmul_vjp_ref"), ("marker_scan", "marker_scan_ref"))
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count calls of the kernels' plain versions while the block runs:
+    yields a dict name -> calls."""
+    import importlib
+
+    calls, saved = {}, []
+    for mod_name, fn in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"rs_bann_tpu_torch.ops.{mod_name}")
+        orig = getattr(mod, fn)
+        calls[fn] = 0
+
+        def counted(*a, _orig=orig, _fn=fn, **kw):
+            calls[_fn] += 1
+            return _orig(*a, **kw)
+
+        saved.append((mod, fn, orig))
+        setattr(mod, fn, counted)
+    try:
+        yield calls
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
+
+
+def deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records):
+    """Phases 16-16c: the packed kernels' deep design (any depth, padded
+    widths up to 64) at the genome-scale shape and the JAX CLI's default
+    width rule (h = s = 50, padded 56), on the training genotypes
+    ``train_bed`` packed anew. Returns their numbers."""
+    import numpy as np
+    import torch
+
+    from rs_bann_tpu_torch.io import BedVM
+    from rs_bann_tpu_torch.io.genotypes import CompressedGenotypes
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models import params as P
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+    from rs_bann_tpu_torch.models.net import Net
+    from rs_bann_tpu_torch.ops import _build
+    from rs_bann_tpu_torch.ops import branch_mlp as BM
+    from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+    from rs_bann_tpu_torch.ops.activations import ACT_CODES
+    from rs_bann_tpu_torch.samplers import MCMCCfg
+    from rs_bann_tpu_torch.samplers import hmc as H
+
+    dev = torch.device("cuda")
+    lib = _build.lib()
+    out = {"k4": {}, "k5": {}}
+    rule = ("fraction_of_input", 0.5), ("fraction_of_hidden", 1.0)  # the JAX CLI's defaults
+    archs = {
+        "depth 2 tanh, h = s = 56": NetArch.from_width_rules([M] * G, 2, *rule, activation="tanh"),
+        "depth 1 identity, width 16": NetArch.from_width_rules([M] * G, 1, ("fixed", 16),
+                                                               ("fixed", 16),
+                                                               activation="identity"),
+        "depth 0 identity, width 56": NetArch.from_width_rules([M] * G, 0, *rule,
+                                                               activation="identity"),
+    }
+    build_log = _build.BUILD_DIR / "build.log"
+    if build_log.exists():
+        import re
+
+        text, cur = build_log.read_text(), None
+        for line in text.splitlines():
+            m_ = re.search(r"Compiling entry function '\S*(vg_deep_kernel|traj_deep_kernel)ILi(\d+)E",
+                           line)
+            if m_:
+                cur = f"{m_.group(1)}<KM={m_.group(2)}>"
+            elif "Compiling entry function" in line:
+                cur = None
+            elif cur and "Used" in line:
+                print(f"  ptxas {cur}: {line.split(':', 1)[1].strip()}")
+            elif cur and "spill" in line:
+                print(f"  ptxas {cur}: {line.strip()}")
+
+    # the packed bytes and standardization depend on m_pad alone (104 here)
+    X = CompressedGenotypes(train_bed, groups).to_packed(archs["depth 0 identity, width 56"],
+                                                         dev).X
+
+    # ---- phase 16: K4 on one branch and K5 on one hybrid block
+    print("phase 16: the deep design (csrc/packed_deep.cuh): K4 on one branch and K5 on one "
+          f"hybrid block (B {BLOCK}, C {CHAINS}) against their plain versions, n {N_TRAIN}")
+    g = G // 2
+    xg = X[g]
+    target = torch.randn(N_TRAIN, device=dev, generator=torch.Generator(dev).manual_seed(0))
+    ixs = torch.arange(BLOCK, device=dev) * (G // BLOCK)
+    x_b = X[ixs]
+    y_dev = torch.as_tensor(y_train, dtype=torch.float32, device=dev)
+    for label, arch in archs.items():
+        act, depth = arch.activation, arch.depth
+        h, s = arch.layer_out_pad(0), arch.s_pad
+        state, _ = init_net(arch, "ridge_ard", InitCfg(seed=0), device=dev)
+        ws, bs = tuple(w[g] for w in state.params.weights), tuple(b[g] for b in state.params.biases)
+        m_pad = ws[0].shape[0]
+        live = (arch.m[g], arch.h[g], arch.s[g])  # the function's widths (every branch alike)
+
+        def k4_plain(dtype=torch.float32):
+            sc, sh, t = (v.to(dtype) for v in (xg.w_scale, xg.shift, target))
+            w_, b_ = tuple(w.to(dtype) for w in ws), tuple(b.to(dtype) for b in bs)
+            wf = (sc[:, None] * w_[0],) + w_[1:]
+            bf = (b_[0] - sh @ wf[0],) + b_[1:]
+            y_ref, dws_ref, dbs_ref = BM.data_vg_packed_ref(act, xg.bytes, t, wf, bf, N_TRAIN)
+            dW0 = sc[:, None] * dws_ref[0] - (sh * sc)[:, None] * dbs_ref[0]
+            return (y_ref, torch.sum((y_ref - t) ** 2), dW0) + dws_ref[1:] + dbs_ref
+
+        def k4_call():
+            y, rss, dws, dbs = BM.data_vg_packed(act, xg, ws, bs, target)
+            return (y, rss) + dws + dbs
+
+        got, want, want64 = k4_call(), k4_plain(), k4_plain(torch.float64)
+        names = ["y_pred", "rss"] + [f"dW{l}" for l in range(len(ws))] + \
+            [f"db{l}" for l in range(len(bs))]
+        k4_err = max(check_close("data_vg_packed", f"K4 {label} {nm}", a, b)
+                     for nm, a, b in zip(names, got, want))
+        for nm, a, b, b64 in zip(names, got, want, want64):  # no further from f64 than f32's
+            plain64 = (b.double() - b64).abs().max().item() / max(1.0, b64.abs().max().item())
+            check_close("data_vg_packed f64", f"K4 {label} {nm} (f64; f32 plain {plain64:.2e})",
+                        a.double(), b64, tol=plain64 + REL_TOL)
+        identical(k4_call, got, f"K4 {label}")
+        plan = BM.branch_vg_packed_deep_plan(m_pad, xg.bytes.shape[1], N_TRAIN, h, s, depth)
+        q = BM.flat_params(ws, bs)
+        Pf = q.numel()
+        k4_out = torch.empty(N_TRAIN + Pf + 1, device=dev)
+        k4_part = torch.empty(plan["ctas"] * plan["row"], device=dev)
+        vp = ctypes.c_void_p
+        k4_args = (vp(xg.bytes.data_ptr()), vp(target.data_ptr()), vp(q.data_ptr()),
+                   vp(xg.w_scale.data_ptr()), vp(xg.shift.data_ptr()), vp(k4_out.data_ptr()),
+                   vp(k4_part.data_ptr()), k4_part.numel(), vp(k4_out.data_ptr() + 4 * N_TRAIN),
+                   m_pad, xg.bytes.shape[1], N_TRAIN, h, s, depth, ACT_CODES[act],
+                   vp(_build.stream_ptr(xg.bytes)))
+
+        def k4_launches_run(reps=10):
+            for _ in range(reps):
+                _build.check(lib.branch_vg_packed_deep_f32(*k4_args), "branch_vg_packed_deep_f32")
+
+        k4_ms = cuda_ms(k4_launches_run, runs=5) / 10
+        k4_wrapper_ms = cuda_ms(k4_call, runs=5)
+        k4_plain_ms = cuda_ms(k4_plain, runs=3)
+        k4_bound, k4_impl, k4_f32 = deep_bound(N_TRAIN, live, (m_pad, h, s), depth,
+                                               nbytes(xg.bytes, xg.w_scale, xg.shift, target, q)
+                                               + 4 * (N_TRAIN + Pf + 1))
+        print(f"  K4 {label}: launch alone {k4_ms:.4f} ms (the pass and its reduce), wrapper "
+              f"{k4_wrapper_ms:.4f} ms, plain {k4_plain_ms:.3f} ms; bound {k4_bound[0]:.4f} ms "
+              f"({k4_bound[1]}, live widths {live}; as implemented {k4_impl:.4f} ms, f32 "
+              f"{k4_f32:.4f} ms); plan {plan}; identical repeat")
+        out["k4"][label] = {"ms": k4_ms, "wrapper_ms": k4_wrapper_ms, "plain_ms": k4_plain_ms,
+                            "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+                            "impl_bound_ms": k4_impl, "f32_bound_ms": k4_f32,
+                            "max_abs_err": k4_err, "plan": plan}
+        del got, want, want64, k4_out, k4_part
+
+        # K5 on the block: izmailov step sizes (factor 0.1, where the data
+        # term moves every weight momentum well past the check's limit; at
+        # 0.01 the hidden layers' moved 2-3x it) from the initial
+        # precisions, the same start for every chain, targets around the
+        # phenotype; L = 1 and L
+        gen = torch.Generator(dev).manual_seed(5)
+
+        def chains_of(ts):
+            return tuple(t[ixs].unsqueeze(1).expand((BLOCK, CHAINS) + t.shape[1:]).contiguous()
+                         for t in ts)
+
+        bw, bb = chains_of(state.params.weights), chains_of(state.params.biases)
+        mws, mbs = chains_of(P.weight_masks(arch, dev)), chains_of(P.bias_masks(arch, dev))
+        wps, bps = chains_of(state.precisions.weights), chains_of(state.precisions.biases)
+        eps_w, eps_b = H.step_sizes(None, "ridge_ard", MCMCCfg(hmc_integration_length=L,
+                                                               hmc_step_size_factor=0.1),
+                                    bw, bb, wps, bps, None)
+        p_w = tuple(torch.randn(w.shape, device=dev, generator=gen) * mk for w, mk in zip(bw, mws))
+        p_b = tuple(torch.randn(b.shape, device=dev, generator=gen) * mk for b, mk in zip(bb, mbs))
+        targets = y_dev + 0.1 * torch.randn((BLOCK, CHAINS, N_TRAIN), device=dev, generator=gen)
+        err = torch.full((BLOCK, CHAINS), 1.0 / y_dev.var().item(), device=dev)
+        lam_w = tuple(lam.expand_as(w) for lam, w in zip(wps, bw))
+        lam_b = tuple(lam.expand_as(b) for lam, b in zip(bps, bb))
+        plan5 = LF.traj_packed_plan(m_pad, h, s, h, depth, BLOCK, CHAINS, x_b.bytes.shape[-1],
+                                    N_TRAIN)
+        k5_err = 0.0
+        for steps, tol in ((1, REL_TOL), (L, REL_TOL_TRAJ)):
+            args = (x_b.bytes, x_b.w_scale, x_b.shift, targets, err, bw, bb, p_w, p_b,
+                    eps_w, eps_b, lam_w, lam_b, steps, N_TRAIN)
+            got = LF.integrate_chains_packed(act, *args)
+            ref = LF.integrate_chains_packed_ref(act, *args)
+            for k, (a, b) in enumerate(zip([t for o in got for t in o], [t for r in ref for t in r])):
+                k5_err = max(k5_err, check_close("traj_packed", f"K5 {label}, L={steps}, out {k}",
+                                                 a, b, tol))
+            identical(lambda: tuple(t for o in LF.integrate_chains_packed(act, *args) for t in o),
+                      tuple(t for o in got for t in o), f"K5 {label}, L={steps}")
+            if steps == L:
+                # the data term's share of each momentum at L, over its
+                # check's limit: the plain version against itself without
+                # the data term (err 0). A kernel whose data gradient were
+                # wrong by more than limit / share would fail the check
+                nodata = LF.integrate_chains_packed_ref(act, *args[:4], torch.zeros_like(err),
+                                                        *args[5:])
+                data_effect = {}
+                for kind, refs, nods, p0s in (("pw", ref[2], nodata[2], p_w),
+                                              ("pb", ref[3], nodata[3], p_b)):
+                    for l, (a, b, p0) in enumerate(zip(refs, nods, p0s)):
+                        limit = tol * max(1.0, a.abs().max().item())
+                        data_effect[f"{kind}{l}"] = {
+                            "moved": (a - p0).abs().max().item(),
+                            "data": (a - b).abs().max().item(), "limit": limit}
+                print(f"  K5 {label}, L={L}: max |p_L - p_0|, the data term's share and the "
+                      f"check's limit per momentum: " + ", ".join(
+                          f"{k} {v['moved']:.3e}/{v['data']:.3e}/{v['limit']:.1e}"
+                          for k, v in data_effect.items()))
+                weak = {k: v for k, v in data_effect.items()
+                        if k.startswith("pw") and v["data"] < 5 * v["limit"]}
+                if weak:
+                    raise AssertionError(f"K5 {label}: the data term moves these weight momenta "
+                                         f"less than 5x the check's limit, so the check cannot "
+                                         f"see a wrong gradient: {weak}")
+                del nodata
+            del ref
+        moved = (got[0][0] - bw[0]).abs().max().item()
+        k5_ms = cuda_ms(lambda: LF.integrate_chains_packed(act, *args), runs=3)
+        k5_plain_ms = cuda_ms(lambda: LF.integrate_chains_packed_ref(act, *args), runs=1)
+        k5_bound, k5_impl, k5_f32 = deep_bound(BLOCK * CHAINS * N_TRAIN * (L + 1), live,
+                                               (m_pad, h, s), depth,
+                                               nbytes(x_b.bytes, x_b.w_scale, x_b.shift, targets,
+                                                      err) + 8 * nbytes(*bw, *bb))
+        print(f"  K5 {label}: L={L} {k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms, bound "
+              f"{k5_bound[0]:.3f} ms ({k5_bound[1]}, live widths {live}; as implemented "
+              f"{k5_impl:.3f} ms, f32 {k5_f32:.3f} ms); plan {plan5}; identical repeats; "
+              f"max |W0_L - W0_0| {moved:.3e}")
+        out["k5"][label] = {"ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound[0],
+                            "bound_by": k5_bound[1], "impl_bound_ms": k5_impl,
+                            "f32_bound_ms": k5_f32, "max_abs_err": k5_err, "plan": plan5,
+                            "data_effect": data_effect}
+        del got, targets, bw, bb, p_w, p_b, eps_w, eps_b
+
+    # the library yardstick: torch.matmul on the decoded f32 X at the
+    # block's layer 0 (K5's forward product for the C chains side by side)
+    xs = PM.unpack_strided(x_b.bytes, N_TRAIN).float().transpose(1, 2)  # [B, n, m]
+    w_lib = torch.randn((BLOCK, xs.shape[-1], CHAINS * 56), device=dev)
+    out["library_ms"] = cuda_ms(lambda: torch.matmul(xs, w_lib))
+    print(f"  torch.matmul on the decoded f32 X at the block's layer 0 ([{BLOCK}, {N_TRAIN}, "
+          f"{xs.shape[-1]}] x [{xs.shape[-1]}, {CHAINS} x 56]): {out['library_ms']:.3f} ms")
+    del xs, w_lib
+
+    # ---- phase 16b: the slice through the CLI, depth 2 tanh at the default widths
+    print(f"phase 16b: train-new ridge_ard tanh 2 at the default widths --update-mode hybrid "
+          f"--num-chains {CHAINS} {' '.join(ADAPT_ARGS)} -> predict")
+    runs = os.path.join(work, "runs_deep")
+    base = ["train-new", os.path.join(work, "train"), os.path.join(work, "train.phen"),
+            os.path.join(work, "train.groups"), "ridge_ard", "tanh", "2", CHAIN, L,
+            "--packed-genotypes", "--burn-in", "1", "--bfile-test", os.path.join(work, "test"),
+            "--p-test", os.path.join(work, "test.phen"), "-o", runs, "--update-mode", "hybrid",
+            "--num-chains", CHAINS] + ADAPT_ARGS
+    kernels = {"integrate_chains_packed": LF.integrate_chains_packed,
+               "packed_linear": PM.packed_linear, "data_vg_packed": BM.data_vg_packed}
+    test_gen = CompressedGenotypes(BedVM.from_file(os.path.join(work, "test")), groups)
+
+    def cli_phase(argv, kernels, per_sweep):
+        for counted in kernels.values():
+            counted.launches = 0
+        t0 = time.perf_counter()
+        with plain_calls() as calls:
+            run, recs = recorded_run(cli, argv, kernels)
+            train_s = time.perf_counter() - t0
+            before = {k: w.launches for k, w in kernels.items()}
+            rows = run_cli(cli, ["predict", os.path.join(work, "test"),
+                                 os.path.join(work, "train.groups"), "-m",
+                                 os.path.join(run, "models", "chain0"), "--packed-genotypes"])
+            torch.cuda.synchronize()
+        predict_launches = {k: w.launches - before[k] for k, w in kernels.items()}
+        print(f"  kernel launches per sweep: {[r['launches'] for r in recs]}; predict: "
+              f"{predict_launches}; plain-version calls: {calls}")
+        if any(calls.values()):
+            raise AssertionError(f"a plain version ran on the card: {calls}")
+        stats = json.load(open(os.path.join(run, "training_stats")))
+        factors = check_adapted(recs, stats, CHAINS, per_sweep)
+        series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+        if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+            raise AssertionError(f"non-finite or missing training statistics: {stats}")
+        card = np.asarray(list(csv.reader(io.StringIO(rows))), np.float64)
+        net = Net.load(os.path.join(run, "models", "chain0", f"{CHAIN}.npz"), "cpu")
+        if (net.arch.depth, net.arch.layer_out_pad(0), net.arch.s_pad) != (int(argv[6]), 56, 56):
+            raise AssertionError(f"the run's branches: depth {net.arch.depth}, widths "
+                                 f"{net.arch.layer_out_pad(0)}/{net.arch.s_pad}")
+        cpu_pred = net.predict(test_gen.to_packed(net.arch, "cpu").X).numpy()
+        perr = np.abs(cpu_pred - card[-1]).max()
+        if card.shape != (CHAIN, N_TEST) or not perr <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
+            raise AssertionError(f"the card's predictions {card.shape} disagree with the CPU's "
+                                 f"by {perr}")
+        done = [r for r in log_records if str(r.msg).startswith("Completed training")]
+        sweep_ms = 1000.0 * done[-1].args[0] / CHAIN
+        r2 = 1.0 - np.mean((y_test - card.mean(axis=0)) ** 2) / np.var(y_test)
+        print(f"  {sweep_ms:.1f} ms per sweep of {CHAINS} chains; train-new {train_s:.1f} s in "
+              f"all; acceptance {stats['num_accepted'] / stats['num_samples']:.3f}; mse train "
+              f"{stats['mse_train'][-1]:.4f}, test {stats['mse_test'][-1]:.4f}, test r2 of chain "
+              f"0's posterior mean {r2:.4f}; predict card vs CPU {perr:.3e}")
+        return run, recs, {"sweep_ms": sweep_ms, "train_s": train_s, "factors": factors,
+                           "launches_per_sweep": recs[-1]["launches"],
+                           "predict_launches": predict_launches,
+                           "acceptance": stats["num_accepted"] / stats["num_samples"]}
+
+    blocks = G // BLOCK
+    _, recs, out["16b"] = cli_phase(base, kernels, {
+        "integrate_chains_packed": blocks, "packed_linear": 2 * blocks, "data_vg_packed": 0})
+    del recs
+
+    # ---- phase 16c: the whole recipe at the default widths
+    print(f"phase 16c: train-new ridge_ard identity 0 at the default widths (layer 0 width 56) "
+          f"with {' '.join(ADAPT_ARGS + SSM_ARGS)} -> predict")
+    argv = list(base)
+    argv[5:7] = ["identity", "0"]
+    kernels = dict(kernels, packed_matmul_vjp=PM.packed_matmul_vjp, marker_scan=MS.marker_scan)
+    _, recs, out["16c"] = cli_phase(argv + SSM_ARGS, kernels, {
+        "integrate_chains_packed": blocks, "packed_linear": 3 * blocks, "data_vg_packed": 0,
+        "packed_matmul_vjp": blocks, "marker_scan": blocks})
+    carry = recs[-1]["carry"]
+    arch0 = archs["depth 0 identity, width 56"]
+    X.form_gram()
+    out["scan"] = scan_block_check(X, carry, arch0, ixs)
+    print(f"  marker_scan at the block ({out['scan']['instances']} instances, width 56): kernel "
+          f"{out['scan']['ms']:.4f} ms ({out['scan']['us_per_marker']:.3f} us per dependent "
+          f"marker step), plain {out['scan']['plain_ms']:.3f} ms; identical repeats")
+    del recs, carry
+    return out
 
 
 # phase 6d: burn-in 2, so sweeps 1 and 2 adapt (the checkpoint falls
@@ -1144,8 +1537,9 @@ def main():
         k5_km = _build.lib().traj_packed_km(k0, k0, k_live, 0)
         print(f"  K5: width {arch.s[0]} stored at {k0}, live width {k_live}, register width "
               f"{k5_km}")
-        k5_cc, k5_per_sm, k5_smem = LF.traj_packed_occupancy(x_b.bytes.shape[1], k0, k0, k_live, 0,
-                                                             CHAINS)
+        k5_plan = LF.traj_packed_plan(x_b.bytes.shape[1], k0, k0, k_live, 0, BLOCK, CHAINS,
+                                      x_b.bytes.shape[-1], N_TRAIN)
+        k5_cc, k5_per_sm, k5_smem = k5_plan["cc"], k5_plan["ctas_per_sm"], k5_plan["smem"]
         print(f"  K5: {k5_cc} chains per chunk, {k5_per_sm} resident blocks per SM, {k5_smem} "
               f"bytes of shared memory per block")
         if build_log.exists():
@@ -2187,6 +2581,11 @@ def main():
             if not err <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
                 raise AssertionError("the card's predictions disagree with the CPU's")
             k8_runs[phase] = {"launches": launches, "sweep_ms": sweep_ms}
+
+        # ---- phases 16-16c: depth 2 and the default width rule
+        t0 = time.perf_counter()
+        deep = deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records)
+        print(f"  phases 16-16c: {time.perf_counter() - t0:.1f} s in all")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2207,14 +2606,18 @@ def main():
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
          "wrapper_ms": k4_wrapper_ms, "f32_bound_ms": k4_f32_bound[0],
          "ctas": k4_plan["ctas"], "ctas_per_sm": k4_plan["ctas_per_sm"],
-         "max_rel_err_f64": REL_ERR["data_vg_packed f64"]},
+         "max_rel_err_f64": REL_ERR["data_vg_packed f64"],
+         "deep": deep["k4"]},
         {"name": "traj_packed", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/traj_packed.cu",
          "replaces": "rs_bann_tpu/ops/leapfrog.py:470",
          "launches": k5_launches, "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain_ms,
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": None,
          "k_live": k_live, "km": k5_km, "cc": k5_cc, "blocks_per_sm": k5_per_sm,
-         "adapted_launches": adapted_runs["packed"]["k5_launches"]},
+         "adapted_launches": adapted_runs["packed"]["k5_launches"],
+         "deep": deep["k5"], "deep_library_ms": deep["library_ms"],
+         "deep_launches_per_sweep": {"16b": deep["16b"]["launches_per_sweep"],
+                                     "16c": deep["16c"]["launches_per_sweep"]}},
         # the flagship launches K7's forward-only instantiation (the value
         # passes; its code csrc/branch_fwd_chains.cu and csrc/vg_chains.cuh);
         # the value-and-gradient one is timed too (grad_*)
@@ -2309,13 +2712,17 @@ def main():
          "launches": scan_launches, "max_abs_err": scan["max_abs_err"], "ms": scan["ms"],
          "plain_ms": scan["plain_ms"], "bound_ms": scan["bound"][0],
          "bound_by": scan["bound"][1], "library_ms": None,
-         "us_per_marker": scan["us_per_marker"], "near_ties": scan["near_ties"]},
+         "us_per_marker": scan["us_per_marker"], "near_ties": scan["near_ties"],
+         "w56": {k: deep["scan"][k] for k in ("ms", "plain_ms", "max_abs_err", "us_per_marker",
+                                              "near_ties")}},
     ]
     for k in kernels:  # the scale-free error that the checks gate on
         k["max_rel_err"] = REL_ERR[k["name"]]
     print("adaptation (phases 6b, 9b): " + json.dumps(adapted_runs))
     print("ss_markers (phase 6c): " + json.dumps(ssm_run))
     print("resume and analysis (phase 6d): " + json.dumps(resume_run))
+    print("depth 2 and the default widths (phases 16b, 16c): "
+          + json.dumps({k: deep[k] for k in ("16b", "16c")}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

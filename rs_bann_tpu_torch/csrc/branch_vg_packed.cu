@@ -7,23 +7,21 @@
 //     y_pred[i]            = f(x_i; W, b)          for every individual i < n
 //     d(rss/2)/d(W_l, b_l)  summed over i < n       for every layer l
 //
-// with rss = sum_i (y_pred[i] - target[i])^2. Depth 0 (layers W0 [m, k0],
-// w_out [k0]) and depth 1 (W0 [m, k0], W1 [k0, s], w_out [s]), all five
-// activations. Two kernels per call: the pass, which leaves one row of
-// partial sums per CTA, and a reduce that adds the rows in a fixed order. No
-// float atomics: the same inputs give the same bits on every run, and the
-// MCMC chain with them. err is masked to i < n (individuals past n decode to
-// 0 but still pass the bias through the net).
+// with rss = sum_i (y_pred[i] - target[i])^2, at any depth (W0 [m, k0], the
+// hidden layers, w_out [s]), all five activations. Two kernels per call: the
+// pass, which leaves one row of partial sums per CTA, and a reduce that adds
+// the rows in a fixed order. No float atomics: the same inputs give the same
+// bits on every run, and the MCMC chain with them. err is masked to i < n
+// (individuals past n decode to 0 but still pass the bias through the net).
 //
-// Depth 0 (vg_packed0_kernel; the main path's branch is m = 104, k0 = 16,
-// n = 100,000) runs both products on bf16 tensor cores, as K2 does:
+// Depth 0 at padded widths up to 32 (vg_packed0_kernel; the main path's
+// branch is m = 104, k0 = 16, n = 100,000) runs both products on bf16 tensor
+// cores, as K2 does:
 //  * What bounds it on the H100: 2 x 2 x m x n x k0 FLOPs (the forward
 //    Z = X^T W0' and the gradient dW0' = X dz0; 0.67 GFLOP at the main
 //    path's shape, 10 us on the f32 cores at 67 TFLOP/s, 2.0 us as three
 //    bf16 products each at 989 TFLOP/s) against 3.4 MB of bytes, target
-//    and y_pred (1.0 us at 3.35 TB/s). The f32 design that depth 1 keeps
-//    issues serial FMA chains from one CTA of 4 warps per 512 individuals
-//    (196 at n = 100,000) and runs its dW0 pass on m of its 128 threads.
+//    and y_pred (1.0 us at 3.35 TB/s).
 //  * Exact f32 products (packed_mma.cuh): the genotype is the exact bf16
 //    operand of both products and the other factor is split into three
 //    bf16 parts, three mma.sync.m16n8k16 per fragment, whose results join
@@ -61,19 +59,22 @@
 //  * Any m that the admission rule (branch_vg_packed_smem) takes: a single
 //    byte buffer where two do not fit in 227 KB.
 //
-// Depth 1 (vg_packed_kernel, the first f32 design, on pre-folded weights:
-// the wrapper folds and unfolds): grid (n / 512 groups, G), 128 threads, thread
-// j owning byte column j of the group (four individuals, one per part q; K1
-// decodes them); the block's byte tile [m, 128] staged once in shared
-// memory (row stride 132 bytes) and read twice, forward and dW0 pass; the
-// per-individual layer-0 activations and cotangents in shared memory (row
-// stride KM + 4 floats); f32 FMAs throughout, bound by their issue.
+// Every other shape (depth >= 1, or depth 0 at a padded width of 33-64:
+// vg_deep_kernel + reduce_deep_kernel, entry branch_vg_packed_deep_f32) runs
+// the device code K5 shares, csrc/packed_deep.cuh, which says what bounds it
+// and how it is built: one wave of CTAs of 8 warps, each with an equal run
+// of the tiles of 16 byte columns (64 individuals), the bytes by cp.async
+// double buffered, one chain's weights staged once with the fold inside
+// (W0' = w_scale * W0, off = b0 - shift . W0' in f64), the CTA's sums and
+// err^2 in one partial row; the reduce adds the rows in order and unfolds
+// dW0. A call is its two launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "packed_decode.cuh"
+#include "packed_deep.cuh"
 #include "packed_mma.cuh"
 
 namespace {
@@ -84,214 +85,14 @@ constexpr int kThreads = kGBytes;  // one thread per byte column of a group
 constexpr int kRow = kGBytes + 4;  // shared-memory row stride of the byte tile
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
 
-__host__ __device__ constexpr int row_stride(int km) { return km + 4; }
-
-size_t smem_bytes(int m, int km, bool deep) {
-    const size_t floats = static_cast<size_t>(m) * km + km + (deep ? km * km + km : 0) + km +
-                          4 * km + static_cast<size_t>(kGroup) * row_stride(km) * (deep ? 3 : 1);
+// The depth-0 admission rule at widths up to 32 (that of the first f32
+// design's layout, kept: the tensor-core kernel needs less for every m it
+// admits).
+size_t smem_bytes0(int m, int km) {
+    const size_t floats = static_cast<size_t>(m) * km + km + km + 4 * km +
+                          static_cast<size_t>(kGroup) * (km + 4);
     return floats * sizeof(float) + static_cast<size_t>(m) * kRow;
 }
-
-template <int KM>
-__global__ void __launch_bounds__(kThreads)
-vg_packed_kernel(const uint8_t* __restrict__ bytes, const float* __restrict__ target,
-                 const float* __restrict__ w0, const float* __restrict__ b0,
-                 const float* __restrict__ w1, const float* __restrict__ b1,
-                 const float* __restrict__ wout, float* __restrict__ y_pred,
-                 float* __restrict__ partial, int m, int B, int n, int k0, int s, int P,
-                 int act) {
-    constexpr int RS = row_stride(KM);
-    extern __shared__ float4 smem4[];
-    float* w0_s = reinterpret_cast<float*>(smem4);  // [m][KM]
-    float* b0_s = w0_s + m * KM;                    // [KM]
-    float* w1_s = b0_s + KM;                        // [KM][KM]
-    float* b1_s = w1_s + KM * KM;                   // [KM]
-    float* wo_s = b1_s + KM;                        // [KM]
-    float* red_s = wo_s + KM;                       // [4][KM]
-    float* dz0_s = red_s + 4 * KM;                  // [512][RS]
-    float* a0_s = dz0_s + kGroup * RS;              // [512][RS]
-    float* dz1_s = a0_s + kGroup * RS;              // [512][RS]
-    uint8_t* by_s = reinterpret_cast<uint8_t*>(dz1_s + kGroup * RS);  // [m][kRow]
-
-    const int grp = blockIdx.x;
-    const int g = blockIdx.y;
-    const int tid = threadIdx.x;
-
-    // ---- stage weights (zero-padded to KM) and the byte tile
-    const float* w0_g = w0 + static_cast<size_t>(g) * m * k0;
-    for (int idx = tid; idx < m * KM; idx += kThreads) {
-        const int mm = idx / KM, kk = idx % KM;
-        w0_s[idx] = kk < k0 ? w0_g[mm * k0 + kk] : 0.f;
-    }
-    if (tid < KM) {
-        b0_s[tid] = tid < k0 ? b0[g * k0 + tid] : 0.f;
-        wo_s[tid] = tid < s ? wout[g * s + tid] : 0.f;
-        b1_s[tid] = tid < s ? b1[g * s + tid] : 0.f;
-    }
-    for (int idx = tid; idx < KM * KM; idx += kThreads) {
-        const int kk = idx / KM, ss = idx % KM;
-        w1_s[idx] = (kk < k0 && ss < s) ? w1[(static_cast<size_t>(g) * k0 + kk) * s + ss] : 0.f;
-    }
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(
-        bytes + static_cast<size_t>(g) * m * B + static_cast<size_t>(grp) * kGBytes);
-    for (int idx = tid; idx < m * (kGBytes / 4); idx += kThreads) {
-        const int mm = idx / (kGBytes / 4), wd = idx % (kGBytes / 4);
-        reinterpret_cast<uint32_t*>(by_s + mm * kRow)[wd] = src[static_cast<size_t>(mm) * (B / 4) + wd];
-    }
-    __syncthreads();
-
-    // ---- layer 0 forward for the thread's four individuals
-    float acc[4][KM];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int k = 0; k < KM; ++k) acc[q][k] = 0.f;
-    for (int mm = 0; mm < m; ++mm) {
-        const uint32_t byte = by_s[mm * kRow + tid];
-        float x[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) x[q] = decode_part(byte, q);
-        const float4* w4 = reinterpret_cast<const float4*>(w0_s + mm * KM);
-#pragma unroll
-        for (int v = 0; v < KM / 4; ++v) {
-            const float4 w = w4[v];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                acc[q][4 * v + 0] = fmaf(x[q], w.x, acc[q][4 * v + 0]);
-                acc[q][4 * v + 1] = fmaf(x[q], w.y, acc[q][4 * v + 1]);
-                acc[q][4 * v + 2] = fmaf(x[q], w.z, acc[q][4 * v + 2]);
-                acc[q][4 * v + 3] = fmaf(x[q], w.w, acc[q][4 * v + 3]);
-            }
-        }
-    }
-
-    // ---- rest of the forward, error and backward, one individual at a time
-    float dwo[KM], db0p[KM], db1p[KM];
-#pragma unroll
-    for (int k = 0; k < KM; ++k) dwo[k] = db0p[k] = db1p[k] = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const int row = q * kGBytes + tid;
-        const int i = grp * kGroup + row;
-        const bool valid = i < n;
-        float z0[KM], a0[KM], dz0[KM];
-#pragma unroll
-        for (int k = 0; k < KM; ++k) {
-            z0[k] = acc[q][k] + b0_s[k];
-            a0[k] = act_apply(act, z0[k]);
-        }
-        float pred = 0.f;
-        float z1[KM], a1[KM], dz1[KM];
-#pragma unroll
-        for (int ss = 0; ss < KM; ++ss) {
-            float z = b1_s[ss];
-#pragma unroll
-            for (int k = 0; k < KM; ++k) z = fmaf(a0[k], w1_s[k * KM + ss], z);
-            z1[ss] = z;
-            a1[ss] = act_apply(act, z);
-            pred = fmaf(wo_s[ss], a1[ss], pred);
-        }
-        if (valid) y_pred[static_cast<size_t>(g) * n + i] = pred;
-        const float err = valid ? pred - target[static_cast<size_t>(g) * n + i] : 0.f;
-#pragma unroll
-        for (int ss = 0; ss < KM; ++ss) {
-            dwo[ss] = fmaf(a1[ss], err, dwo[ss]);
-            dz1[ss] = wo_s[ss] * err * act_prime(act, z1[ss], a1[ss]);
-            db1p[ss] += dz1[ss];
-        }
-#pragma unroll
-        for (int k = 0; k < KM; ++k) {
-            float da = 0.f;
-#pragma unroll
-            for (int ss = 0; ss < KM; ++ss) da = fmaf(w1_s[k * KM + ss], dz1[ss], da);
-            dz0[k] = da * act_prime(act, z0[k], a0[k]);
-            db0p[k] += dz0[k];
-        }
-        store_row<KM>(a0_s + row * RS, a0);
-        store_row<KM>(dz1_s + row * RS, dz1);
-        store_row<KM>(dz0_s + row * RS, dz0);
-    }
-    __syncthreads();
-
-    float* part = partial + (static_cast<size_t>(g) * gridDim.x + grp) * P;
-    const int off_db0 = m * k0;
-    const int off_w1 = off_db0 + k0;
-    const int off_b1 = off_w1 + k0 * s;
-    const int off_wo = off_b1 + s;
-
-    // ---- small sums over the block
-    block_sum<KM>(db0p, red_s, part + off_db0, k0);
-    block_sum<KM>(dwo, red_s, part + off_wo, s);
-    block_sum<KM>(db1p, red_s, part + off_b1, s);
-
-    // ---- dW0'[mm, :] = sum over the group's 512 individuals of x[mm, i] * dz0[i, :]
-    for (int mm = tid; mm < m; mm += kThreads) {
-        float acc2[KM];
-#pragma unroll
-        for (int k = 0; k < KM; ++k) acc2[k] = 0.f;
-        const uint32_t* brow = reinterpret_cast<const uint32_t*>(by_s + mm * kRow);
-        for (int c4 = 0; c4 < kGBytes / 4; ++c4) {
-            const uint32_t word = brow[c4];
-#pragma unroll
-            for (int b = 0; b < 4; ++b) {
-                const uint32_t byte = (word >> (8 * b)) & 0xffu;
-                const int c = 4 * c4 + b;
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const float x = decode_part(byte, q);
-                    const float4* d4 = reinterpret_cast<const float4*>(dz0_s + (q * kGBytes + c) * RS);
-#pragma unroll
-                    for (int v = 0; v < KM / 4; ++v) {
-                        const float4 d = d4[v];
-                        acc2[4 * v + 0] = fmaf(x, d.x, acc2[4 * v + 0]);
-                        acc2[4 * v + 1] = fmaf(x, d.y, acc2[4 * v + 1]);
-                        acc2[4 * v + 2] = fmaf(x, d.z, acc2[4 * v + 2]);
-                        acc2[4 * v + 3] = fmaf(x, d.w, acc2[4 * v + 3]);
-                    }
-                }
-            }
-        }
-        for (int k = 0; k < k0; ++k) part[mm * k0 + k] = acc2[k];
-    }
-
-    // ---- dW1[k, ss] = sum over the group of a0[i, k] * dz1[i, ss]
-    for (int idx = tid; idx < k0 * s; idx += kThreads) {
-        const int k = idx / s, ss = idx % s;
-        float sum = 0.f;
-        for (int r = 0; r < kGroup; ++r) sum = fmaf(a0_s[r * RS + k], dz1_s[r * RS + ss], sum);
-        part[off_w1 + idx] = sum;
-    }
-}
-
-// grads[g, p] = sum over blocks b, in order, of partial[g, b, p].
-__global__ void reduce_partials_kernel(const float* __restrict__ partial, float* __restrict__ grads,
-                                       int nblk, int P) {
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    const int g = blockIdx.y;
-    if (p >= P) return;
-    const float* src = partial + static_cast<size_t>(g) * nblk * P + p;
-    float sum = 0.f;
-    for (int b = 0; b < nblk; ++b) sum += src[static_cast<size_t>(b) * P];
-    grads[static_cast<size_t>(g) * P + p] = sum;
-}
-
-template <int KM>
-int launch(const uint8_t* bytes, const float* target, const float* w0, const float* b0,
-           const float* w1, const float* b1, const float* wout, float* y_pred, float* partial,
-           int G, int m, int B, int n, int k0, int s, int P, int act, cudaStream_t stream) {
-    const size_t smem = smem_bytes(m, KM, true);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            vg_packed_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    const dim3 grid(B / kGBytes, G);
-    vg_packed_kernel<KM><<<grid, kThreads, smem, stream>>>(
-        bytes, target, w0, b0, w1, b1, wout, y_pred, partial, m, B, n, k0, s, P, act);
-    return static_cast<int>(cudaGetLastError());
-}
-
 
 // ------------------------------------------------------------------ depth 0
 
@@ -824,55 +625,196 @@ int plan0(int m, int B, int n, int k0, Plan0* pl) {
     return 0;
 }
 
-}  // namespace
+// -------------------------------- depth >= 1, or depth 0 at widths 33-64
 
-// Shared memory the depth-1 kernel needs at these widths, or -1 if it cannot
-// run them; at depth 0 the same rule says which widths and m K4 takes (its
-// tensor-core kernel needs less shared memory than this for every m the
-// rule admits).
-extern "C" long long branch_vg_packed_smem(int m, int k0, int s, int depth) {
-    const int km = pick_km(k0, s);
-    if (km < 0 || depth < 0 || depth > 1) return -1;
-    const size_t smem = smem_bytes(m, km, depth == 1);
-    return smem > static_cast<size_t>(kMaxSmem) ? -1 : static_cast<long long>(smem);
+struct ArgsDeep {
+    const uint8_t* bytes;
+    const float* target;
+    const float* q;  // the flat weights W0, b0, (W_l, b_l)..., w_out, unfolded
+    const float* scale;
+    const float* shift;
+    float* y_pred;
+    float* partial;
+    int row;  // floats per partial row: the flat layout's P, then err^2
+    deep::Shape sh;
+};
+
+template <int KM>
+__global__ void __launch_bounds__(deep::kThreads) vg_deep_kernel(const ArgsDeep p) {
+    extern __shared__ uint4 smem_u4[];
+    const deep::Smem sm = deep::carve(smem_u4, p.sh, KM, 1);
+    const int t_begin = static_cast<int>(static_cast<long long>(p.sh.tiles) * blockIdx.x / gridDim.x);
+    const int t_end = static_cast<int>(static_cast<long long>(p.sh.tiles) * (blockIdx.x + 1) / gridDim.x);
+    const int tile_bytes = p.sh.m16 * deep::kTileStride;
+    float* part = p.partial + static_cast<size_t>(blockIdx.x) * p.row;
+    deep::load_tile(p.sh, p.bytes, t_begin, sm.tiles);
+    deep::stage_chain<KM>(p.sh, p.q, p.scale, p.shift, sm.w0, sm.wf, sm.fold);
+    float e2 = 0.f;
+    int buf = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+        if (t + 1 < t_end) {
+            deep::load_tile(p.sh, p.bytes, t + 1, sm.tiles + (buf ^ 1) * tile_bytes);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        deep::tile_chain<KM>(p.sh, sm.tiles + buf * tile_bytes, sm.w0, sm.wf, sm, t, p.target,
+                             p.y_pred, part, t == t_begin, e2);
+        buf ^= 1;
+    }
+    const float e2_sum = deep::cta_sum(e2, sm.small + 5 * deep::kTile);
+    if (threadIdx.x == 0) part[p.sh.P] = e2_sum;
 }
 
-// Depth 1: bytes u8 [G, m, B]; target f32 [G, n]; w0 f32 [G, m, k0] and b0
-// f32 [G, k0] pre-folded (W0' = w_scale * W0, b0' = b0 - shift @ W0'); w1
-// f32 [G, k0, s]; b1 f32 [G, s]; wout f32 [G, s]; y_pred f32 [G, n]; partial
-// f32 [G, B / 128, P] scratch; grads f32 [G, P] laid out as dW0' [m, k0],
-// db0' [k0], dW1 [k0, s], db1 [s], dW_out [s]. Depth 0 has its own entry
-// point, branch_vg_packed0_f32.
-extern "C" int branch_vg_packed_f32(const void* bytes, const void* target, const void* w0,
-                                    const void* b0, const void* w1, const void* b1,
-                                    const void* wout, void* y_pred, void* partial, void* grads,
-                                    int G, int m, int B, int n, int k0, int s, int P, int depth,
-                                    int act, void* stream) {
-    const int km = pick_km(k0, s);
-    if (km < 0 || depth != 1 || P != partial_size(m, k0, s, true) ||
-        smem_bytes(m, km, true) > static_cast<size_t>(kMaxSmem))
+// grads = [the flat layout with dW0 unfolded, rss]: column sums over the
+// CTAs' partial rows, each in the same fixed order as reduce0_kernel's, then
+// dW0 = w_scale * dW0' - (shift * w_scale) * d_off.
+__global__ void __launch_bounds__(kRedCols * kRedSlices)
+reduce_deep_kernel(const float* __restrict__ partial, int rows, int row,
+                   const float* __restrict__ scale, const float* __restrict__ shift,
+                   float* __restrict__ grads, int m, int k0, int P) {
+    __shared__ float red[kRedSlices][2][kRedCols];
+    const int lane = threadIdx.x & 31, sl = threadIdx.x >> 5;
+    const int p = blockIdx.x * kRedCols + lane;
+    const int mk0 = m * k0;
+    const int col = p <= P ? p : -1;  // p == P: the err^2 sums, rss
+    const int mm = p < mk0 ? p / k0 : 0;
+    const int dcol = p < mk0 ? mk0 + (p - mm * k0) : -1;
+    float s = 0.f, d = 0.f;
+    if (col >= 0) {
+#pragma unroll 8
+        for (int b = sl; b < rows; b += kRedSlices) {
+            s += partial[static_cast<size_t>(b) * row + col];
+            if (dcol >= 0) d += partial[static_cast<size_t>(b) * row + dcol];
+        }
+    }
+    red[sl][0][lane] = s;
+    red[sl][1][lane] = d;
+    __syncthreads();
+    if (sl == 0 && col >= 0) {
+#pragma unroll
+        for (int j = 1; j < kRedSlices; ++j) {
+            s += red[j][0][lane];
+            d += red[j][1][lane];
+        }
+        grads[p] = dcol >= 0
+                       ? __fsub_rn(__fmul_rn(scale[mm], s), __fmul_rn(__fmul_rn(shift[mm], scale[mm]), d))
+                       : s;
+    }
+}
+
+struct PlanDeep {
+    int km, ctas, per_sm, row;
+    long long smem;
+};
+
+const void* kernel_deep_for(int km) {
+    switch (km) {
+        case 8: return reinterpret_cast<const void*>(&vg_deep_kernel<8>);
+        case 16: return reinterpret_cast<const void*>(&vg_deep_kernel<16>);
+        case 32: return reinterpret_cast<const void*>(&vg_deep_kernel<32>);
+        default: return reinterpret_cast<const void*>(&vg_deep_kernel<64>);
+    }
+}
+
+Occupancy g_occ_deep[4];
+
+int plan_deep(int m, int B, int n, int k0, int s, int depth, PlanDeep* pl) {
+    pl->km = deep::pick_km64(k0, s);
+    pl->smem = deep::smem(m, k0, s, depth, 1);
+    if (pl->km < 0 || pl->smem < 0 || n <= 0 || B % kGBytes || n > 4 * B || (depth == 0 && k0 != s))
+        return static_cast<int>(cudaErrorInvalidValue);
+    pl->row = (deep::flat_size(m, k0, s, depth) + 1 + 3) & ~3;
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    Occupancy& occ = g_occ_deep[pl->km == 8 ? 0 : (pl->km == 16 ? 1 : (pl->km == 32 ? 2 : 3))];
+    if (occ.dev != dev || occ.smem != pl->smem) {
+        const void* fn = kernel_deep_for(pl->km);
+        if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      static_cast<int>(pl->smem))) != cudaSuccess ||
+            (e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev)) !=
+                cudaSuccess ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ.per_sm, fn, deep::kThreads,
+                                                               pl->smem)) != cudaSuccess) {
+            occ.dev = -1;
+            return static_cast<int>(e);
+        }
+        occ.dev = dev;
+        occ.smem = pl->smem;
+    }
+    pl->per_sm = occ.per_sm;
+    if (pl->per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    // one wave of resident CTAs, each with an equal run of the tiles
+    const long long wave = static_cast<long long>(pl->per_sm) * occ.sms;
+    const int tiles = deep::tiles_of(n);
+    pl->ctas = static_cast<int>(wave < tiles ? wave : tiles);
+    return 0;
+}
+
+}  // namespace
+
+// Shared memory (bytes) K4 needs for one branch of m_pad markers and padded
+// widths k0, s at this depth, or -1 if it cannot run them: at depth 0 and
+// widths up to 32 the rule of the depth-0 kernel (the first f32 layout, which its
+// tensor-core kernel never exceeds); at any other depth or at widths 33-64
+// that of csrc/packed_deep.cuh (one chain); -1 above width 64 or past 227 KB.
+extern "C" long long branch_vg_packed_smem(int m, int k0, int s, int depth) {
+    if (depth == 0 && pick_km(k0, s) > 0) {
+        const size_t smem = smem_bytes0(m, pick_km(k0, s));
+        return smem > static_cast<size_t>(kMaxSmem) ? -1 : static_cast<long long>(smem);
+    }
+    return deep::smem(m, k0, s, depth, 1);
+}
+
+// What the deep kernel uses on this shape, on the current device: out[0..5]
+// = CTAs (the grid, one partial row each), floats per partial row, the
+// width class KM, resident CTAs per SM, tiles of 16 byte columns, shared
+// bytes per CTA.
+extern "C" int branch_vg_packed_deep_plan(int m, int B, int n, int k0, int s, int depth,
+                                          long long* out) {
+    PlanDeep pl;
+    const int status = plan_deep(m, B, n, k0, s, depth, &pl);
+    if (status != 0) return status;
+    const long long v[6] = {pl.ctas, pl.row, pl.km, pl.per_sm, deep::tiles_of(n), pl.smem};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    return 0;
+}
+
+// Any depth, or depth 0 at widths 33-64, one branch, the standardization
+// folded inside: bytes u8 [m, B] (group-strided, 16-byte aligned); target
+// f32 [n]; q f32 [P], the flat layout W0 [m, k0], b0 [k0], per hidden layer
+// W_l [k0, out_l] and b_l [out_l], w_out [s] (depth 0: k0 == s); scale,
+// shift f32 [m]; y_pred f32 [n]; partial f32 scratch of partial_floats, at
+// least ctas * row of branch_vg_packed_deep_plan; grads f32 [P + 1] = the
+// flat layout's gradients, dW0 unfolded, then rss. Exactly two launches:
+// the pass and its reduce.
+extern "C" int branch_vg_packed_deep_f32(const void* bytes, const void* target, const void* q,
+                                         const void* scale, const void* shift, void* y_pred,
+                                         void* partial, long long partial_floats, void* grads,
+                                         int m, int B, int n, int k0, int s, int depth, int act,
+                                         void* stream) {
+    if (reinterpret_cast<uintptr_t>(bytes) & 15) return static_cast<int>(cudaErrorMisalignedAddress);
+    PlanDeep pl;
+    const int status = plan_deep(m, B, n, k0, s, depth, &pl);
+    if (status != 0) return status;
+    if (static_cast<long long>(pl.ctas) * pl.row > partial_floats)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const auto* by = static_cast<const uint8_t*>(bytes);
-    const auto* t = static_cast<const float*>(target);
-    const auto* pw0 = static_cast<const float*>(w0);
-    const auto* pb0 = static_cast<const float*>(b0);
-    const auto* pw1 = static_cast<const float*>(w1);
-    const auto* pb1 = static_cast<const float*>(b1);
-    const auto* pwo = static_cast<const float*>(wout);
-    auto* yp = static_cast<float*>(y_pred);
-    auto* part = static_cast<float*>(partial);
-    int e;
-#define RSB_LAUNCH(KMV)                                                                       \
-    e = launch<KMV>(by, t, pw0, pb0, pw1, pb1, pwo, yp, part, G, m, B, n, k0, s, P, act, st)
-    if (km == 8) RSB_LAUNCH(8);
-    else if (km == 16) RSB_LAUNCH(16);
-    else RSB_LAUNCH(32);
-#undef RSB_LAUNCH
-    if (e != 0) return e;
-    const int nblk = B / kGBytes;
-    const dim3 rgrid((P + 127) / 128, G);
-    reduce_partials_kernel<<<rgrid, 128, 0, st>>>(part, static_cast<float*>(grads), nblk, P);
+    const int P = deep::flat_size(m, k0, s, depth);
+    ArgsDeep args{static_cast<const uint8_t*>(bytes), static_cast<const float*>(target),
+                  static_cast<const float*>(q),       static_cast<const float*>(scale),
+                  static_cast<const float*>(shift),   static_cast<float*>(y_pred),
+                  static_cast<float*>(partial),       pl.row,
+                  deep::make_shape(m, k0, s, depth, n, B, act)};
+    void* params[] = {&args};
+    cudaError_t e = cudaLaunchKernel(kernel_deep_for(pl.km), dim3(pl.ctas), dim3(deep::kThreads),
+                                     params, pl.smem, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    reduce_deep_kernel<<<(P + 1 + kRedCols - 1) / kRedCols, kRedCols * kRedSlices, 0, st>>>(
+        static_cast<const float*>(partial), pl.ctas, pl.row, static_cast<const float*>(scale),
+        static_cast<const float*>(shift), static_cast<float*>(grads), m, k0, P);
     return static_cast<int>(cudaGetLastError());
 }
 

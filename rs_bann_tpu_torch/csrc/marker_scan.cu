@@ -45,7 +45,8 @@
 //
 // Design, simple first: a CTA of one warp per instance, so a step needs no
 // __syncthreads, only shuffles and a __syncwarp. Lane k holds column k of
-// the step's row (s_pad <= 32). u lives in shared memory ([m_pad] floats);
+// the step's row, and column k + 32 too where s_pad > 32 (up to 64: the
+// second instantiation, NC = 2; at s_pad <= 32 the one-column code). u lives in shared memory ([m_pad] floats);
 // the Gram row of the step is read into registers at the top of the step
 // (lane l holds entries l, l + 32, ...: m_pad <= 1024) and consumed at its
 // end, so its latency runs under the step's scalar chain; the marker's own
@@ -60,7 +61,7 @@ namespace {
 
 constexpr int kMaxRows = 32;  // Gram-row registers per lane: m_pad <= 32 * 32
 constexpr int kMaxM = 32 * kMaxRows;
-constexpr int kMaxS = 32;
+constexpr int kMaxS = 64;     // two columns a lane
 
 __device__ __forceinline__ float warp_sum(float v) {
   // butterfly: every lane ends with the same bits (float add commutes)
@@ -69,28 +70,46 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-struct Marker {  // one marker's inputs, lane k holding column k
+// The lane's share of a dot product over its NC columns: one product at NC
+// = 1 (the expression of the one-column design), two added at NC = 2.
+template <int NC>
+__device__ __forceinline__ float lane_dot(const float (&x)[NC], const float (&y)[NC]) {
+  float v = x[0] * y[0];
+  if constexpr (NC == 2) v += x[1] * y[1];
+  return v;
+}
+
+template <int NC>
+struct Marker {  // one marker's inputs, lane k holding columns k (and k + 32)
   int j;
-  float row, eta, xi, uz, na, rm;
+  float row[NC], eta[NC], xi[NC];
+  float uz, na, rm;
 };
 
-__device__ __forceinline__ Marker fetch(int t, int s, int lane, const long long* order,
-                                        const float* W0, const float* eta, long long eta_sr,
-                                        long long eta_sc, const float* xi, const float* uz,
-                                        const float* na, const float* rm) {
-  Marker k;
+template <int NC>
+__device__ __forceinline__ Marker<NC> fetch(int t, int s, int lane, const long long* order,
+                                            const float* W0, const float* eta, long long eta_sr,
+                                            long long eta_sc, const float* xi, const float* uz,
+                                            const float* na, const float* rm) {
+  Marker<NC> k;
   k.j = (int)order[t];
-  const bool col = lane < s;
-  const long long r = (long long)k.j * s + lane;
-  k.row = col ? W0[r] : 0.f;
-  k.eta = col ? eta[k.j * eta_sr + lane * eta_sc] : 1.f;
-  k.xi = col ? xi[r] : 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int cl = lane + 32 * c;
+    const bool col = cl < s;
+    const long long r = (long long)k.j * s + cl;
+    k.row[c] = col ? W0[r] : 0.f;
+    k.eta[c] = col ? eta[k.j * eta_sr + cl * eta_sc] : 1.f;
+    k.xi[c] = col ? xi[r] : 0.f;
+  }
   k.uz = uz[k.j];
   k.na = na[k.j];
   k.rm = rm[k.j];
   return k;
 }
 
+// NC columns a lane: 1 for s_pad <= 32, 2 for s_pad <= 64.
+template <int NC>
 __global__ void __launch_bounds__(32) marker_scan_kernel(
     const float* __restrict__ gram, const long long* __restrict__ gix,
     const float* __restrict__ u0, const float* __restrict__ W0, const float* __restrict__ w_out,
@@ -116,16 +135,22 @@ __global__ void __launch_bounds__(32) marker_scan_kernel(
   z_out += (long long)i * m;
   for (int r = lane; r < m; r += 32) u_s[r] = u0[(long long)i * m + r];
 
-  const bool col = lane < s;
-  const float w = col ? w_out[(long long)i * s + lane] : 0.f;
-  const float cm = col ? col_mask[(long long)i * s + lane] : 0.f;
-  const float wn2 = warp_sum(w * w);
+  bool col[NC];
+  float w[NC], cm[NC], what[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    col[c] = lane + 32 * c < s;
+    w[c] = col[c] ? w_out[(long long)i * s + lane + 32 * c] : 0.f;
+    cm[c] = col[c] ? col_mask[(long long)i * s + lane + 32 * c] : 0.f;
+  }
+  const float wn2 = warp_sum(lane_dot<NC>(w, w));
   const float wnorm = sqrtf(fmaxf(wn2, 1e-30f));
-  const float what = w / wnorm;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) what[c] = w[c] / wnorm;
   const float le = lam_e[i];
   const float logit_pi = logf(pi[i]) - log1pf(-pi[i]);
 
-  Marker cur = fetch(0, s, lane, order, W0, eta, eta_sr, eta_sc, xi, uz, na, row_mask);
+  Marker<NC> cur = fetch<NC>(0, s, lane, order, W0, eta, eta_sr, eta_sc, xi, uz, na, row_mask);
   for (int t = 0; t < m; ++t) {
     const int j = cur.j;
     // this step's Gram row, consumed at the step's end
@@ -136,14 +161,18 @@ __global__ void __launch_bounds__(32) marker_scan_kernel(
       g[r] = c < m ? G[(long long)j * m + c] : 0.f;
     }
     const float gjj = G[(long long)j * m + j];
-    Marker nxt = cur;
+    Marker<NC> nxt = cur;
     if (t + 1 < m)
-      nxt = fetch(t + 1, s, lane, order, W0, eta, eta_sr, eta_sc, xi, uz, na, row_mask);
+      nxt = fetch<NC>(t + 1, s, lane, order, W0, eta, eta_sr, eta_sc, xi, uz, na, row_mask);
 
-    const float beta_old = warp_sum(cur.row * w);
-    const float d = col ? cm / cur.eta : 0.f;
-    const float dw = d * what;
-    const float v_a = fmaxf(warp_sum(what * dw), 1e-30f);
+    const float beta_old = warp_sum(lane_dot<NC>(cur.row, w));
+    float d[NC], dw[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      d[c] = col[c] ? cm[c] / cur.eta[c] : 0.f;
+      dw[c] = d[c] * what[c];
+    }
+    const float v_a = fmaxf(warp_sum(lane_dot<NC>(what, dw)), 1e-30f);
     const float lam_a = 1.f / v_a;
     const float q_a = lam_a + le * gjj * wn2;
     __syncwarp();  // the previous step's u updates are visible
@@ -154,11 +183,19 @@ __global__ void __launch_bounds__(32) marker_scan_kernel(
     float zj = force ? 1.f : (cur.uz < p ? 1.f : 0.f);
     zj = zj * cur.rm;
     const float a = lu / q_a + cur.na / sqrtf(q_a);
-    float x = cur.xi * sqrtf(d);
-    x = x - dw * (warp_sum(x * what) / v_a);
-    const float row = zj > 0.f ? (dw / v_a) * a + x : 0.f;
-    const float db = warp_sum(row * w) - beta_old;
-    if (col) W_out[(long long)j * s + lane] = row;
+    float x[NC], row[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) x[c] = cur.xi[c] * sqrtf(d[c]);
+    const float xw = warp_sum(lane_dot<NC>(x, what)) / v_a;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      x[c] = x[c] - dw[c] * xw;
+      row[c] = zj > 0.f ? (dw[c] / v_a) * a + x[c] : 0.f;
+    }
+    const float db = warp_sum(lane_dot<NC>(row, w)) - beta_old;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (col[c]) W_out[(long long)j * s + lane + 32 * c] = row[c];
     if (lane == 0) z_out[j] = zj;
     __syncwarp();  // every lane has read u_s[j]
 #pragma unroll
@@ -187,7 +224,8 @@ extern "C" int marker_scan_f32(const void* gram, const void* gix, const void* u0
                                const void* na, const void* xi, void* z, void* W_out, int I,
                                int m, int s, int force, void* stream) {
   if (I < 1 || m < 1 || m > kMaxM || s < 1 || s > kMaxS) return (int)cudaErrorInvalidValue;
-  marker_scan_kernel<<<I, 32, m * sizeof(float), (cudaStream_t)stream>>>(
+  auto* kern = s <= 32 ? &marker_scan_kernel<1> : &marker_scan_kernel<2>;
+  kern<<<I, 32, m * sizeof(float), (cudaStream_t)stream>>>(
       (const float*)gram, (const long long*)gix, (const float*)u0, (const float*)W0,
       (const float*)w_out, (const float*)eta, eta_si, eta_sr, eta_sc, (const float*)lam_e,
       (const float*)pi, (const float*)row_mask, (const float*)col_mask,

@@ -13,7 +13,10 @@
 // rss = sum_{i<n} (f(x_i; q) - t[b,c,i])^2, with x_i = (g_i - mu) * scale the
 // standardized genotype g_i in {0, 1, 2} decoded from the 2-bit bytes (K1).
 // Padded markers have scale 0; padded coordinates carry zero momentum, so
-// they never move. Depth 0 and 1, every activation, f32 throughout.
+// they never move. Every activation, any depth: depth 0 at padded widths up
+// to 32 runs the design below, f32 throughout; every other shape (depth >=
+// 1, or depth 0 at widths 33-64) the device code K4 shares,
+// csrc/packed_deep.cuh (traj_deep_kernel, at the end of this file).
 //
 // What bounds it on the H100: per step and per 512-individual group the
 // forward and the dW0 pass each cost m * KM * 512 FMAs per chain; at the
@@ -41,7 +44,7 @@
 // It stages, multiplies and writes partial sums for live coordinates only,
 // and the update phase leaves the dead ones untouched. The live columns'
 // arithmetic does not depend on k0, so storing them at width k_live gives
-// the same bits. Depth 1 computes every stored column (k_live = k0).
+// the same bits. The deep design computes every stored column (k_live = k0).
 //
 // Design:
 //  * One cooperative launch per block transition (cudaLaunchCooperativeKernel,
@@ -55,7 +58,7 @@
 //       inputs give the same bits), then the prior gradient, err and the
 //       momentum and position updates are applied in place.
 //  * The state q, p lives in device memory as one flat vector per
-//    (branch, chain) in K4's gradient layout (partial_size); data written
+//    (branch, chain) in K4's gradient layout (the flat layout); data written
 //    inside the launch is read with __ldcg (L2, coherent across blocks).
 //
 // The depth-0 gradient phase (chunk_item). A work item is (branch, chunk
@@ -107,6 +110,7 @@
 #include <cstdint>
 
 #include "packed_decode.cuh"
+#include "packed_deep.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -118,10 +122,8 @@ constexpr int kThreads = kGBytes;  // one thread per byte column of a group
 constexpr int kRow = kGBytes + 4;  // shared-memory row stride of the byte tile
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
 
-// Row stride (floats) of the depth-1 per-individual rows (and of the
-// shared-memory rule): an odd number of 16-byte units, so the float4 stores
-// of neighbouring rows hit distinct banks (12, 20, 20, 28, 36 for 8, 12,
-// 16, 24, 32 columns).
+// Row stride (floats) of the shared-memory rule's per-individual rows
+// (the first f32 layout): 12, 20, 20, 28, 36 for 8, 12, 16, 24, 32 columns.
 __host__ __device__ constexpr int row_stride(int km) { return (km / 4) % 2 ? km + 8 : km + 4; }
 
 // Floats from one part's dz0 rows (128 rows of N, unpadded) to the next's at
@@ -138,13 +140,12 @@ inline int live_km(int k_live) {
     return k_live <= 32 ? 32 : -1;
 }
 
-// Shared memory of the depth-1 gradient phase, and the rule traj_packed_smem
-// reports for both depths (at the padded width pick_km): the depth-0 layout
-// at one chain a chunk never needs more.
-size_t smem_bytes(int m, int km, bool deep) {
-    const size_t floats = static_cast<size_t>(kGroup) * row_stride(km) * (deep ? 3 : 1) +
-                          static_cast<size_t>(m) * km + km + (deep ? km * km + km : 0) + km +
-                          4 * km + 2 * static_cast<size_t>(m);
+// The rule traj_packed_smem reports at depth 0 and padded widths up to 32
+// (the first f32 layout, kept): the depth-0 layout at one chain a chunk never
+// needs more.
+size_t smem_bytes0(int m, int km) {
+    const size_t floats = static_cast<size_t>(kGroup) * row_stride(km) + static_cast<size_t>(m) * km +
+                          km + km + 4 * km + 2 * static_cast<size_t>(m);
     return floats * sizeof(float) + static_cast<size_t>(m) * kRow;
 }
 
@@ -152,7 +153,7 @@ size_t smem_bytes(int m, int km, bool deep) {
 // CC chains (N = CC * KM): dz0 [4][128][N] with the parts 16 bytes apart,
 // A [m][N], w_out, b0 and the group's db0 [N] each, the warp sums [4][2N],
 // scale and shift [m], the byte tile [m][kRow]. At CC = 1 this is at most
-// smem_bytes(m, KM, false): the unpadded dz0 rows save at least 512 x 4
+// smem_bytes0(m, KM): the unpadded dz0 rows save at least 512 x 4
 // floats, against 5 KM + 12 more elsewhere.
 size_t smem_d0(int m, int km, int cc) {
     const int n = km * cc;
@@ -171,9 +172,9 @@ struct Args {
     const float* lam;      // [nb, C, P]
     float* w;              // [nb, C, P] position, updated in place
     float* pw;             // [nb, C, P] momentum, updated in place
-    float* partial;        // [nb, C, B / 128, P] scratch
+    float* partial;        // [nb, C, B / 128, P] scratch (the deep design's: its partial rows)
     int nb, C, m, B, n, k0, s, P, steps, act, l1;
-    int k_live;            // layer-0 columns computed: [0, k_live) (k0 at depth 1)
+    int k_live;            // layer-0 columns computed: [0, k_live) (k0 in the deep design)
 };
 
 // 4 bytes from global to shared memory without a register round trip, or 4
@@ -212,190 +213,6 @@ __device__ __forceinline__ float genotype_sel(uint32_t sel) {
 // place and scale it to c * 0x1100 (exact: 0x1100 is a multiple of 64).
 __device__ __forceinline__ float genotype(uint32_t byte, int q) {
     return genotype_sel((byte & (3u << (2 * q))) * (0x1100u >> (2 * q)));
-}
-
-// d(rss/2)/d(q) of one 512-individual group of branch b at depth 1, for each
-// chain in turn, written to the group's partial sums.
-template <int KM>
-__device__ void gradient_item_deep(const Args& a, float* smem, int b, int grp) {
-    constexpr int RS = row_stride(KM);
-    const int m = a.m, k0 = a.k0, s = a.s, P = a.P;
-    const int tid = threadIdx.x;
-    const int ngrp = a.B / kGBytes;
-    float* dz0_s = smem;                 // [512][RS]
-    float* a0_s = dz0_s + kGroup * RS;   // [512][RS]
-    float* dz1_s = a0_s + kGroup * RS;   // [512][RS]
-    float* w0_s = dz1_s + kGroup * RS;   // [m][KM]
-    float* b0_s = w0_s + m * KM;         // [KM]
-    float* w1_s = b0_s + KM;             // [KM][KM]
-    float* b1_s = w1_s + KM * KM;        // [KM]
-    float* wo_s = b1_s + KM;             // [KM]
-    float* red_s = wo_s + KM;            // [4][KM]
-    float* sc_s = red_s + 4 * KM;        // [m] scale
-    float* of_s = sc_s + m;              // [m] shift * scale
-    uint8_t* by_s = reinterpret_cast<uint8_t*>(of_s + m);  // [m][kRow]
-
-    const int off_db0 = m * k0;
-    const int off_w1 = off_db0 + k0;
-    const int off_b1 = off_w1 + k0 * s;
-    const int off_wo = off_b1 + s;
-
-    // ---- the byte tile and the per-marker standardization, once for all chains
-    __syncthreads();  // the previous item is done with shared memory
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(
-        a.bytes + static_cast<size_t>(b) * m * a.B + static_cast<size_t>(grp) * kGBytes);
-    for (int idx = tid; idx < m * (kGBytes / 4); idx += kThreads) {
-        const int mm = idx / (kGBytes / 4), wd = idx % (kGBytes / 4);
-        reinterpret_cast<uint32_t*>(by_s + mm * kRow)[wd] = src[static_cast<size_t>(mm) * (a.B / 4) + wd];
-    }
-    for (int mm = tid; mm < m; mm += kThreads) {
-        const float sc = a.scale[b * m + mm];
-        sc_s[mm] = sc;
-        of_s[mm] = a.shift[b * m + mm] * sc;
-    }
-
-    for (int c = 0; c < a.C; ++c) {
-        const size_t bc = static_cast<size_t>(b) * a.C + c;
-        const float* q = a.w + bc * P;
-
-        // ---- chain c's weights, zero-padded to KM
-        for (int idx = tid; idx < m * KM; idx += kThreads) {
-            const int mm = idx / KM, kk = idx % KM;
-            w0_s[idx] = kk < k0 ? __ldcg(q + mm * k0 + kk) : 0.f;
-        }
-        if (tid < KM) {
-            b0_s[tid] = tid < k0 ? __ldcg(q + off_db0 + tid) : 0.f;
-            wo_s[tid] = tid < s ? __ldcg(q + off_wo + tid) : 0.f;
-            b1_s[tid] = tid < s ? __ldcg(q + off_b1 + tid) : 0.f;
-        }
-        for (int idx = tid; idx < KM * KM; idx += kThreads) {
-            const int kk = idx / KM, ss = idx % KM;
-            w1_s[idx] = (kk < k0 && ss < s) ? __ldcg(q + off_w1 + kk * s + ss) : 0.f;
-        }
-        __syncthreads();
-
-        // ---- layer 0 forward for the thread's four individuals
-        float acc[4][KM];
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq)
-#pragma unroll
-            for (int k = 0; k < KM; ++k) acc[qq][k] = 0.f;
-        for (int mm = 0; mm < m; ++mm) {
-            const uint32_t byte = by_s[mm * kRow + tid];
-            const float sc = sc_s[mm], of = of_s[mm];
-            float x[4];
-#pragma unroll
-            for (int qq = 0; qq < 4; ++qq) x[qq] = fmaf(decode_part(byte, qq), sc, -of);
-            const float4* w4 = reinterpret_cast<const float4*>(w0_s + mm * KM);
-#pragma unroll
-            for (int v = 0; v < KM / 4; ++v) {
-                const float4 w = w4[v];
-#pragma unroll
-                for (int qq = 0; qq < 4; ++qq) {
-                    acc[qq][4 * v + 0] = fmaf(x[qq], w.x, acc[qq][4 * v + 0]);
-                    acc[qq][4 * v + 1] = fmaf(x[qq], w.y, acc[qq][4 * v + 1]);
-                    acc[qq][4 * v + 2] = fmaf(x[qq], w.z, acc[qq][4 * v + 2]);
-                    acc[qq][4 * v + 3] = fmaf(x[qq], w.w, acc[qq][4 * v + 3]);
-                }
-            }
-        }
-
-        // ---- rest of the forward, error and backward, one individual at a time
-        const float* t_bc = a.target + bc * a.n;
-        float dwo[KM], db0p[KM], db1p[KM];
-#pragma unroll
-        for (int k = 0; k < KM; ++k) dwo[k] = db0p[k] = db1p[k] = 0.f;
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {
-            const int row = qq * kGBytes + tid;
-            const int i = grp * kGroup + row;
-            const bool valid = i < a.n;
-            float z0[KM], a0[KM], dz0[KM], z1[KM], a1[KM], dz1[KM];
-#pragma unroll
-            for (int k = 0; k < KM; ++k) {
-                z0[k] = acc[qq][k] + b0_s[k];
-                a0[k] = act_apply(a.act, z0[k]);
-            }
-            float pred = 0.f;
-#pragma unroll
-            for (int ss = 0; ss < KM; ++ss) {
-                float z = b1_s[ss];
-#pragma unroll
-                for (int k = 0; k < KM; ++k) z = fmaf(a0[k], w1_s[k * KM + ss], z);
-                z1[ss] = z;
-                a1[ss] = act_apply(a.act, z);
-                pred = fmaf(wo_s[ss], a1[ss], pred);
-            }
-            const float err = valid ? pred - t_bc[i] : 0.f;
-#pragma unroll
-            for (int ss = 0; ss < KM; ++ss) {
-                dwo[ss] = fmaf(a1[ss], err, dwo[ss]);
-                dz1[ss] = wo_s[ss] * err * act_prime(a.act, z1[ss], a1[ss]);
-                db1p[ss] += dz1[ss];
-            }
-#pragma unroll
-            for (int k = 0; k < KM; ++k) {
-                float da = 0.f;
-#pragma unroll
-                for (int ss = 0; ss < KM; ++ss) da = fmaf(w1_s[k * KM + ss], dz1[ss], da);
-                dz0[k] = da * act_prime(a.act, z0[k], a0[k]);
-                db0p[k] += dz0[k];
-            }
-            store_row<KM>(a0_s + row * RS, a0);
-            store_row<KM>(dz1_s + row * RS, dz1);
-            store_row<KM>(dz0_s + row * RS, dz0);
-        }
-        __syncthreads();
-
-        float* part = a.partial + (bc * ngrp + grp) * P;
-
-        // ---- small sums over the block
-        block_sum<KM>(db0p, red_s, part + off_db0, k0);
-        block_sum<KM>(dwo, red_s, part + off_wo, s);
-        block_sum<KM>(db1p, red_s, part + off_b1, s);
-
-        // ---- dW0[mm, :] = sum over the group's 512 individuals of x[mm, i] * dz0[i, :]
-        for (int mm = tid; mm < m; mm += kThreads) {
-            float acc2[KM];
-#pragma unroll
-            for (int k = 0; k < KM; ++k) acc2[k] = 0.f;
-            const float sc = sc_s[mm], of = of_s[mm];
-            const uint32_t* brow = reinterpret_cast<const uint32_t*>(by_s + mm * kRow);
-            for (int c4 = 0; c4 < kGBytes / 4; ++c4) {
-                const uint32_t word = brow[c4];
-#pragma unroll
-                for (int bb = 0; bb < 4; ++bb) {
-                    const uint32_t byte = (word >> (8 * bb)) & 0xffu;
-                    const int col = 4 * c4 + bb;
-#pragma unroll
-                    for (int qq = 0; qq < 4; ++qq) {
-                        const float x = fmaf(decode_part(byte, qq), sc, -of);
-                        const float4* d4 = reinterpret_cast<const float4*>(dz0_s + (qq * kGBytes + col) * RS);
-#pragma unroll
-                        for (int v = 0; v < KM / 4; ++v) {
-                            const float4 d = d4[v];
-                            acc2[4 * v + 0] = fmaf(x, d.x, acc2[4 * v + 0]);
-                            acc2[4 * v + 1] = fmaf(x, d.y, acc2[4 * v + 1]);
-                            acc2[4 * v + 2] = fmaf(x, d.z, acc2[4 * v + 2]);
-                            acc2[4 * v + 3] = fmaf(x, d.w, acc2[4 * v + 3]);
-                        }
-                    }
-                }
-            }
-#pragma unroll
-            for (int k = 0; k < KM; ++k)
-                if (k < k0) part[mm * k0 + k] = acc2[k];
-        }
-
-        // ---- dW1[k, ss] = sum over the group of a0[i, k] * dz1[i, ss]
-        for (int idx = tid; idx < k0 * s; idx += kThreads) {
-            const int k = idx / s, ss = idx % s;
-            float sum = 0.f;
-            for (int r = 0; r < kGroup; ++r) sum = fmaf(a0_s[r * RS + k], dz1_s[r * RS + ss], sum);
-            part[off_w1 + idx] = sum;
-        }
-        __syncthreads();  // chain c + 1 restages the weights and reuses dz0_s
-    }
 }
 
 // Layer 0 forward of PH parts (h * PH ... h * PH + PH - 1) of the thread's
@@ -708,12 +525,31 @@ __device__ void chunk_item(const Args& a, float* smem, int b, int grp, int ch, b
     }
 }
 
+// The leapfrog at one coordinate e of (branch, chain) bc, given the sum of
+// its data gradient's partials: the prior's gradient, err, and the momentum
+// and position updates, in place. Step 0 only evaluates the initial
+// gradient; steps 1..L integrate.
+__device__ __forceinline__ void leapfrog_coord(const Args& a, long long e, long long bc, float sum,
+                                               int l) {
+    float q = __ldcg(a.w + e);
+    float p = __ldcg(a.pw + e);
+    const float ep = a.eps[e];
+    const float prior = a.l1 ? (q > 0.f ? 1.f : (q < 0.f ? -1.f : 0.f)) : q;
+    const float g = -a.lam[e] * prior - a.err[bc] * sum;
+    if (l > 0) p += 0.5f * ep * g;  // closes step l
+    if (l < a.steps) {               // opens step l + 1
+        p += 0.5f * ep * g;
+        q += ep * p;
+    }
+    __stcg(a.w + e, q);
+    __stcg(a.pw + e, p);
+}
+
 // Resident blocks per SM the compiler is asked to allow (its register cap:
-// 168 at 3): 3 at depth 0 up to N = CC * KM = 24 columns with KM <= 16,
-// which fit it without spilling (ptxas -v in build.log), else 2 (depth 0)
-// or 1 (depth 1, unchanged).
-template <int KM, int CC, bool DEEP>
-__global__ void __launch_bounds__(kThreads, DEEP ? 1 : (KM * CC <= 24 && KM <= 16 ? 3 : 2))
+// 168 at 3): 3 up to N = CC * KM = 24 columns with KM <= 16, which fit it
+// without spilling (ptxas -v in build.log), else 2.
+template <int KM, int CC>
+__global__ void __launch_bounds__(kThreads, KM * CC <= 24 && KM <= 16 ? 3 : 2)
     traj_packed_kernel(Args a) {
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
@@ -722,14 +558,11 @@ __global__ void __launch_bounds__(kThreads, DEEP ? 1 : (KM * CC <= 24 && KM <= 1
     const int nch = (a.C + CC - 1) / CC;
     const long long total = static_cast<long long>(a.nb) * a.C * a.P;
     const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-    const long long items = static_cast<long long>(a.nb) * ngrp * (DEEP ? 1 : nch);
+    const long long items = static_cast<long long>(a.nb) * ngrp * nch;
 
     // step 0 only evaluates the initial gradient; steps 1..L integrate
     for (int l = 0; l <= a.steps; ++l) {
-        if constexpr (DEEP) {
-            for (long long it = blockIdx.x; it < items; it += gridDim.x)
-                gradient_item_deep<KM>(a, smem, static_cast<int>(it / ngrp), static_cast<int>(it % ngrp));
-        } else {  // a contiguous run of (branch, chunk, group) items per block
+        {  // a contiguous run of (branch, chunk, group) items per block
             const int lo = static_cast<int>(items * blockIdx.x / gridDim.x);
             const int hi = static_cast<int>(items * (blockIdx.x + 1) / gridDim.x);
             for (int it = lo; it < hi; ++it) {
@@ -741,73 +574,181 @@ __global__ void __launch_bounds__(kThreads, DEEP ? 1 : (KM * CC <= 24 && KM <= 1
 
         for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
              e += stride) {
-            // depth 0: W0 [m, k0], b0 [k0] and w_out [k0] are rows of k0 (P
-            // a multiple of k0), so a coordinate's layer-0 column is its
-            // index mod k0; a dead one has no partials and stays as it is
-            if (!DEEP && static_cast<int>(e % a.k0) >= a.k_live) continue;
+            // W0 [m, k0], b0 [k0] and w_out [k0] are rows of k0 (P a
+            // multiple of k0), so a coordinate's layer-0 column is its index
+            // mod k0; a dead one has no partials and stays as it is
+            if (static_cast<int>(e % a.k0) >= a.k_live) continue;
             const long long bc = e / a.P;
             const float* src = a.partial + bc * ngrp * a.P + e % a.P;
             float sum = 0.f;
             for (int gg = 0; gg < ngrp; ++gg) sum += __ldcg(src + static_cast<size_t>(gg) * a.P);
-            float q = __ldcg(a.w + e);
-            float p = __ldcg(a.pw + e);
-            const float ep = a.eps[e];
-            const float prior = a.l1 ? (q > 0.f ? 1.f : (q < 0.f ? -1.f : 0.f)) : q;
-            const float g = -a.lam[e] * prior - a.err[bc] * sum;
-            if (l > 0) p += 0.5f * ep * g;  // closes step l
-            if (l < a.steps) {               // opens step l + 1
-                p += 0.5f * ep * g;
-                q += ep * p;
-            }
-            __stcg(a.w + e, q);
-            __stcg(a.pw + e, p);
+            leapfrog_coord(a, e, bc, sum, l);
         }
         grid.sync();
     }
 }
 
-// One instantiation of the kernel with its shared memory and chunk width.
+// The deep design (csrc/packed_deep.cuh): work items (branch, chunk of cc
+// chains, tile of 64 individuals) in that order, a contiguous run per CTA;
+// a run's tile is staged once for the chunk's chains, whose weights stay
+// staged through the run's tiles of one branch and chunk (a segment). Each
+// (segment, chain) has one partial row per evaluation, at slot (CTA,
+// segment of the CTA, chain); the update phase adds a coordinate's rows in
+// CTA order and unfolds dW0 = scale * dW0' - (shift * scale) * d_off.
+struct DeepArgs {
+    Args a;
+    deep::Shape sh;
+    int cc;     // chains per chunk
+    int slots;  // segments per CTA at most
+};
+
+template <int KM>
+__global__ void __launch_bounds__(deep::kThreads) traj_deep_kernel(const DeepArgs d) {
+    extern __shared__ uint4 smem_u4[];
+    const Args& a = d.a;
+    const deep::Shape& sh = d.sh;
+    const deep::Smem sm = deep::carve(smem_u4, sh, KM, d.cc);
+    cg::grid_group grid = cg::this_grid();
+    const int tiles = sh.tiles, nch = a.C / d.cc;
+    const int tile_bytes = sh.m16 * deep::kTileStride;
+    const int F = deep::chain_floats(KM, sh.depth), planes = 3 * KM * sh.wstride;
+    const long long items = static_cast<long long>(a.nb) * nch * tiles;
+    const long long lo = items * blockIdx.x / gridDim.x, hi = items * (blockIdx.x + 1) / gridDim.x;
+    const long long total = static_cast<long long>(a.nb) * a.C * a.P;
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    const int mk0 = a.m * a.k0;
+    float e2 = 0.f;  // K4's rss term, not read here
+
+    for (int l = 0; l <= a.steps; ++l) {
+        int slot = 0;
+        for (long long it = lo; it < hi; ++slot) {
+            const int bch = static_cast<int>(it / tiles);
+            const long long seg_end = hi < static_cast<long long>(bch + 1) * tiles
+                                          ? hi : static_cast<long long>(bch + 1) * tiles;
+            const int b = bch / nch, c0 = (bch % nch) * d.cc;
+            const int t0 = static_cast<int>(it - static_cast<long long>(bch) * tiles);
+            const int t1 = static_cast<int>(seg_end - static_cast<long long>(bch) * tiles);
+            const uint8_t* bytes = a.bytes + static_cast<size_t>(b) * a.m * a.B;
+            deep::load_tile(sh, bytes, t0, sm.tiles);
+            for (int cc = 0; cc < d.cc; ++cc)
+                deep::stage_chain<KM>(sh, a.w + (static_cast<size_t>(b) * a.C + c0 + cc) * a.P,
+                                      a.scale + static_cast<size_t>(b) * a.m,
+                                      a.shift + static_cast<size_t>(b) * a.m, sm.w0 + cc * planes,
+                                      sm.wf + cc * F, sm.fold);
+            int buf = 0;
+            for (int t = t0; t < t1; ++t) {
+                if (t + 1 < t1) {
+                    deep::load_tile(sh, bytes, t + 1, sm.tiles + (buf ^ 1) * tile_bytes);
+                    cp_async_wait<1>();
+                } else {
+                    cp_async_wait<0>();
+                }
+                __syncthreads();
+                for (int cc = 0; cc < d.cc; ++cc) {
+                    const size_t bc = static_cast<size_t>(b) * a.C + c0 + cc;
+                    float* part = a.partial +
+                                  ((static_cast<size_t>(blockIdx.x) * d.slots + slot) * d.cc + cc) * a.P;
+                    deep::tile_chain<KM>(sh, sm.tiles + buf * tile_bytes, sm.w0 + cc * planes,
+                                         sm.wf + cc * F, sm, t, a.target + bc * a.n, nullptr, part,
+                                         t == t0, e2);
+                }
+                buf ^= 1;
+            }
+            it = seg_end;
+        }
+        grid.sync();
+
+        for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
+             e += stride) {
+            const long long bc = e / a.P;
+            const int p = static_cast<int>(e - bc * a.P);
+            const int b = static_cast<int>(bc / a.C), c = static_cast<int>(bc % a.C);
+            const int bch = b * nch + c / d.cc, cw = c % d.cc;
+            // the CTAs whose runs hold tiles of bch, in order: from the one
+            // whose run holds its first tile
+            const long long first = static_cast<long long>(bch) * tiles, last = first + tiles;
+            int k = static_cast<int>(first * gridDim.x / items);
+            while (k + 1 < static_cast<int>(gridDim.x) && items * (k + 1) / gridDim.x <= first) ++k;
+            const bool w0c = p < mk0;
+            const int dp = w0c ? mk0 + p % a.k0 : 0;
+            float sum = 0.f, dsum = 0.f;
+            for (; k < static_cast<int>(gridDim.x); ++k) {
+                const long long klo = items * k / gridDim.x, khi = items * (k + 1) / gridDim.x;
+                if (klo >= last) break;
+                if (khi <= klo) continue;  // an empty run
+                const int slot = static_cast<int>(bch - klo / tiles);
+                const float* row = a.partial + ((static_cast<size_t>(k) * d.slots + slot) * d.cc + cw) * a.P;
+                sum += __ldcg(row + p);
+                if (w0c) dsum += __ldcg(row + dp);
+            }
+            if (w0c) {
+                const int mm = p / a.k0;
+                const float sc = a.scale[static_cast<size_t>(b) * a.m + mm];
+                const float sf = a.shift[static_cast<size_t>(b) * a.m + mm];
+                sum = __fsub_rn(__fmul_rn(sc, sum), __fmul_rn(__fmul_rn(sf, sc), dsum));
+            }
+            leapfrog_coord(a, e, bc, sum, l);
+        }
+        grid.sync();
+    }
+}
+
+// One instantiation of the kernel with its shared memory, chunk width and
+// threads per block.
 struct Plan {
     const void* kern;
     size_t smem;
-    int cc;
+    int cc, threads;
 };
 
-template <int KM, int CC, bool DEEP>
+template <int KM, int CC>
 Plan make_plan(int m) {
-    return {reinterpret_cast<const void*>(&traj_packed_kernel<KM, CC, DEEP>),
-            DEEP ? smem_bytes(m, KM, true) : smem_d0(m, KM, CC), CC};
+    return {reinterpret_cast<const void*>(&traj_packed_kernel<KM, CC>), smem_d0(m, KM, CC), CC,
+            kThreads};
 }
 
-// The instantiation K5 launches at register width km: at depth 1 the one of
-// km; at depth 0 the largest chunk of CC chains instantiated at km with CC
-// at most C (one at least) whose shared memory fits. {nullptr} if none.
-Plan pick_plan(int km, int depth, int m, int C) {
+// The instantiation K5 launches at depth 0 and register width km: the
+// largest chunk of CC chains instantiated at km with CC at most C (one at
+// least) whose shared memory fits. {nullptr} if none.
+Plan pick_plan(int km, int m, int C) {
     Plan cand[3] = {};
     int n = 0;
-    if (depth == 1) {
-        if (km == 8) cand[n++] = make_plan<8, 1, true>(m);
-        if (km == 16) cand[n++] = make_plan<16, 1, true>(m);
-        if (km == 32) cand[n++] = make_plan<32, 1, true>(m);
-    } else if (km == 8) {  // register tiles 4 x 32, 4 x 16, 4 x 8
-        cand[n++] = make_plan<8, 4, false>(m);
-        cand[n++] = make_plan<8, 2, false>(m);
-        cand[n++] = make_plan<8, 1, false>(m);
+    if (km == 8) {  // register tiles 4 x 32, 4 x 16, 4 x 8
+        cand[n++] = make_plan<8, 4>(m);
+        cand[n++] = make_plan<8, 2>(m);
+        cand[n++] = make_plan<8, 1>(m);
     } else if (km == 12) {  // 4 x 24, 4 x 12
-        cand[n++] = make_plan<12, 2, false>(m);
-        cand[n++] = make_plan<12, 1, false>(m);
+        cand[n++] = make_plan<12, 2>(m);
+        cand[n++] = make_plan<12, 1>(m);
     } else if (km == 16) {  // 2 x 32 (two halves), 4 x 16
-        cand[n++] = make_plan<16, 2, false>(m);
-        cand[n++] = make_plan<16, 1, false>(m);
+        cand[n++] = make_plan<16, 2>(m);
+        cand[n++] = make_plan<16, 1>(m);
     } else if (km == 24) {
-        cand[n++] = make_plan<24, 1, false>(m);
+        cand[n++] = make_plan<24, 1>(m);
     } else if (km == 32) {
-        cand[n++] = make_plan<32, 1, false>(m);
+        cand[n++] = make_plan<32, 1>(m);
     }
     for (int i = 0; i < n; ++i)
         if ((cand[i].cc <= C || cand[i].cc == 1) && cand[i].smem <= static_cast<size_t>(kMaxSmem))
             return cand[i];
-    return Plan{nullptr, 0, 0};
+    return Plan{nullptr, 0, 0, 0};
+}
+
+// The deep design's instantiation: the width class of k0 and s, and the
+// largest chunk of cc in {4, 2, 1} chains dividing C whose shared memory
+// fits. {nullptr} if none.
+Plan pick_deep(int m, int k0, int s, int depth, int C) {
+    const int km = deep::pick_km64(k0, s);
+    const void* kern = km == 8 ? reinterpret_cast<const void*>(&traj_deep_kernel<8>)
+                     : km == 16 ? reinterpret_cast<const void*>(&traj_deep_kernel<16>)
+                     : km == 32 ? reinterpret_cast<const void*>(&traj_deep_kernel<32>)
+                     : reinterpret_cast<const void*>(&traj_deep_kernel<64>);
+    for (int cc = 4; cc >= 1; cc /= 2) {
+        const long long smem = deep::smem(m, k0, s, depth, cc);
+        if (km > 0 && C % cc == 0 && smem > 0)
+            return Plan{kern, static_cast<size_t>(smem), cc, deep::kThreads};
+    }
+    return Plan{nullptr, 0, 0, 0};
 }
 
 // Resident blocks per SM of a plan (the cooperative grid is that times the
@@ -816,83 +757,128 @@ cudaError_t blocks_per_sm(const Plan& pl, int* per_sm) {
     cudaError_t e = cudaFuncSetAttribute(pl.kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(pl.smem));
     if (e != cudaSuccess) return e;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, pl.kern, kThreads, pl.smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, pl.kern, pl.threads, pl.smem);
 }
 
-cudaError_t launch(const Plan& pl, Args a, cudaStream_t stream) {
-    int dev = 0, sms = 0, coop = 0, per_sm = 0;
+// The cooperative grid of a plan: resident blocks per SM times the SMs.
+cudaError_t grid_of(const Plan& pl, int* per_sm, int* grid) {
+    int dev = 0, sms = 0, coop = 0;
     cudaError_t e;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return e;
     if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess) return e;
     if (!coop) return cudaErrorNotSupported;
-    if ((e = blocks_per_sm(pl, &per_sm)) != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    void* params[] = {&a};
-    return cudaLaunchCooperativeKernel(pl.kern, dim3(per_sm * sms), dim3(kThreads), params, pl.smem, stream);
+    if ((e = blocks_per_sm(pl, per_sm)) != cudaSuccess) return e;
+    if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+    *grid = *per_sm * sms;
+    return cudaSuccess;
+}
+
+// Whether a shape runs the depth-0 design (depth 0, padded widths up to 32).
+bool depth0_design(int k0, int s, int depth) { return depth == 0 && pick_km(k0, s) > 0; }
+
+// Segments per CTA at most of the deep design: a run of up to
+// ceil(items / grid) items crosses that many (branch, chunk) boundaries.
+int deep_slots(long long items, int grid, int tiles, int chunks) {
+    const long long len = (items + grid - 1) / grid;
+    const long long s = (len + tiles - 2) / tiles + 1;
+    return static_cast<int>(s < chunks ? s : chunks);
 }
 
 }  // namespace
 
 // Shared memory K5 needs at these (padded) widths, or -1 if it cannot run
-// them: the rule of the depth-1 layout and of the earlier depth-0 one (one
-// chain at a time, padded rows). A depth-0 block's live width at one chain
-// a chunk never needs more, so whatever passes this rule runs.
+// them: at depth 0 and widths up to 32 the rule of the earlier layout (one
+// chain at a time, padded rows; a depth-0 block's live width at one chain a
+// chunk never needs more, so whatever passes it runs); at any other depth
+// or at widths 33-64 the deep design's at one chain a chunk
+// (csrc/packed_deep.cuh); -1 above width 64 or past 227 KB.
 extern "C" long long traj_packed_smem(int m, int k0, int s, int depth) {
-    const int km = pick_km(k0, s);
-    if (km < 0 || depth < 0 || depth > 1) return -1;
-    const size_t smem = smem_bytes(m, km, depth == 1);
-    return smem > static_cast<size_t>(kMaxSmem) ? -1 : static_cast<long long>(smem);
+    if (depth0_design(k0, s, depth)) {
+        const size_t smem = smem_bytes0(m, pick_km(k0, s));
+        return smem > static_cast<size_t>(kMaxSmem) ? -1 : static_cast<long long>(smem);
+    }
+    return deep::smem(m, k0, s, depth, 1);
 }
 
-// The register width K5 computes with: at depth 0 the smallest of
-// {8, 12, 16, 24, 32} holding k_live, at depth 1 pick_km(k0, s); -1 if
-// it cannot run these widths.
+// The register width K5 computes with: at depth 0 and widths up to 32 the
+// smallest of {8, 12, 16, 24, 32} holding k_live, else the deep design's
+// width class of k0 and s (every stored column: k_live == k0); -1 if it
+// cannot run these widths.
 extern "C" int traj_packed_km(int k0, int s, int k_live, int depth) {
-    if (pick_km(k0, s) < 0 || depth < 0 || depth > 1) return -1;
-    if (depth == 1) return k_live == k0 ? pick_km(k0, s) : -1;
-    return s == k0 && k_live >= 0 && k_live <= k0 ? live_km(k_live) : -1;
+    if (depth < 0 || (depth == 0 && s != k0)) return -1;
+    if (depth0_design(k0, s, depth)) return k_live >= 0 && k_live <= k0 ? live_km(k_live) : -1;
+    return k_live == k0 ? deep::pick_km64(k0, s) : -1;
 }
 
-// What a launch at these widths and C chains would use: *cc chains per
-// chunk (1 at depth 1), *per_sm resident blocks per SM (the cooperative
-// grid is that times the SMs) and *smem bytes of shared memory per block.
+// What a launch of nb branches of m markers, B bytes per marker row, n
+// individuals, these widths and C chains uses: out[0..6] = the register
+// width KM, chains per chunk CC, resident blocks per SM, shared bytes per
+// block, blocks in the cooperative grid, floats of partial scratch, and
+// segments per block (the deep design's partial-row slots; 0 at depth 0).
 // Returns a cudaError_t (cudaErrorInvalidValue if K5 cannot run them).
-extern "C" int traj_packed_occupancy(int m, int k0, int s, int k_live, int depth, int C, int* cc,
-                                     int* per_sm, long long* smem) {
+extern "C" int traj_packed_plan(int m, int k0, int s, int k_live, int depth, int nb, int C, int B,
+                                int n, long long* out) {
     const int km = traj_packed_km(k0, s, k_live, depth);
-    if (km < 0 || C < 1 || traj_packed_smem(m, k0, s, depth) < 0)
+    if (km < 0 || C < 1 || nb < 1 || n < 1 || B % kGBytes || traj_packed_smem(m, k0, s, depth) < 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    const Plan pl = pick_plan(km, depth, m, C);
+    const bool d0 = depth0_design(k0, s, depth);
+    const Plan pl = d0 ? pick_plan(km, m, C) : pick_deep(m, k0, s, depth, C);
     if (!pl.kern) return static_cast<int>(cudaErrorInvalidValue);
-    *cc = pl.cc;
-    *smem = static_cast<long long>(pl.smem);
-    return static_cast<int>(blocks_per_sm(pl, per_sm));
+    int per_sm = 0, grid = 0;
+    const cudaError_t e = grid_of(pl, &per_sm, &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long P = deep::flat_size(m, k0, s, depth);
+    long long scratch, slots = 0;
+    if (d0) {
+        scratch = static_cast<long long>(nb) * C * (B / kGBytes) * P;
+    } else {
+        const int tiles = deep::tiles_of(n), chunks = nb * (C / pl.cc);
+        slots = deep_slots(static_cast<long long>(chunks) * tiles, grid, tiles, chunks);
+        scratch = static_cast<long long>(grid) * slots * pl.cc * P;
+    }
+    const long long v[7] = {km, pl.cc, per_sm, static_cast<long long>(pl.smem), grid, scratch, slots};
+    for (int i = 0; i < 7; ++i) out[i] = v[i];
+    return 0;
 }
 
-// bytes u8 [nb, m, B]; scale, shift f32 [nb, m]; target f32 [nb, C, n];
-// err f32 [nb, C]; eps, lam f32 [nb, C, P]; w, pw f32 [nb, C, P], the start
-// on entry and the end of the trajectory on return; partial f32
-// [nb, C, B / 128, P] scratch. The flat layout is W0 [m, k0], b0 [k0],
-// (W1 [k0, s], b1 [s]), w_out [s]. k_live: the layer-0 columns [0, k_live)
-// are integrated, the rest left as they are (depth 0; k0 at depth 1).
+// bytes u8 [nb, m, B] (16-byte aligned); scale, shift f32 [nb, m]; target
+// f32 [nb, C, n]; err f32 [nb, C]; eps, lam f32 [nb, C, P]; w, pw f32 [nb,
+// C, P], the start on entry and the end of the trajectory on return;
+// partial f32 scratch of partial_floats (traj_packed_plan's). The flat
+// layout is W0 [m, k0], b0 [k0], per hidden layer W_l [k0, out_l] and b_l
+// [out_l], w_out [s] (depth 0: k0 == s). k_live: the layer-0 columns
+// [0, k_live) are integrated, the rest left as they are (the depth-0
+// design; k0 in the deep one).
 extern "C" int traj_packed_f32(const void* bytes, const void* scale, const void* shift,
                                const void* target, const void* err, const void* eps,
-                               const void* lam, void* w, void* pw, void* partial, int nb, int C,
-                               int m, int B, int n, int k0, int k_live, int s, int P, int depth,
-                               int steps, int act, int l1, void* stream) {
-    const int km = traj_packed_km(k0, s, k_live, depth);
-    const bool deep = depth == 1;
-    if (km < 0 || C < 1 || P != partial_size(m, k0, s, deep) || steps < 0 ||
-        traj_packed_smem(m, k0, s, depth) < 0)
+                               const void* lam, void* w, void* pw, void* partial,
+                               long long partial_floats, int nb, int C, int m, int B, int n, int k0,
+                               int k_live, int s, int P, int depth, int steps, int act, int l1,
+                               void* stream) {
+    long long plan[7];
+    const int status = traj_packed_plan(m, k0, s, k_live, depth, nb, C, B, n, plan);
+    if (status != 0) return status;
+    if (P != deep::flat_size(m, k0, s, depth) || steps < 0 || plan[5] > partial_floats ||
+        (reinterpret_cast<uintptr_t>(bytes) & 15))
         return static_cast<int>(cudaErrorInvalidValue);
-    const Plan pl = pick_plan(km, depth, m, C);
-    if (!pl.kern) return static_cast<int>(cudaErrorInvalidValue);  // no chunk fits: raise
+    const bool d0 = depth0_design(k0, s, depth);
+    const Plan pl = d0 ? pick_plan(static_cast<int>(plan[0]), m, C) : pick_deep(m, k0, s, depth, C);
     Args a{static_cast<const uint8_t*>(bytes), static_cast<const float*>(scale),
            static_cast<const float*>(shift),   static_cast<const float*>(target),
            static_cast<const float*>(err),     static_cast<const float*>(eps),
            static_cast<const float*>(lam),     static_cast<float*>(w),
            static_cast<float*>(pw),            static_cast<float*>(partial),
            nb, C, m, B, n, k0, s, P, steps, act, l1, k_live};
-    return static_cast<int>(launch(pl, a, static_cast<cudaStream_t>(stream)));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int grid = static_cast<int>(plan[4]);
+    if (d0) {
+        void* params[] = {&a};
+        return static_cast<int>(
+            cudaLaunchCooperativeKernel(pl.kern, dim3(grid), dim3(pl.threads), params, pl.smem, st));
+    }
+    DeepArgs da{a, deep::make_shape(m, k0, s, depth, n, B, act), pl.cc, static_cast<int>(plan[6])};
+    void* params[] = {&da};
+    return static_cast<int>(
+        cudaLaunchCooperativeKernel(pl.kern, dim3(grid), dim3(pl.threads), params, pl.smem, st));
 }

@@ -172,23 +172,24 @@ def lib() -> ctypes.CDLL:
     so.packed_bwd_f32.restype = i
     so.packed_bwd_plan.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
     so.packed_bwd_plan.restype = i
-    so.branch_vg_packed_f32.argtypes = [vp] * 10 + [i] * 9 + [vp]
-    so.branch_vg_packed_f32.restype = i
+    so.branch_vg_packed_deep_f32.argtypes = [vp] * 7 + [ctypes.c_longlong, vp] + [i] * 7 + [vp]
+    so.branch_vg_packed_deep_f32.restype = i
+    so.branch_vg_packed_deep_plan.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.branch_vg_packed_deep_plan.restype = i
     so.branch_vg_packed0_f32.argtypes = [vp] * 9 + [ctypes.c_longlong, vp] + [i] * 5 + [vp]
     so.branch_vg_packed0_f32.restype = i
     so.branch_vg_packed0_plan.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
     so.branch_vg_packed0_plan.restype = i
     so.branch_vg_packed_smem.argtypes = [i, i, i, i]
     so.branch_vg_packed_smem.restype = ctypes.c_longlong
-    so.traj_packed_f32.argtypes = [vp] * 10 + [i] * 13 + [vp]
+    so.traj_packed_f32.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i] * 13 + [vp]
     so.traj_packed_f32.restype = i
+    so.traj_packed_plan.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
+    so.traj_packed_plan.restype = i
     so.traj_packed_smem.argtypes = [i, i, i, i]
     so.traj_packed_smem.restype = ctypes.c_longlong
     so.traj_packed_km.argtypes = [i, i, i, i]
     so.traj_packed_km.restype = i
-    pi = ctypes.POINTER(ctypes.c_int)
-    so.traj_packed_occupancy.argtypes = [i] * 6 + [pi, pi, ctypes.POINTER(ctypes.c_longlong)]
-    so.traj_packed_occupancy.restype = i
     so.vg_chains_f32.argtypes = [vp] * 5 + [ctypes.c_longlong] + [i] * 9 + [vp]
     so.vg_chains_f32.restype = i
     so.vg_chains_plan.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_longlong)]

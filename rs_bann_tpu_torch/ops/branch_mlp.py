@@ -16,12 +16,14 @@ Standardization is folded into layer 0 before the pass
     dW0 = w_scale * dW0' - (shift * w_scale) * d_off,    db0 = d_off
 
 On a CUDA tensor the pass is the hand-written kernel in
-csrc/branch_vg_packed.cu (depth 0 and 1, every activation). At depth 0 the
-fold, rss and unfold run inside its two launches (the tensor-core pass and
-its fixed-order reduce), so a call issues no other device op; the kernel
-sums off = b0 - shift @ W0' in f64 and rounds it once, where the wrapper's
-f32 fold here rounds each step. At depth 1 the wrapper folds and unfolds
-around them. On a CPU tensor the pass is
+csrc/branch_vg_packed.cu (every activation, any depth, padded widths up to
+64): at depth 0 and widths up to 32 its depth-0 tensor-core kernel, at
+every other shape the design K5 shares (csrc/packed_deep.cuh). The fold,
+rss and unfold run inside its two launches (the pass and its fixed-order
+reduce), so a call issues no other device op but, past depth 0 or width
+32, the one concatenation of the weights into their flat layout; the
+kernel sums off = b0 - shift @ W0' in f64 and rounds it once, where the
+plain version's f32 fold here rounds each step. On a CPU tensor the pass is
 ``data_vg_packed_ref``: decode with ``unpack_strided``, dense forward,
 autograd for the gradients.
 
@@ -94,53 +96,64 @@ def data_vg_packed_ref(act, bytes_mb, target, weights, biases, n: int):
 def _check_packed_widths(m: int, k0: int, s: int, depth: int) -> None:
     if branch_vg_packed_smem(m, k0, s, depth) < 0:
         raise NotImplementedError(
-            f"the K4 CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
-            f"within 227 KB of shared memory; got depth={depth}, m={m}, "
-            f"k0={k0}, s={s}"
+            f"the K4 CUDA kernel takes padded layer widths up to 64 within 227 KB of shared "
+            f"memory; got depth={depth}, m={m}, k0={k0}, s={s}"
         )
 
 
-def _data_vg_packed_cuda(act, bytes_mb, target, weights, biases, n: int):
-    """Launch csrc/branch_vg_packed.cu's depth-1 kernel for one branch
-    (folded weights)."""
-    depth = len(weights) - 2
+DEEP_PLAN_FIELDS = ("ctas", "row", "km", "ctas_per_sm", "tiles", "smem")
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_plan(device_index: int, m: int, B: int, n: int, k0: int, s: int, depth: int) -> tuple:
+    out = (ctypes.c_longlong * len(DEEP_PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.lib().branch_vg_packed_deep_plan(m, B, n, k0, s, depth, out),
+                     "branch_vg_packed_deep_plan")
+    return tuple(out)
+
+
+def branch_vg_packed_deep_plan(m: int, B: int, n: int, k0: int, s: int, depth: int,
+                               device=None) -> dict:
+    """What a launch of K4's deep kernel (any depth, or depth 0 at padded
+    widths 33-64; csrc/packed_deep.cuh) on one branch of bytes [m, B] with
+    n individuals uses on a CUDA device (the current one by default): CTAs
+    in the grid (one partial row each), floats per partial row, the width
+    class KM, resident CTAs per SM, tiles of 16 byte columns, shared bytes
+    per CTA."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(zip(DEEP_PLAN_FIELDS, _deep_plan(index, m, B, n, k0, s, depth)))
+
+
+def _data_vg_packed_deep_cuda(act, x, weights, biases, target):
+    """Launch K4's deep kernel and its reduce for one branch: the fold, rss
+    and unfold inside the two launches. Returns (y_pred, rss, dws, dbs)."""
+    bytes_mb, n = x.bytes, x.n
     m, B = bytes_mb.shape
-    k0 = weights[0].shape[1]
-    s = weights[-1].shape[0]
+    depth = len(weights) - 2
+    k0, s = weights[0].shape[1], weights[-1].shape[0]
     dev = bytes_mb.device
     _check_packed(B, n)
     _check_packed_widths(m, k0, s, depth)
-    lib = _build.lib()
-    w0 = weights[0].contiguous()
-    b0 = biases[0].contiguous()
-    wout = weights[-1].reshape(s).contiguous()
-    w1, b1 = weights[1].contiguous(), biases[1].contiguous()
-    _check(w1, "w1", torch.float32, (k0, s), dev)
-    _check(b1, "b1", torch.float32, (s,), dev)
     _check(bytes_mb, "bytes", torch.uint8, (m, B), dev)
+    _check_aligned(bytes_mb, "bytes")
     _check(target, "target", torch.float32, (n,), dev)
-    _check(w0, "w0", torch.float32, (m, k0), dev)
-    _check(b0, "b0", torch.float32, (k0,), dev)
-    _check(wout, "w_out", torch.float32, (s,), dev)
-    P = m * k0 + k0 + k0 * s + s + s
-    y_pred = torch.empty(n, dtype=torch.float32, device=dev)
-    partial = torch.empty((B // GBYTES, P), dtype=torch.float32, device=dev)
-    grads = torch.empty(P, dtype=torch.float32, device=dev)
-    vp = ctypes.c_void_p
-    status = lib.branch_vg_packed_f32(
-        vp(bytes_mb.data_ptr()), vp(target.data_ptr()), vp(w0.data_ptr()),
-        vp(b0.data_ptr()), vp(w1.data_ptr()), vp(b1.data_ptr()),
-        vp(wout.data_ptr()), vp(y_pred.data_ptr()), vp(partial.data_ptr()),
-        vp(grads.data_ptr()), 1, m, B, n, k0, s, P, depth, ACT_CODES[act],
-        vp(_build.stream_ptr(bytes_mb)),
-    )
-    _build.check(status, "branch_vg_packed_f32")
+    _check(x.w_scale, "w_scale", torch.float32, (m,), dev)
+    _check(x.shift, "shift", torch.float32, (m,), dev)
+    P = _flat_size(m, k0, s, depth)
+    q = flat_params(weights, biases)
+    _check(q, "weights", torch.float32, (P,), dev)
+    ctas, row = _deep_plan(dev.index, m, B, n, k0, s, depth)[:2]
+    partial = torch.empty(ctas * row, dtype=torch.float32, device=dev)  # the entry checks the size
+    out = torch.empty(n + P + 1, dtype=torch.float32, device=dev)
+    status = _build.lib().branch_vg_packed_deep_f32(
+        bytes_mb.data_ptr(), target.data_ptr(), q.data_ptr(), x.w_scale.data_ptr(),
+        x.shift.data_ptr(), out.data_ptr(), partial.data_ptr(), partial.numel(),
+        out.data_ptr() + 4 * n, m, B, n, k0, s, depth, ACT_CODES[act], _build.stream_ptr(bytes_mb))
+    _build.check(status, "branch_vg_packed_deep_f32")
     data_vg_packed.launches += 1
-    ix = m * k0 + k0
-    dws = (grads[: m * k0].view(m, k0), grads[ix : ix + k0 * s].view(k0, s),
-           grads[ix + k0 * s + s :].view(s, 1))
-    dbs = (grads[m * k0 : ix], grads[ix + k0 * s : ix + k0 * s + s])
-    return y_pred, dws, dbs
+    dws, dbs = _grad_views(out[n : n + P], (), m, k0, s, depth)
+    return out[:n], out[n + P].view(()), dws, dbs
 
 
 PLAN0_FIELDS = ("ctas", "row", "nt", "buffers", "ctas_per_sm", "tiles", "smem", "weight_row")
@@ -208,18 +221,16 @@ def data_vg_packed(act_name, x, weights, biases, target):
     the gradients of rss / 2.
     """
     _check_act(act_name)
-    on_card = x.bytes.device.type != "cpu"
-    if on_card and len(weights) == 2:
-        return _data_vg_packed0_cuda(act_name, x, weights, biases, target)
+    if x.bytes.device.type != "cpu":
+        if len(weights) == 2 and _pick_km(weights[0].shape[1], weights[1].shape[0]) > 0:
+            return _data_vg_packed0_cuda(act_name, x, weights, biases, target)
+        return _data_vg_packed_deep_cuda(act_name, x, weights, biases, target)
     s = x.w_scale
     w0p = s[:, None] * weights[0]
     off = biases[0] - x.shift @ w0p
     wf = (w0p,) + tuple(weights[1:])
     bf = (off,) + tuple(biases[1:])
-    if on_card:
-        y_pred, dws, dbs = _data_vg_packed_cuda(act_name, x.bytes, target, wf, bf, x.n)
-    else:
-        y_pred, dws, dbs = data_vg_packed_ref(act_name, x.bytes, target, wf, bf, x.n)
+    y_pred, dws, dbs = data_vg_packed_ref(act_name, x.bytes, target, wf, bf, x.n)
     rss = torch.sum((y_pred - target) ** 2)
     dW0 = s[:, None] * dws[0] - (x.shift * s)[:, None] * dbs[0]
     return y_pred, rss, (dW0,) + tuple(dws[1:]), dbs
@@ -280,50 +291,81 @@ def vg_dense_smem(m: int, k0: int, s: int, depth: int) -> int:
     return _dense_smem(m, k0, s, depth, rss=True)
 
 
-_PACKED_ROW = GBYTES + 4  # shared-memory row stride of K4's and K5's byte tile (kRow)
+_PACKED_ROW = GBYTES + 4  # shared-memory row stride of the depth-0 rule's byte tile (kRow)
+# csrc/packed_deep.cuh: threads per CTA, individuals per tile, words per dz0 column
+_DEEP_THREADS, _DEEP_TILE, _DEEP_DZS = 256, 64, 34
+
+
+def _packed_km(k0: int, s: int) -> int:
+    """The packed rules' width class of layers of widths k0 and s: 8, 16,
+    32 or 64, -1 above 64 (csrc/packed_deep.cuh pick_km64)."""
+    return next((k for k in (8, 16, 32, 64) if max(k0, s) <= k), -1)
+
+
+def _depth0_smem(m: int, k0: int, s: int, extra_floats: int) -> int:
+    """The depth-0 rule at padded widths up to 32 that K4 and K5 share
+    (the first f32 layout, kept): register width KM from ``pick_km``, the
+    weights and one [512, KM + 4] row tile, the byte tile, within 227 KB.
+    ``extra_floats`` is what the kernel adds of its own."""
+    km = _pick_km(k0, s)
+    floats = 4 * GBYTES * (km + 4) + m * km + km + km + 4 * km + extra_floats
+    smem = 4 * floats + m * _PACKED_ROW
+    return smem if smem <= _MAX_SMEM else -1
+
+
+def deep_smem(m: int, k0: int, s: int, depth: int, cc: int = 1) -> int:
+    """Shared memory of one CTA of the deep design (csrc/packed_deep.cuh
+    ``layout``) for chunks of ``cc`` chains, or -1 above width 64 or past
+    227 KB: the fold's f64 slices, two byte tiles, per chain W0' in three
+    bf16 planes and off, w_out and each hidden layer's W_l^T and b_l in f32,
+    the tile's depth + 2 rows of activations, dz0's three bf16 planes and a
+    few sums."""
+    km = _packed_km(k0, s)
+    if km < 0 or m <= 0 or depth < 0:
+        return -1
+    m16 = -(-m // 16) * 16
+    wstride = m16 if (m16 // 16) % 2 else m16 + 16
+    smem = (8 * _DEEP_THREADS + 2 * m16 * 16 + 6 * cc * km * wstride
+            + 4 * cc * (2 * km + depth * (km * km + km)) + 4 * (depth + 2) * _DEEP_TILE * (km + 4)
+            + 12 * km * _DEEP_DZS + 4 * (5 * _DEEP_TILE + _DEEP_THREADS // 32))
+    return smem if smem <= _MAX_SMEM else -1
 
 
 def _packed_smem(m: int, k0: int, s: int, depth: int, extra_floats: int) -> int:
-    """The rule K4 and K5 share: register width KM from ``pick_km``
-    (csrc/packed_decode.cuh), depth 0 or 1, the weights and one [512, KM + 4]
-    row tile per saved per-individual row (three at depth 1), the byte tile,
-    within 227 KB. ``extra_floats`` is what the kernel adds of its own."""
-    km = _pick_km(k0, s)
-    if km < 0 or depth not in (0, 1):
-        return -1
-    deep = depth == 1
-    floats = (4 * GBYTES * (km + 4) * (3 if deep else 1) + m * km + km
-              + (km * km + km if deep else 0) + km + 4 * km + extra_floats)
-    smem = 4 * floats + m * _PACKED_ROW
-    return smem if smem <= _MAX_SMEM else -1
+    """The rule K4 and K5 share: at depth 0 and padded widths up to 32 the
+    depth-0 rule, at every other shape the deep design's at one chain."""
+    if depth == 0 and _pick_km(k0, s) > 0:
+        return _depth0_smem(m, k0, s, extra_floats)
+    return deep_smem(m, k0, s, depth)
 
 
 @functools.lru_cache(maxsize=None)
 def branch_vg_packed_smem(m: int, k0: int, s: int, depth: int) -> int:
     """Shared memory (bytes) K4 needs for one branch of m_pad markers and
-    padded widths k0, s, or -1 if it cannot run it. The rule of the CUDA
-    entry point of the same name; the CLI asks it before a packed HMC run on
-    the card whose branches step one by one."""
+    padded widths k0, s at this depth, or -1 if it cannot run it. The rule
+    of the CUDA entry point of the same name; the CLI asks it before a
+    packed HMC run on the card whose branches step one by one."""
     return _packed_smem(m, k0, s, depth, 0)
 
 
 def traj_packed_smem(m: int, k0: int, s: int, depth: int) -> int:
     """Shared memory (bytes) K5 needs at the padded widths, or -1 if it
-    cannot run them: K4's rule plus each marker's scale and offset. The rule
-    of the CUDA entry point of the same name; the CLI asks it before a
-    folded packed HMC run on the card. (K5 computes only a block's live
-    columns, which never need more.)"""
+    cannot run them: K4's rule, plus each marker's scale and offset at depth
+    0 and widths up to 32. The rule of the CUDA entry point of the same
+    name; the CLI asks it before a folded packed HMC run on the card. (At
+    depth 0 K5 computes only a block's live columns, which never need
+    more; the deep design takes more chains a chunk only where they fit.)"""
     return _packed_smem(m, k0, s, depth, 2 * m)
 
 
 def flat_params(weights, biases) -> torch.Tensor:
-    """Per-layer [G, C, ...] tensors -> [G, C, P] in the kernels' layout:
-    W0, b0, (W1, b1), w_out."""
-    nb, C = weights[0].shape[:2]
+    """Per-layer tensors [*lead, in, out] (biases [*lead, out]) -> [*lead, P]
+    in the kernels' layout: W0, b0, (W_l, b_l)..., w_out."""
+    lead = weights[-1].shape[:-2]
     parts = []
     for w, b in zip(weights[:-1], biases):
-        parts += [w.reshape(nb, C, -1), b.reshape(nb, C, -1)]
-    parts.append(weights[-1].reshape(nb, C, -1))
+        parts += [w.reshape(lead + (-1,)), b.reshape(lead + (-1,))]
+    parts.append(weights[-1].reshape(lead + (-1,)))
     return torch.cat(parts, dim=-1).to(torch.float32).contiguous()
 
 
@@ -387,19 +429,26 @@ def _dense_shape(xT, weights, rule, kernel):
     return G, weights[0].shape[1], m, n, k0, s, depth
 
 
+def _dims(m: int, k0: int, s: int, depth: int) -> list:
+    """[(in, out)] of every layer but the output: W0 [m, k0], then the
+    hidden layers W_l [k0, k0] and the last W_D [k0, s]."""
+    return [(m, k0)] + [(k0, k0 if l < depth else s) for l in range(1, depth + 1)]
+
+
 def _flat_size(m: int, k0: int, s: int, depth: int) -> int:
-    """Length P of one branch's gradients in the kernels' order W0, b0, (W1, b1), w_out."""
-    return m * k0 + k0 + (k0 * s + s if depth else 0) + s
+    """Length P of one branch's gradients in the kernels' order W0, b0,
+    (W_l, b_l)..., w_out."""
+    return sum(i * o + o for i, o in _dims(m, k0, s, depth)) + s
 
 
 def _grad_views(grads, pre, m, k0, s, depth):
     """Per-layer views (dws, dbs) of gradients ``grads`` [*pre, P] in the
     kernels' order, shaped as the weights [*pre, in, out] and biases
     [*pre, out]."""
-    parts = grads.split((m * k0, k0) + ((k0 * s, s) if depth else ()) + (s,), dim=-1)
-    dws = ((parts[0].view(pre + (m, k0)),) + ((parts[2].view(pre + (k0, s)),) if depth else ())
-           + (parts[-1].view(pre + (s, 1)),))
-    return dws, (parts[1],) + ((parts[3],) if depth else ())
+    dims = _dims(m, k0, s, depth)
+    parts = grads.split([n for i, o in dims for n in (i * o, o)] + [s], dim=-1)
+    dws = tuple(parts[2 * l].view(pre + d) for l, d in enumerate(dims)) + (parts[-1].view(pre + (s, 1)),)
+    return dws, tuple(parts[2 * l + 1] for l in range(len(dims)))
 
 
 def layer_slots(ws, bs, depth):

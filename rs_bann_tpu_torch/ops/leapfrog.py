@@ -20,16 +20,19 @@ precision factors per layer [B, C, in, out] (biases [B, C, out]).
 On a CUDA tensor one call is one launch of csrc/traj_packed.cu (K5) or
 csrc/traj_dense.cu (K6); on a CPU tensor it runs the plain PyTorch version
 the kernel is held against (``integrate_chains_packed_ref``,
-``integrate_chains_ref``). At depth 0, K5 decodes each genotype of a
-staged byte tile once for a chunk of CC chains (``traj_packed_occupancy``
-says which CC and how many resident blocks a launch uses); the packed
-standardization is folded into the weights inside the kernel, so its f32
-sums are rounded in another order than the plain version's. K6 runs its
-gradients on tf32 tensor cores in 3xTF32 (three tf32 products per f32
-one), a branch's C chains in chunks of CC on each staged tile of X
-(``traj_dense_plan`` says which CC and grid a launch uses), and reads its
-per-layer inputs in place, broadcast step sizes and prior factors
-included; its sums are rounded in another order too.
+``integrate_chains_ref``). K5 takes any depth and padded widths up to 64:
+at depth 0 and widths up to 32 it decodes each genotype of a staged byte
+tile once for a chunk of CC chains; at every other shape it runs the
+design it shares with K4 (csrc/packed_deep.cuh), a staged tile of 64
+individuals for a chunk of CC chains whose weights fit shared memory
+together (``traj_packed_plan`` says which design, CC and grid a launch
+uses); the packed standardization is folded into the weights inside the
+kernel, so its f32 sums are rounded in another order than the plain
+version's. K6 runs its gradients on tf32 tensor cores in 3xTF32 (three
+tf32 products per f32 one), a branch's C chains in chunks of CC on each
+staged tile of X (``traj_dense_plan`` says which CC and grid a launch
+uses), and reads its per-layer inputs in place, broadcast step sizes and
+prior factors included; its sums are rounded in another order too.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from .activations import ACT_CODES
 from .branch_mlp import (
     SUPPORTED_ACTIVATIONS,
     _dense_shape,
+    _pick_km,
     _scratch,
     data_vg_chains_ref,
     flat_params,
@@ -51,9 +55,10 @@ from .branch_mlp import (
     layer_slots,
     pass_instances,
     traj_dense_smem,
+    traj_packed_smem,
     unflat_params,
 )
-from .packed_matmul import GBYTES, _check, unpack_strided
+from .packed_matmul import GBYTES, _check, _check_aligned, unpack_strided
 
 
 def integrate_chains_packed_ref(
@@ -84,17 +89,30 @@ def live_width(k0: int, w, pw, eps, lam) -> int:
     return int(torch.where(live, cols, 0).max().item())
 
 
-def traj_packed_occupancy(m: int, k0: int, s: int, k_live: int, depth: int, C: int):
-    """What K5 launches for a block of m_pad markers, padded widths k0 and
-    s, live width k_live (k0 at depth 1) and C chains, on the current CUDA
-    device: (chains per chunk CC, resident blocks per SM, shared memory per
-    block in bytes). The cooperative grid is blocks per SM times the SMs."""
-    lib = _build.lib()
-    cc, per_sm, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
-    status = lib.traj_packed_occupancy(m, k0, s, k_live, depth, C, ctypes.byref(cc),
-                                       ctypes.byref(per_sm), ctypes.byref(smem))
-    _build.check(status, "traj_packed_occupancy")
-    return cc.value, per_sm.value, smem.value
+K5_PLAN_FIELDS = ("km", "cc", "ctas_per_sm", "smem", "ctas", "scratch", "slots")
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_plan(device_index: int, m: int, k0: int, s: int, k_live: int, depth: int, nb: int, C: int,
+             B: int, n: int) -> tuple:
+    out = (ctypes.c_longlong * len(K5_PLAN_FIELDS))()
+    with torch.cuda.device(device_index):
+        _build.check(_build.lib().traj_packed_plan(m, k0, s, k_live, depth, nb, C, B, n, out),
+                     "traj_packed_plan")
+    return tuple(out)
+
+
+def traj_packed_plan(m: int, k0: int, s: int, k_live: int, depth: int, nb: int, C: int, B: int,
+                     n: int, device=None) -> dict:
+    """What a K5 launch for nb branches of bytes [m, B], n individuals,
+    padded widths k0 and s, live width k_live and C chains uses on a CUDA
+    device (the current one by default): the register width KM (the deep
+    design's width class past depth 0 or width 32), chains per chunk CC,
+    resident blocks per SM, shared bytes per block, blocks in the
+    cooperative grid, floats of partial scratch and the deep design's
+    segments per block (0 at depth 0)."""
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    return dict(zip(K5_PLAN_FIELDS, _k5_plan(index, m, k0, s, k_live, depth, nb, C, B, n)))
 
 
 def _integrate_packed_cuda(
@@ -102,13 +120,12 @@ def _integrate_packed_cuda(
     eps_w, eps_b, lam_w, lam_b, L_steps, n, l1,
 ):
     """Launch csrc/traj_packed.cu once for the whole block and trajectory.
-    At depth 0 the kernel computes only the block's live columns
-    (``live_width``), the others it leaves as they are, and it serves the
-    C chains in chunks of CC from each staged byte tile: the launch takes
-    the largest CC instantiated at the live register width that is at most
-    C and fits shared memory (``traj_packed_occupancy``). A shape that
-    passes ``traj_packed_smem`` always fits at CC = 1; anything else
-    raises."""
+    At depth 0 and widths up to 32 the kernel computes only the block's live
+    columns (``live_width``), the others it leaves as they are; any other
+    shape runs the deep design on every column. Either serves the C chains
+    in chunks of CC from each staged byte tile (``traj_packed_plan``). A
+    shape that passes ``traj_packed_smem`` always fits at CC = 1; anything
+    else raises."""
     nb, m, B = bytes_g.shape
     C = targets.shape[1]
     depth = len(weights) - 2
@@ -117,33 +134,34 @@ def _integrate_packed_cuda(
     dev = bytes_g.device
     if B % GBYTES or n > 4 * B or n <= 0:
         raise ValueError(f"bad packed shape: B={B}, n={n}")
-    lib = _build.lib()
-    if lib.traj_packed_smem(m, k0, s, depth) < 0:
+    if traj_packed_smem(m, k0, s, depth) < 0:
         raise NotImplementedError(
-            f"the K5 CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
-            f"within 227 KB of shared memory; got depth={depth}, m={m}, "
-            f"k0={k0}, s={s}"
+            f"the K5 CUDA kernel takes padded layer widths up to 64 within 227 KB of shared "
+            f"memory; got depth={depth}, m={m}, k0={k0}, s={s}"
         )
     w, pw = flat_params(weights, biases), flat_params(p_w, p_b)
     eps, lam = flat_params(eps_w, eps_b), flat_params(lam_w, lam_b)
     P = w.shape[-1]
-    k_live = live_width(k0, w, pw, eps, lam) if depth == 0 else k0
+    depth0 = depth == 0 and _pick_km(k0, s) > 0
+    k_live = live_width(k0, w, pw, eps, lam) if depth0 else k0
     scale, shift = w_scale.contiguous(), shift.contiguous()
     targets, err = targets.contiguous(), err.contiguous()
     _check(bytes_g, "bytes", torch.uint8, (nb, m, B), dev)
+    _check_aligned(bytes_g, "bytes")
     _check(scale, "w_scale", torch.float32, (nb, m), dev)
     _check(shift, "shift", torch.float32, (nb, m), dev)
     _check(targets, "targets", torch.float32, (nb, C, n), dev)
     _check(err, "err", torch.float32, (nb, C), dev)
     for name, t in (("weights", w), ("momenta", pw), ("eps", eps), ("lam", lam)):
         _check(t, name, torch.float32, (nb, C, P), dev)
-    partial = torch.empty((nb, C, B // GBYTES, P), dtype=torch.float32, device=dev)
+    scratch = _k5_plan(dev.index, m, k0, s, k_live, depth, nb, C, B, n)[5]
+    partial = torch.empty(scratch, dtype=torch.float32, device=dev)
     vp = ctypes.c_void_p
-    status = lib.traj_packed_f32(
+    status = _build.lib().traj_packed_f32(
         vp(bytes_g.data_ptr()), vp(scale.data_ptr()), vp(shift.data_ptr()),
         vp(targets.data_ptr()), vp(err.data_ptr()), vp(eps.data_ptr()),
         vp(lam.data_ptr()), vp(w.data_ptr()), vp(pw.data_ptr()),
-        vp(partial.data_ptr()), nb, C, m, B, n, k0, k_live, s, P, depth, int(L_steps),
+        vp(partial.data_ptr()), scratch, nb, C, m, B, n, k0, k_live, s, P, depth, int(L_steps),
         ACT_CODES[act], int(bool(l1)), vp(_build.stream_ptr(bytes_g)),
     )
     _build.check(status, "traj_packed_f32")

@@ -30,8 +30,8 @@ from . import _build
 
 # what csrc/marker_scan.cu takes (its kMaxM, kMaxS; beyond them the launch
 # raises): the Gram row of a step in 32 registers a lane (m_pad <= 1024), a
-# row's columns one a lane (s_pad <= 32)
-MAX_M, MAX_S = 1024, 32
+# row's columns one a lane, or two past s_pad 32 (s_pad <= 64)
+MAX_M, MAX_S = 1024, 64
 
 
 def marker_scan_ref(gram, gix, u0, W0, w_out, eta, lam_e, pi, row_mask, col_mask, force, order,

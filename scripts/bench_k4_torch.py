@@ -14,7 +14,7 @@ scale zero), shapes:
   m13      m_pad = 13, n = 100,000 (one marker tile of 16)
   m300     m_pad = 300, n = 100,000
   k8, k32  k0 = 8 and 32 at m_pad = 104, n = 100,000
-  depth1   depth 1, W1 [16, 16] (its own kernel)
+  depth1   depth 1, W1 [16, 16] (the deep design, csrc/packed_deep.cuh)
 
 For each it holds K4 against its plain version (the wrapper's f32 fold,
 rss and unfold around ``data_vg_packed_ref``) within REL_TOL of the
@@ -191,7 +191,18 @@ def launcher(BM, _build, act, x, ws, bs, target):
                 vp(out.data_ptr() + 4 * n), m, B, n, k0, ACT_CODES[act], stream)
         keep = (out, part)
         fn = lib.branch_vg_packed0_f32
-    else:  # the first f32 kernel on pre-folded weights
+    elif hasattr(lib, "branch_vg_packed_deep_f32"):  # the deep design, folding inside
+        plan = BM.branch_vg_packed_deep_plan(m, B, n, k0, s, depth)
+        q = BM.flat_params(ws, bs)
+        out = torch.empty(n + q.numel() + 1, device=x.bytes.device)
+        part = torch.empty(plan["ctas"] * plan["row"], device=x.bytes.device)
+        args = (vp(x.bytes.data_ptr()), vp(target.data_ptr()), vp(q.data_ptr()),
+                vp(x.w_scale.data_ptr()), vp(x.shift.data_ptr()), vp(out.data_ptr()),
+                vp(part.data_ptr()), part.numel(), vp(out.data_ptr() + 4 * n), m, B, n, k0, s,
+                depth, ACT_CODES[act], stream)
+        keep = (q, out, part)
+        fn = lib.branch_vg_packed_deep_f32
+    else:  # the first f32 kernel on pre-folded weights (checkouts before the deep design)
         w0p = (x.w_scale[:, None] * ws[0]).contiguous()
         off = (bs[0] - x.shift @ w0p).contiguous()
         wout = ws[-1].reshape(s).contiguous()
@@ -232,7 +243,8 @@ def device_us(run):
         if a.device_type == DeviceType.CUDA:
             v = getattr(a, "self_device_time_total", None)
             v = getattr(a, "self_cuda_time_total", 0.0) if v is None else v
-            name = "reduce" if "reduce" in a.key else "pass" if "vg_packed" in a.key else a.key
+            name = ("reduce" if "reduce" in a.key else
+                    "pass" if "vg_packed" in a.key or "vg_deep" in a.key else a.key)
             out[name] = out.get(name, 0.0) + v / BACK_TO_BACK
     return out
 

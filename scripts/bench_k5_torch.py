@@ -160,10 +160,10 @@ def ptxas(build_log):
     for line in build_log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S*traj_packed_kernel\S*)'", line)
         if m:
-            # <KM, CC, DEEP> (<KM, DEEP> before chunks of chains)
-            t = re.search(r"ILi(\d+)E(?:Li(\d+)E)?Lb([01])E", m.group(1))
-            cur = ({"km": int(t.group(1)), "cc": int(t.group(2) or 1), "depth": int(t.group(3))}
-                   if t else {"name": m.group(1)})
+            # <KM, CC> (depth 0; <KM, CC, DEEP> and <KM, DEEP> in earlier checkouts)
+            t = re.search(r"traj_packed_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?E", m.group(1))
+            cur = ({"km": int(t.group(1)), "cc": int(t.group(2) or 1),
+                    "depth": int(t.group(3) or 0)} if t else {"name": m.group(1)})
             found.append(cur)
         elif "Compiling entry function" in line:
             cur = None
@@ -217,9 +217,16 @@ def main():
                            ) if hasattr(LF, "live_width") else WIDTH
     km = lib.traj_packed_km(k0, k0, k_live, 0) if hasattr(lib, "traj_packed_km") else 16
     # chains per chunk and resident blocks per SM (checkouts since the
-    # chunks of chains; one chain at a time and the occupancy API before)
-    cc, per_sm, smem = (LF.traj_packed_occupancy(m_pad, k0, k0, k_live, 0, C)
-                        if hasattr(LF, "traj_packed_occupancy") else (1, None, None))
+    # launch plan; the occupancy entry before it, since the chunks of
+    # chains; one chain at a time and the occupancy API before that)
+    if hasattr(LF, "traj_packed_plan"):
+        plan = LF.traj_packed_plan(m_pad, k0, k0, k_live, 0, args[0].shape[0], C,
+                                   args[0].shape[-1], N)
+        cc, per_sm, smem = plan["cc"], plan["ctas_per_sm"], plan["smem"]
+    elif hasattr(LF, "traj_packed_occupancy"):
+        cc, per_sm, smem = LF.traj_packed_occupancy(m_pad, k0, k0, k_live, 0, C)
+    else:
+        cc, per_sm, smem = 1, None, None
     print(f"B {B}, C {C}, m_pad {m_pad}, n {N}, width {WIDTH} stored at {k0}: "
           f"k_live {k_live}, KM {km}, CC {cc}, {per_sm} blocks per SM, {smem} bytes of shared "
           f"memory per block")

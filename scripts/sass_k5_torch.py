@@ -97,8 +97,8 @@ def main():
     for name, ins in funcs.items():
         if "traj_packed_kernel" not in name or not re.search(opts.kernel, name):
             continue
-        t = re.search(r"traj_packed_kernelILi(\d+)E(?:Li(\d+)E)?Lb([01])E", name)
-        tag = f"KM={t.group(1)} CC={t.group(2) or 1} depth={t.group(3)}" if t else name
+        t = re.search(r"traj_packed_kernelILi(\d+)E(?:Li(\d+)E)?(?:Lb([01])E)?E", name)
+        tag = f"KM={t.group(1)} CC={t.group(2) or 1} depth={t.group(3) or 0}" if t else name
         rows = []
         for start, end in loops(name, ins, label_at):
             body = [op for addr, op, _ in ins if start <= addr <= end]

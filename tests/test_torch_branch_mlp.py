@@ -73,19 +73,28 @@ def test_data_vg_packed_matches_jax(depth, act):
 
 
 # (m, k0, s, depth) -> shared memory of K4 and of K5, by hand from the C
-# rules (csrc/branch_vg_packed.cu and csrc/traj_packed.cu smem_bytes): floats
-# 512 (KM + 4) (x3 at depth 1) + m KM + KM (+ KM^2 + KM) + KM + 4 KM (K5:
-# + 2 m), times 4, plus the byte tile of m rows of 132 bytes; -1 above
-# 232,448 bytes, past depth 1 or past width 32
+# rules. Depth 0 at padded widths up to 32 (csrc/branch_vg_packed.cu and
+# csrc/traj_packed.cu smem_bytes0): floats 512 (KM + 4) + m KM + KM + KM +
+# 4 KM (K5: + 2 m), times 4, plus the byte tile of m rows of 132 bytes.
+# Every other shape (csrc/packed_deep.cuh layout, one chain; KM the width
+# class 8, 16, 32 or 64, m16 = m rounded up to 16, ws = m16 where m16 / 16
+# is odd, else m16 + 16): 8 256 + 2 m16 16 + 6 KM ws + 4 (2 KM + depth
+# (KM^2 + KM)) + 4 (depth + 2) 64 (KM + 4) + 12 KM 34 + 4 (5 64 + 8). -1
+# above 232,448 bytes or past width 64
 PACKED_LIMITS = [
     ((104, 16, 16, 0), 61728, 62560),  # the main path: width 10 padded to 16
-    ((104, 56, 56, 0), -1, -1),  # the default width rule at m = 100: h = s = 50
-    ((104, 16, 16, 2), -1, -1),  # depth 2
+    ((104, 56, 56, 0), 111392, 111392),  # the default width rule at m = 100: h = s = 50
+    ((104, 16, 16, 2), 47008, 47008),  # depth 2
     ((975, 16, 16, 0), 232444, -1),
     ((936, 16, 16, 0), 224800, 232288),
     ((976, 16, 16, 0), -1, -1),  # too many markers
-    ((23, 32, 32, 1), 232156, 232340),
-    ((24, 32, 32, 1), 232416, -1),
+    ((23, 32, 32, 1), 58784, 58784),  # depth 1 at width 32, once refused past 23 markers
+    ((24, 32, 32, 1), 58784, 58784),
+    ((104, 56, 56, 2), 179488, 179488),  # the slice: depth 2 at the default widths
+    ((224, 56, 56, 2), 232224, 232224),  # the most markers depth 2 takes there
+    ((225, 56, 56, 2), -1, -1),
+    ((104, 72, 72, 0), -1, -1),  # a padded width above 64
+    ((16, 64, 64, 5), -1, -1),  # depth 5 at width 64: past shared memory
 ]
 
 

@@ -280,12 +280,13 @@ PACKED_SCHEDULES = {  # schedule -> (its options, the kernel that runs it on the
 
 @pytest.mark.parametrize("depth,width,schedule", [
     pytest.param(d, w, sch, id=f"{d}-{w}-{sch}")
-    for sch in PACKED_SCHEDULES for d, w in (("0", "64"), ("2", "6"))])
+    for sch in PACKED_SCHEDULES for d, w in (("0", "72"), ("5", "64"))])
 def test_packed_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkeypatch, depth, width,
                                                        schedule):
     """The same for a --packed-genotypes HMC run: a branch beyond K5's
-    limits (folded) or K4's (sequential or unfolded) exits "not ported yet"
-    naming the kernel, before anything is written or loaded onto the
+    limits (folded) or K4's (sequential or unfolded), a padded width above
+    64 or depth 5 at width 64 (tiles past shared memory), exits "not ported
+    yet" naming the kernel, before anything is written or loaded onto the
     device."""
     import torch
 
@@ -310,8 +311,8 @@ def test_packed_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkeypatc
 ])
 def test_packed_gradient_descent_is_not_refused(data, tmp_path, extra, refused):
     """Gradient descent as the sampler runs K2, K3 and K9 at any width, so
-    a packed run at width 64 on the card is not refused; HMC after a GD
-    warm start is."""
+    a packed run at width 72 on the card is not refused; HMC after a GD
+    warm start is (K4 takes padded widths up to 64)."""
     import torch
 
     from rs_bann_tpu_torch.cli import main as cli_main
@@ -319,13 +320,48 @@ def test_packed_gradient_descent_is_not_refused(data, tmp_path, extra, refused):
     from rs_bann_tpu_torch.models import NetArch
 
     argv = _train_args(data, tmp_path, "--packed-genotypes", *extra)
-    argv[argv.index("--fixed-hidden-layer-width") + 1] = "64"
+    argv[argv.index("--fixed-hidden-layer-width") + 1] = "72"
     args = cli_main.build_parser().parse_args([str(a) for a in argv])
     cfg = mcmc_cfg_from_args(args, str(tmp_path))
-    arch = NetArch.uniform(G, M, 64, 0, activation="identity")
+    arch = NetArch.uniform(G, M, 72, 0, activation="identity")
     bad = cli_main._beyond_kernels(args, cfg, arch, torch.device("cuda"))
     assert bool(bad) == refused
     assert cli_main._beyond_kernels(args, cfg, arch, torch.device("cpu")) == []
+
+
+SLICE_CASES = {  # the genome-scale slice's branches at the JAX CLI's default widths
+    "folded": (["--update-mode", "hybrid", "--num-chains", "4"], 2, "tanh"),
+    "sequential": ([], 2, "tanh"),
+    "unfolded": (["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", "4"], 2,
+                 "tanh"),
+    "recipe": (["--update-mode", "hybrid", "--num-chains", "4", "--ss-markers"], 0, "identity"),
+}
+
+
+@pytest.mark.parametrize("case", SLICE_CASES)
+def test_the_slices_shape_is_not_refused_on_cuda(data, tmp_path, case):
+    """The genome-scale branch (100 markers, padded 104) at the JAX CLI's
+    default width rule (--relative-hidden-layer-width 0.5, summary like it:
+    h = s = 50, padded 56) runs on the card at depth 2 on K5 (folded) or K4
+    (sequential, unfolded), and the recipe's identity depth 0 with
+    --ss-markers on K5 and the marker scan (width 56): nothing refused."""
+    import torch
+
+    from rs_bann_tpu_torch.cli import main as cli_main
+    from rs_bann_tpu_torch.cli.args import mcmc_cfg_from_args
+    from rs_bann_tpu_torch.models import NetArch
+
+    extra, depth, act = SLICE_CASES[case]
+    argv = _train_args(data, tmp_path, "--packed-genotypes", *extra)
+    i = argv.index("--fixed-hidden-layer-width")
+    del argv[i : i + 2]  # the default width rule
+    argv[4:7] = ["ridge_ard", act, str(depth)]
+    args = cli_main.build_parser().parse_args([str(a) for a in argv])
+    cfg = mcmc_cfg_from_args(args, str(tmp_path))
+    arch = NetArch.from_width_rules([100] * 10, depth, ("fraction_of_input", 0.5),
+                                    ("fraction_of_hidden", 1.0), activation=act)
+    assert (arch.m_pad, arch.layer_out_pad(0), arch.s_pad) == (104, 56, 56)
+    assert cli_main._beyond_kernels(args, cfg, arch, torch.device("cuda")) == []
 
 
 def test_dense_and_silu_exit_nonzero(data, tmp_path):

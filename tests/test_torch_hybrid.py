@@ -139,13 +139,13 @@ FOLD_CASES = [
 ]
 
 
-def _fold_case(model_type, act, depth, mode, factor):
-    """A block of C = 2 chains x G = 3 branches (width 6 stored at 8), its
-    momenta from JAX's chain rule, and JAX's folded proposals. Returns
-    (the port's fold arguments, JAX's proposal, the port's cfg)."""
+def _fold_case(model_type, act, depth, mode, factor, width=6):
+    """A block of C = 2 chains x G = 3 branches (width 6 stored at 8 unless
+    given), its momenta from JAX's chain rule, and JAX's folded proposals.
+    Returns (the port's fold arguments, JAX's proposal, the port's cfg)."""
     rng = np.random.default_rng(5)
     C, G, m = 2, 3, 12
-    arch = NetArch.uniform(G, m, 6, depth, 6, activation=act)
+    arch = NetArch.uniform(G, m, width, depth, width, activation=act)
     state, _ = JI.init_net(arch, model_type, JI.InitCfg(seed=2))
     by, scale, shift = _packed(rng, G, m, arch.m_pad, N)
 

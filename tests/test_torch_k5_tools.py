@@ -45,6 +45,27 @@ def test_ptxas_reads_each_k5_instantiation(tmp_path, ix, want):
     assert found[ix] == want
 
 
+BUILD_LOG_KM_CC = """traj_packed.cu: 48.0 s
+==== traj_packed.cu
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__x_14_traj_packed_cu_e86b578f18traj_packed_kernelILi16ELi2EEEvNS_4ArgsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__x_14_traj_packed_cu_e86b578f16traj_deep_kernelILi64EEEvNS_8DeepArgsE' for 'sm_90a'
+    40 bytes stack frame, 56 bytes spill stores, 72 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 40 bytes cumulative stack size
+"""
+
+
+def test_ptxas_reads_the_depth0_kernels_km_cc_names(tmp_path):
+    """<KM, CC> names (the depth-0 design, no depth parameter since the deep
+    design went to traj_deep_kernel) read as depth 0; the deep kernel is
+    left out."""
+    log = tmp_path / "build.log"
+    log.write_text(BUILD_LOG_KM_CC)
+    assert _load("bench_k5_torch").ptxas(log) == [
+        {"km": 16, "cc": 2, "depth": 0, "registers": 168, "spill_stores": 0, "spill_loads": 0}]
+
+
 SASS = """
         Function : _ZN12_GLOBAL__N_118traj_packed_kernelILi12ELi2ELb0EEEvNS_4ArgsE
     .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
