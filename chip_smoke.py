@@ -176,6 +176,41 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      two columns a lane), as 16b: exactly 10 K9b, 10 marker_scan, 10 K5 and
      30 K2 launches per sweep, no plain-version call; the scan and its u0
      at the block against their plain versions (as 6c)
+ 17. the dense kernels' deep design (csrc/dense_deep.cuh) on phase 16's
+     genotypes in feature-major f32 (xT [100, 104, 100,000]), weights
+     from init_net: K8a on one branch, K8b on 4 chains x 10 branches (X
+     read through an index), K7 (value and gradient, and forward only) and
+     K6 (izmailov step sizes at factor 0.1, L = 1 and 30) on one hybrid
+     block (B = 10, C = 4), each chain's weights perturbed, at depth 2 tanh
+     with h = s = 50 padded 56 (the JAX CLI's default width rule), depth 0
+     identity at width 56 and depth 3 tanh at width 16: each output
+     against its plain version in f32 (REL_TOL; K6 at L = 30 REL_TOL_TRAJ)
+     and in f64 (no further from it than the f32 plain version, plus the
+     same), identical bits on a repeat, K6's data-term share at L = 30
+     (phase 16's check); K8's and K7's launch alone (the C entry, back to
+     back) beside the wrapper's call, K6's call, each plain version's time
+     and the bound of the function's work (the live widths, every product
+     in 3xTF32 at 494.7 TFLOP/s) with the f32 bound beside it; the plans
+     and ptxas registers/spills; torch.matmul W0^T X at the block's layer
+     0 as the library yardstick
+ 17b. train-new --feat-major ridge_ard tanh 2 at the default widths
+     --update-mode hybrid --num-chains 4 with the adaptation (2 sweeps at
+     burn-in 1), each sweep recorded: exactly 10 K6 and 20 forward-only K7
+     launches, no K8, K4 or K5 launch and no plain-version call in
+     train-new or predict; the adaptation checks of 6b; predict on chain 0,
+     card vs --cpu
+ 17c. the recipe (identity depth 0, --ss-markers, the adaptation) at layer
+     0 width 56 on --feat-major, as 17b: exactly 10 K6, 10 marker_scan and
+     30 value-pass K7 launches per sweep, no K9b (the scan's u0 on a FeatX
+     is one matmul)
+ 17d. one sweep of train-new --feat-major ridge_ard tanh 2 at the default
+     widths unfolded (--update-mode hybrid --per-chain-block-perm
+     --num-chains 4: exactly blocks x (L + 2) = 320 K8b launches and one
+     forward-only K8 launch per block, nothing else) and sequential with
+     one chain (exactly G x (L + 1) = 3,100 K8a launches, nothing else),
+     predict card vs --cpu; on a training set cut to n = 10,000 (the same
+     population and phenotype model; the launches do not depend on n) to
+     keep the script inside its time
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
 for K9a and K9b, 14 for K8a, 15 for K8b, 6c for marker_scan; K4's and K5's
@@ -195,7 +230,11 @@ written once, over 3.35 TB/s; for K2, K9a, K4, K3, K9b, K8a, K8b, K7 and K6 the 
 implemented, three bf16 tensor-core products per f32 one at 989 TFLOP/s
 (K8a, K8b, K7 and K6: three tf32 ones at 494.7 TFLOP/s), with the f32 figure
 beside it as f32_bound_ms; the deep design's as in phase 16, its work as
-implemented as impl_bound_ms; K2's and K9a's value pass
+implemented as impl_bound_ms; the dense deep design's entries
+traj_dense_deep, data_vg_chains_deep (its forward-only launch; the value
+and gradient under ``grad``), data_vg_deep and data_vg_blocked_deep at
+phase 17's depth 2 width 56, every shape under ``shapes``, launches in
+17b and 17d; K2's and K9a's value pass
 on the live width as value_pass_*, K3's and K9b's times at the warm
 start's block as warm_*); the last line is {"ok": true, "device":
 {...}}. The data lives in a temporary directory, removed at the end.
@@ -234,6 +273,8 @@ PEAK_TF32_FLOPS = 494.7e12  # dense tf32 tensor-core peak (K8's 3xTF32 products)
 # K5's sums); a 30-step trajectory compounds the differences (K5 at L = 30)
 REL_TOL = 1e-4
 REL_TOL_TRAJ = 1e-3
+MAIN_DEEP = "depth 2 tanh, h = s = 56"  # phase 17's shape on the slice's main path
+N_17D = 10_000  # phase 17d's training individuals (its launches do not depend on n)
 
 
 def smi_line():
@@ -644,11 +685,14 @@ def deep_bound(n_evals, live, padded, depth, nbytes_moved):
     return ((ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")), impl_ms, f32_ms
 
 
-# the plain versions no path on the card may call (phases 16b, 16c count them)
+# the plain versions no path on the card may call (phases 16b-17d count them)
 PLAIN_VERSIONS = (("leapfrog", "integrate_chains_packed_ref"), ("branch_mlp", "data_vg_packed_ref"),
                   ("packed_matmul", "packed_linear_ref"), ("packed_matmul", "packed_matmul_ref"),
                   ("packed_matmul", "packed_linear_vjp_ref"),
-                  ("packed_matmul", "packed_matmul_vjp_ref"), ("marker_scan", "marker_scan_ref"))
+                  ("packed_matmul", "packed_matmul_vjp_ref"), ("marker_scan", "marker_scan_ref"),
+                  ("leapfrog", "integrate_chains_ref"), ("branch_mlp", "data_vg_chains_ref"),
+                  ("branch_mlp", "forward_chains_ref"), ("branch_mlp", "data_vg_ref"),
+                  ("branch_mlp", "data_vg_blocked_ref"), ("branch_mlp", "forward_blocked_ref"))
 
 
 @contextlib.contextmanager
@@ -674,6 +718,80 @@ def plain_calls():
     finally:
         for mod, fn, orig in saved:
             setattr(mod, fn, orig)
+
+
+def cli_phase(cli, work, argv, kernels, log_records, test_gen, y_test, per_sweep, packed=True,
+              sweeps=CHAIN):
+    """One train-new run of ``argv`` (hybrid or parallel with C = CHAINS
+    chains, or one chain) at the default widths (56): each sweep recorded
+    with the launches of each counted wrapper in ``kernels`` (exactly
+    ``per_sweep``), no plain-version call in train-new or predict, the
+    adaptation checks of phase 6b where ``argv`` adapts, finite statistics,
+    and chain 0's last sample predicted on the card (``--packed-genotypes``
+    or feature-major) against the CPU's. Returns the run, the records and
+    its numbers."""
+    import numpy as np
+    import torch
+
+    from rs_bann_tpu_torch.models.net import Net
+
+    for counted in kernels.values():
+        counted.launches = 0
+    t0 = time.perf_counter()
+    with plain_calls() as calls:
+        run, recs = recorded_run(cli, argv, kernels)
+        train_s = time.perf_counter() - t0
+        before = {k: w.launches for k, w in kernels.items()}
+        chain0 = os.path.join(run, "models", "chain0")
+        rows = run_cli(cli, ["predict", os.path.join(work, "test"),
+                             os.path.join(work, "train.groups"), "-m",
+                             chain0 if os.path.isdir(chain0) else os.path.join(run, "models")]
+                       + (["--packed-genotypes"] if packed else []))
+        torch.cuda.synchronize()
+    predict_launches = {k: w.launches - before[k] for k, w in kernels.items()}
+    print(f"  kernel launches per sweep: {[r['launches'] for r in recs]}; predict: "
+          f"{predict_launches}; plain-version calls: {calls}")
+    if any(calls.values()):
+        raise AssertionError(f"a plain version ran on the card: {calls}")
+    stats = json.load(open(os.path.join(run, "training_stats")))
+    chains = int(argv[argv.index("--num-chains") + 1]) if "--num-chains" in argv else 1
+    if "--mass-adaptation" in argv:
+        factors = check_adapted(recs, stats, chains, per_sweep)
+    else:
+        factors = None
+        if len(recs) != sweeps or any(r["launches"] != per_sweep for r in recs):
+            raise AssertionError(f"launches per sweep {[r['launches'] for r in recs]}, expected "
+                                 f"{sweeps} x {per_sweep}")
+    series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
+    if len(stats["mse_test"]) != sweeps + 1 or not all(np.isfinite(series)):
+        raise AssertionError(f"non-finite or missing training statistics: {stats}")
+    card = np.asarray(list(csv.reader(io.StringIO(rows))), np.float64)
+    models = os.path.join(run, "models", "chain0")
+    models = models if os.path.isdir(models) else os.path.join(run, "models")
+    saved = [f for f in os.listdir(models) if f.endswith(".npz")]  # at burn-in 0 also 0.npz
+    net = Net.load(os.path.join(models, f"{sweeps}.npz"), "cpu")
+    if (net.arch.depth, net.arch.layer_out_pad(0), net.arch.s_pad) != (int(argv[6]), 56, 56):
+        raise AssertionError(f"the run's branches: depth {net.arch.depth}, widths "
+                             f"{net.arch.layer_out_pad(0)}/{net.arch.s_pad}")
+    x_cpu = (test_gen.to_packed(net.arch, "cpu") if packed
+             else test_gen.to_feature_major(net.arch, "cpu")).X
+    cpu_pred = net.predict(x_cpu).numpy()
+    perr = np.abs(cpu_pred - card[-1]).max()
+    if card.shape != (len(saved), len(y_test)) or not perr <= REL_TOL * max(
+            1.0, np.abs(cpu_pred).max()):
+        raise AssertionError(f"the card's predictions {card.shape} disagree with the CPU's "
+                             f"by {perr}")
+    done = [r for r in log_records if str(r.msg).startswith("Completed training")]
+    sweep_ms = 1000.0 * done[-1].args[0] / sweeps
+    r2 = 1.0 - np.mean((y_test - card.mean(axis=0)) ** 2) / np.var(y_test)
+    print(f"  {sweep_ms:.1f} ms per sweep of {chains} chains; train-new {train_s:.1f} s in "
+          f"all; acceptance {stats['num_accepted'] / stats['num_samples']:.3f}; mse train "
+          f"{stats['mse_train'][-1]:.4f}, test {stats['mse_test'][-1]:.4f}, test r2 of chain "
+          f"0's posterior mean {r2:.4f}; predict card vs CPU {perr:.3e}")
+    return run, recs, {"sweep_ms": sweep_ms, "train_s": train_s, "factors": factors,
+                       "launches_per_sweep": recs[-1]["launches"],
+                       "predict_launches": predict_launches,
+                       "acceptance": stats["num_accepted"] / stats["num_samples"]}
 
 
 def deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records):
@@ -907,52 +1025,8 @@ def deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records):
                "packed_linear": PM.packed_linear, "data_vg_packed": BM.data_vg_packed}
     test_gen = CompressedGenotypes(BedVM.from_file(os.path.join(work, "test")), groups)
 
-    def cli_phase(argv, kernels, per_sweep):
-        for counted in kernels.values():
-            counted.launches = 0
-        t0 = time.perf_counter()
-        with plain_calls() as calls:
-            run, recs = recorded_run(cli, argv, kernels)
-            train_s = time.perf_counter() - t0
-            before = {k: w.launches for k, w in kernels.items()}
-            rows = run_cli(cli, ["predict", os.path.join(work, "test"),
-                                 os.path.join(work, "train.groups"), "-m",
-                                 os.path.join(run, "models", "chain0"), "--packed-genotypes"])
-            torch.cuda.synchronize()
-        predict_launches = {k: w.launches - before[k] for k, w in kernels.items()}
-        print(f"  kernel launches per sweep: {[r['launches'] for r in recs]}; predict: "
-              f"{predict_launches}; plain-version calls: {calls}")
-        if any(calls.values()):
-            raise AssertionError(f"a plain version ran on the card: {calls}")
-        stats = json.load(open(os.path.join(run, "training_stats")))
-        factors = check_adapted(recs, stats, CHAINS, per_sweep)
-        series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
-        if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
-            raise AssertionError(f"non-finite or missing training statistics: {stats}")
-        card = np.asarray(list(csv.reader(io.StringIO(rows))), np.float64)
-        net = Net.load(os.path.join(run, "models", "chain0", f"{CHAIN}.npz"), "cpu")
-        if (net.arch.depth, net.arch.layer_out_pad(0), net.arch.s_pad) != (int(argv[6]), 56, 56):
-            raise AssertionError(f"the run's branches: depth {net.arch.depth}, widths "
-                                 f"{net.arch.layer_out_pad(0)}/{net.arch.s_pad}")
-        cpu_pred = net.predict(test_gen.to_packed(net.arch, "cpu").X).numpy()
-        perr = np.abs(cpu_pred - card[-1]).max()
-        if card.shape != (CHAIN, N_TEST) or not perr <= REL_TOL * max(1.0, np.abs(cpu_pred).max()):
-            raise AssertionError(f"the card's predictions {card.shape} disagree with the CPU's "
-                                 f"by {perr}")
-        done = [r for r in log_records if str(r.msg).startswith("Completed training")]
-        sweep_ms = 1000.0 * done[-1].args[0] / CHAIN
-        r2 = 1.0 - np.mean((y_test - card.mean(axis=0)) ** 2) / np.var(y_test)
-        print(f"  {sweep_ms:.1f} ms per sweep of {CHAINS} chains; train-new {train_s:.1f} s in "
-              f"all; acceptance {stats['num_accepted'] / stats['num_samples']:.3f}; mse train "
-              f"{stats['mse_train'][-1]:.4f}, test {stats['mse_test'][-1]:.4f}, test r2 of chain "
-              f"0's posterior mean {r2:.4f}; predict card vs CPU {perr:.3e}")
-        return run, recs, {"sweep_ms": sweep_ms, "train_s": train_s, "factors": factors,
-                           "launches_per_sweep": recs[-1]["launches"],
-                           "predict_launches": predict_launches,
-                           "acceptance": stats["num_accepted"] / stats["num_samples"]}
-
     blocks = G // BLOCK
-    _, recs, out["16b"] = cli_phase(base, kernels, {
+    _, recs, out["16b"] = cli_phase(cli, work, base, kernels, log_records, test_gen, y_test, {
         "integrate_chains_packed": blocks, "packed_linear": 2 * blocks, "data_vg_packed": 0})
     del recs
 
@@ -962,7 +1036,8 @@ def deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records):
     argv = list(base)
     argv[5:7] = ["identity", "0"]
     kernels = dict(kernels, packed_matmul_vjp=PM.packed_matmul_vjp, marker_scan=MS.marker_scan)
-    _, recs, out["16c"] = cli_phase(argv + SSM_ARGS, kernels, {
+    _, recs, out["16c"] = cli_phase(cli, work, argv + SSM_ARGS, kernels, log_records, test_gen,
+                                    y_test, {
         "integrate_chains_packed": blocks, "packed_linear": 3 * blocks, "data_vg_packed": 0,
         "packed_matmul_vjp": blocks, "marker_scan": blocks})
     carry = recs[-1]["carry"]
@@ -973,6 +1048,390 @@ def deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records):
           f"{out['scan']['ms']:.4f} ms ({out['scan']['us_per_marker']:.3f} us per dependent "
           f"marker step), plain {out['scan']['plain_ms']:.3f} ms; identical repeats")
     del recs, carry
+    return out
+
+
+def dense_fmas(m, h, s, depth, grad=True):
+    """FMAs of one dense branch MLP of ``depth`` hidden layers of width h and
+    a summary layer of width s (at depth 0 layer 0 has width s), for one
+    individual and one chain: the forward, plus the backward with ``grad``
+    (dW0, and per hidden and summary layer its dW and the product back)."""
+    dims = [(h, h)] * (depth - 1) + ([(h, s)] if depth else [])
+    k0, hid = (h if depth else s), sum(i * o for i, o in dims)
+    return m * k0 + hid + s + (m * k0 + 2 * hid + s if grad else 0)
+
+
+def dense_bounds(n_evals, live, depth, nbytes_moved, grad=True):
+    """The bounds of ``n_evals`` (individual, chain) evaluations of the dense
+    MLP at the live widths ``live`` = (m, h, s): (least ms, what bounds it)
+    with every product in 3xTF32 at 494.7 TFLOP/s (the card's f32-exact
+    tensor-core rate, as K6-K8 run layer 0), and the ms of the same FMAs
+    at the 67 TFLOP/s f32 peak; each against ``nbytes_moved``."""
+    flop = 2.0 * n_evals * dense_fmas(*live, depth, grad)
+    return tf32_bound(flop, nbytes_moved), bound(flop, nbytes_moved)[0]
+
+
+def dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records):
+    """Phases 17-17d: the dense kernels' deep design (csrc/dense_deep.cuh:
+    any depth, padded widths up to 64) at the genome-scale shape in
+    feature-major f32 (m_pad 104, n 100,000) and the JAX CLI's default
+    width rule (h = s = 50, padded 56). Returns their numbers."""
+    import numpy as np
+    import torch
+
+    from rs_bann_tpu_torch.io import BedVM
+    from rs_bann_tpu_torch.io.genotypes import CompressedGenotypes
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models import params as P
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+    from rs_bann_tpu_torch.ops import _build
+    from rs_bann_tpu_torch.ops import branch_mlp as BM
+    from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+    from rs_bann_tpu_torch.ops.activations import ACT_CODES
+    from rs_bann_tpu_torch.samplers import MCMCCfg
+    from rs_bann_tpu_torch.samplers import hmc as H
+
+    dev = torch.device("cuda")
+    lib = _build.lib()
+    vp = ctypes.c_void_p
+    out = {"k8a": {}, "k8b": {}, "k7": {}, "k7_fwd": {}, "k6": {}}
+    rule = ("fraction_of_input", 0.5), ("fraction_of_hidden", 1.0)  # the JAX CLI's defaults
+    archs = {
+        "depth 2 tanh, h = s = 56": NetArch.from_width_rules([M] * G, 2, *rule, activation="tanh"),
+        "depth 0 identity, width 56": NetArch.from_width_rules([M] * G, 0, *rule,
+                                                               activation="identity"),
+        "depth 3 tanh, width 16": NetArch.from_width_rules([M] * G, 3, ("fixed", 16),
+                                                           ("fixed", 16), activation="tanh"),
+    }
+    build_log = _build.BUILD_DIR / "build.log"
+    if build_log.exists():
+        import re
+
+        text, cur = build_log.read_text(), None
+        for line in text.splitlines():
+            m_ = re.search(r"Compiling entry function '\S*(run_kernel|traj_dense_deep_kernel)ILi(\d+)E"
+                           r"(Lb(\d))?", line)
+            if m_:
+                grad = "" if m_.group(4) is None else (", grad" if m_.group(4) == "1" else ", fwd")
+                cur = f"{m_.group(1)}<KM={m_.group(2)}{grad}>"
+            elif "Compiling entry function" in line:
+                cur = None
+            elif cur and "Used" in line:
+                print(f"  ptxas {cur}: {line.split(':', 1)[1].strip()}")
+            elif cur and "spill" in line:
+                print(f"  ptxas {cur}: {line.strip()}")
+
+    # feature-major f32 X of the training genotypes; m_pad 104 at every width
+    t0 = time.perf_counter()
+    X = CompressedGenotypes(train_bed, groups).to_feature_major(
+        archs["depth 0 identity, width 56"], dev).X
+    print(f"phase 17: the dense deep design (csrc/dense_deep.cuh): K8a on one branch, K8b on "
+          f"{CHAINS} chains x {BLOCK} branches through an index, K7 (value and gradient, and "
+          f"forward only) and K6 on one hybrid block (B {BLOCK}, C {CHAINS}), n {N_TRAIN}; "
+          f"xT {tuple(X.xT.shape)} f32 ({time.perf_counter() - t0:.1f} s)")
+    g = G // 2
+    xg = X.xT[g]
+    ixs = torch.arange(BLOCK, device=dev) * (G // BLOCK)
+    xb = X.xT[ixs].contiguous()
+    y_dev = torch.as_tensor(y_train, dtype=torch.float32, device=dev)
+    gen = torch.Generator(dev).manual_seed(9)
+    target = y_dev + 0.1 * torch.randn(N_TRAIN, device=dev, generator=gen)
+    ix40 = ixs.repeat(CHAINS).to(torch.int32)  # instance c B + b reads branch ixs[b]
+    targets = y_dev + 0.1 * torch.randn((BLOCK, CHAINS, N_TRAIN), device=dev, generator=gen)
+
+    def names_of(L_):
+        return (["y_pred", "rss"] + [f"dW{l}" for l in range(L_)]
+                + [f"db{l}" for l in range(L_ - 1)])
+
+    def hold(kernel, label, names, got, want, want64, tol=REL_TOL):
+        """f32 within ``tol``; f64 no further than the f32 plain version, plus ``tol``."""
+        err = max(check_close(kernel, f"{label} {nm}", a, b, tol)
+                  for nm, a, b in zip(names, got, want))
+        for nm, a, b, b64 in zip(names, got, want, want64):
+            plain64 = (b.double() - b64).abs().max().item() / max(1.0, b64.abs().max().item())
+            check_close(kernel + " f64", f"{label} {nm} (f64; f32 plain {plain64:.2e})",
+                        a.double(), b64, tol=plain64 + tol)
+        return err
+
+    def flat(o):
+        return (o[0], o[1]) + tuple(o[2]) + tuple(o[3])
+
+    for label, arch in archs.items():
+        act, depth, code = arch.activation, arch.depth, ACT_CODES[arch.activation]
+        h, s = arch.layer_out_pad(0), arch.s_pad
+        state, _ = init_net(arch, "ridge_ard", InitCfg(seed=0), device=dev)
+        ws, bs = tuple(w[g] for w in state.params.weights), tuple(b[g] for b in state.params.biases)
+        m_pad = ws[0].shape[0]
+        live = (arch.m[g], arch.h[g], arch.s[g])
+        names = names_of(len(ws))
+
+        def cast(ts, dt):
+            return tuple(t.to(dt) for t in ts)
+
+        # ---- K8a: one branch
+        k8a = lambda: flat(BM.data_vg(act, xg, ws, bs, target))  # noqa: E731
+        k8a_plain = lambda dt=torch.float32: flat(BM.data_vg_ref(  # noqa: E731
+            act, xg.to(dt), cast(ws, dt), cast(bs, dt), target.to(dt)))
+        got = k8a()
+        err = hold("data_vg_deep", f"K8a {label}", names, got, k8a_plain(), k8a_plain(torch.float64))
+        identical(k8a, got, f"K8a {label}")
+        q = BM.flat_params(ws, bs)
+        Pf = q.numel()
+        plan = BM.vg_dense_plan(1, m_pad, N_TRAIN, h, s, depth, act=act)
+        buf = torch.empty(N_TRAIN + Pf + 1, device=dev)
+        scr = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
+        c_args = (vp(xg.data_ptr()), None, vp(target.data_ptr()), vp(q.data_ptr()),
+                  vp(buf.data_ptr()), vp(scr.data_ptr()), plan["scratch"], 1, m_pad, N_TRAIN, h,
+                  s, depth, code, 1, vp(_build.stream_ptr(xg)))
+
+        def k8a_alone(reps=10):
+            for _ in range(reps):
+                _build.check(lib.vg_dense_deep_f32(*c_args), "vg_dense_deep_f32")
+
+        ms, wrapper_ms = cuda_ms(k8a_alone, runs=5) / 10, cuda_ms(k8a, runs=5)
+        plain_ms = cuda_ms(k8a_plain, runs=3)
+        bnd, f32b = dense_bounds(N_TRAIN, live, depth,
+                                 nbytes(xg, target, q) + 4 * (N_TRAIN + Pf + 1))
+        print(f"  K8a {label}: launch alone {ms:.4f} ms (the pass and its reduce), wrapper "
+              f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}, "
+              f"live widths {live}, 3xTF32), f32 {f32b:.4f} ms; plan {plan}; identical repeat")
+        out["k8a"][label] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                             "bound_ms": bnd[0], "bound_by": bnd[1], "f32_bound_ms": f32b,
+                             "max_abs_err": err, "plan": plan}
+        del got, buf, scr
+
+        # ---- K8b: C x B instances on the block's branches, X read through ix
+        noise = torch.Generator(dev).manual_seed(10)
+
+        def per_chain(ts):  # [B, ...] of the block -> [C B, ...], each chain perturbed
+            return tuple((t[ixs][None] * (1 + 0.05 * torch.randn(
+                (CHAINS,) + t[ixs].shape, device=dev, generator=noise))).reshape(
+                    (CHAINS * BLOCK,) + t.shape[1:]).contiguous() for t in ts)
+
+        wb, bb = per_chain(state.params.weights), per_chain(state.params.biases)
+        tb = targets.transpose(0, 1).reshape(CHAINS * BLOCK, N_TRAIN).contiguous()
+        k8b = lambda: flat(BM.data_vg_blocked(act, X.xT, ix40, wb, bb, tb))  # noqa: E731
+        ix_b = torch.arange(CHAINS * BLOCK, device=dev) % BLOCK  # the same branches in xb
+        k8b_plain = lambda dt=torch.float32: flat(BM.data_vg_blocked_ref(  # noqa: E731
+            act, xb.to(dt), ix_b, cast(wb, dt), cast(bb, dt), tb.to(dt)))
+        got = k8b()
+        err = hold("data_vg_blocked_deep", f"K8b {label}", names, got, k8b_plain(),
+                   k8b_plain(torch.float64))
+        identical(k8b, got, f"K8b {label}")
+        qb = BM.flat_params(wb, bb)
+        plan = BM.vg_dense_plan(CHAINS * BLOCK, m_pad, N_TRAIN, h, s, depth, act=act)
+        buf = torch.empty(CHAINS * BLOCK * (N_TRAIN + Pf + 1), device=dev)
+        scr = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
+        c_args = (vp(X.xT.data_ptr()), vp(ix40.data_ptr()), vp(tb.data_ptr()), vp(qb.data_ptr()),
+                  vp(buf.data_ptr()), vp(scr.data_ptr()), plan["scratch"], CHAINS * BLOCK,
+                  m_pad, N_TRAIN, h, s, depth, code, 1, vp(_build.stream_ptr(xg)))
+
+        def k8b_alone(reps=3):
+            for _ in range(reps):
+                _build.check(lib.vg_dense_deep_f32(*c_args), "vg_dense_deep_f32")
+
+        ms, wrapper_ms = cuda_ms(k8b_alone, runs=3) / 3, cuda_ms(k8b, runs=3)
+        plain_ms = cuda_ms(k8b_plain, runs=3)
+        bnd, f32b = dense_bounds(CHAINS * BLOCK * N_TRAIN, live, depth,
+                                 nbytes(xb, tb, qb, ix40) + 4 * buf.numel())
+        print(f"  K8b {label}: launch alone {ms:.4f} ms (NB {CHAINS * BLOCK}), wrapper "
+              f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"f32 {f32b:.4f} ms; plan {plan}; identical repeat")
+        out["k8b"][label] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                             "bound_ms": bnd[0], "bound_by": bnd[1], "f32_bound_ms": f32b,
+                             "max_abs_err": err, "plan": plan}
+        del got, buf, scr
+
+        # ---- K7 on the block: [B, C] instances, each chain perturbed
+        def block(ts):  # [C B, ...] -> [B, C, ...]
+            return tuple(t.reshape((CHAINS, BLOCK) + t.shape[1:]).transpose(0, 1).contiguous()
+                         for t in ts)
+
+        w7, b7 = block(wb), block(bb)
+        k7 = lambda: flat(BM.data_vg_chains(act, xb, w7, b7, targets))  # noqa: E731
+        k7_plain = lambda dt=torch.float32: flat(BM.data_vg_chains_ref(  # noqa: E731
+            act, xb.to(dt), cast(w7, dt), cast(b7, dt), targets.to(dt)))
+        got = k7()
+        err = hold("data_vg_chains_deep", f"K7 {label}", names, got, k7_plain(),
+                   k7_plain(torch.float64))
+        identical(k7, got, f"K7 {label}")
+        fwd = lambda: BM.forward_chains(act, xb, w7, b7)  # noqa: E731
+        fwd_plain = lambda dt=torch.float32: BM.forward_chains_ref(  # noqa: E731
+            act, xb.to(dt), cast(w7, dt), cast(b7, dt))
+        y_fwd = fwd()
+        err_fwd = hold("data_vg_chains_deep", f"K7 forward-only {label}", ["y_pred"], [y_fwd],
+                       [fwd_plain()], [fwd_plain(torch.float64)])
+        identical(fwd, y_fwd, f"K7 forward-only {label}")
+        if not torch.equal(y_fwd, got[0]):
+            raise AssertionError(f"K7 {label}: the forward-only y_pred differs from the pass's")
+        q7 = BM.flat_params(w7, b7)
+        nums = {}
+        for grad in (True, False):
+            plan = BM.vg_chains_plan(BLOCK, CHAINS, m_pad, N_TRAIN, h, s, depth, grad, act)
+            size = BLOCK * CHAINS * ((N_TRAIN + Pf + 1) if grad else N_TRAIN)
+            buf = torch.empty(size, device=dev)
+            scr = torch.empty(max(plan["scratch"], 8), dtype=torch.uint8, device=dev)
+            c_args = (vp(xb.data_ptr()), vp(targets.data_ptr()), N_TRAIN * CHAINS, N_TRAIN,
+                      vp(q7.data_ptr()), vp(buf.data_ptr()), vp(scr.data_ptr()), plan["scratch"],
+                      BLOCK, CHAINS, m_pad, N_TRAIN, h, s, depth, code, int(grad),
+                      vp(_build.stream_ptr(xb)))
+
+            def k7_alone(reps=3, c_args=c_args):
+                for _ in range(reps):
+                    _build.check(lib.vg_chains_deep_f32(*c_args), "vg_chains_deep_f32")
+
+            ms = cuda_ms(k7_alone, runs=3) / 3
+            wrapper_ms = cuda_ms(k7 if grad else fwd, runs=3)
+            plain_ms = cuda_ms(k7_plain if grad else fwd_plain, runs=3)
+            moved = nbytes(xb, q7) + 4 * size + (nbytes(targets) if grad else 0)
+            bnd, f32b = dense_bounds(BLOCK * CHAINS * N_TRAIN, live, depth, moved, grad)
+            kind = "value and gradient" if grad else "forward only"
+            print(f"  K7 {kind} {label}: launch alone {ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, "
+                  f"plain {plain_ms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]}), f32 {f32b:.4f} "
+                  f"ms; plan {plan}; identical repeat")
+            nums[grad] = {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                          "bound_ms": bnd[0], "bound_by": bnd[1], "f32_bound_ms": f32b,
+                          "max_abs_err": err if grad else err_fwd, "plan": plan}
+            del buf, scr
+        out["k7"][label], out["k7_fwd"][label] = nums[True], nums[False]
+        del got, y_fwd
+
+        # ---- K6 on the block: izmailov step sizes (factor 0.1) from the
+        # initial precisions, each chain's weights perturbed, L = 1 and L
+        def chains_of(ts):
+            return tuple(t[ixs].unsqueeze(1).expand((BLOCK, CHAINS) + t.shape[1:]).contiguous()
+                         for t in ts)
+
+        bw, bbias = w7, b7
+        mws, mbs = chains_of(P.weight_masks(arch, dev)), chains_of(P.bias_masks(arch, dev))
+        wps, bps = chains_of(state.precisions.weights), chains_of(state.precisions.biases)
+        eps_w, eps_b = H.step_sizes(None, "ridge_ard", MCMCCfg(hmc_integration_length=L,
+                                                               hmc_step_size_factor=0.1),
+                                    bw, bbias, wps, bps, None)
+        p_w = tuple(torch.randn(w.shape, device=dev, generator=gen) * mk for w, mk in zip(bw, mws))
+        p_b = tuple(torch.randn(b.shape, device=dev, generator=gen) * mk
+                    for b, mk in zip(bbias, mbs))
+        err6 = torch.full((BLOCK, CHAINS), 1.0 / y_dev.var().item(), device=dev)
+        lam_w = tuple(lam.expand_as(w) for lam, w in zip(wps, bw))
+        lam_b = tuple(lam.expand_as(b) for lam, b in zip(bps, bbias))
+        plan6 = LF.traj_dense_plan(BLOCK, CHAINS, m_pad, N_TRAIN, h, s, depth, act)
+        k6_err, data_effect = 0.0, {}
+        for steps, tol in ((1, REL_TOL), (L, REL_TOL_TRAJ)):
+            args = (xb, targets, err6, bw, bbias, p_w, p_b, eps_w, eps_b, lam_w, lam_b, steps)
+            got = tuple(t for o in LF.integrate_chains(act, *args) for t in o)
+            ref = tuple(t for o in LF.integrate_chains_ref(act, *args) for t in o)
+            args64 = tuple(tuple(t.double() for t in a) if isinstance(a, tuple)
+                           else a.double() if isinstance(a, torch.Tensor) else a for a in args)
+            ref64 = tuple(t for o in LF.integrate_chains_ref(act, *args64) for t in o)
+            k6_err = max(k6_err, hold("traj_dense_deep", f"K6 {label}, L={steps}",
+                                      [f"out {k}" for k in range(len(got))], got, ref, ref64, tol))
+            identical(lambda: tuple(t for o in LF.integrate_chains(act, *args) for t in o), got,
+                      f"K6 {label}, L={steps}")
+            if steps == L:  # the data term's share of each momentum, as phase 16
+                nodata = LF.integrate_chains_ref(act, *args[:2], torch.zeros_like(err6), *args[3:])
+                nw, nb_ = len(bw), len(bbias)  # got and ref: w, b, pw, pb flattened
+                pw_ref, pb_ref = ref[nw + nb_:2 * nw + nb_], ref[2 * nw + nb_:]
+                for kind, refs, nods, p0s in (("pw", pw_ref, nodata[2], p_w),
+                                              ("pb", pb_ref, nodata[3], p_b)):
+                    for l, (a, b, p0) in enumerate(zip(refs, nods, p0s)):
+                        limit = tol * max(1.0, a.abs().max().item())
+                        data_effect[f"{kind}{l}"] = {
+                            "moved": (a - p0).abs().max().item(),
+                            "data": (a - b).abs().max().item(), "limit": limit}
+                print(f"  K6 {label}, L={L}: max |p_L - p_0|, the data term's share and the "
+                      f"check's limit per momentum: " + ", ".join(
+                          f"{k} {v['moved']:.3e}/{v['data']:.3e}/{v['limit']:.1e}"
+                          for k, v in data_effect.items()))
+                weak = {k: v for k, v in data_effect.items()
+                        if k.startswith("pw") and v["data"] < 5 * v["limit"]}
+                if weak:
+                    raise AssertionError(f"K6 {label}: the data term moves these weight momenta "
+                                         f"less than 5x the check's limit: {weak}")
+                del nodata
+            del ref, ref64
+        k6_ms = cuda_ms(lambda: LF.integrate_chains(act, *args), runs=3)
+        k6_plain_ms = cuda_ms(lambda: LF.integrate_chains_ref(act, *args), runs=1)
+        bnd, f32b = dense_bounds(BLOCK * CHAINS * N_TRAIN * (L + 1), live, depth,
+                                 nbytes(xb, targets, err6) + 8 * nbytes(*bw, *bbias))
+        print(f"  K6 {label}: L={L} {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms, bound "
+              f"{bnd[0]:.3f} ms ({bnd[1]}, live widths {live}, 3xTF32), f32 {f32b:.3f} ms; "
+              f"plan {plan6}; identical repeats")
+        out["k6"][label] = {"ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": bnd[0],
+                            "bound_by": bnd[1], "f32_bound_ms": f32b, "max_abs_err": k6_err,
+                            "plan": plan6, "data_effect": data_effect}
+        del got, bw, bbias, p_w, p_b, eps_w, eps_b, w7, b7, wb, bb
+
+    # the library yardstick: torch.matmul W0^T X at the block's layer 0 (the
+    # C chains' columns side by side)
+    w_lib = torch.randn((BLOCK, CHAINS * 56, xb.shape[1]), device=dev)
+    out["library_ms"] = cuda_ms(lambda: torch.matmul(w_lib, xb))
+    print(f"  torch.matmul W0^T X at the block's layer 0 ([{BLOCK}, {CHAINS} x 56, "
+          f"{xb.shape[1]}] x [{xb.shape[1]}, {N_TRAIN}]): {out['library_ms']:.3f} ms")
+    del w_lib, xb, xg, X
+
+    # ---- phases 17b-17d: the CLI on --feat-major at the default widths
+    runs = os.path.join(work, "runs_dense_deep")
+    base = ["train-new", os.path.join(work, "train"), os.path.join(work, "train.phen"),
+            os.path.join(work, "train.groups"), "ridge_ard", "tanh", "2", CHAIN, L,
+            "--feat-major", "--burn-in", "1", "--bfile-test", os.path.join(work, "test"),
+            "--p-test", os.path.join(work, "test.phen"), "-o", runs]
+    folded = ["--update-mode", "hybrid", "--num-chains", CHAINS] + ADAPT_ARGS
+    kernels = {"integrate_chains": LF.integrate_chains, "data_vg_chains": BM.data_vg_chains,
+               "data_vg": BM.data_vg, "data_vg_blocked": BM.data_vg_blocked,
+               "forward_blocked": BM.forward_blocked, "data_vg_packed": BM.data_vg_packed,
+               "integrate_chains_packed": LF.integrate_chains_packed,
+               "packed_matmul_vjp": PM.packed_matmul_vjp}
+    test_gen = CompressedGenotypes(BedVM.from_file(os.path.join(work, "test")), groups)
+    blocks = G // BLOCK
+    none = {k: 0 for k in kernels}
+    print(f"phase 17b: train-new --feat-major ridge_ard tanh 2 at the default widths "
+          f"{' '.join(map(str, folded))} -> predict")
+    _, recs, out["17b"] = cli_phase(cli, work, base + folded, kernels, log_records, test_gen,
+                                    y_test, dict(none, integrate_chains=blocks,
+                                                 data_vg_chains=2 * blocks), packed=False)
+    out["17b_runs"] = [r["launches"] for r in recs]
+    del recs
+
+    print(f"phase 17c: train-new --feat-major ridge_ard identity 0 at the default widths (layer "
+          f"0 width 56) with {' '.join(ADAPT_ARGS + SSM_ARGS)} -> predict")
+    argv = list(base)
+    argv[5:7] = ["identity", "0"]
+    kernels_c = dict(kernels, marker_scan=MS.marker_scan)
+    _, recs, out["17c"] = cli_phase(cli, work, argv + folded + SSM_ARGS, kernels_c, log_records,
+                                    test_gen, y_test,
+                                    dict(none, integrate_chains=blocks, data_vg_chains=3 * blocks,
+                                         marker_scan=blocks), packed=False)
+    del recs
+
+    # 17d: one sweep each, without the adaptation, kept (burn-in 0), on a
+    # training set of the same population and phenotype model cut to n =
+    # N_17D: the schedules' launches do not depend on n, and at n =
+    # 100,000 the two runs' data loads and sweeps took ~85 s of the
+    # script's 1,200
+    small = os.path.join(work, "small")
+    _, _, y_test_s = write_data(small, n_train=N_17D)
+    test_s = CompressedGenotypes(BedVM.from_file(os.path.join(small, "test")), groups)
+    one = ["train-new", os.path.join(small, "train"), os.path.join(small, "train.phen"),
+           os.path.join(small, "train.groups"), "ridge_ard", "tanh", "2", 1, L, "--feat-major",
+           "--burn-in", "0", "--bfile-test", os.path.join(small, "test"), "--p-test",
+           os.path.join(small, "test.phen"), "-o", runs]
+    print(f"phase 17d: train-new --feat-major ridge_ard tanh 2 at the default widths, n {N_17D}, "
+          f"one sweep: --update-mode hybrid --per-chain-block-perm --num-chains {CHAINS}, then "
+          f"sequential with one chain -> predict")
+    _, recs, out["17d_unfolded"] = cli_phase(
+        cli, small, one + ["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains",
+                           CHAINS], kernels, log_records, test_s, y_test_s,
+        dict(none, data_vg_blocked=blocks * (L + 2), forward_blocked=blocks), packed=False,
+        sweeps=1)
+    out["17d_unfolded_runs"] = [r["launches"] for r in recs]
+    del recs
+    _, recs, out["17d_sequential"] = cli_phase(cli, small, one, kernels, log_records, test_s,
+                                               y_test_s, dict(none, data_vg=G * (L + 1)),
+                                               packed=False, sweeps=1)
+    out["17d_sequential_runs"] = [r["launches"] for r in recs]
+    del recs
     return out
 
 
@@ -2586,6 +3045,11 @@ def main():
         t0 = time.perf_counter()
         deep = deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records)
         print(f"  phases 16-16c: {time.perf_counter() - t0:.1f} s in all")
+
+        # ---- phases 17-17d: the dense kernels at depth 2 and the default widths
+        t0 = time.perf_counter()
+        dense = dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records)
+        print(f"  phases 17-17d: {time.perf_counter() - t0:.1f} s in all")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2704,6 +3168,30 @@ def main():
          "nb64_wrapper_ms": k8b[FG][2], "nb64_plain_ms": k8b[FG][3],
          "nb64_bound_ms": k8b[FG][4][0],
          "forward_launches": k8_runs[15]["launches"]["forward_blocked"]},
+        # the dense deep design (csrc/dense_deep.cuh, phases 17-17d): each
+        # kernel's numbers at the slice's branch (depth 2 tanh, h = s = 56),
+        # the other shapes under ``shapes``; launches in the main path's runs
+        # (17b for K6 and K7, 17d for K8a and K8b)
+        *[{"name": f"{name}_deep", "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(r[counter] for r in runs), **{
+               k: nums[MAIN_DEEP][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "f32_bound_ms")},
+           "library_ms": dense["library_ms"] if name == "traj_dense" else None,
+           "wrapper_ms": nums[MAIN_DEEP].get("wrapper_ms"), "shapes": nums,
+           "plan": nums[MAIN_DEEP]["plan"]}
+          for name, source, replaces, counter, runs, nums in (
+              ("traj_dense", "rs_bann_tpu_torch/csrc/traj_dense.cu",
+               "rs_bann_tpu/ops/leapfrog.py:410", "integrate_chains", dense["17b_runs"],
+               dense["k6"]),
+              ("data_vg_chains", "rs_bann_tpu_torch/csrc/branch_fwd_chains.cu",
+               "rs_bann_tpu/ops/branch_mlp.py:791", "data_vg_chains", dense["17b_runs"],
+               dense["k7_fwd"]),
+              ("data_vg", "rs_bann_tpu_torch/csrc/dense_deep.cuh",
+               "rs_bann_tpu/ops/branch_mlp.py:216", "data_vg", dense["17d_sequential_runs"],
+               dense["k8a"]),
+              ("data_vg_blocked", "rs_bann_tpu_torch/csrc/dense_deep.cuh",
+               "rs_bann_tpu/ops/branch_mlp.py:478", "data_vg_blocked",
+               dense["17d_unfolded_runs"], dense["k8b"]))],
         # no TPU kernel: the JAX package's scan is jnp inside lax.scan; its
         # floor is the chain of dependent marker steps (us_per_marker)
         {"name": "marker_scan", "route": "cuda",
@@ -2718,11 +3206,15 @@ def main():
     ]
     for k in kernels:  # the scale-free error that the checks gate on
         k["max_rel_err"] = REL_ERR[k["name"]]
+        if k["name"] == "data_vg_chains_deep":  # K7's value and gradient beside it
+            k["grad"] = dense["k7"]
     print("adaptation (phases 6b, 9b): " + json.dumps(adapted_runs))
     print("ss_markers (phase 6c): " + json.dumps(ssm_run))
     print("resume and analysis (phase 6d): " + json.dumps(resume_run))
     print("depth 2 and the default widths (phases 16b, 16c): "
           + json.dumps({k: deep[k] for k in ("16b", "16c")}))
+    print("feature-major depth 2 and the default widths (phases 17b-17d): "
+          + json.dumps({k: dense[k] for k in ("17b", "17c", "17d_unfolded", "17d_sequential")}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

@@ -83,9 +83,8 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
     """On a CUDA device a feature-major sweep runs every branch on K6/K7
     (folded) or K8 (sequential or unfolded), and a packed HMC sweep on K5
     (folded) or K4 (sequential or unfolded); a branch beyond their limits
-    is refused rather than run on the plain version: for K6, K7 and K8 depth
-    above 1, a width above 32 or too many markers for shared memory, for K4
-    and K5 (any depth) a padded width above 64 or tiles past shared memory.
+    is refused rather than run on the plain version: for every one of them
+    (any depth) a padded width above 64 or tiles past shared memory.
     Packed gradient descent runs K2, K3 and K9 at any width. With ``--ss-markers`` the marker scan's
     kernel takes m_pad up to ops/marker_scan.MAX_M and a layer-0 width up
     to MAX_S. The CPU runs the plain versions at any shape."""
@@ -106,17 +105,17 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
     if args.feat_major:  # folded: K6 for the trajectories, K7 for the value passes
         rules, kernels = (((BM.traj_dense_smem, BM.vg_chains_smem), "K6/K7") if folded
                           else ((BM.vg_dense_smem,), "K8"))
-        layout, take = "--feat-major", "depth 0 or 1, widths up to 32"
+        layout = "--feat-major"
     else:
         rules, kernels = (((BM.traj_packed_smem,), "K5") if folded
                           else ((BM.branch_vg_packed_smem,), "K4"))
-        layout, take = "--packed-genotypes", "any depth, widths up to 64"
+        layout = "--packed-genotypes"
     widths = (arch.layer_out_pad(0), arch.s_pad)
     if all(rule(arch.m_pad, *widths, arch.depth) >= 0 for rule in rules):
         return bad
     return bad + [f"{layout} branches beyond the {kernels} CUDA kernels' limits (depth "
                   f"{arch.depth}, {arch.m_pad} markers, widths {widths[0]}/{widths[1]}; they take "
-                  f"{take} and 227 KB of shared memory)"]
+                  f"any depth, widths up to 64 and 227 KB of shared memory)"]
 
 
 def _load_train_data(args):

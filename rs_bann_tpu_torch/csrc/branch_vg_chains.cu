@@ -8,12 +8,14 @@
 //     rss[g, c]       = sum_i (y_pred - t)^2
 //     grads[g, c]     = d(rss / 2) / d(W0, b0, (W1, b1), w_out)[g, c]
 //
-// at depth 0 or 1, widths up to 32, every activation. The kernel is
-// csrc/vg_chains.cuh on the 3xTF32 tensor-core device code of
-// csrc/dense_vg_mma.cuh, which K6 and K8 run too; this source holds its
-// value-and-gradient instantiations, the fixed-order segment sum and the
-// entry points, csrc/branch_fwd_chains.cu the forward-only ones (y_pred
-// alone: the folded transition's value passes).
+// at any depth and padded widths up to 64, every activation. At depth 0
+// and 1 and widths up to 32 the kernel is csrc/vg_chains.cuh on the 3xTF32
+// tensor-core device code of csrc/dense_vg_mma.cuh, which K6 and K8 run
+// too; at every other shape it is csrc/dense_deep.cuh's run_kernel (entry
+// vg_chains_deep_f32: the weights in their flat layout, one chain a CTA).
+// This source holds the value-and-gradient instantiations, the fixed-order
+// segment sum and the entry points, csrc/branch_fwd_chains.cu the
+// forward-only ones (y_pred alone: the folded transition's value passes).
 //
 // What bounds it on the H100: per (branch, chain, individual) the five
 // products are 2 m k0 + 3 k0 s multiply-adds (the forward's two m k0 + k0
@@ -36,6 +38,12 @@ const void* vg_chains_grad_kernel(int km, bool deep, int act, int cc) {
 }
 
 }  // namespace vg
+
+namespace ddeep {
+
+const void* run_grad_kernel(int km) { return run_kernel_for<true>(km); }
+
+}  // namespace ddeep
 }  // namespace rsbann
 
 namespace {
@@ -142,25 +150,49 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act
     return 0;
 }
 
+ddeep::Occupancy g_occ_deep[2][4];  // [grad][width class]
+
+// The deep design's launch (csrc/dense_deep.cuh) for G x C instances, one
+// chain a CTA, in K7's plan fields (CC 1, chunks C).
+int plan_deep(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl,
+              ddeep::Plan* dp) {
+    if (G <= 0 || C <= 0 || act < 0 || act > 4) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = ddeep::plan(grad ? ddeep::run_grad_kernel : ddeep::run_fwd_kernel,
+                                      g_occ_deep[grad ? 1 : 0], G * C, m, n, k0, s, depth, dp);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pl->km = dp->km, pl->cc = 1, pl->chunks = C, pl->NB = G * C, pl->tiles = dp->tiles;
+    pl->m16 = (m + 15) & ~15, pl->m8 = (m + 7) & ~7, pl->nbuf = dp->nbuf;
+    pl->per_sm = dp->per_sm, pl->ctas = dp->ctas, pl->smem = dp->smem;
+    const long long P = deep::flat_size(m, k0, s, depth);
+    pl->scratch = grad ? ((dp->slots * P * 4 + 7) & ~7LL) + 8 * dp->slots : 0;
+    return 0;
+}
+
 }  // namespace
 
 // Shared memory (bytes) K7 needs at these widths with one chain per CTA and
 // one X buffer (the value-and-gradient kernel: the forward-only one needs
-// less), or -1 if it cannot run them (depth above 1, a width above 32, or
-// more than 227 KB).
+// less), or -1 if it cannot run them (a padded width above 64, or more than
+// 227 KB): at depth 0 and 1 and widths up to 32 the first design's, at
+// every other shape the deep design's (csrc/dense_deep.cuh).
 extern "C" long long vg_chains_smem(int m, int k0, int s, int depth) {
+    if (ddeep::takes(k0, s, depth)) return ddeep::smem(m, k0, s, depth, 1);
     return cta_smem(m, k0, s, depth, true, true, 1, 1);
 }
 
 // What a K7 launch uses on this shape and activation on the current device:
 // out[0..8] = CTAs, resident CTAs per SM, chains per CTA (CC), chunks of
-// chains, tiles of 32 individuals per branch, shared bytes per CTA, X tile
-// buffers, scratch bytes (partial rows and err^2; zero for the forward-only
-// pass), register width KM.
+// chains, tiles per branch (of 32 individuals; 64 in the deep design),
+// shared bytes per CTA, X tile buffers, scratch bytes (partial rows and
+// err^2; zero for the forward-only pass), register width KM (the deep
+// design's width class 8-64).
 extern "C" int vg_chains_plan(int G, int C, int m, int n, int k0, int s, int depth, int grad,
                               int act, long long* out) {
     Plan pl;
-    const int status = plan(G, C, m, n, k0, s, depth, grad, act, &pl);
+    ddeep::Plan dp;
+    const int status = ddeep::takes(k0, s, depth)
+                           ? plan_deep(G, C, m, n, k0, s, depth, grad, act, &pl, &dp)
+                           : plan(G, C, m, n, k0, s, depth, grad, act, &pl);
     if (status != 0) return status;
     const long long v[9] = {pl.ctas, pl.per_sm, pl.cc, pl.chunks, pl.tiles, pl.smem, pl.nbuf,
                             pl.scratch, pl.km};
@@ -218,6 +250,61 @@ extern "C" int vg_chains_f32(const void* x, const void* const* ptrs, const long 
                                      dim3(kThreads * pl.cc), params, pl.smem, st);
     if (e != cudaSuccess || !grad) return static_cast<int>(e);
     int ctas = pl.ctas;
+    void* rparams[] = {&a, &ctas};
+    e = cudaLaunchKernel(reinterpret_cast<const void*>(&vg_chains_reduce),
+                         dim3((P + 1 + 31) / 32, static_cast<unsigned>(pairs)), dim3(32 * kSlices),
+                         rparams, 0, st);
+    return static_cast<int>(e);
+}
+
+// The deep design's K7 (csrc/dense_deep.cuh run_kernel), at the shapes
+// vg_chains_f32 does not take (depth 2 or more, or a padded width of
+// 33-64): x f32 [G, m, n] contiguous; target f32 [G, C, n] (grad only),
+// element (g, c, i) at target + g tsg + c tsc + i; q f32 [G, C, P]
+// contiguous, each instance's weights in the flat layout W0, b0, (W_l,
+// b_l)..., w_out; out and scratch as vg_chains_f32's. With grad, two
+// launches: the pass and the fixed-order reduce; else the forward-only
+// pass alone.
+extern "C" int vg_chains_deep_f32(const void* x, const void* target, long long tsg, long long tsc,
+                                  const void* q, void* out, void* scratch, long long scratch_bytes,
+                                  int G, int C, int m, int n, int k0, int s, int depth, int act,
+                                  int grad, void* stream) {
+    if (!ddeep::takes(k0, s, depth)) return static_cast<int>(cudaErrorInvalidValue);
+    Plan pl;
+    ddeep::Plan dp;
+    const int status = plan_deep(G, C, m, n, k0, s, depth, grad, act, &pl, &dp);
+    if (status != 0) return status;
+    if ((grad && (scratch_bytes < pl.scratch || reinterpret_cast<uintptr_t>(scratch) & 7)) ||
+        static_cast<long long>(G) * C > 65535)  // the reduce's grid.y
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int P = deep::flat_size(m, k0, s, depth);
+    const size_t pairs = static_cast<size_t>(G) * C;
+    float* o = static_cast<float*>(out);
+    ddeep::RunArgs r{};
+    r.x = static_cast<const float*>(x);
+    r.target = Inst{static_cast<const float*>(target), tsg, tsc, 0, 1};
+    r.q = static_cast<const float*>(q);
+    r.y_pred = o;
+    if (grad) {
+        r.partial = static_cast<float*>(scratch);
+        r.e2 = reinterpret_cast<double*>(static_cast<char*>(scratch) + ((dp.slots * P * 4 + 7) & ~7LL));
+    }
+    r.sh = ddeep::make_shape(m, k0, s, depth, n, act);
+    r.C = C, r.NB = G * C, r.nbuf = dp.nbuf;
+    r.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    void* params[] = {&r};
+    cudaError_t e = cudaLaunchKernel(grad ? ddeep::run_grad_kernel(dp.km) : ddeep::run_fwd_kernel(dp.km),
+                                     dim3(dp.ctas), dim3(ddeep::kThreads), params, dp.smem, st);
+    if (e != cudaSuccess || !grad) return static_cast<int>(e);
+    ChainArgs a{};
+    a.grads = o + pairs * n;
+    a.rss = a.grads + pairs * P;
+    a.partial = r.partial;
+    a.e2 = r.e2;
+    a.G = G, a.C = C, a.m = m, a.n = n, a.k0 = k0, a.s = s, a.P = P;
+    a.cc = 1, a.chunks = C, a.NB = G * C, a.tiles = dp.tiles;
+    int ctas = dp.ctas;
     void* rparams[] = {&a, &ctas};
     e = cudaLaunchKernel(reinterpret_cast<const void*>(&vg_chains_reduce),
                          dim3((P + 1 + 31) / 32, static_cast<unsigned>(pairs)), dim3(32 * kSlices),

@@ -11,7 +11,7 @@
 //     rss[j]       = sum_i (y_pred[j, i] - t[j, i])^2
 //     grads[j]     = d(rss_j / 2) / d(W0, b0, (W1, b1), w_out)[j]
 //
-// at depth 0 or 1, widths up to 32, every activation. NB = 1 is K8a (the
+// at any depth and padded widths up to 64, every activation. NB = 1 is K8a (the
 // sequential schedule's leapfrog step); NB = every (chain, branch) of a
 // hybrid block is K8b, with ix pointing each chain's instances at its own
 // block's branches, so no X is copied per step. The TPU kernel's
@@ -43,11 +43,16 @@
 //    so the same inputs give the same bits on every run.
 //  * A forward-only instantiation (grad = 0) runs the same forward and
 //    writes y_pred alone (the unfolded hybrid block's snapshot predictions).
+//  * Depth 2 or more, or a padded width of 33-64: the deep design
+//    (csrc/dense_deep.cuh), entry vg_dense_deep_f32, whose run over the
+//    instances is K7's (its instantiations live in csrc/branch_vg_chains.cu
+//    and csrc/branch_fwd_chains.cu), with this source's reduce.
 // Measured times: PERF.md section 6.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "dense_deep.cuh"
 #include "dense_vg_mma.cuh"
 
 namespace {
@@ -250,26 +255,50 @@ int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan
     return 0;
 }
 
+ddeep::Occupancy g_occ_deep[2][4];  // [grad][width class]
+
+// The deep design's launch (csrc/dense_deep.cuh) for NB instances, in K8's
+// plan fields.
+int plan_deep(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl,
+              ddeep::Plan* dp) {
+    if (act < 0 || act > 4) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = ddeep::plan(grad ? ddeep::run_grad_kernel : ddeep::run_fwd_kernel,
+                                      g_occ_deep[grad ? 1 : 0], NB, m, n, k0, s, depth, dp);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pl->km = dp->km, pl->tiles = dp->tiles, pl->m16 = (m + 15) & ~15, pl->m8 = (m + 7) & ~7;
+    pl->nbuf = dp->nbuf, pl->per_sm = dp->per_sm, pl->ctas = dp->ctas;
+    pl->slots = static_cast<int>(dp->slots), pl->smem = dp->smem;
+    const long long P = deep::flat_size(m, k0, s, depth);
+    pl->scratch = grad ? ((dp->slots * P * 4 + 7) & ~7LL) + 8 * dp->slots : 0;
+    return 0;
+}
+
 }  // namespace
 
 // Shared memory (bytes) K8 needs at these widths with one X buffer (the
 // value-and-gradient kernel: the forward-only one needs less), or -1 if it
-// cannot run them (depth above 1, a width above 32, or more than 227 KB).
-// The CLI asks its mirror before a sequential or unfolded feature-major run
-// on the card.
+// cannot run them (a padded width above 64, or more than 227 KB): at depth
+// 0 and 1 and widths up to 32 the first design's, at every other shape the
+// deep design's (csrc/dense_deep.cuh). The CLI asks its mirror before a
+// sequential or unfolded feature-major run on the card.
 extern "C" long long vg_dense_smem(int m, int k0, int s, int depth) {
+    if (ddeep::takes(k0, s, depth)) return ddeep::smem(m, k0, s, depth, 1);
     return cta_smem(m, k0, s, depth, true, true, 1, 1);
 }
 
 // What a K8 launch uses on this shape and activation, on the current
 // device: out[0..7] =
-// CTAs, tiles of 32 individuals per instance, shared bytes per CTA,
-// resident CTAs per SM, X tile buffers, partial-row slots, scratch bytes
-// (zero for the forward-only pass), register width KM.
+// CTAs, tiles per instance (of 32 individuals; 64 in the deep design),
+// shared bytes per CTA, resident CTAs per SM, X tile buffers, partial-row
+// slots, scratch bytes (zero for the forward-only pass), register width KM
+// (the deep design's width class 8-64).
 extern "C" int vg_dense_plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act,
                              long long* out) {
     Plan pl;
-    const int status = plan(NB, m, n, k0, s, depth, grad, act, &pl);
+    ddeep::Plan dp;
+    const int status = ddeep::takes(k0, s, depth)
+                           ? plan_deep(NB, m, n, k0, s, depth, grad, act, &pl, &dp)
+                           : plan(NB, m, n, k0, s, depth, grad, act, &pl);
     if (status != 0) return status;
     const long long v[8] = {pl.ctas, pl.tiles, pl.smem, pl.per_sm, pl.nbuf, pl.slots,
                             pl.scratch, pl.km};
@@ -319,5 +348,50 @@ extern "C" int vg_dense_f32(const void* x, const void* ix, const void* target, c
                                      params, pl.smem, st);
     if (e != cudaSuccess || !grad) return static_cast<int>(e);
     vg_dense_reduce<<<dim3((P + 1 + 31) / 32, NB), 32 * kSlices, 0, st>>>(a, pl.ctas);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The deep design's K8 (csrc/dense_deep.cuh), at the shapes vg_dense_f32
+// does not take (depth 2 or more, or a padded width of 33-64): x, ix,
+// target, out and scratch as vg_dense_f32's; q f32 [NB, P] contiguous,
+// each instance's weights in the flat layout W0, b0, (W_l, b_l)..., w_out.
+// With grad, two launches: the pass and the fixed-order reduce.
+extern "C" int vg_dense_deep_f32(const void* x, const void* ix, const void* target, const void* q,
+                                 void* out, void* scratch, long long scratch_bytes, int NB, int m,
+                                 int n, int k0, int s, int depth, int act, int grad, void* stream) {
+    if (!ddeep::takes(k0, s, depth)) return static_cast<int>(cudaErrorInvalidValue);
+    Plan pl;
+    ddeep::Plan dp;
+    const int status = plan_deep(NB, m, n, k0, s, depth, grad, act, &pl, &dp);
+    if (status != 0) return status;
+    if (grad && (scratch_bytes < pl.scratch || reinterpret_cast<uintptr_t>(scratch) & 7))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int P = deep::flat_size(m, k0, s, depth);
+    float* o = static_cast<float*>(out);
+    ddeep::RunArgs r{};
+    r.x = static_cast<const float*>(x);
+    r.xix = static_cast<const int*>(ix);
+    r.target = Inst{static_cast<const float*>(target), n, 0, 0, 1};
+    r.q = static_cast<const float*>(q);
+    r.y_pred = o;
+    if (grad) {
+        r.partial = static_cast<float*>(scratch);
+        r.e2 = reinterpret_cast<double*>(static_cast<char*>(scratch) + ((dp.slots * P * 4 + 7) & ~7LL));
+    }
+    r.sh = ddeep::make_shape(m, k0, s, depth, n, act);
+    r.C = 1, r.NB = NB, r.nbuf = dp.nbuf;
+    r.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    void* params[] = {&r};
+    cudaError_t e = cudaLaunchKernel(grad ? ddeep::run_grad_kernel(dp.km) : ddeep::run_fwd_kernel(dp.km),
+                                     dim3(dp.ctas), dim3(ddeep::kThreads), params, dp.smem, st);
+    if (e != cudaSuccess || !grad) return static_cast<int>(e);
+    Args a{};
+    a.grads = o + static_cast<size_t>(NB) * n;
+    a.rss = o + static_cast<size_t>(NB) * (n + P);
+    a.partial = r.partial;
+    a.e2 = r.e2;
+    a.NB = NB, a.m = m, a.n = n, a.k0 = k0, a.s = s, a.P = P, a.tiles = dp.tiles;
+    vg_dense_reduce<<<dim3((P + 1 + 31) / 32, NB), 32 * kSlices, 0, st>>>(a, dp.ctas);
     return static_cast<int>(cudaGetLastError());
 }

@@ -55,6 +55,10 @@
 //    only template parameter, and the activation a run-time code (applied
 //    KM times per individual and layer against KM x KM FMAs): 4
 //    instantiations each of K4's pass and of K5.
+//  * The hidden layers, the output and their gradients (``hidden_pass``)
+//    and the staging of w_out and W_l (``stage_layers``) are shared with
+//    the dense deep design (dense_deep.cuh), which puts its own layer 0
+//    (3xTF32 on f32 X) around them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -223,6 +227,27 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
     }
 }
 
+// w_out and each hidden layer's W_l^T and b_l of one chain's flat vector q
+// into wf_s (after its first KM floats), zero-padded to KM, read through
+// L2. No barrier. Shared with the dense deep design (dense_deep.cuh).
+template <int KM>
+__device__ void stage_layers(const Shape& sh, const float* q, float* wf_s) {
+    const int tid = threadIdx.x;
+    float* wo_s = wf_s + KM;
+    for (int j = tid; j < KM; j += kThreads)
+        wo_s[j] = j < sh.s ? __ldcg(q + sh.P - sh.s + j) : 0.f;
+    for (int l = 1; l <= sh.depth; ++l) {
+        const int out = layer_out(sh, l), off = layer_off(sh, l);
+        float* wt = wf_s + 2 * KM + (l - 1) * (KM * KM + KM);
+        for (int idx = tid; idx < KM * KM; idx += kThreads) {
+            const int k = idx / KM, j = idx - k * KM;  // W_l[k][j], read along j
+            wt[j * KM + k] = (k < sh.k0 && j < out) ? __ldcg(q + off + k * out + j) : 0.f;
+        }
+        for (int j = tid; j < KM; j += kThreads)
+            wt[KM * KM + j] = j < out ? __ldcg(q + off + sh.k0 * out + j) : 0.f;
+    }
+}
+
 // Stage one chain's weights from its flat vector q (read through L2: K5
 // rewrites it between steps): W0' = scale * W0 as three bf16 planes
 // [column][marker position] (K2's layout), off = b0 - shift . W0' (summed
@@ -268,19 +293,7 @@ __device__ void stage_chain(const Shape& sh, const float* q, const float* scale,
         }
         fold_s[tid] = acc;
     }
-    float* wo_s = wf_s + KM;
-    for (int j = tid; j < KM; j += kThreads)
-        wo_s[j] = j < sh.s ? __ldcg(q + sh.P - sh.s + j) : 0.f;
-    for (int l = 1; l <= sh.depth; ++l) {
-        const int out = layer_out(sh, l), off = layer_off(sh, l);
-        float* wt = wf_s + 2 * KM + (l - 1) * (KM * KM + KM);
-        for (int idx = tid; idx < KM * KM; idx += kThreads) {
-            const int k = idx / KM, j = idx - k * KM;  // W_l[k][j], read along j
-            wt[j * KM + k] = (k < sh.k0 && j < out) ? __ldcg(q + off + k * out + j) : 0.f;
-        }
-        for (int j = tid; j < KM; j += kThreads)
-            wt[KM * KM + j] = j < out ? __ldcg(q + off + sh.k0 * out + j) : 0.f;
-    }
+    stage_layers<KM>(sh, q, wf_s);
     __syncthreads();
     if (tid < KM) {
         double acc = 0.0;
@@ -353,83 +366,32 @@ __device__ __forceinline__ float4 act4(int act, float4 z) {
                        act_apply(act, z.w));
 }
 
-// One chain on staged tile t (bytes in ``tile``, the chain's weights in
-// w_s / wf_s): the forward, the backward and the tile's gradient sums added
-// to the chain's partial row ``part`` (flat layout; stored on the row's
-// first tile). With y_pred, the predictions of the tile's individuals below
-// n are written and err^2 added to e2 (threads of the first part). Starts
-// after a barrier that made the tile visible; ends with a barrier.
-template <int KM>
-__device__ void tile_chain(const Shape& sh, const uint8_t* tile, const __nv_bfloat16* w_s,
-                           const float* wf_s, const Smem& sm, int t, const float* target,
-                           float* y_pred, float* part, bool first, float& e2) {
+// Layers 1 .. D and the output of one chain on a tile whose z0 rows (tile
+// row il: the tile's individual il, its index i, ``valid`` if below n) are
+// in sm.buf: the hidden layers' forward, pred and err; with GRAD the
+// backward to dz0 (in place of z0), with the gradient sums of w_out and
+// of every hidden layer added to ``part`` (stored on its first tile).
+// With y_pred the predictions of the tile's valid individuals are written
+// (and, with GRAD, err^2 added to e2 by the threads of the first part).
+// Starts after a barrier that made z0 visible; ends with a barrier. The
+// packed design's tile_chain and the dense one's (dense_deep.cuh) run it.
+template <int KM, bool GRAD>
+__device__ void hidden_pass(const Shape& sh, const float* wf_s, const Smem& sm, int i, bool valid,
+                            const float* target, float* y_pred, float* part, bool first,
+                            float& e2) {
     // the hidden layers' columns go to NH threads an individual, H each
     constexpr int NH = KM >= 16 ? kThreads / kTile : 2, H = KM / NH;
-    constexpr int NT = KM / 8, RS = row_stride(KM), BUF = kTile * RS;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    constexpr int RS = row_stride(KM), BUF = kTile * RS;
+    const int tid = threadIdx.x;
     const int D = sh.depth, act = sh.act;
-    const float* off_s = wf_s;
     const float* wo_s = wf_s + KM;
     float* Z0 = sm.buf;
     float* AB = sm.buf + (D + 1) * BUF;
     float* pred_s = sm.small;              // [NH][64]
     float* err_s = sm.small + 4 * kTile;   // [64]
-
-    // ---- 1. z0 = X^T W0' + off on the tensor cores: warp w is part w % 4,
-    // column tiles of its parity w / 4; row r of the MMA is byte column 2 r,
-    // row r + 8 byte column 2 r + 1
-    {
-        const int q = warp & 3, par = warp >> 2, r = lane >> 2, tig = lane & 3;
-        float acc[NT][4];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-        const uint8_t* bp = tile + tig * kTileStride + 2 * r;
-        const __nv_bfloat16* wp = w_s + r * sh.wstride + 4 * tig;
-        const int plane = KM * sh.wstride;
-#pragma unroll 1
-        for (int c = 0; c < sh.m16 / 16; ++c) {
-            const uint8_t* b = bp + c * 16 * kTileStride;
-            const uint32_t u0 = *reinterpret_cast<const uint16_t*>(b);
-            const uint32_t u1 = *reinterpret_cast<const uint16_t*>(b + 4 * kTileStride);
-            const uint32_t u2 = *reinterpret_cast<const uint16_t*>(b + 8 * kTileStride);
-            const uint32_t u3 = *reinterpret_cast<const uint16_t*>(b + 12 * kTileStride);
-            const uint32_t s01 = selectors(prmt(u0, u1, 0x5140u), q);
-            const uint32_t s23 = selectors(prmt(u2, u3, 0x5140u), q);
-            const uint32_t af[4] = {decode_pair(s01), decode_pair(s01 >> 16), decode_pair(s23),
-                                    decode_pair(s23 >> 16)};
-            const __nv_bfloat16* wc = wp + c * 16;
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-                if ((nt & 1) != par) continue;
-                uint2 bw[3];
-#pragma unroll
-                for (int part3 = 0; part3 < 3; ++part3)
-                    bw[part3] = *reinterpret_cast<const uint2*>(wc + part3 * plane + nt * 8 * sh.wstride);
-                mma_split3_add(acc[nt], af, bw);
-            }
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-            if ((nt & 1) != par) continue;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int col = nt * 8 + 2 * tig;
-                *reinterpret_cast<float2*>(Z0 + (q * kTileCols + 2 * r + h) * RS + col) =
-                    make_float2(acc[nt][2 * h] + off_s[col], acc[nt][2 * h + 1] + off_s[col + 1]);
-            }
-        }
-    }
-    __syncthreads();
-
-    // thread (individual il, part hf < NH): tile row il = q * 16 + c is part
-    // q of byte column c; the thread's columns j0 .. j0 + H - 1
+    // thread (individual il, part hf < NH): the thread's columns j0 .. j0 + H - 1
     const int il = tid & (kTile - 1), hf = tid / kTile, j0 = hf * H;
     const bool mine = hf < NH;
-    const int i = (t / kTilesPerGroup) * kGroup + (t % kTilesPerGroup) * kTileCols +
-                  (il / kTileCols) * kGBytes + il % kTileCols;
-    const bool valid = i < sh.n;
 
     // ---- 2. the hidden layers' forward: z_l = act(z_{l-1}) W_l + b_l, each
     // thread applying act to its own columns of the row (into AB) first
@@ -493,6 +455,16 @@ __device__ void tile_chain(const Shape& sh, const uint8_t* tile, const __nv_bflo
         pred_s[hf * kTile + il] = pp;
     }
     __syncthreads();
+    if constexpr (!GRAD) {
+        if (mine && hf == 0 && valid && y_pred) {
+            float pred = pred_s[il];
+#pragma unroll
+            for (int p = 1; p < NH; ++p) pred += pred_s[p * kTile + il];
+            y_pred[i] = pred;
+        }
+        __syncthreads();
+        return;
+    }
     if (mine) {
         float pred = pred_s[il];
 #pragma unroll
@@ -566,6 +538,76 @@ __device__ void tile_chain(const Shape& sh, const uint8_t* tile, const __nv_bflo
         }
         __syncthreads();
     }
+}
+
+// One chain on staged tile t (bytes in ``tile``, the chain's weights in
+// w_s / wf_s): the forward, the backward and the tile's gradient sums added
+// to the chain's partial row ``part`` (flat layout; stored on the row's
+// first tile). With y_pred, the predictions of the tile's individuals below
+// n are written and err^2 added to e2 (threads of the first part). Starts
+// after a barrier that made the tile visible; ends with a barrier.
+template <int KM>
+__device__ void tile_chain(const Shape& sh, const uint8_t* tile, const __nv_bfloat16* w_s,
+                           const float* wf_s, const Smem& sm, int t, const float* target,
+                           float* y_pred, float* part, bool first, float& e2) {
+    constexpr int NT = KM / 8, RS = row_stride(KM);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const float* off_s = wf_s;
+    float* Z0 = sm.buf;
+
+    // ---- 1. z0 = X^T W0' + off on the tensor cores: warp w is part w % 4,
+    // column tiles of its parity w / 4; row r of the MMA is byte column 2 r,
+    // row r + 8 byte column 2 r + 1
+    {
+        const int q = warp & 3, par = warp >> 2, r = lane >> 2, tig = lane & 3;
+        float acc[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+        const uint8_t* bp = tile + tig * kTileStride + 2 * r;
+        const __nv_bfloat16* wp = w_s + r * sh.wstride + 4 * tig;
+        const int plane = KM * sh.wstride;
+#pragma unroll 1
+        for (int c = 0; c < sh.m16 / 16; ++c) {
+            const uint8_t* b = bp + c * 16 * kTileStride;
+            const uint32_t u0 = *reinterpret_cast<const uint16_t*>(b);
+            const uint32_t u1 = *reinterpret_cast<const uint16_t*>(b + 4 * kTileStride);
+            const uint32_t u2 = *reinterpret_cast<const uint16_t*>(b + 8 * kTileStride);
+            const uint32_t u3 = *reinterpret_cast<const uint16_t*>(b + 12 * kTileStride);
+            const uint32_t s01 = selectors(prmt(u0, u1, 0x5140u), q);
+            const uint32_t s23 = selectors(prmt(u2, u3, 0x5140u), q);
+            const uint32_t af[4] = {decode_pair(s01), decode_pair(s01 >> 16), decode_pair(s23),
+                                    decode_pair(s23 >> 16)};
+            const __nv_bfloat16* wc = wp + c * 16;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+                if ((nt & 1) != par) continue;
+                uint2 bw[3];
+#pragma unroll
+                for (int part3 = 0; part3 < 3; ++part3)
+                    bw[part3] = *reinterpret_cast<const uint2*>(wc + part3 * plane + nt * 8 * sh.wstride);
+                mma_split3_add(acc[nt], af, bw);
+            }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+            if ((nt & 1) != par) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int col = nt * 8 + 2 * tig;
+                *reinterpret_cast<float2*>(Z0 + (q * kTileCols + 2 * r + h) * RS + col) =
+                    make_float2(acc[nt][2 * h] + off_s[col], acc[nt][2 * h + 1] + off_s[col + 1]);
+            }
+        }
+    }
+    __syncthreads();
+
+    // tile row il = q * 16 + c is part q of byte column c
+    const int il = threadIdx.x & (kTile - 1);
+    const int i = (t / kTilesPerGroup) * kGroup + (t % kTilesPerGroup) * kTileCols +
+                  (il / kTileCols) * kGBytes + il % kTileCols;
+    hidden_pass<KM, true>(sh, wf_s, sm, i, i < sh.n, target, y_pred, part, first, e2);
 
     // ---- 5. layer 0's gradient: dz0 (in Z0) to three bf16 planes in the
     // order of the MMA's B fragment, d_off, then dW0' = X dz0 on the tensor

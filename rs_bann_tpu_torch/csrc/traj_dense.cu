@@ -9,8 +9,11 @@
 //
 // of ld(q) = -lam * q^2 / 2 (or -lam * |q|, l1, gradient 0 at 0)
 // - err[g, c] * rss(q) / 2 on xT [G, m, n]. Padded coordinates carry zero
-// momentum and zero step size, so they never move. Depth 0 and 1, widths up
-// to 32, every activation.
+// momentum and zero step size, so they never move. Any depth and padded
+// widths up to 64, every activation: at depth 0 and 1 and widths up to 32
+// the design below; at every other shape the deep one
+// (traj_dense_deep_kernel at the end of this file, on csrc/dense_deep.cuh),
+// entry traj_dense_deep_f32.
 //
 // What bounds it on the H100: each of the L + 1 gradient evaluations is the
 // value and gradient of G x C branch MLPs over n individuals, 2 m k0 + 3 k0 s
@@ -63,6 +66,7 @@
 
 #include <cstdint>
 
+#include "dense_deep.cuh"
 #include "dense_vg_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -346,24 +350,151 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int act, Plan* pl
     return 0;
 }
 
+// The deep design (csrc/dense_deep.cuh): instance j = (branch j / C,
+// chain j % C), items (instance, tile of 64 individuals) split evenly over
+// the cooperative grid, each CTA a contiguous run, one chain at a time; one
+// partial row per (CTA, instance) per evaluation (row b + j). The weights
+// and momenta are flat [G, C, P] copies the launch integrates in place;
+// the update phase adds a coordinate's rows in CTA order, as above.
+struct TrajDeepArgs {
+    const float* x;  // [G, m, n]
+    Inst target;     // [G, C, n]
+    Inst err;        // [G, C]
+    float* w;        // [G, C, P]: the start, then the trajectory's end
+    float* pw;       // [G, C, P]
+    const float* eps;  // [G, C, P]
+    const float* lam;  // [G, C, P]
+    float* partial;    // [ctas + NB, P]
+    deep::Shape sh;
+    int C, NB, steps, l1, nbuf, vec16;
+};
+
+template <int KM>
+__global__ void __launch_bounds__(ddeep::kThreads)
+    traj_dense_deep_kernel(const __grid_constant__ TrajDeepArgs a) {
+    extern __shared__ float4 smem4[];
+    cg::grid_group grid = cg::this_grid();
+    const deep::Shape& sh = a.sh;
+    const ddeep::Carve cv = ddeep::carve(smem4, sh, KM, a.nbuf);
+    const int tile_floats = sh.m16 * ddeep::kXS, P = sh.P;
+    const long long items = static_cast<long long>(a.NB) * sh.tiles;
+    const long long it_begin = blockIdx.x * items / gridDim.x;
+    const long long it_end = (blockIdx.x + 1) * items / gridDim.x;
+    const long long total = static_cast<long long>(a.NB) * P;
+    const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+    auto x_of = [&](int j) { return a.x + static_cast<size_t>(j / a.C) * sh.m * sh.n; };
+    float e2 = 0.f;  // K7's and K8's rss term, not read here
+
+    // evaluation 0 only gives the initial gradient; 1..L integrate
+    for (int l = 0; l <= a.steps; ++l) {
+        int jj = static_cast<int>(it_begin / sh.tiles), tl = static_cast<int>(it_begin % sh.tiles);
+        int j = -1, buf = 0;
+        if (it_begin < it_end) ddeep::load_x(x_of(jj), sh, a.vec16, tl, cv.xs);
+        for (long long it = it_begin; it < it_end; ++it) {
+            const bool first = jj != j;  // the segment's first tile
+            if (first) {
+                j = jj;
+                ddeep::stage_chain<KM>(sh, a.w + static_cast<size_t>(j) * P, cv.w0, cv.wf);
+            }
+            const int t = tl;
+            if (++tl == sh.tiles) tl = 0, ++jj;
+            const bool next = it + 1 < it_end;
+            if (next && a.nbuf == 2) {
+                ddeep::load_x(x_of(jj), sh, a.vec16, tl, cv.xs + (buf ^ 1) * tile_floats);
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();  // the X tile is visible
+            const int g = j / a.C;
+            ddeep::tile_chain<KM, true>(sh, cv.xs + buf * tile_floats, cv.w0, cv.wf, cv.sm, t,
+                                        at(a.target, g, j - g * a.C), nullptr,
+                                        a.partial + (static_cast<size_t>(blockIdx.x) + j) * P,
+                                        first, e2);
+            if (next && a.nbuf == 1) ddeep::load_x(x_of(jj), sh, a.vec16, tl, cv.xs);
+            if (a.nbuf == 2) buf ^= 1;
+        }
+        grid.sync();
+
+        // one thread per (instance, coordinate): the segments' rows in CTA
+        // order, the prior gradient and err, the leapfrog's arithmetic
+        for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
+             e += stride) {
+            const int jc = static_cast<int>(e / P), p = static_cast<int>(e - static_cast<long long>(jc) * P);
+            const int g = jc / a.C, c = jc - g * a.C;
+            const int first = cta_of(static_cast<long long>(jc) * sh.tiles, gridDim.x, items);
+            const int nseg =
+                cta_of(static_cast<long long>(jc + 1) * sh.tiles - 1, gridDim.x, items) - first + 1;
+            const float* src = a.partial + (static_cast<size_t>(first) + jc) * P + p;
+            float sum = 0.f;
+            for (int r = 0; r < nseg; ++r) sum += __ldcg(src + static_cast<size_t>(r) * P);
+            float q = __ldcg(a.w + e);
+            float pm = __ldcg(a.pw + e);
+            const float ep = __ldg(a.eps + e);
+            const float prior = a.l1 ? (q > 0.f ? 1.f : (q < 0.f ? -1.f : 0.f)) : q;
+            const float gr = -__ldg(a.lam + e) * prior - __ldg(at(a.err, g, c)) * sum;
+            if (l > 0) pm += 0.5f * ep * gr;  // closes step l
+            if (l < a.steps) {                 // opens step l + 1
+                pm += 0.5f * ep * gr;
+                q += ep * pm;
+            }
+            __stcg(a.w + e, q);
+            __stcg(a.pw + e, pm);
+        }
+        grid.sync();
+    }
+}
+
+const void* traj_dense_deep_kernel_for(int km) {
+    switch (km) {
+        case 8: return reinterpret_cast<const void*>(&traj_dense_deep_kernel<8>);
+        case 16: return reinterpret_cast<const void*>(&traj_dense_deep_kernel<16>);
+        case 32: return reinterpret_cast<const void*>(&traj_dense_deep_kernel<32>);
+        default: return reinterpret_cast<const void*>(&traj_dense_deep_kernel<64>);
+    }
+}
+
+ddeep::Occupancy g_occ_deep[4];
+
+// The deep design's cooperative grid for G x C instances, in K6's plan
+// fields (CC 1, chunks C, R 0: the even split).
+int plan_deep(int G, int C, int m, int n, int k0, int s, int depth, int act, Plan* pl,
+              ddeep::Plan* dp) {
+    if (G <= 0 || C <= 0 || act < 0 || act > 4) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e =
+        ddeep::plan(traj_dense_deep_kernel_for, g_occ_deep, G * C, m, n, k0, s, depth, dp);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    pl->km = dp->km, pl->cc = 1, pl->chunks = C, pl->NB = G * C, pl->tiles = dp->tiles;
+    pl->m16 = (m + 15) & ~15, pl->m8 = (m + 7) & ~7, pl->nbuf = dp->nbuf;
+    pl->per_sm = dp->per_sm, pl->ctas = dp->ctas, pl->rper = 0, pl->smem = dp->smem;
+    pl->scratch = dp->slots * deep::flat_size(m, k0, s, depth) * 4;
+    return 0;
+}
+
 }  // namespace
 
 // Shared memory (bytes) K6 needs at these widths with one chain per CTA and
-// one X buffer, or -1 if it cannot run them (depth above 1, a width above
-// 32, or more than 227 KB). The CLI asks its mirror before a folded
-// feature-major run on the card.
+// one X buffer, or -1 if it cannot run them (a padded width above 64, or
+// more than 227 KB): at depth 0 and 1 and widths up to 32 the first
+// design's, at every other shape the deep design's (csrc/dense_deep.cuh).
+// The CLI asks its mirror before a folded feature-major run on the card.
 extern "C" long long traj_dense_smem(int m, int k0, int s, int depth) {
+    if (ddeep::takes(k0, s, depth)) return ddeep::smem(m, k0, s, depth, 1);
     return cta_smem(m, k0, s, depth, true, false, 1, 1);
 }
 
 // What a K6 launch uses on this shape and activation on the current device:
 // out[0..8] = CTAs, resident CTAs per SM, chains per CTA (CC), chunks of
-// chains, tiles of 32 individuals per branch, shared bytes per CTA, X tile
-// buffers, scratch bytes (the partial rows), register width KM.
+// chains, tiles per branch (of 32 individuals; 64 in the deep design),
+// shared bytes per CTA, X tile buffers, scratch bytes (the partial rows),
+// register width KM (the deep design's width class 8-64).
 extern "C" int traj_dense_plan(int G, int C, int m, int n, int k0, int s, int depth, int act,
                                long long* out) {
     Plan pl;
-    const int status = plan(G, C, m, n, k0, s, depth, act, &pl);
+    ddeep::Plan dp;
+    const int status = ddeep::takes(k0, s, depth)
+                           ? plan_deep(G, C, m, n, k0, s, depth, act, &pl, &dp)
+                           : plan(G, C, m, n, k0, s, depth, act, &pl);
     if (status != 0) return status;
     const long long v[9] = {pl.ctas, pl.per_sm, pl.cc, pl.chunks, pl.tiles, pl.smem, pl.nbuf,
                             pl.scratch, pl.km};
@@ -427,4 +558,47 @@ extern "C" int traj_dense_f32(const void* x, const void* const* ptrs, const long
         kernel_for(pl.km, deep, act, pl.cc), dim3(pl.ctas), dim3(kThreads * pl.cc), params,
         pl.smem, static_cast<cudaStream_t>(stream));
     return static_cast<int>(e);
+}
+
+// The deep design's K6 (csrc/dense_deep.cuh), at the shapes traj_dense_f32
+// does not take (depth 2 or more, or a padded width of 33-64): x f32 [G,
+// m, n] contiguous; ptrs[2] and strides[8] (four per pointer, as
+// traj_dense_f32's) the targets [G, C, n] and err [G, C]; w, pw, eps, lam
+// f32 [G, C, P] contiguous in the flat layout W0, b0, (W_l, b_l)..., w_out:
+// w and pw the start on entry and the end of the trajectory on return;
+// scratch: the plan's bytes. One cooperative launch.
+extern "C" int traj_dense_deep_f32(const void* x, const void* const* ptrs, const long long* strides,
+                                   void* w, void* pw, const void* eps, const void* lam,
+                                   void* scratch, long long scratch_bytes, int G, int C, int m,
+                                   int n, int k0, int s, int depth, int steps, int act, int l1,
+                                   void* stream) {
+    if (!ddeep::takes(k0, s, depth)) return static_cast<int>(cudaErrorInvalidValue);
+    Plan pl;
+    ddeep::Plan dp;
+    const int status = plan_deep(G, C, m, n, k0, s, depth, act, &pl, &dp);
+    if (status != 0) return status;
+    const int P = deep::flat_size(m, k0, s, depth);
+    if (steps < 0 || scratch_bytes < pl.scratch ||
+        static_cast<long long>(G) * C * P > (1LL << 30))  // the update phase's int indices
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto inst = [&](int k) {
+        return Inst{static_cast<const float*>(ptrs[k]), strides[4 * k], strides[4 * k + 1],
+                    strides[4 * k + 2], strides[4 * k + 3]};
+    };
+    TrajDeepArgs a{};
+    a.x = static_cast<const float*>(x);
+    a.target = inst(0);
+    a.err = inst(1);
+    a.w = static_cast<float*>(w);
+    a.pw = static_cast<float*>(pw);
+    a.eps = static_cast<const float*>(eps);
+    a.lam = static_cast<const float*>(lam);
+    a.partial = static_cast<float*>(scratch);
+    a.sh = ddeep::make_shape(m, k0, s, depth, n, act);
+    a.C = C, a.NB = G * C, a.steps = steps, a.l1 = l1, a.nbuf = dp.nbuf;
+    a.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+    void* params[] = {&a};
+    return static_cast<int>(cudaLaunchCooperativeKernel(
+        traj_dense_deep_kernel_for(dp.km), dim3(dp.ctas), dim3(ddeep::kThreads), params, dp.smem,
+        static_cast<cudaStream_t>(stream)));
 }

@@ -20,12 +20,17 @@
 // adds each chain's segments in a fixed order into its gradients and rss:
 // no float atomics, so the same inputs give the same bits. The forward-only
 // kernel writes y_pred alone, in one launch.
+//
+// Every other shape (depth 2 or more, or a padded width of 33-64) runs the
+// deep design, csrc/dense_deep.cuh ``run_kernel``: one chain a CTA of 8
+// warps over tiles of 64 individuals, the same partial rows and reduce.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "dense_deep.cuh"
 #include "dense_vg_mma.cuh"
 
 namespace rsbann {

@@ -192,6 +192,13 @@ def lib() -> ctypes.CDLL:
     so.traj_packed_km.restype = i
     so.vg_chains_f32.argtypes = [vp] * 5 + [ctypes.c_longlong] + [i] * 9 + [vp]
     so.vg_chains_f32.restype = i
+    ll = ctypes.c_longlong
+    so.vg_chains_deep_f32.argtypes = [vp, vp, ll, ll, vp, vp, vp, ll] + [i] * 9 + [vp]
+    so.vg_chains_deep_f32.restype = i
+    so.vg_dense_deep_f32.argtypes = [vp] * 6 + [ll] + [i] * 8 + [vp]
+    so.vg_dense_deep_f32.restype = i
+    so.traj_dense_deep_f32.argtypes = [vp] * 8 + [ll] + [i] * 10 + [vp]
+    so.traj_dense_deep_f32.restype = i
     so.vg_chains_plan.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
     so.vg_chains_plan.restype = i
     for rule in (so.traj_dense_smem, so.vg_chains_smem, so.vg_dense_smem):

@@ -31,10 +31,13 @@ autograd for the gradients.
 feature-major X xT [G, m_pad, n] (models/density.py ``FeatX``), weights[l]
 [G, C, in, out], biases[l] [G, C, out] and targets [G, C, n]: one X read
 serves all C chains. On a CUDA tensor it is K7, csrc/branch_vg_chains.cu
-(depth 0 and 1, widths up to 32, every activation: CTAs of CC chains on
-each staged X tile, tf32 tensor cores in 3xTF32 on csrc/dense_vg_mma.cuh,
-the weights and targets read where they lie, rss and the fixed-order sum
-of the partial rows inside its two launches); ``forward_chains`` is its
+(every activation; at depth 0 and 1 and widths up to 32 CTAs of CC chains
+on each staged X tile, tf32 tensor cores in 3xTF32 on
+csrc/dense_vg_mma.cuh, the weights and targets read where they lie; at any
+other depth and at padded widths up to 64 the deep design,
+csrc/dense_deep.cuh, on the weights concatenated into their flat layout;
+rss and the fixed-order sum of the partial rows inside its two launches);
+``forward_chains`` is its
 forward-only instantiation (y_pred alone, one launch), which the folded
 transition's value passes use. On a CPU tensor both run their plain
 versions (``data_vg_chains_ref``, ``forward_chains_ref``). Both count their
@@ -48,7 +51,9 @@ place (every (chain, branch) of an unfolded hybrid block, K8b), and
 csrc/branch_vg_dense.cu (tf32 tensor cores in 3xTF32, csrc/dense_vg_mma.cuh,
 as K6 and K7): the weights read through their own pointers, rss
 and the fixed-order sum of the CTAs' partial rows inside its launches, so a
-call issues one pass and its reduce and no other device op.
+call issues one pass and its reduce and no other device op; past depth 1
+or width 32 (up to 64) the deep design (csrc/dense_deep.cuh), after the one
+concatenation of the weights into their flat layout.
 Each counts its own launches; on a CPU tensor they run their plain versions
 (``data_vg_ref``: autograd of the feature-major forward).
 """
@@ -269,26 +274,63 @@ def _dense_smem(m: int, k0: int, s: int, depth: int, rss: bool) -> int:
     return smem if smem <= _MAX_SMEM else -1
 
 
+_DEEP_XS = 72  # csrc/dense_deep.cuh: row stride of the X tile (kXS)
+
+
+def dense_deep(k0: int, s: int, depth: int) -> bool:
+    """Whether K6, K7 and K8 run a shape on their deep design
+    (csrc/dense_deep.cuh ``takes``): depth 2 or more, or a padded width
+    above 32."""
+    return depth >= 2 or _pick_km(k0, s) < 0
+
+
+def dense_deep_smem(m: int, k0: int, s: int, depth: int) -> int:
+    """Shared memory of one CTA of the dense deep design (csrc/dense_deep.cuh
+    ``layout``) with one X tile buffer (the kernels take a second where it
+    fits), or -1 above width 64 or past 227 KB: the X tile [m16][72], W0
+    [m16][ws] in f32 (ws = KM + 16 at KM = 8, else KM + 8), b0, w_out and
+    each hidden layer's W_l^T and b_l, the tile's depth + 2 rows of
+    activations [64][KM + 4] and a few sums."""
+    km = _packed_km(k0, s)
+    if km < 0 or m <= 0 or depth < 0:
+        return -1
+    m16 = -(-m // 16) * 16
+    ws = km + 16 if km % 32 == 8 else km + 8
+    floats = (m16 * _DEEP_XS + m16 * ws + 2 * km + depth * (km * km + km)
+              + (depth + 2) * _DEEP_TILE * (km + 4) + 5 * _DEEP_TILE + _DEEP_THREADS // 32)
+    return 4 * floats if 4 * floats <= _MAX_SMEM else -1
+
+
+def _dense_rule(m: int, k0: int, s: int, depth: int, rss: bool) -> int:
+    """The rule K6, K7 and K8 share: at depth 0 and 1 and padded widths up
+    to 32 their first design's (``_dense_smem``), at every other shape the
+    deep design's with one X buffer."""
+    if dense_deep(k0, s, depth):
+        return dense_deep_smem(m, k0, s, depth)
+    return _dense_smem(m, k0, s, depth, rss)
+
+
 def traj_dense_smem(m: int, k0: int, s: int, depth: int) -> int:
     """Shared memory (bytes) K6 needs for one branch of m_pad markers and
-    layer widths k0, s at one chain per CTA, or -1 if it cannot run it
-    (depth above 1, a width above 32, or more than 227 KB). The rule of the
-    CUDA entry point of the same name; the CLI asks it, with
-    ``vg_chains_smem``, before a folded feature-major run on the card."""
-    return _dense_smem(m, k0, s, depth, rss=False)
+    layer widths k0, s at one chain per CTA, or -1 if it cannot run it (a
+    padded width above 64, or more than 227 KB). The rule of the CUDA entry
+    point of the same name; the CLI asks it, with ``vg_chains_smem``,
+    before a folded feature-major run on the card."""
+    return _dense_rule(m, k0, s, depth, rss=False)
 
 
 def vg_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
     """K7's rule, as ``traj_dense_smem``: its value-and-gradient pass also
-    keeps each warp's err^2 (the forward-only pass needs less)."""
-    return _dense_smem(m, k0, s, depth, rss=True)
+    keeps each warp's err^2 in the first design (the forward-only pass needs
+    less)."""
+    return _dense_rule(m, k0, s, depth, rss=True)
 
 
 def vg_dense_smem(m: int, k0: int, s: int, depth: int) -> int:
     """K8's rule, as ``traj_dense_smem`` (its CTA is one chain's group, with
     err^2 as K7's); the CLI asks it before a sequential or unfolded
     feature-major run on the card."""
-    return _dense_smem(m, k0, s, depth, rss=True)
+    return _dense_rule(m, k0, s, depth, rss=True)
 
 
 _PACKED_ROW = GBYTES + 4  # shared-memory row stride of the depth-0 rule's byte tile (kRow)
@@ -423,8 +465,8 @@ def _dense_shape(xT, weights, rule, kernel):
     k0, s = weights[0].shape[-1], weights[-1].shape[-2]
     if rule(m, k0, s, depth) < 0:
         raise NotImplementedError(
-            f"the {kernel} CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
-            f"within 227 KB of shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
+            f"the {kernel} CUDA kernel takes padded layer widths up to 64 within 227 KB of "
+            f"shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
         )
     return G, weights[0].shape[1], m, n, k0, s, depth
 
@@ -560,26 +602,41 @@ def vg_chains_plan(G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
 def _vg_chains_cuda(act, xT, weights, biases, target, grad: bool):
     """Launch K7 (csrc/branch_vg_chains.cu) once: with ``grad`` the pass
     and its fixed-order reduce, else the forward-only pass, and no other
-    device op. The per-layer weights and the targets are read where they
-    lie (strided over branches and chains, as ``predict_chains``'
-    transposed views are). Returns y_pred [G, C, n] and, with ``grad``,
-    (rss [G, C], dws, dbs) beside it: views of one buffer."""
+    device op (but, on the deep design, the one concatenation of the
+    weights). The per-layer weights (first design) and the targets are read
+    where they lie (strided over branches and chains, as
+    ``predict_chains``' transposed views are). Returns y_pred [G, C, n]
+    and, with ``grad``, (rss [G, C], dws, dbs) beside it: views of one
+    buffer."""
     G, C, m, n, k0, s, depth = _dense_shape(xT, weights, vg_chains_smem, "K7")
     dev, xT = xT.device, xT.contiguous()
     _check(xT, "xT", torch.float32, (G, m, n), dev)
     code = ACT_CODES[act]
     plan = _k7_plan(dev.index, G, C, m, n, k0, s, depth, grad, code)
-    keep, ptrs, strides = chain_instances(target if grad else None, weights, biases, dev)
     P = _flat_size(m, k0, s, depth)
     out = torch.empty(G * C * (n + P + 1) if grad else G * C * n, dtype=torch.float32, device=dev)
     scratch = _scratch(dev, ("K7", dev.index, G, C, m, n, k0, s, depth), plan[7]) if grad else None
     vp = ctypes.c_void_p
-    status = _build.lib().vg_chains_f32(
-        vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
-        vp(out.data_ptr()), vp(scratch.data_ptr() if grad else 0), plan[7], G, C, m, n, k0, s,
-        depth, code, int(grad), vp(_build.stream_ptr(xT)),
-    )
-    _build.check(status, "vg_chains_f32")
+    if dense_deep(k0, s, depth):  # the weights in their flat layout, one concatenation
+        q = flat_params(weights, biases)
+        _check(q, "weights", torch.float32, (G, C, P), dev)
+        keep, ptrs, strides = pass_instances([(target if grad else None, "target", (G, C, n),
+                                               False)], dev)
+        status = _build.lib().vg_chains_deep_f32(
+            vp(xT.data_ptr()), vp(ptrs[0]), strides[0], strides[1], vp(q.data_ptr()),
+            vp(out.data_ptr()), vp(scratch.data_ptr() if grad else 0), plan[7], G, C, m, n, k0,
+            s, depth, code, int(grad), vp(_build.stream_ptr(xT)),
+        )
+        _build.check(status, "vg_chains_deep_f32")
+    else:
+        keep, ptrs, strides = chain_instances(target if grad else None, weights, biases, dev)
+        status = _build.lib().vg_chains_f32(
+            vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs),
+            (ctypes.c_longlong * len(strides))(*strides), vp(out.data_ptr()),
+            vp(scratch.data_ptr() if grad else 0), plan[7], G, C, m, n, k0, s, depth, code,
+            int(grad), vp(_build.stream_ptr(xT)),
+        )
+        _build.check(status, "vg_chains_f32")
     data_vg_chains.launches += 1
     y_pred = out[: G * C * n].view(G, C, n)
     if not grad:
@@ -679,7 +736,8 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
     """Launch csrc/branch_vg_dense.cu for NB instances, X [G, m_pad, n] and
     weights[l] [NB, in, out] (instance i on X[ix[i]]), or for one, xT
     [m_pad, n] and weights[l] [in, out]: with ``grad`` the pass and its
-    reduce, else the forward-only pass, and no other device op. Returns
+    reduce, else the forward-only pass, and no other device op (but, on the
+    deep design, the one concatenation of the weights). Returns
     (y_pred, rss, dws, dbs) with ``grad``, else y_pred, each shaped as its
     inputs (a leading [NB] or none): views of one buffer."""
     lead = X.dim() == 3
@@ -688,19 +746,19 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
     k0, s = weights[0].shape[-1], weights[-1].shape[-2]
     if vg_dense_smem(m, k0, s, depth) < 0:
         raise NotImplementedError(
-            f"the K8 CUDA kernel takes depth 0 or 1 and layer widths up to 32 "
-            f"within 227 KB of shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
+            f"the K8 CUDA kernel takes padded layer widths up to 64 within 227 KB of shared "
+            f"memory; got depth={depth}, m={m}, k0={k0}, s={s}"
         )
     dev, pre = X.device, (NB,) if lead else ()
     X = X.contiguous()  # each of these is itself when contiguous: no copy on the main paths
     _check(X, "X", torch.float32, (G, m, n) if lead else (m, n), dev)
     ws = [w.contiguous() for w in weights]
     bs = [b.contiguous() for b in biases]
-    dims = [m, k0] + ([s] if depth else []) + [1]
+    dims = [(i, o) for i, o in _dims(m, k0, s, depth)] + [(s, 1)]
     for l, w in enumerate(ws):
-        _check(w, f"weights[{l}]", torch.float32, pre + (dims[l], dims[l + 1]), dev)
+        _check(w, f"weights[{l}]", torch.float32, pre + dims[l], dev)
     for l, b in enumerate(bs):
-        _check(b, f"biases[{l}]", torch.float32, pre + (dims[l + 1],), dev)
+        _check(b, f"biases[{l}]", torch.float32, pre + (dims[l][1],), dev)
     if ix is None:
         if NB != G:
             raise ValueError(f"{NB} instances on {G} branches need an index")
@@ -718,13 +776,21 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    status = _build.lib().vg_dense_f32(
-        X.data_ptr(), ptr(ix), ptr(targets if grad else None), ws[0].data_ptr(),
-        bs[0].data_ptr(), ptr(ws[1] if depth else None), ptr(bs[1] if depth else None),
-        ws[-1].data_ptr(), out.data_ptr(), ptr(scratch), nbytes, NB, m, n, k0, s, depth,
-        code, int(grad), _build.stream_ptr(X),
-    )
-    _build.check(status, "vg_dense_f32")
+    if dense_deep(k0, s, depth):  # the weights in their flat layout, one concatenation
+        q = flat_params(ws, bs)
+        status = _build.lib().vg_dense_deep_f32(
+            X.data_ptr(), ptr(ix), ptr(targets if grad else None), q.data_ptr(), out.data_ptr(),
+            ptr(scratch), nbytes, NB, m, n, k0, s, depth, code, int(grad), _build.stream_ptr(X),
+        )
+        _build.check(status, "vg_dense_deep_f32")
+    else:
+        status = _build.lib().vg_dense_f32(
+            X.data_ptr(), ptr(ix), ptr(targets if grad else None), ws[0].data_ptr(),
+            bs[0].data_ptr(), ptr(ws[1] if depth else None), ptr(bs[1] if depth else None),
+            ws[-1].data_ptr(), out.data_ptr(), ptr(scratch), nbytes, NB, m, n, k0, s, depth,
+            code, int(grad), _build.stream_ptr(X),
+        )
+        _build.check(status, "vg_dense_f32")
     y_pred = out[: NB * n].view(pre + (n,))
     if not grad:
         return y_pred

@@ -32,7 +32,11 @@ version's. K6 runs its gradients on tf32 tensor cores in 3xTF32 (three
 tf32 products per f32 one), a branch's C chains in chunks of CC on each
 staged tile of X (``traj_dense_plan`` says which CC and grid a launch
 uses), and reads its per-layer inputs in place, broadcast step sizes and
-prior factors included; its sums are rounded in another order too.
+prior factors included; its sums are rounded in another order too. K6
+takes any depth and padded widths up to 64: past depth 1 or width 32 it
+runs the dense deep design (csrc/dense_deep.cuh: one chain a CTA over
+tiles of 64 individuals, layer 0 in 3xTF32, the hidden layers on the f32
+cores) on flat copies of its per-layer inputs.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from .branch_mlp import (
     _pick_km,
     _scratch,
     data_vg_chains_ref,
+    dense_deep,
     flat_params,
     layer_shapes,
     layer_slots,
@@ -261,6 +266,9 @@ def _integrate_dense_cuda(
     code = ACT_CODES[act]
     plan = _k6_plan(dev.index, G, C, m, n, k0, s, depth, code)
     scratch = _scratch(dev, ("K6", dev.index, G, C, m, n, k0, s, depth), plan[7])
+    if dense_deep(k0, s, depth):
+        return _integrate_dense_deep(act, xT, targets, err, weights, biases, p_w, p_b, eps_w,
+                                     eps_b, lam_w, lam_b, L_steps, l1, scratch, plan[7])
     # the layers in the kernel's slots W0, b0, W1, b1, w_out (W1, b1 absent at depth 0)
     shapes = layer_shapes(G, C, m, k0, s, depth)
     sizes = [0 if sh is None else G * C * int(torch.Size(sh[2:]).numel()) for sh in shapes]
@@ -291,6 +299,39 @@ def _integrate_dense_cuda(
 
     w_f, b_f = layers(views[:5])
     pw_f, pb_f = layers(views[5:])
+    return w_f, b_f, pw_f, pb_f
+
+
+def _integrate_dense_deep(act, xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w,
+                          lam_b, L_steps, l1, scratch, nbytes):
+    """K6's deep design (depth 2 or more, or a padded width of 33-64;
+    csrc/dense_deep.cuh): the weights, momenta, step sizes and prior
+    factors concatenated into flat [G, C, P] copies (four device ops), the
+    targets and err read where they lie, one cooperative launch that
+    integrates the copies of the weights and momenta in place; returns
+    per-layer views of them."""
+    G, m, n = xT.shape
+    C, depth = weights[0].shape[1], len(weights) - 2
+    k0, s = weights[0].shape[-1], weights[-1].shape[-2]
+    dev = xT.device
+    w, pw = flat_params(weights, biases), flat_params(p_w, p_b)
+    eps, lam = flat_params(eps_w, eps_b), flat_params(lam_w, lam_b)
+    P = w.shape[-1]
+    for name, t in (("weights", w), ("momenta", pw), ("eps", eps), ("lam", lam)):
+        _check(t, name, torch.float32, (G, C, P), dev)
+    keep, ptrs, strides = pass_instances(
+        [(targets, "targets", (G, C, n), False), (err, "err", (G, C), False)], dev)
+    vp = ctypes.c_void_p
+    status = _build.lib().traj_dense_deep_f32(
+        vp(xT.data_ptr()), (vp * 2)(*ptrs), (ctypes.c_longlong * 8)(*strides), vp(w.data_ptr()),
+        vp(pw.data_ptr()), vp(eps.data_ptr()), vp(lam.data_ptr()), vp(scratch.data_ptr()),
+        nbytes, G, C, m, n, k0, s, depth, int(L_steps), ACT_CODES[act], int(bool(l1)),
+        vp(_build.stream_ptr(xT)),
+    )
+    _build.check(status, "traj_dense_deep_f32")
+    integrate_chains.launches += 1
+    w_f, b_f = unflat_params(w, weights, biases)
+    pw_f, pb_f = unflat_params(pw, weights, biases)
     return w_f, b_f, pw_f, pb_f
 
 

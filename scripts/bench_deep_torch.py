@@ -12,7 +12,10 @@ Two parts, every input drawn from a seed, no CLI run and no data files:
    C 4, width 10 stored at 16, L 30, identity), the marker scan at the block
    (40 instances, m_pad 104, width 16), K6 at the dense flagship (G 64, C 4,
    m 64, h = s = 32, depth 1, n 4,096, tanh, L 8), K7 (value and gradient,
-   and forward only) and K8 (one instance, and 32 through an index) there.
+   and forward only) and K8 (one instance, and 32 through an index) there;
+   and the packed deep design at depth 2, width 56, tanh (K4 on the branch,
+   K5 on the block at L 2), whose hidden-layer code the dense deep design
+   (csrc/dense_deep.cuh) shares.
 2. Depth 1 at width 16 (m_pad 104, n 100,000, identity): K4 on one branch
    and K5 on the block (B 10, C 4, L 30), each held to its plain version
    (REL_TOL; 1e-3 for K5 at L 30), with its CUDA-event time (median of 7,
@@ -183,6 +186,22 @@ def main():
     k8b = BM.data_vg_blocked("tanh", xT, ix, *blk, ftg[:32, 0])
     for k, v in enumerate((k8b[0], k8b[1]) + tuple(k8b[2]) + tuple(k8b[3])):
         out[f"K8b {k}"] = v
+    # the packed deep design at depth 2, width 56 (its hidden layers are the
+    # code the dense deep design shares): K4 on one branch, K5 on the block
+    dims = [(M_PAD, 56), (56, 56), (56, 56), (56, 1)]
+    dw, db = layers((), dims)
+    k4d = BM.data_vg_packed("tanh", x, dw, db, target)
+    for k, v in enumerate((k4d[0], k4d[1]) + tuple(k4d[2]) + tuple(k4d[3])):
+        out[f"K4deep {k}"] = v
+    dw5, db5 = layers((B, C), dims)
+    dp5 = layers((B, C), dims, sc=1.0)
+    deps5 = (tuple(torch.full_like(w, 2e-4) for w in dw5),
+             tuple(torch.full_like(b, 2e-4) for b in db5))
+    dlam5 = (tuple(torch.ones_like(w) for w in dw5), tuple(torch.zeros_like(b) for b in db5))
+    k5d = LF.integrate_chains_packed("tanh", by5, sc5, sh5, tg5, err5, dw5, db5, *dp5, *deps5,
+                                     *dlam5, 2, N)
+    for k, v in enumerate(t_ for part in k5d for t_ in part):
+        out[f"K5deep {k}"] = v
     torch.cuda.synchronize()
     saved = {k: v.detach().reshape(-1).float().cpu() for k, v in out.items()}
     if opts.save:

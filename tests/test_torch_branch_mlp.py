@@ -98,6 +98,43 @@ PACKED_LIMITS = [
 ]
 
 
+# (m, k0, s, depth) -> shared memory of K6 and of K7 and K8 (one rule, but
+# for err^2), by hand from the C rules. Depth 0 and 1 at padded widths up
+# to 32 (csrc/dense_vg_mma.cuh cta_smem, unchanged; test_torch_dense_smem.py
+# counts its parts). Every other shape (csrc/dense_deep.cuh layout, one X
+# buffer, the same for the three; KM the width class 8, 16, 32 or 64, m16 =
+# m rounded up to 16, ws = KM + 16 at KM = 8, else KM + 8): 4 (72 m16 + ws
+# m16 + 2 KM + depth (KM^2 + KM) + (depth + 2) 64 (KM + 4) + 5 64 + 8); at
+# the slice's branch (104, 56, 56, 2): 4 (8,064 + 8,064 + 128 + 8,320 +
+# 17,408 + 328) = 169,248. -1 above 232,448 bytes or past width 64
+DENSE_LIMITS = [
+    ((64, 32, 32, 1), 75648, 75680),  # the dense flagship, unchanged
+    ((40, 16, 16, 0), 20928, 20960),
+    ((104, 16, 16, 1), 56256, 56288),
+    ((104, 56, 56, 2), 169248, 169248),  # the slice: depth 2 at the default widths
+    ((104, 56, 56, 0), 101152, 101152),  # depth 0 at width 56
+    ((104, 40, 40, 2), 169248, 169248),  # width 40: the same class (KM 64)
+    ((104, 16, 16, 3), 73312, 73312),
+    ((104, 8, 8, 2), 57248, 57248),
+    ((24, 40, 24, 1), 89120, 89120),  # depth 1 past width 32
+    ((104, 64, 64, 3), 203296, 203296),
+    ((16, 64, 64, 5), 216096, 216096),
+    ((208, 56, 56, 2), 224544, 224544),  # the most markers depth 2 takes at width 56
+    ((209, 56, 56, 2), -1, -1),
+    ((104, 64, 64, 4), -1, -1),  # depth 4 at width 64 and 104 markers: past shared memory
+    ((104, 72, 72, 0), -1, -1),  # a padded width above 64
+]
+
+
+@pytest.mark.parametrize("shape,k6,k78", DENSE_LIMITS, ids=lambda a: str(a))
+def test_dense_kernel_limits(shape, k6, k78):
+    """The Python mirrors of K6's, K7's and K8's shared-memory rules, which
+    the CLI asks before a feature-major run on the card."""
+    assert TBM.traj_dense_smem(*shape) == k6
+    assert TBM.vg_chains_smem(*shape) == k78
+    assert TBM.vg_dense_smem(*shape) == k78
+
+
 @pytest.mark.parametrize("shape,k4,k5", PACKED_LIMITS, ids=lambda a: str(a))
 def test_packed_kernel_limits(shape, k4, k5):
     """The Python mirrors of K4's and K5's shared-memory rules, which the

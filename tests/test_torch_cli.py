@@ -246,15 +246,16 @@ SCHEDULES = {  # schedule -> (its options, the kernels that run it on the card)
 
 @pytest.mark.parametrize("depth,width,schedule", [
     pytest.param(d, w, sch, id=f"{d}-{w}" + ("" if sch == "parallel" else f"-{sch}"))
-    for sch in SCHEDULES for d, w in (("1", "64"), ("2", "6"))])
+    for sch in SCHEDULES for d, w in (("1", "72"), ("6", "64"))])
 def test_feat_major_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkeypatch, depth,
                                                            width, schedule):
-    """On a CUDA device a --feat-major branch beyond the kernels' limits
-    (width above 32, depth above 1) exits "not ported yet" naming the
-    kernels of its schedule (K6/K7 folded, K8 sequential or unfolded) before
-    anything is written or put on the device, instead of running the plain
-    version. The device is faked: the check comes before the first CUDA
-    tensor."""
+    """On a CUDA device a --feat-major branch beyond the kernels' limits (a
+    padded width above 64; depth 6 at width 64, past 227 KB of shared
+    memory) exits "not ported yet" naming the kernels of its schedule
+    (K6/K7 folded, K8 sequential or unfolded) and the rule they take (any
+    depth, widths up to 64) before anything is written or put on the
+    device, instead of running the plain version. The device is faked: the
+    check comes before the first CUDA tensor."""
     import torch
 
     from rs_bann_tpu_torch.cli import main as cli_main
@@ -267,6 +268,7 @@ def test_feat_major_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkey
     with pytest.raises(SystemExit) as e:
         run_cli(*argv)
     assert "not ported yet" in str(e.value.code) and f"the {kernels} CUDA" in str(e.value.code)
+    assert "any depth, widths up to 64" in str(e.value.code)
     assert not any(tmp_path.iterdir())
 
 

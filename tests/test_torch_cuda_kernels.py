@@ -17,8 +17,9 @@ chunk), more instances than resident CTAs, depth 0 at width 8, the
 flagship's block at L = 1 and the largest m it admits (one call one device
 op), K5 and K6 with the per-coordinate step sizes of dual averaging and
 mass adaptation in the fold's transposed views (and a whole folded packed
-block with them: its padded columns stay exactly 0), and the wrappers'
-refusals.
+block with them: its padded columns stay exactly 0), K6, K7 and K8 on
+their deep design (depth 2 and 3, widths 40-64; K6 at L = 1 and 30), and
+the wrappers' refusals.
 Tolerances: K2 and K9a atol 1e-4 (f32
 sums over <= 300 markers in another order), and 1e-4 of the largest entry
 with weights spanning 1e-6 to 1e3; K3 and K9b rtol 1e-4 of the
@@ -783,7 +784,8 @@ def _k7_check(act, xT, ws, bs, target):
     relu and leaky_relu less its kink allowance); the forward-only call's
     y_pred the same bits; one value-and-gradient call is one count and
     exactly the pass and its reduce, a forward-only call one count and
-    exactly its pass; repeats give the same bits."""
+    exactly its pass (the deep design: each after the concatenation of the
+    weights); repeats give the same bits."""
     before = BM.data_vg_chains.launches
     y, rss, dws, dbs = BM.data_vg_chains(act, xT, ws, bs, target)
     y_fwd = BM.forward_chains(act, xT, ws, bs)
@@ -799,13 +801,16 @@ def _k7_check(act, xT, ws, bs, target):
         for got, ref, al in zip(dws + dbs, dws_ref + dbs_ref, allow):
             assert got.shape == ref.shape
             assert _rel_close(got.to(dtype), ref, allow=al)
-    # the same inputs give the same bits: no float atomics
+    # the same inputs give the same bits: no float atomics. The deep design
+    # concatenates the weights into their flat layout first
+    pre, kern = ((["CatArrayBatchedCopy"], "run_kernel")
+                 if BM.dense_deep(ws[0].shape[-1], ws[-1].shape[-2], len(ws) - 2)
+                 else ([], "vg_chains_kernel"))
     y2, rss2, dws2, dbs2 = _one_op(lambda: BM.data_vg_chains(act, xT, ws, bs, target),
-                                   ["vg_chains_kernel", "vg_chains_reduce"])
+                                   pre + [kern, "vg_chains_reduce"])
     assert torch.equal(y, y2) and torch.equal(rss, rss2)
     assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
-    assert torch.equal(y_fwd, _one_op(lambda: BM.forward_chains(act, xT, ws, bs),
-                                      ["vg_chains_kernel"]))
+    assert torch.equal(y_fwd, _one_op(lambda: BM.forward_chains(act, xT, ws, bs), pre + [kern]))
 
 
 @pytest.mark.parametrize("depth,act,n,k", DENSE_CASES)
@@ -878,8 +883,9 @@ def _traj_dense_inputs(rng, dev, G, C, m, n, k, depth, steps):
 def _k6_check(act, args, l1, tol=1e-4):
     """K6 against its plain version in f32 and in f64, rtol ``tol`` of the
     largest entry; one call is one count and exactly one device op, the
-    kernel (the wrapper reads the per-layer inputs in place); a repeat gives
-    the same bits. Returns the result."""
+    kernel (the wrapper reads the per-layer inputs in place; the deep
+    design after the four concatenations into the flat layout); a repeat
+    gives the same bits. Returns the result."""
     before = TL.integrate_chains.launches
     out = TL.integrate_chains(act, *args, l1=l1)
     assert TL.integrate_chains.launches == before + 1
@@ -893,7 +899,11 @@ def _k6_check(act, args, l1, tol=1e-4):
                 assert got.shape == want.shape
                 assert (got.to(dtype) - want).abs().max().item() <= tol * max(
                     want.abs().max().item(), 1.0)
-    again = _one_op(lambda: TL.integrate_chains(act, *args, l1=l1), ["traj_dense_kernel"])
+    ws = args[3]
+    ops = (["CatArrayBatchedCopy"] * 4 + ["traj_dense_deep_kernel"]
+           if BM.dense_deep(ws[0].shape[-1], ws[-1].shape[-2], len(ws) - 2)
+           else ["traj_dense_kernel"])
+    again = _one_op(lambda: TL.integrate_chains(act, *args, l1=l1), ops)
     assert all(torch.equal(a, b) for pa, pb in zip(out, again) for a, b in zip(pa, pb))
     return out
 
@@ -988,13 +998,21 @@ def test_integrate_chains_runs_every_admitted_m(dev, m, k, depth):
     _k6_check("tanh", _traj_dense_inputs(rng, dev, 2, 2, m, 301, k, depth, 2), False)
 
 
+# the dense deep design's shapes: depth 2 to 4, widths 40 to 64, the first
+# refused (tests/test_torch_branch_mlp.py DENSE_LIMITS by hand)
+DENSE_LIMIT_SHAPES = [(104, 56, 56, 2), (104, 56, 56, 0), (104, 16, 16, 3), (104, 64, 64, 3),
+                      (104, 64, 64, 4), (104, 40, 40, 2), (24, 40, 24, 1), (16, 64, 64, 4),
+                      (16, 64, 64, 5), (104, 72, 72, 0), (320, 56, 56, 2), (336, 56, 56, 2),
+                      (104, 48, 40, 3), (1000, 8, 8, 2)]
+
+
 def test_dense_limits_agree_with_the_kernels(dev):
     from rs_bann_tpu_torch.ops import _build
 
     lib = _build.lib()
     for shape in [(64, 32, 32, 1), (40, 16, 16, 0), (254, 32, 32, 1), (300, 32, 32, 1),
                   (64, 64, 32, 1), (64, 8, 8, 2), (263, 32, 32, 1), (345, 16, 16, 1),
-                  (390, 8, 8, 0), (330, 32, 32, 1), (331, 32, 32, 1)]:
+                  (390, 8, 8, 0), (330, 32, 32, 1), (331, 32, 32, 1)] + DENSE_LIMIT_SHAPES:
         for rule in ("traj_dense_smem", "vg_chains_smem", "vg_dense_smem"):
             assert getattr(lib, rule)(*shape) == getattr(BM, rule)(*shape), (rule, shape)
 
@@ -1053,12 +1071,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
             "tanh", by[None], torch.ones(1, m, device=dev), torch.zeros(1, m, device=dev),
             torch.zeros(1, 2, n, device=dev), torch.ones(1, 2, device=dev), wide_p, bias_p,
             wide_p, bias_p, wide_p, bias_p, wide_p, bias_p, 2, n)
-    wide_c = (torch.zeros(1, 2, m, 64, device=dev), torch.zeros(1, 2, 64, 1, device=dev))
-    bias_c = (torch.zeros(1, 2, 64, device=dev),)
+    wide_c = (torch.zeros(1, 2, m, 72, device=dev), torch.zeros(1, 2, 72, 1, device=dev))
+    bias_c = (torch.zeros(1, 2, 72, device=dev),)
     xT = torch.zeros(1, m, n, device=dev)
-    with pytest.raises(NotImplementedError):  # K7 width above 32
+    with pytest.raises(NotImplementedError):  # K7 width above 64
         BM.data_vg_chains("tanh", xT, wide_c, bias_c, torch.zeros(1, 2, n, device=dev))
-    with pytest.raises(NotImplementedError):  # K6 width above 32
+    with pytest.raises(NotImplementedError):  # K6 width above 64
         TL.integrate_chains("tanh", xT, torch.zeros(1, 2, n, device=dev), torch.ones(1, 2, device=dev),
                             wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, wide_c, bias_c, 2)
 
@@ -1086,8 +1104,9 @@ def _vg_close(got, ref, allow=None):
 def _k8_check(act, call, ref, xT, ws, bs, targets, kernel_launches):
     """K8 (``call()``) against its plain version ``ref(dtype)`` in f32 and in
     f64, each entry of the gradients less its kink allowance; one call
-    issues exactly the pass and its reduce, and no other device op; a repeat
-    gives the same bits. Returns the first result."""
+    issues exactly the pass and its reduce, and no other device op (the deep
+    design: after the concatenation of the weights); a repeat gives the same
+    bits. Returns the first result."""
     flat = lambda o: [o[0], o[1], *o[2], *o[3]]  # noqa: E731
     before = kernel_launches()
     got = call()
@@ -1096,7 +1115,10 @@ def _k8_check(act, call, ref, xT, ws, bs, targets, kernel_launches):
     allow = kink_allowance(act, xT, ws, bs, targets)
     for dtype in (torch.float32, torch.float64):
         _vg_close(got, ref(dtype), allow)
-    again = _one_op(call, ["vg_dense_kernel", "vg_dense_reduce"])
+    ops = (["CatArrayBatchedCopy", "run_kernel", "vg_dense_reduce"]
+           if BM.dense_deep(ws[0].shape[-1], ws[-1].shape[-2], len(ws) - 2)
+           else ["vg_dense_kernel", "vg_dense_reduce"])
+    again = _one_op(call, ops)
     assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
     return got
 
@@ -1189,13 +1211,14 @@ def test_data_vg_runs_every_admitted_m(dev, m, k, depth):
 
 
 def test_dense_vg_wrappers_refuse_what_the_kernel_does_not_take(dev):
-    """K8 beyond K6/K7's limits raises NotImplementedError on the card (the
-    plain version never runs there)."""
+    """K8 beyond K6/K7's limits (depth 5 at width 64 past shared memory, a
+    width above 64) raises NotImplementedError on the card (the plain
+    version never runs there)."""
     rng = np.random.default_rng(14)
     m, n = 40, 300
     X = torch.zeros(2, m, n, device=dev)
     ix = torch.zeros(2, dtype=torch.int32, device=dev)
-    for depth, k in ((2, 8), (1, 64)):
+    for depth, k in ((5, 64), (1, 72)):
         ws = tuple(torch.zeros((2, i, o), device=dev) for i, o in
                    [(m, k)] + [(k, k)] * depth + [(k, 1)])
         bs = tuple(torch.zeros((2, k), device=dev) for _ in range(depth + 1))
@@ -1210,6 +1233,117 @@ def test_dense_vg_wrappers_refuse_what_the_kernel_does_not_take(dev):
     ws, bs, targets = _vg_dense_inputs(rng, dev, (3,), m, n, 8, 0)
     with pytest.raises(ValueError):  # 3 instances on 2 branches need an index
         BM.data_vg_blocked("tanh", X, None, ws, bs, targets)
+
+
+# (depth, m, n, h, s): the dense deep design (csrc/dense_deep.cuh) at depth
+# 2 and 3 and at depth 0 and 1 past width 32: the default widths (56), a
+# summary layer narrower than the hidden ones, a ragged n, n not a multiple
+# of 4 (4-byte copies), m not a multiple of 16. At depth 3 width 64 relu and
+# leaky_relu meet 300-1,500 pre-activations within the f32 bound of the
+# kink (1.4e-3 of them, past kink_allowance's cap): that shape runs the
+# smooth activations, the kinked ones run the other five
+DENSE_DEEP_SHAPES = [(2, 104, 1300, 56, 56), (3, 40, 1100, 16, 8), (0, 104, 1300, 56, 56),
+                     (1, 24, 701, 40, 24), (2, 64, 333, 8, 8), (3, 104, 700, 64, 64)]
+DENSE_DEEP_CASES = [(act, shape) for shape in DENSE_DEEP_SHAPES
+                    for act in BM.SUPPORTED_ACTIVATIONS
+                    if not (act in ("relu", "leaky_relu") and shape[0] == 3 and shape[3] == 64)]
+
+
+def _dense_deep_inputs(rng, dev, lead, depth, m, h, s):
+    """Weights [*lead, in, out] and biases [*lead, out] of depth hidden
+    layers of width h and a summary layer of width s, scaled by fan-in."""
+    outs = [h] * depth + [s, 1]
+    dims = list(zip([m] + outs[:-1], outs))
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    ws = tuple(t(rng.standard_normal(lead + d) * 0.7 / np.sqrt(d[0])) for d in dims)
+    bs = tuple(t(rng.standard_normal(lead + (d[1],)) * 0.1) for d in dims[:-1])
+    return ws, bs
+
+
+def _ids(a):
+    return a if isinstance(a, str) else "d{}_m{}_n{}_h{}_s{}".format(*a)
+
+
+@pytest.mark.parametrize("act,shape", DENSE_DEEP_CASES, ids=_ids)
+def test_data_vg_chains_deep_kernel_matches_plain(dev, act, shape):
+    """K7's deep design (G = 3, C = 2) by ``_k7_check``; its plan takes the
+    shape's width class, one chain a CTA and one wave."""
+    depth, m, n, h, s = shape
+    rng = np.random.default_rng(31)
+    xT = torch.from_numpy(rng.standard_normal((3, m, n)).astype(np.float32)).to(dev)
+    ws, bs = _dense_deep_inputs(rng, dev, (3, 2), depth, m, h, s)
+    target = torch.from_numpy(rng.standard_normal((3, 2, n)).astype(np.float32)).to(dev)
+    plan = BM.vg_chains_plan(3, 2, m, n, h, s, depth, act=act)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan["km"] == next(k for k in (8, 16, 32, 64) if max(h, s) <= k) and plan["cc"] == 1
+    assert plan["ctas"] <= plan["ctas_per_sm"] * sms and plan["tiles"] == -(-n // 64)
+    _k7_check(act, xT, ws, bs, target)
+
+
+@pytest.mark.parametrize("act,shape", DENSE_DEEP_CASES, ids=_ids)
+def test_data_vg_deep_kernel_matches_plain(dev, act, shape):
+    """K8a's and K8b's deep design: one instance, then 5 instances on X of 3
+    branches through ix, by ``_k8_check``; the forward-only instantiation
+    gives y_pred's bits."""
+    depth, m, n, h, s = shape
+    rng = np.random.default_rng(32)
+    X = torch.from_numpy(rng.standard_normal((3, m, n)).astype(np.float32)).to(dev)
+    ws, bs = _dense_deep_inputs(rng, dev, (), depth, m, h, s)
+    target = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    _k8_check(act, lambda: BM.data_vg(act, X[1], ws, bs, target),
+              lambda dt: BM.data_vg_ref(act, X[1].to(dt), _f64(ws, dt), _f64(bs, dt),
+                                        target.to(dt)),
+              X[1], ws, bs, target, lambda: BM.data_vg.launches)
+    ix = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32, device=dev)
+    ws, bs = _dense_deep_inputs(rng, dev, (5,), depth, m, h, s)
+    targets = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(dev)
+    got = _k8_check(
+        act, lambda: BM.data_vg_blocked(act, X, ix, ws, bs, targets),
+        lambda dt: BM.data_vg_blocked_ref(act, X.to(dt), ix, _f64(ws, dt), _f64(bs, dt),
+                                          targets.to(dt)),
+        X[ix.long()], ws, bs, targets, lambda: BM.data_vg_blocked.launches)
+    before = BM.forward_blocked.launches
+    assert torch.equal(BM.forward_blocked(act, X, ix, ws, bs), got[0])
+    assert BM.forward_blocked.launches == before + 1
+    plan = BM.vg_dense_plan(5, m, n, h, s, depth, act=act)
+    assert plan["slots"] == plan["ctas"] + 5 and plan["tiles"] == -(-n // 64)
+
+
+# (G, C, m, n, depth, h, s, activation, l1)
+K6_DEEP_CASES = [(3, 2, 104, 1300, 2, 56, 56, "tanh", False),
+                 (2, 4, 104, 700, 0, 56, 56, "identity", True),
+                 (3, 3, 40, 1100, 3, 16, 8, "silu", False),
+                 (2, 1, 24, 513, 2, 40, 24, "relu", True)]
+
+
+@pytest.mark.parametrize("steps,tol", [(1, 1e-4), (30, 1e-3)])
+@pytest.mark.parametrize("G,C,m,n,depth,h,s,act,l1", K6_DEEP_CASES)
+def test_integrate_chains_deep_kernel_matches_plain(dev, G, C, m, n, depth, h, s, act, l1, steps,
+                                                   tol):
+    """K6's deep design against its plain version in f32 and f64 by
+    ``_k6_check``: rtol 1e-4 of the largest entry at L = 1, 1e-3 at L = 30
+    (f32 sums in another order, compounded); the targets in the fold's
+    transposed view, read in place."""
+    rng = np.random.default_rng(33)
+    xT = torch.from_numpy(rng.standard_normal((G, m, n)).astype(np.float32)).to(dev)
+    ws, bs = _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)
+    p_w, p_b = _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)
+    p_w, p_b = tuple(4 * p for p in p_w), tuple(10 * p for p in p_b)
+    e_w, e_b = _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)
+    eps_w = tuple(e.abs() * 2e-3 for e in e_w)
+    eps_b = tuple(e.abs() * 2e-2 for e in e_b)
+    lam_w = tuple(e.abs() + 0.5 for e in _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)[0])
+    lam_b = tuple(torch.zeros_like(b) for b in bs)
+    targets = torch.from_numpy(rng.standard_normal((C, G, n)).astype(np.float32)).to(dev)
+    err = (torch.rand(G, C, device=dev) * 0.5 + 0.5)
+    args = (xT, targets.transpose(0, 1), err, ws, bs, p_w, p_b, eps_w, eps_b, lam_w, lam_b, steps)
+    plan = TL.traj_dense_plan(G, C, m, n, h, s, depth, act)
+    assert plan["cc"] == 1 and plan["tiles"] == -(-n // 64)
+    out = _k6_check(act, args, l1, tol=tol)
+    assert max((a - b).abs().max().item() for a, b in zip(out[0], ws)) > 0
 
 
 def _adapted_block(dev, model_type, act, depth, C, B, m, n, width, L, seed, packed=True):

@@ -55,8 +55,8 @@ def test_each_rule_admits_every_shape_the_old_rule_admitted(rule, depth):
 @pytest.mark.parametrize("rule", RULES)
 def test_each_rule_refuses_what_no_kernel_runs(rule):
     fn = getattr(BM, rule)
-    assert fn(64, 64, 32, 1) < 0  # a width above 32
-    assert fn(64, 8, 8, 2) < 0  # depth 2
+    assert fn(64, 72, 32, 1) < 0  # a width above 64
+    assert fn(104, 64, 64, 4) < 0  # depth 4 at width 64: past shared memory
     assert fn(0, 8, 8, 0) < 0
     assert fn(10_000, 8, 8, 0) < 0  # more than 227 KB
 
@@ -77,7 +77,7 @@ def test_the_rules_count_what_the_kernels_carve():
 @pytest.mark.parametrize("depth", [0, 1])
 def test_the_cli_takes_every_shape_the_old_rule_admitted(monkeypatch, folded, depth):
     """``_beyond_kernels`` on a CUDA device (feature-major, folded or not)
-    refuses no shape the old rule admitted, and refuses a width above 32."""
+    refuses no shape the old rule admitted, and refuses a width above 64."""
     from rs_bann_tpu_torch.cli import main as M
     from rs_bann_tpu_torch.models import net
 
@@ -94,4 +94,4 @@ def test_the_cli_takes_every_shape_the_old_rule_admitted(monkeypatch, folded, de
         top = _old_limit(k0, s, depth)
         for m in (1, 64, top):
             assert M._beyond_kernels(args, cfg, arch(m, k0, s), dev) == [], (m, k0, s)
-    assert M._beyond_kernels(args, cfg, arch(64, 64, 32), dev)
+    assert M._beyond_kernels(args, cfg, arch(64, 72, 32), dev)

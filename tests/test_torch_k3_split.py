@@ -309,7 +309,9 @@ def test_cancelling_cotangent_needs_split3_add():
     values per thread in f32 and the tiles in f64, while the plain
     version's and JAX's f32 column sums of this cotangent miss f64 by
     8.8e-4 and 1.5e-3 of max(1, |d_off|), so the emulation must lie nearer
-    f64 than they do."""
+    f64 than they do. The plain version's dA is an f32 BLAS sum whose order
+    depends on the CPU (up to 2.2e-4 from f64): dA is held to it by the
+    nearer-reference rule, within REL_TOL of how far it lies from f64."""
     n, m, k = 20_000, 16, 8
     rng = np.random.default_rng(3)
     by = PM.pack_strided(rng.integers(0, 3, size=(m, n)))[None]
@@ -317,8 +319,11 @@ def test_cancelling_cotangent_needs_split3_add():
     out = np.zeros_like(g)
     plain, f64, jax_ref = _references(by, g, out, n, "identity")
     got = emulate(by, g, out, n, "identity", ctas=2)
-    for want in (plain, f64, jax_ref):
+    for want in (f64, jax_ref):
         assert _worst(got[:1], want[:1])[0] <= REL_TOL
+    # the f32 plain version's own dA lies up to ~2.2e-4 from f64, by the
+    # CPU BLAS's order of summation: no further from it than it is from f64
+    assert _worst(got[:1], plain[:1])[0] <= _worst(plain[:1], f64[:1])[0] + REL_TOL
     assert _worst(got, f64)[1] <= REL_TOL
     assert _worst(got, f64)[1] <= min(_worst(plain, f64)[1], _worst(jax_ref, f64)[1])
     drift = emulate(by, g, out, n, "identity", ctas=2, chained=True)
