@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   0. require a CUDA device; print the card, its power limit and the versions
-  1. build the CUDA kernels from rs_bann_tpu_torch/csrc with nvcc
+  1. build the CUDA kernels from rs_bann_tpu_torch/csrc with nvcc (in a
+     thread, while the host writes the data)
   2. K2 (packed_linear) against its plain PyTorch version at the slice's
      full shape: bytes [100, 104, 25088], k = 16, n = 100,000; identical
      bits on a repeat; its time, plain time and bound (below)
@@ -69,7 +70,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      scan's bytes bound; and the kernel
      launches (torch.profiler) of a sweep that draws z beside 6b's frozen
      sweep
- 6d. phase 6c's run at burn-in 2 (sweeps 1 and 2 adapt, 3 is frozen):
+ 6d. phase 6c's run at burn-in 2 (sweeps 1 and 2 adapt, 3 is frozen), on
+     the training set cut to n = 10,000 (17d's; the same population and
+     phenotype model, and no check of this half depends on n):
      train-new 3 sweeps straight with --checkpoint-interval 1 (A), 1 sweep
      with a checkpoint (B), and 3 sweeps resumed from B's checkpoint (C):
      C's samples 2 and 3 of every chain, its final checkpoint (the whole
@@ -80,9 +83,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      perturbed start against the same command's under --cpu bit for bit;
      branch-r2 and population-effect-sizes on the training set (n =
      100,000) and activations on the test set, each on a models directory
-     of one sample, the card's output against --cpu's within REL_TOL of
-     max(1, the largest entry), each with its K2 launches (and their
-     device time, torch.profiler) and no plain-version call on the card;
+     of that sample, the card's output against --cpu's within REL_TOL of
+     max(1, the largest entry), each with exactly its K2 launches (one;
+     population-effect-sizes one per chunk of 48 branches, 3) and their
+     device time (torch.profiler), and no plain-version call on the card;
      the phase's wall time
   7. the dense flagship (bench.py workload 1: G = 64 groups of 64 markers,
      n = 4,096, ridge_base tanh depth 1, h = s = 32, C = 4 chains):
@@ -140,9 +144,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      3xTF32, three tf32 products per f32 one at 494.7 TFLOP/s) with the f32
      bound beside it
  14. the flagship through the CLI under the sequential schedule, one chain:
-     train-new --feat-major (2 sweeps of L = 64: exactly G x (L + 1) x 2 =
-     8,320 K8a launches, no other kernel), dense predict, the card's
-     predictions against the CPU's
+     train-new --feat-major (1 sweep of L = 64 at burn-in 0, the sweep
+     host-bound at ~7-11 s: exactly G x (L + 1) = 4,160 K8a launches, no
+     other kernel), dense predict, the card's predictions against the
+     CPU's
  15. the same with --update-mode hybrid --per-chain-block-perm --num-chains
      4 (each block's 4 x 8 (chain, branch) pairs in one batched lean body:
      exactly blocks x (L + 2) x 2 = 1,056 K8b launches and one forward-only
@@ -211,6 +216,36 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      predict card vs --cpu; on a training set cut to n = 10,000 (the same
      population and phenotype model; the launches do not depend on n) to
      keep the script inside its time
+ 18. K8a, K8b (NB = 32 through an index), K7 (value and gradient, and
+     forward only) and K6 (L = 1 at REL_TOL, L = 30 at REL_TOL_TRAJ) on
+     feature-major X stored in bf16 (--x-bf16): at the dense flagship's
+     shape (csrc/dense_vg_mma.cuh; K7 and K6 on all 64 branches x 4 chains)
+     and at 17's depth 2 h = s = 56 on the genome-scale X in bf16
+     (csrc/dense_deep.cuh; K8b at NB = 40, K7 and K6 on one block): each
+     against its plain version on the same bf16 X and in f64, identical on
+     a repeat, and bit for bit the f32-X kernel on X upcast; each one's
+     wrapper time, plain time and bound (X's bytes in bf16; layer 0's
+     products in three bf16 products per f32 one at 989 TFLOP/s, the rest
+     in 3xTF32; as implemented, layer 0 in two tf32 products per f32 one)
+ 18b. phase 9's train-new with --x-bf16: exactly one K6 and three K7
+     forward launches per sweep, all on bf16 X (the sweep's snapshot
+     predictions on W0 rounded to bf16, as the JAX package's D.predict
+     rounds it, then the transition's two value passes), xT's bytes on the
+     card half of f32's, ms per sweep beside phase 9's; then one sweep each
+     unfolded (--per-chain-block-perm, 4 chains: blocks x (L + 2) K8b and
+     one forward-only K8 per block) and sequential (one chain: G x (L + 1)
+     K8a), all on bf16 X; predict card vs --cpu, no plain-version call;
+     then with --bf16 too (the snapshot in predict's plain products with
+     bf16 inputs): folded, exactly one K6 and two K7 forward launches per
+     sweep, and one sweep unfolded, blocks x (L + 2) K8b and no forward-only
+     K8; the folded run's last weights' snapshots, folded and unfolded (on
+     a copy of each instance's branch), card vs --cpu: at most 1% of the
+     entries past REL_TOL, none past one bf16 step (2^-8) of max(1, the
+     largest), as the CPU tests hold --bf16 to the JAX package (a hidden
+     activation rounded to bf16 from sums in another order)
+ 18c. 17c's recipe with --x-bf16 (17c's launches, all on bf16 X; xT 2.08
+     GB), then phase 6's packed hybrid with --bf16 (10 K5 and 20 value-pass
+     K2 launches per sweep, as phase 6), each predict card vs --cpu
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
 for K9a and K9b, 14 for K8a, 15 for K8b, 6c for marker_scan; K4's and K5's
@@ -234,7 +269,12 @@ implemented as impl_bound_ms; the dense deep design's entries
 traj_dense_deep, data_vg_chains_deep (its forward-only launch; the value
 and gradient under ``grad``), data_vg_deep and data_vg_blocked_deep at
 phase 17's depth 2 width 56, every shape under ``shapes``, launches in
-17b and 17d; K2's and K9a's value pass
+17b and 17d; the bf16-X forms (phase 18) as traj_dense_xbf16,
+data_vg_chains_xbf16, data_vg_xbf16 and data_vg_blocked_xbf16, the
+flagship's numbers with the deep design's under ``deep``, launches in
+18b, the bound's layer 0 in three bf16 products per f32 one at 989
+TFLOP/s (X exact in bf16) and the rest in 3xTF32, the work as implemented
+(layer 0 in two tf32 products) as impl_bound_ms; K2's and K9a's value pass
 on the live width as value_pass_*, K3's and K9b's times at the warm
 start's block as warm_*); the last line is {"ok": true, "device":
 {...}}. The data lives in a temporary directory, removed at the end.
@@ -252,6 +292,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 G, M, N_TRAIN, N_TEST = 100, 100, 100_000, 10_000
@@ -274,7 +315,7 @@ PEAK_TF32_FLOPS = 494.7e12  # dense tf32 tensor-core peak (K8's 3xTF32 products)
 REL_TOL = 1e-4
 REL_TOL_TRAJ = 1e-3
 MAIN_DEEP = "depth 2 tanh, h = s = 56"  # phase 17's shape on the slice's main path
-N_17D = 10_000  # phase 17d's training individuals (its launches do not depend on n)
+N_17D = 10_000  # phases 6d's and 17d's training individuals (their checks do not depend on n)
 
 
 def smi_line():
@@ -721,9 +762,10 @@ def plain_calls():
 
 
 def cli_phase(cli, work, argv, kernels, log_records, test_gen, y_test, per_sweep, packed=True,
-              sweeps=CHAIN):
+              sweeps=CHAIN, widths=(56, 56)):
     """One train-new run of ``argv`` (hybrid or parallel with C = CHAINS
-    chains, or one chain) at the default widths (56): each sweep recorded
+    chains, or one chain) at padded widths ``widths`` (the default rule's
+    56; None: not checked): each sweep recorded
     with the launches of each counted wrapper in ``kernels`` (exactly
     ``per_sweep``), no plain-version call in train-new or predict, the
     adaptation checks of phase 6b where ``argv`` adapts, finite statistics,
@@ -770,7 +812,8 @@ def cli_phase(cli, work, argv, kernels, log_records, test_gen, y_test, per_sweep
     models = models if os.path.isdir(models) else os.path.join(run, "models")
     saved = [f for f in os.listdir(models) if f.endswith(".npz")]  # at burn-in 0 also 0.npz
     net = Net.load(os.path.join(models, f"{sweeps}.npz"), "cpu")
-    if (net.arch.depth, net.arch.layer_out_pad(0), net.arch.s_pad) != (int(argv[6]), 56, 56):
+    if widths and (net.arch.depth, net.arch.layer_out_pad(0), net.arch.s_pad) != (
+            int(argv[6]), *widths):
         raise AssertionError(f"the run's branches: depth {net.arch.depth}, widths "
                              f"{net.arch.layer_out_pad(0)}/{net.arch.s_pad}")
     x_cpu = (test_gen.to_packed(net.arch, "cpu") if packed
@@ -1112,10 +1155,11 @@ def dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records
         text, cur = build_log.read_text(), None
         for line in text.splitlines():
             m_ = re.search(r"Compiling entry function '\S*(run_kernel|traj_dense_deep_kernel)ILi(\d+)E"
-                           r"(Lb(\d))?", line)
-            if m_:
-                grad = "" if m_.group(4) is None else (", grad" if m_.group(4) == "1" else ", fwd")
-                cur = f"{m_.group(1)}<KM={m_.group(2)}{grad}>"
+                           r"Lb(\d)E(Lb(\d))?", line)
+            if m_:  # run_kernel<KM, GRAD, XB>, traj_dense_deep_kernel<KM, XB>
+                grad = "" if m_.group(5) is None else (", grad" if m_.group(3) == "1" else ", fwd")
+                xb = m_.group(5) if m_.group(5) is not None else m_.group(3)
+                cur = f"{m_.group(1)}<KM={m_.group(2)}{grad}{', bf16 X' if xb == '1' else ''}>"
             elif "Compiling entry function" in line:
                 cur = None
             elif cur and "Used" in line:
@@ -1184,7 +1228,7 @@ def dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records
         scr = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
         c_args = (vp(xg.data_ptr()), None, vp(target.data_ptr()), vp(q.data_ptr()),
                   vp(buf.data_ptr()), vp(scr.data_ptr()), plan["scratch"], 1, m_pad, N_TRAIN, h,
-                  s, depth, code, 1, vp(_build.stream_ptr(xg)))
+                  s, depth, code, 1, 0, vp(_build.stream_ptr(xg)))
 
         def k8a_alone(reps=10):
             for _ in range(reps):
@@ -1226,7 +1270,7 @@ def dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records
         scr = torch.empty(plan["scratch"], dtype=torch.uint8, device=dev)
         c_args = (vp(X.xT.data_ptr()), vp(ix40.data_ptr()), vp(tb.data_ptr()), vp(qb.data_ptr()),
                   vp(buf.data_ptr()), vp(scr.data_ptr()), plan["scratch"], CHAINS * BLOCK,
-                  m_pad, N_TRAIN, h, s, depth, code, 1, vp(_build.stream_ptr(xg)))
+                  m_pad, N_TRAIN, h, s, depth, code, 1, 0, vp(_build.stream_ptr(xg)))
 
         def k8b_alone(reps=3):
             for _ in range(reps):
@@ -1275,7 +1319,7 @@ def dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records
             scr = torch.empty(max(plan["scratch"], 8), dtype=torch.uint8, device=dev)
             c_args = (vp(xb.data_ptr()), vp(targets.data_ptr()), N_TRAIN * CHAINS, N_TRAIN,
                       vp(q7.data_ptr()), vp(buf.data_ptr()), vp(scr.data_ptr()), plan["scratch"],
-                      BLOCK, CHAINS, m_pad, N_TRAIN, h, s, depth, code, int(grad),
+                      BLOCK, CHAINS, m_pad, N_TRAIN, h, s, depth, code, int(grad), 0,
                       vp(_build.stream_ptr(xb)))
 
             def k7_alone(reps=3, c_args=c_args):
@@ -1410,8 +1454,7 @@ def dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records
     # N_17D: the schedules' launches do not depend on n, and at n =
     # 100,000 the two runs' data loads and sweeps took ~85 s of the
     # script's 1,200
-    small = os.path.join(work, "small")
-    _, _, y_test_s = write_data(small, n_train=N_17D)
+    small, y_test_s = small_data(work)
     test_s = CompressedGenotypes(BedVM.from_file(os.path.join(small, "test")), groups)
     one = ["train-new", os.path.join(small, "train"), os.path.join(small, "train.phen"),
            os.path.join(small, "train.groups"), "ridge_ard", "tanh", "2", 1, L, "--feat-major",
@@ -1471,7 +1514,7 @@ def _kernel_ms(prof, name):
     return (sum(us(a) for a in rows if name in a.key) / 1e3, sum(us(a) for a in rows) / 1e3)
 
 
-def resume_phase(cli, work, hybrid_args, kernels, log_records):
+def resume_phase(cli, work, full, hybrid_args, kernels, log_records):
     """Phase 6d: phase 6c's recipe run 3 sweeps straight with a checkpoint
     after every sweep (A), 1 sweep with a checkpoint (B), and resumed from
     B's checkpoint to 3 (C): C's samples 2 and 3 of every chain, its final
@@ -1479,12 +1522,14 @@ def resume_phase(cli, work, hybrid_args, kernels, log_records):
     and inclusion_probs equal to A's bit for bit, each resumed sweep's
     launches A's; the checkpoint's bytes and write ms. Then ``train`` from
     A's sample for one sweep, its perturbed start against the same
-    command's under --cpu bit for bit; and ``branch-r2`` and
-    ``population-effect-sizes`` on the training set, ``activations`` on the
-    test set, each on a models directory of one sample, on the card against
-    --cpu within REL_TOL of max(1, the largest entry), each with its K2
-    launches (and their device time) and no plain-version call on the card.
-    Returns the measurements."""
+    command's under --cpu bit for bit; each on the data under ``work``.
+    Then ``branch-r2`` and ``population-effect-sizes`` on the training set
+    under ``full`` (n = 100,000, where population-effect-sizes takes its
+    branches in chunks), ``activations`` on its test set, each on a models
+    directory of A's sample, on the card against --cpu within REL_TOL of
+    max(1, the largest entry), each with exactly its K2 launches (and their
+    device time) and no plain-version call on the card. Returns the
+    measurements."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1593,7 +1638,11 @@ def resume_phase(cli, work, hybrid_args, kernels, log_records):
             or saved != ["0.npz", "1.npz"] or not all(np.isfinite(stats_t["mse_train"]))):
         raise AssertionError("train from a saved sample failed its checks")
 
-    # the analysis commands on a models directory of one sample
+    # the analysis commands on a models directory of one sample, on the
+    # full data: one K2 launch per sample, population-effect-sizes' [n,
+    # m_pad] effect sizes of 100 branches in chunks of 48 under 2 GB at n =
+    # 100,000 (Net._branch_map) one per chunk
+    k2_want = {"branch-r2": 1, "population-effect-sizes": 3, "activations": 1}
     one = os.path.join(root, "one")
     os.makedirs(one)
     shutil.copy(sample, one)
@@ -1609,9 +1658,9 @@ def resume_phase(cli, work, hybrid_args, kernels, log_records):
             for where in ("card", "cpu"):
                 models = os.path.join(root, f"{cmd}-{where}", "models")
                 shutil.copytree(one, models)
-                args = [cmd, os.path.join(work, data)] + (
-                    [] if cmd == "activations" else [os.path.join(work, f"{data}.phen")]) + [
-                    os.path.join(work, "train.groups"), "-m", models, "--packed-genotypes"]
+                args = [cmd, os.path.join(full, data)] + (
+                    [] if cmd == "activations" else [os.path.join(full, f"{data}.phen")]) + [
+                    os.path.join(full, "train.groups"), "-m", models, "--packed-genotypes"]
                 PM.packed_linear.launches = PM.packed_matmul.launches = 0
                 del plain_calls[:]
                 t0 = time.perf_counter()
@@ -1644,7 +1693,7 @@ def resume_phase(cli, work, hybrid_args, kernels, log_records):
                   f"plain-version calls on the card {card['plain_calls']}; {outs['cpu'].size} "
                   f"values, card vs --cpu max_abs_err {err:.3e} (max(1, largest) {scale:.3e})")
             if (outs["card"].shape != outs["cpu"].shape or not err <= REL_TOL * scale
-                    or card["k2_launches"] < 1 or card["plain_calls"]
+                    or card["k2_launches"] != k2_want[cmd] or card["plain_calls"]
                     or not np.all(np.isfinite(outs["card"]))):
                 raise AssertionError(f"{cmd}: the card's output fails its checks")
     finally:
@@ -1655,6 +1704,436 @@ def resume_phase(cli, work, hybrid_args, kernels, log_records):
     return {"checkpoint_bytes": ckpt_bytes, "checkpoint_ms": ckpt_ms,
             "resume_s": resume_s, "train_s": train_s, "analysis": analysis,
             "phase_s": phase_s}
+
+
+class Xbf16:
+    """A dense wrapper's launches on bf16 X (its ``xbf16_launches``), read
+    and reset as the counters of ``cli_phase`` are."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self):
+        return self.wrapper.xbf16_launches
+
+    @launches.setter
+    def launches(self, value):
+        self.wrapper.xbf16_launches = value
+
+
+@contextlib.contextmanager
+def x_seen():
+    """Record the dtype and the bytes of the training X each train-new hands
+    the trainer (a list of (dtype, bytes))."""
+    import rs_bann_tpu_torch.train as TT
+
+    seen, real = [], TT.train
+
+    def spy(net, dtr, *a, **k):
+        seen.append((str(dtr.X.xT.dtype), dtr.X.xT.numel() * dtr.X.xT.element_size()))
+        return real(net, dtr, *a, **k)
+
+    TT.train = spy
+    try:
+        yield seen
+    finally:
+        TT.train = real
+
+
+def xb_bound(n_evals, fmas0, fmas_rest, nbytes_moved):
+    """The bounds of a dense kernel on bf16 X, against ``nbytes_moved`` (X in
+    bf16) over 3.35 TB/s: (least ms, what bounds it) of the function's work
+    at the card's f32-exact tensor-core rates, as ``deep_bound`` counts it:
+    layer 0's products (``fmas0`` per evaluation: z0 and dW0) in three bf16
+    products per f32 one at 989 TFLOP/s (X exact in bf16, the operand that
+    is not split), every other product (``fmas_rest``) in 3xTF32 at 494.7
+    TFLOP/s; and the ms of the work as implemented, layer 0 in two tf32
+    products per f32 one (X exact in tf32, its zero low part left out) and
+    the rest in three, all at 494.7 TFLOP/s."""
+    bytes_ms = 1e3 * nbytes_moved / PEAK_BYTES_S
+    ops_ms = 2e3 * n_evals * (3 * fmas0 / PEAK_BF16_FLOPS + 3 * fmas_rest / PEAK_TF32_FLOPS)
+    impl_ms = max(2e3 * n_evals * (2 * fmas0 + 3 * fmas_rest) / PEAK_TF32_FLOPS, bytes_ms)
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")), impl_ms
+
+
+def bf16_phases(cli, work, train_bed, groups, y_train, y_test, log_records, flag, train_args,
+                hybrid_sweep_ms):
+    """Phases 18-18c: K6, K7 (both forms), K8a and K8b on feature-major X
+    stored in bf16 (--x-bf16) on both device codes, the flagship through the
+    CLI with --x-bf16 on every schedule, 17c's recipe with --x-bf16 and
+    phase 6's packed hybrid with --bf16. ``flag``: the flagship's data
+    (phase 7) and phase 9's ms per sweep. Returns their numbers."""
+    import numpy as np
+    import torch
+
+    from rs_bann_tpu_torch.io import BedVM
+    from rs_bann_tpu_torch.io.genotypes import CompressedGenotypes
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models import params as P
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+    from rs_bann_tpu_torch.ops import branch_mlp as BM
+    from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+    from rs_bann_tpu_torch.samplers import MCMCCfg
+    from rs_bann_tpu_torch.samplers import hmc as H
+
+    dev, XB = torch.device("cuda"), torch.bfloat16
+    out = {"flagship": {}, "deep": {}}
+    names = {"data_vg_chains_xbf16": "K7", "traj_dense_xbf16": "K6", "data_vg_xbf16": "K8a",
+             "data_vg_blocked_xbf16": "K8b"}
+
+    def flat(o):
+        return (o[0], o[1]) + tuple(o[2]) + tuple(o[3])
+
+    def cast(ts, dt):
+        return tuple(t.to(dt) for t in ts)
+
+    def check(kernel, label, fn, plain, xb, tol=REL_TOL, runs=TIMED_RUNS):
+        """The bf16-X form of ``kernel``: fn(x) (a tuple of outputs) on the
+        bf16 X ``xb`` against plain(x, dtype), the plain version on the same
+        bf16 X (upcast exactly): f32 within ``tol``, f64 no further than the
+        f32 plain version plus ``tol``; identical on a repeat; the f32-X
+        kernel on X upcast gives the same bits (the products leave out only
+        X's zero low part). Returns (err, ms of the wrapper's call, plain
+        ms, ms of the f32-X kernel's call on X upcast: the same work on
+        twice X's bytes, timed in the same call)."""
+        got = fn(xb)
+        want, want64 = plain(xb, torch.float32), plain(xb, torch.float64)
+        err = 0.0
+        for k, (a, b, b64) in enumerate(zip(got, want, want64)):
+            err = max(err, check_close(kernel, f"{label} out {k}", a, b, tol))
+            plain64 = (b.double() - b64).abs().max().item() / max(1.0, b64.abs().max().item())
+            check_close(kernel + " f64", f"{label} out {k} (f64; f32 plain {plain64:.2e})",
+                        a.double(), b64, tol=plain64 + tol)
+        del want, want64
+        identical(lambda: fn(xb), got, label)
+        xf = xb.float()
+        f32 = fn(xf)
+        differ = [k for k, (a, b) in enumerate(zip(got, f32)) if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"{label}: outputs {differ} differ from the f32-X kernel's on "
+                                 f"the upcast X")
+        del got, f32
+        ms = cuda_ms(lambda: fn(xb), runs=runs)
+        f32_ms = cuda_ms(lambda: fn(xf), runs=runs)
+        plain_ms = cuda_ms(lambda: plain(xb, torch.float32), runs=min(runs, 3))
+        del xf
+        print(f"  {label}: wrapper {ms:.4f} ms (the f32-X kernel on X upcast {f32_ms:.4f} ms), "
+              f"plain {plain_ms:.3f} ms; identical repeat; bit for bit the f32-X kernel on X "
+              f"upcast")
+        return err, ms, plain_ms, f32_ms
+
+    def kernels_on(xb, label, ws, bs, ix, block_ix, targets1, targets, chains_ws, chains_bs,
+                   wps, bps, masks, depth, live, act, model_type, res):
+        """K8a on branch ix[0] of xb's branches, K8b on ``len(ix)``
+        instances through ``ix``, K7 (both forms) and K6 (L = 1, L) on the
+        block ``block_ix`` of C chains; each one's check, time and bound
+        into ``res``."""
+        m, h, s = live
+        k0 = h if depth else s
+        fm0 = m * k0
+        fall = {g: dense_fmas(m, h, s, depth, g) for g in (True, False)}
+        n = xb.shape[-1]
+        g = int(ix[0])
+        w1, b1 = tuple(w[0] for w in ws), tuple(b[0] for b in bs)
+        fn = lambda x: flat(BM.data_vg(act, x[0], w1, b1, targets1[0]))  # noqa: E731
+        plain = lambda x, dt: flat(BM.data_vg_ref(  # noqa: E731
+            act, x[0], cast(w1, dt), cast(b1, dt), targets1[0].to(dt)))
+        err, ms, plain_ms, f32_ms = check("data_vg_xbf16", f"K8a {label}", fn, plain,
+                                          xb[g:g + 1])
+        bnd, impl = xb_bound(n, 2 * fm0, fall[True] - 2 * fm0,
+                       nbytes(xb[g], targets1[0], *w1, *b1) + 4 * (n + sum(w.numel() for w in w1 + b1) + 1))
+        res["data_vg_xbf16"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bnd[0], "bound_by": bnd[1], "impl_bound_ms": impl,
+                                "f32_x_ms": f32_ms}
+        NB = len(ix)
+        fn = lambda x: flat(BM.data_vg_blocked(act, x, ix, ws, bs, targets1))  # noqa: E731
+        plain = lambda x, dt: flat(BM.data_vg_blocked_ref(  # noqa: E731
+            act, x, ix, cast(ws, dt), cast(bs, dt), targets1.to(dt)))
+        err, ms, plain_ms, f32_ms = check("data_vg_blocked_xbf16", f"K8b {label} NB={NB}", fn,
+                                          plain, xb, runs=3)
+        xbytes = 2 * len(set(ix.tolist())) * xb.shape[1] * n  # each branch read once
+        bnd, impl = xb_bound(NB * n, 2 * fm0, fall[True] - 2 * fm0,
+                       xbytes + nbytes(targets1, *ws, *bs) + 4 * NB * (n + 1) + nbytes(*ws, *bs))
+        res["data_vg_blocked_xbf16"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                        "bound_ms": bnd[0], "bound_by": bnd[1], "impl_bound_ms": impl,
+                                        "nb": NB, "f32_x_ms": f32_ms}
+        xk = xb[block_ix].contiguous()
+        Bk, C = len(block_ix), chains_ws[0].shape[1]
+        fn = lambda x: flat(BM.data_vg_chains(act, x, chains_ws, chains_bs, targets))  # noqa: E731
+        plain = lambda x, dt: flat(BM.data_vg_chains_ref(  # noqa: E731
+            act, x, cast(chains_ws, dt), cast(chains_bs, dt), targets.to(dt)))
+        err, ms, plain_ms, f32_ms = check("data_vg_chains_xbf16", f"K7 value and gradient {label}",
+                                          fn, plain, xk, runs=3)
+        params = nbytes(*chains_ws, *chains_bs)
+        per = Bk * C * n
+        bnd, impl = xb_bound(per, 2 * fm0, fall[True] - 2 * fm0,
+                       nbytes(xk, targets) + 2 * params + 4 * (per + Bk * C))
+        grad = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "impl_bound_ms": impl, "f32_x_ms": f32_ms}
+        fn = lambda x: (BM.forward_chains(act, x, chains_ws, chains_bs),)  # noqa: E731
+        plain = lambda x, dt: (BM.forward_chains_ref(  # noqa: E731
+            act, x, cast(chains_ws, dt), cast(chains_bs, dt)),)
+        err, ms, plain_ms, f32_ms = check("data_vg_chains_xbf16", f"K7 forward only {label}", fn,
+                                          plain, xk, runs=3)
+        bnd, impl = xb_bound(per, fm0, fall[False] - fm0, nbytes(xk) + params + 4 * per)
+        res["data_vg_chains_xbf16"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": bnd[0], "bound_by": bnd[1], "impl_bound_ms": impl,
+                                       "grad": grad, "f32_x_ms": f32_ms}
+        eps_w, eps_b = H.step_sizes(None, model_type, MCMCCfg(hmc_integration_length=L,
+                                                               hmc_step_size_factor=0.1),
+                                    chains_ws, chains_bs, wps, bps, None)
+        tgen = torch.Generator(dev).manual_seed(181)
+        p_w = tuple(torch.randn(w.shape, device=dev, generator=tgen) * mk
+                    for w, mk in zip(chains_ws, masks[0]))
+        p_b = tuple(torch.randn(b.shape, device=dev, generator=tgen) * mk
+                    for b, mk in zip(chains_bs, masks[1]))
+        err6 = torch.full((Bk, C), 1.0 / targets.var().item(), device=dev)
+        lam_w = tuple(lam.expand_as(w) for lam, w in zip(wps, chains_ws))
+        lam_b = tuple(torch.zeros_like(b) for b in chains_bs)
+        k6 = {}
+        for steps, tol in ((1, REL_TOL), (L, REL_TOL_TRAJ)):
+            rest = (targets, err6, chains_ws, chains_bs, p_w, p_b, eps_w, eps_b, lam_w, lam_b)
+
+            def fn(x, rest=rest, steps=steps):
+                return tuple(t for o in LF.integrate_chains(act, x, *rest, steps) for t in o)
+
+            def plain(x, dt, rest=rest, steps=steps):
+                r = tuple(cast(a, dt) if isinstance(a, tuple) else a.to(dt) for a in rest)
+                return tuple(t for o in LF.integrate_chains_ref(act, x, *r, steps) for t in o)
+
+            k6[steps] = check("traj_dense_xbf16", f"K6 {label}, L={steps}", fn, plain, xk, tol,
+                              runs=3)
+        err = max(v[0] for v in k6.values())
+        bnd, impl = xb_bound(per * (L + 1), 2 * fm0, fall[True] - 2 * fm0,
+                       nbytes(xk, targets, err6) + 8 * params)
+        res["traj_dense_xbf16"] = {"max_abs_err": err, "ms": k6[L][1], "plain_ms": k6[L][2],
+                                   "bound_ms": bnd[0], "bound_by": bnd[1], "impl_bound_ms": impl,
+                                   "steps": L,
+                                   "l1_ms": k6[1][1], "f32_x_ms": k6[L][3],
+                                   "l1_f32_x_ms": k6[1][3]}
+        for k, v in res.items():
+            print(f"  {names[k]} {label}: bound {v['bound_ms']:.4f} ms ({v['bound_by']}; X in "
+                  f"bf16, layer 0 in three bf16 products per f32 one, the rest in 3xTF32), as "
+                  f"implemented {v['impl_bound_ms']:.4f} ms (layer 0 in two tf32 products)")
+
+    # ---- phase 18 (flagship): dense_vg_mma.cuh on bf16 X
+    fdir, farch = flag["dir"], flag["arch"]
+    t0 = time.perf_counter()
+    fx = CompressedGenotypes(flag["bed"], flag["groups"]).to_feature_major(farch, dev, dtype=XB).X
+    f32_bytes = fx.xT.numel() * 4
+    print(f"phase 18: K8a, K8b, K7 and K6 on feature-major X stored in bf16: the dense flagship's "
+          f"shape (csrc/dense_vg_mma.cuh), xT {tuple(fx.xT.shape)} bf16, {nbytes(fx.xT)} bytes "
+          f"on the card (f32: {f32_bytes}; {time.perf_counter() - t0:.1f} s)")
+    state = init_net(farch, "ridge_base", InitCfg(seed=0), device=dev)[0]
+    pgen = torch.Generator(dev).manual_seed(18)
+
+    def perturbed(ts, lead):  # [G, ...] -> [*lead(ix), ...], each instance perturbed
+        return tuple((t[lead] * (1 + 0.1 * torch.randn(t[lead].shape, device=dev,
+                                                         generator=pgen))).contiguous() for t in ts)
+
+    fy = torch.as_tensor(flag["y_train"], dtype=torch.float32, device=dev)
+    blocks = torch.as_tensor(np.concatenate([np.random.default_rng(18 + c).permutation(FG)[:8]
+                                             for c in range(FCHAINS)]), device=dev)
+    ix = blocks.to(torch.int32)
+    ws, bs = perturbed(state.params.weights, blocks), perturbed(state.params.biases, blocks)
+    t1 = fy + 0.1 * torch.randn((len(ix), FN_TRAIN), device=dev, generator=pgen)
+    allg = torch.arange(FG, device=dev)[:, None].expand(FG, FCHAINS)
+    cws, cbs = perturbed(state.params.weights, allg), perturbed(state.params.biases, allg)
+    ctargets = fy + 0.1 * torch.randn((FG, FCHAINS, FN_TRAIN), device=dev, generator=pgen)
+    wps = tuple(t[allg].contiguous() for t in state.precisions.weights)
+    bps = tuple(t[allg].contiguous() for t in state.precisions.biases)
+    masks = (tuple(m[allg] for m in P.weight_masks(farch, dev)),
+             tuple(m[allg] for m in P.bias_masks(farch, dev)))
+    kernels_on(fx.xT, "flagship", ws, bs, ix, torch.arange(FG, device=dev), t1, ctargets, cws,
+               cbs, wps, bps, masks, 1, (FM, FH, FH), "tanh", "ridge_base", out["flagship"])
+    out["flagship"]["x_bytes"] = nbytes(fx.xT)
+    out["flagship"]["x_f32_bytes"] = f32_bytes
+    del fx, ws, bs, cws, cbs, ctargets, t1
+
+    # ---- phase 18 (deep): dense_deep.cuh on the genome-scale X in bf16
+    rule = ("fraction_of_input", 0.5), ("fraction_of_hidden", 1.0)
+    arch = NetArch.from_width_rules([M] * G, 2, *rule, activation="tanh")
+    t0 = time.perf_counter()
+    X = CompressedGenotypes(train_bed, groups).to_feature_major(arch, dev, dtype=XB).X
+    print(f"phase 18: the same at {MAIN_DEEP} on the genome-scale X in bf16 "
+          f"(csrc/dense_deep.cuh): xT {tuple(X.xT.shape)}, {nbytes(X.xT)} bytes on the card "
+          f"({time.perf_counter() - t0:.1f} s)")
+    state = init_net(arch, "ridge_ard", InitCfg(seed=0), device=dev)[0]
+    ixs = torch.arange(BLOCK, device=dev) * (G // BLOCK)
+    ix40 = ixs.repeat(CHAINS)
+    y_dev = torch.as_tensor(y_train, dtype=torch.float32, device=dev)
+    ws, bs = perturbed(state.params.weights, ix40), perturbed(state.params.biases, ix40)
+    t1 = y_dev + 0.1 * torch.randn((len(ix40), N_TRAIN), device=dev, generator=pgen)
+    blk = ixs[:, None].expand(BLOCK, CHAINS)
+    cws, cbs = perturbed(state.params.weights, blk), perturbed(state.params.biases, blk)
+    ctargets = y_dev + 0.1 * torch.randn((BLOCK, CHAINS, N_TRAIN), device=dev, generator=pgen)
+    wps = tuple(t[blk].contiguous() for t in state.precisions.weights)
+    bps = tuple(t[blk].contiguous() for t in state.precisions.biases)
+    masks = (tuple(m[blk] for m in P.weight_masks(arch, dev)),
+             tuple(m[blk] for m in P.bias_masks(arch, dev)))
+    kernels_on(X.xT, MAIN_DEEP, ws, bs, ix40.to(torch.int32), ixs, t1, ctargets, cws, cbs, wps,
+               bps, masks, 2, (arch.m[0], arch.h[0], arch.s[0]), "tanh", "ridge_ard", out["deep"])
+    out["deep"]["x_bytes"] = nbytes(X.xT)
+    del X, ws, bs, cws, cbs, ctargets, t1
+
+    # ---- phase 18b: the flagship through the CLI on bf16 X, every schedule
+    counted = {"integrate_chains": LF.integrate_chains, "data_vg_chains": BM.data_vg_chains,
+               "data_vg": BM.data_vg, "data_vg_blocked": BM.data_vg_blocked,
+               "forward_blocked": BM.forward_blocked}
+    kernels = dict(counted, **{f"{k}_xbf16": Xbf16(w) for k, w in counted.items()},
+                   data_vg_packed=BM.data_vg_packed,
+                   integrate_chains_packed=LF.integrate_chains_packed)
+    none = {k: 0 for k in kernels}
+
+    def both(**kw):  # each count for the wrapper and for its bf16-X launches
+        return dict(none, **kw, **{f"{k}_xbf16": v for k, v in kw.items()})
+
+    runs = os.path.join(work, "runs_bf16")
+    fargs = ["train-new", os.path.join(fdir, "train"), os.path.join(fdir, "train.phen"),
+             os.path.join(fdir, "train.groups"), "ridge_base", "tanh", "1", CHAIN, FL,
+             "--fixed-hidden-layer-width", FH, "--fixed-summary-layer-width", FH, "--feat-major",
+             "--x-bf16", "--burn-in", "1", "--bfile-test", os.path.join(fdir, "test"),
+             "--p-test", os.path.join(fdir, "test.phen"), "-o", runs]
+    ftest = CompressedGenotypes(BedVM.from_file(os.path.join(fdir, "test")), flag["groups"])
+    print(f"phase 18b: phase 9's train-new with --x-bf16 (--update-mode parallel --num-chains "
+          f"{FCHAINS}) -> predict")
+    with x_seen() as seen:
+        _, recs, out["18b"] = cli_phase(
+            cli, fdir, fargs + ["--update-mode", "parallel", "--num-chains", FCHAINS], kernels,
+            log_records, ftest, flag["y_test"], both(integrate_chains=1, data_vg_chains=3),
+            packed=False, widths=(FH, FH))
+    out["18b"]["x"] = seen
+    out["18b_runs"] = [r["launches"] for r in recs]
+    print(f"  xT on the card: {seen} (f32: {f32_bytes} bytes); {out['18b']['sweep_ms']:.1f} ms "
+          f"per sweep on bf16 X, {flag['sweep_ms']:.1f} on f32 X (phase 9)")
+    if seen != [("torch.bfloat16", f32_bytes // 2)]:
+        raise AssertionError(f"phase 18b trained on {seen}")
+    one = list(fargs)
+    one[7], one[one.index("--burn-in") + 1] = 1, "0"
+    fblock = FG // 8  # the hybrid's default block size at G = 64
+    print("phase 18b: one sweep each with --x-bf16, unfolded (--update-mode hybrid "
+          f"--per-chain-block-perm --num-chains {FCHAINS}) and sequential (one chain)")
+    _, recs, out["18b_unfolded"] = cli_phase(
+        cli, fdir, one + ["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains",
+                          FCHAINS], kernels, log_records, ftest, flag["y_test"],
+        both(data_vg_blocked=(FG // fblock) * (FL + 2), forward_blocked=FG // fblock),
+        packed=False, sweeps=1, widths=(FH, FH))
+    out["18b_unfolded_runs"] = [r["launches"] for r in recs]
+    _, recs, out["18b_sequential"] = cli_phase(
+        cli, fdir, one, kernels, log_records, ftest, flag["y_test"], both(data_vg=FG * (FL + 1)),
+        packed=False, sweeps=1, widths=(FH, FH))
+    out["18b_sequential_runs"] = [r["launches"] for r in recs]
+
+    # --bf16 on the bf16 FeatX: the sweep's snapshot in predict's plain
+    # products (folded on the block, unfolded on a copy of each instance's
+    # branch), the kernels as without it
+    print(f"phase 18b: phase 9's train-new with --x-bf16 --bf16 (--update-mode parallel "
+          f"--num-chains {FCHAINS}), then one sweep unfolded")
+    _, recs, out["18b_bf16"] = cli_phase(
+        cli, fdir, fargs + ["--bf16", "--update-mode", "parallel", "--num-chains", FCHAINS],
+        kernels, log_records, ftest, flag["y_test"], both(integrate_chains=1, data_vg_chains=2),
+        packed=False, widths=(FH, FH))
+    out["18b_bf16_runs"] = [r["launches"] for r in recs]
+    carry = recs[-1]["carry"]
+    _, recs, out["18b_bf16_unfolded"] = cli_phase(
+        cli, fdir, one + ["--bf16", "--update-mode", "hybrid", "--per-chain-block-perm",
+                          "--num-chains", FCHAINS], kernels, log_records, ftest, flag["y_test"],
+        both(data_vg_blocked=(FG // fblock) * (FL + 2)), packed=False, sweeps=1, widths=(FH, FH))
+    out["18b_bf16_unfolded_runs"] = [r["launches"] for r in recs]
+    # those snapshots of the folded run's last weights, on the card against
+    # --cpu's: folded on all branches, unfolded on each chain's own block
+    ws_, bs_ = carry.state.params.weights, carry.state.params.biases
+    ix = torch.as_tensor(np.concatenate([np.random.default_rng(182 + c).permutation(FG)[:fblock]
+                                         for c in range(FCHAINS)]), dtype=torch.int32)
+    own = (torch.arange(FCHAINS)[:, None], ix.long().reshape(FCHAINS, fblock))
+    xg = {where: CompressedGenotypes(flag["bed"], flag["groups"]).to_feature_major(
+        farch, where, dtype=XB).X for where in ("cpu", "cuda")}
+    prev = D.compute_dtype()
+    D.set_compute_dtype("bfloat16")
+    snaps = {}
+    try:
+        for where in ("cpu", "cuda"):
+            w, b = tuple(t.to(where) for t in ws_), tuple(t.to(where) for t in bs_)
+            with plain_calls() as calls:
+                snaps[where] = (
+                    D.snapshot_chains("tanh", w, b, xg[where]),
+                    D.snapshot_chains("tanh", tuple(t[own] for t in w), tuple(t[own] for t in b),
+                                      xg[where], ix=ix.to(where)))
+                torch.cuda.synchronize()
+    finally:
+        D.set_compute_dtype(prev)
+    # --bf16 rounds each hidden activation to bf16 before the next product:
+    # where its f32 value (sums in another order on the card) lies across a
+    # rounding boundary from the CPU's, the two differ by one bf16 step of
+    # it. So, as tests/test_torch_x_bf16.py holds the port to the JAX
+    # package: at most 1% of the entries past REL_TOL, none past one bf16
+    # step (2^-8) of max(1, the largest)
+    for label, card, cpu in zip(("folded", "unfolded"), snaps["cuda"], snaps["cpu"]):
+        diff = (card.cpu() - cpu).abs()
+        err, scale = diff.max().item(), max(1.0, cpu.abs().max().item())
+        off = (diff > REL_TOL * scale).double().mean().item()
+        print(f"  --bf16 snapshot {label} {tuple(cpu.shape)}: card vs --cpu {err:.3e} (max(1, "
+              f"largest) {scale:.3e}), {off:.2e} of the entries past REL_TOL; plain-version "
+              f"calls on the card {calls}")
+        if (card.shape != cpu.shape or not err <= 2.0 ** -8 * scale or not off <= 0.01
+                or any(calls.values()) or not torch.isfinite(card).all()):
+            raise AssertionError(f"--bf16 snapshot {label}: the card's fails its checks")
+        out["18b_bf16"][f"snapshot_{label}_err"] = err
+        out["18b_bf16"][f"snapshot_{label}_past_rel_tol"] = off
+    del recs, carry, xg, snaps
+
+    # ---- phase 18c: 17c's recipe on bf16 X, then phase 6's packed hybrid with --bf16
+    print(f"phase 18c: phase 17c's train-new with --x-bf16 ({' '.join(ADAPT_ARGS + SSM_ARGS)}) "
+          f"-> predict")
+    argv = ["train-new", os.path.join(work, "train"), os.path.join(work, "train.phen"),
+            os.path.join(work, "train.groups"), "ridge_ard", "identity", "0", CHAIN, L,
+            "--feat-major", "--x-bf16", "--burn-in", "1", "--bfile-test",
+            os.path.join(work, "test"), "--p-test", os.path.join(work, "test.phen"), "-o", runs,
+            "--update-mode", "hybrid", "--num-chains", CHAINS] + ADAPT_ARGS + SSM_ARGS
+    kernels_c = dict(kernels, marker_scan=MS.marker_scan, packed_matmul_vjp=PM.packed_matmul_vjp)
+    nb = G // BLOCK
+    test_gen = CompressedGenotypes(BedVM.from_file(os.path.join(work, "test")), groups)
+    with x_seen() as seen:
+        _, recs, out["18c"] = cli_phase(
+            cli, work, argv, kernels_c, log_records, test_gen, y_test,
+            dict(both(integrate_chains=nb, data_vg_chains=3 * nb), marker_scan=nb,
+                 packed_matmul_vjp=0), packed=False)
+    out["18c"]["x"] = seen
+    print(f"  xT on the card: {seen}")
+    if len(seen) != 1 or seen[0][0] != "torch.bfloat16" or seen[0][1] != 2 * G * 104 * N_TRAIN:
+        raise AssertionError(f"phase 18c trained on {seen}")
+    out["18c_runs"] = [r["launches"] for r in recs]
+    print(f"phase 18c: phase 6's train-new --update-mode hybrid --num-chains {CHAINS} with --bf16 "
+          f"-> predict")
+    packed = {"integrate_chains_packed": LF.integrate_chains_packed,
+              "packed_linear": PM.packed_linear, "data_vg_packed": BM.data_vg_packed,
+              "integrate_chains": LF.integrate_chains, "data_vg_chains": BM.data_vg_chains}
+    _, recs, out["18c_packed"] = cli_phase(
+        cli, work, train_args + ["--update-mode", "hybrid", "--num-chains", CHAINS, "--bf16"],
+        packed, log_records, test_gen, y_test,
+        {"integrate_chains_packed": nb, "packed_linear": 2 * nb, "data_vg_packed": 0,
+         "integrate_chains": 0, "data_vg_chains": 0}, packed=True, widths=None)
+    print(f"  {out['18c_packed']['sweep_ms']:.1f} ms per sweep with --bf16, {hybrid_sweep_ms:.1f} "
+          f"without (phase 6)")
+    del recs
+    return out
+
+
+def small_data(work):
+    """The training set of the same population and phenotype model cut to
+    n = N_17D (phases 6d and 17d: their launches and checks do not depend on
+    n), written once under ``work``; returns its directory and the test
+    phenotype."""
+    from rs_bann_tpu_torch.io import Phenotypes
+
+    small = os.path.join(work, "small")
+    if not os.path.exists(os.path.join(small, "test.phen")):
+        write_data(small, n_train=N_17D)
+    return small, Phenotypes.from_file(os.path.join(small, "test.phen")).y
 
 
 def write_data(d, groups=G, markers=M, n_train=N_TRAIN, n_test=N_TEST, n_causal=N_CAUSAL):
@@ -1718,20 +2197,37 @@ def main():
     from rs_bann_tpu_torch.samplers import MCMCCfg
     from rs_bann_tpu_torch.samplers import hmc as H
 
-    # ---- phase 1
-    t0 = time.perf_counter()
-    _build.lib()
-    print(f"phase 1: built {_build.library_path().name} with {_build.nvcc()} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    build_log = _build.BUILD_DIR / "build.log"
-    if build_log.exists():  # each source's compile time (nvcc in parallel)
-        print("  " + ", ".join(l for l in build_log.read_text().splitlines() if ".cu: " in l))
-
     work = tempfile.mkdtemp(prefix="rs_bann_smoke_")
     try:
+        # ---- phase 1: the build (nvcc processes) in a thread, the data
+        # written on the host meanwhile
+        built = {}
+
+        def build():
+            t = time.perf_counter()
+            try:
+                _build.build()
+            except BaseException as e:  # raised again below
+                built["error"] = e
+            built["s"] = time.perf_counter() - t
+
+        builder = threading.Thread(target=build)
+        builder.start()
         t0 = time.perf_counter()
         train_bed, y_train, y_test = write_data(work)
-        print(f"data: written in {time.perf_counter() - t0:.1f} s")
+        small_data(work)
+        data_s = time.perf_counter() - t0
+        builder.join()
+        if "error" in built:
+            raise built["error"]
+        _build.lib()
+        print(f"phase 1: built {_build.library_path().name} with {_build.nvcc()} in "
+              f"{built['s']:.1f} s")
+        build_log = _build.BUILD_DIR / "build.log"
+        if build_log.exists():  # each source's compile time (nvcc in parallel)
+            print("  " + ", ".join(l for l in build_log.read_text().splitlines()
+                                   if ".cu: " in l))
+        print(f"data: written in {data_s:.1f} s, during the build")
         dev = torch.device("cuda")
         arch = NetArch.from_width_rules([M] * G, 0, ("fixed", 10), ("fraction_of_hidden", 1.0),
                                         activation="identity")
@@ -2309,11 +2805,16 @@ def main():
                    "mean_pip": float(pip.mean())}
         del recs, carry
 
-        # ---- phase 6d: checkpoint, resume, train and the analysis commands
+        # ---- phase 6d: checkpoint, resume and train on the training set cut
+        # to n = N_17D (their checks do not depend on n), then the analysis
+        # commands on the full one
+        small, _ = small_data(work)
         print(f"phase 6d: phase 6c's train-new at burn-in 2, 3 sweeps straight against 1, a "
-              f"checkpoint and a resume to 3; train from a sample; branch-r2, "
-              f"population-effect-sizes, activations on the card and under --cpu")
-        resume_run = resume_phase(cli, work, hybrid_args, ssm_kernels, log_records)
+              f"checkpoint and a resume to 3; train from a sample (n {N_17D}); branch-r2, "
+              f"population-effect-sizes, activations on the card and under --cpu (n {N_TRAIN})")
+        resume_run = resume_phase(cli, small, work,
+                                  [a.replace(work, small) if isinstance(a, str) else a
+                                   for a in hybrid_args], ssm_kernels, log_records)
 
         # ---- phase 7: K7 at the dense flagship's shape
         fdir = os.path.join(work, "flagship")
@@ -2391,7 +2892,7 @@ def main():
             vp = ctypes.c_void_p
             c_args = (vp(xT.data_ptr()), (vp * 6)(*ptrs), (ctypes.c_longlong * 24)(*strides),
                       vp(out7.data_ptr()), vp(scratch.data_ptr()), plan["scratch"], FG, FCHAINS,
-                      fm, FN_TRAIN, fk0, fs, 1, ACT_CODES["tanh"], int(grad),
+                      fm, FN_TRAIN, fk0, fs, 1, ACT_CODES["tanh"], int(grad), 0,
                       vp(_build.stream_ptr(xT)))
             lib = _build.lib()
 
@@ -2913,7 +3414,7 @@ def main():
                       vp(targets.data_ptr()), vp(ws[0].data_ptr()), vp(bs[0].data_ptr()),
                       vp(ws[1].data_ptr()), vp(bs[1].data_ptr()), vp(ws[2].data_ptr()),
                       vp(out.data_ptr()), vp(scratch.data_ptr()), plan["scratch"], NB, m, n, k0,
-                      s, 1, ACT_CODES["tanh"], 1, vp(_build.stream_ptr(X)))
+                      s, 1, ACT_CODES["tanh"], 1, 0, vp(_build.stream_ptr(X)))
             lib = _build.lib()
 
             def run():
@@ -2989,18 +3490,24 @@ def main():
         ]
         fblock = FG // 8  # the hybrid's default block size at G = 64
         k8_runs = {}
-        for phase, extra, chains, want in (
-            (14, [], 1, {"data_vg": FG * (FL + 1) * CHAIN}),
+        # the sequential one at one sweep: host-bound, ~7-11 s a sweep
+        for phase, extra, chains, sweeps, want in (
+            (14, [], 1, 1, {"data_vg": FG * (FL + 1)}),
             (15, ["--update-mode", "hybrid", "--per-chain-block-perm", "--num-chains", FCHAINS],
-             FCHAINS, {"data_vg_blocked": (FG // fblock) * (FL + 2) * CHAIN,
-                       "forward_blocked": (FG // fblock) * CHAIN}),
+             FCHAINS, CHAIN, {"data_vg_blocked": (FG // fblock) * (FL + 2) * CHAIN,
+                              "forward_blocked": (FG // fblock) * CHAIN}),
         ):
             print(f"phase {phase}: train-new --feat-major {' '.join(map(str, extra))} "
-                  f"({CHAIN} sweeps of L {FL}) -> predict")
+                  f"({sweeps} sweep(s) of L {FL}) -> predict")
             for f in k8_counted.values():
                 f.launches = 0
             t0 = time.perf_counter()
-            run = run_cli(cli, flag_args + extra).strip().splitlines()[-1]
+            argv = list(flag_args)
+            argv[7] = sweeps
+            if sweeps == 1:  # a sample saved needs burn-in below the chain's length
+                argv[argv.index("--burn-in") + 1] = "0"
+            saved = sweeps + (sweeps == 1)  # at burn-in 0 the initial sample too
+            run = run_cli(cli, argv + extra).strip().splitlines()[-1]
             secs = time.perf_counter() - t0
             torch.cuda.synchronize()
             launches = {n: f.launches for n, f in k8_counted.items()}
@@ -3010,22 +3517,22 @@ def main():
                     raise AssertionError(f"{n} launched {v} times, expected {want.get(n, 0)}")
             stats = json.load(open(os.path.join(run, "training_stats")))
             series = stats["mse_train"] + stats["mse_test"] + stats["lpd"]
-            if len(stats["mse_test"]) != CHAIN + 1 or not all(np.isfinite(series)):
+            if len(stats["mse_test"]) != sweeps + 1 or not all(np.isfinite(series)):
                 raise AssertionError(f"non-finite or missing training statistics: {stats}")
-            if stats["num_samples"] != CHAIN * FG * chains:
+            if stats["num_samples"] != sweeps * FG * chains:
                 raise AssertionError(f"{stats['num_samples']} branch updates counted, "
-                                     f"expected {CHAIN * FG * chains}")
+                                     f"expected {sweeps * FG * chains}")
             dirs = ([os.path.join(run, "models")] if chains == 1
                     else [os.path.join(run, "models", f"chain{c}") for c in range(chains)])
             chain_preds = [np.asarray(list(csv.reader(io.StringIO(run_cli(cli, [
                 "predict", os.path.join(fdir, "test"), os.path.join(fdir, "train.groups"),
                 "-m", d])))), np.float64) for d in dirs]
             preds = np.concatenate(chain_preds)
-            if preds.shape != (chains * CHAIN, FN_TEST) or not np.all(np.isfinite(preds)):
+            if preds.shape != (chains * saved, FN_TEST) or not np.all(np.isfinite(preds)):
                 raise AssertionError(f"predictions of shape {preds.shape}, finite: "
                                      f"{np.all(np.isfinite(preds))}")
             done = [r for r in log_records if str(r.msg).startswith("Completed training")][-1]
-            sweep_ms = 1000.0 * done.args[0] / CHAIN
+            sweep_ms = 1000.0 * done.args[0] / sweeps
             r2 = 1.0 - np.mean((fy_test - preds.mean(axis=0)) ** 2) / np.var(fy_test)
             print(f"  {sweep_ms:.1f} ms per sweep of {chains} chain(s), "
                   f"{sweep_ms / chains:.1f} ms per chain-sweep; train-new {secs:.1f} s in all")
@@ -3033,7 +3540,7 @@ def main():
                   f"early rejection {stats['num_early_rejected'] / stats['num_samples']:.3f}; "
                   f"mse train {stats['mse_train'][-1]:.4f}, mse test {stats['mse_test'][-1]:.4f}, "
                   f"test r2 of the posterior mean {r2:.4f}")
-            net = Net.load(os.path.join(dirs[0], f"{CHAIN}.npz"), "cpu")
+            net = Net.load(os.path.join(dirs[0], f"{sweeps}.npz"), "cpu")
             cpu_pred = net.predict(f_test.to_stacked(net.arch, "cpu").X).numpy()
             err = np.abs(cpu_pred - chain_preds[0][-1]).max()
             print(f"  predict, card vs CPU plain version: max_abs_err {err:.3e}")
@@ -3050,6 +3557,14 @@ def main():
         t0 = time.perf_counter()
         dense = dense_deep_phases(cli, work, train_bed, groups, y_train, y_test, log_records)
         print(f"  phases 17-17d: {time.perf_counter() - t0:.1f} s in all")
+
+        # ---- phases 18-18c: the dense kernels on bf16 X, --x-bf16 and --bf16
+        t0 = time.perf_counter()
+        xb16 = bf16_phases(cli, work, train_bed, groups, y_train, y_test, log_records,
+                           {"dir": fdir, "bed": f_bed, "groups": fgroups, "arch": farch,
+                            "y_train": fy_train, "y_test": fy_test, "sweep_ms": flag_sweep_ms},
+                           train_args, hybrid_sweep_ms)
+        print(f"  phases 18-18c: {time.perf_counter() - t0:.1f} s in all")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3203,6 +3718,29 @@ def main():
          "us_per_marker": scan["us_per_marker"], "near_ties": scan["near_ties"],
          "w56": {k: deep["scan"][k] for k in ("ms", "plain_ms", "max_abs_err", "us_per_marker",
                                               "near_ties")}},
+        # the bf16-X forms of K6, K7, K8a and K8b (phases 18-18c): the
+        # flagship's numbers (dense_vg_mma.cuh), the deep design's at phase
+        # 17's depth 2 width 56 under ``deep``; launches in the main path's
+        # bf16-X runs (18b: K6 and K7's forward folded, K8b unfolded, K8a
+        # sequential), 18c's under ``recipe_launches``
+        *[{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": sum(r[f"{counter}_xbf16"] for r in xb16[runs]),
+           **{k: xb16["flagship"][name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "bound_by",
+                                                      "impl_bound_ms")},
+           "library_ms": None, "deep": xb16["deep"][name],
+           "x_bytes": xb16["flagship"]["x_bytes"], "x_f32_bytes": xb16["flagship"]["x_f32_bytes"],
+           "deep_x_bytes": xb16["deep"]["x_bytes"],
+           "recipe_launches": sum(r[f"{counter}_xbf16"] for r in xb16["18c_runs"])}
+          for name, source, replaces, counter, runs in (
+              ("traj_dense_xbf16", "rs_bann_tpu_torch/csrc/traj_dense_xbf16.cu",
+               "rs_bann_tpu/ops/leapfrog.py:63", "integrate_chains", "18b_runs"),
+              ("data_vg_chains_xbf16", "rs_bann_tpu_torch/csrc/branch_fwd_chains_xbf16.cu",
+               "rs_bann_tpu/ops/branch_mlp.py:649", "data_vg_chains", "18b_runs"),
+              ("data_vg_xbf16", "rs_bann_tpu_torch/csrc/branch_vg_dense.cu",
+               "rs_bann_tpu/ops/branch_mlp.py:96", "data_vg", "18b_sequential_runs"),
+              ("data_vg_blocked_xbf16", "rs_bann_tpu_torch/csrc/branch_vg_dense.cu",
+               "rs_bann_tpu/ops/branch_mlp.py:335", "data_vg_blocked", "18b_unfolded_runs"))],
     ]
     for k in kernels:  # the scale-free error that the checks gate on
         k["max_rel_err"] = REL_ERR[k["name"]]
@@ -3215,6 +3753,9 @@ def main():
           + json.dumps({k: deep[k] for k in ("16b", "16c")}))
     print("feature-major depth 2 and the default widths (phases 17b-17d): "
           + json.dumps({k: dense[k] for k in ("17b", "17c", "17d_unfolded", "17d_sequential")}))
+    print("bf16 X and --bf16 (phases 18b, 18c): " + json.dumps(
+        {k: xb16[k] for k in ("18b", "18b_unfolded", "18b_sequential", "18b_bf16",
+                              "18b_bf16_unfolded", "18c", "18c_packed")}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))

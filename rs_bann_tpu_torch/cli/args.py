@@ -116,7 +116,8 @@ def add_mcmc_args(p: argparse.ArgumentParser):
                    help="hottest tempering slot's temperature (1/beta)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 matmul inputs (f32 accumulation)")
+                   help="bfloat16 inputs of the plain matrix products (f32 accumulation); "
+                   "the kernels compute as without it")
     p.add_argument("--checkpoint-interval", type=int, default=0,
                    help="write <run>/checkpoint.npz every N iterations")
     p.add_argument("--resume", default=None,
@@ -127,7 +128,8 @@ def add_mcmc_args(p: argparse.ArgumentParser):
                    help="feature-major dense genotypes [G, m_pad, n] (mutually exclusive "
                    "with --packed-genotypes)")
     p.add_argument("--x-bf16", action="store_true",
-                   help="store feature-major genotypes in bfloat16 (requires --feat-major)")
+                   help="store feature-major genotypes in bfloat16: half their bytes on the "
+                   "device, read exactly by the kernels (requires --feat-major)")
 
 
 def add_bfile_phen_args(p: argparse.ArgumentParser):

@@ -8,7 +8,9 @@ run-directory naming, args.json, model samples and output files. Training
 takes 2-bit packed genotypes (``--packed-genotypes``) or dense
 feature-major ones (``--feat-major``) under every schedule: the folded
 parallel or hybrid sweep on K6 and K7, the sequential one on K8a, the
-unfolded hybrid one (``--per-chain-block-perm``) on K8b; it writes a
+unfolded hybrid one (``--per-chain-block-perm``) on K8b, the feature-major
+genotypes in f32 or (``--x-bf16``) in bf16; ``--bf16`` gives every plain
+product bf16 inputs, as the JAX package's compute dtype does. It writes a
 checkpoint with ``--checkpoint-interval`` and resumes one, bit for bit,
 with ``--resume``. ``train`` continues from a saved sample. The
 analysis commands take packed or dense genotypes and map the branches in
@@ -24,6 +26,7 @@ one ``torch.Generator`` on that device, seeded from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import logging
@@ -71,9 +74,6 @@ def _unported(args, cfg) -> list:
     from ..models.net import unported_options
 
     bad = unported_options(cfg)
-    for flag in ("bf16", "x_bf16"):
-        if getattr(args, flag):
-            bad.append("--" + flag.replace("_", "-"))
     if not (args.packed_genotypes or args.feat_major):
         bad.append("dense sample-major genotypes (pass --packed-genotypes or --feat-major)")
     return bad
@@ -102,16 +102,18 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
     # train-new names the activation; train takes the saved model's
     act = getattr(args, "activation_function", None) or arch.activation
     folded = chain_fold_eligible(args.model_type, act, cfg)
+    widths = (arch.layer_out_pad(0), arch.s_pad)
+    shape = (arch.m_pad, *widths, arch.depth)
     if args.feat_major:  # folded: K6 for the trajectories, K7 for the value passes
         rules, kernels = (((BM.traj_dense_smem, BM.vg_chains_smem), "K6/K7") if folded
                           else ((BM.vg_dense_smem,), "K8"))
         layout = "--feat-major"
+        shape += (_x_dtype(args),)  # a bf16 X tile takes half the bytes
     else:
         rules, kernels = (((BM.traj_packed_smem,), "K5") if folded
                           else ((BM.branch_vg_packed_smem,), "K4"))
         layout = "--packed-genotypes"
-    widths = (arch.layer_out_pad(0), arch.s_pad)
-    if all(rule(arch.m_pad, *widths, arch.depth) >= 0 for rule in rules):
+    if all(rule(*shape) >= 0 for rule in rules):
         return bad
     return bad + [f"{layout} branches beyond the {kernels} CUDA kernels' limits (depth "
                   f"{arch.depth}, {arch.m_pad} markers, widths {widths[0]}/{widths[1]}; they take "
@@ -138,6 +140,42 @@ def _load_train_data(args):
     return train, test
 
 
+def _x_dtype(args):
+    """Feature-major X's storage dtype: bf16 under ``--x-bf16``."""
+    import torch
+
+    return torch.bfloat16 if getattr(args, "x_bf16", False) else torch.float32
+
+
+def _refuse_flags(args, cfg) -> None:
+    """Exit, before anything is written, on flags train-new and train do not
+    take together: the layouts, ``--x-bf16`` without ``--feat-major`` (the
+    JAX package's message), and what is not ported yet."""
+    if args.packed_genotypes and args.feat_major:
+        sys.exit("error: --feat-major and --packed-genotypes are mutually exclusive")
+    if args.x_bf16 and not args.feat_major:
+        sys.exit("error: --x-bf16 requires --feat-major")
+    bad = _unported(args, cfg)
+    if bad:
+        sys.exit("error: not ported yet: " + ", ".join(bad))
+
+
+@contextlib.contextmanager
+def _compute_dtype(args):
+    """``--bf16``: bf16 inputs of every plain product (models/density.py
+    ``matmul``, ``matmul_fm``; f32 accumulation) for the command, set before
+    the data and the net are built, as the JAX package sets its compute
+    dtype; the previous setting comes back after it."""
+    from ..models import density as D
+
+    prev = D.compute_dtype()
+    D.set_compute_dtype("bfloat16" if args.bf16 else None)
+    try:
+        yield
+    finally:
+        D.set_compute_dtype(prev)
+
+
 def _refuse_arch(args, cfg, model_type: str, arch, device) -> None:
     """Exit where the architecture cannot run: ss_markers as the JAX
     package refuses it, or beyond the kernels (``_beyond_kernels``)."""
@@ -159,9 +197,14 @@ def _run_training(args, cfg, outdir, net, device, train_data, test_data) -> None
 
     from ..train import initial_carry, read_checkpoint, train
 
-    load = "to_feature_major" if args.feat_major else "to_packed"
-    dtr = getattr(train_data, load)(net.arch, device)
-    dte = getattr(test_data, load)(net.arch, device) if test_data is not None else None
+    if args.feat_major:
+        def load(data):
+            return data.to_feature_major(net.arch, device, dtype=_x_dtype(args))
+    else:
+        def load(data):
+            return data.to_packed(net.arch, device)
+    dtr = load(train_data)
+    dte = load(test_data) if test_data is not None else None
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     if args.resume is not None:
@@ -183,6 +226,11 @@ def _run_training(args, cfg, outdir, net, device, train_data, test_data) -> None
 
 
 def cmd_train_new(args):
+    with _compute_dtype(args):
+        _train_new(args)
+
+
+def _train_new(args):
     from ..models import NetArch
     from ..models import density as D
     from ..models.init import InitCfg, init_net
@@ -190,11 +238,7 @@ def cmd_train_new(args):
 
     outdir = set_replicate_ix(args.outpath, run_outdir_name(args))
     cfg = mcmc_cfg_from_args(args, str(outdir))
-    if args.packed_genotypes and args.feat_major:
-        sys.exit("error: --feat-major and --packed-genotypes are mutually exclusive")
-    bad = _unported(args, cfg)
-    if bad:
-        sys.exit("error: not ported yet: " + ", ".join(bad))
+    _refuse_flags(args, cfg)
     device = _device(args)
 
     log.info("Loading data.")
@@ -236,6 +280,11 @@ def cmd_train(args):
     the sample's net, perturbed by ``--perturb-params`` /
     ``--perturb-precisions``, trained under the MCMC arguments into
     ``<model stem>_cl.._il.._<mode>_st.._dtheta.._dlambda..<suffixes>``."""
+    with _compute_dtype(args):
+        _train(args)
+
+
+def _train(args):
     from ..models.net import Net
 
     model_path = Path(args.model_file)
@@ -249,11 +298,7 @@ def cmd_train(args):
     )
     outdir = set_replicate_ix(args.outpath, name + mode_suffixes(args))
     cfg = mcmc_cfg_from_args(args, str(outdir))
-    if args.packed_genotypes and args.feat_major:
-        sys.exit("error: --feat-major and --packed-genotypes are mutually exclusive")
-    bad = _unported(args, cfg)
-    if bad:
-        sys.exit("error: not ported yet: " + ", ".join(bad))
+    _refuse_flags(args, cfg)
     device = _device(args)
     log.info("Loading net")
     net = Net.load(str(model_path), device)

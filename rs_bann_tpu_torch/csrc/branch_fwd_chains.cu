@@ -10,14 +10,14 @@ namespace rsbann {
 namespace vg {
 
 const void* vg_chains_fwd_kernel(int km, bool deep, int act, int cc) {
-    return chains_kernel<false>(km, deep, act, cc);
+    return chains_kernel<false, false>(km, deep, act, cc);
 }
 
 }  // namespace vg
 
 namespace ddeep {
 
-const void* run_fwd_kernel(int km) { return run_kernel_for<false>(km); }
+const void* run_fwd_kernel(int km) { return run_kernel_for<false, false>(km); }
 
 }  // namespace ddeep
 }  // namespace rsbann

@@ -24,6 +24,11 @@
 // per f32 one: 0.091 ms at 494.7 TFLOP/s (forward 0.039), against X (67
 // MB f32) read once, 0.020 ms at 3.35 TB/s. One partial row per (segment,
 // chain): 3.24 MB at the flagship. Measured times: PERF.md section 6.
+//
+// X stored in bf16 (--x-bf16): the entries' x_bf16 argument runs the same
+// designs on a bf16 X tile (half the bytes; the products as the f32
+// kernel's on the upcast values), their instantiations in
+// csrc/branch_vg_chains_xbf16.cu and csrc/branch_fwd_chains_xbf16.cu.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -34,14 +39,14 @@ namespace rsbann {
 namespace vg {
 
 const void* vg_chains_grad_kernel(int km, bool deep, int act, int cc) {
-    return chains_kernel<true>(km, deep, act, cc);
+    return chains_kernel<true, false>(km, deep, act, cc);
 }
 
 }  // namespace vg
 
 namespace ddeep {
 
-const void* run_grad_kernel(int km) { return run_kernel_for<true>(km); }
+const void* run_grad_kernel(int km) { return run_kernel_for<true, false>(km); }
 
 }  // namespace ddeep
 }  // namespace rsbann
@@ -69,23 +74,20 @@ struct Plan {
     long long smem, scratch;  // bytes
 };
 
-const void* kernel_for(int km, bool deep, bool grad, int act, int cc) {
-    return grad ? vg_chains_grad_kernel(km, deep, act, cc) : vg_chains_fwd_kernel(km, deep, act, cc);
-}
-
 // The shared memory attribute and the occupancy of each instantiation, kept
 // per device and shared size.
 struct Occupancy {
     int dev = -1, sms = 0, per_sm = 0, nbuf = 0;
     long long smem1 = -1, smem2 = -1;  // shared bytes with one and two X buffers
 };
-Occupancy g_occ[3 * 2 * 2 * 5 * kMaxCC];
+Occupancy g_occ[2 * 3 * 2 * 2 * 5 * kMaxCC];
 
 // The largest CC of (2, 1) that is at most C and fits, its X buffers and
-// resident CTAs per SM, and the work split over one wave.
-int plan(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl) {
+// resident CTAs per SM, and the work split over one wave; xb: X in bf16.
+int plan(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act, bool xb,
+         Plan* pl) {
     if (G <= 0 || C <= 0 || n <= 0 || act < 0 || act > 4 ||
-        cta_smem(m, k0, s, depth, true, true, 1, 1) < 0)
+        cta_smem(m, k0, s, depth, true, true, 1, 1, xb) < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const bool deep = depth == 1;
     pl->km = pick_km(k0, s);
@@ -100,15 +102,15 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act
         if (cc > C && cc > 1) continue;
         // two X buffers (the next tile's copy under this one's work) unless
         // they cost a resident CTA per SM or do not fit
-        const long long s1 = cta_smem(m, k0, s, depth, grad, true, cc, 1);
-        const long long s2 = cta_smem(m, k0, s, depth, grad, true, cc, 2);
+        const long long s1 = cta_smem(m, k0, s, depth, grad, true, cc, 1, xb);
+        const long long s2 = cta_smem(m, k0, s, depth, grad, true, cc, 2, xb);
         if (s1 < 0) continue;
         const int slot =
-            ((((pl->km == 8 ? 0 : pl->km == 16 ? 1 : 2) * 2 + (deep ? 1 : 0)) * 2 + (grad ? 1 : 0)) * 5 +
-             act) * kMaxCC + cc - 1;
+            (((((xb ? 1 : 0) * 3 + (pl->km == 8 ? 0 : pl->km == 16 ? 1 : 2)) * 2 + (deep ? 1 : 0)) * 2 +
+              (grad ? 1 : 0)) * 5 + act) * kMaxCC + cc - 1;
         Occupancy& occ = g_occ[slot];
         if (occ.dev != dev || occ.smem1 != s1 || occ.smem2 != s2) {
-            const void* fn = kernel_for(pl->km, deep, grad, act, cc);
+            const void* fn = vg_chains_kernel_for(pl->km, deep, grad, act, cc, xb);
             const bool two = s2 > 0;
             int p1 = 0, p2 = 0;
             if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -150,15 +152,16 @@ int plan(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act
     return 0;
 }
 
-ddeep::Occupancy g_occ_deep[2][4];  // [grad][width class]
+ddeep::Occupancy g_occ_deep[2][2][4];  // [X bf16][grad][width class]
 
 // The deep design's launch (csrc/dense_deep.cuh) for G x C instances, one
 // chain a CTA, in K7's plan fields (CC 1, chunks C).
-int plan_deep(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl,
-              ddeep::Plan* dp) {
+int plan_deep(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act, bool xb,
+              Plan* pl, ddeep::Plan* dp) {
     if (G <= 0 || C <= 0 || act < 0 || act > 4) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = ddeep::plan(grad ? ddeep::run_grad_kernel : ddeep::run_fwd_kernel,
-                                      g_occ_deep[grad ? 1 : 0], G * C, m, n, k0, s, depth, dp);
+    const cudaError_t e =
+        ddeep::plan(ddeep::run_kernel_getter(grad, xb), g_occ_deep[xb ? 1 : 0][grad ? 1 : 0], G * C,
+                    m, n, k0, s, depth, xb, dp);
     if (e != cudaSuccess) return static_cast<int>(e);
     pl->km = dp->km, pl->cc = 1, pl->chunks = C, pl->NB = G * C, pl->tiles = dp->tiles;
     pl->m16 = (m + 15) & ~15, pl->m8 = (m + 7) & ~7, pl->nbuf = dp->nbuf;
@@ -168,31 +171,23 @@ int plan_deep(int G, int C, int m, int n, int k0, int s, int depth, int grad, in
     return 0;
 }
 
-}  // namespace
-
 // Shared memory (bytes) K7 needs at these widths with one chain per CTA and
 // one X buffer (the value-and-gradient kernel: the forward-only one needs
 // less), or -1 if it cannot run them (a padded width above 64, or more than
 // 227 KB): at depth 0 and 1 and widths up to 32 the first design's, at
 // every other shape the deep design's (csrc/dense_deep.cuh).
-extern "C" long long vg_chains_smem(int m, int k0, int s, int depth) {
-    if (ddeep::takes(k0, s, depth)) return ddeep::smem(m, k0, s, depth, 1);
-    return cta_smem(m, k0, s, depth, true, true, 1, 1);
+long long smem_rule(int m, int k0, int s, int depth, bool xb) {
+    if (ddeep::takes(k0, s, depth)) return ddeep::smem(m, k0, s, depth, 1, xb);
+    return cta_smem(m, k0, s, depth, true, true, 1, 1, xb);
 }
 
-// What a K7 launch uses on this shape and activation on the current device:
-// out[0..8] = CTAs, resident CTAs per SM, chains per CTA (CC), chunks of
-// chains, tiles per branch (of 32 individuals; 64 in the deep design),
-// shared bytes per CTA, X tile buffers, scratch bytes (partial rows and
-// err^2; zero for the forward-only pass), register width KM (the deep
-// design's width class 8-64).
-extern "C" int vg_chains_plan(int G, int C, int m, int n, int k0, int s, int depth, int grad,
-                              int act, long long* out) {
+int plan_entry(int G, int C, int m, int n, int k0, int s, int depth, int grad, int act, bool xb,
+               long long* out) {
     Plan pl;
     ddeep::Plan dp;
     const int status = ddeep::takes(k0, s, depth)
-                           ? plan_deep(G, C, m, n, k0, s, depth, grad, act, &pl, &dp)
-                           : plan(G, C, m, n, k0, s, depth, grad, act, &pl);
+                           ? plan_deep(G, C, m, n, k0, s, depth, grad, act, xb, &pl, &dp)
+                           : plan(G, C, m, n, k0, s, depth, grad, act, xb, &pl);
     if (status != 0) return status;
     const long long v[9] = {pl.ctas, pl.per_sm, pl.cc, pl.chunks, pl.tiles, pl.smem, pl.nbuf,
                             pl.scratch, pl.km};
@@ -200,21 +195,16 @@ extern "C" int vg_chains_plan(int G, int C, int m, int n, int k0, int s, int dep
     return 0;
 }
 
-// x f32 [G, m, n] contiguous. ptrs[6] and strides[24] (four per pointer, in
-// floats: over branches, chains, rows and columns; only the first two are
-// read) describe [G, C, ...] f32 tensors whose trailing dims are
-// contiguous: ptrs[0] the targets [G, C, n] (grad only), then W0 [m, k0],
-// b0 [k0], W1 [k0, s], b1 [s], w_out [s, 1] (W1 and b1 null at depth 0).
-// out f32: y_pred [G, C, n], then with grad grads [G, C, P] (P =
-// partial_size) and rss [G, C]; scratch of the plan's bytes (8-byte
-// aligned). With grad, two launches: the pass and the fixed-order reduce;
-// else the forward-only pass alone.
-extern "C" int vg_chains_f32(const void* x, const void* const* ptrs, const long long* strides,
-                             void* out, void* scratch, long long scratch_bytes, int G, int C,
-                             int m, int n, int k0, int s, int depth, int act, int grad,
-                             void* stream) {
+// vec16: 16-byte copies of X's rows (4 f32 or 8 bf16 values)
+int vec16_of(const void* x, int n, bool xb) {
+    return (n % (xb ? 8 : 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+}
+
+int run_entry(const void* x, const void* const* ptrs, const long long* strides, void* out,
+              void* scratch, long long scratch_bytes, int G, int C, int m, int n, int k0, int s,
+              int depth, int act, int grad, bool xb, void* stream) {
     Plan pl;
-    int status = plan(G, C, m, n, k0, s, depth, grad, act, &pl);
+    int status = plan(G, C, m, n, k0, s, depth, grad, act, xb, &pl);
     if (status != 0) return status;
     if ((grad && (scratch_bytes < pl.scratch || reinterpret_cast<uintptr_t>(scratch) & 7)) ||
         static_cast<long long>(G) * C > 65535)  // the reduce's grid.y
@@ -226,7 +216,7 @@ extern "C" int vg_chains_f32(const void* x, const void* const* ptrs, const long 
                     strides[4 * k + 2], strides[4 * k + 3]};
     };
     ChainArgs a{};
-    a.x = static_cast<const float*>(x);
+    a.x = x;
     a.target = inst(0);
     for (int ly = 0; ly < kLayers; ++ly) a.w[ly] = inst(1 + ly);
     const size_t pairs = static_cast<size_t>(G) * C;
@@ -243,11 +233,11 @@ extern "C" int vg_chains_f32(const void* x, const void* const* ptrs, const long 
     a.G = G, a.C = C, a.m = m, a.n = n, a.k0 = k0, a.s = s, a.P = P;
     a.cc = pl.cc, a.chunks = pl.chunks, a.NB = pl.NB, a.tiles = pl.tiles;
     a.m16 = pl.m16, a.m8 = pl.m8, a.nbuf = pl.nbuf;
-    a.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+    a.vec16 = vec16_of(x, n, xb);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     void* params[] = {&a};
-    cudaError_t e = cudaLaunchKernel(kernel_for(pl.km, deep, grad, act, pl.cc), dim3(pl.ctas),
-                                     dim3(kThreads * pl.cc), params, pl.smem, st);
+    cudaError_t e = cudaLaunchKernel(vg_chains_kernel_for(pl.km, deep, grad, act, pl.cc, xb),
+                                     dim3(pl.ctas), dim3(kThreads * pl.cc), params, pl.smem, st);
     if (e != cudaSuccess || !grad) return static_cast<int>(e);
     int ctas = pl.ctas;
     void* rparams[] = {&a, &ctas};
@@ -257,22 +247,13 @@ extern "C" int vg_chains_f32(const void* x, const void* const* ptrs, const long 
     return static_cast<int>(e);
 }
 
-// The deep design's K7 (csrc/dense_deep.cuh run_kernel), at the shapes
-// vg_chains_f32 does not take (depth 2 or more, or a padded width of
-// 33-64): x f32 [G, m, n] contiguous; target f32 [G, C, n] (grad only),
-// element (g, c, i) at target + g tsg + c tsc + i; q f32 [G, C, P]
-// contiguous, each instance's weights in the flat layout W0, b0, (W_l,
-// b_l)..., w_out; out and scratch as vg_chains_f32's. With grad, two
-// launches: the pass and the fixed-order reduce; else the forward-only
-// pass alone.
-extern "C" int vg_chains_deep_f32(const void* x, const void* target, long long tsg, long long tsc,
-                                  const void* q, void* out, void* scratch, long long scratch_bytes,
-                                  int G, int C, int m, int n, int k0, int s, int depth, int act,
-                                  int grad, void* stream) {
+int deep_entry(const void* x, const void* target, long long tsg, long long tsc, const void* q,
+               void* out, void* scratch, long long scratch_bytes, int G, int C, int m, int n,
+               int k0, int s, int depth, int act, int grad, bool xb, void* stream) {
     if (!ddeep::takes(k0, s, depth)) return static_cast<int>(cudaErrorInvalidValue);
     Plan pl;
     ddeep::Plan dp;
-    const int status = plan_deep(G, C, m, n, k0, s, depth, grad, act, &pl, &dp);
+    const int status = plan_deep(G, C, m, n, k0, s, depth, grad, act, xb, &pl, &dp);
     if (status != 0) return status;
     if ((grad && (scratch_bytes < pl.scratch || reinterpret_cast<uintptr_t>(scratch) & 7)) ||
         static_cast<long long>(G) * C > 65535)  // the reduce's grid.y
@@ -281,7 +262,7 @@ extern "C" int vg_chains_deep_f32(const void* x, const void* target, long long t
     const size_t pairs = static_cast<size_t>(G) * C;
     float* o = static_cast<float*>(out);
     ddeep::RunArgs r{};
-    r.x = static_cast<const float*>(x);
+    r.x = x;
     r.target = Inst{static_cast<const float*>(target), tsg, tsc, 0, 1};
     r.q = static_cast<const float*>(q);
     r.y_pred = o;
@@ -291,11 +272,11 @@ extern "C" int vg_chains_deep_f32(const void* x, const void* target, long long t
     }
     r.sh = ddeep::make_shape(m, k0, s, depth, n, act);
     r.C = C, r.NB = G * C, r.nbuf = dp.nbuf;
-    r.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+    r.vec16 = vec16_of(x, n, xb);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     void* params[] = {&r};
-    cudaError_t e = cudaLaunchKernel(grad ? ddeep::run_grad_kernel(dp.km) : ddeep::run_fwd_kernel(dp.km),
-                                     dim3(dp.ctas), dim3(ddeep::kThreads), params, dp.smem, st);
+    cudaError_t e = cudaLaunchKernel(ddeep::run_kernel_getter(grad, xb)(dp.km), dim3(dp.ctas),
+                                     dim3(ddeep::kThreads), params, dp.smem, st);
     if (e != cudaSuccess || !grad) return static_cast<int>(e);
     ChainArgs a{};
     a.grads = o + pairs * n;
@@ -310,4 +291,57 @@ extern "C" int vg_chains_deep_f32(const void* x, const void* target, long long t
                          dim3((P + 1 + 31) / 32, static_cast<unsigned>(pairs)), dim3(32 * kSlices),
                          rparams, 0, st);
     return static_cast<int>(e);
+}
+
+}  // namespace
+
+// K7's shared-memory rule (smem_rule) on f32 X, or with x_bf16 on X stored
+// in bf16, whose X tile takes half the bytes.
+extern "C" long long vg_chains_smem(int m, int k0, int s, int depth, int x_bf16) {
+    return smem_rule(m, k0, s, depth, x_bf16 != 0);
+}
+
+// What a K7 launch uses on this shape and activation on the current device,
+// on f32 X or (x_bf16) on X stored in bf16: out[0..8] = CTAs, resident CTAs
+// per SM, chains per CTA (CC), chunks of chains, tiles per branch (of 32
+// individuals; 64 in the deep design), shared bytes per CTA, X tile
+// buffers, scratch bytes (partial rows and err^2; zero for the forward-only
+// pass), register width KM (the deep design's width class 8-64).
+extern "C" int vg_chains_plan(int G, int C, int m, int n, int k0, int s, int depth, int grad,
+                              int act, int x_bf16, long long* out) {
+    return plan_entry(G, C, m, n, k0, s, depth, grad, act, x_bf16 != 0, out);
+}
+
+// x [G, m, n] contiguous, f32, or bf16 with x_bf16 (its plan taken with
+// x_bf16 too). ptrs[6] and strides[24] (four per pointer, in floats: over
+// branches, chains, rows and columns; only the first two are read)
+// describe [G, C, ...] f32 tensors whose trailing dims are contiguous:
+// ptrs[0] the targets [G, C, n] (grad only), then W0 [m, k0], b0 [k0], W1
+// [k0, s], b1 [s], w_out [s, 1] (W1 and b1 null at depth 0). out f32:
+// y_pred [G, C, n], then with grad grads [G, C, P] (P = partial_size) and
+// rss [G, C]; scratch of the plan's bytes (8-byte aligned). With grad, two
+// launches: the pass and the fixed-order reduce; else the forward-only
+// pass alone.
+extern "C" int vg_chains_f32(const void* x, const void* const* ptrs, const long long* strides,
+                             void* out, void* scratch, long long scratch_bytes, int G, int C,
+                             int m, int n, int k0, int s, int depth, int act, int grad, int x_bf16,
+                             void* stream) {
+    return run_entry(x, ptrs, strides, out, scratch, scratch_bytes, G, C, m, n, k0, s, depth, act,
+                     grad, x_bf16 != 0, stream);
+}
+
+// The deep design's K7 (csrc/dense_deep.cuh run_kernel), at the shapes
+// vg_chains_f32 does not take (depth 2 or more, or a padded width of
+// 33-64): x [G, m, n] contiguous, f32 or (x_bf16) bf16; target f32 [G, C,
+// n] (grad only), element (g, c, i) at target + g tsg + c tsc + i; q f32
+// [G, C, P] contiguous, each instance's weights in the flat layout W0, b0,
+// (W_l, b_l)..., w_out; out and scratch as vg_chains_f32's. With grad, two
+// launches: the pass and the fixed-order reduce; else the forward-only
+// pass alone.
+extern "C" int vg_chains_deep_f32(const void* x, const void* target, long long tsg, long long tsc,
+                                  const void* q, void* out, void* scratch, long long scratch_bytes,
+                                  int G, int C, int m, int n, int k0, int s, int depth, int act,
+                                  int grad, int x_bf16, void* stream) {
+    return deep_entry(x, target, tsg, tsc, q, out, scratch, scratch_bytes, G, C, m, n, k0, s,
+                      depth, act, grad, x_bf16 != 0, stream);
 }

@@ -47,6 +47,9 @@
 //    (csrc/dense_deep.cuh), entry vg_dense_deep_f32, whose run over the
 //    instances is K7's (its instantiations live in csrc/branch_vg_chains.cu
 //    and csrc/branch_fwd_chains.cu), with this source's reduce.
+//  * X stored in bf16 (--x-bf16): the entries' x_bf16 argument runs the
+//    same designs on a bf16 X tile (half the bytes; the products as the
+//    f32 kernel's on the upcast values).
 // Measured times: PERF.md section 6.
 #include <cuda_runtime.h>
 
@@ -61,7 +64,7 @@ using namespace rsbann;
 using namespace rsbann::vg;
 
 struct Args {
-    const float* x;       // [G, m, n]
+    const void* x;        // [G, m, n], f32 or (XB) bf16
     const int* xix;       // [NB]: instance j reads X branch xix[j]; null: branch j
     const float* target;  // [NB, n]
     const float* w0;      // [NB, m, k0]
@@ -82,21 +85,24 @@ struct Args {
 // 3 CTAs (12 warps) per SM where shared memory allows: at the flagship's
 // width the registers fit 168 a thread and one X buffer 74 KB a CTA. The CTA
 // is one group of csrc/dense_vg_mma.cuh.
-template <int KM, bool DEEP, bool GRAD, int ACT>
+template <int KM, bool DEEP, bool GRAD, int ACT, bool XB>
 __global__ void __launch_bounds__(kThreads, 3) vg_dense_kernel(const Args a) {
     constexpr int K16 = km16(KM), MT = K16 / 16;
+    using XT = XElem<XB>;
     extern __shared__ float4 smem4[];
-    float* xs = reinterpret_cast<float*>(smem4);  // [nbuf][m16][kS]
-    const Group<KM, DEEP, GRAD> gs(xs + a.nbuf * a.m16 * kS, a.m16, a.m8);
+    XT* xs = reinterpret_cast<XT*>(smem4);  // [nbuf][m16][kS] (bf16: [kSB])
+    const int xtile = a.m16 * (XB ? kSB : kS);  // elements of one X buffer
+    const Group<KM, DEEP, GRAD> gs(reinterpret_cast<float*>(smem4) + a.nbuf * x_tile_floats(a.m16, XB),
+                                   a.m16, a.m8);
     const int tid = threadIdx.x, w = tid >> 5, t = tid & 3;
     const int m = a.m, n = a.n, k0 = a.k0, s = a.s, P = a.P;
     const long long items = static_cast<long long>(a.NB) * a.tiles;
     const long long it_begin = blockIdx.x * items / gridDim.x;
     const long long it_end = (blockIdx.x + 1) * items / gridDim.x;
     // the X tile tl of instance j into dst: rows past m and individuals past n are zero
-    auto x_tile = [&](int j, int tl, float* dst) {
-        load_x(a.x + static_cast<size_t>(a.xix != nullptr ? a.xix[j] : j) * m * n, m, n, a.m16,
-               a.vec16, tl, dst);
+    auto x_tile = [&](int j, int tl, XT* dst) {
+        load_x(static_cast<const XT*>(a.x) + static_cast<size_t>(a.xix != nullptr ? a.xix[j] : j) * m * n,
+               m, n, a.m16, a.vec16, tl, dst);
     };
     Sums<MT> sm;
     sm.zero();
@@ -126,7 +132,7 @@ __global__ void __launch_bounds__(kThreads, 3) vg_dense_kernel(const Args a) {
         if (++tl == a.tiles) tl = 0, ++jj;
         const bool next = it + 1 < it_end;
         if (next && a.nbuf == 2) {
-            x_tile(jj, tl, xs + (buf ^ 1) * a.m16 * kS);
+            x_tile(jj, tl, xs + (buf ^ 1) * xtile);
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
@@ -139,8 +145,8 @@ __global__ void __launch_bounds__(kThreads, 3) vg_dense_kernel(const Args a) {
             if (i_a + 1 < n) tg_b = __ldg(a.target + static_cast<size_t>(j) * n + i_a + 1);
         }
         __syncthreads();  // the X tile and the staged weights are visible
-        tile<KM, DEEP, GRAD, ACT, true>(gs, sm, xs + buf * a.m16 * kS, a.m8, a.m16, n, i0, tg_a,
-                                        tg_b, first, 0, a.y_pred + static_cast<size_t>(j) * n);
+        tile<KM, DEEP, GRAD, ACT, true, XB>(gs, sm, xs + buf * xtile, a.m8, a.m16, n, i0, tg_a,
+                                            tg_b, first, 0, a.y_pred + static_cast<size_t>(j) * n);
         __syncthreads();  // the tile, the planes and the accumulators are free again
         if (next && a.nbuf == 1) x_tile(jj, tl, xs);
         if (a.nbuf == 2) buf ^= 1;
@@ -168,29 +174,34 @@ struct Plan {
     long long smem, scratch;  // bytes
 };
 
-template <int KM, bool DEEP, bool GRAD>
+template <int KM, bool DEEP, bool GRAD, bool XB>
 const void* kernel_act(int act) {
     switch (act) {
-        case 1: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 1>);
-        case 2: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 2>);
-        case 3: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 3>);
-        case 4: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 4>);
-        default: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 0>);
+        case 1: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 1, XB>);
+        case 2: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 2, XB>);
+        case 3: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 3, XB>);
+        case 4: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 4, XB>);
+        default: return reinterpret_cast<const void*>(&vg_dense_kernel<KM, DEEP, GRAD, 0, XB>);
     }
 }
 
-template <int KM>
+template <int KM, bool XB>
 const void* kernel_km(bool deep, bool grad, int act) {
-    if (deep) return grad ? kernel_act<KM, true, true>(act) : kernel_act<KM, true, false>(act);
-    return grad ? kernel_act<KM, false, true>(act) : kernel_act<KM, false, false>(act);
+    if (deep) return grad ? kernel_act<KM, true, true, XB>(act) : kernel_act<KM, true, false, XB>(act);
+    return grad ? kernel_act<KM, false, true, XB>(act) : kernel_act<KM, false, false, XB>(act);
 }
 
-// The instantiation for the shape: the activation is a template parameter,
-// so each one holds one activation's code.
-const void* kernel_for(int km, bool deep, bool grad, int act) {
-    if (km == 8) return kernel_km<8>(deep, grad, act);
-    if (km == 16) return kernel_km<16>(deep, grad, act);
-    return kernel_km<32>(deep, grad, act);
+template <bool XB>
+const void* kernel_xb(int km, bool deep, bool grad, int act) {
+    if (km == 8) return kernel_km<8, XB>(deep, grad, act);
+    if (km == 16) return kernel_km<16, XB>(deep, grad, act);
+    return kernel_km<32, XB>(deep, grad, act);
+}
+
+// The instantiation for the shape and X's storage: the activation is a
+// template parameter, so each one holds one activation's code.
+const void* kernel_for(int km, bool deep, bool grad, int act, bool xb) {
+    return xb ? kernel_xb<true>(km, deep, grad, act) : kernel_xb<false>(km, deep, grad, act);
 }
 
 // The shared memory attribute and the occupancy of each instantiation, kept
@@ -199,10 +210,11 @@ struct Occupancy {
     int dev = -1, sms = 0, per_sm = 0, nbuf = 0;
     long long smem1 = -1, smem2 = -1;  // shared bytes with one and two X buffers
 };
-Occupancy g_occ[60];
+Occupancy g_occ[120];
 
-int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl) {
-    if (NB <= 0 || n <= 0 || act < 0 || act > 4 || cta_smem(m, k0, s, depth, true, true, 1, 1) < 0)
+int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, bool xb, Plan* pl) {
+    if (NB <= 0 || n <= 0 || act < 0 || act > 4 ||
+        cta_smem(m, k0, s, depth, true, true, 1, 1, xb) < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const bool deep = depth == 1;
     pl->km = pick_km(k0, s);
@@ -211,16 +223,16 @@ int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan
     pl->m8 = (m + 7) & ~7;
     // two X buffers (the next tile's copy under this one's work) unless they
     // cost a resident CTA per SM or do not fit
-    const long long s1 = cta_smem(m, k0, s, depth, grad, true, 1, 1);
-    const long long s2 = cta_smem(m, k0, s, depth, grad, true, 1, 2);
+    const long long s1 = cta_smem(m, k0, s, depth, grad, true, 1, 1, xb);
+    const long long s2 = cta_smem(m, k0, s, depth, grad, true, 1, 2, xb);
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const int slot =
-        ((pl->km == 8 ? 0 : pl->km == 16 ? 1 : 2) * 4 + (deep ? 2 : 0) + (grad ? 1 : 0)) * 5 + act;
+    const int slot = (((xb ? 3 : 0) + (pl->km == 8 ? 0 : pl->km == 16 ? 1 : 2)) * 4 + (deep ? 2 : 0) +
+                      (grad ? 1 : 0)) * 5 + act;
     Occupancy& occ = g_occ[slot];
     if (occ.dev != dev || occ.smem1 != s1 || occ.smem2 != s2) {
-        const void* fn = kernel_for(pl->km, deep, grad, act);
+        const void* fn = kernel_for(pl->km, deep, grad, act, xb);
         const bool two = s2 > 0;
         int p1 = 0, p2 = 0;
         if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -255,15 +267,16 @@ int plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan
     return 0;
 }
 
-ddeep::Occupancy g_occ_deep[2][4];  // [grad][width class]
+ddeep::Occupancy g_occ_deep[2][2][4];  // [X bf16][grad][width class]
 
 // The deep design's launch (csrc/dense_deep.cuh) for NB instances, in K8's
 // plan fields.
-int plan_deep(int NB, int m, int n, int k0, int s, int depth, int grad, int act, Plan* pl,
-              ddeep::Plan* dp) {
+int plan_deep(int NB, int m, int n, int k0, int s, int depth, int grad, int act, bool xb,
+              Plan* pl, ddeep::Plan* dp) {
     if (act < 0 || act > 4) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = ddeep::plan(grad ? ddeep::run_grad_kernel : ddeep::run_fwd_kernel,
-                                      g_occ_deep[grad ? 1 : 0], NB, m, n, k0, s, depth, dp);
+    const cudaError_t e = ddeep::plan(ddeep::run_kernel_getter(grad, xb),
+                                      g_occ_deep[xb ? 1 : 0][grad ? 1 : 0], NB, m, n, k0, s, depth,
+                                      xb, dp);
     if (e != cudaSuccess) return static_cast<int>(e);
     pl->km = dp->km, pl->tiles = dp->tiles, pl->m16 = (m + 15) & ~15, pl->m8 = (m + 7) & ~7;
     pl->nbuf = dp->nbuf, pl->per_sm = dp->per_sm, pl->ctas = dp->ctas;
@@ -273,32 +286,24 @@ int plan_deep(int NB, int m, int n, int k0, int s, int depth, int grad, int act,
     return 0;
 }
 
-}  // namespace
 
 // Shared memory (bytes) K8 needs at these widths with one X buffer (the
 // value-and-gradient kernel: the forward-only one needs less), or -1 if it
 // cannot run them (a padded width above 64, or more than 227 KB): at depth
 // 0 and 1 and widths up to 32 the first design's, at every other shape the
-// deep design's (csrc/dense_deep.cuh). The CLI asks its mirror before a
-// sequential or unfolded feature-major run on the card.
-extern "C" long long vg_dense_smem(int m, int k0, int s, int depth) {
-    if (ddeep::takes(k0, s, depth)) return ddeep::smem(m, k0, s, depth, 1);
-    return cta_smem(m, k0, s, depth, true, true, 1, 1);
+// deep design's (csrc/dense_deep.cuh); xb: X stored in bf16.
+long long smem_rule(int m, int k0, int s, int depth, bool xb) {
+    if (ddeep::takes(k0, s, depth)) return ddeep::smem(m, k0, s, depth, 1, xb);
+    return cta_smem(m, k0, s, depth, true, true, 1, 1, xb);
 }
 
-// What a K8 launch uses on this shape and activation, on the current
-// device: out[0..7] =
-// CTAs, tiles per instance (of 32 individuals; 64 in the deep design),
-// shared bytes per CTA, resident CTAs per SM, X tile buffers, partial-row
-// slots, scratch bytes (zero for the forward-only pass), register width KM
-// (the deep design's width class 8-64).
-extern "C" int vg_dense_plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act,
-                             long long* out) {
+int plan_entry(int NB, int m, int n, int k0, int s, int depth, int grad, int act, bool xb,
+               long long* out) {
     Plan pl;
     ddeep::Plan dp;
     const int status = ddeep::takes(k0, s, depth)
-                           ? plan_deep(NB, m, n, k0, s, depth, grad, act, &pl, &dp)
-                           : plan(NB, m, n, k0, s, depth, grad, act, &pl);
+                           ? plan_deep(NB, m, n, k0, s, depth, grad, act, xb, &pl, &dp)
+                           : plan(NB, m, n, k0, s, depth, grad, act, xb, &pl);
     if (status != 0) return status;
     const long long v[8] = {pl.ctas, pl.tiles, pl.smem, pl.per_sm, pl.nbuf, pl.slots,
                             pl.scratch, pl.km};
@@ -306,19 +311,16 @@ extern "C" int vg_dense_plan(int NB, int m, int n, int k0, int s, int depth, int
     return 0;
 }
 
-// x f32 [G, m, n]; ix int32 [NB] branch indices into x, or null (instance j
-// reads branch j); target f32 [NB, n] (grad only); w0 [NB, m, k0], b0 [NB,
-// k0], w1 [NB, k0, s] and b1 [NB, s] (depth 1), wout [NB, s] (s = k0 at
-// depth 0), all f32 and contiguous; out f32: y_pred [NB, n], then with grad
-// grads [NB, P] (P = partial_size) and rss [NB]; scratch of the plan's bytes
-// (8-byte aligned). With grad, two launches: the pass and the fixed-order
-// reduce. The caller keeps ix inside [0, G).
-extern "C" int vg_dense_f32(const void* x, const void* ix, const void* target, const void* w0,
-                            const void* b0, const void* w1, const void* b1, const void* wout,
-                            void* out, void* scratch, long long scratch_bytes, int NB, int m,
-                            int n, int k0, int s, int depth, int act, int grad, void* stream) {
+int vec16_of(const void* x, int n, bool xb) {
+    return (n % (xb ? 8 : 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+}
+
+int run_entry(const void* x, const void* ix, const void* target, const void* w0, const void* b0,
+              const void* w1, const void* b1, const void* wout, void* out, void* scratch,
+              long long scratch_bytes, int NB, int m, int n, int k0, int s, int depth, int act,
+              int grad, bool xb, void* stream) {
     Plan pl;
-    int status = plan(NB, m, n, k0, s, depth, grad, act, &pl);
+    int status = plan(NB, m, n, k0, s, depth, grad, act, xb, &pl);
     if (status != 0) return status;
     if (grad && (scratch_bytes < pl.scratch || reinterpret_cast<uintptr_t>(scratch) & 7))
         return static_cast<int>(cudaErrorInvalidValue);
@@ -327,7 +329,7 @@ extern "C" int vg_dense_f32(const void* x, const void* ix, const void* target, c
     float* o = static_cast<float*>(out);
     char* sc = static_cast<char*>(scratch);
     const long long part_bytes = (static_cast<long long>(pl.slots) * P * 4 + 7) & ~7LL;
-    Args a{static_cast<const float*>(x),
+    Args a{x,
            static_cast<const int*>(ix),
            static_cast<const float*>(target),
            static_cast<const float*>(w0),
@@ -340,36 +342,30 @@ extern "C" int vg_dense_f32(const void* x, const void* ix, const void* target, c
            grad ? o + static_cast<size_t>(NB) * (n + P) : nullptr,
            grad ? reinterpret_cast<float*>(sc) : nullptr,
            grad ? reinterpret_cast<double*>(sc + part_bytes) : nullptr,
-           NB, m, n, k0, s, P, pl.tiles, pl.m16, pl.m8, pl.nbuf,
-           (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0};
+           NB, m, n, k0, s, P, pl.tiles, pl.m16, pl.m8, pl.nbuf, vec16_of(x, n, xb)};
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     void* params[] = {&a};
-    cudaError_t e = cudaLaunchKernel(kernel_for(pl.km, deep, grad, act), dim3(pl.ctas), dim3(kThreads),
-                                     params, pl.smem, st);
+    cudaError_t e = cudaLaunchKernel(kernel_for(pl.km, deep, grad, act, xb), dim3(pl.ctas),
+                                     dim3(kThreads), params, pl.smem, st);
     if (e != cudaSuccess || !grad) return static_cast<int>(e);
     vg_dense_reduce<<<dim3((P + 1 + 31) / 32, NB), 32 * kSlices, 0, st>>>(a, pl.ctas);
     return static_cast<int>(cudaGetLastError());
 }
 
-// The deep design's K8 (csrc/dense_deep.cuh), at the shapes vg_dense_f32
-// does not take (depth 2 or more, or a padded width of 33-64): x, ix,
-// target, out and scratch as vg_dense_f32's; q f32 [NB, P] contiguous,
-// each instance's weights in the flat layout W0, b0, (W_l, b_l)..., w_out.
-// With grad, two launches: the pass and the fixed-order reduce.
-extern "C" int vg_dense_deep_f32(const void* x, const void* ix, const void* target, const void* q,
-                                 void* out, void* scratch, long long scratch_bytes, int NB, int m,
-                                 int n, int k0, int s, int depth, int act, int grad, void* stream) {
+int deep_entry(const void* x, const void* ix, const void* target, const void* q, void* out,
+               void* scratch, long long scratch_bytes, int NB, int m, int n, int k0, int s,
+               int depth, int act, int grad, bool xb, void* stream) {
     if (!ddeep::takes(k0, s, depth)) return static_cast<int>(cudaErrorInvalidValue);
     Plan pl;
     ddeep::Plan dp;
-    const int status = plan_deep(NB, m, n, k0, s, depth, grad, act, &pl, &dp);
+    const int status = plan_deep(NB, m, n, k0, s, depth, grad, act, xb, &pl, &dp);
     if (status != 0) return status;
     if (grad && (scratch_bytes < pl.scratch || reinterpret_cast<uintptr_t>(scratch) & 7))
         return static_cast<int>(cudaErrorInvalidValue);
     const int P = deep::flat_size(m, k0, s, depth);
     float* o = static_cast<float*>(out);
     ddeep::RunArgs r{};
-    r.x = static_cast<const float*>(x);
+    r.x = x;
     r.xix = static_cast<const int*>(ix);
     r.target = Inst{static_cast<const float*>(target), n, 0, 0, 1};
     r.q = static_cast<const float*>(q);
@@ -380,11 +376,11 @@ extern "C" int vg_dense_deep_f32(const void* x, const void* ix, const void* targ
     }
     r.sh = ddeep::make_shape(m, k0, s, depth, n, act);
     r.C = 1, r.NB = NB, r.nbuf = dp.nbuf;
-    r.vec16 = (n % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) ? 1 : 0;
+    r.vec16 = vec16_of(x, n, xb);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     void* params[] = {&r};
-    cudaError_t e = cudaLaunchKernel(grad ? ddeep::run_grad_kernel(dp.km) : ddeep::run_fwd_kernel(dp.km),
-                                     dim3(dp.ctas), dim3(ddeep::kThreads), params, dp.smem, st);
+    cudaError_t e = cudaLaunchKernel(ddeep::run_kernel_getter(grad, xb)(dp.km), dim3(dp.ctas),
+                                     dim3(ddeep::kThreads), params, dp.smem, st);
     if (e != cudaSuccess || !grad) return static_cast<int>(e);
     Args a{};
     a.grads = o + static_cast<size_t>(NB) * n;
@@ -394,4 +390,55 @@ extern "C" int vg_dense_deep_f32(const void* x, const void* ix, const void* targ
     a.NB = NB, a.m = m, a.n = n, a.k0 = k0, a.s = s, a.P = P, a.tiles = dp.tiles;
     vg_dense_reduce<<<dim3((P + 1 + 31) / 32, NB), 32 * kSlices, 0, st>>>(a, dp.ctas);
     return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K8's shared-memory rule (smem_rule) on f32 X, or with x_bf16 on X stored
+// in bf16. The CLI asks its mirror before a sequential or unfolded
+// feature-major run on the card.
+extern "C" long long vg_dense_smem(int m, int k0, int s, int depth, int x_bf16) {
+    return smem_rule(m, k0, s, depth, x_bf16 != 0);
+}
+
+// What a K8 launch uses on this shape and activation, on the current
+// device, on f32 X or (x_bf16) on X stored in bf16: out[0..7] = CTAs,
+// tiles per instance (of 32 individuals; 64 in the deep design), shared
+// bytes per CTA, resident CTAs per SM, X tile buffers, partial-row slots,
+// scratch bytes (zero for the forward-only pass), register width KM (the
+// deep design's width class 8-64).
+extern "C" int vg_dense_plan(int NB, int m, int n, int k0, int s, int depth, int grad, int act,
+                             int x_bf16, long long* out) {
+    return plan_entry(NB, m, n, k0, s, depth, grad, act, x_bf16 != 0, out);
+}
+
+// x [G, m, n], f32, or bf16 with x_bf16 (its plan taken with x_bf16 too);
+// ix int32 [NB] branch indices into x, or null (instance j reads branch j);
+// target f32 [NB, n] (grad only); w0 [NB, m, k0], b0 [NB, k0], w1 [NB, k0,
+// s] and b1 [NB, s] (depth 1), wout [NB, s] (s = k0 at depth 0), all f32
+// and contiguous; out f32: y_pred [NB, n], then with grad grads [NB, P] (P
+// = partial_size) and rss [NB]; scratch of the plan's bytes (8-byte
+// aligned). With grad, two launches: the pass and the fixed-order reduce.
+// The caller keeps ix inside [0, G).
+extern "C" int vg_dense_f32(const void* x, const void* ix, const void* target, const void* w0,
+                            const void* b0, const void* w1, const void* b1, const void* wout,
+                            void* out, void* scratch, long long scratch_bytes, int NB, int m,
+                            int n, int k0, int s, int depth, int act, int grad, int x_bf16,
+                            void* stream) {
+    return run_entry(x, ix, target, w0, b0, w1, b1, wout, out, scratch, scratch_bytes, NB, m, n,
+                     k0, s, depth, act, grad, x_bf16 != 0, stream);
+}
+
+// The deep design's K8 (csrc/dense_deep.cuh), at the shapes vg_dense_f32
+// does not take (depth 2 or more, or a padded width of 33-64): x, ix,
+// target, out, scratch and x_bf16 as vg_dense_f32's; q f32 [NB, P]
+// contiguous, each instance's weights in the flat layout W0, b0, (W_l,
+// b_l)..., w_out. With grad, two launches: the pass and the fixed-order
+// reduce.
+extern "C" int vg_dense_deep_f32(const void* x, const void* ix, const void* target, const void* q,
+                                 void* out, void* scratch, long long scratch_bytes, int NB, int m,
+                                 int n, int k0, int s, int depth, int act, int grad, int x_bf16,
+                                 void* stream) {
+    return deep_entry(x, ix, target, q, out, scratch, scratch_bytes, NB, m, n, k0, s, depth, act,
+                      grad, x_bf16 != 0, stream);
 }

@@ -48,7 +48,14 @@
 //    instance's weights are staged once per segment (one partial row per
 //    (CTA, instance): row b + j, as dense_vg_mma.cuh's K8).
 //  * Depth is a run-time loop; the width class KM (8, 16, 32, 64) is the
-//    only template parameter, the activation a run-time code.
+//    only template parameter besides X's storage, the activation a run-time
+//    code.
+//  * X stored in bf16 (--x-bf16, the XB instantiations): the tile is staged
+//    in bf16, [m16][kXS] unswizzled (144-byte rows: both products' loads
+//    fall on distinct banks), half the HBM stream and half the tile's
+//    shared memory. A bf16 value is exact in tf32 (lo = 0), so layer 0's
+//    products leave X's zero low part out (mma3_add_aexact): the f32
+//    design's bits on the upcast values.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -84,11 +91,11 @@ struct Layout {
     long long x, w0, wf, buf, small, total;
 };
 
-__host__ __device__ inline Layout layout(int m, int km, int depth, int nbuf) {
+__host__ __device__ inline Layout layout(int m, int km, int depth, int nbuf, bool xb = false) {
     const long long m16 = (m + 15) & ~15;
     Layout L;
     L.x = 0;
-    L.w0 = L.x + 4LL * nbuf * m16 * kXS;                             // f32 [nbuf][m16][72]
+    L.w0 = L.x + (xb ? 2LL : 4LL) * nbuf * m16 * kXS;                // f32 or bf16 [nbuf][m16][72]
     L.wf = L.w0 + 4LL * m16 * w0_stride(km);                         // f32 W0 [m16][ws]
     L.buf = L.wf + 4LL * deep::chain_floats(km, depth);              // b0, w_out, W_l^T, b_l
     L.small = L.buf + 4LL * (depth + 2) * kTile * deep::row_stride(km);  // [depth + 2][64][rs]
@@ -96,17 +103,19 @@ __host__ __device__ inline Layout layout(int m, int km, int depth, int nbuf) {
     return L;
 }
 
-// Shared memory of one CTA with ``nbuf`` X buffers, or -1 above width 64
-// or past 227 KB.
-inline long long smem(int m, int k0, int s, int depth, int nbuf) {
+// Shared memory of one CTA with ``nbuf`` X buffers (bf16 with xb), or -1
+// above width 64 or past 227 KB.
+inline long long smem(int m, int k0, int s, int depth, int nbuf, bool xb = false) {
     const int km = deep::pick_km64(k0, s);
     if (km < 0 || m <= 0 || depth < 0 || nbuf < 1) return -1;
-    const long long t = layout(m, km, depth, nbuf).total;
+    const long long t = layout(m, km, depth, nbuf, xb).total;
     return t <= kMaxSmem ? t : -1;
 }
 
 // X tile buffers: two where they fit, else one.
-inline int buffers(int m, int k0, int s, int depth) { return smem(m, k0, s, depth, 2) > 0 ? 2 : 1; }
+inline int buffers(int m, int k0, int s, int depth, bool xb) {
+    return smem(m, k0, s, depth, 2, xb) > 0 ? 2 : 1;
+}
 
 inline deep::Shape make_shape(int m, int k0, int s, int depth, int n, int act) {
     deep::Shape sh{};
@@ -122,17 +131,18 @@ inline deep::Shape make_shape(int m, int k0, int s, int depth, int n, int act) {
     return sh;
 }
 
-// Pointers into a CTA's shared memory.
+// Pointers into a CTA's shared memory (the X buffers as bytes).
 struct Carve {
-    float *xs, *w0, *wf;
+    char* xs;
+    float *w0, *wf;
     deep::Smem sm;  // buf and small (the shared hidden pass's)
 };
 
-__device__ inline Carve carve(void* base, const deep::Shape& sh, int km, int nbuf) {
-    const Layout L = layout(sh.m, km, sh.depth, nbuf);
+__device__ inline Carve carve(void* base, const deep::Shape& sh, int km, int nbuf, bool xb) {
+    const Layout L = layout(sh.m, km, sh.depth, nbuf, xb);
     char* p = static_cast<char*>(base);
     Carve c;
-    c.xs = reinterpret_cast<float*>(p + L.x);
+    c.xs = p + L.x;
     c.w0 = reinterpret_cast<float*>(p + L.w0);
     c.wf = reinterpret_cast<float*>(p + L.wf);
     c.sm = deep::Smem{};
@@ -164,6 +174,55 @@ __device__ inline void load_x(const float* xg, const deep::Shape& sh, int vec16,
     cp_async_commit();
 }
 
+// The same for X stored in bf16 (``xs`` [m16][kXS], unswizzled): vec16: n %
+// 8 == 0 and X on 16 bytes, so 16-byte copies of 8 values; else plain loads
+// and stores, visible after the barrier that makes the tile visible.
+__device__ inline void load_x(const uint16_t* xg, const deep::Shape& sh, int vec16, int t,
+                              uint16_t* xs) {
+    const int i0 = t * kTile;
+    if (vec16) {
+        for (int idx = threadIdx.x; idx < sh.m16 * (kTile / 8); idx += kThreads) {
+            const int row = idx >> 3, c8 = idx & 7, i = i0 + 8 * c8;
+            const bool ok = row < sh.m && i < sh.n;
+            cp_async16(xs + row * kXS + 8 * c8, ok ? xg + static_cast<size_t>(row) * sh.n + i : xg,
+                       ok ? 16 : 0);
+        }
+    } else {
+        for (int idx = threadIdx.x; idx < sh.m16 * kTile; idx += kThreads) {
+            const int row = idx >> 6, c = idx & (kTile - 1), i = i0 + c;
+            xs[row * kXS + c] =
+                row < sh.m && i < sh.n ? __ldg(xg + static_cast<size_t>(row) * sh.n + i) : 0;
+        }
+    }
+    cp_async_commit();
+}
+
+// The tf32 parts of X element (row r, individual c) of the staged tile: f32
+// split by split2_int (swizzled rows), or a bf16 value and a zero low part
+template <bool XB>
+__device__ __forceinline__ void x_split(const vg::XElem<XB>* xt, int r, int c, uint32_t& hi,
+                                        uint32_t& lo) {
+    if constexpr (XB) {
+        hi = static_cast<uint32_t>(xt[r * kXS + c]) << 16;
+        lo = 0;
+    } else {
+        vg::split2_int(xt[xswz(r, c)], hi, lo);
+    }
+}
+
+// acc += A B for a fragment whose A is from X: mma3_add, or with XB (A exact
+// in tf32) mma3_add_aexact
+template <bool XB>
+__device__ __forceinline__ void mma_x(float (&acc)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                      uint32_t bl0, uint32_t bl1) {
+    if constexpr (XB) {
+        vg::mma3_add_aexact(acc, ah, bh0, bh1, bl0, bl1);
+    } else {
+        vg::mma3_add(acc, ah, al, bh0, bh1, bl0, bl1);
+    }
+}
+
 // Stage one chain's weights from its flat vector q (read through L2: K6
 // rewrites it between evaluations): W0 in f32 [m16][ws] (zero past m and
 // k0), b0 in the first KM floats of wf_s, then w_out and the hidden layers
@@ -187,8 +246,9 @@ __device__ void stage_chain(const deep::Shape& sh, const float* q, float* w0_s, 
 // stored on the segment's first tile). With y_pred the predictions of the
 // tile's individuals below n are written (with GRAD, err^2 added to e2).
 // Starts after a barrier that made the tile visible; ends with a barrier.
-template <int KM, bool GRAD>
-__device__ void tile_chain(const deep::Shape& sh, const float* xt, const float* w0_s,
+// xt: the X tile, bf16 with XB.
+template <int KM, bool GRAD, bool XB>
+__device__ void tile_chain(const deep::Shape& sh, const vg::XElem<XB>* xt, const float* w0_s,
                            const float* wf_s, const deep::Smem& sm, int t, const float* target,
                            float* y_pred, float* part, bool first, float& e2) {
     constexpr int NT = KM / 8, RS = deep::row_stride(KM), WS = w0_stride(KM);
@@ -209,10 +269,10 @@ __device__ void tile_chain(const deep::Shape& sh, const float* xt, const float* 
         for (int kc = 0; kc < sh.m16 / 8; ++kc) {
             const int k = 8 * kc + tq;
             uint32_t ah[4], al[4];
-            vg::split2_int(xt[xswz(k, r0)], ah[0], al[0]);
-            vg::split2_int(xt[xswz(k, r0 + 8)], ah[1], al[1]);
-            vg::split2_int(xt[xswz(k + 4, r0)], ah[2], al[2]);
-            vg::split2_int(xt[xswz(k + 4, r0 + 8)], ah[3], al[3]);
+            x_split<XB>(xt, k, r0, ah[0], al[0]);
+            x_split<XB>(xt, k, r0 + 8, ah[1], al[1]);
+            x_split<XB>(xt, k + 4, r0, ah[2], al[2]);
+            x_split<XB>(xt, k + 4, r0 + 8, ah[3], al[3]);
             const float* wk = w0_s + k * WS + g;
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt) {
@@ -220,7 +280,7 @@ __device__ void tile_chain(const deep::Shape& sh, const float* xt, const float* 
                 uint32_t bh0, bl0, bh1, bl1;
                 vg::split2_int(wk[8 * nt], bh0, bl0);
                 vg::split2_int(wk[4 * WS + 8 * nt], bh1, bl1);
-                vg::mma3_add(acc[nt], ah, al, bh0, bh1, bl0, bl1);
+                mma_x<XB>(acc[nt], ah, al, bh0, bh1, bl0, bl1);
             }
         }
 #pragma unroll
@@ -262,17 +322,17 @@ __device__ void tile_chain(const deep::Shape& sh, const float* xt, const float* 
             for (int ks = 0; ks < kTile / 8; ++ks) {
                 const int c = 8 * ks + tq;
                 uint32_t ah[4], al[4];
-                vg::split2_int(xt[xswz(r0, c)], ah[0], al[0]);
-                vg::split2_int(xt[xswz(r0 + 8, c)], ah[1], al[1]);
-                vg::split2_int(xt[xswz(r0, c + 4)], ah[2], al[2]);
-                vg::split2_int(xt[xswz(r0 + 8, c + 4)], ah[3], al[3]);
+                x_split<XB>(xt, r0, c, ah[0], al[0]);
+                x_split<XB>(xt, r0 + 8, c, ah[1], al[1]);
+                x_split<XB>(xt, r0, c + 4, ah[2], al[2]);
+                x_split<XB>(xt, r0 + 8, c + 4, ah[3], al[3]);
 #pragma unroll
                 for (int v = 0; v < NTU; ++v) {
                     const float* dz = Z0 + c * RS + 8 * (nt0 + v) + g;
                     uint32_t bh0, bl0, bh1, bl1;
                     vg::split2_int(dz[0], bh0, bl0);
                     vg::split2_int(dz[4 * RS], bh1, bl1);
-                    vg::mma3_add(acc[v], ah, al, bh0, bh1, bl0, bl1);
+                    mma_x<XB>(acc[v], ah, al, bh0, bh1, bl0, bl1);
                 }
             }
             // element e of tile v: marker r0 + 8 (e / 2), column 8 (nt0 + v)
@@ -301,7 +361,7 @@ __device__ void tile_chain(const deep::Shape& sh, const float* xt, const float* 
 // K7's and K8's run over NB instances (``run_kernel``): instance j reads X
 // branch xix[j] (null: j / C) and its target at (j / C, j % C).
 struct RunArgs {
-    const float* x;    // [G, m, n]
+    const void* x;     // [G, m, n], f32 or (XB) bf16
     const int* xix;    // [NB] or null
     vg::Inst target;   // [.., C, n] (gradient)
     const float* q;    // [NB, P] flat weights
@@ -316,18 +376,22 @@ struct RunArgs {
 // contiguous run: per item the tile chain, with GRAD each segment's err^2
 // summed over the CTA in a fixed order at its end. Instantiated by
 // csrc/branch_vg_chains.cu (GRAD) and csrc/branch_fwd_chains.cu (forward
-// only); K8's entry launches them too.
-template <int KM, bool GRAD>
+// only; the XB twins in their *_xbf16.cu sources); K8's entry launches
+// them too.
+template <int KM, bool GRAD, bool XB>
 __global__ void __launch_bounds__(kThreads) run_kernel(const __grid_constant__ RunArgs a) {
+    using XT = vg::XElem<XB>;
     extern __shared__ float4 smem4[];
     const deep::Shape& sh = a.sh;
-    const Carve cv = ddeep::carve(smem4, sh, KM, a.nbuf);
-    const int tile_floats = sh.m16 * kXS;
+    const Carve cv = ddeep::carve(smem4, sh, KM, a.nbuf, XB);
+    XT* const xs = reinterpret_cast<XT*>(cv.xs);
+    const int tile_elems = sh.m16 * kXS;
     const long long items = static_cast<long long>(a.NB) * sh.tiles;
     const long long it_begin = blockIdx.x * items / gridDim.x;
     const long long it_end = (blockIdx.x + 1) * items / gridDim.x;
     auto x_of = [&](int j) {
-        return a.x + static_cast<size_t>(a.xix != nullptr ? a.xix[j] : j / a.C) * sh.m * sh.n;
+        return static_cast<const XT*>(a.x) +
+               static_cast<size_t>(a.xix != nullptr ? a.xix[j] : j / a.C) * sh.m * sh.n;
     };
     auto flush = [&](int j, float& e2) {
         const float sum = deep::cta_sum(e2, cv.sm.small + 5 * kTile);
@@ -337,7 +401,7 @@ __global__ void __launch_bounds__(kThreads) run_kernel(const __grid_constant__ R
     int jj = static_cast<int>(it_begin / sh.tiles), tl = static_cast<int>(it_begin % sh.tiles);
     int j = -1, buf = 0;
     float e2 = 0.f;
-    if (it_begin < it_end) ddeep::load_x(x_of(jj), sh, a.vec16, tl, cv.xs);
+    if (it_begin < it_end) ddeep::load_x(x_of(jj), sh, a.vec16, tl, xs);
     for (long long it = it_begin; it < it_end; ++it) {
         const bool first = jj != j;  // the segment's first tile
         if (first) {
@@ -349,36 +413,45 @@ __global__ void __launch_bounds__(kThreads) run_kernel(const __grid_constant__ R
         if (++tl == sh.tiles) tl = 0, ++jj;
         const bool next = it + 1 < it_end;
         if (next && a.nbuf == 2) {
-            ddeep::load_x(x_of(jj), sh, a.vec16, tl, cv.xs + (buf ^ 1) * tile_floats);
+            ddeep::load_x(x_of(jj), sh, a.vec16, tl, xs + (buf ^ 1) * tile_elems);
             cp_async_wait<1>();
         } else {
             cp_async_wait<0>();
         }
         __syncthreads();  // the X tile is visible
         const float* tg = GRAD ? vg::at(a.target, j / a.C, j - (j / a.C) * a.C) : nullptr;
-        ddeep::tile_chain<KM, GRAD>(sh, cv.xs + buf * tile_floats, cv.w0, cv.wf, cv.sm, t, tg,
+        ddeep::tile_chain<KM, GRAD, XB>(sh, xs + buf * tile_elems, cv.w0, cv.wf, cv.sm, t, tg,
                              a.y_pred + static_cast<size_t>(j) * sh.n,
                              GRAD ? a.partial + (static_cast<size_t>(blockIdx.x) + j) * sh.P : nullptr,
                              first, e2);
-        if (next && a.nbuf == 1) ddeep::load_x(x_of(jj), sh, a.vec16, tl, cv.xs);
+        if (next && a.nbuf == 1) ddeep::load_x(x_of(jj), sh, a.vec16, tl, xs);
         if (a.nbuf == 2) buf ^= 1;
     }
     if (GRAD && j >= 0) flush(j, e2);
 }
 
 // The instantiation of run_kernel for width class km (csrc/branch_vg_chains.cu
-// with the gradient, csrc/branch_fwd_chains.cu forward only).
+// with the gradient, csrc/branch_fwd_chains.cu forward only; the bf16-X
+// twins in csrc/branch_vg_chains_xbf16.cu and csrc/branch_fwd_chains_xbf16.cu).
 const void* run_grad_kernel(int km);
 const void* run_fwd_kernel(int km);
+const void* run_grad_kernel_xbf16(int km);
+const void* run_fwd_kernel_xbf16(int km);
 
-template <bool GRAD>
+template <bool GRAD, bool XB>
 const void* run_kernel_for(int km) {
     switch (km) {
-        case 8: return reinterpret_cast<const void*>(&run_kernel<8, GRAD>);
-        case 16: return reinterpret_cast<const void*>(&run_kernel<16, GRAD>);
-        case 32: return reinterpret_cast<const void*>(&run_kernel<32, GRAD>);
-        default: return reinterpret_cast<const void*>(&run_kernel<64, GRAD>);
+        case 8: return reinterpret_cast<const void*>(&run_kernel<8, GRAD, XB>);
+        case 16: return reinterpret_cast<const void*>(&run_kernel<16, GRAD, XB>);
+        case 32: return reinterpret_cast<const void*>(&run_kernel<32, GRAD, XB>);
+        default: return reinterpret_cast<const void*>(&run_kernel<64, GRAD, XB>);
     }
+}
+
+// The getter of run_kernel's instantiation for the pass and X's storage
+inline auto run_kernel_getter(bool grad, bool xb) -> const void* (*)(int) {
+    if (xb) return grad ? run_grad_kernel_xbf16 : run_fwd_kernel_xbf16;
+    return grad ? run_grad_kernel : run_fwd_kernel;
 }
 
 // The shared memory attribute and the occupancy of one instantiation at one
@@ -419,11 +492,11 @@ struct Plan {
 };
 
 inline cudaError_t plan(const void* (*kernel_of)(int), Occupancy* occs, int NB, int m, int n,
-                        int k0, int s, int depth, Plan* pl) {
-    if (NB <= 0 || n <= 0 || smem(m, k0, s, depth, 1) < 0) return cudaErrorInvalidValue;
+                        int k0, int s, int depth, bool xb, Plan* pl) {
+    if (NB <= 0 || n <= 0 || smem(m, k0, s, depth, 1, xb) < 0) return cudaErrorInvalidValue;
     pl->km = deep::pick_km64(k0, s);
-    pl->nbuf = buffers(m, k0, s, depth);
-    pl->smem = smem(m, k0, s, depth, pl->nbuf);
+    pl->nbuf = buffers(m, k0, s, depth, xb);
+    pl->smem = smem(m, k0, s, depth, pl->nbuf, xb);
     Occupancy& occ = occs[km_slot(pl->km)];
     const cudaError_t e = occupancy(kernel_of(pl->km), pl->smem, occ);
     if (e != cudaSuccess) return e;

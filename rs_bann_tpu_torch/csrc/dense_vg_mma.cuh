@@ -37,11 +37,22 @@
 // kS = 40 floats and swap 4-column chunks on rows with bit 2 set, so the
 // phase-A column loads, the 8-byte plane stores and the ldmatrix rows all
 // miss bank conflicts.
+//
+// X stored in bf16 (--x-bf16; the XB instantiations): the tile is staged in
+// bf16, [m16][kSB = 40] unswizzled (80-byte rows: a warp's column loads in
+// phase A and its A-fragment loads in phase B fall on distinct banks), half
+// the HBM stream and half the tile's shared memory. A bf16 value widens to
+// f32 exactly (its bits shifted up by 16), so its tf32 split has hi = the
+// value and lo = 0, the split of the same value upcast to f32: the product
+// of X's zero low part is left out (mma3_add_aexact / _bexact), which
+// changes no sum, so a bf16 tile gives the f32 kernel's bits on the
+// upcast values.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "packed_decode.cuh"
 #include "packed_mma.cuh"
@@ -53,6 +64,7 @@ constexpr int kT = 32;             // individuals per tile
 constexpr int kWarps = 4;          // warps per group: kT / 8
 constexpr int kThreads = 32 * kWarps;
 constexpr int kS = kT + 8;         // row stride of [rows][kT] buffers (8 mod 32)
+constexpr int kSB = kT + 8;        // row stride (bf16 values) of a bf16 X tile
 constexpr int kSlices = 8;         // row slices of the fixed-order segment sum
 constexpr int kBatch = 16;         // weight loads in flight per thread while staging
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
@@ -86,15 +98,22 @@ __host__ __device__ inline long long group_floats(int km, bool deep, bool grad, 
     return f + (grad && rss ? 2 * kWarps : 0);
 }
 
-// Shared bytes a CTA of ``cc`` groups and ``nbuf`` X tile buffers uses at
-// padded width km, or -1 past depth 1, a width above 32 or 227 KB.
+// Floats of one staged X tile of m16 rows: f32 [m16][kS], or (xb) bf16
+// [m16][kSB], half as many bytes (a multiple of 16).
+__host__ __device__ constexpr int x_tile_floats(int m16, bool xb) {
+    return xb ? m16 * kSB / 2 : m16 * kS;
+}
+
+// Shared bytes a CTA of ``cc`` groups and ``nbuf`` X tile buffers (f32, or
+// bf16 with xb) uses at padded width km, or -1 past depth 1, a width above
+// 32 or 227 KB.
 inline long long cta_smem(int m, int k0, int s, int depth, bool grad, bool rss, int cc,
-                          int nbuf) {
+                          int nbuf, bool xb = false) {
     const int km = pick_km(k0, s);
     if (km < 0 || depth < 0 || depth > 1 || m <= 0) return -1;
     const int m16 = (m + 15) & ~15, m8 = (m + 7) & ~7;
-    const long long b =
-        4 * (static_cast<long long>(nbuf) * m16 * kS + cc * group_floats(km, depth == 1, grad, rss, m16, m8));
+    const long long b = 4 * (static_cast<long long>(nbuf) * x_tile_floats(m16, xb) +
+                             cc * group_floats(km, depth == 1, grad, rss, m16, m8));
     return b > kMaxSmem ? -1 : b;
 }
 
@@ -158,6 +177,39 @@ __device__ __forceinline__ void load_x(const float* xg, int m, int n, int m16, i
     cp_async_commit();
 }
 
+// The same for X stored in bf16 (``xs`` [m16][kSB]): vec16: n % 8 == 0 and
+// X on 16 bytes, so 16-byte copies of 8 values; else plain loads and
+// stores (cp.async copies 4 bytes at least), visible after the barrier
+// that makes the tile visible.
+__device__ __forceinline__ void load_x(const uint16_t* xg, int m, int n, int m16, int vec16, int tl,
+                                       uint16_t* xs) {
+    const int i0 = tl * kT;
+    if (vec16) {
+        for (int idx = threadIdx.x; idx < m16 * (kT / 8); idx += blockDim.x) {
+            const int row = idx >> 2, c8 = idx & 3, i = i0 + 8 * c8;
+            const bool ok = row < m && i < n;
+            cp_async16(xs + row * kSB + 8 * c8, ok ? xg + static_cast<size_t>(row) * n + i : xg,
+                       ok ? 16 : 0);
+        }
+    } else {
+        for (int idx = threadIdx.x; idx < m16 * kT; idx += blockDim.x) {
+            const int row = idx >> 5, c = idx & 31, i = i0 + c;
+            xs[row * kSB + c] = row < m && i < n ? __ldg(xg + static_cast<size_t>(row) * n + i) : 0;
+        }
+    }
+    cp_async_commit();
+}
+
+// The X tile element type of an instantiation: f32, or (XB) bf16 bits
+template <bool XB>
+using XElem = typename std::conditional<XB, uint16_t, float>::type;
+
+// The tf32 parts of element (r, c) of a bf16 X tile: the value itself, and
+// a zero low part
+__device__ __forceinline__ uint32_t xb_bits(const uint16_t* xt, int r, int c) {
+    return static_cast<uint32_t>(xt[r * kSB + c]) << 16;
+}
+
 // A [G, C, rows, cols] f32 tensor (a bias [G, C, cols] is one row, w_out
 // [G, C, s, 1] one column): element (g, c, r, k) at p + g * sg + c * sc +
 // r * sr + k * sk. K6 reads its step sizes and prior factors through sr and
@@ -215,6 +267,29 @@ __device__ __forceinline__ void mma3_add(float (&acc)[4], const uint32_t (&ah)[4
     mma_tf32_zero(hl, ah, bl0, bl1);
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[e] += hh[e] + (lh[e] + hl[e]);
+}
+
+// mma3_add where A is exact in tf32 (al = 0: a bf16 X value), so lh = 0:
+// acc + (hh + hl), the bits of mma3_add on the same values
+__device__ __forceinline__ void mma3_add_aexact(float (&acc)[4], const uint32_t (&ah)[4],
+                                                uint32_t bh0, uint32_t bh1, uint32_t bl0,
+                                                uint32_t bl1) {
+    float hh[4], hl[4];
+    mma_tf32_zero(hh, ah, bh0, bh1);
+    mma_tf32_zero(hl, ah, bl0, bl1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += hh[e] + hl[e];
+}
+
+// mma3_add where B is exact in tf32 (bl = 0), so hl = 0: acc + (hh + lh)
+__device__ __forceinline__ void mma3_add_bexact(float (&acc)[4], const uint32_t (&ah)[4],
+                                                const uint32_t (&al)[4], uint32_t bh0,
+                                                uint32_t bh1) {
+    float hh[4], lh[4];
+    mma_tf32_zero(hh, ah, bh0, bh1);
+    mma_tf32_zero(lh, al, bh0, bh1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += hh[e] + lh[e];
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
@@ -324,10 +399,10 @@ __device__ __forceinline__ void ld_frag(const float* f, int lane, uint32_t (&ah)
 
 // D[MT] = A B over ``ksteps``: A the staged fragments ``frags`` ((kc, mt)
 // order), B rows 8 kc + t and 8 kc + t + 4, column ``col`` of the swizzled
-// buffer ``bp`` (f32 values, split here).
-template <int MT>
-__device__ __forceinline__ void product_a(const float* frags, const float* bp, int ksteps, int col,
-                                          float (&d)[MT][4]) {
+// buffer ``bp`` (f32 values, split here), or with XB of a bf16 X tile.
+template <int MT, bool XB = false>
+__device__ __forceinline__ void product_a(const float* frags, const XElem<XB>* bp, int ksteps,
+                                          int col, float (&d)[MT][4]) {
     const int lane = threadIdx.x & 31, t = lane & 3;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -336,13 +411,22 @@ __device__ __forceinline__ void product_a(const float* frags, const float* bp, i
 #pragma unroll 4
     for (int kc = 0; kc < ksteps; ++kc) {
         uint32_t bh0, bh1, bl0, bl1;
-        split2_int(bp[swz(8 * kc + t, col)], bh0, bl0);
-        split2_int(bp[swz(8 * kc + t + 4, col)], bh1, bl1);
+        if constexpr (XB) {
+            bh0 = xb_bits(bp, 8 * kc + t, col);
+            bh1 = xb_bits(bp, 8 * kc + t + 4, col);
+        } else {
+            split2_int(bp[swz(8 * kc + t, col)], bh0, bl0);
+            split2_int(bp[swz(8 * kc + t + 4, col)], bh1, bl1);
+        }
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
             uint32_t ah[4], al[4];
             ld_frag(frags + (kc * MT + mt) * 256, lane, ah, al);
-            mma3_add(d[mt], ah, al, bh0, bh1, bl0, bl1);
+            if constexpr (XB) {
+                mma3_add_bexact(d[mt], ah, al, bh0, bh1);
+            } else {
+                mma3_add(d[mt], ah, al, bh0, bh1, bl0, bl1);
+            }
         }
     }
 }
@@ -378,11 +462,13 @@ __device__ __forceinline__ void store_plane(float* plane, int col, const float (
 
 // acc[u] = A B over the tile's 32 individuals for the 16 x 8 output tiles
 // u = 0 .. NTU - 1 of one row tile: A rows ``arow`` .. + 15 of ``ap``, loaded
-// and split once per k-step for all NTU; B rows ``brow`` + 8 u .. + 7 of
-// ``bp`` (one ldmatrix for both column tiles); individuals as columns, f32
-// values split here.
-template <int NTU>
-__device__ __forceinline__ void product_b(const float* ap, int arow, const float* bp, int brow,
+// and split once per k-step for all NTU (with XB a bf16 X tile, read
+// element by element: a0..a3 = (g, t), (g + 8, t), (g, t + 4), (g + 8,
+// t + 4), exact in tf32); B rows ``brow`` + 8 u .. + 7 of ``bp`` (one
+// ldmatrix for both column tiles); individuals as columns, f32 values split
+// here.
+template <int NTU, bool XB = false>
+__device__ __forceinline__ void product_b(const XElem<XB>* ap, int arow, const float* bp, int brow,
                                           float (&acc)[NTU][4]) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -392,9 +478,15 @@ __device__ __forceinline__ void product_b(const float* ap, int arow, const float
 #pragma unroll
     for (int ks = 0; ks < kT / 8; ++ks) {
         uint32_t raw[4], ah[4], al[4], bh[4], bl[4];
-        ldsm_x4(raw, ap + swz(arow + (lane & 15), 8 * ks + 4 * (lane >> 4)));
+        if constexpr (XB) {
+            const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) split2_int(__uint_as_float(raw[r]), ah[r], al[r]);
+            for (int r = 0; r < 4; ++r) ah[r] = xb_bits(ap, arow + g + 8 * (r & 1), 8 * ks + t + 4 * (r >> 1));
+        } else {
+            ldsm_x4(raw, ap + swz(arow + (lane & 15), 8 * ks + 4 * (lane >> 4)));
+#pragma unroll
+            for (int r = 0; r < 4; ++r) split2_int(__uint_as_float(raw[r]), ah[r], al[r]);
+        }
         // matrices: (tile u, columns 8 ks .. + 3), (u, 8 ks + 4 .. + 7) per u
         const float* b = bp + swz(brow + 8 * (lane >> 4) + (lane & 7), 8 * ks + 4 * ((lane >> 3) & 1));
         if (NTU == 2) {
@@ -405,8 +497,13 @@ __device__ __forceinline__ void product_b(const float* ap, int arow, const float
 #pragma unroll
         for (int r = 0; r < 2 * NTU; ++r) split2_int(__uint_as_float(raw[r]), bh[r], bl[r]);
 #pragma unroll
-        for (int u = 0; u < NTU; ++u)
-            mma3_add(acc[u], ah, al, bh[2 * u], bh[2 * u + 1], bl[2 * u], bl[2 * u + 1]);
+        for (int u = 0; u < NTU; ++u) {
+            if constexpr (XB) {
+                mma3_add_aexact(acc[u], ah, bh[2 * u], bh[2 * u + 1], bl[2 * u], bl[2 * u + 1]);
+            } else {
+                mma3_add(acc[u], ah, al, bh[2 * u], bh[2 * u + 1], bl[2 * u], bl[2 * u + 1]);
+            }
+        }
     }
 }
 
@@ -449,11 +546,12 @@ struct Sums {
 // y_pred of the tile's individuals below n into ``y``), then with GRAD err
 // against the targets tg_a, tg_b of the thread's two individuals (with OUT
 // its err^2 into the sums), the small sums, and phase B into the group's
-// accumulators (``first``: the segment's first tile). xt: the X tile.
-template <int KM, bool DEEP, bool GRAD, int ACT, bool OUT>
+// accumulators (``first``: the segment's first tile). xt: the X tile (bf16
+// with XB).
+template <int KM, bool DEEP, bool GRAD, int ACT, bool OUT, bool XB = false>
 __device__ __forceinline__ void tile(const Group<KM, DEEP, GRAD>& gs, Sums<km16(KM) / 16>& sm,
-                                     const float* xt, int m8, int m16, int n, int i0, float tg_a,
-                                     float tg_b, bool first, int grp, float* y) {
+                                     const XElem<XB>* xt, int m8, int m16, int n, int i0,
+                                     float tg_a, float tg_b, bool first, int grp, float* y) {
     constexpr int K16 = km16(KM), MT = K16 / 16, NT = KM / 8, AS = acc_stride(KM);
     const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & (kWarps - 1), g = lane >> 2,
               t = lane & 3;
@@ -462,7 +560,7 @@ __device__ __forceinline__ void tile(const Group<KM, DEEP, GRAD>& gs, Sums<km16(
 
     // ---- phase A: the warp's 8 individuals through the whole MLP
     float z0[MT][4], a0[MT][4];
-    product_a<MT>(gs.w0f, xt, m8 / 8, 8 * w + g, z0);
+    product_a<MT, XB>(gs.w0f, xt, m8 / 8, 8 * w + g, z0);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -552,7 +650,7 @@ __device__ __forceinline__ void tile(const Group<KM, DEEP, GRAD>& gs, Sums<km16(
             float acc[NTU][4];
             if (u < u0) {
                 const int mt = u / NU, nt = (u - mt * NU) * NTU;
-                product_b<NTU>(xt, 16 * mt, gs.dz0t, 8 * nt, acc);
+                product_b<NTU, XB>(xt, 16 * mt, gs.dz0t, 8 * nt, acc);
                 add_tiles<NTU>(gs.acc0, AS, 16 * mt, 8 * nt, first, acc);
             } else {
                 const int kt = (u - u0) / NU, nt = (u - u0 - kt * NU) * NTU;

@@ -24,6 +24,11 @@
 // Every other shape (depth 2 or more, or a padded width of 33-64) runs the
 // deep design, csrc/dense_deep.cuh ``run_kernel``: one chain a CTA of 8
 // warps over tiles of 64 individuals, the same partial rows and reduce.
+//
+// X stored in bf16 (--x-bf16) runs the XB instantiations, the X tile staged
+// in bf16 (dense_vg_mma.cuh): csrc/branch_vg_chains_xbf16.cu and
+// csrc/branch_fwd_chains_xbf16.cu hold them, so the four sources compile in
+// parallel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,7 +44,7 @@ namespace vg {
 constexpr int kMaxCC = 2;  // chains (groups of 4 warps) per CTA
 
 struct ChainArgs {
-    const float* x;      // [G, m, n]
+    const void* x;       // [G, m, n], f32 or (XB) bf16
     Inst target;         // [G, C, n] (gradient)
     Inst w[kLayers];     // W0 [m, k0], b0 [k0], W1 [k0, s], b1 [s], w_out [s, 1] of (g, c)
     float* y_pred;       // [G, C, n]
@@ -52,16 +57,20 @@ struct ChainArgs {
     int m16, m8, nbuf, vec16;
 };
 
-template <int KM, bool DEEP, bool GRAD, int ACT, int CC>
+template <int KM, bool DEEP, bool GRAD, int ACT, int CC, bool XB>
 __global__ void __launch_bounds__(kThreads * CC, GRAD ? (CC == 1 ? 3 : 1) : (CC == 1 ? 4 : 2))
     vg_chains_kernel(const __grid_constant__ ChainArgs a) {
     constexpr int MT = km16(KM) / 16, K16 = km16(KM);
+    using XT = XElem<XB>;
     extern __shared__ float4 smem4[];
     const int grp = threadIdx.x / kThreads;  // this warp group's chain of the chunk
     const int tid = threadIdx.x - grp * kThreads, w = tid >> 5, t = tid & 3;
-    float* xs = reinterpret_cast<float*>(smem4);  // [nbuf][m16][kS], shared by the groups
+    // [nbuf][m16][kS] (bf16: [kSB]), shared by the groups
+    XT* xs = reinterpret_cast<XT*>(smem4);
+    const int xtile = a.m16 * (XB ? kSB : kS);  // elements of one X buffer
+    const XT* x = static_cast<const XT*>(a.x);
     const Group<KM, DEEP, GRAD> gs(
-        xs + a.nbuf * a.m16 * kS +
+        reinterpret_cast<float*>(smem4) + a.nbuf * x_tile_floats(a.m16, XB) +
             grp * static_cast<int>(group_floats(KM, DEEP, GRAD, true, a.m16, a.m8)),
         a.m16, a.m8);
     const int m = a.m, n = a.n;
@@ -75,7 +84,7 @@ __global__ void __launch_bounds__(kThreads * CC, GRAD ? (CC == 1 ? 3 : 1) : (CC 
     int j = -1, gb = 0, c = 0, buf = 0;
     bool live = false;  // this group's chain exists (a ragged last chunk has fewer)
     float* y = nullptr;
-    load_x(a.x + static_cast<size_t>(jj / a.chunks) * m * n, m, n, a.m16, a.vec16, tl, xs);
+    load_x(x + static_cast<size_t>(jj / a.chunks) * m * n, m, n, a.m16, a.vec16, tl, xs);
     zero_frags<KM, DEEP, GRAD>(gs, a.m8, tid);
     __syncthreads();
     for (long long it = it_begin; it < it_end; ++it) {
@@ -118,13 +127,15 @@ __global__ void __launch_bounds__(kThreads * CC, GRAD ? (CC == 1 ? 3 : 1) : (CC 
         // done with the last tile: its buffer, planes and accumulators
         __syncthreads();
         if (next && a.nbuf == 2)
-            load_x(a.x + static_cast<size_t>(jj / a.chunks) * m * n, m, n, a.m16, a.vec16, tl,
-                   xs + (buf ^ 1) * a.m16 * kS);
-        const float* xt = xs + buf * a.m16 * kS;
-        if (live) tile<KM, DEEP, GRAD, ACT, true>(gs, sm, xt, a.m8, a.m16, n, i0, tg_a, tg_b, first, grp, y);
+            load_x(x + static_cast<size_t>(jj / a.chunks) * m * n, m, n, a.m16, a.vec16, tl,
+                   xs + (buf ^ 1) * xtile);
+        const XT* xt = xs + buf * xtile;
+        if (live)
+            tile<KM, DEEP, GRAD, ACT, true, XB>(gs, sm, xt, a.m8, a.m16, n, i0, tg_a, tg_b, first,
+                                                grp, y);
         if (a.nbuf == 1) {
             __syncthreads();  // the one X buffer is free again
-            if (next) load_x(a.x + static_cast<size_t>(jj / a.chunks) * m * n, m, n, a.m16,
+            if (next) load_x(x + static_cast<size_t>(jj / a.chunks) * m * n, m, n, a.m16,
                              a.vec16, tl, xs);
         } else {
             buf ^= 1;
@@ -137,35 +148,46 @@ __global__ void __launch_bounds__(kThreads * CC, GRAD ? (CC == 1 ? 3 : 1) : (CC 
     }
 }
 
-template <int KM, bool DEEP, bool GRAD, int CC>
+template <int KM, bool DEEP, bool GRAD, int CC, bool XB>
 const void* kernel_act(int act) {
     switch (act) {
-        case 1: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 1, CC>);
-        case 2: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 2, CC>);
-        case 3: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 3, CC>);
-        case 4: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 4, CC>);
-        default: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 0, CC>);
+        case 1: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 1, CC, XB>);
+        case 2: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 2, CC, XB>);
+        case 3: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 3, CC, XB>);
+        case 4: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 4, CC, XB>);
+        default: return reinterpret_cast<const void*>(&vg_chains_kernel<KM, DEEP, GRAD, 0, CC, XB>);
     }
 }
 
-template <int KM, bool GRAD>
+template <int KM, bool GRAD, bool XB>
 const void* kernel_km(bool deep, int act, int cc) {
-    if (deep) return cc == 2 ? kernel_act<KM, true, GRAD, 2>(act) : kernel_act<KM, true, GRAD, 1>(act);
-    return cc == 2 ? kernel_act<KM, false, GRAD, 2>(act) : kernel_act<KM, false, GRAD, 1>(act);
+    if (deep)
+        return cc == 2 ? kernel_act<KM, true, GRAD, 2, XB>(act) : kernel_act<KM, true, GRAD, 1, XB>(act);
+    return cc == 2 ? kernel_act<KM, false, GRAD, 2, XB>(act) : kernel_act<KM, false, GRAD, 1, XB>(act);
 }
 
 // The instantiation for the shape: the activation is a template parameter,
 // so each one holds one activation's code (60 per translation unit).
-template <bool GRAD>
+template <bool GRAD, bool XB>
 const void* chains_kernel(int km, bool deep, int act, int cc) {
-    if (km == 8) return kernel_km<8, GRAD>(deep, act, cc);
-    if (km == 16) return kernel_km<16, GRAD>(deep, act, cc);
-    return kernel_km<32, GRAD>(deep, act, cc);
+    if (km == 8) return kernel_km<8, GRAD, XB>(deep, act, cc);
+    if (km == 16) return kernel_km<16, GRAD, XB>(deep, act, cc);
+    return kernel_km<32, GRAD, XB>(deep, act, cc);
 }
 
-// csrc/branch_fwd_chains.cu's (grad false) and csrc/branch_vg_chains.cu's
+// csrc/branch_fwd_chains.cu's (grad false) and csrc/branch_vg_chains.cu's,
+// and their bf16-X twins in the *_xbf16.cu sources
 const void* vg_chains_fwd_kernel(int km, bool deep, int act, int cc);
 const void* vg_chains_grad_kernel(int km, bool deep, int act, int cc);
+const void* vg_chains_fwd_kernel_xbf16(int km, bool deep, int act, int cc);
+const void* vg_chains_grad_kernel_xbf16(int km, bool deep, int act, int cc);
+
+inline const void* vg_chains_kernel_for(int km, bool deep, bool grad, int act, int cc, bool xb) {
+    if (xb)
+        return grad ? vg_chains_grad_kernel_xbf16(km, deep, act, cc)
+                    : vg_chains_fwd_kernel_xbf16(km, deep, act, cc);
+    return grad ? vg_chains_grad_kernel(km, deep, act, cc) : vg_chains_fwd_kernel(km, deep, act, cc);
+}
 
 }  // namespace vg
 }  // namespace rsbann

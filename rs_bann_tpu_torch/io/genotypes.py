@@ -2,7 +2,8 @@
 
 Counterpart of rs_bann_tpu/io/genotypes.py: 2-bit packed (``to_packed``),
 dense sample-major (``to_stacked``) and dense feature-major
-(``to_feature_major``), the last two standardized f32.
+(``to_feature_major``), the last two standardized f32; feature-major may be
+stored in bf16 (``--x-bf16``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ class CompressedGenotypes:
             y = np.zeros(self.num_individuals, np.float32)
         return pack_stacked(arch, self.bed, self.groups, y, device)
 
-    def _dense(self, arch: NetArch, device, y, feature_major: bool) -> StackedData:
+    def _dense(self, arch: NetArch, device, y, feature_major: bool,
+               dtype=torch.float32) -> StackedData:
         n = self.num_individuals
         G = arch.num_branches
         X = np.zeros((G, arch.m_pad, n) if feature_major else (G, n, arch.m_pad), np.float32)
@@ -50,7 +52,11 @@ class CompressedGenotypes:
                 X[g, : arch.m[g], :] = xg.T
             else:
                 X[g, :, : arch.m[g]] = xg
-        X = torch.from_numpy(X).to(device)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"genotypes are stored in float32 or bfloat16, not {dtype}")
+        # bf16: each standardized f32 value rounded once to nearest even, the
+        # JAX package's jnp.asarray(X, dtype=bfloat16) bits
+        X = torch.from_numpy(X).to(device).to(dtype)
         if y is None:
             y = np.zeros(n, np.float32)
         y = torch.as_tensor(np.array(y, np.float32), device=device)
@@ -60,11 +66,12 @@ class CompressedGenotypes:
         """Dense sample-major standardized X [G, n, m_pad] on ``device``."""
         return self._dense(arch, device, y, feature_major=False)
 
-    def to_feature_major(self, arch: NetArch, device,
-                         y: Optional[np.ndarray] = None) -> StackedData:
-        """Dense feature-major standardized ``FeatX`` (xT [G, m_pad, n], f32)
-        on ``device``: the flagship's layout."""
-        return self._dense(arch, device, y, feature_major=True)
+    def to_feature_major(self, arch: NetArch, device, y: Optional[np.ndarray] = None,
+                         dtype=torch.float32) -> StackedData:
+        """Dense feature-major standardized ``FeatX`` (xT [G, m_pad, n]) on
+        ``device``: the flagship's layout, stored in ``dtype`` (f32, or bf16:
+        the f32 values rounded once, half the bytes)."""
+        return self._dense(arch, device, y, feature_major=True, dtype=dtype)
 
 
 class Data:
@@ -92,5 +99,5 @@ class Data:
     def to_stacked(self, arch: NetArch, device) -> StackedData:
         return self.gen.to_stacked(arch, device, self.phen.y)
 
-    def to_feature_major(self, arch: NetArch, device) -> StackedData:
-        return self.gen.to_feature_major(arch, device, self.phen.y)
+    def to_feature_major(self, arch: NetArch, device, dtype=torch.float32) -> StackedData:
+        return self.gen.to_feature_major(arch, device, self.phen.y, dtype=dtype)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import activations as _A
-from ..ops.branch_mlp import forward_chains
+from ..ops.branch_mlp import forward_blocked, forward_chains
 from ..ops.packed_matmul import (
     FUSED_ACTIVATIONS,
     packed_linear,
@@ -159,8 +159,10 @@ class PackedX:
 
 class FeatX:
     """Feature-major dense standardized branch genotypes ``xT`` [..., m_pad, n]
-    (f32): the layout of the dense flagship, whose kernels (K6, K7) read a
-    tile of individuals for all markers at once. ``gram`` as PackedX's."""
+    (f32, or bf16 under ``--x-bf16``: the standardized f32 values rounded
+    once to nearest even): the layout of the dense flagship, whose kernels
+    (K6, K7, K8) read a tile of individuals for all markers at once, in
+    either dtype. ``gram`` as PackedX's."""
 
     def __init__(self, xT):
         self.xT = xT
@@ -182,9 +184,10 @@ class FeatX:
 def _standardized_rows(x, s: int, e: int) -> torch.Tensor:
     """Branches s..e of a PackedX or FeatX as standardized rows [e - s,
     m_pad, n] f32: (decode - shift) * w_scale on packed genotypes, the JAX
-    package's X_J of its marker scan."""
+    package's X_J of its marker scan (a bf16 FeatX's values, exact in
+    f32)."""
     if isinstance(x, FeatX):
-        return x.xT[s:e]
+        return x.xT[s:e].float()
     raw = unpack_strided(x.bytes[s:e], x.n)
     return (raw - x.shift[s:e, :, None]) * x.w_scale[s:e, :, None]
 
@@ -196,7 +199,10 @@ def marker_gram(x) -> torch.Tensor:
     chunks of branches: data, so formed once per training run
     (``x.form_gram()``). The diagonal is each marker's x_j^T x_j, as the JAX
     package's ``gram[t, t]``. Made exactly symmetric (the upper triangle
-    mirrored), since the scan reads a marker's row of it as its column."""
+    mirrored), since the scan reads a marker's row of it as its column.
+    On a bf16 FeatX the JAX package's ``X_J @ X_J.T`` is a bf16 product
+    whose result stays bf16: each f32 sum is rounded once to bf16 here, as
+    the JAX package rounds it on the CPU (kept in f32)."""
     G, m = x.w_scale.shape if isinstance(x, PackedX) else x.xT.shape[:2]
     chunk = max(1, int(2.5e8 // (m * x.n)))
     parts = []
@@ -204,6 +210,8 @@ def marker_gram(x) -> torch.Tensor:
         rows = _standardized_rows(x, s, min(G, s + chunk))
         parts.append(rows @ rows.transpose(-1, -2))
     g = torch.cat(parts)
+    if isinstance(x, FeatX) and x.xT.dtype == torch.bfloat16:
+        g = _bf16(g)
     return torch.triu(g) + torch.triu(g, 1).transpose(-1, -2)
 
 
@@ -212,16 +220,84 @@ def marker_u0(x, e) -> torch.Tensor:
     genotypes against residuals e [n, k], [..., m_pad, k]. On a PackedX one
     K9b launch (``packed_matmul_vjp``) on the raw genotypes, then the
     standardization, w_scale * (raw - shift * sum_n e); on a FeatX one
-    matmul."""
+    matmul (in f32 on a bf16 FeatX, whose values it takes exactly, as the
+    JAX package's bf16 @ f32 promotes)."""
     if isinstance(x, FeatX):
-        return x.xT @ e
+        return x.xT.to(e.dtype) @ e
     raw = packed_matmul_vjp(x.bytes, e.expand(x.bytes.shape[:-2] + e.shape), x.n)
     return x.w_scale[..., None] * (raw - x.shift[..., None] * torch.sum(e, dim=0))
 
 
-def matmul_fm(w, a):
-    """Feature-major layer: [..., out, n] = w[..., in, out]^T @ a[..., in, n]."""
-    return w.transpose(-1, -2) @ a
+# Optional bf16 inputs of the plain products, accumulated in f32 (``--bf16``;
+# the JAX package's ``set_compute_dtype``): None keeps every product's
+# inputs as they are. It reaches ``matmul`` and ``matmul_fm`` alone: the
+# kernels compute as they do without it.
+_COMPUTE_DTYPE = None
+
+
+def set_compute_dtype(dtype) -> None:
+    """Set the plain products' input dtype: None (as given) or "bfloat16"."""
+    global _COMPUTE_DTYPE
+    if dtype not in (None, "bfloat16"):
+        raise ValueError(f"compute dtype must be None or 'bfloat16', not {dtype!r}")
+    _COMPUTE_DTYPE = dtype
+
+
+def compute_dtype():
+    """The plain products' input dtype set by ``set_compute_dtype``."""
+    return _COMPUTE_DTYPE
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 (to nearest even) and held in f32, where every
+    product of two such values is exact: a bf16 x bf16 ``@`` in torch would
+    return bf16, and the card's library may reduce it in lower precision."""
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_pair(a, b):
+    """The one dtype mismatch a product takes, bf16-stored X against f32
+    weights: both rounded to bf16 (the JAX package's ``_bf16_pair``); any
+    other mismatch is a caller's error."""
+    if torch.bfloat16 not in (a.dtype, b.dtype) or not (
+            a.is_floating_point() and b.is_floating_point()):
+        raise TypeError(f"matmul dtype mismatch {a.dtype} vs {b.dtype}: only the "
+                        "bf16-stored-X vs f32-weights pair is supported")
+    return _bf16(a), _bf16(b)
+
+
+def _inputs(a, b):
+    if _COMPUTE_DTYPE is not None:
+        return _bf16(a), _bf16(b)
+    if a.dtype != b.dtype:
+        return _bf16_pair(a, b)
+    return a, b
+
+
+def matmul(a, b) -> torch.Tensor:
+    """a @ b with optional bf16 inputs and f32 accumulation (the JAX
+    package's ``matmul``: TF32 stays off, so rounded inputs multiply
+    exactly)."""
+    a, b = _inputs(a, b)
+    return a @ b
+
+
+def matmul_fm(w, a) -> torch.Tensor:
+    """Feature-major layer: [..., out, n] = w[..., in, out]^T @ a[..., in, n],
+    inputs as ``matmul``'s."""
+    wt, a = _inputs(w.transpose(-1, -2), a)
+    return wt @ a
+
+
+def same_operator(x) -> bool:
+    """Whether ``predict`` on x is the operator of the folded transition's
+    value passes (``predict_chains``): always on packed genotypes, and on an
+    f32 FeatX without ``--bf16``. On a bf16 FeatX ``predict`` rounds W0 to
+    bf16 (``matmul_fm``), and under ``--bf16`` every product's inputs, while
+    the kernels do neither, so a sweep's snapshot predictions come from
+    ``snapshot_chains`` (or, unfolded, K8's forward on ``predict_weights``)
+    and the transition makes its own initial value pass."""
+    return not isinstance(x, FeatX) or (x.xT.dtype == torch.float32 and _COMPUTE_DTYPE is None)
 
 
 def _layer0(weights0, bias0, x: PackedX):
@@ -243,7 +319,9 @@ def forward(act_name: str, weights, biases, x):
     except under silu, whose layer 0 is the unfused K9a product. On
     a FeatX the hidden pre-activations and activations are feature-major
     [..., width, n] (plain torch matmuls, as the JAX package leaves them to
-    XLA) and the width-1 output is a sum over the summary rows.
+    XLA) and the width-1 output is a sum over the summary rows. Every plain
+    product goes through ``matmul`` or ``matmul_fm`` (bf16 inputs under
+    ``--bf16``; on a bf16 FeatX, W0 rounded to bf16), as in the JAX package.
     """
     canon = _A.canonical(act_name)
     pre, acts = [], []
@@ -265,16 +343,16 @@ def forward(act_name: str, weights, biases, x):
         if isinstance(x, PackedX):
             z = _layer0(weights[0], biases[0], x)
         else:
-            z = x @ weights[0] + biases[0].unsqueeze(-2)
+            z = matmul(x, weights[0]) + biases[0].unsqueeze(-2)
         pre.append(z)
         a = _A.apply(canon, z)
     acts.append(a)
     for l in range(1, len(weights) - 1):
-        z = a @ weights[l] + biases[l].unsqueeze(-2)
+        z = matmul(a, weights[l]) + biases[l].unsqueeze(-2)
         pre.append(z)
         a = _A.apply(canon, z)
         acts.append(a)
-    acts.append(a @ weights[-1])
+    acts.append(matmul(a, weights[-1]))
     return pre, acts
 
 
@@ -356,8 +434,48 @@ def predict_chains(act_name: str, weights, biases, x, k_live=None) -> torch.Tens
         a = _A.apply(canon, packed_matmul(x.bytes, A, x.n) + off.unsqueeze(-2))
     a = a.reshape(B, x.n, C, k).permute(2, 0, 1, 3)
     for l in range(1, len(weights) - 1):
-        a = _A.apply(canon, a @ weights[l] + biases[l].unsqueeze(-2))
-    return (a @ weights[-1])[..., 0]
+        a = _A.apply(canon, matmul(a, weights[l]) + biases[l].unsqueeze(-2))
+    return matmul(a, weights[-1])[..., 0]
+
+
+def predict_weights(weights, x):
+    """The weights as ``predict``'s operator multiplies them on x without
+    ``--bf16``: W0 rounded to bf16 on a bf16 FeatX (``matmul_fm``), else as
+    they are. A kernel given them computes that operator (it multiplies
+    the rounded values exactly)."""
+    if isinstance(x, FeatX) and x.xT.dtype == torch.bfloat16:
+        return (_bf16(weights[0]),) + tuple(weights[1:])
+    return tuple(weights)
+
+
+def snapshot_chains(act_name: str, weights, biases, x, k_live=None, ix=None) -> torch.Tensor:
+    """A sweep's snapshot predictions [C, B, n] of C chains' weights (per
+    layer [C, B, ...]) on one block: ``predict``'s operator, as the JAX
+    package takes them (``D.predict`` under a vmap). ``x`` is the block's
+    genotypes, or with ``ix`` (int32 [C * B], chain-major: the unfolded
+    sweep) the whole FeatX, each (chain, branch) reading its branch of it
+    in place. The kernel is ``predict_chains`` (K8's forward,
+    ``forward_blocked``, with ``ix``), on the weights as they are where the
+    two operators agree (``same_operator``) and on ``predict_weights`` on a
+    bf16 FeatX (W0 rounded to bf16: ``predict`` rounds nothing else there);
+    under ``--bf16`` on a FeatX it is ``predict``'s plain products (with
+    ``ix`` on a copy of the instances' branches)."""
+    if ix is None and same_operator(x):
+        return predict_chains(act_name, weights, biases, x, k_live)
+    C, B = weights[0].shape[:2]
+
+    def flat(ts):  # [C, B, ...] -> [C * B, ...]
+        return tuple(t.reshape((C * B,) + t.shape[2:]) for t in ts)
+
+    if _COMPUTE_DTYPE is not None:
+        if ix is None:
+            return predict(act_name, weights, biases, x)
+        return predict(act_name, flat(weights), flat(biases),
+                       FeatX(x.xT[ix.long()])).reshape(C, B, -1)
+    if ix is None:
+        return predict_chains(act_name, predict_weights(weights, x), biases, x)
+    return forward_blocked(_A.canonical(act_name), x.xT, ix, flat(predict_weights(weights, x)),
+                           flat(biases)).reshape(C, B, -1)
 
 
 def branch_rss(act_name: str, weights, biases, x, y) -> torch.Tensor:

@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from ..ops.activations import canonical
-from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS, forward_blocked
+from ..ops.branch_mlp import SUPPORTED_ACTIVATIONS
 from ..ops.marker_scan import marker_scan
 from ..samplers import gibbs
 from ..samplers.hmc import (
@@ -684,7 +684,9 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         mass_w, mass_b = mass
         if folded:
             prop = fold_transition(w_b, b_b, wp_b, bp_b, err_prec, x, targets, mw_b, mb_b,
-                                   momenta, y_pred0=None if ssm else preds, k_live=k_live,
+                                   momenta,
+                                   y_pred0=None if ssm or not D.same_operator(x) else preds,
+                                   k_live=k_live,
                                    step_factors=factors, mass_w=mass_w, mass_b=mass_b,
                                    row_pins=pins)
         elif ix is not None:
@@ -761,10 +763,10 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         if isinstance(X, D.FeatX) and not (folded or gd):
             # every (chain, branch) reads its branch of X in place
             x_blk, ix = X, ixs.reshape(-1).to(torch.int32)
-            preds = unflat(forward_blocked(act, X.xT, ix, flat(w_b), flat(b_b)))
+            preds = D.snapshot_chains(act, w_b, b_b, X, ix=ix)
         elif shared:  # the block's genotypes, shared by the chains
             x_blk = X if parallel else X[ixs[0]]
-            preds = D.predict_chains(act, w_b, b_b, x_blk, k_live)  # [C, Bk, n]
+            preds = D.snapshot_chains(act, w_b, b_b, x_blk, k_live)  # [C, Bk, n]
         else:  # each chain's own block
             x_blk = [X[ixs[c]] for c in range(C)]
             preds = torch.stack([

@@ -190,28 +190,23 @@ def lib() -> ctypes.CDLL:
     so.traj_packed_smem.restype = ctypes.c_longlong
     so.traj_packed_km.argtypes = [i, i, i, i]
     so.traj_packed_km.restype = i
-    so.vg_chains_f32.argtypes = [vp] * 5 + [ctypes.c_longlong] + [i] * 9 + [vp]
-    so.vg_chains_f32.restype = i
-    ll = ctypes.c_longlong
-    so.vg_chains_deep_f32.argtypes = [vp, vp, ll, ll, vp, vp, vp, ll] + [i] * 9 + [vp]
-    so.vg_chains_deep_f32.restype = i
-    so.vg_dense_deep_f32.argtypes = [vp] * 6 + [ll] + [i] * 8 + [vp]
-    so.vg_dense_deep_f32.restype = i
-    so.traj_dense_deep_f32.argtypes = [vp] * 8 + [ll] + [i] * 10 + [vp]
-    so.traj_dense_deep_f32.restype = i
-    so.vg_chains_plan.argtypes = [i] * 9 + [ctypes.POINTER(ctypes.c_longlong)]
-    so.vg_chains_plan.restype = i
-    for rule in (so.traj_dense_smem, so.vg_chains_smem, so.vg_dense_smem):
-        rule.argtypes = [i, i, i, i]
-        rule.restype = ctypes.c_longlong
-    so.traj_dense_f32.argtypes = [vp] * 4 + [ctypes.c_longlong] + [i] * 10 + [vp]
-    so.traj_dense_f32.restype = i
-    so.traj_dense_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-    so.traj_dense_plan.restype = i
-    so.vg_dense_f32.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i] * 8 + [vp]
-    so.vg_dense_f32.restype = i
-    so.vg_dense_plan.argtypes = [i] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-    so.vg_dense_plan.restype = i
+    ll, pll = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+    # K6, K7 and K8, each with its x_bf16 argument (1: X stored in bf16)
+    for name, args in (
+            ("vg_chains_f32", [vp] * 5 + [ll] + [i] * 10 + [vp]),
+            ("vg_chains_deep_f32", [vp, vp, ll, ll, vp, vp, vp, ll] + [i] * 10 + [vp]),
+            ("vg_dense_f32", [vp] * 10 + [ll] + [i] * 9 + [vp]),
+            ("vg_dense_deep_f32", [vp] * 6 + [ll] + [i] * 9 + [vp]),
+            ("traj_dense_f32", [vp] * 4 + [ll] + [i] * 11 + [vp]),
+            ("traj_dense_deep_f32", [vp] * 8 + [ll] + [i] * 11 + [vp]),
+            ("vg_chains_plan", [i] * 10 + [pll]),
+            ("traj_dense_plan", [i] * 9 + [pll]),
+            ("vg_dense_plan", [i] * 9 + [pll])):
+        getattr(so, name).argtypes = args
+        getattr(so, name).restype = i
+    for rule in ("traj_dense_smem", "vg_chains_smem", "vg_dense_smem"):
+        getattr(so, rule).argtypes = [i] * 5
+        getattr(so, rule).restype = ll
     so.marker_scan_f32.argtypes = [vp] * 6 + [ctypes.c_longlong] * 3 + [vp] * 10 + [i] * 4 + [vp]
     so.marker_scan_f32.restype = i
     _LIB = so

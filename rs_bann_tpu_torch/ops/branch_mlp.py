@@ -28,7 +28,8 @@ plain version's f32 fold here rounds each step. On a CPU tensor the pass is
 autograd for the gradients.
 
 ``data_vg_chains`` computes the same for every (branch g, chain c) of
-feature-major X xT [G, m_pad, n] (models/density.py ``FeatX``), weights[l]
+feature-major X xT [G, m_pad, n] (models/density.py ``FeatX``; f32, or
+bf16 under ``--x-bf16``), weights[l]
 [G, C, in, out], biases[l] [G, C, out] and targets [G, C, n]: one X read
 serves all C chains. On a CUDA tensor it is K7, csrc/branch_vg_chains.cu
 (every activation; at depth 0 and 1 and widths up to 32 CTAs of CC chains
@@ -56,6 +57,13 @@ or width 32 (up to 64) the deep design (csrc/dense_deep.cuh), after the one
 concatenation of the weights into their flat layout.
 Each counts its own launches; on a CPU tensor they run their plain versions
 (``data_vg_ref``: autograd of the feature-major forward).
+
+K6, K7 and K8 read feature-major X stored in f32 or in bf16 (``--x-bf16``):
+on bf16 X each passes its entry ``x_bf16`` = 1, whose X tile is staged in
+bf16 (half the bytes) and whose products take X's exact value against the
+f32 weights, unrounded, in f32 (the JAX package's kernels in interpret
+mode, ``in_dtype=None``); the plain versions upcast bf16 X exactly and
+change nothing else. Any other X dtype raises.
 """
 
 from __future__ import annotations
@@ -248,6 +256,27 @@ data_vg_packed.launches = 0  # kernel launches since the last reset
 
 _MAX_SMEM = 232448  # dynamic shared memory a block may use
 _KS, _WARPS = 40, 4  # csrc/dense_vg_mma.cuh: row stride of [rows][32] buffers, warps per group
+X_DTYPES = (torch.float32, torch.bfloat16)  # feature-major X as K6, K7 and K8 take it
+
+
+def _x_bytes(x_dtype) -> int:
+    """Bytes of one X element in a dense kernel's staged tile."""
+    if x_dtype not in X_DTYPES:
+        raise TypeError(f"feature-major X must be float32 or bfloat16, not {x_dtype}")
+    return 2 if x_dtype == torch.bfloat16 else 4
+
+
+def x_bf16(x_dtype) -> int:
+    """The dense entries' (and their plans' and rules') ``x_bf16`` argument
+    for X of this dtype: 1 on bf16, 0 on f32."""
+    return int(_x_bytes(x_dtype) == 2)
+
+
+def _check_x(X, shape, dev) -> int:
+    """Check feature-major X for K6, K7 or K8 (contiguous, on ``dev``, f32 or
+    bf16); returns the entries' ``x_bf16`` argument for its dtype."""
+    _check(X, "X", X.dtype if X.dtype in X_DTYPES else torch.float32, shape, dev)
+    return x_bf16(X.dtype)
 
 
 def _pick_km(k0: int, s: int) -> int:
@@ -256,12 +285,12 @@ def _pick_km(k0: int, s: int) -> int:
     return next((k for k in (8, 16, 32) if max(k0, s) <= k), -1)
 
 
-def _dense_smem(m: int, k0: int, s: int, depth: int, rss: bool) -> int:
+def _dense_smem(m: int, k0: int, s: int, depth: int, rss: bool, x_dtype=torch.float32) -> int:
     """csrc/dense_vg_mma.cuh ``cta_smem`` of the value-and-gradient pass at
-    one chain per CTA and one X buffer: the X tile and one group's weight
-    fragments, planes, accumulators, vectors and small sums (with ``rss``
-    its err^2 too, ``group_floats``), within 227 KB; -1 past depth 1 or a
-    width above 32."""
+    one chain per CTA and one X buffer: the X tile ([m16][40] in X's dtype)
+    and one group's weight fragments, planes, accumulators, vectors and
+    small sums (with ``rss`` its err^2 too, ``group_floats``), within 227
+    KB; -1 past depth 1 or a width above 32."""
     km = _pick_km(k0, s)
     if km < 0 or depth not in (0, 1) or m <= 0:
         return -1
@@ -270,7 +299,7 @@ def _dense_smem(m: int, k0: int, s: int, depth: int, rss: bool) -> int:
     floats = (m8 // 8) * mt * 256 + (2 * (km // 8) * mt * 256 + plane if deep else 0)
     floats += plane * (2 if deep else 1) + (m16 + (k16 if deep else 0)) * (40 if km == 32 else 24)
     floats += 3 * k16 + _WARPS * 3 * k16 + (2 * _WARPS if rss else 0)
-    smem = 4 * (m16 * _KS + floats)
+    smem = _x_bytes(x_dtype) * m16 * _KS + 4 * floats
     return smem if smem <= _MAX_SMEM else -1
 
 
@@ -284,53 +313,56 @@ def dense_deep(k0: int, s: int, depth: int) -> bool:
     return depth >= 2 or _pick_km(k0, s) < 0
 
 
-def dense_deep_smem(m: int, k0: int, s: int, depth: int) -> int:
+def dense_deep_smem(m: int, k0: int, s: int, depth: int, x_dtype=torch.float32) -> int:
     """Shared memory of one CTA of the dense deep design (csrc/dense_deep.cuh
     ``layout``) with one X tile buffer (the kernels take a second where it
-    fits), or -1 above width 64 or past 227 KB: the X tile [m16][72], W0
-    [m16][ws] in f32 (ws = KM + 16 at KM = 8, else KM + 8), b0, w_out and
-    each hidden layer's W_l^T and b_l, the tile's depth + 2 rows of
-    activations [64][KM + 4] and a few sums."""
+    fits), or -1 above width 64 or past 227 KB: the X tile [m16][72] in X's
+    dtype, W0 [m16][ws] in f32 (ws = KM + 16 at KM = 8, else KM + 8), b0,
+    w_out and each hidden layer's W_l^T and b_l, the tile's depth + 2 rows
+    of activations [64][KM + 4] and a few sums."""
     km = _packed_km(k0, s)
     if km < 0 or m <= 0 or depth < 0:
         return -1
     m16 = -(-m // 16) * 16
     ws = km + 16 if km % 32 == 8 else km + 8
-    floats = (m16 * _DEEP_XS + m16 * ws + 2 * km + depth * (km * km + km)
+    floats = (m16 * ws + 2 * km + depth * (km * km + km)
               + (depth + 2) * _DEEP_TILE * (km + 4) + 5 * _DEEP_TILE + _DEEP_THREADS // 32)
-    return 4 * floats if 4 * floats <= _MAX_SMEM else -1
+    smem = _x_bytes(x_dtype) * m16 * _DEEP_XS + 4 * floats
+    return smem if smem <= _MAX_SMEM else -1
 
 
-def _dense_rule(m: int, k0: int, s: int, depth: int, rss: bool) -> int:
+def _dense_rule(m: int, k0: int, s: int, depth: int, rss: bool, x_dtype) -> int:
     """The rule K6, K7 and K8 share: at depth 0 and 1 and padded widths up
     to 32 their first design's (``_dense_smem``), at every other shape the
-    deep design's with one X buffer."""
+    deep design's with one X buffer; the X tile in X's dtype."""
     if dense_deep(k0, s, depth):
-        return dense_deep_smem(m, k0, s, depth)
-    return _dense_smem(m, k0, s, depth, rss)
+        return dense_deep_smem(m, k0, s, depth, x_dtype)
+    return _dense_smem(m, k0, s, depth, rss, x_dtype)
 
 
-def traj_dense_smem(m: int, k0: int, s: int, depth: int) -> int:
+def traj_dense_smem(m: int, k0: int, s: int, depth: int, x_dtype=torch.float32) -> int:
     """Shared memory (bytes) K6 needs for one branch of m_pad markers and
-    layer widths k0, s at one chain per CTA, or -1 if it cannot run it (a
-    padded width above 64, or more than 227 KB). The rule of the CUDA entry
-    point of the same name; the CLI asks it, with ``vg_chains_smem``,
-    before a folded feature-major run on the card."""
-    return _dense_rule(m, k0, s, depth, rss=False)
+    layer widths k0, s at one chain per CTA on X of ``x_dtype`` (f32, or
+    bf16: a tile of half the bytes), or -1 if it cannot run it (a padded
+    width above 64, or more than 227 KB). The rule of the CUDA entry point
+    of the same name (its ``x_bf16`` argument 1 on bf16 X); the CLI asks
+    it, with ``vg_chains_smem``, before a folded feature-major run on the
+    card."""
+    return _dense_rule(m, k0, s, depth, False, x_dtype)
 
 
-def vg_chains_smem(m: int, k0: int, s: int, depth: int) -> int:
+def vg_chains_smem(m: int, k0: int, s: int, depth: int, x_dtype=torch.float32) -> int:
     """K7's rule, as ``traj_dense_smem``: its value-and-gradient pass also
     keeps each warp's err^2 in the first design (the forward-only pass needs
     less)."""
-    return _dense_rule(m, k0, s, depth, rss=True)
+    return _dense_rule(m, k0, s, depth, True, x_dtype)
 
 
-def vg_dense_smem(m: int, k0: int, s: int, depth: int) -> int:
+def vg_dense_smem(m: int, k0: int, s: int, depth: int, x_dtype=torch.float32) -> int:
     """K8's rule, as ``traj_dense_smem`` (its CTA is one chain's group, with
     err^2 as K7's); the CLI asks it before a sequential or unfolded
     feature-major run on the card."""
-    return _dense_rule(m, k0, s, depth, rss=True)
+    return _dense_rule(m, k0, s, depth, True, x_dtype)
 
 
 _PACKED_ROW = GBYTES + 4  # shared-memory row stride of the depth-0 rule's byte tile (kRow)
@@ -426,10 +458,11 @@ def unflat_params(flat, like_w, like_b):
 
 def _forward_fm(act, xT, weights, biases) -> torch.Tensor:
     """Feature-major forward: z [..., out, n] = W^T a + b per layer, then the
-    width-1 output as a sum over the summary rows. xT [..., m_pad, n],
-    weights[l] [..., in, out] -> y_pred [..., n] (models/density.py
-    ``forward`` on a FeatX)."""
-    a = xT
+    width-1 output as a sum over the summary rows. xT [..., m_pad, n] (bf16
+    upcast exactly to the weights' dtype), weights[l] [..., in, out] ->
+    y_pred [..., n] (models/density.py ``forward`` on a FeatX, but for its
+    bf16 rounding of W0)."""
+    a = xT.to(weights[0].dtype) if xT.dtype == torch.bfloat16 else xT
     for l in range(len(weights) - 1):
         a = _act_apply(act, weights[l].transpose(-1, -2) @ a + biases[l][..., None])
     return torch.sum(weights[-1] * a, dim=-2)
@@ -459,11 +492,11 @@ def data_vg_chains_ref(act, xT, weights, biases, target):
 def _dense_shape(xT, weights, rule, kernel):
     """(G, C, m, n, k0, s, depth) of a chain-folded call; raises
     NotImplementedError where ``kernel``'s shared-memory ``rule`` refuses
-    the shape."""
+    the shape on X's dtype."""
     G, m, n = xT.shape
     depth = len(weights) - 2
     k0, s = weights[0].shape[-1], weights[-1].shape[-2]
-    if rule(m, k0, s, depth) < 0:
+    if rule(m, k0, s, depth, xT.dtype) < 0:
         raise NotImplementedError(
             f"the {kernel} CUDA kernel takes padded layer widths up to 64 within 227 KB of "
             f"shared memory; got depth={depth}, m={m}, k0={k0}, s={s}"
@@ -578,25 +611,26 @@ K7_PLAN_FIELDS = ("ctas", "ctas_per_sm", "cc", "chunks", "tiles", "smem", "buffe
 
 @functools.lru_cache(maxsize=None)
 def _k7_plan(device_index: int, G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
-             grad: bool, act: int) -> tuple:
+             grad: bool, act: int, xb: int = 0) -> tuple:
     out = (ctypes.c_longlong * len(K7_PLAN_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.lib().vg_chains_plan(G, C, m, n, k0, s, depth, int(grad), act, out),
-                     "vg_chains_plan")
+        _build.check(_build.lib().vg_chains_plan(G, C, m, n, k0, s, depth, int(grad), act, xb,
+                                                 out), "vg_chains_plan")
     return tuple(out)
 
 
 def vg_chains_plan(G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
-                   grad: bool = True, act: str = "tanh", device=None) -> dict:
+                   grad: bool = True, act: str = "tanh", device=None,
+                   x_dtype=torch.float32) -> dict:
     """What a K7 launch for G branches of m_pad markers, C chains and n
-    individuals under ``act`` uses on a CUDA device (the current one by
-    default), value and gradient or (``grad`` False) forward only: CTAs in
-    the grid, resident CTAs per SM, chains per CTA (CC), chunks of chains,
-    tiles of 32 individuals per branch, shared bytes per CTA, X tile
-    buffers, scratch bytes and the register width KM."""
+    individuals under ``act`` on X of ``x_dtype`` uses on a CUDA device (the
+    current one by default), value and gradient or (``grad`` False) forward
+    only: CTAs in the grid, resident CTAs per SM, chains per CTA (CC),
+    chunks of chains, tiles of 32 individuals per branch, shared bytes per
+    CTA, X tile buffers, scratch bytes and the register width KM."""
     index = torch.cuda.current_device() if device is None else torch.device(device).index
     return dict(zip(K7_PLAN_FIELDS, _k7_plan(index, G, C, m, n, k0, s, depth, grad,
-                                             ACT_CODES[act])))
+                                             ACT_CODES[act], x_bf16(x_dtype))))
 
 
 def _vg_chains_cuda(act, xT, weights, biases, target, grad: bool):
@@ -608,14 +642,15 @@ def _vg_chains_cuda(act, xT, weights, biases, target, grad: bool):
     ``predict_chains``' transposed views are). Returns y_pred [G, C, n]
     and, with ``grad``, (rss [G, C], dws, dbs) beside it: views of one
     buffer."""
-    G, C, m, n, k0, s, depth = _dense_shape(xT, weights, vg_chains_smem, "K7")
     dev, xT = xT.device, xT.contiguous()
-    _check(xT, "xT", torch.float32, (G, m, n), dev)
+    xb = _check_x(xT, xT.shape, dev)
+    G, C, m, n, k0, s, depth = _dense_shape(xT, weights, vg_chains_smem, "K7")
     code = ACT_CODES[act]
-    plan = _k7_plan(dev.index, G, C, m, n, k0, s, depth, grad, code)
+    plan = _k7_plan(dev.index, G, C, m, n, k0, s, depth, grad, code, xb)
     P = _flat_size(m, k0, s, depth)
     out = torch.empty(G * C * (n + P + 1) if grad else G * C * n, dtype=torch.float32, device=dev)
-    scratch = _scratch(dev, ("K7", dev.index, G, C, m, n, k0, s, depth), plan[7]) if grad else None
+    scratch = (_scratch(dev, ("K7", dev.index, G, C, m, n, k0, s, depth, xb), plan[7]) if grad
+               else None)
     vp = ctypes.c_void_p
     if dense_deep(k0, s, depth):  # the weights in their flat layout, one concatenation
         q = flat_params(weights, biases)
@@ -625,7 +660,7 @@ def _vg_chains_cuda(act, xT, weights, biases, target, grad: bool):
         status = _build.lib().vg_chains_deep_f32(
             vp(xT.data_ptr()), vp(ptrs[0]), strides[0], strides[1], vp(q.data_ptr()),
             vp(out.data_ptr()), vp(scratch.data_ptr() if grad else 0), plan[7], G, C, m, n, k0,
-            s, depth, code, int(grad), vp(_build.stream_ptr(xT)),
+            s, depth, code, int(grad), xb, vp(_build.stream_ptr(xT)),
         )
         _build.check(status, "vg_chains_deep_f32")
     else:
@@ -634,10 +669,11 @@ def _vg_chains_cuda(act, xT, weights, biases, target, grad: bool):
             vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs),
             (ctypes.c_longlong * len(strides))(*strides), vp(out.data_ptr()),
             vp(scratch.data_ptr() if grad else 0), plan[7], G, C, m, n, k0, s, depth, code,
-            int(grad), vp(_build.stream_ptr(xT)),
+            int(grad), xb, vp(_build.stream_ptr(xT)),
         )
         _build.check(status, "vg_chains_f32")
     data_vg_chains.launches += 1
+    data_vg_chains.xbf16_launches += xb
     y_pred = out[: G * C * n].view(G, C, n)
     if not grad:
         return y_pred
@@ -671,6 +707,7 @@ def forward_chains(act_name, xT, weights, biases) -> torch.Tensor:
 
 
 data_vg_chains.launches = 0  # K7 launches (both instantiations) since the last reset
+data_vg_chains.xbf16_launches = 0  # those of them on bf16 X
 
 
 # ------------------------------------- dense, one instance per X read (K8)
@@ -711,25 +748,25 @@ K8_PLAN_FIELDS = ("ctas", "tiles", "smem", "ctas_per_sm", "buffers", "slots", "s
 
 @functools.lru_cache(maxsize=None)
 def _k8_plan(device_index: int, NB: int, m: int, n: int, k0: int, s: int, depth: int,
-             grad: bool, act: int) -> tuple:
+             grad: bool, act: int, xb: int = 0) -> tuple:
     out = (ctypes.c_longlong * len(K8_PLAN_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.lib().vg_dense_plan(NB, m, n, k0, s, depth, int(grad), act, out),
+        _build.check(_build.lib().vg_dense_plan(NB, m, n, k0, s, depth, int(grad), act, xb, out),
                      "vg_dense_plan")
     return tuple(out)
 
 
 def vg_dense_plan(NB: int, m: int, n: int, k0: int, s: int, depth: int, grad: bool = True,
-                  act: str = "tanh", device=None) -> dict:
+                  act: str = "tanh", device=None, x_dtype=torch.float32) -> dict:
     """What a K8 launch for NB instances on X of m_pad markers and n
-    individuals under ``act`` uses on a CUDA device (the current one by
-    default; each activation is its own instantiation): CTAs in
-    the grid, tiles of 32 individuals per instance, shared bytes per CTA,
-    resident CTAs per SM, X tile buffers, partial-row slots, scratch bytes
-    and the register width KM."""
+    individuals, stored in ``x_dtype``, under ``act`` uses on a CUDA device
+    (the current one by default; each activation is its own instantiation):
+    CTAs in the grid, tiles of 32 individuals per instance, shared bytes per
+    CTA, resident CTAs per SM, X tile buffers, partial-row slots, scratch
+    bytes and the register width KM."""
     index = torch.cuda.current_device() if device is None else torch.device(device).index
     return dict(zip(K8_PLAN_FIELDS, _k8_plan(index, NB, m, n, k0, s, depth, grad,
-                                             ACT_CODES[act])))
+                                             ACT_CODES[act], x_bf16(x_dtype))))
 
 
 def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
@@ -744,14 +781,14 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
     G, (m, n) = X.shape[0] if lead else 1, X.shape[-2:]
     NB, depth = weights[0].shape[0] if lead else 1, len(weights) - 2
     k0, s = weights[0].shape[-1], weights[-1].shape[-2]
-    if vg_dense_smem(m, k0, s, depth) < 0:
+    if vg_dense_smem(m, k0, s, depth, X.dtype) < 0:
         raise NotImplementedError(
             f"the K8 CUDA kernel takes padded layer widths up to 64 within 227 KB of shared "
             f"memory; got depth={depth}, m={m}, k0={k0}, s={s}"
         )
     dev, pre = X.device, (NB,) if lead else ()
     X = X.contiguous()  # each of these is itself when contiguous: no copy on the main paths
-    _check(X, "X", torch.float32, (G, m, n) if lead else (m, n), dev)
+    xb = _check_x(X, (G, m, n) if lead else (m, n), dev)
     ws = [w.contiguous() for w in weights]
     bs = [b.contiguous() for b in biases]
     dims = [(i, o) for i, o in _dims(m, k0, s, depth)] + [(s, 1)]
@@ -768,10 +805,11 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
         targets = targets.contiguous()
         _check(targets, "targets", torch.float32, pre + (n,), dev)
     code = ACT_CODES[act]
-    nbytes = _k8_plan(dev.index, NB, m, n, k0, s, depth, grad, code)[6]  # scratch bytes
+    nbytes = _k8_plan(dev.index, NB, m, n, k0, s, depth, grad, code, xb)[6]  # scratch bytes
     P = _flat_size(m, k0, s, depth)
     out = torch.empty(NB * (n + P + 1) if grad else NB * n, dtype=torch.float32, device=dev)
-    scratch = _scratch(dev, ("K8", dev.index, NB, m, n, k0, s, depth), nbytes) if grad else None
+    scratch = (_scratch(dev, ("K8", dev.index, NB, m, n, k0, s, depth, xb), nbytes) if grad
+               else None)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -780,7 +818,8 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
         q = flat_params(ws, bs)
         status = _build.lib().vg_dense_deep_f32(
             X.data_ptr(), ptr(ix), ptr(targets if grad else None), q.data_ptr(), out.data_ptr(),
-            ptr(scratch), nbytes, NB, m, n, k0, s, depth, code, int(grad), _build.stream_ptr(X),
+            ptr(scratch), nbytes, NB, m, n, k0, s, depth, code, int(grad), xb,
+            _build.stream_ptr(X),
         )
         _build.check(status, "vg_dense_deep_f32")
     else:
@@ -788,7 +827,7 @@ def _vg_dense_cuda(act, X, ix, weights, biases, targets, grad: bool):
             X.data_ptr(), ptr(ix), ptr(targets if grad else None), ws[0].data_ptr(),
             bs[0].data_ptr(), ptr(ws[1] if depth else None), ptr(bs[1] if depth else None),
             ws[-1].data_ptr(), out.data_ptr(), ptr(scratch), nbytes, NB, m, n, k0, s, depth,
-            code, int(grad), _build.stream_ptr(X),
+            code, int(grad), xb, _build.stream_ptr(X),
         )
         _build.check(status, "vg_dense_f32")
     y_pred = out[: NB * n].view(pre + (n,))
@@ -815,6 +854,7 @@ def data_vg_blocked(act_name, X, ix, weights, biases, targets):
         return data_vg_blocked_ref(act_name, X, ix, weights, biases, targets)
     out = _vg_dense_cuda(act_name, X, ix, weights, biases, targets, True)
     data_vg_blocked.launches += 1
+    data_vg_blocked.xbf16_launches += X.dtype == torch.bfloat16
     return out
 
 
@@ -830,6 +870,7 @@ def data_vg(act_name, xT, weights, biases, target):
         return data_vg_ref(act_name, xT, weights, biases, target)
     out = _vg_dense_cuda(act_name, xT, None, weights, biases, target, True)
     data_vg.launches += 1
+    data_vg.xbf16_launches += xT.dtype == torch.bfloat16
     return out
 
 
@@ -841,9 +882,12 @@ def forward_blocked(act_name, X, ix, weights, biases) -> torch.Tensor:
         return forward_blocked_ref(act_name, X, ix, weights, biases)
     y_pred = _vg_dense_cuda(act_name, X, ix, weights, biases, None, False)
     forward_blocked.launches += 1
+    forward_blocked.xbf16_launches += X.dtype == torch.bfloat16
     return y_pred
 
 
 data_vg.launches = 0  # K8a launches since the last reset
 data_vg_blocked.launches = 0  # K8b launches since the last reset
 forward_blocked.launches = 0  # forward-only K8 launches since the last reset
+# those of them on bf16 X (x_bf16 = 1)
+data_vg.xbf16_launches = data_vg_blocked.xbf16_launches = forward_blocked.xbf16_launches = 0

@@ -36,7 +36,10 @@ prior factors included; its sums are rounded in another order too. K6
 takes any depth and padded widths up to 64: past depth 1 or width 32 it
 runs the dense deep design (csrc/dense_deep.cuh: one chain a CTA over
 tiles of 64 individuals, layer 0 in 3xTF32, the hidden layers on the f32
-cores) on flat copies of its per-layer inputs.
+cores) on flat copies of its per-layer inputs. K6 reads X stored in f32
+or in bf16 (``--x-bf16``: its entries' ``x_bf16`` argument, a bf16 X tile; the
+products as on the f32 values it upcasts to exactly), as K7 and K8 do
+(ops/branch_mlp.py).
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from . import _build
 from .activations import ACT_CODES
 from .branch_mlp import (
     SUPPORTED_ACTIVATIONS,
+    _check_x,
     _dense_shape,
     _pick_km,
     _scratch,
@@ -62,6 +66,7 @@ from .branch_mlp import (
     traj_dense_smem,
     traj_packed_smem,
     unflat_params,
+    x_bf16,
 )
 from .packed_matmul import GBYTES, _check, _check_aligned, unpack_strided
 
@@ -200,7 +205,7 @@ def integrate_chains_ref(
 ):
     """Plain PyTorch version of K6: L leapfrog steps whose data gradients
     come from ``data_vg_chains_ref`` (autograd of the feature-major
-    forward). Returns (w_L, b_L, pw_L, pb_L)."""
+    forward; bf16 xT upcast exactly). Returns (w_L, b_L, pw_L, pb_L)."""
     e4, e3 = err[:, :, None, None], err[:, :, None]
 
     def ld_grad(ws, bs):
@@ -231,24 +236,25 @@ K6_PLAN_FIELDS = ("ctas", "ctas_per_sm", "cc", "chunks", "tiles", "smem", "buffe
 
 @functools.lru_cache(maxsize=None)
 def _k6_plan(device_index: int, G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
-             act: int) -> tuple:
+             act: int, xb: int = 0) -> tuple:
     out = (ctypes.c_longlong * len(K6_PLAN_FIELDS))()
     with torch.cuda.device(device_index):
-        _build.check(_build.lib().traj_dense_plan(G, C, m, n, k0, s, depth, act, out),
+        _build.check(_build.lib().traj_dense_plan(G, C, m, n, k0, s, depth, act, xb, out),
                      "traj_dense_plan")
     return tuple(out)
 
 
 def traj_dense_plan(G: int, C: int, m: int, n: int, k0: int, s: int, depth: int,
-                    act: str = "tanh", device=None) -> dict:
+                    act: str = "tanh", device=None, x_dtype=torch.float32) -> dict:
     """What a K6 launch for G branches of m_pad markers, C chains and n
-    individuals under ``act`` uses on a CUDA device (the current one by
-    default): CTAs in the cooperative grid, resident CTAs per SM, chains per
-    CTA (CC), chunks of chains, tiles of 32 individuals per branch, shared
-    bytes per CTA, X tile buffers, scratch bytes (the partial rows of one
-    evaluation) and the register width KM."""
+    individuals under ``act`` on X of ``x_dtype`` uses on a CUDA device (the
+    current one by default): CTAs in the cooperative grid, resident CTAs per
+    SM, chains per CTA (CC), chunks of chains, tiles of 32 individuals per
+    branch, shared bytes per CTA, X tile buffers, scratch bytes (the partial
+    rows of one evaluation) and the register width KM."""
     index = torch.cuda.current_device() if device is None else torch.device(device).index
-    return dict(zip(K6_PLAN_FIELDS, _k6_plan(index, G, C, m, n, k0, s, depth, ACT_CODES[act])))
+    return dict(zip(K6_PLAN_FIELDS, _k6_plan(index, G, C, m, n, k0, s, depth, ACT_CODES[act],
+                                             x_bf16(x_dtype))))
 
 
 def _integrate_dense_cuda(
@@ -260,15 +266,15 @@ def _integrate_dense_cuda(
     step sizes and prior factors broadcast, as the sampler's expanded ones
     are) and writes the end of the trajectory into one new buffer, returned
     as per-layer views."""
-    G, C, m, n, k0, s, depth = _dense_shape(xT, weights, traj_dense_smem, "K6")
     dev, xT = xT.device, xT.contiguous()
-    _check(xT, "xT", torch.float32, (G, m, n), dev)
+    xb = _check_x(xT, xT.shape, dev)
+    G, C, m, n, k0, s, depth = _dense_shape(xT, weights, traj_dense_smem, "K6")
     code = ACT_CODES[act]
-    plan = _k6_plan(dev.index, G, C, m, n, k0, s, depth, code)
-    scratch = _scratch(dev, ("K6", dev.index, G, C, m, n, k0, s, depth), plan[7])
+    plan = _k6_plan(dev.index, G, C, m, n, k0, s, depth, code, xb)
+    scratch = _scratch(dev, ("K6", dev.index, G, C, m, n, k0, s, depth, xb), plan[7])
     if dense_deep(k0, s, depth):
         return _integrate_dense_deep(act, xT, targets, err, weights, biases, p_w, p_b, eps_w,
-                                     eps_b, lam_w, lam_b, L_steps, l1, scratch, plan[7])
+                                     eps_b, lam_w, lam_b, L_steps, l1, scratch, plan[7], xb)
     # the layers in the kernel's slots W0, b0, W1, b1, w_out (W1, b1 absent at depth 0)
     shapes = layer_shapes(G, C, m, k0, s, depth)
     sizes = [0 if sh is None else G * C * int(torch.Size(sh[2:]).numel()) for sh in shapes]
@@ -288,10 +294,11 @@ def _integrate_dense_cuda(
     status = _build.lib().traj_dense_f32(
         vp(xT.data_ptr()), (vp * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
         vp(scratch.data_ptr()), plan[7], G, C, m, n, k0, s, depth, int(L_steps), code,
-        int(bool(l1)), vp(_build.stream_ptr(xT)),
+        int(bool(l1)), xb, vp(_build.stream_ptr(xT)),
     )
     _build.check(status, "traj_dense_f32")
     integrate_chains.launches += 1
+    integrate_chains.xbf16_launches += xb
 
     def layers(vs):
         mid = (vs[2],) if depth else ()
@@ -303,7 +310,7 @@ def _integrate_dense_cuda(
 
 
 def _integrate_dense_deep(act, xT, targets, err, weights, biases, p_w, p_b, eps_w, eps_b, lam_w,
-                          lam_b, L_steps, l1, scratch, nbytes):
+                          lam_b, L_steps, l1, scratch, nbytes, xb):
     """K6's deep design (depth 2 or more, or a padded width of 33-64;
     csrc/dense_deep.cuh): the weights, momenta, step sizes and prior
     factors concatenated into flat [G, C, P] copies (four device ops), the
@@ -325,11 +332,12 @@ def _integrate_dense_deep(act, xT, targets, err, weights, biases, p_w, p_b, eps_
     status = _build.lib().traj_dense_deep_f32(
         vp(xT.data_ptr()), (vp * 2)(*ptrs), (ctypes.c_longlong * 8)(*strides), vp(w.data_ptr()),
         vp(pw.data_ptr()), vp(eps.data_ptr()), vp(lam.data_ptr()), vp(scratch.data_ptr()),
-        nbytes, G, C, m, n, k0, s, depth, int(L_steps), ACT_CODES[act], int(bool(l1)),
+        nbytes, G, C, m, n, k0, s, depth, int(L_steps), ACT_CODES[act], int(bool(l1)), xb,
         vp(_build.stream_ptr(xT)),
     )
     _build.check(status, "traj_dense_deep_f32")
     integrate_chains.launches += 1
+    integrate_chains.xbf16_launches += xb
     w_f, b_f = unflat_params(w, weights, biases)
     pw_f, pb_f = unflat_params(pw, weights, biases)
     return w_f, b_f, pw_f, pb_f
@@ -340,7 +348,8 @@ def integrate_chains(
     L_steps, l1=False,
 ):
     """Integrate L leapfrog steps for all (branch, chain) pairs on dense
-    feature-major X, same contract as the JAX package's: xT [G, m_pad, n];
+    feature-major X, same contract as the JAX package's: xT [G, m_pad, n]
+    (f32 or bf16);
     targets [G, C, n]; err [G, C]; weights, momenta, step sizes and prior
     precision factors per layer [G, C, in, out] (biases [G, C, out]).
     Returns (w_L, b_L, pw_L, pb_L). A CPU tensor runs the plain version; a
@@ -353,3 +362,4 @@ def integrate_chains(
 
 
 integrate_chains.launches = 0  # K6 launches since the last reset
+integrate_chains.xbf16_launches = 0  # those of them on bf16 X

@@ -4,11 +4,13 @@ NVIDIA GPU: the kernel with one piece at a time taken out or changed.
 
     python3 scripts/ablate_k6_torch.py [--root DIR] [--variants NAME,...]
 
-Each variant is the checkout's traj_dense.cu and its copy of
-csrc/dense_vg_mma.cuh (the tile's phases, the split and the joins) edited
-as below (each edit asserts that its anchor is there), compiled by nvcc
-into its own library (all variants in parallel; tanh's instantiations only)
-and called through the same C entry point:
+Each variant is the checkout's traj_dense.cu with its copies of
+csrc/traj_dense.cuh (the kernel) and csrc/dense_vg_mma.cuh (the tile's
+phases, the split and the joins) edited as below (each edit asserts that
+its anchor is there), compiled by nvcc into its own library (all variants
+in parallel; tanh's f32-X instantiations only; the bf16-X ones linked in
+from the main build's object of csrc/traj_dense_xbf16.cu) and called
+through the same C entry point:
   kernel        unchanged
   no_phase_b    phase B (dW0 and dW1 over each tile) removed
   no_mma_a      phase A's three products skipped (their sums zero)
@@ -39,8 +41,8 @@ from pathlib import Path
 
 G, C, M, N, K = 64, 4, 64, 4096, 32
 RUNS = 5
-TANH_ONLY = ("template <int KM, bool DEEP, int CC>\nconst void* kernel_act(int act) {",
-             "template <int KM>\nconst void* kernel_km")
+TANH_ONLY = ("template <int KM, bool DEEP, int CC, bool XB>\nconst void* kernel_act(int act) {",
+             "template <int KM, bool XB>\nconst void* kernel_km")
 EDITS = {  # variant: [(file, old, new)]
     "no_phase_b": [("dense_vg_mma.cuh", "for (int u = w; u < u0 + u1; u += kWarps) {",
                     "for (int u = w; u < 0; u += kWarps) {")],
@@ -59,31 +61,34 @@ EDITS = {  # variant: [(file, old, new)]
                    "    hi = __float_as_uint(x) & 0xffffe000u;\n"
                    "    lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;",
                    "    split2(x, hi, lo);")],
-    "two_barriers": [("traj_dense.cu", "            } else {\n                buf ^= 1;",
+    "two_barriers": [("traj_dense.cuh", "            } else {\n                buf ^= 1;",
                       "            } else {\n                __syncthreads();\n"
                       "                buf ^= 1;")],
-    "no_update": [("traj_dense.cu",
+    "no_update": [("traj_dense.cuh",
                    "        update_layer<0, CC>(a, l);\n        update_layer<1, CC>(a, l);",
                    "        if (a.steps < 0) update_layer<0, CC>(a, l);\n"
                    "        if (a.steps < 0) update_layer<1, CC>(a, l);"),
-                  ("traj_dense.cu", "            update_layer<2, CC>(a, l);\n"
+                  ("traj_dense.cuh", "            update_layer<2, CC>(a, l);\n"
                    "            update_layer<3, CC>(a, l);\n        }\n"
                    "        update_layer<4, CC>(a, l);",
                    "            if (a.steps < 0) update_layer<2, CC>(a, l);\n"
                    "            if (a.steps < 0) update_layer<3, CC>(a, l);\n        }\n"
                    "        if (a.steps < 0) update_layer<4, CC>(a, l);")],
-    "cc1": [("traj_dense.cu", "constexpr int kMaxCC = 2;", "constexpr int kMaxCC = 1;")],
+    "cc1": [("traj_dense.cuh", "constexpr int kMaxCC = 2;", "constexpr int kMaxCC = 1;")],
 }
 
 
 def variant(csrc, out, name):
-    """Write ``name``'s traj_dense.cu and dense_vg_mma.cuh into ``out``."""
+    """Write ``name``'s traj_dense.cu, traj_dense.cuh and dense_vg_mma.cuh
+    into ``out``, with the checkout's dense_deep.cuh (which includes
+    dense_vg_mma.cuh: the variant's copy, found beside it)."""
     out.mkdir(parents=True, exist_ok=True)
-    files = {f: (csrc / f).read_text() for f in ("traj_dense.cu", "dense_vg_mma.cuh")}
-    a, b = (files["traj_dense.cu"].index(s) for s in TANH_ONLY)
-    files["traj_dense.cu"] = (files["traj_dense.cu"][:a] + TANH_ONLY[0] + "\n    return "
-                              "reinterpret_cast<const void*>(&traj_dense_kernel<KM, DEEP, 3, CC>);"
-                              "\n}\n\n" + files["traj_dense.cu"][b:])
+    files = {f: (csrc / f).read_text()
+             for f in ("traj_dense.cu", "traj_dense.cuh", "dense_vg_mma.cuh", "dense_deep.cuh")}
+    k = files["traj_dense.cuh"]
+    a, b = (k.index(s) for s in TANH_ONLY)
+    files["traj_dense.cuh"] = (k[:a] + TANH_ONLY[0] + "\n    return reinterpret_cast<const "
+                               "void*>(&traj_dense_kernel<KM, DEEP, 3, CC, XB>);\n}\n\n" + k[b:])
     for f, old, new in EDITS.get(name, []):
         assert old in files[f], (name, old)
         files[f] = files[f].replace(old, new)
@@ -149,13 +154,16 @@ def main():
     csrc = root / "rs_bann_tpu_torch" / "csrc"
     out_dir = root / "build" / "ablate_k6"
     names = opts.variants.split(",")
+    _build.build()  # the main build's objects: the bf16-X kernels the entries reach
+    xbf16 = [str(_build._object(src, key)) for src, key in _build._keys().items()
+             if src.name == "traj_dense_xbf16.cu"]
     procs = {}
     for name in names:
         d = out_dir / name
         variant(csrc, d, name)
-        procs[name] = subprocess.Popen(  # the variant's header first, then the checkout's
+        procs[name] = subprocess.Popen(  # the variant's headers first, then the checkout's
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d), "-I", str(csrc), "-o",
-             str(d / "lib.so"), str(d / "traj_dense.cu")],
+             str(d / "lib.so"), str(d / "traj_dense.cu"), *xbf16],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -164,9 +172,9 @@ def main():
         if proc.returncode:
             raise SystemExit(f"ablate_k6_torch: nvcc failed on {name}:\n{log}")
         so = ctypes.CDLL(str(out_dir / name / "lib.so"))
-        so.traj_dense_f32.argtypes = [vp] * 4 + [i64] + [i32] * 10 + [vp]
+        so.traj_dense_f32.argtypes = [vp] * 4 + [i64] + [i32] * 11 + [vp]
         so.traj_dense_f32.restype = i32
-        so.traj_dense_plan.argtypes = [i32] * 8 + [ctypes.POINTER(i64)]
+        so.traj_dense_plan.argtypes = [i32] * 9 + [ctypes.POINTER(i64)]
         so.traj_dense_plan.restype = i32
         libs[name] = so
     dev = torch.device("cuda")
@@ -176,10 +184,10 @@ def main():
     def timed(so, g, c, n, steps):
         X, keep, ptrs, strides = case(dev, g, c, n)
         plan = (i64 * 9)()
-        _build.check(so.traj_dense_plan(g, c, M, n, K, K, 1, 3, plan), "traj_dense_plan")
+        _build.check(so.traj_dense_plan(g, c, M, n, K, K, 1, 3, 0, plan), "traj_dense_plan")
         scratch = torch.empty(plan[7], dtype=torch.uint8, device=dev)
         args = (vp(X.data_ptr()), ptrs, strides, vp(scratch.data_ptr()), plan[7], g, c, M, n, K,
-                K, 1, steps, 3, 0, stream)
+                K, 1, steps, 3, 0, 0, stream)
         return cuda_ms(lambda: _build.check(so.traj_dense_f32(*args), "traj_dense_f32"))
 
     for name, so in libs.items():

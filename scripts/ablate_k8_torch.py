@@ -8,7 +8,9 @@ Each variant is the checkout's branch_vg_dense.cu and its copy of
 csrc/dense_vg_mma.cuh (the tile's phases, the flush and the X copy) with a
 phase removed by an edit of their text (each edit asserts that its anchor
 is there), compiled by nvcc into its own library (all variants in
-parallel) and called through the same C entry point:
+parallel; the deep design's and the bf16-X kernels its entries reach
+linked in from the main build's objects of csrc/branch_vg_chains*.cu and
+csrc/branch_fwd_chains*.cu) and called through the same C entry point:
   kernel      unchanged
   no_stage    the weight fragments not staged (stale shared memory)
   no_mma_a    phase A's three products skipped (their sums zero)
@@ -52,9 +54,12 @@ EDITS = {  # variant: [(file, old, new)]
 
 
 def variant(csrc, out, name):
-    """Write ``name``'s branch_vg_dense.cu and dense_vg_mma.cuh into ``out``."""
+    """Write ``name``'s branch_vg_dense.cu and dense_vg_mma.cuh into ``out``,
+    with the checkout's dense_deep.cuh (which includes dense_vg_mma.cuh: the
+    variant's copy, found beside it)."""
     out.mkdir(parents=True, exist_ok=True)
-    files = {f: (csrc / f).read_text() for f in ("branch_vg_dense.cu", "dense_vg_mma.cuh")}
+    files = {f: (csrc / f).read_text()
+             for f in ("branch_vg_dense.cu", "dense_vg_mma.cuh", "dense_deep.cuh")}
     for f, old, new in EDITS.get(name, []):
         assert old in files[f], (name, old)
         files[f] = files[f].replace(old, new)
@@ -103,13 +108,16 @@ def main():
     csrc = root / "rs_bann_tpu_torch" / "csrc"
     out_dir = root / "build" / "ablate_k8"
     names = opts.variants.split(",")
+    _build.build()  # the main build's objects: the run kernels the entries reach
+    others = [str(_build._object(src, key)) for src, key in _build._keys().items()
+              if src.name.startswith(("branch_vg_chains", "branch_fwd_chains"))]
     procs = {}
     for name in names:
         d = out_dir / name
         variant(csrc, d, name)
         procs[name] = subprocess.Popen(  # the variant's header first, then the checkout's
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d), "-I", str(csrc), "-o",
-             str(d / "lib.so"), str(d / "branch_vg_dense.cu")],
+             str(d / "lib.so"), str(d / "branch_vg_dense.cu"), *others],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs, res = {}, {"device": smi, "ms": {}}
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -118,7 +126,7 @@ def main():
         if proc.returncode:
             raise SystemExit(f"ablate_k8_torch: nvcc failed on {name}:\n{log}")
         so = ctypes.CDLL(str(out_dir / name / "lib.so"))
-        so.vg_dense_f32.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i32] * 8 + [vp]
+        so.vg_dense_f32.argtypes = [vp] * 10 + [ctypes.c_longlong] + [i32] * 9 + [vp]
         so.vg_dense_f32.restype = i32
         libs[name] = so
     dev = torch.device("cuda")
@@ -141,7 +149,7 @@ def main():
                 args = (vp(X.data_ptr()), vp(ix.data_ptr()), vp(t.data_ptr()), vp(ws[0].data_ptr()),
                         vp(bs[0].data_ptr()), vp(ws[1].data_ptr()), vp(bs[1].data_ptr()),
                         vp(ws[2].data_ptr()), vp(out.data_ptr()), vp(scratch.data_ptr()),
-                        plan["scratch"], NB, M, N, K, K, 1, ACT_CODES[act], 1,
+                        plan["scratch"], NB, M, N, K, K, 1, ACT_CODES[act], 1, 0,
                         vp(torch.cuda.current_stream().cuda_stream))
                 row[name] = cuda_ms(lambda: _build.check(so.vg_dense_f32(*args), name))
             label = f"NB={NB} {act}"

@@ -15,7 +15,9 @@ Two parts, every input drawn from a seed, no CLI run and no data files:
    and forward only) and K8 (one instance, and 32 through an index) there;
    and the packed deep design at depth 2, width 56, tanh (K4 on the branch,
    K5 on the block at L 2), whose hidden-layer code the dense deep design
-   (csrc/dense_deep.cuh) shares.
+   (csrc/dense_deep.cuh) shares; and the dense deep design itself there on
+   f32 X (B 10, C 4, n 20,000: K6 at L 2, K7 both forms, K8a, K8b on 40
+   instances).
 2. Depth 1 at width 16 (m_pad 104, n 100,000, identity): K4 on one branch
    and K5 on the block (B 10, C 4, L 30), each held to its plain version
    (REL_TOL; 1e-3 for K5 at L 30), with its CUDA-event time (median of 7,
@@ -202,6 +204,33 @@ def main():
                                      *dlam5, 2, N)
     for k, v in enumerate(t_ for part in k5d for t_ in part):
         out[f"K5deep {k}"] = v
+    # the dense deep design at depth 2, width 56 on f32 X (csrc/dense_deep.cuh):
+    # K6 on the block at L 2, K7 (both forms), K8a, and K8b on 40 instances
+    ND = 20_000
+    xd = t(rng.standard_normal((B, M_PAD, ND)))
+    ddw, ddb = layers((B, C), dims)
+    ddp = layers((B, C), dims, sc=1.0)
+    ddeps = (tuple(torch.full_like(w, 2e-4) for w in ddw),
+             tuple(torch.full_like(b, 2e-4) for b in ddb))
+    ddlam = (tuple(torch.ones_like(w) for w in ddw), tuple(torch.zeros_like(b) for b in ddb))
+    dtg, derr = t(rng.standard_normal((B, C, ND))), t(rng.random((B, C)) + 0.5)
+    k6d = LF.integrate_chains("tanh", xd, dtg, derr, ddw, ddb, *ddp, *ddeps, *ddlam, 2)
+    for k, v in enumerate(t_ for part in k6d for t_ in part):
+        out[f"K6deep {k}"] = v
+    k7d = BM.data_vg_chains("tanh", xd, ddw, ddb, dtg)
+    for k, v in enumerate((k7d[0], k7d[1]) + tuple(k7d[2]) + tuple(k7d[3])):
+        out[f"K7deep {k}"] = v
+    out["K7deep forward"] = BM.forward_chains("tanh", xd, ddw, ddb)
+    k8ad = BM.data_vg("tanh", xd[0], tuple(w[0, 0] for w in ddw), tuple(b[0, 0] for b in ddb),
+                      dtg[0, 0])
+    for k, v in enumerate((k8ad[0], k8ad[1]) + tuple(k8ad[2]) + tuple(k8ad[3])):
+        out[f"K8adeep {k}"] = v
+    ixd = (torch.arange(B * C, device=dev) % B).to(torch.int32)
+    k8bd = BM.data_vg_blocked("tanh", xd, ixd, tuple(w.reshape((B * C,) + w.shape[2:]) for w in ddw),
+                              tuple(b.reshape((B * C,) + b.shape[2:]) for b in ddb),
+                              dtg.reshape(B * C, ND))
+    for k, v in enumerate((k8bd[0], k8bd[1]) + tuple(k8bd[2]) + tuple(k8bd[3])):
+        out[f"K8bdeep {k}"] = v
     torch.cuda.synchronize()
     saved = {k: v.detach().reshape(-1).float().cpu() for k, v in out.items()}
     if opts.save:

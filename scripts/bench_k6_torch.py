@@ -141,8 +141,8 @@ def launcher(TL, BM, _build, X, state, steps, act):
             ptrs.append(o.data_ptr())
             strides += tns.stride()[:2] + tns.stride()[-2:]
         args = (vp(X.data_ptr()), (vp * 32)(*ptrs), (ctypes.c_longlong * 128)(*strides),
-                vp(scratch.data_ptr()), plan["scratch"], G, C, M, N, K, K, 1, steps, code, 0,
-                stream)
+                vp(scratch.data_ptr()), plan["scratch"], G, C, M, N, K, K, 1, steps, code,
+                0) + ((0,) if hasattr(TL, "x_bf16") else ()) + (stream,)
         keep = (scratch, out)
     else:
         w, pw = BM.flat_params(ws, bs), BM.flat_params(p_w, p_b)

@@ -87,7 +87,7 @@ def launcher(BM, _build, X, ws, bs, targets, grad):
         scratch = torch.empty(max(plan["scratch"], 8), dtype=torch.uint8, device=X.device)
         args = (vp(X.data_ptr()), (vp * 6)(*ptrs), (ctypes.c_longlong * 24)(*strides),
                 vp(out.data_ptr()), vp(scratch.data_ptr()), plan["scratch"], G, C, M, N, K, K, 1,
-                code, int(grad), stream)
+                code, int(grad)) + ((0,) if hasattr(BM, "x_bf16") else ()) + (stream,)
         keep += [out, scratch]
     else:
         q = BM.flat_params(ws, bs)

@@ -121,7 +121,8 @@ def launcher(BM, _build, X, ix, ws, bs, targets):
         args = (vp(X.data_ptr()), vp(ix.data_ptr()), vp(targets.data_ptr()), vp(ws[0].data_ptr()),
                 vp(bs[0].data_ptr()), vp(ws[1].data_ptr()), vp(bs[1].data_ptr()),
                 vp(ws[2].data_ptr()), vp(out.data_ptr()), vp(scratch.data_ptr()), plan["scratch"],
-                NB, M, N, K, K, 1, ACT_CODES["tanh"], 1, stream)
+                NB, M, N, K, K, 1, ACT_CODES["tanh"], 1) + (
+                    (0,) if hasattr(BM, "x_bf16") else ()) + (stream,)
         keep = (out, scratch)
     else:  # the first K8: flat weights [NB, 1, P], a partial row per 128-individual tile
         q = BM.flat_params(tuple(w.unsqueeze(1) for w in ws), tuple(b.unsqueeze(1) for b in bs))

@@ -135,6 +135,42 @@ def test_dense_kernel_limits(shape, k6, k78):
     assert TBM.vg_dense_smem(*shape) == k78
 
 
+# The same rules on X stored in bf16 (--x-bf16), by hand: the X tile holds
+# bf16, so it takes half its f32 bytes and the rest is unchanged. First
+# design: 80 m16 bytes less ([m16][40] x 2 bytes in place of 4), so at
+# depth 1 width 32 4 (40 m16 + 64 m8 + 40 m16 + 9,704) - 80 m16 = 240 m16
+# + 256 m8 + 38,816 for K7 and K8 (K6: 32 less, no err^2), within 232,448
+# up to m = 384 (229,280), where f32 X stops at 330. Deep design: 144 m16
+# less ([m16][72]); at depth 2 width 56 (KM 64) 432 m16 + 104,736, so up to
+# 288 markers (229,152) where f32 X stops at 208.
+DENSE_LIMITS_XBF16 = [
+    ((64, 32, 32, 1), 70528, 70560),  # the dense flagship: 5,120 bytes less
+    ((40, 16, 16, 0), 17088, 17120),
+    ((104, 16, 16, 1), 47296, 47328),
+    ((384, 32, 32, 1), 229248, 229280),  # the most markers depth 1 takes at width 32
+    ((385, 32, 32, 1), -1, -1),
+    ((104, 56, 56, 2), 153120, 153120),  # the slice's branch: 16,128 bytes less
+    ((104, 56, 56, 0), 85024, 85024),
+    ((208, 56, 56, 2), 194592, 194592),  # the most markers f32 X takes there
+    ((288, 56, 56, 2), 229152, 229152),  # the most markers depth 2 takes at width 56
+    ((289, 56, 56, 2), -1, -1),
+    ((104, 72, 72, 0), -1, -1),  # a padded width above 64
+]
+
+
+@pytest.mark.parametrize("shape,k6,k78", DENSE_LIMITS_XBF16, ids=lambda a: str(a))
+def test_dense_kernel_limits_on_bf16_x(shape, k6, k78):
+    """The Python mirrors of K6's, K7's and K8's shared-memory rules on bf16
+    X (``x_dtype=torch.bfloat16``), which the CLI asks before a
+    ``--feat-major --x-bf16`` run on the card."""
+    assert TBM.traj_dense_smem(*shape, torch.bfloat16) == k6
+    assert TBM.vg_chains_smem(*shape, torch.bfloat16) == k78
+    assert TBM.vg_dense_smem(*shape, torch.bfloat16) == k78
+    if k78 > 0:  # X in any other dtype is refused
+        with pytest.raises(TypeError):
+            TBM.vg_dense_smem(*shape, torch.float16)
+
+
 @pytest.mark.parametrize("shape,k4,k5", PACKED_LIMITS, ids=lambda a: str(a))
 def test_packed_kernel_limits(shape, k4, k5):
     """The Python mirrors of K4's and K5's shared-memory rules, which the

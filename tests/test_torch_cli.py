@@ -6,9 +6,11 @@ schedule, with the GD warm start, gradient descent and silu too; the same
 for ``train-new --feat-major`` under the parallel and hybrid schedules with
 dense ``predict``, and under the sequential schedule (one chain and two)
 and the unfolded hybrid one, and with dual averaging and mass adaptation on
-every schedule and layout. ``gradients --cpu`` writes the JAX package's JSON
-(rtol 1e-4 of each array's largest entry). Every option outside the ported
-slice exits non-zero with "not ported yet" (``--checkpoint-interval``,
+every schedule and layout, and with ``--x-bf16`` and ``--bf16`` on every
+schedule (``--x-bf16`` without ``--feat-major`` exits with the JAX package's
+message). ``gradients --cpu`` writes the JAX package's JSON (rtol 1e-4 of
+each array's largest entry). Every option outside the ported slice exits
+non-zero with "not ported yet" (``--checkpoint-interval``,
 ``--resume`` and ``--effect-sizes`` are ported: tests/test_torch_checkpoint.py
 and tests/test_torch_analysis.py).
 """
@@ -171,10 +173,6 @@ UNPORTED = [
     ["--trajectories"],
     ["--num-grad"],
     ["--num-grad-traj"],
-    ["--x-bf16", "--feat-major"],
-    ["--x-bf16", "--feat-major", "--update-mode", "parallel"],
-    ["--feat-major", "--update-mode", "parallel", "--bf16"],
-    ["--bf16"],
 ]
 
 
@@ -186,6 +184,53 @@ def test_unported_options_exit_nonzero(data, tmp_path, extra, capsys):
     assert e.value.code not in (0, None)
     assert "not ported yet" in str(e.value.code)
     assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
+@pytest.mark.parametrize("layout", [["--packed-genotypes"], []], ids=["packed", "no layout"])
+def test_x_bf16_without_feat_major_exits_nonzero(data, tmp_path, layout):
+    """--x-bf16 stores feature-major genotypes in bf16: without --feat-major
+    it exits with the JAX package's message, before anything is written."""
+    with pytest.raises(SystemExit) as e:
+        run_cli(*_train_args(data, tmp_path, *layout, "--x-bf16"))
+    assert str(e.value.code) == "error: --x-bf16 requires --feat-major"
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("extra,chains", [
+    (["--feat-major", "--x-bf16", "--update-mode", "parallel", "--num-chains", "2"], 2),
+    (["--feat-major", "--x-bf16", "--update-mode", "hybrid", "--block-size", "1"], 1),
+    (["--feat-major", "--x-bf16"], 1),  # sequential: K8a per leapfrog step
+    (["--feat-major", "--x-bf16", "--update-mode", "hybrid", "--per-chain-block-perm",
+      "--num-chains", "2"], 2),  # unfolded hybrid: K8b
+    (["--feat-major", "--bf16", "--update-mode", "parallel", "--num-chains", "2"], 2),
+    (["--feat-major", "--x-bf16", "--bf16", "--update-mode", "parallel", "--num-chains", "2"], 2),
+    (["--feat-major", "--x-bf16", "--bf16", "--update-mode", "hybrid", "--per-chain-block-perm",
+      "--num-chains", "2"], 2),  # unfolded: the snapshot on a copy of each block's branches
+    (["--packed-genotypes", "--bf16", "--update-mode", "hybrid", "--num-chains", "2"], 2),
+    (["--packed-genotypes", "--bf16"], 1),  # sequential: K4
+], ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
+def test_bf16_flags_train_then_jax_reads_the_samples(data, tmp_path, extra, chains):
+    """train-new --x-bf16 (feature-major X stored in bf16) and --bf16 (bf16
+    inputs of the plain products) run on the CPU under every schedule; the
+    JAX package reads the samples and predicts what the port's predict does,
+    and the compute dtype is the default again after the command."""
+    from rs_bann_tpu_torch.models import density as TD
+
+    argv = _train_args(data, tmp_path, *extra)
+    if "--feat-major" in extra:
+        argv[4:7] = ["ridge_base", "tanh", "1"]
+        argv.append("--fixed-summary-layer-width")
+        argv.append("4")
+    out = run_cli(*argv)
+    assert TD.compute_dtype() is None
+    run = tmp_path / out.strip().splitlines()[-1].split("/")[-1]
+    stats = json.loads((run / "training_stats").read_text())
+    assert stats["num_samples"] == 4 * G * chains
+    assert all(np.isfinite(stats["mse_train"] + stats["mse_test"] + stats["lpd"]))
+    samples = ["1.npz", "2.npz", "3.npz", "4.npz"]
+    dirs = [run / "models"] if chains == 1 else [run / "models" / f"chain{c}" for c in range(chains)]
+    for d in dirs:
+        _predict_matches_jax(data, d, samples, packed="--packed-genotypes" in extra)
 
 
 def test_analyze_plots_exit_nonzero(data, tmp_path):

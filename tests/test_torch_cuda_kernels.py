@@ -1014,7 +1014,7 @@ def test_dense_limits_agree_with_the_kernels(dev):
                   (64, 64, 32, 1), (64, 8, 8, 2), (263, 32, 32, 1), (345, 16, 16, 1),
                   (390, 8, 8, 0), (330, 32, 32, 1), (331, 32, 32, 1)] + DENSE_LIMIT_SHAPES:
         for rule in ("traj_dense_smem", "vg_chains_smem", "vg_dense_smem"):
-            assert getattr(lib, rule)(*shape) == getattr(BM, rule)(*shape), (rule, shape)
+            assert getattr(lib, rule)(*shape, 0) == getattr(BM, rule)(*shape), (rule, shape)
 
 
 def test_packed_limits_agree_with_the_kernels(dev):
@@ -1637,3 +1637,162 @@ def test_marker_scan_kernel_reads_broadcast_eta_in_place(dev, s):
     same = same.to(dev)
     assert (W[same] - W_ref[same]).abs().max().item() <= 1e-4 * max(
         1.0, W_ref[same].abs().max().item())
+
+
+# ------------------------------------ feature-major X stored in bf16 (--x-bf16)
+
+# (depth, m, n, h, s, activation): the first design (csrc/dense_vg_mma.cuh)
+# at depth 1 width 32 (16-byte copies of 8 values) and depth 0 width 8 with
+# n not a multiple of 8 (plain loads and stores); the deep design
+# (csrc/dense_deep.cuh) at depth 2 width 56 and depth 3 width 16 with a
+# ragged n
+XBF16_SHAPES = [(1, 64, 1000, 32, 32, "tanh"), (0, 40, 333, 8, 8, "identity"),
+                (2, 104, 1300, 56, 56, "tanh"), (3, 24, 701, 16, 8, "silu")]
+
+
+def _xbf16(rng, shape, dev):
+    """Standard normal X in f32, rounded once to bf16, on the card."""
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(
+        torch.bfloat16)
+
+
+def _same_bits(a, b):
+    flat = lambda o: [t for p in o for t in (p if isinstance(p, tuple) else (p,))]  # noqa: E731
+    return all(torch.equal(u, v) for u, v in zip(flat(a), flat(b)))
+
+
+def _xbf16_ids(a):
+    return "d{}_m{}_n{}_h{}_s{}_{}".format(*a)
+
+
+def _near_plain(got, ref):
+    """Every output within 1e-4 of max(1, the largest entry) of the plain
+    version's, in f32 and in f64 (``ref(dtype)``); no profiling session:
+    the f32 kernels' checks count the device ops of the same wrappers."""
+    flat = lambda o: [t for p in o for t in (p if isinstance(p, tuple) else (p,))]  # noqa: E731
+    for dtype in (torch.float32, torch.float64):
+        want = flat(ref(dtype))
+        assert len(want) == len(flat(got))
+        for a, b in zip(flat(got), want):
+            assert a.shape == b.shape and _rel_close(a.to(dtype), b)
+
+
+@pytest.mark.parametrize("shape", XBF16_SHAPES, ids=_xbf16_ids)
+def test_dense_kernels_on_bf16_x_match_plain_and_the_f32_kernel(dev, shape):
+    """K7 (both forms), K8a, K8b (through an index) and K6 (L = 3) on X
+    stored in bf16: each within 1e-4 of the largest entry of its plain
+    version on the same bf16 X (in f32 and f64), the same bits on a repeat
+    and as the f32-X kernel on X upcast (the products leave out only X's
+    zero low part); each call counts one ``xbf16_launches`` and one
+    ``launches``, the f32-X call no ``xbf16_launches``."""
+    depth, m, n, h, s, act = shape
+    rng = np.random.default_rng(41)
+    G, C = 3, 2
+    xb = _xbf16(rng, (G, m, n), dev)
+    ws, bs = _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)
+    target = torch.from_numpy(rng.standard_normal((G, C, n)).astype(np.float32)).to(dev)
+
+    def counted(wrapper, call):
+        """call() once: one launch, one of them on bf16 X"""
+        before = (wrapper.launches, wrapper.xbf16_launches)
+        out = call()
+        assert (wrapper.launches, wrapper.xbf16_launches) == (before[0] + 1, before[1] + 1)
+        return out
+
+    def f32_same(wrapper, call_b, call_f):
+        """the bf16-X call repeated, and the f32-X call on X upcast, give its bits"""
+        first = counted(wrapper, call_b)
+        assert _same_bits(first, call_b())
+        before = wrapper.xbf16_launches
+        assert _same_bits(first, call_f())
+        assert wrapper.xbf16_launches == before
+        return first
+
+    got = f32_same(BM.data_vg_chains, lambda: BM.data_vg_chains(act, xb, ws, bs, target),
+                   lambda: BM.data_vg_chains(act, xb.float(), ws, bs, target))
+    _near_plain(got, lambda dt: BM.data_vg_chains_ref(act, xb.to(dt), _f64(ws, dt), _f64(bs, dt),
+                                                      target.to(dt)))
+    fwd = f32_same(BM.data_vg_chains, lambda: BM.forward_chains(act, xb, ws, bs),
+                   lambda: BM.forward_chains(act, xb.float(), ws, bs))
+    assert torch.equal(fwd, got[0])
+    plan = BM.vg_chains_plan(G, C, m, n, h, s, depth, act=act, x_dtype=torch.bfloat16)
+    assert plan["smem"] < BM.vg_chains_plan(G, C, m, n, h, s, depth, act=act)["smem"]
+
+    w1, b1, t1 = tuple(w[1, 0] for w in ws), tuple(b[1, 0] for b in bs), target[1, 0]
+    got = f32_same(BM.data_vg, lambda: BM.data_vg(act, xb[1], w1, b1, t1),
+                   lambda: BM.data_vg(act, xb[1].float(), w1, b1, t1))
+    _near_plain(got, lambda dt: BM.data_vg_ref(act, xb[1].to(dt), _f64(w1, dt), _f64(b1, dt),
+                                               t1.to(dt)))
+    ix = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32, device=dev)
+    w5, b5 = _dense_deep_inputs(rng, dev, (5,), depth, m, h, s)
+    t5 = torch.from_numpy(rng.standard_normal((5, n)).astype(np.float32)).to(dev)
+    got = f32_same(BM.data_vg_blocked, lambda: BM.data_vg_blocked(act, xb, ix, w5, b5, t5),
+                   lambda: BM.data_vg_blocked(act, xb.float(), ix, w5, b5, t5))
+    _near_plain(got, lambda dt: BM.data_vg_blocked_ref(act, xb.to(dt), ix, _f64(w5, dt),
+                                                       _f64(b5, dt), t5.to(dt)))
+    fwd = f32_same(BM.forward_blocked, lambda: BM.forward_blocked(act, xb, ix, w5, b5),
+                   lambda: BM.forward_blocked(act, xb.float(), ix, w5, b5))
+    assert torch.equal(fwd, got[0])
+
+    p_w, p_b = _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)
+    e_w, e_b = _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)
+    eps_w, eps_b = tuple(e.abs() * 2e-3 for e in e_w), tuple(e.abs() * 2e-2 for e in e_b)
+    lam_w = tuple(e.abs() + 0.5 for e in _dense_deep_inputs(rng, dev, (G, C), depth, m, h, s)[0])
+    lam_b = tuple(torch.zeros_like(b) for b in bs)
+    err = torch.rand(G, C, device=dev) * 0.5 + 0.5
+    rest = (target, err, ws, bs, p_w, p_b, eps_w, eps_b, lam_w, lam_b, 3)
+    out = f32_same(TL.integrate_chains, lambda: TL.integrate_chains(act, xb, *rest),
+                   lambda: TL.integrate_chains(act, xb.float(), *rest))
+
+    def ref(dt):
+        cast = [tuple(t.to(dt) for t in a) if isinstance(a, tuple)
+                else a.to(dt) if isinstance(a, torch.Tensor) else a for a in rest]
+        return TL.integrate_chains_ref(act, xb.to(dt), *cast)
+
+    _near_plain(out, ref)
+    assert max((a - b).abs().max().item() for a, b in zip(out[0], ws)) > 0
+
+
+def test_dense_limits_on_bf16_x_agree_with_the_kernels(dev):
+    """The C rules of K6, K7 and K8 on bf16 X (``x_bf16`` = 1) and their
+    Python mirrors (``x_dtype=torch.bfloat16``) agree, at the shapes of
+    tests/test_torch_branch_mlp.py DENSE_LIMITS_XBF16 and the f32 ones."""
+    from rs_bann_tpu_torch.ops import _build
+
+    lib = _build.lib()
+    for shape in [(64, 32, 32, 1), (40, 16, 16, 0), (104, 16, 16, 1), (384, 32, 32, 1),
+                  (385, 32, 32, 1), (288, 56, 56, 2), (289, 56, 56, 2)] + DENSE_LIMIT_SHAPES:
+        for rule in ("traj_dense_smem", "vg_chains_smem", "vg_dense_smem"):
+            assert getattr(lib, rule)(*shape, 1) == getattr(BM, rule)(
+                *shape, torch.bfloat16), (rule, shape)
+
+
+def test_dense_kernels_on_bf16_x_run_every_admitted_m(dev):
+    """The largest m_pad each design admits on bf16 X (more than on f32 X)
+    runs: K7 at depth 1 width 32 (384), K6 at depth 2 width 56 (288), each
+    within 1e-4 of the largest entry of its plain version in f32 and f64."""
+    rng = np.random.default_rng(42)
+    assert BM.vg_chains_smem(384, 32, 32, 1, torch.bfloat16) > 0 > BM.vg_chains_smem(384, 32, 32, 1)
+    xb = _xbf16(rng, (2, 384, 301), dev)
+    ws, bs = _dense_deep_inputs(rng, dev, (2, 2), 1, 384, 32, 32)
+    target = torch.from_numpy(rng.standard_normal((2, 2, 301)).astype(np.float32)).to(dev)
+    _near_plain(BM.data_vg_chains("tanh", xb, ws, bs, target),
+                lambda dt: BM.data_vg_chains_ref("tanh", xb.to(dt), _f64(ws, dt), _f64(bs, dt),
+                                                 target.to(dt)))
+    assert BM.traj_dense_smem(288, 56, 56, 2, torch.bfloat16) > 0 > BM.traj_dense_smem(288, 56, 56,
+                                                                                       2)
+    xb = _xbf16(rng, (1, 288, 257), dev)
+    ws, bs = _dense_deep_inputs(rng, dev, (1, 2), 2, 288, 56, 56)
+    p_w, p_b = _dense_deep_inputs(rng, dev, (1, 2), 2, 288, 56, 56)
+    eps_w, eps_b = tuple(1e-3 * torch.ones_like(w) for w in ws), tuple(
+        1e-3 * torch.ones_like(b) for b in bs)
+    lam_w, lam_b = tuple(torch.ones_like(w) for w in ws), tuple(torch.zeros_like(b) for b in bs)
+    target = torch.from_numpy(rng.standard_normal((1, 2, 257)).astype(np.float32)).to(dev)
+    rest = (target, torch.ones(1, 2, device=dev), ws, bs, p_w, p_b, eps_w, eps_b, lam_w, lam_b, 1)
+
+    def ref(dt):
+        cast = [tuple(t.to(dt) for t in a) if isinstance(a, tuple)
+                else a.to(dt) if isinstance(a, torch.Tensor) else a for a in rest]
+        return TL.integrate_chains_ref("tanh", xb.to(dt), *cast)
+
+    _near_plain(TL.integrate_chains("tanh", xb, *rest), ref)

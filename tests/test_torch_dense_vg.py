@@ -225,7 +225,7 @@ def test_unfolded_hybrid_sweep_batched_equals_the_loop(monkeypatch, shared):
     cfg = port(MCMCCfg(hmc_integration_length=L, update_mode="hybrid", block_size=2,
                        num_chains=C, seed=0, hybrid_shared_perm=shared))
     calls = {"data_vg_blocked": 0, "forward_blocked": 0}
-    for name, module in (("data_vg_blocked", TBM), ("forward_blocked", TN)):
+    for name, module in (("data_vg_blocked", TBM), ("forward_blocked", TD)):
         def counted(*a, _fn=getattr(module, name), _name=name, **kw):
             calls[_name] += 1
             return _fn(*a, **kw)
