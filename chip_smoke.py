@@ -246,6 +246,35 @@ Phases, each of which raises on failure (the exit code is then non-zero):
  18c. 17c's recipe with --x-bf16 (17c's launches, all on bf16 X; xT 2.08
      GB), then phase 6's packed hybrid with --bf16 (10 K5 and 20 value-pass
      K2 launches per sweep, as phase 6), each predict card vs --cpu
+ 19. joint HMC (``--joint-hmc``): one joint transition of one hybrid block
+     (B = 10, C = 4, n = 100,000, identity depth 0 width 10, L = 30, the
+     shared scalars frozen, the residual in as the hybrid sweep calls it)
+     on the card against the same call on the CPU's plain versions, its
+     step-size uniforms, momenta and accept uniforms from a seed: the codes
+     equal on all but max(1, I // 20) of the 40 instances, every output
+     within REL_TOL_TRAJ on the rest, the log accept probability (a
+     difference of log densities of ~4e5) within 16 f32 roundings of the
+     largest log density; the joint potential's value and
+     gradient (every precision included) within REL_TOL (the error
+     precision's, a difference of two terms of ~n / (2 err), of the larger
+     term); identical repeats; exactly 31 K2 and 31 K3 launches, no K4 or
+     K5; the same with silu (K9a, K9b), its comparison with the CPU at 5
+     leapfrog steps (the CPU's plain versions take ~0.7 s an evaluation)
+ 19b. train-new --joint-hmc --update-mode hybrid --num-chains 4 (2 sweeps):
+     exactly 310 K2 and 310 K3 launches per sweep (one of each per
+     evaluation for a block's 4 x 10 instances), no K4, K5 or scan launch,
+     train-new's own 13 K2 (the start's residual and each record's test mse
+     per chain), acceptance above 0, predict on chain 0 card vs the CPU;
+     then --update-mode parallel (31 and 31 per sweep); a profiled hybrid
+     sweep (K2's and K3's device time, the busy share)
+ 19c. one sequential sweep at n = 10,000 each of --joint-hmc (exactly 3,100
+     K2 and 3,100 K3) and --gradient-descent-joint (3,100 K2, 3,000 K3):
+     one output precision for every branch after it, the rejects counted,
+     predict card vs the CPU; a profiled sequential joint sweep on 4 of
+     its branches (the busy share)
+ 19d. the flagship's train-new --feat-major --joint-hmc --update-mode
+     parallel --num-chains 4, one sweep of L = 64: no K6, K7, K8 or packed
+     launch (plain products), predict card vs the CPU
 The line before the last is a JSON object with each kernel's launches on
 its path (phase 4 for K4, 6 for K2 and K5, 9 for K6 and K7, 11 for K3, 12
 for K9a and K9b, 14 for K8a, 15 for K8b, 6c for marker_scan; K4's and K5's
@@ -276,13 +305,15 @@ flagship's numbers with the deep design's under ``deep``, launches in
 TFLOP/s (X exact in bf16) and the rest in 3xTF32, the work as implemented
 (layer 0 in two tf32 products) as impl_bound_ms; K2's and K9a's value pass
 on the live width as value_pass_*, K3's and K9b's times at the warm
-start's block as warm_*); the last line is {"ok": true, "device":
+start's block as warm_*; K2's, K3's, K9a's and K9b's on the joint paths,
+phases 19-19c, as joint_*); the last line is {"ok": true, "device":
 {...}}. The data lives in a temporary directory, removed at the end.
 """
 
 import contextlib
 import csv
 import ctypes
+import dataclasses
 import io
 import json
 import logging
@@ -833,7 +864,7 @@ def cli_phase(cli, work, argv, kernels, log_records, test_gen, y_test, per_sweep
           f"0's posterior mean {r2:.4f}; predict card vs CPU {perr:.3e}")
     return run, recs, {"sweep_ms": sweep_ms, "train_s": train_s, "factors": factors,
                        "launches_per_sweep": recs[-1]["launches"],
-                       "predict_launches": predict_launches,
+                       "train_launches": before, "predict_launches": predict_launches,
                        "acceptance": stats["num_accepted"] / stats["num_samples"]}
 
 
@@ -2123,6 +2154,524 @@ def bf16_phases(cli, work, train_bed, groups, y_train, y_test, log_records, flag
     return out
 
 
+# joint HMC (phases 19-19c at the genome-scale packed shape, 19d at the
+# flagship's): the step factors of the CLI runs. The trainer starts at
+# error precision 2.0, far from its conditional (~n / rss, 1e-3 here), so
+# the sequential runs, which move it, take small ones. Joint GD's gradient
+# in it is ~-rss / 2 = -5e6 at n = 10,000, so at 1e-8 each step moves it by
+# ~-0.05: the first branches' updates take it down to ~0.5 and every later
+# branch's L steps take it below 0, so the CLI's joint GD sweep runs the
+# reject path (99 of 100 at L = 30); no one factor fixes that, as the
+# error precision's curvature there, n / (2 err^2) = 5e9, wants a factor
+# below ~4e-10, at which the weights do not move. Phase 19's joint GD
+# block, from the error precision's conditional on a standardized residual
+# (err ~1, curvature ~n / 2), checks accepted updates: at n = 100,000 a
+# factor of 1e-7 keeps every coordinate's step stable over L = 30 steps
+# (1e-6 does at n = 10,000, 1e-5 does not).
+JOINT_FACTOR, JOINT_SEQ_FACTOR, JOINT_GD_FACTOR, JOINT_GD_BLOCK_FACTOR = 0.003, 1e-4, 1e-8, 1e-7
+# the sequential sweeps' integration length (phase 19c): its launches,
+# G x (L + 1), and checks do not depend on it, and the host-bound sweep's
+# time does, ~7 ms an evaluation
+JOINT_SEQ_L = 10
+
+
+def joint_transition_check(X, state, arch, y_train, act, steps=L, gd_steps=None):
+    """Phase 19 for one activation: one joint transition of one hybrid block
+    (B = BLOCK branches x C = CHAINS chains, the shared scalars frozen, as
+    the hybrid sweep calls it: the residual in, the target from the start's
+    prediction) on the card, against the same call on the CPU's plain
+    versions on the same inputs and draws (the step-size uniforms, the
+    momenta and the accept uniforms, from a seed): the codes equal on all
+    but max(1, I // 20) of the I instances (an accept within f32 rounding of
+    its uniform), every output within REL_TOL_TRAJ of its largest entry on
+    the rest, log a (the accept probability's log, a difference of two log
+    densities) within 16 f32 roundings of the largest log density, this
+    comparison at ``steps`` leapfrog steps (the CPU's plain versions take
+    ~0.7 s an evaluation at this shape); the joint potential's value and
+    gradient alone (every precision included) within REL_TOL of the
+    largest entry (the error precision's gradient, a difference of two
+    terms of ~n / (2 err_prec), of the larger term); identical repeats;
+    exactly L + 1 forward and L + 1 backward launches (K2 and K3, K9a and
+    K9b under silu) and no K4 or K5. With ``gd_steps``, also one joint GD
+    transition of the block (``joint_gd_block``). Returns its numbers."""
+    import torch
+
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models import params as P
+    from rs_bann_tpu_torch.models.net import _reg_all
+    from rs_bann_tpu_torch.ops import branch_mlp as BM
+    from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+    from rs_bann_tpu_torch.samplers import MCMCCfg
+    from rs_bann_tpu_torch.samplers import hmc as H
+
+    dev = X.bytes.device
+    fwd, bwd = ((PM.packed_linear, PM.packed_linear_vjp) if act != "silu"
+                else (PM.packed_matmul, PM.packed_matmul_vjp))
+    gen = torch.Generator(dev).manual_seed(19)
+    ixs = (torch.arange(BLOCK, device=dev) * (G // BLOCK)).expand(CHAINS, BLOCK)
+    x_b = X[ixs[0]]
+
+    def block(ts, spread=0.0):  # [G, ...] -> [C, B, ...], chain c scaled by 1 + spread * N(0, 1)
+        out = []
+        for t in ts:
+            t = t[ixs]
+            out.append(t * (1.0 + spread * torch.randn(t.shape, device=dev, generator=gen)))
+        return tuple(out)
+
+    ws, bs = block(state.params.weights, 0.1), block(state.params.biases, 0.1)
+    wps, bps = block(state.precisions.weights), block(state.precisions.biases)
+    st = D.branch_statics(arch, dev)
+    st_b = type(st)(*(tuple(a[ixs] for a in f) if isinstance(f, tuple) else f[ixs] for f in st))
+    mw, mb = tuple(m[ixs] for m in P.weight_masks(arch, dev)), tuple(
+        m[ixs] for m in P.bias_masks(arch, dev))
+    y = torch.as_tensor(y_train, dtype=torch.float32, device=dev)
+    resid = y - y.mean() + 0.1 * torch.randn((CHAINS, 1, N_TRAIN), device=dev, generator=gen) \
+        - D.predict_chains(act, ws, bs, x_b).sum(dim=1, keepdim=True)
+    err = (N_TRAIN / (resid ** 2).sum(dim=-1)).expand(CHAINS, BLOCK)  # each chain's
+    reg = _reg_all("ridge_ard", state.params) - D.summary_stat("ridge_ard", ws[-1])
+    n_prec, n_out, hyper = float(1 + 2 * (arch.num_layers - 1) + 1), float(
+        arch.total_output_weights), D.Hyperparameters()
+    leaves = ws + bs + wps + bps + (err,)
+    eps_u = [torch.rand(t.shape, device=dev, generator=gen) for t in leaves]
+    mom = [torch.randn(t.shape, device=dev, generator=gen) for t in leaves]
+    u = torch.rand((CHAINS, BLOCK), device=dev, generator=gen)
+    k_live = arch.s[0]
+    cfg = MCMCCfg(hmc_integration_length=L, hmc_step_size_factor=JOINT_FACTOR,
+                  hmc_step_size_mode="random", joint_hmc=True)
+    step = H.make_hmc_step_joint("ridge_ard", act, cfg, sample_shared=False, k_live=k_live)
+    vg = H._joint_vg("ridge_ard", act, k_live)
+
+    def on(d, ts):
+        if isinstance(ts, (tuple, list)):
+            return type(ts)(on(d, t) for t in ts)
+        return ts.to(d) if isinstance(ts, torch.Tensor) else ts
+
+    def args(d):
+        x = x_b if d == dev else D.PackedX(*on(d, (x_b.bytes, x_b.w_scale, x_b.shift)), N_TRAIN)
+        st_d = type(st_b)(*on(d, tuple(st_b)))
+        return ((None,) + on(d, (ws, bs, wps, bps, err)) + (x, on(d, resid), on(d, mw),
+                on(d, mb), on(d, st_b.n_params), n_prec, hyper, st_d, on(d, reg), n_out),
+                dict(eps_u=on(d, eps_u), momenta=on(d, mom), u=on(d, u), residual=True))
+
+    def flat(o):
+        return (o.result.weights + o.result.biases + o.w_prec + o.b_prec
+                + (o.err_prec, o.result.y_pred, o.y_pred0, o.result.log_density))
+
+    names = ([f"W{l}" for l in range(len(ws))] + [f"b{l}" for l in range(len(bs))]
+             + [f"wprec{l}" for l in range(len(ws))] + [f"bprec{l}" for l in range(len(bs))]
+             + ["err_prec", "y_pred", "y_pred0", "log_density"])
+    a, kw = args(dev)
+    counts = {n: c.launches for n, c in (("fwd", fwd), ("bwd", bwd), ("k4", BM.data_vg_packed),
+                                         ("k5", LF.integrate_chains_packed))}
+    if act == "identity":  # every launch of the call, by torch.profiler
+        card, device_n = device_launches(lambda: step(*a, **kw))
+    else:
+        card, device_n = step(*a, **kw), None
+    used = {n: c.launches - counts[n] for n, c in (("fwd", fwd), ("bwd", bwd),
+                                                  ("k4", BM.data_vg_packed),
+                                                  ("k5", LF.integrate_chains_packed))}
+    print(f"  {act}: launches {used} ({fwd.__name__}, {bwd.__name__})"
+          + (f"; all device launches (torch.profiler) {device_n}" if device_n else ""))
+    if used != {"fwd": L + 1, "bwd": L + 1, "k4": 0, "k5": 0}:
+        raise AssertionError(f"the joint block transition launched {used}, expected {L + 1} "
+                             f"forward and {L + 1} backward, no K4 or K5")
+    identical(lambda: flat(step(*a, **kw)) + (card.result.accept_prob,),
+              flat(card) + (card.result.accept_prob,), f"the joint block transition ({act})")
+    ms = cuda_ms(lambda: step(*a, **kw), runs=3)
+    if steps != L:  # the comparison's own length, on both sides
+        step = H.make_hmc_step_joint("ridge_ard", act, dataclasses.replace(
+            cfg, hmc_integration_length=steps), sample_shared=False, k_live=k_live)
+        card = step(*a, **kw)
+    t0 = time.perf_counter()
+    ca, ckw = args("cpu")
+    ref = step(*ca, **ckw)
+    plain_s = time.perf_counter() - t0
+    same = (card.result.code.cpu() == ref.result.code)
+    I = CHAINS * BLOCK
+    print(f"  codes card {card.result.code.flatten().tolist()}")
+    if int(same.sum()) < I - max(1, I // 20):
+        raise AssertionError(f"the card's and the CPU's accepts agree on {int(same.sum())} of {I}")
+    err_max = 0.0
+    for name, got, want in zip(names, flat(card), flat(ref)):
+        lead = same.reshape(same.shape + (1,) * (want.dim() - 2))
+        got, want = torch.where(lead, got.cpu(), 0.0), torch.where(lead, want, 0.0)
+        err_max = max(err_max, check_close(f"joint transition {act}", f"{act} joint transition "
+                                           f"{name}", got, want, REL_TOL_TRAJ))
+    # log a is a difference of log densities of up to max |ld| each, which
+    # f32 resolves to max |ld| * 2^-23: log a held to 16 such roundings (0
+    # on both sides where the trajectory died)
+    a_card, a_ref = card.result.accept_prob.cpu()[same], ref.result.accept_prob[same]
+    live = (a_card > 0) & (a_ref > 0)
+    log_a_tol = 16 * 2.0 ** -23 * ref.result.log_density.abs().max().item()
+    log_a_err = ((torch.log(a_card[live]) - torch.log(a_ref[live])).abs().max().item()
+                 if bool(live.any()) else 0.0)
+    print(f"  {act} joint transition accept_prob: max |log a_card - log a_cpu| {log_a_err:.3e} "
+          f"(16 f32 roundings of max |log density|: {log_a_tol:.3e}); max |a_card - a_cpu| "
+          f"{(a_card - a_ref).abs().max().item():.3e}")
+    if not (torch.equal(a_card[~live], a_ref[~live]) and log_a_err <= log_a_tol):
+        raise AssertionError(f"{act}: the card's and the CPU's accept probabilities differ")
+    acc = card.result.code.eq(H.ACCEPTED).float().mean().item()
+    # the joint potential's value and gradient alone, at the start
+    def value_and_grad(p):  # (-U, then its gradient in every coordinate) at the start
+        ld, _, grads, _ = vg(list(p[1] + p[2] + p[3] + p[4]) + [p[5]], len(ws), len(bs), p[6],
+                             p[7], hyper, p[13], p[14], n_out, None)
+        return (ld,) + tuple(grads)
+
+    g_card = value_and_grad(a)
+    identical(lambda: value_and_grad(a), g_card, f"the joint potential's gradient ({act})")
+    g_err = 0.0
+    for name, got, want in zip(["-U"] + [f"d(-U)/d{nm}" for nm in names], g_card,
+                               value_and_grad(ca)):
+        tol = REL_TOL
+        if name == "d(-U)/derr_prec":  # (n - 2) / (2 err) - rss / 2 + the prior's terms
+            terms = (N_TRAIN / 2.0 / ca[5]).abs().max().item()
+            tol = REL_TOL * max(1.0, terms) / max(1.0, want.abs().max().item())
+        g_err = max(g_err, check_close(f"joint gradient {act}", f"{act} {name}", got.cpu(),
+                                       want, tol))
+    print(f"  {act}: the card's transition {ms:.2f} ms (L = {L}, {I} instances), the CPU's "
+          f"plain versions {1e3 * plain_s:.1f} ms (L = {steps}); accepted {acc:.3f}; codes "
+          f"agree on {int(same.sum())} of {I}; identical repeats")
+    out = {"launches": used, "device_launches": device_n, "ms": ms, "plain_steps": steps,
+           "plain_ms": 1e3 * plain_s, "max_abs_err": err_max, "grad_max_abs_err": g_err,
+           "log_accept_err": log_a_err,
+           "codes_agree": int(same.sum()), "instances": I, "accepted": acc}
+    if gd_steps:
+        # the residual standardized per chain, the error precision at its
+        # conditional n / rss (~1)
+        r_gd = resid / resid.std(dim=-1, keepdim=True)
+        a, ca = list(a), list(ca)
+        a[5], a[7] = (N_TRAIN / (r_gd ** 2).sum(dim=-1)).expand(CHAINS, BLOCK), r_gd
+        ca[5], ca[7] = a[5].cpu(), r_gd.cpu()
+        out["gd"] = joint_gd_block(act, cfg, a, ca, fwd, bwd, names, flat, gd_steps)
+    return out
+
+
+def joint_gd_block(act, cfg, a, ca, fwd, bwd, names, flat, steps):
+    """One joint GD transition of phase 19's block (every instance from the
+    error precision's conditional on a standardized residual, factor
+    JOINT_GD_BLOCK_FACTOR) on the card, against the same call on the CPU's
+    plain versions: every instance accepted on both sides, exactly L + 1
+    forward and L backward launches, identical repeats, and, at ``steps``
+    steps on both sides, each coordinate's move (end - start) within
+    REL_TOL_TRAJ of a scale plus one f32 rounding of its largest start
+    entry per step: the weights' and biases' scale the largest move among
+    them all (GD's step is the factor times the gradient in all of them; a
+    bias's gradient is a sum over n of terms that cancel, so f32 resolves
+    it to a part of the largest gradient, not of its own), each
+    precision's its own largest move; y_pred and the log density within
+    REL_TOL_TRAJ of their largest entry. Returns its numbers."""
+    import torch
+
+    from rs_bann_tpu_torch.samplers import hmc as H
+
+    gcfg = dataclasses.replace(cfg, hmc_step_size_factor=JOINT_GD_BLOCK_FACTOR, joint_hmc=False,
+                               gradient_descent_joint=True)
+    gd = H.make_gradient_descent_joint("ridge_ard", act, gcfg)
+    before = (fwd.launches, bwd.launches)
+    card = gd(*a, residual=True)
+    used = (fwd.launches - before[0], bwd.launches - before[1])
+    accepted = int(card.result.code.eq(H.ACCEPTED).sum())
+    I = card.result.code.numel()
+    print(f"  {act} joint GD block (factor {JOINT_GD_BLOCK_FACTOR}, L = {L}): launches {used}; "
+          f"accepted {accepted}, rejected {I - accepted} of {I}")
+    if used != (L + 1, L):
+        raise AssertionError(f"the joint GD block launched {used}, expected ({L + 1}, {L})")
+    if accepted != I:
+        raise AssertionError(f"the joint GD block accepted {accepted} of {I}")
+    identical(lambda: flat(gd(*a, residual=True)), flat(card), f"the joint GD block ({act})")
+    ms = cuda_ms(lambda: gd(*a, residual=True), runs=3)
+    gd = H.make_gradient_descent_joint("ridge_ard", act, dataclasses.replace(
+        gcfg, hmc_integration_length=steps))
+    card = gd(*a, residual=True)
+    t0 = time.perf_counter()
+    ref = gd(*ca, residual=True)
+    plain_s = time.perf_counter() - t0
+    if not (bool(card.result.code.eq(H.ACCEPTED).all())
+            and bool(ref.result.code.eq(H.ACCEPTED).all())):
+        raise AssertionError(f"the joint GD block at {steps} steps rejected on the card or the CPU")
+    start = ca[1] + ca[2] + ca[3] + ca[4] + (ca[5],)
+    n_par = len(ca[1]) + len(ca[2])
+    par_move = max((w - q0).abs().max().item() for w, q0 in zip(flat(ref)[:n_par], start))
+    err_max = 0.0
+    for i, (name, got, want, q0) in enumerate(zip(names, flat(card), flat(ref), start)):
+        move, want_move = got.cpu() - q0, want - q0
+        err = (move - want_move).abs().max().item()
+        scale = par_move if i < n_par else want_move.abs().max().item()
+        tol = REL_TOL_TRAJ * scale + steps * 2.0 ** -23 * q0.abs().max().item()
+        print(f"  {act} joint GD {name}: move {want_move.abs().max().item():.3e}, card vs CPU "
+              f"{err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"joint GD {name}: the card's and the CPU's moves differ by "
+                                 f"{err} > {tol}")
+        err_max = max(err_max, err)
+    for name, got, want in list(zip(names, flat(card), flat(ref)))[len(start):]:
+        err_max = max(err_max, check_close(f"joint GD {act}", f"{act} joint GD {name}",
+                                           got.cpu(), want, REL_TOL_TRAJ))
+    print(f"  {act} joint GD block: the card's {ms:.2f} ms (L = {L}), the CPU's plain versions "
+          f"{1e3 * plain_s:.1f} ms ({steps} steps); every instance accepted; identical repeats")
+    return {"launches": used, "ms": ms, "plain_steps": steps, "plain_ms": 1e3 * plain_s,
+            "max_abs_err": err_max, "accepted": accepted, "rejected": I - accepted}
+
+
+def loaded_sweeps(label, argv, model_type, arch, state, X, y, chains, kernels, per_sweep,
+                  sweeps=1, names=None):
+    """``sweeps`` sweeps of train-new's configuration ``argv`` (``label``) on a fresh
+    carry from ``state``, on the data already on the card (no command's
+    data load): each with exactly ``per_sweep`` launches of the counted
+    wrappers ``kernels``, finite statistics and accepted updates. With
+    ``names`` the last sweep runs under torch.profiler (the device's
+    activity only: the host's op events of ~70,000 launches take a minute
+    to sort), which gives the busy share and the device ms of the kernels
+    whose names hold each of ``names``. Returns the wall ms of each sweep
+    (host clock around it; ``sweep_ms`` the last's) and those numbers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rs_bann_tpu_torch.cli.args import mcmc_cfg_from_args
+    from rs_bann_tpu_torch.cli.main import build_parser
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models.net import Net
+    from rs_bann_tpu_torch.train import prepare_state_for_training
+
+    cfg = mcmc_cfg_from_args(build_parser().parse_args([str(a) for a in argv]), os.devnull)
+    net = prepare_state_for_training(Net(model_type, arch, D.Hyperparameters(), state), None)
+    sweep = net.make_chain_sweep(cfg)
+    gen = torch.Generator(X.bytes.device if isinstance(X, D.PackedX) else X.xT.device)
+    gen.manual_seed(3)
+    carry = net.init_carry(X, y, chains=chains)
+    walls, launches = [], []
+    for i in range(sweeps):
+        before = {k: w.launches for k, w in kernels.items()}
+        torch.cuda.synchronize()
+        profiled = bool(names) and i == sweeps - 1
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            carry, stats = sweep(carry, X, y, gen)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        launches.append({k: w.launches - before[k] for k, w in kernels.items()})
+    counts = stats.counts.sum(dim=0)
+    acceptance = float(counts[0]) / float(counts.sum())
+    out = {"sweep_ms": walls[-1], "sweeps_ms": walls, "launches_per_sweep": launches[0],
+           "acceptance": acceptance}
+    print(f"  {label} on the loaded data: {sweeps} sweep(s) of "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms; launches {launches}; acceptance "
+          f"{acceptance:.3f}")
+    if any(n != per_sweep for n in launches):
+        raise AssertionError(f"launches per sweep {launches}, expected {per_sweep}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (stats.mse_train, stats.lpd))
+    if not (finite and acceptance > 0.0):
+        raise AssertionError(f"non-finite statistics or nothing accepted: {stats}")
+    if names:
+        rows = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+
+        def ms(a):
+            v = getattr(a, "self_device_time_total", None)
+            return (getattr(a, "self_cuda_time_total", 0.0) if v is None else v) / 1e3
+
+        device = sum(ms(a) for a in rows)
+        prof_out = {"wall_ms": walls[-1], "device_ms": device, "busy": device / walls[-1],
+                    "launches": sum(a.count for a in rows)}
+        for name in names:
+            prof_out[f"{name}_ms"] = sum(ms(a) for a in rows if name in a.key)
+        print(f"  profiled sweep: {walls[-1]:.1f} ms on the host clock, {device:.1f} ms of device "
+              f"time (busy {100 * prof_out['busy']:.1f}%), " + ", ".join(
+                  f"{n} {prof_out[f'{n}_ms']:.1f} ms ({100 * prof_out[f'{n}_ms'] / walls[-1]:.1f}%)"
+                  for n in names) + f"; {prof_out['launches']} device kernels")
+        out["profile"] = prof_out
+    return out
+
+
+def joint_phases(cli, work, X, arch, y_train, y_test, train_args, log_records, flag):
+    """Phases 19-19d: joint HMC and joint gradient descent (``--joint-hmc``,
+    ``--gradient-descent-joint``). 19: one joint block transition, card
+    against the CPU's plain versions, identity (K2 + K3) and silu (K9a +
+    K9b), and one joint GD block transition (identity) whose updates are
+    all accepted. 19b: train-new --joint-hmc hybrid (C = CHAINS) at the
+    genome-scale shape, 2 sweeps: exactly blocks x (L + 1) K2 and K3
+    launches per sweep (all chains of a block in one launch per
+    evaluation), no K4, K5 or marker-scan launch, the trainer's own K2
+    launches (the start's residual, each record's test mse per chain)
+    exactly, acceptance above 0, predict on chain 0 card vs the CPU; then
+    on the data it loaded, the parallel sweep (L + 1 of each, twice, the
+    second profiled: K2's and K3's share and the busy share) and the hybrid
+    sweep with --per-chain-block-perm (blocks x (L + 1) of each: the chains'
+    own blocks gathered into one launch). 19c: one sequential sweep each
+    of --joint-hmc (G x (L + 1) K2 and K3) and --gradient-descent-joint
+    (G x (L + 1) K2, G x L K3) at n = N_17D and L = JOINT_SEQ_L, one
+    output precision for every branch after it, and a profiled sequential
+    sweep's busy share (4 branches of it). 19d: the flagship's
+    --feat-major --joint-hmc parallel sweep (C = FCHAINS): no K6, K7 or K8
+    launch (plain products), predict card vs the CPU. Returns their
+    numbers."""
+    import torch
+
+    from rs_bann_tpu_torch.io import BedVM, ExternalGrouping
+    from rs_bann_tpu_torch.io.genotypes import CompressedGenotypes
+    from rs_bann_tpu_torch.io.phen import Phenotypes
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+    from rs_bann_tpu_torch.models.net import default_block_size
+    from rs_bann_tpu_torch.ops import branch_mlp as BM
+    from rs_bann_tpu_torch.ops import leapfrog as LF
+    from rs_bann_tpu_torch.ops import marker_scan as MS
+    from rs_bann_tpu_torch.ops import packed_matmul as PM
+
+    out = {}
+    t_phase = time.perf_counter()
+    state, _ = init_net(arch, "ridge_ard", InitCfg(seed=0), device=X.bytes.device)
+    print(f"phase 19: one joint transition of one hybrid block (B {BLOCK}, C {CHAINS}, n "
+          f"{N_TRAIN}, L {L}, step factor {JOINT_FACTOR}), card vs the CPU's plain versions")
+    # silu's comparison with the CPU at 5 steps keeps the phases' time (its
+    # launches, repeat and time at L as identity's)
+    out["19"] = {act: joint_transition_check(X, state, arch, y_train, act, steps, gd_steps)
+                 for act, steps, gd_steps in (("identity", L, 3), ("silu", 5, None))}
+    out["19"]["s"] = time.perf_counter() - t_phase
+
+    packed = {"packed_linear": PM.packed_linear, "packed_linear_vjp": PM.packed_linear_vjp,
+              "packed_matmul": PM.packed_matmul, "packed_matmul_vjp": PM.packed_matmul_vjp,
+              "data_vg_packed": BM.data_vg_packed, "traj_packed": LF.integrate_chains_packed,
+              "marker_scan": MS.marker_scan}
+    none = {k: 0 for k in packed}
+    blocks = G // default_block_size(G)  # the CLI's hybrid blocks: BLOCK branches each
+    test_gen = CompressedGenotypes(BedVM.from_file(os.path.join(work, "test")),
+                                   ExternalGrouping.from_file(os.path.join(work, "train.groups")))
+    joint = list(train_args) + ["--joint-hmc", "--step-size", JOINT_FACTOR]
+    evals = blocks * (L + 1)
+    t0 = time.perf_counter()
+    print(f"phase 19b: train-new --packed-genotypes --joint-hmc --update-mode hybrid "
+          f"--num-chains {CHAINS} ({CHAIN} sweeps of L {L}, step factor {JOINT_FACTOR}) "
+          f"-> predict on chain 0")
+    _, recs, res = cli_phase(
+        cli, work, joint + ["--update-mode", "hybrid", "--num-chains", CHAINS], packed,
+        log_records, test_gen, y_test,
+        dict(none, packed_linear=evals, packed_linear_vjp=evals), widths=(16, 16))
+    trainer = res["train_launches"]
+    # the start's residual, then each record's test mse, one per chain
+    own = 1 + (CHAIN + 1) * CHAINS
+    print(f"  train-new launched {trainer}: {CHAIN} x {evals} in the sweeps, {own} of the "
+          f"trainer's own (1 for the start's residual, {CHAIN + 1} records x {CHAINS} "
+          f"chains' test mse)")
+    if trainer != dict(none, packed_linear=CHAIN * evals + own, packed_linear_vjp=CHAIN * evals):
+        raise AssertionError(f"train-new launched {trainer}")
+    if not res["acceptance"] > 0.0:
+        raise AssertionError("the joint hybrid run accepted nothing")
+    res["s"] = time.perf_counter() - t0
+    out["19b_hybrid"] = res
+    y = torch.as_tensor(y_train, dtype=torch.float32, device=X.bytes.device)
+    for name, flags, per_sweep, sweeps, names in (
+            ("parallel", ["--update-mode", "parallel"], L + 1, 2,
+             ("packed_linear_tc", "packed_bwd")),
+            ("own_blocks", ["--update-mode", "hybrid", "--per-chain-block-perm"], evals, 1,
+             None)):
+        t0 = time.perf_counter()
+        label = f"--joint-hmc {' '.join(flags)} --num-chains {CHAINS}"
+        print(f"phase 19b: {label}, {sweeps} sweep(s) of L {L} on the data train-new loaded")
+        res = loaded_sweeps(
+            label, joint + flags + ["--num-chains", CHAINS], "ridge_ard", arch, state, X, y,
+            CHAINS, packed, dict(none, packed_linear=per_sweep, packed_linear_vjp=per_sweep),
+            sweeps, names)
+        res["s"] = time.perf_counter() - t0
+        out[f"19b_{name}"] = res
+
+    # 19c: sequential, one sweep each, on the training set cut to n = N_17D
+    small, y_small_test = small_data(work)
+    one = list(train_args)
+    one[1:4] = [os.path.join(small, f) for f in ("train", "train.phen", "train.groups")]
+    one[7], one[8], one[one.index("--burn-in") + 1] = 1, JOINT_SEQ_L, "0"
+    one[one.index("--bfile-test") + 1] = os.path.join(small, "test")
+    one[one.index("--p-test") + 1] = os.path.join(small, "test.phen")
+    small_test = CompressedGenotypes(BedVM.from_file(os.path.join(small, "test")),
+                                     ExternalGrouping.from_file(os.path.join(small,
+                                                                             "train.groups")))
+    seq_evals = JOINT_SEQ_L + 1
+    for name, flags, per_sweep in (
+            ("hmc", ["--joint-hmc", "--step-size", JOINT_SEQ_FACTOR],
+             dict(none, packed_linear=G * seq_evals, packed_linear_vjp=G * seq_evals)),
+            ("gd", ["--gradient-descent-joint", "--step-size", JOINT_GD_FACTOR],
+             dict(none, packed_linear=G * seq_evals, packed_linear_vjp=G * JOINT_SEQ_L))):
+        t0 = time.perf_counter()
+        print(f"phase 19c: train-new --packed-genotypes {' '.join(map(str, flags))}, sequential, "
+              f"one sweep of L {JOINT_SEQ_L} at n {N_17D}")
+        run, recs, res = cli_phase(cli, small, one + flags, packed, log_records, small_test,
+                                   y_small_test, per_sweep, sweeps=1, widths=(16, 16))
+        lam_out = recs[-1]["carry"].state.precisions.weights[-1]
+        if not bool(torch.all(lam_out == lam_out.reshape(-1)[0])):
+            raise AssertionError("the branches hold different output precisions")
+        stats = json.load(open(os.path.join(run, "training_stats")))
+        res["rejected"] = stats["num_samples"] - stats["num_accepted"]
+        res["lam_out"] = float(lam_out.reshape(-1)[0])
+        print(f"  one output precision for all {G} branches: {res['lam_out']:.6g}; "
+              f"{res['rejected']} of {stats['num_samples']} updates rejected")
+        res["s"] = time.perf_counter() - t0
+        out[f"19c_{name}"] = res
+    arch_p = NetArch.from_width_rules([M] * 4, 0, ("fixed", 10), ("fraction_of_hidden", 1.0),
+                                      activation="identity")
+    state_p, _ = init_net(arch_p, "ridge_ard", InitCfg(seed=0), device=X.bytes.device)
+    x_small = CompressedGenotypes(BedVM.from_file(os.path.join(small, "train")), ExternalGrouping
+                                  .from_file(os.path.join(small, "train.groups"))).to_packed(
+        arch, X.bytes.device).X[:4]
+    y_small = torch.tensor(Phenotypes.from_file(os.path.join(small, "train.phen")).y,
+                           dtype=torch.float32, device=X.bytes.device)
+    print("  the sequential joint sweep's busy share, on 4 of its branches:")
+    out["19c_profile"] = loaded_sweeps(
+        "--joint-hmc (sequential, 4 branches)", one + ["--joint-hmc", "--step-size",
+                                                        JOINT_SEQ_FACTOR],
+        "ridge_ard", arch_p, state_p, x_small, y_small, 1, packed,
+        dict(none, packed_linear=4 * seq_evals, packed_linear_vjp=4 * seq_evals), 1,
+        ("packed_linear_tc", "packed_bwd"))["profile"]
+
+    # 19d: the flagship's feature-major joint HMC: plain products, no kernel
+    dense = {"integrate_chains": LF.integrate_chains, "data_vg_chains": BM.data_vg_chains,
+             "data_vg": BM.data_vg, "data_vg_blocked": BM.data_vg_blocked,
+             "forward_blocked": BM.forward_blocked, **packed}
+    fdir = flag["dir"]
+    fargs = ["train-new", os.path.join(fdir, "train"), os.path.join(fdir, "train.phen"),
+             os.path.join(fdir, "train.groups"), "ridge_base", "tanh", "1", 1, FL,
+             "--fixed-hidden-layer-width", FH, "--fixed-summary-layer-width", FH, "--feat-major",
+             "--burn-in", "0", "--bfile-test", os.path.join(fdir, "test"),
+             "--p-test", os.path.join(fdir, "test.phen"), "-o", os.path.join(work, "runs_joint"),
+             "--joint-hmc", "--step-size", JOINT_FACTOR, "--update-mode", "parallel",
+             "--num-chains", FCHAINS]
+    t0 = time.perf_counter()
+    print(f"phase 19d: the flagship's train-new --feat-major --joint-hmc --update-mode parallel "
+          f"--num-chains {FCHAINS} (one sweep of L {FL}) -> predict")
+    ftest = CompressedGenotypes(BedVM.from_file(os.path.join(fdir, "test")), flag["groups"])
+    _, _, out["19d"] = cli_phase(cli, fdir, fargs, dense, log_records, ftest, flag["y_test"],
+                                 {k: 0 for k in dense}, packed=False, sweeps=1, widths=(FH, FH))
+    out["19d"]["s"] = time.perf_counter() - t0
+    out["s"] = time.perf_counter() - t_phase
+    print(f"  phases 19-19d: {out['s']:.1f} s in all")
+    return out
+
+
+def joint_numbers(joint, act, kernel):
+    """A packed kernel's launches and times on the joint paths (phases
+    19-19c), for its entry in the kernels line: phase 19's block transition
+    (``act``'s; its CPU comparison at ``joint_block_plain_steps`` leapfrog
+    steps), and under identity phase 19's joint GD block and the sweeps'
+    launches per sweep."""
+    block = joint["19"][act]
+    fwd = "vjp" not in kernel
+    out = {"joint_block_launches": block["launches"]["fwd" if fwd else "bwd"],
+           "joint_block_ms": block["ms"], "joint_block_plain_ms": block["plain_ms"],
+           "joint_block_plain_steps": block["plain_steps"],
+           "joint_block_max_abs_err": block["max_abs_err"]}
+    if act == "identity":
+        gd = block["gd"]
+        out.update({"joint_gd_block_launches": gd["launches"][0 if fwd else 1],
+                    "joint_gd_block_ms": gd["ms"], "joint_gd_block_plain_ms": gd["plain_ms"],
+                    "joint_gd_block_plain_steps": gd["plain_steps"],
+                    "joint_gd_block_accepted": gd["accepted"]})
+        out["joint_launches_per_sweep"] = {
+            run: joint[run]["launches_per_sweep"][kernel]
+            for run in ("19b_hybrid", "19b_parallel", "19b_own_blocks", "19c_hmc", "19c_gd")}
+    return out
+
+
 def small_data(work):
     """The training set of the same population and phenotype model cut to
     n = N_17D (phases 6d and 17d: their launches and checks do not depend on
@@ -3239,7 +3788,7 @@ def main():
                 del res
             del x64
 
-        del X, state, x_b, A, off, cot, W0p
+        del state, x_b, A, off, cot, W0p  # X: phases 19-19c
 
         # ---- phases 11 and 12: the GD warm start, hybrid sampling, predict and
         # gradients through the CLI, identity (K2 + K3) and silu (K9a + K9b)
@@ -3565,6 +4114,10 @@ def main():
                             "y_train": fy_train, "y_test": fy_test, "sweep_ms": flag_sweep_ms},
                            train_args, hybrid_sweep_ms)
         print(f"  phases 18-18c: {time.perf_counter() - t0:.1f} s in all")
+
+        # ---- phases 19-19d: joint HMC and joint gradient descent
+        joint = joint_phases(cli, work, X, arch, y_train, y_test, train_args, log_records,
+                             {"dir": fdir, "groups": fgroups, "y_test": fy_test})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3577,7 +4130,8 @@ def main():
          "launches": k2_hybrid, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
          "f32_bound_ms": k2_f32_bound[0], **k2_vp,
-         "adapted_launches": adapted_runs["packed"]["k2_value_passes"]},
+         "adapted_launches": adapted_runs["packed"]["k2_value_passes"],
+         **joint_numbers(joint, "identity", "packed_linear")},
         {"name": "data_vg_packed", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/branch_vg_packed.cu",
          "replaces": "rs_bann_tpu/ops/branch_mlp.py:365",
@@ -3626,7 +4180,7 @@ def main():
          "launches": gd_runs["silu"]["launches"]["packed_matmul"], "max_abs_err": k9a_err,
          "ms": k9a_ms, "plain_ms": k9a_plain_ms, "bound_ms": k9a_bound[0],
          "bound_by": k9a_bound[1], "library_ms": None, "f32_bound_ms": k9a_f32_bound[0],
-         **k9a_vp},
+         **k9a_vp, **joint_numbers(joint, "silu", "packed_matmul")},
         # ms, plain_ms and bound_ms: the wrapper's call at G = 100 (K3 at
         # identity, the slice's activation); warm_*: at the warm start's block
         {"name": "packed_linear_vjp", "route": "cuda",
@@ -3646,7 +4200,8 @@ def main():
          "warm_bound_ms": bwd_runs["warm-start block", "identity"]["bound"][0],
          "warm_tanh_ms": bwd_runs["warm-start block", "tanh"]["ms"],
          "warm_tanh_bound_ms": bwd_runs["warm-start block", "tanh"]["bound"][0],
-         "max_rel_err_f64": REL_ERR["packed_linear_vjp f64"]},
+         "max_rel_err_f64": REL_ERR["packed_linear_vjp f64"],
+         **joint_numbers(joint, "identity", "packed_linear_vjp")},
         {"name": "packed_matmul_vjp", "route": "cuda",
          "source": "rs_bann_tpu_torch/csrc/packed_bwd.cu",
          "replaces": "rs_bann_tpu/ops/packed_matmul.py:233",
@@ -3661,7 +4216,8 @@ def main():
          "warm_bound_ms": bwd_runs["warm-start block", None]["bound"][0],
          "max_rel_err_f64": REL_ERR["packed_matmul_vjp f64"],
          "ssm_launches": k9b_ssm, "ssm_u0_ms": scan["u0_ms"],
-         "ssm_u0_plain_ms": scan["u0_plain_ms"], "ssm_u0_max_abs_err": scan["u0_max_abs_err"]},
+         "ssm_u0_plain_ms": scan["u0_plain_ms"], "ssm_u0_max_abs_err": scan["u0_max_abs_err"],
+         **joint_numbers(joint, "silu", "packed_matmul_vjp")},
         # launches: the sequential flagship of phase 14 (K8a) and the unfolded
         # hybrid of phase 15 (K8b, whose times are at its NB = 32 of 4 chains
         # x 8 branches; NB = 64 and the forward-only launches beside them)
@@ -3753,6 +4309,8 @@ def main():
           + json.dumps({k: deep[k] for k in ("16b", "16c")}))
     print("feature-major depth 2 and the default widths (phases 17b-17d): "
           + json.dumps({k: dense[k] for k in ("17b", "17c", "17d_unfolded", "17d_sequential")}))
+    print("joint HMC and joint GD (phases 19-19d): " + json.dumps(
+        {k: v for k, v in joint.items() if k != "19"}))
     print("bf16 X and --bf16 (phases 18b, 18c): " + json.dumps(
         {k: xb16[k] for k in ("18b", "18b_unfolded", "18b_sequential", "18b_bf16",
                               "18b_bf16_unfolded", "18c", "18c_packed")}))

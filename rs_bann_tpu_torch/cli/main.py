@@ -10,7 +10,10 @@ feature-major ones (``--feat-major``) under every schedule: the folded
 parallel or hybrid sweep on K6 and K7, the sequential one on K8a, the
 unfolded hybrid one (``--per-chain-block-perm``) on K8b, the feature-major
 genotypes in f32 or (``--x-bf16``) in bf16; ``--bf16`` gives every plain
-product bf16 inputs, as the JAX package's compute dtype does. It writes a
+product bf16 inputs, as the JAX package's compute dtype does. Joint HMC
+(``--joint-hmc``) runs under every schedule and joint gradient descent
+(``--gradient-descent-joint``) under the sequential one, on both layouts.
+It writes a
 checkpoint with ``--checkpoint-interval`` and resumes one, bit for bit,
 with ``--resume``. ``train`` continues from a saved sample. The
 analysis commands take packed or dense genotypes and map the branches in
@@ -85,14 +88,16 @@ def _beyond_kernels(args, cfg, arch, device) -> list:
     (folded) or K4 (sequential or unfolded); a branch beyond their limits
     is refused rather than run on the plain version: for every one of them
     (any depth) a padded width above 64 or tiles past shared memory.
-    Packed gradient descent runs K2, K3 and K9 at any width. With ``--ss-markers`` the marker scan's
+    Packed gradient descent runs K2, K3 and K9 at any width, and so do the
+    joint modes on packed genotypes; on feature-major ones they run plain
+    products and no kernel. With ``--ss-markers`` the marker scan's
     kernel takes m_pad up to ops/marker_scan.MAX_M and a layer-0 width up
     to MAX_S. The CPU runs the plain versions at any shape."""
-    from ..models.net import chain_fold_eligible
+    from ..models.net import chain_fold_eligible, is_joint
     from ..ops import branch_mlp as BM
     from ..ops import marker_scan as MS
 
-    if device.type != "cuda" or (args.packed_genotypes and cfg.gradient_descent):
+    if device.type != "cuda" or is_joint(cfg) or (args.packed_genotypes and cfg.gradient_descent):
         return []
     bad = []
     if cfg.ss_markers and (arch.m_pad > MS.MAX_M or arch.layer_out_pad(0) > MS.MAX_S):
@@ -147,14 +152,30 @@ def _x_dtype(args):
     return torch.bfloat16 if getattr(args, "x_bf16", False) else torch.float32
 
 
+def _mcmc_cfg(args, outdir):
+    """The run's MCMCCfg; exits, before anything is written, with the
+    configuration's message on settings it refuses together (for example
+    ``--mass-adaptation`` with a joint mode)."""
+    try:
+        return mcmc_cfg_from_args(args, str(outdir))
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+
+
 def _refuse_flags(args, cfg) -> None:
     """Exit, before anything is written, on flags train-new and train do not
-    take together: the layouts, ``--x-bf16`` without ``--feat-major`` (the
-    JAX package's message), and what is not ported yet."""
+    take together: the layouts, ``--x-bf16`` without ``--feat-major`` and
+    joint gradient descent outside the sequential schedule (the JAX
+    package's messages), and what is not ported yet."""
+    from ..models.net import joint_unsupported
+
     if args.packed_genotypes and args.feat_major:
         sys.exit("error: --feat-major and --packed-genotypes are mutually exclusive")
     if args.x_bf16 and not args.feat_major:
         sys.exit("error: --x-bf16 requires --feat-major")
+    why = joint_unsupported(cfg)
+    if why:
+        sys.exit(f"error: {why}")
     bad = _unported(args, cfg)
     if bad:
         sys.exit("error: not ported yet: " + ", ".join(bad))
@@ -237,7 +258,7 @@ def _train_new(args):
     from ..models.net import Net
 
     outdir = set_replicate_ix(args.outpath, run_outdir_name(args))
-    cfg = mcmc_cfg_from_args(args, str(outdir))
+    cfg = _mcmc_cfg(args, outdir)
     _refuse_flags(args, cfg)
     device = _device(args)
 
@@ -297,7 +318,7 @@ def _train(args):
         f"_dtheta{args.perturb_params or 0.0}_dlambda{args.perturb_precisions or 0.0}"
     )
     outdir = set_replicate_ix(args.outpath, name + mode_suffixes(args))
-    cfg = mcmc_cfg_from_args(args, str(outdir))
+    cfg = _mcmc_cfg(args, outdir)
     _refuse_flags(args, cfg)
     device = _device(args)
     log.info("Loading net")

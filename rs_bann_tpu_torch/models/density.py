@@ -10,7 +10,10 @@ chains' weights on one block of branches in one kernel launch (K2, or K9a
 under silu, on packed genotypes; K7's forward on feature-major ones).
 Autograd goes through the packed layer 0 (K3 behind K2, K9b behind K9a):
 ``potential_fn`` is the marginal potential whose gradient the
-``gradients`` subcommand and gradient descent take.
+``gradients`` subcommand and gradient descent take, ``joint_potential_fn``
+the joint one (parameters and precisions) of joint HMC and joint gradient
+descent, on C chains of a packed block through ``predict_chains``
+(``predict_joint``).
 
 Prior families ("model types"):
   ridge_base   one Gamma-precision per layer, Normal weights
@@ -560,14 +563,17 @@ def _joint_local_weights(model_type, weights, w_precisions, hyper, statics_g):
         if is_ard(model_type):
             rm = statics_g.row_masks[l]  # [..., in_pad, 1]
             ncols = statics_g.out_counts[l]
+            # a padded row's precision enters by where, not by multiply: its
+            # log's gradient rm / lam would be NaN at lam = 0
+            log_lam = torch.log(torch.where(rm > 0, lam, 1.0))
             if is_lasso(model_type):
                 row_l1 = torch.sum(_abs0(w), dim=-1, keepdim=True)
                 ld = ld - torch.sum(rm * (row_l1 + 1.0 / scale) * lam, dim=dims)
-                ld = ld + (shape + ncols - 1.0) * torch.sum(rm * torch.log(lam), dim=dims)
+                ld = ld + (shape + ncols - 1.0) * torch.sum(rm * log_lam, dim=dims)
             else:
                 row_ssq = torch.sum(w * w, dim=-1, keepdim=True)
                 ld = ld - torch.sum(rm * (row_ssq / 2.0 + 1.0 / scale) * lam, dim=dims)
-                ld = ld + (shape + (ncols - 2.0) / 2.0) * torch.sum(rm * torch.log(lam), dim=dims)
+                ld = ld + (shape + (ncols - 2.0) / 2.0) * torch.sum(rm * log_lam, dim=dims)
         else:
             nvar = statics_g.w_counts[l]
             lam0 = lam[..., 0, 0]
@@ -628,3 +634,53 @@ def joint_output_term(model_type, weights, w_precisions, hyper, reg_sum_others, 
     return _joint_output_weights(
         model_type, weights, w_precisions, hyper, reg_sum_others, n_out_global
     )
+
+
+def log_density_joint(model_type, weights, biases, w_precisions, b_precisions, error_precision,
+                      rss, hyper, statics_g, reg_sum_others, n_out_global, num_individuals):
+    """The full joint -U over the parameters AND the precisions, one value
+    per leading index (the JAX package's ``log_density_joint``)."""
+    return (
+        _joint_local_weights(model_type, weights, w_precisions, hyper, statics_g)
+        + _joint_output_weights(
+            model_type, weights, w_precisions, hyper, reg_sum_others, n_out_global)
+        + _joint_biases(biases, b_precisions, hyper, statics_g)
+        + joint_rss_term(error_precision, rss, hyper, num_individuals)
+    )
+
+
+def predict_joint(act_name: str, weights, biases, x, k_live=None) -> torch.Tensor:
+    """Predictions [..., n] of weights with leading axes on x, differentiable
+    in the weights: C chains' [C, B, ...] weights on a packed block of B
+    branches through ``predict_chains`` (the chains side by side in one K2
+    or K9a launch, K3 or K9b behind it; ``k_live`` as there), else
+    ``predict`` (one branch, a [B] block, or on a FeatX plain products that
+    broadcast over the chains)."""
+    if isinstance(x, PackedX) and weights[0].dim() == x.bytes.dim() + 1:
+        return predict_chains(act_name, weights, biases, x, k_live)
+    return predict(act_name, weights, biases, x)
+
+
+def joint_potential_fn(model_type: str, act_name: str, k_live=None):
+    """The joint HMC potential, differentiable in the parameters AND the
+    precisions (the JAX package's ``joint_potential_fn``):
+
+      f(weights, biases, w_prec, b_prec, err_prec, x, y, hyper, statics_g,
+        reg_sum_others, n_out_global, residual=False) -> (-U, y_pred)
+
+    one value and one prediction [..., n] per leading index
+    (``predict_joint``); the branches' potentials are separable, so
+    autograd of their sum gives every instance its own gradient. With
+    ``residual`` ``y`` is the residual and the target is y + y_pred, the
+    prediction taken as a constant (the caller's snapshot)."""
+
+    def f(weights, biases, w_precisions, b_precisions, error_precision, x, y, hyper, statics_g,
+          reg_sum_others, n_out_global, residual=False):
+        y_pred = predict_joint(act_name, weights, biases, x, k_live)
+        r = y_pred - (y + y_pred.detach() if residual else y)
+        ld = log_density_joint(model_type, weights, biases, w_precisions, b_precisions,
+                               error_precision, torch.sum(r * r, dim=-1), hyper, statics_g,
+                               reg_sum_others, n_out_global, float(y.shape[-1]))
+        return ld, y_pred
+
+    return f

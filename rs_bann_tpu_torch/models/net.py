@@ -28,6 +28,19 @@ live accept and no fold: the hybrid block runs it for all its branches at
 once, against the block's frozen targets, and takes the results as they
 are. The trainer's GD warm start (``cfg.gd_warmup``) is such a sweep.
 
+With ``cfg.joint_hmc`` (or ``cfg.gradient_descent_joint``, sequential
+only) the transition moves the precisions too (samplers/hmc
+``make_hmc_step_joint``, ``make_gradient_descent_joint``) and no Gibbs draw
+of them runs. Sequentially each branch's transition moves its local
+precisions, the shared output precision (the accepted value becomes every
+later branch's) and the error precision, against the live residual. The
+hybrid and parallel blocks draw the error precision (with its floor) and
+the output precision from their conjugate conditionals and freeze them in
+the transitions; one call serves all of a block's (chain, branch)
+instances against the block-start residual, the results are taken as they
+are (no live accept, no fold) and the residual moves by the sum of the
+block's prediction changes.
+
 Under ``hmc_step_size_mode="dual_averaging"`` and ``cfg.mass_adaptation``
 every schedule adapts, per chain and branch, the step factor and a
 diagonal mass estimate over the sweeps below ``cfg.burn_in`` and then
@@ -69,9 +82,12 @@ from ..samplers import gibbs
 from ..samplers.hmc import (
     HMCProposal,
     HMCResult,
+    JointResult,
     flatten_wb,
     make_gradient_descent,
+    make_gradient_descent_joint,
     make_hmc_step,
+    make_hmc_step_joint,
     make_lean_batch,
     make_transition_batch,
     unflatten_wb,
@@ -123,8 +139,6 @@ class SweepStats(NamedTuple):
 # MCMCCfg settings whose code paths wait for later slices of the port,
 # each with the value that keeps it off
 _UNPORTED = {
-    "joint_hmc": False,
-    "gradient_descent_joint": False,
     "spike_slab": False,
     "ss_rows": False,
     "tempering": False,
@@ -161,9 +175,25 @@ def _check_ssm(model_type: str, arch: NetArch, cfg: MCMCCfg, gd: bool) -> bool:
 def unported_options(cfg: MCMCCfg) -> list:
     """Names of the cfg settings this port cannot honour yet."""
     bad = [k for k, v in _UNPORTED.items() if getattr(cfg, k) != v]
-    if cfg.update_mode != "sequential" and not cfg.live_accept and not cfg.gradient_descent:
+    if (cfg.update_mode != "sequential" and not cfg.live_accept
+            and not (cfg.gradient_descent or is_joint(cfg))):
         bad.append("live_accept=False")
     return bad
+
+
+def is_joint(cfg: MCMCCfg) -> bool:
+    """Whether the sweeps take a joint transition (over the parameters and
+    the precisions): joint HMC or joint gradient descent."""
+    return cfg.joint_hmc or cfg.gradient_descent_joint
+
+
+def joint_unsupported(cfg: MCMCCfg) -> Optional[str]:
+    """Why the joint configuration cannot run, or None: joint gradient
+    descent takes the sequential schedule only (the JAX package's refusal,
+    net.py:2259-2260)."""
+    if cfg.gradient_descent_joint and cfg.update_mode != "sequential":
+        return "gradient_descent_joint requires sequential mode"
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -526,35 +556,29 @@ def _live_accept_select(residual0, preds_blk, prop: HMCProposal, err, old_w, old
     )
 
 
-def _stack_proposals(props, C, B) -> HMCProposal:
-    """[C * B] per-branch HMCProposals (chain-major) -> one with [C, B] leaves."""
-    def st(ts):
-        t = torch.stack(list(ts))
-        return t.reshape((C, B) + t.shape[1:])
+def _map(fn, tree):
+    """fn of every tensor of a (nested) tuple or NamedTuple."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    parts = [_map(fn, t) for t in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
 
-    return HMCProposal(
-        weights=tuple(st(ws) for ws in zip(*(p.weights for p in props))),
-        biases=tuple(st(bs) for bs in zip(*(p.biases for p in props))),
-        **{f: st(getattr(p, f) for p in props) for f in HMCProposal._fields[2:]},
-    )
+
+def _stack(trees):
+    """(Nested) tuples or NamedTuples of tensors, alike -> one with every
+    tensor stacked along a new leading axis."""
+    if isinstance(trees[0], torch.Tensor):
+        return torch.stack(trees)
+    parts = [_stack(list(z)) for z in zip(*trees)]
+    return type(trees[0])(*parts) if hasattr(trees[0], "_fields") else tuple(parts)
 
 
 def _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec, x_c, targets) -> HMCResult:
     """Gradient descent for a block of every chain ([C, B] leaves), chain by
     chain, each chain's B branches in one batched transition against their
     frozen targets; ``x_c[c]`` is chain c's block of genotypes."""
-    outs = []
-    for c in range(len(x_c)):
-        def one(ts):
-            return tuple(t[c] for t in ts)
-
-        outs.append(transition(None, one(w_b), one(b_b), one(wp_b), one(bp_b), err_prec[c],
-                               x_c[c], targets[c], None, None, None))
-    return HMCResult(
-        weights=tuple(torch.stack(ws) for ws in zip(*(o.weights for o in outs))),
-        biases=tuple(torch.stack(bs) for bs in zip(*(o.biases for o in outs))),
-        **{f: torch.stack([getattr(o, f) for o in outs]) for f in HMCResult._fields[2:]},
-    )
+    return _stack([transition(None, *_map(lambda t: t[c], (w_b, b_b, wp_b, bp_b, err_prec)),
+                              x_c[c], targets[c], None, None, None) for c in range(len(x_c))])
 
 
 def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, device,
@@ -589,6 +613,13 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     port draws in another order (one Gamma call for all local precisions,
     not one key per branch).
 
+    A joint block (JAX net.py:1386-1403, 1560-1585, 1828-1845, 1994-2025)
+    draws the error precision and the output precision, then runs
+    ``joint_block``: no snapshot launch of its own (each instance's target is
+    its chain's residual plus its start prediction), no live accept; the
+    dual-averaging state is updated on its accept probabilities as the JAX
+    package does (its step sizes are always the random mode's).
+
     With ``cfg.ss_markers`` each block follows the JAX block body
     (net.py:1923-1943, 2090-2096): the local precisions with the excluded
     rows' prior draws, the snapshot predictions and targets, the marker
@@ -601,6 +632,9 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     bad = unported_options(cfg)
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    why = joint_unsupported(cfg)
+    if why:
+        raise NotImplementedError(why)
     statics = D.branch_statics(arch, device)
     masks_w = P.weight_masks(arch, device)
     masks_b = P.bias_masks(arch, device)
@@ -619,7 +653,8 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         raise ValueError("this configuration cannot fold the chains")
     folded = eligible if fold is None else fold
     n_out_tot = float(arch.total_output_weights)
-    sample_local = not cfg.fixed_param_precisions and model_type != "std_normal"
+    joint = is_joint(cfg)
+    sample_local = not (cfg.fixed_param_precisions or joint) and model_type != "std_normal"
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
     lasso = D.is_lasso(model_type)
@@ -636,6 +671,15 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
     # padded columns' weights, biases and w_out rows are zero (masked
     # momenta), so they add nothing
     k_live = max(arch.s) if arch.depth == 0 else None
+    # joint HMC with the shared scalars frozen (drawn per block from their
+    # conjugate conditionals); on packed genotypes each evaluation is one K2
+    # (K9a) and one K3 (K9b) launch for all C chains: side by side on the
+    # live width on a shared block, the chains' own blocks gathered into one
+    # of C * Bk branches otherwise
+    joint_transition = (make_hmc_step_joint(model_type, act, cfg, sample_shared=False,
+                                            k_live=k_live)
+                        if joint else None)
+    n_precisions = float(1 + 2 * (L - 1) + 1)
 
     def flat(ts):  # [C, Bk, ...] -> [C * Bk, ...], chain-major
         return tuple(t.reshape((C * Bk,) + t.shape[2:]) for t in ts)
@@ -715,7 +759,7 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
                         mass_w=one(mass_w), mass_b=one(mass_b),
                         row_pins=None if pins is None else pins[c, j],
                     ))
-            prop = _stack_proposals(props, C, Bk)
+            prop = _stack([_stack(props[c * Bk:(c + 1) * Bk]) for c in range(C)])
         if pins is not None:
             residual = residual + torch.sum(preds - prop.y_pred0, dim=1)
             preds = prop.y_pred0
@@ -723,6 +767,66 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
         us = torch.rand((C, Bk), generator=gen, device=gen.device)
         res = _live_accept_select(residual, preds, prop, err_prec, w_b, b_b, order, us)
         return res, residual, preds
+
+    def joint_block(gen, X, ixs, w_b, b_b, wp, bp, err_prec, residual, params, st_b, mw_b,
+                    mb_b) -> JointResult:
+        """The block's joint transitions, every (chain, branch) against the
+        block-start residual (its target each instance's start prediction
+        plus its chain's residual) with the error precision and the output
+        precision frozen, in one call for all C chains: on the shared block,
+        or on the chains' own blocks gathered into one block of C * Bk
+        branches. Writes the local precisions back (the output row keeps the
+        Gibbs draw)."""
+        reg_others = _reg_all(model_type, params)[:, None] - D.summary_stat(model_type, w_b[-1])
+        wp_b, bp_b = tuple(a[cix, ixs] for a in wp), tuple(a[cix, ixs] for a in bp)
+        args = (w_b, b_b, wp_b, bp_b, err_prec[:, None].expand(C, Bk),
+                residual[:, None, :].expand(C, Bk, -1), mw_b, mb_b, st_b, reg_others)
+        if shared:
+            x = X if parallel else X[ixs[0]]
+        else:  # [C, Bk] instances -> [C * Bk], chain-major
+            x, args = X[ixs.reshape(-1)], _map(lambda t: t.reshape((C * Bk,) + t.shape[2:]), args)
+        w_b, b_b, wp_b, bp_b, err, resid, mw_b, mb_b, st_b, reg = args
+        out = joint_transition(gen, w_b, b_b, wp_b, bp_b, err, x, resid, mw_b, mb_b,
+                               st_b.n_params, n_precisions, hyper, st_b, reg, n_out_tot,
+                               residual=True)
+        if not shared:
+            out = _map(unflat, out)
+        for l in range(L - 1):
+            wp[l][cix, ixs] = out.w_prec[l]
+            bp[l][cix, ixs] = out.b_prec[l]
+        return out
+
+    def transition_block(carry, gen, X, ixs, w_b, b_b, wp_b, bp_b, err_prec, residual, st_b,
+                         mw_b, mb_b):
+        """The block's marginal transitions (gradient descent, or HMC with the
+        live accept): the snapshot predictions, the targets, the marker scans
+        and the transitions. Returns (the accept-selected HMCResult, the
+        residual and the predictions it ran against)."""
+        ix = None
+        if isinstance(X, D.FeatX) and not (folded or gd):
+            # every (chain, branch) reads its branch of X in place
+            x_blk, ix = X, ixs.reshape(-1).to(torch.int32)
+            preds = D.snapshot_chains(act, w_b, b_b, X, ix=ix)
+        elif shared:  # the block's genotypes, shared by the chains
+            x_blk = X if parallel else X[ixs[0]]
+            preds = D.snapshot_chains(act, w_b, b_b, x_blk, k_live)  # [C, Bk, n]
+        else:  # each chain's own block
+            x_blk = [X[ixs[c]] for c in range(C)]
+            preds = torch.stack([
+                D.predict(act, tuple(w[c] for w in w_b), tuple(b[c] for b in b_b), x_blk[c])
+                for c in range(C)
+            ])
+        targets = residual[:, None, :] + preds
+        if gd:
+            return _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec,
+                             [x_blk] * C if shared else x_blk, targets), residual, preds
+        pins = None
+        if ssm:
+            w_b, pins = scan_block(carry, gen, X, x_blk, ix, ixs, w_b, wp_b, err_prec, residual)
+        # the factors and masses of the block's [C, Bk] branches, once
+        factors, mass = adapt.inputs(carry, (cix, ixs), wp_b, bp_b, w_b, b_b)
+        return hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, ix, targets, preds, mw_b,
+                         mb_b, st_b, residual, factors, mass, pins)
 
     def block_update(carry: TrainCarry, ixs, X, var_y, gen) -> TrainCarry:
         """One block: ixs [C, Bk], the same row for every chain when the
@@ -752,41 +856,20 @@ def make_hybrid_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hy
             for l in range(L - 1):
                 wp[l][cix, ixs] = new_wp[l]
                 bp[l][cix, ixs] = new_bp[l]
+        if sample_local or joint:
             lam_out = _gibbs_output_precision(
                 gen, model_type, _reg_all(model_type, params), n_out_tot, hyper
             )
             wp[L - 1].copy_(lam_out.reshape(-1, 1, 1, 1).expand_as(wp[L - 1]))
-        wp_b = tuple(take(a) for a in wp)
-        bp_b = tuple(take(a) for a in bp)
-
-        ix = None
-        if isinstance(X, D.FeatX) and not (folded or gd):
-            # every (chain, branch) reads its branch of X in place
-            x_blk, ix = X, ixs.reshape(-1).to(torch.int32)
-            preds = D.snapshot_chains(act, w_b, b_b, X, ix=ix)
-        elif shared:  # the block's genotypes, shared by the chains
-            x_blk = X if parallel else X[ixs[0]]
-            preds = D.snapshot_chains(act, w_b, b_b, x_blk, k_live)  # [C, Bk, n]
-        else:  # each chain's own block
-            x_blk = [X[ixs[c]] for c in range(C)]
-            preds = torch.stack([
-                D.predict(act, tuple(w[c] for w in w_b), tuple(b[c] for b in b_b), x_blk[c])
-                for c in range(C)
-            ])
-        targets = residual[:, None, :] + preds
-        if gd:
-            res = _gd_block(transition, w_b, b_b, wp_b, bp_b, err_prec,
-                            [x_blk] * C if shared else x_blk, targets)
+        if joint:
+            out = joint_block(gen, X, ixs, w_b, b_b, wp, bp, err_prec, residual, params, st_b,
+                              mw_b, mb_b)
+            res, preds = out.result, out.y_pred0
+            wp_b, bp_b = tuple(take(a) for a in wp), tuple(take(a) for a in bp)
         else:
-            pins = None
-            if ssm:
-                w_b, pins = scan_block(carry, gen, X, x_blk, ix, ixs, w_b, wp_b, err_prec,
-                                       residual)
-            # the factors and masses of the block's [C, Bk] branches, once
-            factors, mass = adapt.inputs(carry, (cix, ixs), wp_b, bp_b, w_b, b_b)
-            res, residual, preds = hmc_block(gen, w_b, b_b, wp_b, bp_b, err_prec, x_blk, ix,
-                                             targets, preds, mw_b, mb_b, st_b, residual,
-                                             factors, mass, pins)
+            wp_b, bp_b = tuple(take(a) for a in wp), tuple(take(a) for a in bp)
+            res, residual, preds = transition_block(carry, gen, X, ixs, w_b, b_b, wp_b, bp_b,
+                                                    err_prec, residual, st_b, mw_b, mb_b)
         for l in range(L):
             params.weights[l][cix, ixs] = res.weights[l]
         for l in range(L - 1):
@@ -917,7 +1000,13 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
     sweep(carry, X, y, gen) -> (TrainCarry, SweepStats). With
     ``cfg.ss_markers`` each branch update runs the marker scan of its branch
     against the live residual before its transition (the JAX package's
-    net.py:1009-1021, row pins :1111-1112): one instance of ``marker_scan``."""
+    net.py:1009-1021, row pins :1111-1112): one instance of ``marker_scan``.
+    A joint transition (net.py:1059-1089) draws no precision: it moves the
+    branch's, the shared output precision and the error precision itself,
+    its target the residual plus its own start prediction (L + 1 forward
+    launches per branch, no snapshot of its own); the output bias's draw
+    takes the error precision the update started from, as in the JAX
+    package."""
     bad = unported_options(cfg)
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
@@ -926,9 +1015,18 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
     masks_b = P.bias_masks(arch, device)
     G, L = arch.num_branches, arch.num_layers
     n_out_tot = float(arch.total_output_weights)
-    sample_local = not cfg.fixed_param_precisions and model_type != "std_normal"
-    transition = (make_gradient_descent(model_type, act, cfg) if cfg.gradient_descent
-                  else make_hmc_step(model_type, act, cfg))
+    joint = is_joint(cfg)
+    # joint transitions move every precision themselves: no Gibbs draws
+    sample_local = not (cfg.fixed_param_precisions or joint) and model_type != "std_normal"
+    if cfg.gradient_descent_joint:
+        transition = make_gradient_descent_joint(model_type, act, cfg)
+    elif cfg.joint_hmc:
+        transition = make_hmc_step_joint(model_type, act, cfg)
+    elif cfg.gradient_descent:
+        transition = make_gradient_descent(model_type, act, cfg)
+    else:
+        transition = make_hmc_step(model_type, act, cfg)
+    n_precisions = float(1 + 2 * (L - 1) + 1)
     lam_e_floor = float(cfg.lam_e_floor)
     lam_row_floor = float(cfg.lam_row_floor)
     adapt = _Adaptation(model_type, cfg, gd=cfg.gradient_descent)
@@ -947,9 +1045,13 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
         x_g = X[g]
         wp, bp = precisions.weights, precisions.biases
 
-        err_prec = gibbs.error_precision_posterior(gen, hyper, residual)
-        if lam_e_floor > 0:
-            err_prec = torch.clamp(err_prec, min=lam_e_floor / (var_y + 1e-30))
+        if joint:  # the transition moves it
+            err_prec = precisions.error
+        else:
+            err_prec = gibbs.error_precision_posterior(gen, hyper, residual)
+            if lam_e_floor > 0:
+                err_prec = torch.clamp(err_prec, min=lam_e_floor / (var_y + 1e-30))
+        err_start = err_prec
         if sample_local:
             new_wp_g, new_bp_g = _gibbs_local_precisions(
                 gen, model_type, w_g, b_g, st_g, hyper, L, lam_floor=lam_row_floor,
@@ -965,6 +1067,57 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
         wp_g = tuple(a[g] for a in wp)
         bp_g = tuple(a[g] for a in bp)
 
+        if joint:
+            # the local precisions are per branch; the accepted output
+            # precision becomes the one every later branch sees, and the
+            # accepted error precision carries on
+            out = transition(
+                gen, w_g, b_g, wp_g, bp_g, err_prec, x_g, residual, mw_g, mb_g, st_g.n_params,
+                n_precisions, hyper, st_g,
+                _reg_all(model_type, params) - D.summary_stat(model_type, w_g[-1]), n_out_tot,
+                residual=True,
+            )
+            res, target, err_prec = out.result, residual + out.y_pred0, out.err_prec
+            for l in range(L - 1):
+                wp[l][g] = out.w_prec[l]
+                bp[l][g] = out.b_prec[l]
+            wp[L - 1].copy_(out.w_prec[-1].expand_as(wp[L - 1]))
+        else:
+            res, target = marginal_update(carry, g, X, gen, residual, err_prec, w_g, b_g, wp_g,
+                                          bp_g, mw_g, mb_g, st_g, x_g)
+        residual = target - res.y_pred
+        for l in range(L):
+            params.weights[l][g] = res.weights[l]
+        for l in range(L - 1):
+            params.biases[l][g] = res.biases[l]
+        w_g = tuple(w[g] for w in params.weights)
+
+        # log posterior density bookkeeping (w_g / b_g now see the new values)
+        carry.lpd_local[g] = D.joint_local_term(model_type, w_g, b_g, wp_g, bp_g, hyper, st_g)
+        reg_sum_others = _reg_all(model_type, params) - D.summary_stat(model_type, w_g[-1])
+        lpd_out = D.joint_output_term(model_type, w_g, wp_g, hyper, reg_sum_others, n_out_tot)
+        lpd_rss = D.joint_rss_term(
+            err_prec, torch.sum(residual**2), hyper, float(residual.shape[0])
+        )
+        # the bias draw takes the error precision the update started from
+        residual, bias, bias_prec = _update_output_bias(
+            cfg, hyper, gen, residual, state.output_bias, state.output_bias_precision,
+            err_start,
+        )
+        carry.counts.index_add_(0, res.code.reshape(1), torch.ones_like(carry.counts[:1]))
+        return carry._replace(
+            state=NetState(params, StackedPrecisions(wp, bp, err_prec), bias, bias_prec),
+            residual=residual,
+            lpd_out=lpd_out,
+            lpd_rss=lpd_rss,
+        )
+
+    def marginal_update(carry, g, X, gen, residual, err_prec, w_g, b_g, wp_g, bp_g, mw_g, mb_g,
+                        st_g, x_g):
+        """Branch g's marginal transition (HMC or gradient descent) against
+        the live residual, after the marker scan with ``cfg.ss_markers``,
+        with the adaptation's inputs and update. Returns (its HMCResult, its
+        target)."""
         target = residual + D.predict(act, w_g, b_g, x_g)
         pins = None
         if ssm:
@@ -989,31 +1142,7 @@ def make_sweep(model_type: str, act: str, arch: NetArch, cfg: MCMCCfg, hyper, de
             )
         # DA on the accept probability, Welford on the accepted parameters
         adapt.update(carry, g, res.accept_prob, res.weights, res.biases)
-        residual = target - res.y_pred
-        for l in range(L):
-            params.weights[l][g] = res.weights[l]
-        for l in range(L - 1):
-            params.biases[l][g] = res.biases[l]
-        w_g = tuple(w[g] for w in params.weights)
-
-        # log posterior density bookkeeping (w_g / b_g now see the new values)
-        carry.lpd_local[g] = D.joint_local_term(model_type, w_g, b_g, wp_g, bp_g, hyper, st_g)
-        reg_sum_others = _reg_all(model_type, params) - D.summary_stat(model_type, w_g[-1])
-        lpd_out = D.joint_output_term(model_type, w_g, wp_g, hyper, reg_sum_others, n_out_tot)
-        lpd_rss = D.joint_rss_term(
-            err_prec, torch.sum(residual**2), hyper, float(residual.shape[0])
-        )
-        residual, bias, bias_prec = _update_output_bias(
-            cfg, hyper, gen, residual, state.output_bias, state.output_bias_precision,
-            err_prec,
-        )
-        carry.counts.index_add_(0, res.code.reshape(1), torch.ones_like(carry.counts[:1]))
-        return carry._replace(
-            state=NetState(params, StackedPrecisions(wp, bp, err_prec), bias, bias_prec),
-            residual=residual,
-            lpd_out=lpd_out,
-            lpd_rss=lpd_rss,
-        )
+        return res, target
 
     def sweep(carry: TrainCarry, X, y, gen):
         if ssm:

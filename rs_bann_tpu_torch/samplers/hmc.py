@@ -4,8 +4,14 @@ gradient descent.
 Counterpart of rs_bann_tpu/samplers/hmc.py ``step_sizes``, ``HMCProposal``,
 ``make_hmc_step`` (the default body and the deferred-accept lean body, the
 latter also over a batch of instances: ``make_lean_batch``), the
-chain-folded block transition of ``make_transition_batch`` and the MAP
-transition ``make_gradient_descent``.
+chain-folded block transition of ``make_transition_batch``, the MAP
+transition ``make_gradient_descent``, and the joint transitions over the
+parameters and the precisions, ``make_hmc_step_joint`` and
+``make_gradient_descent_joint``: their gradients by autograd of the joint
+potential (models/density.py ``log_density_joint``), one forward and one
+backward launch per evaluation (K2 and K3, or K9a and K9b under silu, on
+packed genotypes; plain products on a FeatX) for every instance of their
+leading axes, C chains of a block side by side in one launch.
 
 Per branch, each leapfrog step's potential and gradient come from the fused
 value-and-gradient (ops/branch_mlp.py): K4 on packed genotypes, K8a on a
@@ -605,5 +611,219 @@ def make_gradient_descent(model_type: str, act_name: str, cfg: MCMCCfg):
             log_density=ld,
             accept_prob=torch.ones(batch, dtype=torch.float32, device=dev),
         )
+
+    return gd
+
+
+class JointResult(NamedTuple):
+    """A joint transition's result: the HMCResult and the precisions, each
+    chosen by the accept, and the prediction at the start state (the
+    caller's snapshot when it passes the residual, not the target)."""
+
+    result: HMCResult
+    w_prec: tuple
+    b_prec: tuple
+    err_prec: torch.Tensor
+    y_pred0: torch.Tensor
+
+
+def _joint_vg(model_type, act_name, k_live):
+    """vg(leaves, nw, nb, x, y, hyper, statics_g, reg_sum_others,
+    n_out_global, target) -> (ld, y_pred, grads, target): the joint -U of
+    the leaves (weights, biases, w_prec, b_prec, err_prec, flattened in the
+    JAX package's order) and its gradient in every leaf by autograd of
+    ``D.joint_potential_fn``: one forward and one backward launch (K2 and
+    K3, or K9a and K9b) for every instance of the leading axes. ``target``
+    None takes the target from this evaluation's own prediction, y +
+    y_pred (``y`` the residual)."""
+    pot = D.joint_potential_fn(model_type, act_name, k_live)
+
+    def vg(leaves, nw, nb, x, y, hyper, statics_g, reg_sum_others, n_out_global, target):
+        ts = [t.detach().requires_grad_(True) for t in leaves]
+        with torch.enable_grad():
+            ld, y_pred = pot(*_split(ts, nw, nb), x, y if target is None else target, hyper,
+                             statics_g, reg_sum_others, n_out_global, residual=target is None)
+            grads = torch.autograd.grad(torch.sum(ld), ts)
+        y_pred = y_pred.detach()
+        return ld.detach(), y_pred, list(grads), y + y_pred if target is None else target
+
+    return vg
+
+
+def _joint_leaves(weights, biases, w_prec, b_prec, err_prec):
+    """The coordinates in the JAX package's flatten order, err_prec over
+    the leading axes of the weights."""
+    lead = weights[-1].shape[:-2]
+    err = torch.as_tensor(err_prec, dtype=torch.float32, device=weights[-1].device)
+    return list(weights) + list(biases) + list(w_prec) + list(b_prec) + [err.expand(lead)]
+
+
+def _split(leaves, nw, nb):
+    return (tuple(leaves[:nw]), tuple(leaves[nw:nw + nb]), tuple(leaves[nw + nb:2 * nw + nb]),
+            tuple(leaves[2 * nw + nb:-1]), leaves[-1])
+
+
+def make_hmc_step_joint(model_type: str, act_name: str, cfg: MCMCCfg, sample_shared: bool = True,
+                        k_live=None):
+    """Joint HMC over the parameters AND the precisions (the JAX package's
+    ``make_hmc_step_joint``, the reference's branch_sampler.rs:1070-1178),
+    with the accept on the joint density at both ends.
+
+    The step sizes are always the random mode's, per coordinate U(0, 1) *
+    (n_params + n_precisions)^(-1/4) * factor. ``sample_shared`` off
+    freezes the shared scalars, the error precision and the output
+    precision (the JAX package's ``sample_error`` and ``sample_output``,
+    which no caller sets apart): zero step and zero momentum, as the
+    parallel and hybrid schedules draw them from their conjugate
+    conditionals; the output layer's step is then min(e_out, prop) from
+    the frozen precision, e_out the izmailov rule at the integration
+    length. 2-D ARD precisions'
+    padded rows get zero momentum. All L steps run; a step whose |Delta H|
+    exceeds the threshold, or is NaN (a precision gone negative), kills the
+    trajectory, which keeps its last live state and is rejected early.
+
+      hmc(gen, weights, biases, w_prec, b_prec, err_prec, x, y, masks_w,
+          masks_b, n_params, n_precisions, hyper, statics_g,
+          reg_sum_others, n_out_global, eps_u=None, momenta=None, u=None,
+          residual=False) -> JointResult
+
+    Every tensor may carry leading axes (the instances: [C, B] of a hybrid
+    block on the block's genotypes, ``D.predict_joint``); err_prec and
+    n_params broadcast over them. The draws, each per leaf in the flatten
+    order (weights, biases, w_prec, b_prec, err_prec), may be passed in:
+    ``eps_u`` the uniforms of the step sizes, ``momenta`` unmasked standard
+    normals, ``u`` the accept uniforms; otherwise they are drawn from
+    ``gen`` in that order. With ``residual`` ``y`` is the residual and the
+    target is y + the start state's prediction, taken from the first
+    evaluation: L + 1 forward and L + 1 backward launches per call.
+    """
+    L = cfg.hmc_integration_length
+    max_err = cfg.hmc_max_hamiltonian_error
+    factor = cfg.hmc_step_size_factor
+    vg = _joint_vg(model_type, act_name, k_live)
+
+    @torch.no_grad()
+    def hmc(gen, weights, biases, w_prec, b_prec, err_prec, x, y, masks_w, masks_b, n_params,
+            n_precisions, hyper, statics_g, reg_sum_others, n_out_global, eps_u=None,
+            momenta=None, u=None, residual=False):
+        nw, nb = len(weights), len(biases)
+        leaves = _joint_leaves(weights, biases, w_prec, b_prec, err_prec)
+        lead = leaves[-1].shape
+        dev = leaves[-1].device
+        prop = torch.as_tensor((n_params + n_precisions) ** (-0.25) * factor,
+                               dtype=torch.float32, device=dev).expand(lead)
+        ones = torch.ones((), device=dev)
+        pmask = ([statics_g.row_masks[l] if w_prec[l].shape[-2] > 1 else ones
+                  for l in range(nw)] + [ones] * nb + [ones])
+        masks = list(masks_w) + list(masks_b) + pmask
+        # 1 a free coordinate, 0 a frozen one (zero step AND momentum: the
+        # leapfrog then leaves it exactly as it is)
+        free = ([1.0] * (nw + nb) + [1.0 if (l < nw - 1 or sample_shared) else 0.0
+                                     for l in range(nw)] + [1.0] * nb
+                + [1.0 if sample_shared else 0.0])
+        if eps_u is None:
+            eps_u = [torch.rand(t.shape, generator=gen, device=dev) for t in leaves]
+        if momenta is None:
+            momenta = [torch.randn(t.shape, generator=gen, device=dev) for t in leaves]
+        eps = [e * _lead(prop, t) * s for e, t, s in zip(eps_u, leaves, free)]
+        if not sample_shared:
+            # lambda_out is frozen, so a step conditioned on it is exact
+            lam_out = w_prec[-1][..., 0, 0]
+            if D.is_lasso(model_type):
+                e_out = factor / (4.0 * lam_out * L)
+            else:
+                e_out = factor * math.pi / (2.0 * torch.sqrt(lam_out) * L)
+            w = leaves[nw - 1]
+            eps[nw - 1] = _lead(torch.minimum(e_out, prop), w).expand(w.shape)
+        mom = [p * m * s for p, m, s in zip(momenta, masks, free)]
+
+        def kinetic(ps):  # K(p) per instance
+            return 0.5 * sum(torch.sum(p * p, dim=tuple(range(len(lead), p.dim())))
+                             if p.dim() > len(lead) else p * p for p in ps)
+
+        target = None if residual else y
+        ld0, yp0, g0, target = vg(leaves, nw, nb, x, y, hyper, statics_g, reg_sum_others,
+                                  n_out_global, target)
+        neg_h0 = ld0 - kinetic(mom)
+        q, p, g, ld, yp = leaves, mom, g0, ld0, yp0
+        dead = torch.zeros(lead, dtype=torch.bool, device=dev)
+
+        def keep(old, new):  # a dead instance keeps its last live state
+            return [torch.where(_lead(dead, o), o, n) for o, n in zip(old, new)]
+
+        for _ in range(L):
+            p1 = [pi + 0.5 * e * gi for pi, e, gi in zip(p, eps, g)]
+            q1 = [qi + e * pi for qi, e, pi in zip(q, eps, p1)]
+            ld1, yp1, g1, _ = vg(q1, nw, nb, x, y, hyper, statics_g, reg_sum_others,
+                                 n_out_global, target)
+            p1 = [pi + 0.5 * e * gi for pi, e, gi in zip(p1, eps, g1)]
+            # NaN-safe: a NaN comparison is False, so ~(|dH| <= max) catches NaN
+            dead = dead | ~(torch.abs((ld1 - kinetic(p1)) - neg_h0) <= max_err)
+            q, p, g = keep(q, q1), keep(p, p1), keep(g, g1)
+            ld = torch.where(dead, ld, ld1)
+            yp = torch.where(dead[..., None], yp, yp1)
+        log_acc = (ld - kinetic(p)) - neg_h0
+        if u is None:
+            u = torch.rand(lead, generator=gen, device=dev)
+        mh_ok = torch.log(torch.as_tensor(u, device=dev)) < log_acc
+        accepted = ~dead & mh_ok
+        code = torch.where(dead, REJECTED_EARLY, torch.where(mh_ok, ACCEPTED, REJECTED))
+        alpha = torch.where(dead | torch.isnan(log_acc), 0.0,
+                            torch.clamp(torch.exp(log_acc), max=1.0))
+        ws, bs, wp, bp, ep = _split([torch.where(_lead(accepted, n), n, o)
+                                     for n, o in zip(q, leaves)], nw, nb)
+        res = HMCResult(weights=ws, biases=bs, code=code,
+                        y_pred=torch.where(accepted[..., None], yp, yp0),
+                        log_density=torch.where(accepted, ld, ld0), accept_prob=alpha)
+        return JointResult(res, wp, bp, ep, yp0)
+
+    return hmc
+
+
+def make_gradient_descent_joint(model_type: str, act_name: str, cfg: MCMCCfg):
+    """Fixed-step gradient ascent on the joint density over the parameters
+    and the precisions (the JAX package's ``make_gradient_descent_joint``,
+    the reference's branch_sampler.rs:1019-1066): L steps of q + factor *
+    grad log p_joint (one forward and one backward launch each), then a
+    value pass (one forward launch). It rejects, keeping the start state,
+    when the error precision ends at or below 0 (or NaN). It draws nothing;
+    the signature is ``make_hmc_step_joint``'s (the draws ignored).
+    ``log_density`` is the end state's, accepted or not, as in the JAX
+    package; on a reject ``y_pred`` is the start state's prediction (from
+    the first step's forward)."""
+    L = cfg.hmc_integration_length
+    factor = cfg.hmc_step_size_factor
+    vg = _joint_vg(model_type, act_name, None)
+    pot = D.joint_potential_fn(model_type, act_name)
+
+    @torch.no_grad()
+    def gd(gen, weights, biases, w_prec, b_prec, err_prec, x, y, masks_w, masks_b, n_params,
+           n_precisions, hyper, statics_g, reg_sum_others, n_out_global, eps_u=None,
+           momenta=None, u=None, residual=False):
+        del gen, masks_w, masks_b, n_params, n_precisions, eps_u, momenta, u
+        nw, nb = len(weights), len(biases)
+        leaves = _joint_leaves(weights, biases, w_prec, b_prec, err_prec)
+        target = None if residual else y
+        q, yp0 = leaves, None
+        for _ in range(L):
+            _, yp, g, target = vg(q, nw, nb, x, y, hyper, statics_g, reg_sum_others,
+                                  n_out_global, target)
+            yp0 = yp if yp0 is None else yp0
+            q = [a + factor * da for a, da in zip(q, g)]
+        # L = 0: the start state is the end state, its prediction the target's
+        ld, yp = pot(*_split(q, nw, nb), x, y if target is None else target, hyper, statics_g,
+                     reg_sum_others, n_out_global, residual=target is None)
+        yp0 = yp if yp0 is None else yp0
+        ok = q[-1] > 0.0  # the error precision
+        ws, bs, wp, bp, ep = _split([torch.where(_lead(ok, n), n, o) for n, o in zip(q, leaves)],
+                                    nw, nb)
+        res = HMCResult(
+            weights=ws, biases=bs,
+            code=torch.where(ok, ACCEPTED, REJECTED),
+            y_pred=torch.where(ok[..., None], yp, yp0),
+            log_density=ld,
+            accept_prob=torch.where(ok, 1.0, 0.0),
+        )
+        return JointResult(res, wp, bp, ep, yp0)
 
     return gd

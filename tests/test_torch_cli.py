@@ -8,7 +8,11 @@ dense ``predict``, and under the sequential schedule (one chain and two)
 and the unfolded hybrid one, and with dual averaging and mass adaptation on
 every schedule and layout, and with ``--x-bf16`` and ``--bf16`` on every
 schedule (``--x-bf16`` without ``--feat-major`` exits with the JAX package's
-message). ``gradients --cpu`` writes the JAX package's JSON (rtol 1e-4 of
+message), and with ``--joint-hmc`` on every schedule and
+``--gradient-descent-joint`` on both layouts (outside the sequential
+schedule it exits with the JAX package's message, with
+``--mass-adaptation`` with the configuration's). ``gradients --cpu``
+writes the JAX package's JSON (rtol 1e-4 of
 each array's largest entry). Every option outside the ported slice exits
 non-zero with "not ported yet" (``--checkpoint-interval``,
 ``--resume`` and ``--effect-sizes`` are ported: tests/test_torch_checkpoint.py
@@ -164,8 +168,6 @@ def test_feat_major_train_then_dense_predict_and_jax_reads_the_samples(data, tmp
 
 
 UNPORTED = [
-    ["--joint-hmc"],
-    ["--gradient-descent-joint"],
     ["--spike-slab"],
     ["--ss-rows"],
     ["--tempering", "--num-chains", "2"],
@@ -184,6 +186,59 @@ def test_unported_options_exit_nonzero(data, tmp_path, extra, capsys):
     assert e.value.code not in (0, None)
     assert "not ported yet" in str(e.value.code)
     assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
+@pytest.mark.parametrize("extra,msg", [
+    (["--gradient-descent-joint", "--update-mode", "hybrid"],
+     "gradient_descent_joint requires sequential mode"),
+    (["--joint-hmc", "--mass-adaptation"], "mass adaptation applies to marginal HMC only"),
+], ids=lambda a: " ".join(a) if isinstance(a, list) else None)
+def test_joint_refusals_exit_with_the_messages(data, tmp_path, extra, msg):
+    """Joint gradient descent outside the sequential schedule exits with
+    the JAX package's message, and a joint mode with mass adaptation with
+    the configuration's, both before anything is written."""
+    with pytest.raises(SystemExit) as e:
+        run_cli(*_train_args(data, tmp_path, "--packed-genotypes", *extra))
+    assert str(e.value.code) == f"error: {msg}"
+    assert not any(tmp_path.iterdir())
+
+
+JOINT_CASES = [  # layout, extra options, chains
+    ("--packed-genotypes", ["--joint-hmc"], 1),
+    ("--packed-genotypes", ["--joint-hmc", "--update-mode", "hybrid", "--num-chains", "2"], 2),
+    ("--packed-genotypes", ["--joint-hmc", "--update-mode", "hybrid", "--per-chain-block-perm",
+                            "--num-chains", "2"], 2),
+    ("--packed-genotypes", ["--joint-hmc", "--update-mode", "parallel", "--num-chains", "2"], 2),
+    ("--packed-genotypes", ["--gradient-descent-joint"], 1),
+    ("--feat-major", ["--joint-hmc"], 1),
+    ("--feat-major", ["--joint-hmc", "--update-mode", "hybrid", "--num-chains", "2"], 2),
+    ("--feat-major", ["--joint-hmc", "--update-mode", "parallel", "--num-chains", "2"], 2),
+    ("--feat-major", ["--gradient-descent-joint"], 1),
+]
+
+
+@pytest.mark.parametrize("layout,extra,chains", JOINT_CASES,
+                         ids=lambda a: " ".join(a) if isinstance(a, list) else str(a))
+def test_joint_modes_train_then_jax_reads_the_samples(data, tmp_path, one_thread, layout, extra,
+                                                      chains):
+    """train-new --joint-hmc under every schedule and --gradient-descent-joint
+    (sequential), on packed and feature-major genotypes: the ``_joint`` or
+    ``_gdj`` run directory, finite statistics, and JAX's Net.load +
+    predict on the samples as the port's predict."""
+    argv = _train_args(data, tmp_path, layout, *extra, "--step-size", "0.003")
+    if layout == "--feat-major":
+        argv[4:7] = ["ridge_base", "tanh", "1"]
+        argv += ["--fixed-summary-layer-width", "4"]
+    run = _run_dir(tmp_path, run_cli(*argv))
+    assert run.name.endswith(("_joint" if "--joint-hmc" in extra else "_gdj") + "_fhlw6"
+                             + ("_fslw4" if layout == "--feat-major" else "_rslw1.0") + "_rep1")
+    stats = json.loads((run / "training_stats").read_text())
+    assert stats["num_samples"] == 4 * G * chains
+    assert all(np.isfinite(stats["mse_train"] + stats["mse_test"] + stats["lpd"]))
+    samples = ["1.npz", "2.npz", "3.npz", "4.npz"]
+    dirs = [run / "models"] if chains == 1 else [run / "models" / f"chain{c}" for c in range(chains)]
+    for d in dirs:
+        _predict_matches_jax(data, d, samples, packed=layout == "--packed-genotypes")
 
 
 @pytest.mark.parametrize("layout", [["--packed-genotypes"], []], ids=["packed", "no layout"])
@@ -355,11 +410,15 @@ def test_packed_beyond_the_kernels_is_refused_on_cuda(data, tmp_path, monkeypatc
     (["--gradient-descent"], False),
     (["--gradient-descent", "--update-mode", "hybrid", "--num-chains", "2"], False),
     (["--gd-warmup", "1"], True),  # GD warms up, HMC on K4 samples
+    (["--joint-hmc"], False),
+    (["--joint-hmc", "--update-mode", "hybrid", "--num-chains", "2"], False),
+    (["--gradient-descent-joint"], False),
 ])
 def test_packed_gradient_descent_is_not_refused(data, tmp_path, extra, refused):
-    """Gradient descent as the sampler runs K2, K3 and K9 at any width, so
-    a packed run at width 72 on the card is not refused; HMC after a GD
-    warm start is (K4 takes padded widths up to 64)."""
+    """Gradient descent as the sampler runs K2, K3 and K9 at any width, and
+    so do the joint modes, so a packed run at width 72 on the card is not
+    refused; HMC after a GD warm start is (K4 takes padded widths up to
+    64)."""
     import torch
 
     from rs_bann_tpu_torch.cli import main as cli_main

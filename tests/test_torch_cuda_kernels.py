@@ -391,6 +391,71 @@ def test_autograd_through_the_packed_layer0_on_the_card(dev, act):
         assert _rel_close(got, ref)
 
 
+@pytest.mark.parametrize("act", ["identity", "tanh", "silu"])
+def test_joint_potential_gradient_on_the_card(dev, act):
+    """The joint HMC potential's value and gradient in every coordinate
+    (weights, biases, the three precisions) for C = 2 chains x B = 3
+    branches of a packed block at the live width, as the hybrid sweep's
+    joint transition evaluates it: one K2 and one K3 launch (K9a and K9b
+    under silu) for all six instances, against the same on the CPU's plain
+    versions within 1e-4 of the largest entry, and no further from the same
+    function in f64 (on the standardized genotypes, feature-major) than the
+    plain version, plus 1e-4."""
+    from rs_bann_tpu_torch.models import NetArch
+    from rs_bann_tpu_torch.models import density as D
+    from rs_bann_tpu_torch.models import params as P
+    from rs_bann_tpu_torch.models.init import InitCfg, init_net
+
+    C, B, m, n, live = 2, 3, 104, 1300, 10
+    arch = NetArch.from_width_rules([100] * B, 0, ("fixed", live), ("fixed", live), activation=act)
+    state, _ = init_net(arch, "ridge_ard", InitCfg(seed=2, init_gamma_shape=3.0,
+                                                    init_gamma_scale=1.0), device="cpu")
+    rng = np.random.default_rng(11)
+    by = _bytes(rng, B, m, n, torch.device("cpu"))
+    scale = torch.rand(B, m) + 0.5
+    scale[:, 100:] = 0.0  # the padded markers
+    shift = torch.rand(B, m) * 2
+
+    def chains(t):
+        return torch.stack([t * (1.0 + 0.05 * c) for c in range(C)])
+
+    leaves = ([chains(w) for w in state.params.weights] + [chains(b) for b in state.params.biases]
+              + [chains(p) for p in state.precisions.weights]
+              + [chains(p) for p in state.precisions.biases] + [torch.tensor([[1.3], [0.9]])])
+    nw = arch.num_layers
+    st = D.branch_statics(arch, "cpu")
+    y = torch.randn(C, B, n)
+    reg, hyper = torch.full((C, B), 0.7), D.Hyperparameters()
+    fwd, bwd = ((PM.packed_linear, PM.packed_linear_vjp) if act != "silu"
+                else (PM.packed_matmul, PM.packed_matmul_vjp))
+
+    def value_and_grad(d, x, dtype, k_live):
+        ts = [t.to(d, dtype).expand(C, B).requires_grad_() if t.dim() == 2 and t.shape[-1] == 1
+              else t.to(d, dtype).requires_grad_() for t in leaves]
+        stat = type(st)(*(tuple(a.to(d, dtype) for a in f) if isinstance(f, tuple)
+                          else f.to(d, dtype) for f in st))
+        ld, _ = D.joint_potential_fn("ridge_ard", act, k_live)(
+            ts[:nw], ts[nw:2 * nw - 1], ts[2 * nw - 1:3 * nw - 1], ts[3 * nw - 1:-1], ts[-1],
+            x, y.to(d, dtype), hyper, stat, reg.to(d, dtype), 2.0 * B * live)
+        return [ld] + list(torch.autograd.grad(ld.sum(), ts))
+
+    x_card = PackedX(by.to(dev), scale.to(dev), shift.to(dev), n)
+    before = fwd.launches, bwd.launches
+    card = [t.cpu() for t in value_and_grad(dev, x_card, torch.float32, live)]
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref = value_and_grad("cpu", PackedX(by, scale, shift, n), torch.float32, live)
+    xs = (PM.unpack_strided(by, n).double() - shift[..., None].double()) * scale[..., None].double()
+    ref64 = value_and_grad("cpu", D.FeatX(xs), torch.float64, None)
+    # the live columns: the feature-major f64 run takes the padded ones too
+    # (their weights are 0, so their gradients are too)
+    assert all(torch.isfinite(t).all() for t in card)
+    for got, want in zip(card, ref):
+        assert _rel_close(got, want.detach())
+    assert _no_further_from_f64([t.detach() for t in card], [t.detach() for t in ref],
+                                [t.detach() for t in ref64])
+
+
 # (depth, m, n, k0, live width): K4 at the card test's shape; m not a
 # multiple of 16 and n not of 512; k0 = 8, 16 and 32; width 10 stored at 16;
 # and at depth 0 the largest m the admission rule takes at each register

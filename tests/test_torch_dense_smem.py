@@ -84,7 +84,8 @@ def test_the_cli_takes_every_shape_the_old_rule_admitted(monkeypatch, folded, de
     monkeypatch.setattr(net, "chain_fold_eligible", lambda *a: folded)
     args = SimpleNamespace(feat_major=True, packed_genotypes=False, model_type="ridge_base",
                            activation_function="tanh")
-    cfg = SimpleNamespace(gradient_descent=False, ss_markers=False)
+    cfg = SimpleNamespace(gradient_descent=False, ss_markers=False, joint_hmc=False,
+                          gradient_descent_joint=False)
     dev = SimpleNamespace(type="cuda")
 
     def arch(m, k0, s):
